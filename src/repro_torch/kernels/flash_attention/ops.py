@@ -1,0 +1,81 @@
+"""Public wrapper for the flash attention kernel, in model layout.
+
+``flash_attention(q, k, v)`` takes the layout used across ``models/``:
+q ``(B, Sq, H, D)``, k/v ``(B, Sk, Hk, D)``.  On a CUDA tensor it launches
+the hand-written sm_90a kernel (``csrc/flash_attention.cu``, which reads
+the model layout directly, so no transpose is materialised) on PyTorch's
+current stream and adds one to ``flash_attention.launches``; on a CPU
+tensor it runs the plain version (``ref.attention_ref``).  There is no
+fallback: a CUDA tensor the kernel does not take raises.
+
+Forward only: serving never differentiates through attention, and the
+backward arrives with the training slice.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from .ref import attention_ref
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_HEAD_DIMS = (64,)                # compiled head dims (csrc)
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+             + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+
+
+def _check(q, k, v):
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("flash_attention expects 4-d q/k/v in (B, S, H, D)")
+    B, _, H, D = q.shape
+    Bk, Sk, Hk, Dk = k.shape
+    if v.shape != k.shape or Bk != B or Dk != D:
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    if Hk < 1 or H % Hk:
+        raise ValueError(f"q heads {H} not a multiple of kv heads {Hk}")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
+        raise TypeError(f"q/k/v must share one of {list(_DTYPES)}; got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if not (q.device == k.device == v.device):
+        raise ValueError("q/k/v on different devices")
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    softcap: float = 0.0):
+    """Blocked attention with an fp32 online softmax and scale ``D**-0.5``.
+
+    q: (B, Sq, H, D); k/v: (B, Sk, Hk, D), H % Hk == 0 (GQA maps q-head h
+    to KV head h // (H // Hk)).  ``window > 0`` keeps keys with
+    ``pos_k > pos_q - window``; ``softcap > 0`` caps the logits.  Returns
+    (B, Sq, H, D) in q.dtype.
+    """
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        out = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), causal=causal, window=window,
+                            softcap=softcap)
+        return out.transpose(1, 2)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
+    B, Sq, H, D = q.shape
+    Sk, Hk = k.shape[1], k.shape[2]
+    if D not in _HEAD_DIMS:
+        raise ValueError(f"head dim {D} not in {_HEAD_DIMS}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_attention kernel needs contiguous q/k/v")
+    fn = _build.load("flash_attention").flash_attention_fwd
+    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            _DTYPES[q.dtype], B, H, Hk, Sq, Sk, D, int(bool(causal)),
+            int(window), float(softcap), float(D ** -0.5), stream)
+    _build.check(rc, "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

@@ -1,0 +1,295 @@
+"""The port's attention kernels against the JAX reference's jnp oracles.
+
+On this CPU box every kernel wrapper runs its plain PyTorch version (the
+wrapper picks it because the tensors lie on the CPU); those are held
+against the reference's ``attention_ref``, ``chunked_attention`` and
+``paged_attention_ref`` over the sweep of ``tests/test_kernels.py`` —
+shapes, windows, softcaps, dtypes — with ragged and nulled tables for the
+paged kernel.  The CUDA kernels themselves are held against the plain
+versions by the ``cuda``-marked cases, which skip without a card (run
+them on the card with ``python -m pytest -m cuda --noconftest tests/test_torch_kernels.py``;
+the JAX cases skip there when JAX is absent).
+
+Tolerances against the jnp oracles are ``tests/test_kernels.py::_tol``:
+fp32 3e-5 (the same fp32 arithmetic in another summation order), bf16 2e-2
+(outputs rounded once to bf16, whose ulp at O(1) values is 2**-7 to 2**-8).
+A kernel against its plain version on the card is held tighter in bf16,
+atol 1e-3 plus rtol 1e-2: both compute in fp32 from the same bf16 inputs
+and round once, so they differ by at most one bf16 ulp, under 2**-7 of the
+value, and a fault in the kernel's bf16 loads or stores shows.
+"""
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.paged_attention.ops import paged_attention
+from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+from repro_torch.models import attention as tattn
+
+DTYPES = ["float32", "bfloat16"]
+FLASH_SHAPES = [(128, 4, 2, 32), (256, 2, 2, 64), (64, 8, 1, 16)]   # S, H, Hk, D
+FLASH_KWARGS = [dict(causal=True), dict(causal=False),
+                dict(causal=True, window=48), dict(causal=True, softcap=30.0)]
+PAGED_KWARGS = [dict(), dict(window=5), dict(softcap=5.0),
+                dict(window=7, softcap=30.0)]
+
+
+def _tol(dt):
+    return dict(atol=2e-2, rtol=2e-2) if dt == "bfloat16" else dict(atol=3e-5, rtol=3e-5)
+
+
+def _card_tol(dt):
+    return dict(atol=1e-3, rtol=1e-2) if dt == "bfloat16" else dict(atol=3e-5, rtol=3e-5)
+
+
+@pytest.fixture(scope="module")
+def jref():
+    """The reference's oracles (JAX); the JAX cases skip where it is absent."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.kernels.flash_attention.ref import attention_ref as j_attention_ref
+    from repro.kernels.paged_attention.ref import paged_attention_ref as j_paged_ref
+    from repro.models import attention as jattn
+    return types.SimpleNamespace(jnp=jnp, attention_ref=j_attention_ref,
+                                 paged_ref=j_paged_ref, attn=jattn)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _flash_inputs(S, H, Hk, D, seed=None):
+    rng = np.random.default_rng(S + H if seed is None else seed)
+    return [rng.normal(size=(2, S, h, D)).astype(np.float32) for h in (H, Hk, Hk)]
+
+
+def _t(x, dt, device="cpu"):
+    return torch.tensor(x).to(device=device, dtype=getattr(torch, dt))
+
+
+def _paged_inputs(B=8, Hk=2, rep=3, D=16, bs=4, nb=8, seed=0):
+    """Ragged lanes (one at length 0, one filling its table) plus one stale
+    lane whose table row is nulled (it reads the sink block 0)."""
+    rng = np.random.default_rng(seed)
+    NB = B * nb + 1
+    q = rng.normal(size=(B, Hk, rep, D)).astype(np.float32)
+    kp, vp = (rng.normal(size=(NB, bs, Hk, D)).astype(np.float32) for _ in range(2))
+    lengths = rng.integers(0, nb * bs, B).astype(np.int32)
+    lengths[0], lengths[1] = 0, nb * bs - 1
+    tables = np.zeros((B, nb), np.int32)
+    free = list(rng.permutation(np.arange(1, NB)))
+    for b in range(B - 1):
+        for j in range(int(lengths[b]) // bs + 1):
+            tables[b, j] = free.pop()
+    return q, kp, vp, lengths, tables
+
+
+# ---------------------------------------------------------------------------
+# Plain versions (the wrappers on CPU tensors) against the jnp oracles
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("S,H,Hk,D", FLASH_SHAPES)
+@pytest.mark.parametrize("kwargs", FLASH_KWARGS)
+def test_flash_plain_matches_attention_ref(jref, dt, S, H, Hk, D, kwargs):
+    q, k, v = _flash_inputs(S, H, Hk, D)
+    out = flash_attention(_t(q, dt), _t(k, dt), _t(v, dt), **kwargs)
+    jt = lambda x: jref.jnp.asarray(x, dt).transpose(0, 2, 1, 3)
+    want = jref.attention_ref(jt(q), jt(k), jt(v), **kwargs).transpose(0, 2, 1, 3)
+    assert out.dtype == getattr(torch, dt) and out.shape == (2, S, H, D)
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(want, np.float32),
+                               **_tol(dt))
+
+
+@pytest.mark.parametrize("S,H,Hk,D", FLASH_SHAPES)
+@pytest.mark.parametrize("kwargs", FLASH_KWARGS)
+def test_chunked_attention_matches_reference(jref, S, H, Hk, D, kwargs):
+    """The port's plain prefill path (chunks of 32, so the causal window
+    takes the static band) against the reference's naive oracle."""
+    q, k, v = _flash_inputs(S, H, Hk, D, seed=7)
+    want = np.asarray(jref.attn.reference_attention(
+        *(jref.jnp.asarray(x) for x in (q, k, v)), **kwargs))
+    out = tattn.chunked_attention(*(torch.tensor(x) for x in (q, k, v)),
+                                  q_chunk=32, kv_chunk=32, **kwargs)
+    np.testing.assert_allclose(out.numpy(), want, **_tol("float32"))
+
+
+@pytest.mark.parametrize("S,H,Hk,D", FLASH_SHAPES)
+def test_flash_plain_and_chunked_match_reference_chunked(jref, S, H, Hk, D):
+    """Against the reference's own ``chunked_attention`` on its band path
+    (causal window, q_chunk == kv_chunk): the port's chunked attention and
+    the flash wrapper's plain version."""
+    q, k, v = _flash_inputs(S, H, Hk, D, seed=8)
+    tq, tk, tv = (torch.tensor(x) for x in (q, k, v))
+    kw = dict(causal=True, window=48)
+    want = np.asarray(jref.attn.chunked_attention(
+        *(jref.jnp.asarray(x) for x in (q, k, v)), q_chunk=32, kv_chunk=32, **kw))
+    out = tattn.chunked_attention(tq, tk, tv, q_chunk=32, kv_chunk=32, **kw)
+    np.testing.assert_allclose(out.numpy(), want, **_tol("float32"))
+    np.testing.assert_allclose(flash_attention(tq, tk, tv, **kw).numpy(), want,
+                               **_tol("float32"))
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("kwargs", PAGED_KWARGS)
+def test_paged_plain_matches_paged_ref(jref, dt, kwargs):
+    q, kp, vp, lengths, tables = _paged_inputs()
+    out = paged_attention(_t(q, dt), _t(kp, dt), _t(vp, dt),
+                          torch.tensor(lengths), torch.tensor(tables), **kwargs)
+    j = lambda x: jref.jnp.asarray(x, dt)
+    want = jref.paged_ref(j(q), j(kp), j(vp), jref.jnp.asarray(lengths),
+                          jref.jnp.asarray(tables), **kwargs)
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(want, np.float32),
+                               **_tol(dt))
+
+
+def test_paged_write_gather_match_reference(jref):
+    """Token and chunk writes land where the reference puts them (the
+    sink block excluded: its contents depend on write order)."""
+    jnp = jref.jnp
+    rng = np.random.default_rng(0)
+    pool = rng.normal(size=(9, 4, 2, 8)).astype(np.float32)
+    tables = np.array([[1, 2, 0], [4, 5, 6], [0, 0, 0]], np.int32)
+    lengths = np.array([5, 9, 3], np.int32)
+    new = rng.normal(size=(3, 2, 8)).astype(np.float32)
+    tp = torch.tensor(pool)
+    tattn.paged_write_token(tp, torch.tensor(tables), torch.tensor(lengths),
+                            torch.tensor(new))
+    jp = jref.attn.paged_write_token(jnp.asarray(pool), jnp.asarray(tables),
+                                     jnp.asarray(lengths), jnp.asarray(new))
+    np.testing.assert_array_equal(tp.numpy()[1:], np.asarray(jp)[1:])
+    np.testing.assert_array_equal(
+        tattn.paged_gather(tp, torch.tensor(tables)).numpy()[:2],
+        np.asarray(jref.attn.paged_gather(jp, jnp.asarray(tables)))[:2])
+    pos = np.arange(4) + 2
+    vals = rng.normal(size=(4, 2, 8)).astype(np.float32)
+    tp = torch.tensor(pool)
+    tattn.paged_write_positions(tp, torch.tensor(tables[0]), torch.tensor(pos),
+                                torch.tensor(vals), valid=torch.tensor(pos < 5))
+    jp = jref.attn.paged_write_positions(jnp.asarray(pool), jnp.asarray(tables[0]),
+                                         jnp.asarray(pos), jnp.asarray(vals),
+                                         valid=jnp.asarray(pos < 5))
+    np.testing.assert_array_equal(tp.numpy()[1:], np.asarray(jp)[1:])
+
+
+def test_paged_ref_equals_slotted_decode_bitwise():
+    """Inside the port the paged plain path equals the slotted decode
+    bitwise on equal logical inputs — the anchor of layout parity."""
+    rng = np.random.default_rng(2)
+    B, Hk, rep, D, S, bs = 2, 1, 3, 16, 16, 4
+    lengths = torch.tensor([5, 9], dtype=torch.int32)
+    tables = torch.tensor([[1, 2, 3, 4], [5, 6, 7, 8]], dtype=torch.int32)
+    kv = torch.tensor(rng.normal(size=(2, B, S, Hk, D)).astype(np.float32))
+    q, kn, vn = (torch.tensor(rng.normal(size=s).astype(np.float32))
+                 for s in ((B, Hk, rep, D), (B, Hk, D), (B, Hk, D)))
+    want = tattn.decode_attention(q, kv[0].clone(), kv[1].clone(), kn, vn, lengths)
+    pools = []
+    for lane in kv:
+        pool = torch.zeros(9, bs, Hk, D)
+        for b in range(B):
+            tattn.paged_write_positions(pool, tables[b], torch.arange(S), lane[b])
+        pools.append(pool)
+    got = tattn.paged_decode_attention(q, pools[0], pools[1], kn, vn, lengths, tables)
+    assert torch.equal(got, want)
+
+
+def test_wrappers_reject_bad_inputs():
+    q = torch.zeros(1, 8, 4, 16)
+    kv = torch.zeros(1, 8, 3, 16)
+    with pytest.raises(ValueError, match="multiple"):
+        flash_attention(q, kv, kv)
+    with pytest.raises(TypeError):
+        flash_attention(q, q.bfloat16(), q)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        flash_attention(q.to("meta"), q.to("meta"), q.to("meta"))
+    pq = torch.zeros(2, 1, 3, 16)
+    pool = torch.zeros(5, 4, 1, 16)
+    with pytest.raises(TypeError, match="int32"):
+        paged_attention(pq, pool, pool, torch.zeros(2, dtype=torch.int64),
+                        torch.zeros(2, 3, dtype=torch.int32))
+    with pytest.raises(ValueError, match="batch"):
+        paged_attention(pq, pool, pool, torch.zeros(3, dtype=torch.int32),
+                        torch.zeros(2, 3, dtype=torch.int32))
+    with pytest.raises(ValueError, match="impl"):
+        tattn.paged_decode_attention(pq, pool, pool, pq[:, :, 0], pq[:, :, 0],
+                                     torch.zeros(2, dtype=torch.int32),
+                                     torch.zeros(2, 3, dtype=torch.int32),
+                                     impl="pallas")
+
+
+def test_build_keys_library_on_source_hash(tmp_path):
+    """A library is rebuilt when its sources change: its path is keyed on
+    their content."""
+    srcs = _build.sources()
+    assert set(srcs) == {"flash_attention", "paged_attention"}
+    d = tmp_path / "k" / "csrc"
+    d.mkdir(parents=True)
+    src = d / "k.cu"
+    src.write_text("// one\n")
+    first = _build.library_path(src)
+    assert _build.library_path(src) == first
+    src.write_text("// two\n")
+    assert _build.library_path(src) != first
+    assert first.parent == _build.BUILD_DIR
+    with pytest.raises(RuntimeError, match="CUDA error 9"):
+        _build.check(9, "k")
+    _build.check(0, "k")
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernels against their plain versions (on the card only)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("kwargs", FLASH_KWARGS)
+def test_flash_kernel_matches_plain_on_card(cuda, dt, kwargs):
+    q, k, v = _flash_inputs(100, 15, 5, 64)          # ragged S, GQA 3:1
+    args = [_t(x, dt, cuda) for x in (q, k, v)]
+    before = flash_attention.launches
+    out = flash_attention(*args, **kwargs)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = attention_ref(*(a.transpose(1, 2) for a in args), **kwargs).transpose(1, 2)
+    torch.testing.assert_close(out.float(), want.float(), **_card_tol(dt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("kwargs", PAGED_KWARGS)
+def test_paged_kernel_matches_plain_on_card(cuda, dt, kwargs):
+    q, kp, vp, lengths, tables = _paged_inputs(Hk=5, D=64, bs=16, nb=16)
+    args = [_t(x, dt, cuda) for x in (q, kp, vp)]
+    lt, tt = torch.tensor(lengths, device=cuda), torch.tensor(tables, device=cuda)
+    before = paged_attention.launches
+    out = paged_attention(*args, lt, tt, **kwargs)
+    torch.cuda.synchronize()
+    assert paged_attention.launches == before + 1
+    want = paged_attention_ref(*args, lt, tt, **kwargs)
+    torch.testing.assert_close(out.float(), want.float(), **_card_tol(dt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("rep,bs", [(1, 8), (8, 32), (5, 3)])
+def test_paged_kernel_shapes_on_card(cuda, dt, rep, bs):
+    """The ends of the query-group and block sizes the kernel takes."""
+    q, kp, vp, lengths, tables = _paged_inputs(Hk=2, rep=rep, D=64, bs=bs, nb=12)
+    args = [_t(x, dt, cuda) for x in (q, kp, vp)]
+    lt, tt = torch.tensor(lengths, device=cuda), torch.tensor(tables, device=cuda)
+    out = paged_attention(*args, lt, tt, window=20)
+    torch.cuda.synchronize()
+    want = paged_attention_ref(*args, lt, tt, window=20)
+    torch.testing.assert_close(out.float(), want.float(), **_card_tol(dt))
