@@ -15,6 +15,15 @@ Phases (any failure raises and the script exits non-zero):
    once, so they differ by at most one bf16 ulp, under 2**-7 of the value)
    and fp32 (3e-5: the same fp32 arithmetic in another summation order),
    and time both with CUDA events (plus SDPA as the flash yardstick).
+2b. Hold the ``flat_adam`` kernel against its plain version (fp32, atol
+   and rtol 1e-6: the same fp32 formula, differing only in ``powf``,
+   ``sqrtf``, division and FMA contraction by an ulp or two) for n in
+   {512, 65,537, 361,821,184}, t in {1, 1000}, wd in {0, 0.1}, and time
+   it at the full flat buffer beside the plain version and
+   ``torch.optim.Adam(fused=True)``.
+2c. Hold the flash Function's gradient (the reference's recompute through
+   ``chunked_attention``) against autograd through ``attention_ref`` at
+   q (4, 1024, 15, 64), k/v (4, 1024, 5, 64), causal, bf16 and fp32.
 3. Drive the port's main path at full ``smollm-360m`` width with random
    weights from seed 0: a paged ``ServeEngine`` with both kernels serves
    16 greedy requests (prompts 16-512, budgets 32-64).  The launch counts
@@ -22,9 +31,21 @@ Phases (any failure raises and the script exits non-zero):
    kernel path's prefill and first decode-step logits must agree with the
    ``chunked``/``ref`` path's (fp32 with TF32 off, and bf16); a few
    requests also run on the slotted layout.
-4. Print the card's name and power limit, one ``{"kernels": [...]}`` line
-   and, last, ``{"ok": true, "device": {...}}``.  Details go to
-   ``chiprun_out/chip_smoke/results.json``.
+4. Train full-width ``smollm-360m`` (seed 0, bf16 compute, both kernels)
+   over a 1-rank NCCL group at seq 1024, global batch 8, 2 slices, remat:
+   the faithful program for 6 steps and ZeRO for 3, through
+   ``train.loop.train``.  Losses must be finite, and batch 0's loss after
+   the faithful run below step 1's (on the same batch); the launch
+   counts must equal ``steps`` (flat_adam) and ``2 x 32 x 2 x steps``
+   (flash: forward and remat's recompute, per slice); step 1's loss and
+   grad norm on the kernel path must agree with the plain path's (fp32
+   with TF32 off, and bf16); a step on inf-poisoned parameters must be a
+   bitwise no-op in both programs; a checkpoint must round-trip bitwise.
+   Prints step time (median, p90), tokens/s, peak memory and a profiled
+   step's device-busy time and idle share.
+5. Print the seconds of each phase, the card's name and power limit, one
+   ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
+   {...}}``.  Details go to ``results.json`` in ``OUT_DIR``.
 
 It imports nothing of JAX or of the reference package, and exits non-zero
 without a CUDA card or outside the repository.
@@ -33,6 +54,8 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import shutil
+import socket
 import subprocess
 import sys
 import time
@@ -51,6 +74,24 @@ TOL = {"bfloat16": dict(atol=1e-3, rtol=1e-2), "float32": dict(atol=3e-5, rtol=3
 # largest |logit|: fp32 differs only in attention's summation order (~1e-7
 # per op, grown through 32 layers); bf16 in where attention outputs round
 LOGIT_TOL = {"float32": 1e-3, "bfloat16": 1e-1}
+
+# flat Adam: kernel vs plain version, fp32 (see the docstring)
+ADAM_TOL = dict(atol=1e-6, rtol=1e-6)
+ADAM_N_FULL = 361_821_184      # the full smollm-360m flat buffer (padded to 512)
+# flash gradient (recompute through chunked_attention) vs autograd through
+# attention_ref.  fp32: the same sums in another order, over up to 1024
+# keys.  bf16: the recompute casts each 128-row chunk of k and v to fp32
+# on its own, so dk and dv arrive as 8 bf16-rounded partial sums added in
+# bf16, where attention_ref rounds one fp32 sum once: up to ~8 half-ulps
+# (2**-9 each) of the partial sums' size, taken as 2% of the tensor's
+# largest entry ("scale") plus 1% of each entry
+GRAD_TOL = {"bfloat16": dict(scale=2e-2, rtol=1e-2), "float32": dict(atol=1e-5, rtol=1e-4)}
+# step 1, kernel path vs plain path (flash + flat_adam vs chunked + plain
+# Adam), relative: fp32 differs only in attention's summation order through
+# 32 layers; bf16 in where attention outputs round
+STEP_TOL = {"float32": dict(loss=1e-5, grad_norm=1e-3),
+            "bfloat16": dict(loss=1e-2, grad_norm=5e-2)}
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_SLICES = 1024, 8, 2
 
 N_LAYERS = 32
 PAGE = 16
@@ -76,13 +117,15 @@ def time_ms(torch, fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def max_err(torch, got, want, dt: str) -> float:
-    """Max |got - want|; raises unless |got - want| <= atol + rtol |want|."""
+def max_err(torch, got, want, dt: str, tol: dict | None = None) -> float:
+    """Max |got - want|; raises unless |got - want| <= atol + rtol |want|
+    (``tol``, default ``TOL[dt]``)."""
+    tol = tol or TOL[dt]
     g, w = got.float(), want.float()
     err = (g - w).abs()
-    tol = TOL[dt]["atol"] + TOL[dt]["rtol"] * w.abs()
-    if not bool(torch.isfinite(g).all()) or bool((err > tol).any()):
-        raise AssertionError(f"max error {err.max().item():.3e} over tolerance {TOL[dt]}")
+    lim = tol["atol"] + tol["rtol"] * w.abs()
+    if not bool(torch.isfinite(g).all()) or bool((err > lim).any()):
+        raise AssertionError(f"max error {err.max().item():.3e} over tolerance {tol}")
     return err.max().item()
 
 
@@ -213,6 +256,94 @@ def check_paged(torch, dev, results):
     log(f"paged timing {json.dumps(row)}")
     results["paged_cases"] = rows
     results["paged_timing"] = row
+
+
+def check_flat_adam(torch, dev, results):
+    """flat_adam kernel vs its plain version over n, t, wd; times at the
+    full flat buffer (kernel, plain, and torch's fused Adam as yardstick)."""
+    from repro_torch.kernels.flat_adam.ops import flat_adam
+    from repro_torch.kernels.flat_adam.ref import flat_adam_ref
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    hyper = dict(lr=1e-3, beta1=0.9, beta2=0.95, eps=1e-8)
+    rows = []
+
+    def inputs(n):
+        p = torch.randn(n, generator=gen, device=dev) * 0.05
+        g = torch.randn(n, generator=gen, device=dev) * 1e-2
+        m = torch.randn(n, generator=gen, device=dev) * 1e-3
+        v = torch.rand(n, generator=gen, device=dev) * 1e-4
+        return p, g, m, v
+
+    for n in (512, 65_537, ADAM_N_FULL):
+        bufs = inputs(n)
+        for t in (1, 1000):
+            step = torch.tensor([t], dtype=torch.int32, device=dev)
+            for wd in (0.0, 0.1):
+                got = flat_adam(*bufs, step, weight_decay=wd, **hyper)
+                torch.cuda.synchronize()
+                want = flat_adam_ref(*bufs, step, weight_decay=wd, **hyper)
+                err = max(max_err(torch, a, b, "float32", ADAM_TOL) for a, b in zip(got, want))
+                rows.append(dict(n=n, t=t, wd=wd, max_abs_err=err))
+                log(f"flat_adam {json.dumps(rows[-1])}")
+                del got, want
+        if n != ADAM_N_FULL:
+            continue
+        step = torch.tensor([1000], dtype=torch.int32, device=dev)
+        timing = dict(n=n, t=1000, wd=0.0, dtype="float32")
+        timing["bound_ms"], timing["bound_by"] = bound(14.0 * n, 28.0 * n, "float32")   # 14 flops, 28 bytes an element
+        timing["kernel_ms"] = time_ms(torch, lambda: flat_adam(*bufs, step, **hyper), 20)
+        timing["plain_ms"] = time_ms(torch, lambda: flat_adam_ref(*bufs, step, **hyper), 5)
+        # yardstick the port never calls: torch's fused Adam on the same
+        # buffer (its L2 weight decay differs from the decoupled form;
+        # with wd = 0 it is the same function), in place
+        p, g, m, v = bufs
+        w = torch.nn.Parameter(p.clone())
+        w.grad = g
+        lib = torch.optim.Adam([w], lr=hyper["lr"], betas=(0.9, 0.95), eps=1e-8,
+                               weight_decay=0.0, fused=True)
+        timing["library_ms"] = time_ms(torch, lib.step, 20)
+        timing["library"] = "torch.optim.Adam(fused=True), wd 0: the same function"
+        results["flat_adam_timing"] = timing
+        log(f"flat_adam timing {json.dumps(timing)}")
+        del w, lib
+    results["flat_adam_cases"] = rows
+
+
+def check_flash_grad(torch, dev, results):
+    """The flash Function's dq, dk, dv (recompute through chunked_attention)
+    against autograd through attention_ref."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    B, S, H, Hk, D = 4, 1024, 15, 5, 64
+    gen = torch.Generator(device=dev).manual_seed(4)
+    rows = []
+    for dt in ("bfloat16", "float32"):
+        q, k, v = (torch.randn(B, S, h, D, generator=gen, device=dev).to(getattr(torch, dt))
+                   for h in (H, Hk, Hk))
+        dout = torch.randn(B, S, H, D, generator=gen, device=dev).to(q.dtype)
+        xs = [x.clone().requires_grad_() for x in (q, k, v)]
+        flash_attention(*xs, causal=True).backward(dout)
+        ys = [x.clone().requires_grad_() for x in (q, k, v)]
+        ref = attention_ref(*(y.transpose(1, 2) for y in ys), causal=True).transpose(1, 2)
+        ref.backward(dout)
+        torch.cuda.synchronize()
+        row = dict(dtype=dt, q=[B, S, H, D], kv=[B, S, Hk, D], tol=GRAD_TOL[dt])
+        tols = {}
+        for name, x, y in zip(("dq", "dk", "dv"), xs, ys):
+            tol = dict(GRAD_TOL[dt])
+            if "scale" in tol:
+                tol["atol"] = tol.pop("scale") * y.grad.float().abs().max().item()
+            row[name + "_max_abs"] = y.grad.float().abs().max().item()
+            row[name + "_max_abs_err"] = (x.grad.float() - y.grad.float()).abs().max().item()
+            tols[name] = tol
+        rows.append(row)
+        log(f"flash grad {json.dumps(row)}")
+        for name, x, y in zip(("dq", "dk", "dv"), xs, ys):
+            max_err(torch, x.grad, y.grad, dt, tols[name])
+        del xs, ys, ref
+    results["flash_grad"] = rows
 
 
 # ---------------------------------------------------------------------------
@@ -425,6 +556,244 @@ def rel_err(torch, a, b) -> float:
 
 
 # ---------------------------------------------------------------------------
+# Phase 4: the trainer at full width
+# ---------------------------------------------------------------------------
+
+
+def free_port() -> int:
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def bits(torch, x):
+    """A float tensor's bits, for bitwise comparison (NaN/inf included)."""
+    return x.contiguous().view(torch.int32)
+
+
+def same_bits(torch, a, b) -> bool:
+    from repro_torch.optim.flat import tree_leaves
+
+    if isinstance(a, dict):
+        la, lb = list(tree_leaves(a)), list(tree_leaves(b))
+        return [p for p, _ in la] == [p for p, _ in lb] and all(
+            same_bits(torch, x, y) for (_, x), (_, y) in zip(la, lb))
+    if a.dtype == torch.float32:
+        return a.shape == b.shape and bool(torch.equal(bits(torch, a), bits(torch, b)))
+    return bool(torch.equal(a, b))
+
+
+def train_run(torch, cfg, shape, group, opt, settings, steps):
+    """``train.loop.train`` for ``steps`` steps; returns (result, per-step
+    wall ms, per-step loss).  The step times come from a synchronize in
+    ``on_step``: the program itself makes no host sync."""
+    from repro_torch.train import LoopConfig, train
+
+    times, losses = [], []
+    torch.cuda.synchronize()
+    t = [time.perf_counter()]
+
+    def on_step(step, metrics):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        times.append((now - t[0]) * 1e3)
+        t[0] = now
+        losses.append(metrics["loss"])
+
+    res = train(cfg, shape, group, opt, settings,
+                LoopConfig(steps=steps, ckpt_every=0, log_every=0, seed=0), on_step=on_step)
+    return res, times, [float(x) for x in losses]
+
+
+def eval_loss(torch, cfg, params, shape, group) -> float:
+    """The loss of the stream's batch 0 under ``params``, in the train
+    step's slices (the mean of the slices' means, as the step reports)."""
+    from repro_torch.data import make_batch_fn
+    from repro_torch.models import lm
+
+    toks = torch.as_tensor(make_batch_fn(cfg, shape, 0)(0)["tokens"], device=group.device)
+    with torch.no_grad():
+        return float(sum(lm.loss_fn(cfg, params, {"tokens": t}, remat=False)[0]
+                         for t in toks.chunk(TRAIN_SLICES)) / TRAIN_SLICES)
+
+
+def step_agreement(torch, base, group, opt, shape, settings):
+    """Step 1 from the same weights and batch through the kernel path
+    (flash + flat_adam kernel) and the plain path (chunked + plain Adam),
+    in fp32 compute with TF32 off and in bf16."""
+    from repro_torch.data import make_batch_fn
+    from repro_torch.models import lm
+    from repro_torch.train.step import build_train_step, opt_state_template
+
+    batch = make_batch_fn(base, shape, 0)(0)
+    out = {}
+    for dt in ("float32", "bfloat16"):
+        runs = {}
+        for path, impl, kern in (("kernel", "kernel", None), ("plain", "chunked", False)):
+            cfg = dataclasses.replace(base, attn_impl=impl, compute_dtype=dt)
+            st = dataclasses.replace(settings, flat_kernel=kern)
+            params = lm.init(cfg, seed=0, device=group.device)
+            step_fn = build_train_step(cfg, group, opt, st)
+            _, _, m = step_fn(params, opt_state_template(cfg, group, opt, st)(params), batch)
+            runs[path] = {k: float(m[k]) for k in ("loss", "grad_norm")}
+            del params, m
+        rel = {k: abs(runs["kernel"][k] - runs["plain"][k]) / abs(runs["plain"][k])
+               for k in ("loss", "grad_norm")}
+        out[dt] = dict(kernel=runs["kernel"], plain=runs["plain"], rel_err=rel,
+                       tolerance=STEP_TOL[dt])
+        log(f"step 1 agreement {dt}: {json.dumps(out[dt])}")
+        assert all(rel[k] <= STEP_TOL[dt][k] for k in rel), out[dt]
+    return out
+
+
+def skip_is_noop(torch, cfg, group, opt, settings, params, opt_state, batch) -> dict:
+    """One step on inf-poisoned parameters: skipped == 1 and p, m, v and the
+    step counter bitwise as they were."""
+    from repro_torch.optim.flat import flatten, unflatten
+    from repro_torch.train.step import build_train_step, flat_layout_for
+
+    layout = flat_layout_for(cfg)
+    flat = flatten(layout, params).clone()
+    flat[0] = float("inf")                         # blocks/ln1[0, 0]
+    bad = unflatten(layout, flat)
+    before = {k: (v.clone() if torch.is_tensor(v) else
+                  unflatten(layout, flatten(layout, v).clone())) for k, v in opt_state.items()}
+    step_fn = build_train_step(cfg, group, opt, settings)
+    p2, o2, m = step_fn(bad, opt_state, batch)
+    torch.cuda.synchronize()
+    out = dict(skipped=float(m["skipped"]), params_bitwise=same_bits(torch, p2, bad),
+               state_bitwise=same_bits(torch, o2, before))
+    assert out["skipped"] == 1.0 and out["params_bitwise"] and out["state_bitwise"], out
+    return out
+
+
+def checkpoint_roundtrip(torch, params, opt_state, tmp: Path) -> dict:
+    from repro_torch.checkpoint import CheckpointManager
+
+    shutil.rmtree(tmp, ignore_errors=True)
+    t = time.perf_counter()
+    mgr = CheckpointManager(str(tmp), keep_k=1)
+    mgr.save(6, {"params": params, "opt": opt_state})
+    saved = time.perf_counter() - t
+    step, state = mgr.restore({"params": params, "opt": opt_state})
+    restored = {g: _to_torch(torch, tree) for g, tree in state.items()}
+    ok = step == 6 and same_bits(torch, _to_torch(torch, {"params": params, "opt": opt_state}),
+                                 restored)
+    shutil.rmtree(tmp, ignore_errors=True)
+    out = dict(step=step, bitwise=ok, save_s=saved, total_s=time.perf_counter() - t)
+    assert ok, out
+    return out
+
+
+def _to_torch(torch, tree):
+    if isinstance(tree, dict):
+        return {k: _to_torch(torch, v) for k, v in tree.items()}
+    return tree.detach().cpu() if torch.is_tensor(tree) else torch.from_numpy(np.array(tree))
+
+
+def profile_train_step(torch, cfg, group, opt, settings, params, opt_state, batch):
+    """Device time of one faithful train step by kernel, from
+    ``torch.profiler`` (device activity only: the step dispatches some
+    10^5 ops, and host-side events would multiply the trace); the idle
+    share is taken against the same step run unprofiled."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.train.step import build_train_step
+
+    step_fn = build_train_step(cfg, group, opt, settings)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    p, o, _ = step_fn(params, opt_state, batch)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t) * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step_fn(p, o, batch)
+        torch.cuda.synchronize()
+    t = time.perf_counter()
+    kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    log(f"train profile: {len(kernels)} kernel names, read in {time.perf_counter() - t:.1f} s")
+    if not kernels:
+        log("train profile: torch.profiler recorded no device activity (not measured)")
+        return None
+    total_us = sum(e.self_device_time_total for e in kernels)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
+    out = dict(step_ms_unprofiled=step_ms, device_busy_ms=total_us / 1e3,
+               device_idle_share=1 - total_us / 1e3 / step_ms,
+               kernel_launches=sum(e.count for e in kernels),
+               top=[dict(name=e.key[:80], calls=e.count,
+                         ms=e.self_device_time_total / 1e3) for e in top])
+    log(f"train profile: {json.dumps(out)}")
+    return out
+
+
+def train_path(torch, dev, results):
+    """Phase 4: the faithful and ZeRO programs at full width over a 1-rank
+    NCCL group.  Returns the launch counts of the faithful run."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import make_batch_fn
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flat_adam.ops import flat_adam
+    from repro_torch.launch.mesh import init_group
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import TrainSettings
+
+    base = dataclasses.replace(get_config("smollm-360m"), attn_impl="kernel")
+    assert base.n_layers == N_LAYERS and base.compute_dtype == "bfloat16"
+    shape = ShapeConfig("chip-smoke", "train", TRAIN_SEQ, TRAIN_BATCH)
+    opt = OptConfig(kind="adam")
+    group = init_group("nccl", 0, 1, f"tcp://127.0.0.1:{free_port()}", device=dev)
+    out = {}
+    try:
+        programs = (("faithful", TrainSettings(num_slices=TRAIN_SLICES, faithful=True), 6),
+                    ("zero", TrainSettings(num_slices=TRAIN_SLICES, flat_engine="zero"), 3))
+        launches = {}
+        for name, settings, steps in programs:
+            torch.cuda.reset_peak_memory_stats()
+            flat_adam.launches = 0
+            flash_attention.launches = 0
+            res, times, losses = train_run(torch, base, shape, group, opt, settings, steps)
+            launches[name] = {"flat_adam": flat_adam.launches,
+                              "flash_attention": flash_attention.launches}
+            warm = times[1:]
+            row = dict(steps=steps, losses=losses, step_ms=times,
+                       step_ms_median=float(np.median(warm)),
+                       step_ms_p90=float(np.percentile(warm, 90)),
+                       tokens_per_s=TRAIN_SEQ * TRAIN_BATCH / (np.median(warm) / 1e3),
+                       max_memory_allocated=torch.cuda.max_memory_allocated(),
+                       skipped_steps=res["skipped_steps"], launches=launches[name])
+            log(f"train {name}: {json.dumps(row)}")
+            assert all(np.isfinite(losses)) and res["skipped_steps"] == 0, row
+            assert launches[name]["flat_adam"] == steps, row
+            assert launches[name]["flash_attention"] == 2 * N_LAYERS * TRAIN_SLICES * steps, row
+            if name == "faithful":
+                # each step's batch is new, and the stream's map has to be
+                # learned token by token, so the per-step loss stays near
+                # ln(vocab) for many steps; the loss falls where training
+                # has been: on batch 0, re-evaluated after the run
+                row["batch0_loss_after"] = eval_loss(torch, base, res["params"], shape, group)
+                log(f"train faithful: batch 0 loss {losses[0]:.4f} at step 1, "
+                    f"{row['batch0_loss_after']:.4f} after {steps} steps")
+                assert row["batch0_loss_after"] < losses[0], row
+            batch = make_batch_fn(base, shape, 0)(steps)
+            row["skip"] = skip_is_noop(torch, base, group, opt, settings, res["params"],
+                                       res["opt_state"], batch)
+            log(f"train {name} skip step: {json.dumps(row['skip'])}")
+            if name == "faithful":
+                row["checkpoint"] = checkpoint_roundtrip(
+                    torch, res["params"], res["opt_state"], HERE / "build" / "ckpt_smoke")
+                log(f"train checkpoint: {json.dumps(row['checkpoint'])}")
+                results["train_profile"] = profile_train_step(
+                    torch, base, group, opt, settings, res["params"], res["opt_state"], batch)
+            out[name] = row
+            del res
+        out["step1"] = step_agreement(torch, base, group, opt, shape, programs[0][1])
+    finally:
+        group.close()
+    results["train"] = out
+    return launches["faithful"]
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -449,33 +818,50 @@ def main() -> int:
                "torch": torch.__version__, "cuda": torch.version.cuda}
 
     from repro_torch.kernels import _build
+    phase_s = {}
     t = time.perf_counter()
     logs = _build.build_all()
     for name in _build.sources():
         _build.load(name)
-    results["build_s"] = time.perf_counter() - t
+    results["build_s"] = phase_s["1 build"] = time.perf_counter() - t
     for name, text in logs.items():
         for line in text.splitlines():
             if "registers" in line:
                 log(f"ptxas[{name}]: {line.strip()}")
     log(f"built {sorted(_build.sources())} in {results['build_s']:.1f} s")
 
-    check_flash(torch, dev, results)
-    check_paged(torch, dev, results)
-    launches = main_path(torch, dev, results)
+    def phase(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(torch, dev, results, *args)
+        phase_s[name] = time.perf_counter() - t
+        log(f"phase {name}: {phase_s[name]:.1f} s")
+        return out
+
+    phase("2 flash", check_flash)
+    phase("2 paged", check_paged)
+    phase("2b flat_adam", check_flat_adam)
+    phase("2c flash grad", check_flash_grad)
+    launches = phase("3 serve", main_path)
+    train_launches = phase("4 train", train_path)
+    results["phase_s"] = phase_s
     results["seconds"] = time.perf_counter() - t_start
 
     fl = next(r for r in results["flash_cases"] if r["S"] == 512 and "ms" in r)
     pg = results["paged_timing"]
+    fa = results["flat_adam_timing"]
+    # each row carries its time as kernel_ms and, for the chip check's
+    # reader, as ms (the same number)
     kernels = [
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:27",
              jax_function="repro.kernels.flash_attention.kernel.flash_attention_fwd",
              shape="q (1, 512, 15, 64), k/v (1, 512, 5, 64), bf16, causal",
-             launches=launches["flash_attention"], max_abs_err=fl["max_abs_err"],
-             ms=fl["ms"], plain_ms=fl["plain_ms"],
-             bound_ms=fl["bound_ms"], bound_by=fl["bound_by"], library_ms=fl["library_ms"]),
+             launches=launches["flash_attention"],
+             train_launches=train_launches["flash_attention"],
+             max_abs_err=fl["max_abs_err"], kernel_ms=fl["ms"], ms=fl["ms"],
+             plain_ms=fl["plain_ms"], bound_ms=fl["bound_ms"], bound_by=fl["bound_by"],
+             library_ms=fl["library_ms"]),
         dict(name="paged_attention", route="cuda",
              source="src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
              replaces="src/repro/kernels/paged_attention/kernel.py:30",
@@ -483,13 +869,23 @@ def main() -> int:
              shape="q (8, 5, 3, 64), pools (513, 16, 5, 64), bf16, lengths 1..1023",
              launches=launches["paged_attention"],
              max_abs_err=results["paged_cases"][0]["max_abs_err"],   # bf16, no mask
-             ms=pg["ms"], plain_ms=pg["plain_ms"],
+             kernel_ms=pg["ms"], ms=pg["ms"], plain_ms=pg["plain_ms"],
              bound_ms=pg["bound_ms"], bound_by=pg["bound_by"], library_ms=None),
+        dict(name="flat_adam", route="cuda",
+             source="src/repro_torch/kernels/flat_adam/csrc/flat_adam.cu",
+             replaces="src/repro/kernels/flat_adam/kernel.py:18",
+             jax_function="repro.kernels.flat_adam.kernel.flat_adam",
+             shape=f"p, g, m, v ({fa['n']},) fp32, t 1000, wd 0",
+             launches=train_launches["flat_adam"],
+             max_abs_err=max(r["max_abs_err"] for r in results["flat_adam_cases"]),
+             kernel_ms=fa["kernel_ms"], ms=fa["kernel_ms"], plain_ms=fa["plain_ms"],
+             bound_ms=fa["bound_ms"], bound_by=fa["bound_by"], library_ms=fa["library_ms"]),
     ]
     results["kernels"] = kernels
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "results.json").write_text(json.dumps(results, indent=1))
-    log(f"chip_smoke: all phases passed in {results['seconds']:.1f} s")
+    log(f"chip_smoke: all phases passed in {results['seconds']:.1f} s; phases "
+        f"{json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,0 +1,4 @@
+"""Fault-tolerant checkpoints in the reference's on-disk format."""
+from .manager import CheckpointManager
+
+__all__ = ["CheckpointManager"]

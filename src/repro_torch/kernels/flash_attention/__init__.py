@@ -1,1 +1,1 @@
-"""Flash attention forward (replaces the Pallas ``_fwd_kernel``)."""
+"""Flash attention forward and its recompute gradient (replaces the Pallas ``_fwd_kernel``)."""

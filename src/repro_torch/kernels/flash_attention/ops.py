@@ -8,8 +8,15 @@ current stream and adds one to ``flash_attention.launches``; on a CPU
 tensor it runs the plain version (``ref.attention_ref``).  There is no
 fallback: a CUDA tensor the kernel does not take raises.
 
-Forward only: serving never differentiates through attention, and the
-backward arrives with the training slice.
+The gradient mirrors the reference's ``_flash_bwd``
+(``repro/kernels/flash_attention/ops.py``), which has no backward kernel:
+``flash_attention`` is a ``torch.autograd.Function`` whose forward saves
+only q, k and v, and whose backward recomputes attention through the
+port's ``chunked_attention`` (q and kv chunks of at most 128) under
+``torch.enable_grad()`` and takes that function's vector-Jacobian product.
+The backward launches no kernel, so a training step under rematerialisation
+launches the forward twice per layer (forward, then the recompute) and
+nothing more.
 """
 from __future__ import annotations
 
@@ -18,6 +25,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.models.attention import chunked_attention
 from .ref import attention_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -43,16 +51,7 @@ def _check(q, k, v):
         raise ValueError("q/k/v on different devices")
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    softcap: float = 0.0):
-    """Blocked attention with an fp32 online softmax and scale ``D**-0.5``.
-
-    q: (B, Sq, H, D); k/v: (B, Sk, Hk, D), H % Hk == 0 (GQA maps q-head h
-    to KV head h // (H // Hk)).  ``window > 0`` keeps keys with
-    ``pos_k > pos_q - window``; ``softcap > 0`` caps the logits.  Returns
-    (B, Sq, H, D) in q.dtype.
-    """
-    _check(q, k, v)
+def _forward(q, k, v, causal, window, softcap):
     if q.device.type == "cpu":
         out = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
                             v.transpose(1, 2), causal=causal, window=window,
@@ -76,6 +75,39 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     _build.check(rc, "flash_attention")
     flash_attention.launches += 1
     return out
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap):
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = (causal, window, softcap)
+        return _forward(q, k, v, causal, window, softcap)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        causal, window, softcap = ctx.opts
+        with torch.enable_grad():
+            qd, kd, vd = (x.detach().requires_grad_() for x in (q, k, v))
+            out = chunked_attention(qd, kd, vd, causal=causal, window=window,
+                                    softcap=softcap, q_chunk=min(128, q.shape[1]),
+                                    kv_chunk=min(128, k.shape[1]))
+            dq, dk, dv = torch.autograd.grad(out, (qd, kd, vd), dout)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    softcap: float = 0.0):
+    """Blocked attention with an fp32 online softmax and scale ``D**-0.5``.
+
+    q: (B, Sq, H, D); k/v: (B, Sk, Hk, D), H % Hk == 0 (GQA maps q-head h
+    to KV head h // (H // Hk)).  ``window > 0`` keeps keys with
+    ``pos_k > pos_q - window``; ``softcap > 0`` caps the logits.  Returns
+    (B, Sq, H, D) in q.dtype, differentiable in q, k and v.
+    """
+    _check(q, k, v)
+    return _FlashAttention.apply(q, k, v, causal, window, softcap)
 
 
 flash_attention.launches = 0

@@ -1,7 +1,8 @@
-"""Shared model machinery: parameter declaration and initialisation, norms.
+"""Shared model machinery: parameter declaration and initialisation, norms,
+the loss and rematerialisation.
 
 The port of the reference's ``models/common.py`` for the pieces serving
-needs.  Parameters are nested dicts of tensors with the reference's tree
+and dense training need.  Parameters are nested dicts of tensors with the reference's tree
 structure (layers stacked on axis 0), so a converted JAX pytree and a
 tree from :func:`init_tree` are interchangeable.  There is no sharding
 here: the port runs on one device, so ``constrain``/``wuse`` have no
@@ -10,6 +11,7 @@ counterpart and weight casts are plain ``.to(dtype)``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
@@ -48,13 +50,25 @@ def init_param(gen: torch.Generator, spec: ParamSpec, device) -> torch.Tensor:
     return (x * scale).to(spec.dtype)
 
 
-def _leaves(tree, prefix=()):
-    """(path, leaf) pairs in sorted-key order (the reference's tree order)."""
+def tree_leaves(tree, prefix=()):
+    """(path, leaf) pairs of a nested dict in sorted-key order: the
+    reference's tree order (``jax.tree.flatten`` sorts dict keys)."""
     if isinstance(tree, dict):
         for k in sorted(tree):
-            yield from _leaves(tree[k], prefix + (k,))
+            yield from tree_leaves(tree[k], prefix + (k,))
     else:
         yield prefix, tree
+
+
+def tree_from_leaves(paths, leaves) -> dict:
+    """Inverse of :func:`tree_leaves`: a nested dict from paths and leaves."""
+    out: dict = {}
+    for path, leaf in zip(paths, leaves):
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+    return out
 
 
 def map_tree(fn, tree):
@@ -70,13 +84,9 @@ def init_tree(seed: int, tree, device) -> dict:
     PyTorch twin); shapes and scales are."""
     device = torch.device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
-    out: dict = {}
-    for path, spec in _leaves(tree):
-        node = out
-        for k in path[:-1]:
-            node = node.setdefault(k, {})
-        node[path[-1]] = init_param(gen, spec, device)
-    return out
+    pairs = list(tree_leaves(tree))
+    return tree_from_leaves([p for p, _ in pairs],
+                            [init_param(gen, spec, device) for _, spec in pairs])
 
 
 # ---------------------------------------------------------------------------
@@ -106,3 +116,52 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6):
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
     """Gemma-2 logit soft-capping: cap * tanh(x / cap)."""
     return cap * torch.tanh(x / cap)
+
+
+def cross_entropy_loss(logits, labels, mask=None):
+    """Mean token-level cross entropy; logits (..., V) promoted to fp32:
+    logsumexp minus the gold logit, averaged (over ``mask`` when given)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+# ---------------------------------------------------------------------------
+# Rematerialisation
+# ---------------------------------------------------------------------------
+
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+                   torch.ops.aten.bmm.default})
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat="dots"``: keep matmul outputs,
+    recompute everything else (the reference's
+    ``dots_with_no_batch_dims_saveable``)."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if op in _DOTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_wrap(body, remat):
+    """Apply a rematerialisation policy to a block function.
+
+    remat: False (keep every activation) | True (save the block's inputs
+    only and recompute its forward in the backward) | "dots" (save matmul
+    outputs, recompute the rest).  Both checkpointing forms are
+    ``torch.utils.checkpoint`` without re-entry."""
+    if not remat:
+        return body
+    from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
+
+    if remat == "dots":
+        ctx = functools.partial(create_selective_checkpoint_contexts, _dots_policy)
+        return lambda *a: checkpoint(body, *a, use_reentrant=False, context_fn=ctx)
+    return lambda *a: checkpoint(body, *a, use_reentrant=False)

@@ -1,15 +1,18 @@
 """Decoder-only LM, dense family (llama-arch: smollm, stablelm, deepseek).
 
-The port of the reference's ``models/lm.py`` for serving.  Parameters are
-nested dicts of tensors with the reference's tree (layers stacked on axis
-0); a layer's weights are views ``blocks[name][i]``, so the layer loop
-never copies.
+The port of the reference's ``models/lm.py`` for serving and training.
+Parameters are nested dicts of tensors with the reference's tree (layers
+stacked on axis 0); a layer's weights are views ``blocks[name][i]``, so
+the layer loop never copies.
 
 Weight casts: the reference casts every fp32 weight to the compute dtype
 at each use, which XLA fuses; eager PyTorch would copy the whole model
-every step.  :func:`cast_for_compute` makes the compute-dtype copies once
-(norm scales stay fp32, as the reference reads them), and every use below
-is then a no-op ``.to`` — the same numbers.
+every serving step.  :func:`cast_for_compute` makes the compute-dtype
+copies once (norm scales stay fp32, as the reference reads them), and
+every use below is then a no-op ``.to`` — the same numbers.  Training
+(:func:`loss_fn`) reads the fp32 master parameters through the same
+per-use cast ``_w``, so the cast is part of the graph and gradients land
+in fp32.
 
 Caches are updated IN PLACE: each layer attends through a view of its
 slice of the stacked cache ``(L, ...)``, where the reference carries the
@@ -32,7 +35,16 @@ from .attention import (
     paged_write_positions,
     rope,
 )
-from .common import ParamSpec, decode_positions, dtype_of, init_tree, rms_norm, softcap
+from .common import (
+    ParamSpec,
+    cross_entropy_loss,
+    decode_positions,
+    dtype_of,
+    init_tree,
+    remat_wrap,
+    rms_norm,
+    softcap,
+)
 
 STATE_KIND = "kv"
 ATTN_IMPLS = ("chunked", "kernel")
@@ -215,7 +227,7 @@ def _layer(params, i):
 
 
 # ---------------------------------------------------------------------------
-# Forward
+# Forward / loss
 # ---------------------------------------------------------------------------
 
 
@@ -235,22 +247,40 @@ def unembed(cfg, params, x):
     return logits
 
 
-def forward(cfg: ArchConfig, params, tokens, *, collect_kv: bool = False):
+def forward(cfg: ArchConfig, params, tokens, *, remat=True,
+            collect_kv: bool = False):
     """tokens (B, S) -> (final-normed hidden (B, S, D), kv or None) with kv
-    = (k, v) stacked over layers: (L, B, S, Hk, dh) each."""
+    = (k, v) stacked over layers: (L, B, S, Hk, dh) each.  ``remat``
+    (False | True | "dots", see ``common.remat_wrap``) wraps each block."""
     check_supported(cfg)
     x = embed_tokens(cfg, params, tokens)
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
+
+    def body(x, bp):
+        return _block_fwd(cfg, x, bp, positions, window=cfg.window)
+
+    body = remat_wrap(body, remat)
     ks, vs = [], []
     for i in range(cfg.n_layers):
-        x, (k, v) = _block_fwd(cfg, x, _layer(params, i), positions,
-                               window=cfg.window)
+        x, (k, v) = body(x, _layer(params, i))
         if collect_kv:
             ks.append(k)
             vs.append(v)
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     return x, ((torch.stack(ks), torch.stack(vs)) if collect_kv else None)
+
+
+def loss_fn(cfg: ArchConfig, params, batch, *, remat=True):
+    """Next-token loss on ``batch["tokens"]`` (B, S + 1).  Returns
+    ``(total, {"ce_loss", "lb_loss", "drop_frac"})``; the load-balance
+    loss and drop fraction are 0 for dense models, so total == ce_loss."""
+    tokens = batch["tokens"]
+    inp, labels = tokens[:, :-1], tokens[:, 1:]
+    hidden, _ = forward(cfg, params, inp, remat=remat)
+    loss = cross_entropy_loss(unembed(cfg, params, hidden), labels)
+    zero = torch.zeros((), dtype=torch.float32, device=loss.device)
+    return loss, {"ce_loss": loss, "lb_loss": zero, "drop_frac": zero}
 
 
 # ---------------------------------------------------------------------------
@@ -280,7 +310,7 @@ def prefill_slot(cfg: ArchConfig, params, cache, tokens, slot: int, plen: int):
     padding inert, and decode overwrites the tail before reading it).
     Returns (cache, logits (1, V) at position plen-1); cache in place.
     """
-    hidden, (k, v) = forward(cfg, params, tokens, collect_kv=True)
+    hidden, (k, v) = forward(cfg, params, tokens, remat=False, collect_kv=True)
     S = tokens.shape[1]
     cache["k"][:, slot, :S] = k[:, 0].to(cache["k"].dtype)
     cache["v"][:, slot, :S] = v[:, 0].to(cache["v"].dtype)
@@ -293,7 +323,7 @@ def prefill_slot_paged(cfg: ArchConfig, params, cache, tokens, table_row, plen: 
     block table.  Same ``forward`` as :func:`prefill_slot` (so slotted and
     paged prefills are bitwise equal); positions ``>= plen`` go to the
     sink block 0.  Returns (cache, logits (1, V) at ``min(plen, C) - 1``)."""
-    hidden, (k, v) = forward(cfg, params, tokens, collect_kv=True)
+    hidden, (k, v) = forward(cfg, params, tokens, remat=False, collect_kv=True)
     C = tokens.shape[1]
     pos = torch.arange(C, device=tokens.device)
     valid = pos < plen

@@ -6,8 +6,11 @@ naming the slice of the port it arrives with.
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.configs.base import ArchConfig
 from . import lm
+from .common import map_tree
 
 _FAMILIES = {"dense": lm}
 _LATER = {
@@ -26,6 +29,13 @@ def get_module(cfg: ArchConfig):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet; it arrives with {later}")
     return mod
+
+
+def abstract_params(cfg: ArchConfig) -> dict:
+    """The parameter tree as meta tensors (shape and dtype, no storage):
+    what ``optim.flat.make_layout`` needs."""
+    return map_tree(lambda s: torch.empty(s.shape, dtype=s.dtype, device="meta"),
+                    get_module(cfg).param_specs(cfg))
 
 
 def supports_slot_serving(cfg: ArchConfig) -> bool:

@@ -232,7 +232,7 @@ def test_build_keys_library_on_source_hash(tmp_path):
     """A library is rebuilt when its sources change: its path is keyed on
     their content."""
     srcs = _build.sources()
-    assert set(srcs) == {"flash_attention", "paged_attention"}
+    assert set(srcs) == {"flash_attention", "flat_adam", "paged_attention"}
     d = tmp_path / "k" / "csrc"
     d.mkdir(parents=True)
     src = d / "k.cu"
