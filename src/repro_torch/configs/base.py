@@ -13,6 +13,7 @@ import importlib
 
 ARCH_IDS = (
     "smollm-360m",
+    "zamba2-1.2b",
 )
 
 
@@ -55,7 +56,11 @@ class ArchConfig:
     qk_norm: bool = False            # qwen3 QK-RMSNorm
     query_scale: float = 0.0         # 0 -> head_dim**-0.5 (gemma2 overrides)
     gate_act: str = "silu"           # ffn gate activation ("silu" | "gelu")
-    attn_impl: str = "chunked"       # "chunked" (plain PyTorch) | "kernel" (CUDA)
+    # "chunked": plain PyTorch everywhere (chunked attention, ssd_chunked,
+    # rms_norm); "kernel": the hand-written CUDA kernels of the family's
+    # path (flash prefill attention; for hybrid also the SSD scan and the
+    # RMSNorm kernels)
+    attn_impl: str = "chunked"
 
     moe: MoEConfig = MoEConfig()
     ssm: SSMConfig = SSMConfig()

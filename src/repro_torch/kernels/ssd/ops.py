@@ -1,0 +1,119 @@
+"""Public wrappers for the SSD scan kernel.
+
+``ssd(x, dt, A, Bm, Cm, chunk=...)`` takes the model layout of
+``models/ssm.py`` — x ``(B, T, H, P)``, dt ``(B, T, H)`` fp32, A ``(H,)``
+fp32, Bm/Cm ``(B, T, G, N)`` — and returns ``(y, state)``: y ``(B, T, H,
+P)`` fp32 and the final state ``(B, H, N, P)`` fp32, the contract of
+``ssd_chunked(..., return_state=True)``.  ``ssd_fwd`` takes the TPU
+kernel's own layout — x ``(B, H, T, P)``, dt ``(B, H, T)``, Bm/Cm ``(B, G,
+T, N)`` — and returns y in x's dtype, as the TPU kernel does.
+
+On a CUDA tensor both launch the hand-written sm_90a kernel
+(``csrc/ssd.cu``) on PyTorch's current stream, reading every input through
+its strides (the model's x, B and C are views into the conv output: no
+copy), and add one to ``ssd.launches``.  On a CPU tensor they run the
+plain chunked scan (``ref.ssd_chunked_ref``) at ``chunk``; the kernel
+blocks by its own internal chunk of 64 (the result is the same up to fp32
+summation order).  There is no fallback: a CUDA tensor the kernel does not
+take raises.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from .ref import ssd_chunked_ref
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_NP = 64                      # N and P the kernel takes (csrc MAXD)
+_STRIDES = ctypes.c_longlong * 3
+_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+             + [ctypes.POINTER(ctypes.c_longlong)] * 5 + [ctypes.c_void_p])
+
+
+def _check(x, dt, A, Bm, Cm, *, seq_axis: int):
+    """Shapes in either layout: ``seq_axis`` 1 (model) or 2 (TPU)."""
+    if x.dim() != 4 or dt.dim() != 3 or A.dim() != 1 or Bm.dim() != 4:
+        raise ValueError("ssd expects 4-d x, 3-d dt, 1-d A and 4-d B/C")
+    if Cm.shape != Bm.shape:
+        raise ValueError(f"B {tuple(Bm.shape)} != C {tuple(Cm.shape)}")
+    head_axis = 3 - seq_axis
+    B, T, H = x.shape[0], x.shape[seq_axis], x.shape[head_axis]
+    G = Bm.shape[head_axis]
+    if tuple(dt.shape) != tuple(x.shape[:3]) or A.shape[0] != H:
+        raise ValueError(f"dt {tuple(dt.shape)} / A {tuple(A.shape)} do not match "
+                         f"x {tuple(x.shape)}")
+    if Bm.shape[0] != B or Bm.shape[seq_axis] != T or G < 1 or H % G:
+        raise ValueError(f"B/C {tuple(Bm.shape)} do not match x {tuple(x.shape)} "
+                         "(heads must be a multiple of groups)")
+    if not (x.dtype == Bm.dtype == Cm.dtype) or x.dtype not in _DTYPES:
+        raise TypeError(f"x, B and C must share one of {list(_DTYPES)}; got "
+                        f"{x.dtype}, {Bm.dtype}, {Cm.dtype}")
+    if dt.dtype != torch.float32 or A.dtype != torch.float32:
+        raise TypeError(f"dt and A must be float32; got {dt.dtype}, {A.dtype}")
+    if any(t.device != x.device for t in (dt, A, Bm, Cm)):
+        raise ValueError("ssd inputs on different devices")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"ssd runs on cuda or cpu, not {x.device}")
+
+
+def _launch(x, dt, A, Bm, Cm, y, state, *, seq_axis: int):
+    """Launch the kernel on tensors in either layout (``seq_axis`` 1: model,
+    2: TPU); y is written in its own dtype, state (or None) in fp32."""
+    head_axis = 3 - seq_axis
+    N, P = Bm.shape[3], x.shape[3]
+    if N > _MAX_NP or P > _MAX_NP:
+        raise ValueError(f"ssd kernel takes N, P <= {_MAX_NP}; got N={N}, P={P}")
+    if any(t.stride(3) != 1 for t in (x, Bm, Cm, y)):
+        raise ValueError("ssd kernel needs the last dim of x, B, C and y contiguous")
+    if not A.is_contiguous() or (state is not None and not state.is_contiguous()):
+        raise ValueError("ssd kernel needs contiguous A and state")
+    if (x.dtype, y.dtype) not in ((torch.float32, torch.float32),
+                                  (torch.bfloat16, torch.float32),
+                                  (torch.bfloat16, torch.bfloat16)):
+        raise TypeError(f"ssd kernel does not write {y.dtype} from {x.dtype}")
+
+    def strides(t, lead=(0, seq_axis, head_axis)):
+        return _STRIDES(*(t.stride(i) for i in lead))
+
+    dts = _STRIDES(dt.stride(0), dt.stride(seq_axis), dt.stride(head_axis))
+    fn = _build.load("ssd").ssd_scan
+    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    rc = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+            y.data_ptr(), None if state is None else state.data_ptr(),
+            _DTYPES[x.dtype], _DTYPES[y.dtype], x.shape[0], x.shape[head_axis],
+            Bm.shape[head_axis], x.shape[seq_axis], N, P, strides(x), dts,
+            strides(Bm), strides(Cm), strides(y),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(rc, "ssd")
+    ssd.launches += 1
+
+
+def ssd(x, dt, A, Bm, Cm, *, chunk: int):
+    """Model layout; returns ``(y fp32 (B,T,H,P), final state fp32
+    (B,H,N,P))``."""
+    _check(x, dt, A, Bm, Cm, seq_axis=1)
+    if x.device.type == "cpu":
+        return ssd_chunked_ref(x, dt, A, Bm, Cm, chunk=chunk, return_state=True)
+    B, T, H, P = x.shape
+    y = torch.empty(B, T, H, P, dtype=torch.float32, device=x.device)
+    state = torch.empty(B, H, Bm.shape[3], P, dtype=torch.float32, device=x.device)
+    _launch(x, dt, A, Bm, Cm, y, state, seq_axis=1)
+    return y, state
+
+
+def ssd_fwd(x, dt, A, Bm, Cm, *, chunk: int = 128):
+    """The TPU kernel's layout: x (B,H,T,P), dt (B,H,T), Bm/Cm (B,G,T,N).
+    Returns y (B,H,T,P) in x.dtype."""
+    _check(x, dt, A, Bm, Cm, seq_axis=2)
+    if x.device.type == "cpu":
+        t = lambda a: a.transpose(1, 2)
+        return t(ssd_chunked_ref(t(x), t(dt), A, t(Bm), t(Cm), chunk=chunk)).to(x.dtype)
+    y = torch.empty_like(x)
+    _launch(x, dt, A, Bm, Cm, y, None, seq_axis=2)
+    return y
+
+
+ssd.launches = 0

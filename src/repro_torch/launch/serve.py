@@ -4,10 +4,14 @@ stream, on the card unless ``--device cpu``:
     python -m repro_torch.launch.serve --arch smollm-360m \\
         --requests 16 --rate 20 --max-slots 8 --kv-layout paged
 
+    python -m repro_torch.launch.serve --arch zamba2-1.2b --requests 16
+
 The weights are random, from ``--seed``.  ``--attn-impl`` picks the
-prefill attention ("kernel": the flash CUDA kernel; "chunked": plain
+family's kernels ("kernel": the flash CUDA kernel for prefill attention
+and, for zamba2, the SSD scan and RMSNorm kernels; "chunked": plain
 PyTorch) and ``--paged-attn`` the paged decode attention ("kernel" or
-"ref").  On a CPU device the kernel settings run the kernels' plain
+"ref").  zamba2 serves on the slotted layout only: ``--kv-layout paged``
+is refused.  On a CPU device the kernel settings run the kernels' plain
 versions.  The router front-end arrives with a later slice.
 """
 from __future__ import annotations
@@ -92,7 +96,8 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device; default the card (raises without one)")
     ap.add_argument("--attn-impl", choices=("chunked", "kernel"),
-                    default="kernel", help="prefill attention")
+                    default="kernel", help="prefill attention (and zamba2's "
+                    "SSD scan and norms)")
     ap.add_argument("--paged-attn", choices=("ref", "kernel"),
                     default="kernel", help="paged decode attention")
     args = ap.parse_args(argv)

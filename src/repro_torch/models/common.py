@@ -77,6 +77,21 @@ def map_tree(fn, tree):
     return fn(tree)
 
 
+def cast_tree(tree: dict, dtype: torch.dtype, keep: frozenset, device=None) -> dict:
+    """A copy of a parameter tree with every leaf in ``dtype`` on ``device``
+    except the leaves named in ``keep`` (norm scales and other leaves read
+    in fp32), which keep their stored dtype.  ``.to`` returns the leaf
+    itself where nothing changes."""
+    out = {}
+    for name, leaf in tree.items():
+        if isinstance(leaf, dict):
+            out[name] = cast_tree(leaf, dtype, keep, device)
+        else:
+            dt = leaf.dtype if name in keep else dtype
+            out[name] = leaf.to(device=device or leaf.device, dtype=dt)
+    return out
+
+
 def init_tree(seed: int, tree, device) -> dict:
     """Initialise every :class:`ParamSpec` of ``tree`` from one seeded
     ``torch.Generator`` on ``device``, drawn in sorted-key leaf order.

@@ -37,6 +37,7 @@ from .attention import (
 )
 from .common import (
     ParamSpec,
+    cast_tree,
     cross_entropy_loss,
     decode_positions,
     dtype_of,
@@ -118,19 +119,7 @@ def cast_for_compute(cfg: ArchConfig, params: dict, device=None) -> dict:
     """The tree the serving path reads: every matmul/embedding weight in
     the compute dtype (made once here), norm scales as stored."""
     check_supported(cfg)
-    cdt = dtype_of(cfg.compute_dtype)
-
-    def walk(tree):
-        out = {}
-        for name, leaf in tree.items():
-            if isinstance(leaf, dict):
-                out[name] = walk(leaf)
-            else:
-                dt = leaf.dtype if name in NORM_PARAMS else cdt
-                out[name] = leaf.to(device=device or leaf.device, dtype=dt)
-        return out
-
-    return walk(params)
+    return cast_tree(params, dtype_of(cfg.compute_dtype), NORM_PARAMS, device)
 
 
 # ---------------------------------------------------------------------------

@@ -1,24 +1,23 @@
 """Family registry: which module serves a config, and how.
 
 The port of the reference's ``models/registry.py`` for the families
-ported so far (dense).  Every other family raises ``NotImplementedError``
-naming the slice of the port it arrives with.
+ported so far (dense, hybrid).  Every other family raises
+``NotImplementedError`` naming the slice of the port it arrives with.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from . import lm
+from . import lm, zamba
 from .common import map_tree
 
-_FAMILIES = {"dense": lm}
+_FAMILIES = {"dense": lm, "hybrid": zamba}
 _LATER = {
     "moe": "the MoE/VLM/audio slice",
     "vlm": "the MoE/VLM/audio slice",
     "audio": "the MoE/VLM/audio slice",
-    "hybrid": "the recurrent-families slice (with the ssd kernel)",
-    "ssm": "the recurrent-families slice (with the ssd kernel)",
+    "ssm": "the xLSTM slice",
 }
 
 
@@ -52,6 +51,23 @@ def supports_paged_serving(cfg: ArchConfig) -> bool:
 
 
 def state_kind(cfg: ArchConfig) -> str:
-    """Per-lane decode-state kind the engine manages (``"kv"``: a seq-axis
-    KV cache, pageable and lazily overwritten)."""
+    """Per-lane decode-state kind the engine manages: ``"kv"`` (a seq-axis
+    KV cache, pageable and lazily overwritten) or ``"hybrid"`` (zamba: a
+    slotted KV segment plus per-lane recurrent leaves)."""
     return getattr(get_module(cfg), "STATE_KIND", "kv")
+
+
+def recurrent_leaf_axes(cfg: ArchConfig) -> dict:
+    """``{leaf name: lane axis}`` of the cache leaves that are per-lane
+    recurrent state (hard-reset at admission, zeroed at eviction); empty
+    for pure-KV families."""
+    fn = getattr(get_module(cfg), "recurrent_leaf_axes", None)
+    return fn(cfg) if fn else {}
+
+
+def lane_leaf_axes(cfg: ArchConfig) -> dict:
+    """``{leaf name: lane axis}`` of every slot-cache leaf a lane owns (KV
+    segments and recurrent leaves alike); empty for families that do not
+    declare it.  The host tier's spill unit, when it is ported."""
+    fn = getattr(get_module(cfg), "lane_leaf_axes", None)
+    return fn(cfg) if fn else {}

@@ -21,6 +21,10 @@ decode loop's only host sync is the sampled-token fetch:
 
 Prompt lengths are bucketed (powers of two) as in the reference, so the
 prefill shapes repeat across admissions.
+
+Families with recurrent state (zamba's ``hybrid`` kind) carry per-lane
+recurrent leaves beside the KV segment; :class:`RecurrentCache` manages
+their lifecycle (hard reset at admission, zeroing at eviction).
 """
 from __future__ import annotations
 
@@ -83,3 +87,66 @@ def make_slot_state(cfg: ArchConfig, max_slots: int, max_len: int, device,
     specs = registry.get_module(cfg).make_cache_specs(cfg, max_slots, max_len)
     cache = {k: torch.zeros_like(s, device=device) for k, s in specs.items()}
     return {"cache": cache, **sched_state(max_slots, device, seed)}
+
+
+class RecurrentCache:
+    """Per-lane recurrent-state manager for the slotted serve engine.
+
+    Wraps :func:`repro_torch.models.registry.recurrent_leaf_axes`:
+    ``leaf_axes`` maps each recurrent cache leaf (zamba's ``ssm`` and
+    ``conv``) to its lane axis.  Falsy for pure-KV families, so the engine
+    and the program builders can gate on ``if rec:``.
+
+    Lifecycle invariants (the reference's, held by the port's tests):
+
+    * **admit-time reset** — ``prefill_slot`` overwrites the lane's
+      recurrent leaves wholesale with the state snapshot at the prompt
+      end; nothing of a previous occupant survives.
+    * **evict-time zeroing** — every decode/prefill program passes its
+      post-step ``active`` vector through :meth:`freeze`, which zeroes
+      the recurrent leaves of every inactive lane in the same step (a
+      lane finishing on the device is zeroed in the step that finishes
+      it).  So after a decode step an inactive lane's recurrent state is
+      exactly zero: no stale recurrence advances, and no inf/NaN can
+      accumulate in dead lanes.
+
+    ``snapshot``/``rollback`` (speculative decoding) arrive with that
+    feature.
+    """
+
+    def __init__(self, cfg: ArchConfig):
+        self.cfg = cfg
+        self.leaf_axes: dict[str, int] = registry.recurrent_leaf_axes(cfg)
+
+    def __bool__(self) -> bool:
+        return bool(self.leaf_axes)
+
+    def freeze(self, cache: dict, active) -> dict:
+        """Zero, in place, the recurrent leaves of every lane whose
+        ``active`` bit is False (``(max_slots,)`` bool on the cache's
+        device).  Active lanes are untouched; a NaN in a dead lane is
+        zeroed too (a fill, not a multiply)."""
+        for name, axis in self.leaf_axes.items():
+            leaf = cache[name]
+            shape = [1] * leaf.ndim
+            shape[axis] = active.shape[0]
+            leaf.masked_fill_(~active.reshape(shape), 0)
+        return cache
+
+    def lane_is_zero(self, cache: dict, slot: int) -> bool:
+        """Lane ``slot``'s recurrent leaves are all exactly zero (the
+        evict-time-zeroing invariant)."""
+        return self.lanes_are_zero(cache, [slot])
+
+    def lanes_are_zero(self, cache: dict, slots) -> bool:
+        """:meth:`lane_is_zero` over several lanes, with one host fetch
+        (a bool) per leaf: the lanes are compared on the device."""
+        slots = list(slots)
+        if not slots:
+            return True
+        for name, axis in self.leaf_axes.items():
+            leaf = cache[name]
+            idx = torch.tensor(slots, device=leaf.device)
+            if bool((leaf.index_select(axis, idx) != 0).any()):
+                return False
+        return True

@@ -1,7 +1,7 @@
 """Continuous-batching serve engine over a slotted or paged KV cache.
 
-The port of the reference's ``serve/engine.py`` for the dense LM's main
-serving path.  The engine runs one decode step over ``max_slots`` cache
+The port of the reference's ``serve/engine.py`` for the main serving
+path of the dense LM and of the hybrid family (zamba).  The engine runs one decode step over ``max_slots`` cache
 lanes at a time.  Requests are admitted into free lanes at any step
 (whole-prompt prefill, padded to a power-of-two bucket), finished
 sequences are evicted at once (EOS or token budget), and sampling is fused
@@ -17,7 +17,13 @@ Two cache layouts (``EngineConfig.kv_layout``):
              eviction.  Admission is gated on worst-case block commitments
              (``deficit``), so decode growth never finds the pool empty.
              Greedy decoding is token-for-token identical to the slotted
-             layout.
+             layout.  Only for state kind ``"kv"``: a hybrid lane's
+             recurrent state has no sequence axis to page.
+
+A lane of a hybrid family (``registry.state_kind == "hybrid"``) holds a
+slotted KV segment and per-lane recurrent leaves; :class:`RecurrentCache`
+(``self.rec``) resets them at admission and the step programs zero them
+at eviction, which :meth:`ServeEngine.check_invariants` sweeps.
 
 The host keeps a mirror of the scheduling state (lengths, budgets, block
 tables, which request owns which lane), advanced by the same rules the
@@ -49,7 +55,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import registry
-from .cache import bucket_for, make_slot_state, prompt_buckets
+from .cache import RecurrentCache, bucket_for, make_slot_state, prompt_buckets
 from .faults import NONFINITE_TOKEN
 from .paged import BlockAllocator, SlotTables, blocks_for, cache_nbytes, make_paged_state
 from .step import (
@@ -156,7 +162,9 @@ class ServeEngine:
     (``admitted - evicted`` = occupied lanes, each owned by one request),
     paged block conservation (``free + live + cached == capacity``, every
     lane's written KV inside its mapped blocks, deficit admission never
-    over-commits), and status counters matching completions.
+    over-commits), status counters matching completions, and, for
+    recurrent state kinds, all-zero recurrent leaves in every free lane
+    after a decode step.
     """
 
     def __init__(self, cfg: ArchConfig, params, engine: EngineConfig = EngineConfig(),  # noqa: B008 - frozen
@@ -174,10 +182,16 @@ class ServeEngine:
                 raise NotImplementedError(
                     f"EngineConfig.{field}={getattr(engine, field)!r}: {what} "
                     "is not ported yet")
+        self.kind = registry.state_kind(cfg)
+        self.rec = RecurrentCache(cfg)
         self.paged = engine.kv_layout == "paged"
         if self.paged and not registry.supports_paged_serving(cfg):
+            if self.kind != "kv":
+                raise ValueError(
+                    f"family {cfg.family!r} has state kind {self.kind!r}: "
+                    "per-lane recurrent state is O(1) in sequence length — "
+                    "there is no seq axis to page; use kv_layout='slotted'")
             raise ValueError(f"family {cfg.family!r} does not support paged serving")
-        self.kind = registry.state_kind(cfg)
         self.cfg, self.econ, self.clock = cfg, engine, clock
         self.device = resolve_device(device)
         self.buckets = tuple(engine.prefill_buckets or prompt_buckets(engine.max_len))
@@ -223,6 +237,7 @@ class ServeEngine:
         self._next_rid = 0
         self._active_mirror = np.zeros(engine.max_slots, bool)
         self._active_dirty = False
+        self._last_op: str | None = None     # "prefill" | "decode"
 
     # ------------------------------------------------------------------
     # Request lifecycle
@@ -346,6 +361,7 @@ class ServeEngine:
                 self.params, self.state, chunk, slot, s.plen, s.limit,
                 s.temperature, s.top_k, s.top_p)
         tok = int(out[0])                       # the prefill's host sync
+        self._last_op = "prefill"
         s.prefilled = s.plen
         self.counters["prefill_chunks"] += 1
         self.counters["prefill_tokens"] += s.plen
@@ -401,9 +417,14 @@ class ServeEngine:
 
     def _note_kv_usage(self, decoding: frozenset = frozenset()) -> None:
         """Cache-usage high-water mark: paged reads the allocator's peak;
-        slotted counts written positions right after the decode write."""
+        slotted KV counts written positions right after the decode write;
+        a hybrid lane costs a fixed share (its recurrent state is O(1) in
+        sequence length; the KV segment is folded into that share)."""
         if self.paged:
             used = self.kv_reserved_bytes * self.alloc.peak_in_use // self._num_blocks
+        elif self.kind != "kv":
+            used = self.kv_reserved_bytes * sum(s is not None for s in self.slots) // (
+                self.econ.max_slots)
         else:
             ntok = sum(s.prefilled + max(0, s.generated - 1) + (i in decoding)
                        for i, s in enumerate(self.slots) if s is not None)
@@ -464,6 +485,7 @@ class ServeEngine:
             self.params, self.state, stochastic=bool(sampled),
             masked=any(s.top_k > 0 or 0 < s.top_p < 1 for s in sampled))
         toks = out.cpu().numpy()                # the one per-step host sync
+        self._last_op = "decode"
         self._note_kv_usage(frozenset(active_slots))
         self.counters["decode_steps"] += 1
         self.counters["dead_slot_steps"] += self.econ.max_slots - len(active_slots)
@@ -505,6 +527,14 @@ class ServeEngine:
                 raise AssertionError(f"rid {comp.rid}: unknown status {comp.status!r}")
         if sum(self.counters[f"status_{st}"] for st in STATUSES) != len(self.completions):
             raise AssertionError("status counters != completions")
+        if self.rec and self._last_op == "decode":
+            # evict-time zeroing: after a decode step every free lane's
+            # recurrent state is exactly zero (after an admission-only step
+            # a lane that finished at its prefill is zeroed one step later)
+            free = [i for i, s in enumerate(self.slots) if s is None]
+            if not self.rec.lanes_are_zero(self.state["cache"], free):
+                raise AssertionError(
+                    f"an evicted lane in {free} holds non-zero recurrent state")
         if not self.paged:
             return
         self.alloc.check()

@@ -21,6 +21,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import registry
 from repro_torch.models.attention import NEG_INF
+from .cache import RecurrentCache
 from .faults import NONFINITE_TOKEN
 
 
@@ -91,12 +92,16 @@ def sample_tokens(logits, generator, temps, top_k: int = 0, top_ks=None,
 # ---------------------------------------------------------------------------
 
 
-def _decode_program(decode_fn, *, eos_id: int | None):
+def _decode_program(decode_fn, *, eos_id: int | None, freeze=None):
     """Wrap a layout-specific ``decode_fn(params, state) -> (logits,
     cache)`` with the shared bookkeeping: fused sampling, non-finite
     detection (the :data:`NONFINITE_TOKEN` sentinel rides the token
     fetch), length advance and EOS/budget eviction, all on the device.
     ``fn(params, state, *, stochastic=None, masked=None) -> (state, tok)``.
+
+    ``freeze(cache, active)`` (recurrent state kinds) zeroes the recurrent
+    leaves of the lanes inactive after the step — evict-time zeroing in
+    the same step (see :class:`~repro_torch.serve.cache.RecurrentCache`).
     """
 
     def fn(params, state, *, stochastic=None, masked=None):
@@ -112,22 +117,30 @@ def _decode_program(decode_fn, *, eos_id: int | None):
         done = active & finite & (new_len >= state["limits"])
         if eos_id is not None:
             done |= active & (tok == eos_id)
-        state.update(cache=cache, tokens=tok, lengths=new_len,
-                     active=active & ~done)
+        act_new = active & ~done
+        if freeze is not None:
+            cache = freeze(cache, act_new)
+        state.update(cache=cache, tokens=tok, lengths=new_len, active=act_new)
         return state, tok
 
     return fn
 
 
 def slot_decode_program(cfg: ArchConfig, *, eos_id: int | None = None):
-    """One decode step over every lane of the slotted cache."""
+    """One decode step over every lane of the slotted cache.
+
+    Family-generic: ``mod.decode_step`` advances a KV cache (lm) or
+    zamba's composed hybrid cache; recurrent leaves of inactive lanes are
+    zeroed on the way out (:meth:`RecurrentCache.freeze`)."""
     mod = registry.get_module(cfg)
+    rec = RecurrentCache(cfg)
 
     def decode_fn(params, state):
         return mod.decode_step(cfg, params, state["cache"], state["tokens"],
                                state["lengths"])
 
-    return _decode_program(decode_fn, eos_id=eos_id)
+    return _decode_program(decode_fn, eos_id=eos_id,
+                           freeze=rec.freeze if rec else None)
 
 
 def paged_decode_program(cfg: ArchConfig, *, eos_id: int | None = None,
@@ -180,8 +193,16 @@ def slot_prefill_program(cfg: ArchConfig, *, eos_id: int | None = None):
 
     ``fn(params, state, prompt (1, bucket), slot, plen, limit, temp, top_k,
     top_p) -> (state, tok (1,))``; the scalars are host Python values.
+
+    Family-generic like :func:`slot_decode_program`: ``mod.prefill_slot``
+    writes a KV lane slice (lm) or, for zamba, the KV slice and the lane's
+    recurrent snapshot at position ``plen``.  Recurrent leaves are zeroed
+    on the way out for the inactive lanes other than ``slot``: the slot
+    being prefilled keeps its fresh state even if its first token already
+    ends it, and the next step's freeze zeroes it then.
     """
     mod = registry.get_module(cfg)
+    rec = RecurrentCache(cfg)
 
     def fn(params, state, prompt, slot, plen, limit, temp, top_k, top_p):
         cache, logits = mod.prefill_slot(cfg, params, state["cache"], prompt,
@@ -190,6 +211,10 @@ def slot_prefill_program(cfg: ArchConfig, *, eos_id: int | None = None):
         tok = _seed_slot(state, slot, logits, length=plen, limit=limit,
                          temp=temp, top_k=top_k, top_p=top_p, is_last=True,
                          eos_id=eos_id)
+        if rec:
+            keep_self = torch.arange(state["active"].shape[0],
+                                     device=logits.device) == slot
+            state["cache"] = rec.freeze(cache, state["active"] | keep_self)
         return state, tok
 
     return fn

@@ -1,11 +1,12 @@
-"""The port's attention kernels against the JAX reference's jnp oracles.
+"""The port's kernels against the JAX reference's jnp oracles.
 
 On this CPU box every kernel wrapper runs its plain PyTorch version (the
 wrapper picks it because the tensors lie on the CPU); those are held
-against the reference's ``attention_ref``, ``chunked_attention`` and
-``paged_attention_ref`` over the sweep of ``tests/test_kernels.py`` —
-shapes, windows, softcaps, dtypes — with ragged and nulled tables for the
-paged kernel.  The CUDA kernels themselves are held against the plain
+against the reference's ``attention_ref``, ``chunked_attention``,
+``paged_attention_ref`` and ``rmsnorm/ref.py`` over the sweep of
+``tests/test_kernels.py`` — shapes, windows, softcaps, dtypes — with
+ragged and nulled tables for the paged kernel.  (The SSD scan's plain
+versions are held in ``tests/test_torch_ssm.py``.)  The CUDA kernels themselves are held against the plain
 versions by the ``cuda``-marked cases, which skip without a card (run
 them on the card with ``python -m pytest -m cuda --noconftest tests/test_torch_kernels.py``;
 the JAX cases skip there when JAX is absent).
@@ -16,7 +17,13 @@ fp32 3e-5 (the same fp32 arithmetic in another summation order), bf16 2e-2
 A kernel against its plain version on the card is held tighter in bf16,
 atol 1e-3 plus rtol 1e-2: both compute in fp32 from the same bf16 inputs
 and round once, so they differ by at most one bf16 ulp, under 2**-7 of the
-value, and a fault in the kernel's bf16 loads or stores shows.
+value, and a fault in the kernel's bf16 loads or stores shows.  The SSD
+scan's fp32 outputs (from fp32 or bf16 inputs) are held at 1e-4 of the
+output's largest entry plus 1e-4 of each entry: the same fp32 products,
+blocked by 64 positions in the kernel and by the model's chunk in the
+plain version, summed in another order over up to 512 steps.
+``rmsnorm_add`` is held like ``rmsnorm``: both the kernel and the plain
+version normalise the unrounded fp32 sum.
 """
 import types
 
@@ -29,6 +36,10 @@ from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.paged_attention.ops import paged_attention
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_add
+from repro_torch.kernels.rmsnorm.ref import rmsnorm_add_ref, rmsnorm_ref
+from repro_torch.kernels.ssd.ops import ssd, ssd_fwd
+from repro_torch.kernels.ssd.ref import ssd_chunked_ref
 from repro_torch.models import attention as tattn
 
 DTYPES = ["float32", "bfloat16"]
@@ -37,6 +48,7 @@ FLASH_KWARGS = [dict(causal=True), dict(causal=False),
                 dict(causal=True, window=48), dict(causal=True, softcap=30.0)]
 PAGED_KWARGS = [dict(), dict(window=5), dict(softcap=5.0),
                 dict(window=7, softcap=30.0)]
+RMSNORM_SHAPES = [(64, 96), (256, 128), (8, 512)]                  # rows, D
 
 
 def _tol(dt):
@@ -54,9 +66,10 @@ def jref():
     import jax.numpy as jnp
     from repro.kernels.flash_attention.ref import attention_ref as j_attention_ref
     from repro.kernels.paged_attention.ref import paged_attention_ref as j_paged_ref
+    from repro.kernels.rmsnorm import ref as j_rmsnorm
     from repro.models import attention as jattn
     return types.SimpleNamespace(jnp=jnp, attention_ref=j_attention_ref,
-                                 paged_ref=j_paged_ref, attn=jattn)
+                                 paged_ref=j_paged_ref, attn=jattn, rmsnorm=j_rmsnorm)
 
 
 @pytest.fixture
@@ -154,6 +167,42 @@ def test_paged_plain_matches_paged_ref(jref, dt, kwargs):
                                **_tol(dt))
 
 
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("rows,D", RMSNORM_SHAPES)
+def test_rmsnorm_plain_matches_reference(jref, dt, rows, D):
+    """``rmsnorm`` and ``rmsnorm_add`` (plain on CPU) against the
+    reference's ``rmsnorm_ref``/``rmsnorm_add_ref`` over
+    ``test_kernels.py::test_rmsnorm_sweep``'s shapes, gamma in x's dtype.
+    The reference's ``rmsnorm_add_ref`` returns the normed sum in fp32; the
+    port's, like the kernels, in x's dtype."""
+    rng = np.random.default_rng(rows)
+    x = rng.normal(size=(rows, D)).astype(np.float32)
+    r = rng.normal(size=(rows, D)).astype(np.float32)
+    g = (rng.normal(size=(D,)) * 0.1).astype(np.float32)
+    j = lambda a: jref.jnp.asarray(a, dt)
+    out = rmsnorm(_t(x, dt), _t(g, dt))
+    assert out.dtype == getattr(torch, dt) and out.shape == (rows, D)
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(
+        jref.rmsnorm.rmsnorm_ref(j(x), j(g)), np.float32), **_tol(dt))
+    normed, summed = rmsnorm_add(_t(x, dt), _t(r, dt), _t(g, dt))
+    jn, js = jref.rmsnorm.rmsnorm_add_ref(j(x), j(r), j(g))
+    assert normed.dtype == summed.dtype == getattr(torch, dt)
+    np.testing.assert_allclose(normed.float().numpy(), np.asarray(jn, np.float32), **_tol(dt))
+    np.testing.assert_array_equal(summed.float().numpy(), np.asarray(js, np.float32))
+
+
+def test_rmsnorm_wrappers_reject_bad_inputs():
+    x = torch.zeros(4, 8)
+    with pytest.raises(ValueError, match="last dim"):
+        rmsnorm(x, torch.zeros(7))
+    with pytest.raises(ValueError, match="residual"):
+        rmsnorm_add(x, torch.zeros(4, 9), torch.zeros(8))
+    with pytest.raises(TypeError):
+        rmsnorm(x.double(), torch.zeros(8))
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        rmsnorm(x.to("meta"), torch.zeros(8, device="meta"))
+
+
 def test_paged_write_gather_match_reference(jref):
     """Token and chunk writes land where the reference puts them (the
     sink block excluded: its contents depend on write order)."""
@@ -232,7 +281,7 @@ def test_build_keys_library_on_source_hash(tmp_path):
     """A library is rebuilt when its sources change: its path is keyed on
     their content."""
     srcs = _build.sources()
-    assert set(srcs) == {"flash_attention", "flat_adam", "paged_attention"}
+    assert set(srcs) == {"flash_attention", "flat_adam", "paged_attention", "rmsnorm", "ssd"}
     d = tmp_path / "k" / "csrc"
     d.mkdir(parents=True)
     src = d / "k.cu"
@@ -293,3 +342,83 @@ def test_paged_kernel_shapes_on_card(cuda, dt, rep, bs):
     torch.cuda.synchronize()
     want = paged_attention_ref(*args, lt, tt, window=20)
     torch.testing.assert_close(out.float(), want.float(), **_card_tol(dt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("gdt", DTYPES)
+@pytest.mark.parametrize("rows,D", [(512, 2048), (8, 4096), (3, 100)])
+def test_rmsnorm_kernels_match_plain_on_card(cuda, dt, gdt, rows, D):
+    """Both RMSNorm kernels at the serving path's row widths (2048, 4096)
+    and a ragged one, gamma in either dtype."""
+    rng = np.random.default_rng(rows + D)
+    x, r = (_t(rng.normal(size=(rows, D)).astype(np.float32) * 3, dt, cuda) for _ in range(2))
+    g = _t((rng.normal(size=(D,)) * 0.1).astype(np.float32), gdt, cuda)
+    before = (rmsnorm.launches, rmsnorm_add.launches)
+    out = rmsnorm(x, g)
+    normed, summed = rmsnorm_add(x, r, g)
+    torch.cuda.synchronize()
+    assert (rmsnorm.launches, rmsnorm_add.launches) == (before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(out.float(), rmsnorm_ref(x, g).float(), **_card_tol(dt))
+    want_n, want_s = rmsnorm_add_ref(x, r, g)
+    torch.testing.assert_close(normed.float(), want_n.float(), **_card_tol(dt))
+    assert torch.equal(summed, want_s)
+
+
+def _ssd_card_tol(want):
+    return dict(atol=1e-4 * want.float().abs().max().item(), rtol=1e-4)
+
+
+def _ssd_conv_views(B, T, H, P, G, N, dt, device, seed):
+    """x, B and C as views into one (B, T, H*P + 2*G*N) buffer, as the
+    Mamba2 block hands them over (not contiguous), plus dt and A."""
+    rng = np.random.default_rng(seed)
+    buf = _t(rng.normal(size=(B, T, H * P + 2 * G * N)).astype(np.float32), dt, device)
+    x, bm, cm = torch.split(buf, [H * P, G * N, G * N], dim=-1)
+    d = _t(rng.uniform(0.01, 0.2, size=(B, T, H)).astype(np.float32), "float32", device)
+    A = _t(-rng.uniform(0.5, 2.0, size=(H,)).astype(np.float32), "float32", device)
+    return (x.reshape(B, T, H, P), d, A, bm.reshape(B, T, G, N), cm.reshape(B, T, G, N))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("B,T,H,P,G,N", [
+    (1, 512, 64, 64, 1, 64),          # the zamba2-1.2b prefill at bucket 512
+    (2, 300, 8, 64, 2, 64),           # ragged T, two groups
+    (1, 37, 4, 16, 1, 8),             # T < the internal chunk, small N, P
+    (2, 129, 6, 32, 3, 16),
+])
+def test_ssd_kernel_matches_plain_on_card(cuda, dt, B, T, H, P, G, N):
+    """The model layout: y and the final state against ``ssd_chunked``,
+    from strided views (no copy)."""
+    args = _ssd_conv_views(B, T, H, P, G, N, dt, cuda, seed=T)
+    assert not args[0].is_contiguous()
+    before = ssd.launches
+    y, state = ssd(*args, chunk=256)
+    torch.cuda.synchronize()
+    assert ssd.launches == before + 1
+    want_y, want_s = ssd_chunked_ref(*args, chunk=256, return_state=True)
+    assert y.dtype == state.dtype == torch.float32
+    torch.testing.assert_close(y, want_y, **_ssd_card_tol(want_y))
+    torch.testing.assert_close(state, want_s, **_ssd_card_tol(want_s))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("T,H,P,G,N,chunk", [(64, 4, 16, 2, 8, 16), (128, 2, 8, 1, 16, 32),
+                                             (32, 8, 32, 4, 4, 8)])
+def test_ssd_fwd_kernel_matches_plain_on_card(cuda, dt, T, H, P, G, N, chunk):
+    """The TPU layout over ``test_kernels.py::test_ssd_sweep``'s shapes: y
+    in x's dtype (bf16: one rounding of the fp32 result, card tolerance)."""
+    rng = np.random.default_rng(T + H)
+    x = _t(rng.normal(size=(2, H, T, P)).astype(np.float32), dt, cuda)
+    d = _t(rng.uniform(0.01, 0.2, size=(2, H, T)).astype(np.float32), "float32", cuda)
+    A = _t(-rng.uniform(0.5, 2.0, size=(H,)).astype(np.float32), "float32", cuda)
+    bm, cm = (_t(rng.normal(size=(2, G, T, N)).astype(np.float32), dt, cuda) for _ in range(2))
+    y = ssd_fwd(x, d, A, bm, cm, chunk=chunk)
+    torch.cuda.synchronize()
+    t = lambda a: a.transpose(1, 2)
+    want = t(ssd_chunked_ref(t(x), t(d), A, t(bm), t(cm), chunk=chunk))
+    assert y.dtype == x.dtype
+    tol = _card_tol(dt) if dt == "bfloat16" else _ssd_card_tol(want)
+    torch.testing.assert_close(y.float(), want.to(x.dtype).float(), **tol)

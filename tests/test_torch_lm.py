@@ -215,7 +215,7 @@ def test_unported_families_raise():
     dense = get_smoke_config("smollm-360m")
     with pytest.raises(NotImplementedError, match="gemma2"):
         tlm.cast_for_compute(gem, tlm.init(dense, 0, "cpu"))     # what the engine calls
-    for fam in ("moe", "hybrid", "ssm", "vlm", "audio"):
+    for fam in ("moe", "ssm", "vlm", "audio"):
         cfg = dataclasses.replace(get_smoke_config("smollm-360m"), family=fam)
         with pytest.raises(NotImplementedError):
             treg.get_module(cfg)
