@@ -13,8 +13,16 @@ Phases (any failure raises and the script exits non-zero):
    serving path's shapes, in bf16 (atol 1e-3 plus rtol 1e-2: kernel and
    plain version both compute in fp32 from the same bf16 inputs and round
    once, so they differ by at most one bf16 ulp, under 2**-7 of the value)
-   and fp32 (3e-5: the same fp32 arithmetic in another summation order),
-   and time both with CUDA events (plus SDPA as the flash yardstick).
+   and fp32 (3e-5: the same fp32 arithmetic in another summation order).
+   Time both in bf16 by device time per call from ``torch.profiler``
+   (``device_ms``; back-to-back CUDA events beside it as ``*_events``):
+   flash, causal, at a smollm-360m prefill (1, 512, 15, 64), the training
+   shape (4, 1024, 15, 64) and a zamba2-1.2b prefill (1, 512, 32, 64, rep
+   1), beside SDPA (the yardstick the port never calls; its kernels'
+   names are printed); paged at random lengths 1..1023 and at phase 3's
+   own lengths, with its split count and device kernels per call.  Print
+   each wrapper's host microseconds per call (1,000 calls, one
+   synchronize).
 2b. Hold the ``flat_adam`` kernel against its plain version (fp32, atol
    and rtol 1e-6: the same fp32 formula, differing only in ``powf``,
    ``sqrtf``, division and FMA contraction by an ulp or two) for n in
@@ -58,7 +66,8 @@ Phases (any failure raises and the script exits non-zero):
    with TF32 off, and bf16); a step on inf-poisoned parameters must be a
    bitwise no-op in both programs; a checkpoint must round-trip bitwise.
    Prints step time (median, p90), tokens/s, peak memory and a profiled
-   step's device-busy time and idle share.
+   step's device-busy time and idle share (every profile also lists the
+   port's own kernels with their device time).
 5. Serve full-width ``zamba2-1.2b`` (seed-0 weights, bf16, slotted, 8
    lanes, max_len 1024, ``attn_impl="kernel"``): 16 greedy requests with
    phase 3's prompt lengths and budgets, ``check_invariants`` (recurrent
@@ -88,6 +97,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import shutil
 import socket
 import subprocess
@@ -126,6 +136,11 @@ GRAD_TOL = {"bfloat16": dict(scale=2e-2, rtol=1e-2), "float32": dict(atol=1e-5, 
 STEP_TOL = {"float32": dict(loss=1e-5, grad_norm=1e-3),
             "bfloat16": dict(loss=1e-2, grad_norm=5e-2)}
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_SLICES = 1024, 8, 2
+# flash timing shapes (name, B, S, H, Hk), bf16, causal: a smollm-360m
+# prefill at bucket 512, the training step's (batch 4 a slice, seq 1024),
+# a zamba2-1.2b shared-block prefill at bucket 512 (rep 1)
+FLASH_TIMING = (("serve", 1, 512, 15, 5), ("train", 4, 1024, 15, 5), ("zamba", 1, 512, 32, 32))
+SMOLLM_VOCAB = 49152
 
 N_LAYERS = 32
 PAGE = 16
@@ -160,11 +175,12 @@ def time_ms(torch, fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fn, iters: int = 50) -> float | None:
-    """Device time per call: every kernel ``fn`` launches, summed over
-    ``iters`` calls by ``torch.profiler``, over ``iters``.  For calls of a
-    few microseconds back-to-back CUDA events measure the host's launch
-    path instead; None where the profiler saw no device activity."""
+def device_profile(torch, fn, iters: int = 50) -> tuple[float | None, dict]:
+    """Device time per call -- every kernel ``fn`` launches, summed over
+    ``iters`` calls by ``torch.profiler``, over ``iters`` -- and {kernel
+    name: {calls, ms} per call}.  For calls of a few microseconds back-to-back
+    CUDA events measure the host's launch path instead; None where the
+    profiler saw no device activity."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -174,7 +190,26 @@ def device_ms(torch, fn, iters: int = 50) -> float | None:
             fn()
         torch.cuda.synchronize()
     evs = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
-    return sum(e.self_device_time_total for e in evs) / 1e3 / iters if evs else None
+    names = {e.key[:100]: dict(calls=e.count / iters, ms=e.self_device_time_total / 1e3 / iters)
+             for e in evs}
+    return (sum(e.self_device_time_total for e in evs) / 1e3 / iters if evs else None), names
+
+
+def device_ms(torch, fn, iters: int = 50) -> float | None:
+    return device_profile(torch, fn, iters)[0]
+
+
+def host_us(torch, fn, calls: int = 1000) -> float:
+    """Host microseconds per call: ``calls`` back-to-back calls timed by
+    ``perf_counter`` with one synchronize at the end (the device keeps up,
+    so this is the wrapper's share of a host-bound step)."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) / calls * 1e6
 
 
 def max_err(torch, got, want, dt: str, tol: dict | None = None) -> float:
@@ -221,33 +256,61 @@ def check_flash(torch, dev, results):
                                  **kw).transpose(1, 2)
             err = max_err(torch, out, want, dt)
             row = dict(S=S, dtype=dt, **kw, max_abs_err=err)
-            if dt == "bfloat16" and set(kw) == {"causal"}:
-                pos = torch.arange(S)
-                ok = pos[None, :] <= pos[:, None] if kw["causal"] else torch.ones(S, S, dtype=torch.bool)
-                pairs = int(ok.sum())
-                esize = q.element_size()
-                nbytes = esize * (2 * S * H * D + 2 * S * Hk * D)
-                row["bound_ms"], row["bound_by"] = bound(4 * D * H * pairs, nbytes, dt)
-                iters = 200 if S <= 512 else 50
-                row["ms"] = time_ms(torch, lambda: flash_attention(q, k, v, **kw), iters)
-                qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-                row["plain_ms"] = time_ms(torch, lambda: attention_ref(qt, kt, vt, **kw), iters)
-                qc, kc, vc = (x.contiguous() for x in (qt, kt, vt))
-                row["library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(
-                    qc, kc, vc, is_causal=kw["causal"], enable_gqa=True), iters)
             rows.append(row)
             log(f"flash {json.dumps(row)}")
     results["flash_cases"] = rows
 
+    # timing, bf16, causal, at the main paths' shapes: device time per call
+    # from the profiler (ms), back-to-back CUDA events beside it
+    # (ms_events); SDPA, which the port never calls, as the yardstick
+    timings = []
+    for name, B, S, H, Hk in FLASH_TIMING:
+        dt = "bfloat16"
+        q, k, v = (torch.randn(B, S, h, D, generator=gen, device=dev).to(torch.bfloat16)
+                   for h in (H, Hk, Hk))
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        qc, kc, vc = (x.contiguous() for x in (qt, kt, vt))
+        kernel = lambda: flash_attention(q, k, v, causal=True)
+        plain = lambda: attention_ref(qt, kt, vt, causal=True)
+        lib = lambda: F.scaled_dot_product_attention(qc, kc, vc, is_causal=True,
+                                                     enable_gqa=True)
+        out = kernel()
+        torch.cuda.synchronize()
+        want = plain().transpose(1, 2)
+        pairs = B * S * (S + 1) // 2                 # causal (query, key) pairs
+        row = dict(shape=name, q=[B, S, H, D], kv=[B, S, Hk, D], dtype=dt, causal=True,
+                   max_abs_err=max_err(torch, out, want, dt),
+                   library_max_abs_err=(lib().transpose(1, 2).float() - want.float()).abs().max().item())
+        row["bound_ms"], row["bound_by"] = bound(4 * D * H * pairs,
+                                                 2 * B * S * D * (2 * H + 2 * Hk), dt)
+        iters = 200 if B * S <= 512 else 50
+        row["ms"], kernels = device_profile(torch, kernel)
+        row["device_kernels_per_call"] = sum(v["calls"] for v in kernels.values())
+        row["plain_ms"] = device_ms(torch, plain, 20)
+        row["library_ms"], row["library_kernels"] = device_profile(torch, lib)
+        row["vs_library"] = row["ms"] / row["library_ms"] if row["ms"] and row["library_ms"] else None
+        row["ms_events"] = time_ms(torch, kernel, iters)
+        row["plain_ms_events"] = time_ms(torch, plain, 20)
+        row["library_ms_events"] = time_ms(torch, lib, iters)
+        if name == "serve":
+            row["host_us_per_call"] = host_us(torch, kernel)
+        timings.append(row)
+        log(f"flash timing {json.dumps(row)}")
+        del q, k, v, qc, kc, vc, out, want
+    results["flash_timing"] = timings
+
 
 def paged_inputs(torch, dev, dt, *, layers=1, B=MAX_SLOTS, Hk=5, rep=3, D=64, nb=MAX_LEN // PAGE,
-                 nulled=(6, 7), seed=2):
-    """Pools for ``layers`` layers, ragged lengths 1..1023 and a random
-    block mapping; lanes in ``nulled`` are stale (table rows all sink)."""
+                 nulled=(6, 7), seed=2, lengths=None):
+    """Pools for ``layers`` layers, ragged lengths 1..1023 (or ``lengths``)
+    and a random block mapping; lanes in ``nulled`` are stale (table rows
+    all sink)."""
     rng = np.random.default_rng(seed)
     NB = B * nb + 1
-    lengths = rng.integers(1, nb * PAGE, B).astype(np.int32)
-    lengths[0], lengths[1] = 1, nb * PAGE - 1
+    if lengths is None:
+        lengths = rng.integers(1, nb * PAGE, B).astype(np.int32)
+        lengths[0], lengths[1] = 1, nb * PAGE - 1
+    lengths = np.asarray(lengths, np.int32)
     tables = np.zeros((B, nb), np.int32)
     free = list(rng.permutation(np.arange(1, NB)))
     for b in range(B):
@@ -273,7 +336,8 @@ def pool_positions_read(lengths, tables, bs: int) -> int:
 
 
 def check_paged(torch, dev, results):
-    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.kernels.paged_attention.ops import (DEVICE_KERNELS, paged_attention,
+                                                         split_plan)
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
     rows = []
@@ -286,36 +350,57 @@ def check_paged(torch, dev, results):
             row = dict(dtype=dt, **kw, max_abs_err=max_err(torch, out, want, dt))
             rows.append(row)
             log(f"paged {json.dumps(row)}")
+    results["paged_cases"] = rows
     # timing at the decode step's shape: 8 lanes, 5 KV heads x 3 queries,
     # bs 16, bf16; 8 layers of pools (84 MB, over the 50 MB L2) walked in
-    # turn, so each launch finds its pool cold, as a layer's does in decode
+    # turn, so each launch finds its pool cold, as a layer's does in
+    # decode.  Lengths: random 1..1023 (two lanes stale), and phase 3's own
+    # (its profiled decode steps: the first 8 prompts, ~10 tokens in).
     dt = "bfloat16"
     L = 8
-    q, kp, vp, lengths, tables = paged_inputs(torch, dev, dt, layers=L)
-    B, Hk, rep, D = q.shape
-    n = lengths.long() + 1                       # positions [0, length] per lane
-    esize = q.element_size()
-    read = pool_positions_read(lengths.cpu().numpy(), tables.cpu().numpy(), PAGE)
-    nbytes = (read * Hk * D * 2 + 2 * q.numel()) * esize \
-        + 4 * (lengths.numel() + tables.numel())
-    row = dict(dtype=dt, lanes=B, lengths=lengths.tolist(), nulled_lanes=[6, 7],
-               pool_positions_read=read, positions_attended=int(n.sum()))
-    row["bound_ms"], row["bound_by"] = bound(4 * D * rep * Hk * int(n.sum()), nbytes, dt)
-    i = [0]
+    phase3 = [int(p.size) + 10 for p, _ in requests(SMOLLM_VOCAB)[:MAX_SLOTS]]
+    timings = []
+    for name, lens, nulled in (("random", None, (6, 7)), ("phase 3", phase3, ())):
+        q, kp, vp, lengths, tables = paged_inputs(torch, dev, dt, layers=L, lengths=lens,
+                                                  nulled=nulled)
+        B, Hk, rep, D = q.shape
+        n = lengths.long() + 1                   # positions [0, length] per lane
+        esize = q.element_size()
+        read = pool_positions_read(lengths.cpu().numpy(), tables.cpu().numpy(), PAGE)
+        nbytes = (read * Hk * D * 2 + 2 * q.numel()) * esize \
+            + 4 * (lengths.numel() + tables.numel())
+        bps, n_split = split_plan(tables.shape[1], PAGE)
+        row = dict(lengths_from=name, dtype=dt, lanes=B, lengths=lengths.tolist(),
+                   nulled_lanes=list(nulled), pool_positions_read=read,
+                   positions_attended=int(n.sum()), blocks_per_split=bps, n_split=n_split,
+                   split_ctas=B * Hk * n_split)
+        row["bound_ms"], row["bound_by"] = bound(4 * D * rep * Hk * int(n.sum()), nbytes, dt)
+        out = paged_attention(q, kp[0], vp[0], lengths, tables)
+        torch.cuda.synchronize()
+        row["max_abs_err"] = max_err(torch, out, paged_attention_ref(q, kp[0], vp[0], lengths,
+                                                                     tables), dt)
+        i = [0]
 
-    def step(fn):
-        def go():
-            layer = i[0] % L
-            i[0] += 1
-            return fn(q, kp[layer], vp[layer], lengths, tables)
-        return go
+        def step(fn):
+            def go():
+                layer = i[0] % L
+                i[0] += 1
+                return fn(q, kp[layer], vp[layer], lengths, tables)
+            return go
 
-    row["ms"] = time_ms(torch, step(paged_attention), 400)
-    row["plain_ms"] = time_ms(torch, step(paged_attention_ref), 100)
-    row["library_ms"] = None
-    log(f"paged timing {json.dumps(row)}")
-    results["paged_cases"] = rows
-    results["paged_timing"] = row
+        row["ms"], kernels = device_profile(torch, step(paged_attention), 200)
+        row["device_kernels"] = kernels
+        row["device_kernels_per_call"] = sum(v["calls"] for v in kernels.values())
+        assert row["device_kernels_per_call"] == DEVICE_KERNELS, kernels
+        row["plain_ms"] = device_ms(torch, step(paged_attention_ref), 20)
+        row["ms_events"] = time_ms(torch, step(paged_attention), 400)
+        row["plain_ms_events"] = time_ms(torch, step(paged_attention_ref), 100)
+        row["library_ms"] = None
+        if name == "random":
+            row["host_us_per_call"] = host_us(torch, step(paged_attention))
+        timings.append(row)
+        log(f"paged timing {json.dumps(row)}")
+    results["paged_timing"] = timings
 
 
 def check_flat_adam(torch, dev, results):
@@ -661,6 +746,19 @@ def agreement(a, b) -> dict:
                 token_agreement=float(np.mean(pos)))
 
 
+# the port's CUDA kernels, by the names they carry in a profile
+PORT_KERNEL = re.compile(r"^(void )?\(anonymous namespace\)::(tc::|simt::)?(flash_fwd_kernel|"
+                         r"paged_split_kernel|paged_combine_kernel|ssd_kernel|rmsnorm_kernel|"
+                         r"flat_adam_kernel)\b")
+
+
+def port_kernels(kernels, per: float) -> list[dict]:
+    """The port's own kernels in a profile: name, calls and device ms per
+    ``per``."""
+    return [dict(name=e.key[:100], calls=e.count / per, ms=e.self_device_time_total / 1e3 / per)
+            for e in kernels if PORT_KERNEL.match(e.key)]
+
+
 def profile_decode(torch, cfg, params, reqs, ec, dev, steps: int = 5):
     """Device time of a few decode steps with all 8 lanes busy, by kernel,
     from ``torch.profiler``; the idle share is taken against the step
@@ -696,7 +794,8 @@ def profile_decode(torch, cfg, params, reqs, ec, dev, steps: int = 5):
                kernel_launches_per_step=sum(e.count for e in kernels) / steps,
                top=[dict(name=e.key[:80], calls_per_step=e.count / steps,
                          ms_per_step=e.self_device_time_total / 1e3 / steps)
-                    for e in top])
+                    for e in top],
+               port_kernels_per_step=port_kernels(kernels, steps))
     log(f"profile: {json.dumps(out)}")
     return out
 
@@ -1104,7 +1203,8 @@ def profile_train_step(torch, cfg, group, opt, settings, params, opt_state, batc
                device_idle_share=1 - total_us / 1e3 / step_ms,
                kernel_launches=sum(e.count for e in kernels),
                top=[dict(name=e.key[:80], calls=e.count,
-                         ms=e.self_device_time_total / 1e3) for e in top])
+                         ms=e.self_device_time_total / 1e3) for e in top],
+               port_kernels=port_kernels(kernels, 1))
     log(f"train profile: {json.dumps(out)}")
     return out
 
@@ -1233,8 +1333,8 @@ def main() -> int:
     results["phase_s"] = phase_s
     results["seconds"] = time.perf_counter() - t_start
 
-    fl = next(r for r in results["flash_cases"] if r["S"] == 512 and "ms" in r)
-    pg = results["paged_timing"]
+    fl = {t["shape"]: t for t in results["flash_timing"]}
+    pg = {t["lengths_from"]: t for t in results["paged_timing"]}
     fa = results["flat_adam_timing"]
     sd = results["ssd_timing"]
     rn = {t["kernel"]: t for t in results["rmsnorm_timing"] if t["shape"] == [512, 2048]}
@@ -1248,18 +1348,33 @@ def main() -> int:
              shape="q (1, 512, 15, 64), k/v (1, 512, 5, 64), bf16, causal",
              launches=launches["flash_attention"],
              train_launches=train_launches["flash_attention"],
-             max_abs_err=fl["max_abs_err"], kernel_ms=fl["ms"], ms=fl["ms"],
-             plain_ms=fl["plain_ms"], bound_ms=fl["bound_ms"], bound_by=fl["bound_by"],
-             library_ms=fl["library_ms"]),
+             zamba_launches=zamba_launches["flash_attention"],
+             max_abs_err=max(r["max_abs_err"] for r in results["flash_cases"]
+                             if r["dtype"] == "bfloat16"),
+             kernel_ms=fl["serve"]["ms"], ms=fl["serve"]["ms"],
+             ms_events=fl["serve"]["ms_events"], plain_ms=fl["serve"]["plain_ms"],
+             bound_ms=fl["serve"]["bound_ms"], bound_by=fl["serve"]["bound_by"],
+             library_ms=fl["serve"]["library_ms"],
+             library_ms_events=fl["serve"]["library_ms_events"],
+             library="torch.nn.functional.scaled_dot_product_attention (device time)",
+             host_us_per_call=fl["serve"]["host_us_per_call"],
+             other_shapes={n: {k: fl[n][k] for k in ("q", "ms", "ms_events", "library_ms",
+                                                      "bound_ms")} for n in ("train", "zamba")}),
         dict(name="paged_attention", route="cuda",
              source="src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
              replaces="src/repro/kernels/paged_attention/kernel.py:30",
              jax_function="repro.kernels.paged_attention.kernel.paged_attention_fwd",
              shape="q (8, 5, 3, 64), pools (513, 16, 5, 64), bf16, lengths 1..1023",
              launches=launches["paged_attention"],
-             max_abs_err=results["paged_cases"][0]["max_abs_err"],   # bf16, no mask
-             kernel_ms=pg["ms"], ms=pg["ms"], plain_ms=pg["plain_ms"],
-             bound_ms=pg["bound_ms"], bound_by=pg["bound_by"], library_ms=None),
+             max_abs_err=max(r["max_abs_err"] for r in results["paged_cases"]
+                             if r["dtype"] == "bfloat16"),
+             kernel_ms=pg["random"]["ms"], ms=pg["random"]["ms"],
+             ms_events=pg["random"]["ms_events"], plain_ms=pg["random"]["plain_ms"],
+             bound_ms=pg["random"]["bound_ms"], bound_by=pg["random"]["bound_by"],
+             library_ms=None, n_split=pg["random"]["n_split"],
+             device_kernels_per_call=pg["random"]["device_kernels_per_call"],
+             host_us_per_call=pg["random"]["host_us_per_call"],
+             phase3_lengths={k: pg["phase 3"][k] for k in ("ms", "ms_events", "bound_ms")}),
         dict(name="flat_adam", route="cuda",
              source="src/repro_torch/kernels/flat_adam/csrc/flat_adam.cu",
              replaces="src/repro/kernels/flat_adam/kernel.py:18",

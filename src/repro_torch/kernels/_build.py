@@ -28,6 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: dict[str, ctypes.CDLL] = {}     # loaded once per process
+_ENTRIES: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 
 
 def sources() -> dict[str, Path]:
@@ -95,6 +96,17 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(srcs[name])))
         _LIBS[name] = lib
     return lib
+
+
+def entry(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
+    """C entry point ``symbol`` of kernel ``name``'s library, its ``argtypes``
+    set (and ``restype`` int) once per process, on first use."""
+    fn = _ENTRIES.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
+        _ENTRIES[(name, symbol)] = fn
+    return fn
 
 
 def check(rc: int, name: str) -> None:

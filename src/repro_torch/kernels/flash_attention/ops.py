@@ -3,10 +3,12 @@
 ``flash_attention(q, k, v)`` takes the layout used across ``models/``:
 q ``(B, Sq, H, D)``, k/v ``(B, Sk, Hk, D)``.  On a CUDA tensor it launches
 the hand-written sm_90a kernel (``csrc/flash_attention.cu``, which reads
-the model layout directly, so no transpose is materialised) on PyTorch's
-current stream and adds one to ``flash_attention.launches``; on a CPU
-tensor it runs the plain version (``ref.attention_ref``).  There is no
-fallback: a CUDA tensor the kernel does not take raises.
+the model layout directly, so no transpose is materialised; bf16 runs on
+``wgmma`` tensor cores with ``cp.async`` K/V staging, fp32 on the FMA
+pipes) on PyTorch's current stream and adds one to
+``flash_attention.launches``; on a CPU tensor it runs the plain version
+(``ref.attention_ref``).  There is no fallback: a CUDA tensor the kernel
+does not take raises.  One call is one device kernel.
 
 The gradient mirrors the reference's ``_flash_bwd``
 (``repro/kernels/flash_attention/ops.py``), which has no backward kernel:
@@ -30,6 +32,8 @@ from .ref import attention_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64,)                # compiled head dims (csrc)
+_BLOCK_Q = 64                     # query rows per CTA of the bf16 kernel
+_MAX_GRID_YZ = 65535              # batch and q tiles are grid dims y and z
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
              + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
 
@@ -51,6 +55,21 @@ def _check(q, k, v):
         raise ValueError("q/k/v on different devices")
 
 
+def _check_kernel(q, k, v):
+    """What the CUDA kernel takes beyond ``_check``: head dim 64,
+    contiguous tensors at 16-byte aligned addresses (its ``cp.async``
+    copies move 16 bytes), and a grid that fits."""
+    B, Sq, _, D = q.shape
+    if D not in _HEAD_DIMS:
+        raise ValueError(f"head dim {D} not in {_HEAD_DIMS}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_attention kernel needs contiguous q/k/v")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention kernel needs 16-byte aligned q/k/v")
+    if B > _MAX_GRID_YZ or -(-Sq // _BLOCK_Q) > _MAX_GRID_YZ:
+        raise ValueError(f"batch {B} or {Sq} query rows exceed the kernel's grid")
+
+
 def _forward(q, k, v, causal, window, softcap):
     if q.device.type == "cpu":
         out = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
@@ -59,14 +78,10 @@ def _forward(q, k, v, causal, window, softcap):
         return out.transpose(1, 2)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
+    _check_kernel(q, k, v)
     B, Sq, H, D = q.shape
     Sk, Hk = k.shape[1], k.shape[2]
-    if D not in _HEAD_DIMS:
-        raise ValueError(f"head dim {D} not in {_HEAD_DIMS}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_attention kernel needs contiguous q/k/v")
-    fn = _build.load("flash_attention").flash_attention_fwd
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    fn = _build.entry("flash_attention", "flash_attention_fwd", _ARGTYPES)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

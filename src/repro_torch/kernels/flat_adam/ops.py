@@ -52,8 +52,7 @@ def flat_adam(p, g, m, v, step, *, lr: float, beta1: float = 0.9,
         raise ValueError(f"flat_adam runs on cuda or cpu, not {p.device}")
     if not all(x.is_contiguous() for x in (p, g, m, v, step)):
         raise ValueError("flat_adam kernel needs contiguous buffers")
-    fn = _build.load("flat_adam").flat_adam_fwd
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    fn = _build.entry("flat_adam", "flat_adam_fwd", _ARGTYPES)
     po, mo, vo = torch.empty_like(p), torch.empty_like(m), torch.empty_like(v)
     sms = torch.cuda.get_device_properties(p.device).multi_processor_count
     stream = torch.cuda.current_stream(p.device).cuda_stream

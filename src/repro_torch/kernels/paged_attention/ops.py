@@ -5,10 +5,19 @@ kernel (``csrc/paged_attention.cu``) on PyTorch's current stream and adds
 one to ``paged_attention.launches``; on a CPU tensor it runs the plain
 version (``ref.paged_attention_ref``).  There is no fallback: a CUDA
 tensor the kernel does not take raises.  Decode-only: no backward.
+
+The kernel splits each lane's table into ``n_split`` pieces of
+``blocks_per_split`` blocks (:func:`split_plan`, from the table's width
+and the block size: shapes only, so the grid is the same every step and a
+call makes no host sync), writes each live split's softmax partial to
+fp32 scratch (:func:`scratch_shapes`, allocated here with
+``torch.empty``) and merges a lane's splits in a second device kernel:
+one call, one count in ``launches``, ``DEVICE_KERNELS`` device kernels.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -18,9 +27,26 @@ from .ref import paged_attention_ref
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64,)                # compiled head dims (csrc)
 MAX_REP = 8                     # query heads per KV head the kernel holds
-MAX_BLOCK_SIZE = 32             # one key per lane of a warp
-_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+MAX_BLOCK_SIZE = 32             # positions per table block the kernel takes
+SPLIT_POSITIONS = 64            # positions one split holds at most (csrc)
+DEVICE_KERNELS = 2              # per call: the splits, then their combine
+_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
              + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+
+
+def split_plan(nb: int, bs: int) -> tuple[int, int]:
+    """``(blocks_per_split, n_split)`` for a table of ``nb`` blocks of ``bs``
+    positions: as many whole blocks as fit in ``SPLIT_POSITIONS``
+    positions (at least one), and enough splits to cover the table."""
+    bps = max(1, SPLIT_POSITIONS // bs)
+    return bps, -(-nb // bps)
+
+
+def scratch_shapes(B: int, Hk: int, rep: int, D: int, n_split: int) -> dict:
+    """Shapes of the splits' fp32 partials (m, l, acc), which the kernel
+    reads from one buffer in this order."""
+    return {"m": (B, Hk, n_split, rep), "l": (B, Hk, n_split, rep),
+            "acc": (B, Hk, n_split, rep, D)}
 
 
 def _check(q, k_pool, v_pool, lengths, tables):
@@ -44,6 +70,27 @@ def _check(q, k_pool, v_pool, lengths, tables):
         raise ValueError(f"inputs on several devices: {devs}")
 
 
+def _check_kernel(q, k_pool, v_pool, lengths, tables):
+    """What the CUDA kernel takes beyond ``_check``: head dim 64, rep and
+    block size within its limits, contiguous inputs, pools and q at
+    16-byte aligned addresses (its ``cp.async`` copies move 16 bytes), and
+    a grid that fits."""
+    B, Hk, rep, D = q.shape
+    bs, nb = k_pool.shape[1], tables.shape[1]
+    if D not in _HEAD_DIMS or not 1 <= rep <= MAX_REP \
+            or not 1 <= bs <= MAX_BLOCK_SIZE or nb < 1:
+        raise ValueError(f"unsupported shape: D={D} (of {_HEAD_DIMS}), rep="
+                         f"{rep} (<= {MAX_REP}), bs={bs} (<= "
+                         f"{MAX_BLOCK_SIZE}), nb={nb}")
+    if not all(t.is_contiguous() for t in (q, k_pool, v_pool, lengths, tables)):
+        raise ValueError("paged_attention kernel needs contiguous inputs")
+    if any(t.data_ptr() % 16 for t in (q, k_pool, v_pool)):
+        raise ValueError("paged_attention kernel needs 16-byte aligned q and pools")
+    if Hk > 65535 or split_plan(nb, bs)[1] > 65535:
+        raise ValueError(f"{Hk} KV heads or a table of {nb} blocks exceed the "
+                         "kernel's grid")
+
+
 def paged_attention(q, k_pool, v_pool, lengths, tables, *, window: int = 0,
                     softcap: float = 0.0):
     """One decode step against the block-table KV cache.
@@ -58,24 +105,21 @@ def paged_attention(q, k_pool, v_pool, lengths, tables, *, window: int = 0,
                                    window=window, softcap=softcap)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention runs on cuda or cpu, not {q.device}")
+    _check_kernel(q, k_pool, v_pool, lengths, tables)
     B, Hk, rep, D = q.shape
     bs = k_pool.shape[1]
     nb = tables.shape[1]
-    if D not in _HEAD_DIMS or not 1 <= rep <= MAX_REP \
-            or not 1 <= bs <= MAX_BLOCK_SIZE or nb < 1:
-        raise ValueError(f"unsupported shape: D={D} (of {_HEAD_DIMS}), rep="
-                         f"{rep} (<= {MAX_REP}), bs={bs} (<= "
-                         f"{MAX_BLOCK_SIZE}), nb={nb}")
-    if not all(t.is_contiguous() for t in (q, k_pool, v_pool, lengths, tables)):
-        raise ValueError("paged_attention kernel needs contiguous inputs")
-    fn = _build.load("paged_attention").paged_attention_fwd
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    bps, n_split = split_plan(nb, bs)
+    shapes = scratch_shapes(B, Hk, rep, D, n_split)
+    scratch = torch.empty(sum(math.prod(s) for s in shapes.values()),
+                          dtype=torch.float32, device=q.device)
+    fn = _build.entry("paged_attention", "paged_attention_fwd", _ARGTYPES)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             lengths.data_ptr(), tables.data_ptr(), out.data_ptr(),
-            _DTYPES[q.dtype], B, Hk, rep, D, bs, nb, int(window),
-            float(softcap), float(D ** -0.5), stream)
+            scratch.data_ptr(), _DTYPES[q.dtype], B, Hk, rep, D, bs, nb, bps,
+            n_split, int(window), float(softcap), float(D ** -0.5), stream)
     _build.check(rc, "paged_attention")
     paged_attention.launches += 1
     return out

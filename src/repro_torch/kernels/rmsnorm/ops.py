@@ -45,9 +45,7 @@ def _check(name, gamma, *xs):
 
 
 def _entry(name, n_ptrs):
-    fn = getattr(_build.load("rmsnorm"), name)
-    fn.argtypes, fn.restype = [ctypes.c_void_p] * n_ptrs + _TAIL, ctypes.c_int
-    return fn
+    return _build.entry("rmsnorm", name, [ctypes.c_void_p] * n_ptrs + _TAIL)
 
 
 def rmsnorm(x, gamma, *, eps: float = 1e-6):

@@ -79,8 +79,7 @@ def _launch(x, dt, A, Bm, Cm, y, state, *, seq_axis: int):
         return _STRIDES(*(t.stride(i) for i in lead))
 
     dts = _STRIDES(dt.stride(0), dt.stride(seq_axis), dt.stride(head_axis))
-    fn = _build.load("ssd").ssd_scan
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    fn = _build.entry("ssd", "ssd_scan", _ARGTYPES)
     rc = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
             y.data_ptr(), None if state is None else state.data_ptr(),
             _DTYPES[x.dtype], _DTYPES[y.dtype], x.shape[0], x.shape[head_axis],

@@ -32,9 +32,12 @@ import pytest
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.kernels.flash_attention.ref import attention_ref
-from repro_torch.kernels.paged_attention.ops import paged_attention
+from repro_torch.kernels.flash_attention.ref import NEG_INF, attention_ref
+from repro_torch.kernels.paged_attention import ops as paged_ops
+from repro_torch.kernels.paged_attention.ops import (paged_attention, scratch_shapes,
+                                                     split_plan)
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_add
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_add_ref, rmsnorm_ref
@@ -49,6 +52,10 @@ FLASH_KWARGS = [dict(causal=True), dict(causal=False),
 PAGED_KWARGS = [dict(), dict(window=5), dict(softcap=5.0),
                 dict(window=7, softcap=30.0)]
 RMSNORM_SHAPES = [(64, 96), (256, 128), (8, 512)]                  # rows, D
+# the card cases of the redesigned kernels: flash at ragged and tile-edge
+# lengths (tiles of 64), paged at split edges for every block size
+FLASH_CARD_S = [1, 17, 63, 64, 65, 100, 300, 1024]
+PAGED_CARD_KWARGS = [dict(), dict(window=20), dict(window=70, softcap=30.0)]
 
 
 def _tol(dt):
@@ -88,6 +95,28 @@ def _flash_inputs(S, H, Hk, D, seed=None):
 
 def _t(x, dt, device="cpu"):
     return torch.tensor(x).to(device=device, dtype=getattr(torch, dt))
+
+
+def _paged_split_inputs(rep, bs, Hk=2, D=64, seed=0):
+    """Lanes whose lengths sit at the split edges of :func:`split_plan`
+    (one below, on, one above the first and second split boundaries),
+    length 0, a lane filling its table, and a stale lane (table row nulled
+    to the sink block 0)."""
+    bps, _ = split_plan(1, bs)
+    span = bps * bs                                  # positions per split
+    nb = 3 * bps + 1
+    lengths = np.array([0, span - 1, span, span + 1, 2 * span - 1, 2 * span + 1,
+                        nb * bs - 1, 5], np.int32)
+    rng = np.random.default_rng(seed + bs + 7 * rep)
+    B, NB = lengths.size, lengths.size * nb + 1
+    q = rng.normal(size=(B, Hk, rep, D)).astype(np.float32)
+    kp, vp = (rng.normal(size=(NB, bs, Hk, D)).astype(np.float32) for _ in range(2))
+    tables = np.zeros((B, nb), np.int32)
+    free = list(rng.permutation(np.arange(1, NB)))
+    for b in range(B - 1):                           # the last lane is stale
+        for j in range(int(lengths[b]) // bs + 1):
+            tables[b, j] = free.pop()
+    return q, kp, vp, lengths, tables
 
 
 def _paged_inputs(B=8, Hk=2, rep=3, D=16, bs=4, nb=8, seed=0):
@@ -422,3 +451,183 @@ def test_ssd_fwd_kernel_matches_plain_on_card(cuda, dt, T, H, P, G, N, chunk):
     assert y.dtype == x.dtype
     tol = _card_tol(dt) if dt == "bfloat16" else _ssd_card_tol(want)
     torch.testing.assert_close(y.float(), want.to(x.dtype).float(), **tol)
+
+
+# ---------------------------------------------------------------------------
+# The redesigned kernels' arithmetic and checks, on the CPU
+# ---------------------------------------------------------------------------
+
+
+def _flash_p_rounding(S, H=15, Hk=5, D=64):
+    """The bf16 kernel's P.V arithmetic against the plain version, in
+    torch: attention from bf16 inputs with P fed to the product as one bf16
+    rounding, or as the kernel's two terms hi = bf16(p), lo = bf16(p - hi).
+    Returns (single, split) as each output's error over the card's bf16
+    limit, atol 1e-3 + rtol 1e-2 (both outputs rounded to bf16 once, as
+    the kernel and the plain version round theirs)."""
+    q, k, v = (torch.tensor(x).bfloat16().float() for x in _flash_inputs(S, H, Hk, D))
+    rep = H // Hk
+    qf = q.transpose(1, 2).reshape(2, Hk, rep, S, D)
+    s = torch.einsum("bhrqd,bhkd->bhrqk", qf, k.transpose(1, 2)) * D ** -0.5
+    s = s.masked_fill(torch.ones(S, S, dtype=torch.bool).triu(1), NEG_INF)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    l = p.sum(-1, keepdim=True)
+    out = lambda pp: (torch.einsum("bhrqk,bhkd->bhrqd", pp, v.transpose(1, 2)) / l).bfloat16().float()
+    want = out(p)
+    hi = p.bfloat16().float()
+    lo = (p - hi).bfloat16().float()
+    lim = 1e-3 + 1e-2 * want.abs()
+    return [((out(pp) - want).abs() / lim).max().item() for pp in (hi, hi + lo)]
+
+
+@pytest.mark.parametrize("S", [17, 100, 300])
+def test_flash_p_split_keeps_card_tolerance(S):
+    """Why the bf16 kernel multiplies P into V as two bf16 terms: with one
+    bf16 rounding of P, outputs where a few keys dominate and their values
+    cancel leave the card's bf16 limit (up to ~2x it at these shapes);
+    with hi + lo, only the outputs' own bf16 rounding remains."""
+    single, split = _flash_p_rounding(S)
+    assert single > 1.0, single
+    assert split <= 0.75, split
+
+
+def test_flash_kernel_checks():
+    """The CUDA path's own checks, on CPU tensors: head dim 64, contiguous,
+    16-byte aligned (``cp.async``), a grid that fits."""
+    q = torch.zeros(2, 16, 4, 64, dtype=torch.bfloat16)
+    kv = torch.zeros(2, 16, 2, 64, dtype=torch.bfloat16)
+    flash_ops._check_kernel(q, kv, kv)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_ops._check_kernel(q[..., :32], kv[..., :32], kv[..., :32])
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_ops._check_kernel(q.transpose(1, 2), kv, kv)
+    shifted = torch.zeros(q.numel() + 1, dtype=torch.bfloat16)[1:].view(q.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        flash_ops._check_kernel(shifted, kv, kv)
+    with pytest.raises(ValueError, match="grid"):
+        big = torch.zeros(65536, 1, 1, 64, dtype=torch.bfloat16)
+        flash_ops._check_kernel(big, big, big)
+
+
+def test_paged_kernel_checks():
+    q = torch.zeros(2, 1, 3, 64)
+    pool = torch.zeros(5, 16, 1, 64)
+    lengths, tables = torch.zeros(2, dtype=torch.int32), torch.zeros(2, 4, dtype=torch.int32)
+    paged_ops._check_kernel(q, pool, pool, lengths, tables)
+    with pytest.raises(ValueError, match="rep=9"):
+        paged_ops._check_kernel(torch.zeros(2, 1, 9, 64), pool, pool, lengths, tables)
+    with pytest.raises(ValueError, match="bs=33"):
+        big = torch.zeros(5, 33, 1, 64)
+        paged_ops._check_kernel(q, big, big, lengths, tables)
+    with pytest.raises(ValueError, match="contiguous"):
+        paged_ops._check_kernel(q, pool, pool, lengths, tables.t().contiguous().t())
+    shifted = torch.zeros(q.numel() + 1)[1:].view(q.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        paged_ops._check_kernel(shifted, pool, pool, lengths, tables)
+
+
+@pytest.mark.parametrize("nb,bs", [(64, 16), (1, 1), (1, 32), (7, 3), (64, 1), (12, 32),
+                                   (100, 5), (21, 3), (22, 3)])
+def test_paged_split_plan(nb, bs):
+    """``n_split`` and the blocks per split depend on the table's width and
+    the block size only; the splits cover the table, each within the
+    kernel's 64 positions; the scratch holds one partial per split."""
+    bps, n_split = split_plan(nb, bs)
+    assert bps == max(1, paged_ops.SPLIT_POSITIONS // bs)
+    assert bps * bs <= paged_ops.SPLIT_POSITIONS
+    assert (n_split - 1) * bps < nb <= n_split * bps
+    shapes = scratch_shapes(8, 5, 3, 64, n_split)
+    assert shapes == {"m": (8, 5, n_split, 3), "l": (8, 5, n_split, 3),
+                      "acc": (8, 5, n_split, 3, 64)}
+    if (nb, bs) == (64, 16):                         # the serving shape: 640 CTAs
+        assert (bps, n_split) == (4, 16) and 8 * 5 * n_split == 640
+
+
+def _split_combine(q, kp, vp, lengths, tables, *, window=0, softcap=0.0):
+    """The kernel's two passes in torch: each live split's partial (m, l,
+    acc) over its positions, masked positions at weight 0, then the
+    log-sum-exp merge of the splits the combine reads (those meeting the
+    lane's blocks [lo, hi)), weight 0 for l = 0."""
+    B, Hk, rep, D = q.shape
+    bs, nb = kp.shape[1], tables.shape[1]
+    bps, n_split = split_plan(nb, bs)
+    out = torch.zeros_like(q)
+    for b in range(B):
+        length = int(lengths[b])
+        hi = min(length // bs + 1, nb)
+        lo = max(int((length - window + 1) / bs), 0) if window > 0 else 0  # C division
+        parts = []
+        for s in range(lo // bps, (hi - 1) // bps + 1 if hi > lo else lo // bps):
+            j0, j1 = max(s * bps, lo), min((s + 1) * bps, hi)
+            assert j0 < j1, (b, s)                   # every split read was written
+            blk = tables[b, j0:j1].long()
+            k = kp[blk].reshape(-1, Hk, D).transpose(0, 1)
+            v = vp[blk].reshape(-1, Hk, D).transpose(0, 1)
+            pos = torch.arange(j0 * bs, j1 * bs)
+            ok = pos <= length
+            if window > 0:
+                ok &= pos > length - window
+            sc = torch.einsum("hrd,hpd->hrp", q[b], k) * D ** -0.5
+            if softcap:
+                sc = softcap * torch.tanh(sc / softcap)
+            sc = torch.where(ok, sc, NEG_INF)
+            m = sc.amax(-1)
+            p = torch.where(ok, torch.exp(sc - m[..., None]), 0.0)
+            parts.append((m, p.sum(-1), torch.einsum("hrp,hpd->hrd", p, v)))
+        if not parts:
+            continue
+        ms = torch.stack([m for m, _, _ in parts])
+        ls = torch.stack([l for _, l, _ in parts])
+        live = ls > 0
+        mg = torch.where(live, ms, NEG_INF).amax(0)
+        w = torch.where(live, torch.exp(ms - mg), 0.0)
+        acc = sum(wi[..., None] * a for wi, (_, _, a) in zip(w, parts))
+        out[b] = acc / (w * ls).sum(0).clamp_min(1e-30)[..., None]
+    return out
+
+
+@pytest.mark.parametrize("bs", [3, 4, 8, 16, 32])
+@pytest.mark.parametrize("kwargs", PAGED_CARD_KWARGS)
+def test_paged_split_combine_matches_plain(bs, kwargs):
+    """The split plan's arithmetic (live splits from the length and the
+    window, per-split partials, the merge) against the plain version, in
+    fp32 on the CPU, at the split edges the card cases use."""
+    q, kp, vp, lengths, tables = (torch.tensor(x) for x in _paged_split_inputs(3, bs))
+    want = paged_attention_ref(q, kp, vp, lengths, tables, **kwargs)
+    got = _split_combine(q, kp, vp, lengths, tables, **kwargs)
+    torch.testing.assert_close(got, want, **_tol("float32"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("S", FLASH_CARD_S)
+@pytest.mark.parametrize("rep", [1, 3, 5])
+@pytest.mark.parametrize("kwargs", FLASH_KWARGS)
+def test_flash_kernel_edges_on_card(cuda, dt, S, rep, kwargs):
+    """Ragged and tile-edge lengths (tiles of 64 rows and keys), batch 2,
+    GQA 1:1, 3:1 and 5:1 over 15 q-heads, every mask option."""
+    q, k, v = _flash_inputs(S, 15, 15 // rep, 64)
+    args = [_t(x, dt, cuda) for x in (q, k, v)]
+    out = flash_attention(*args, **kwargs)
+    torch.cuda.synchronize()
+    want = attention_ref(*(a.transpose(1, 2) for a in args), **kwargs).transpose(1, 2)
+    torch.testing.assert_close(out.float(), want.float(), **_card_tol(dt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("bs", [3, 4, 8, 16, 32])
+@pytest.mark.parametrize("rep", [1, 2, 3, 5, 8])
+@pytest.mark.parametrize("kwargs", PAGED_CARD_KWARGS)
+def test_paged_kernel_split_edges_on_card(cuda, dt, bs, rep, kwargs):
+    """Lengths one below, on and one above split boundaries, length 0, a
+    full table, a stale lane, and windows that leave whole splits dead."""
+    q, kp, vp, lengths, tables = _paged_split_inputs(rep, bs)
+    args = [_t(x, dt, cuda) for x in (q, kp, vp)]
+    lt, tt = torch.tensor(lengths, device=cuda), torch.tensor(tables, device=cuda)
+    before = paged_attention.launches
+    out = paged_attention(*args, lt, tt, **kwargs)
+    torch.cuda.synchronize()
+    assert paged_attention.launches == before + 1
+    want = paged_attention_ref(*args, lt, tt, **kwargs)
+    torch.testing.assert_close(out.float(), want.float(), **_card_tol(dt))
