@@ -40,7 +40,11 @@ Phases (any failure raises and the script exits non-zero):
    the tensor's largest entry plus 1e-4 of each entry (the same fp32
    products, blocked by 64 positions in the kernel and 256 in the plain
    version); plus the TPU layout's bf16 output (bf16 tolerance).  Time
-   kernel and plain version at (1, 512, 64, 64) from bf16 inputs.
+   kernel and plain version at (1, 512, 64, 64) and (1, 2048, 64, 64)
+   from bf16 inputs, beside both bounds (the fp32 FMA pipes', the first
+   design's, and the bf16 tensor cores', the row's own), the blocks of each
+   of the kernel's passes and its device kernels per call; print the
+   wrapper's host microseconds per call.
 2e. Hold ``rmsnorm`` and ``rmsnorm_add`` against their plain versions at
    (512, 2048) and (8, 4096), bf16 and fp32 (``TOL``; the new residual of
    ``rmsnorm_add`` bitwise), and time them beside
@@ -84,8 +88,10 @@ Phases (any failure raises and the script exits non-zero):
    ``zamba_logit_agreement``: with random weights one bf16 rounding moves
    this model's logits by O(1)), so bf16 is gated block by block only.
    Prints tokens/s (wall time without the invariant sweeps), decode step
-   median and p90, prefill ms at bucket 512, peak memory and a profiled
-   decode step's idle share.
+   median and p90, prefill ms at bucket 512, peak memory, a profiled
+   decode step's idle share, and a profiled kernel-path prefill at bucket
+   512: device ms, idle share, launches, the top device kernels and the
+   SSD kernels' share of the device time.
 6. Print the seconds of each phase, the card's name and power limit, one
    ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
    {...}}``.  Details go to ``results.json`` in ``OUT_DIR``.
@@ -195,6 +201,14 @@ def device_profile(torch, fn, iters: int = 50) -> tuple[float | None, dict]:
     return (sum(e.self_device_time_total for e in evs) / 1e3 / iters if evs else None), names
 
 
+def kernels_per_call(kernels: dict) -> int:
+    """Device kernels one call launches, from ``device_profile``'s {name:
+    {calls}}: each kernel's calls per call rounded to a whole launch, since
+    the profiler's record can miss the first launches of its window (seen:
+    one call of 50-200, 0.98-0.99 calls a call)."""
+    return sum(round(v["calls"]) for v in kernels.values())
+
+
 def device_ms(torch, fn, iters: int = 50) -> float | None:
     return device_profile(torch, fn, iters)[0]
 
@@ -285,7 +299,7 @@ def check_flash(torch, dev, results):
                                                  2 * B * S * D * (2 * H + 2 * Hk), dt)
         iters = 200 if B * S <= 512 else 50
         row["ms"], kernels = device_profile(torch, kernel)
-        row["device_kernels_per_call"] = sum(v["calls"] for v in kernels.values())
+        row["device_kernels_per_call"] = kernels_per_call(kernels)
         row["plain_ms"] = device_ms(torch, plain, 20)
         row["library_ms"], row["library_kernels"] = device_profile(torch, lib)
         row["vs_library"] = row["ms"] / row["library_ms"] if row["ms"] and row["library_ms"] else None
@@ -390,7 +404,7 @@ def check_paged(torch, dev, results):
 
         row["ms"], kernels = device_profile(torch, step(paged_attention), 200)
         row["device_kernels"] = kernels
-        row["device_kernels_per_call"] = sum(v["calls"] for v in kernels.values())
+        row["device_kernels_per_call"] = kernels_per_call(kernels)
         assert row["device_kernels_per_call"] == DEVICE_KERNELS, kernels
         row["plain_ms"] = device_ms(torch, step(paged_attention_ref), 20)
         row["ms_events"] = time_ms(torch, step(paged_attention), 400)
@@ -547,20 +561,41 @@ def check_ssd(torch, dev, results):
                      max_abs_err=max_err(torch, y, want, "bfloat16")))
     log(f"ssd {json.dumps(rows[-1])}")
 
+    results["ssd_cases"] = rows
+    results["ssd_timing"] = ssd_timing(torch, dev, T, plain_iters=20, host=True)
+    results["ssd_timing_2048"] = ssd_timing(torch, dev, 2048, plain_iters=5)
+
+
+def ssd_timing(torch, dev, T, *, plain_iters: int, host: bool = False) -> dict:
+    """Kernel and plain version at x (1, T, 64, 64) bf16 by device time per
+    call, the kernel's device kernels by name, the blocks of each of its
+    passes, and both bounds: the fp32 FMA pipes' (the first design's) and the
+    bf16 tensor cores' (bytes at these shapes), the row's own."""
+    from repro_torch.kernels.ssd.ops import ssd, ssd_plan
+    from repro_torch.kernels.ssd.ref import ssd_chunked_ref
+
+    B, _, H, P, G, N = SSD_SHAPE
     args = ssd_inputs(torch, dev, "bfloat16", B, T, H, P, G, N, seed=1)
-    timing = dict(x=[B, T, H, P], N=N, G=G, input_dtype="bfloat16", output="y, state fp32")
+    timing = dict(x=[B, T, H, P], N=N, G=G, input_dtype="bfloat16", output="y, state fp32",
+                  blocks=ssd_plan(B, T, H, N, P)["blocks"])
     flops, nbytes = ssd_bound(B, T, H, P, G, N, 2)
     timing.update(flops=flops, bytes=nbytes)
-    timing["bound_ms"], timing["bound_by"] = bound(flops, nbytes, "float32")
+    timing["bound_fma_ms"], timing["bound_fma_by"] = bound(flops, nbytes, "float32")
+    timing["bound_ms"], timing["bound_by"] = bound(flops, nbytes, "bfloat16")
     kernel = lambda: ssd(*args, chunk=256)
     plain = lambda: ssd_chunked_ref(*args, chunk=256, return_state=True)
-    timing["ms"], timing["plain_ms"] = device_ms(torch, kernel), device_ms(torch, plain, 20)
+    timing["ms"], names = device_profile(torch, kernel)
+    timing["device_kernels"] = {k: v for k, v in names.items() if PORT_KERNEL.match(k)}
+    timing["device_kernels_per_call"] = kernels_per_call(timing["device_kernels"])
+    assert timing["device_kernels_per_call"] == 3, timing["device_kernels"]   # the three passes
+    timing["plain_ms"] = device_ms(torch, plain, plain_iters)
     timing["ms_events"] = time_ms(torch, kernel, 100)
-    timing["plain_ms_events"] = time_ms(torch, plain, 20)
+    timing["plain_ms_events"] = time_ms(torch, plain, plain_iters)
     timing["library_ms"] = None
+    if host:
+        timing["host_us_per_call"] = host_us(torch, kernel)
     log(f"ssd timing {json.dumps(timing)}")
-    results["ssd_cases"] = rows
-    results["ssd_timing"] = timing
+    return timing
 
 
 def check_rmsnorm(torch, dev, results):
@@ -748,8 +783,10 @@ def agreement(a, b) -> dict:
 
 # the port's CUDA kernels, by the names they carry in a profile
 PORT_KERNEL = re.compile(r"^(void )?\(anonymous namespace\)::(tc::|simt::)?(flash_fwd_kernel|"
-                         r"paged_split_kernel|paged_combine_kernel|ssd_kernel|rmsnorm_kernel|"
-                         r"flat_adam_kernel)\b")
+                         r"paged_split_kernel|paged_combine_kernel|ssd_kernel|"
+                         r"ssd_chunk_state_kernel|ssd_state_pass_kernel|ssd_chunk_scan_kernel|"
+                         r"rmsnorm_kernel|flat_adam_kernel)\b")
+SSD_KERNEL = re.compile(r"^(void )?\(anonymous namespace\)::(tc::|simt::)?ssd_")
 
 
 def port_kernels(kernels, per: float) -> list[dict]:
@@ -908,6 +945,8 @@ def zamba_path(torch, dev, results):
         f"greedy agreement with the kernel path {e2e['greedy_bf16']} (not gated)")
     del ref_eng, eng
     e2e["prefill_512"] = prefill_ms(torch, dev, base, params)
+    results["zamba_prefill_profile"] = profile_prefill(
+        torch, dev, base, params, e2e["prefill_512"]["kernel"]["ms_median"])
     results["zamba_profile"] = profile_decode(torch, cfg, params, reqs, ec, dev)
     results["zamba"] = e2e
     results["zamba_blocks"] = zamba_block_agreement(torch, dev, base, params, reqs[2][0])
@@ -920,8 +959,7 @@ def prefill_ms(torch, dev, base, params, iters: int = 5) -> dict:
     prompt at bucket 512, kernel and plain path, after a synchronize."""
     from repro_torch.models import zamba
 
-    tokens = torch.randint(0, base.vocab, (1, 512), dtype=torch.int32, device=dev,
-                           generator=torch.Generator(device=dev).manual_seed(6))
+    tokens = prefill_tokens(torch, dev, base)
     out = {}
     for impl in ("kernel", "chunked"):
         cfg = dataclasses.replace(base, attn_impl=impl)
@@ -940,6 +978,48 @@ def prefill_ms(torch, dev, base, params, iters: int = 5) -> dict:
         out[impl] = dict(ms_median=float(np.median(times)), ms=times)
         del p, cache
     log(f"zamba2 prefill at bucket 512: {json.dumps(out)}")
+    return out
+
+
+def prefill_tokens(torch, dev, base):
+    return torch.randint(0, base.vocab, (1, 512), dtype=torch.int32, device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(6))
+
+
+def profile_prefill(torch, dev, base, params, host_ms: float) -> dict | None:
+    """One kernel-path ``prefill_slot`` of a 512-token prompt at bucket 512
+    under ``torch.profiler``: device time, launches, the top device kernels
+    and the SSD kernels' share of the device time; the idle share is taken
+    against ``host_ms``, the same prefill's unprofiled host time."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import zamba
+
+    cfg = dataclasses.replace(base, attn_impl="kernel")
+    p = zamba.cast_for_compute(cfg, params, dev)
+    cache = {k: torch.zeros_like(s, device=dev)
+             for k, s in zamba.make_cache_specs(cfg, 1, 512).items()}
+    tokens = prefill_tokens(torch, dev, base)
+    zamba.prefill_slot(cfg, p, cache, tokens, 0, 512)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        zamba.prefill_slot(cfg, p, cache, tokens, 0, 512)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    if not kernels:
+        log("prefill profile: torch.profiler recorded no device activity (not measured)")
+        return None
+    total_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    ssd_ms = sum(e.self_device_time_total for e in kernels if SSD_KERNEL.match(e.key)) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
+    out = dict(bucket=512, host_ms_unprofiled=host_ms, device_ms=total_ms,
+               device_idle_share=1 - total_ms / host_ms,
+               launches=sum(e.count for e in kernels), ssd_device_ms=ssd_ms,
+               ssd_share_of_device=ssd_ms / total_ms,
+               top=[dict(name=e.key[:80], calls=e.count, ms=e.self_device_time_total / 1e3)
+                    for e in top],
+               port_kernels=port_kernels(kernels, 1))
+    log(f"zamba2 prefill profile: {json.dumps(out)}")
+    del p, cache
     return out
 
 
@@ -1308,10 +1388,15 @@ def main() -> int:
     for name in _build.sources():
         _build.load(name)
     results["build_s"] = phase_s["1 build"] = time.perf_counter() - t
+    spills = {}
     for name, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line:
+            if "registers" in line or "spill" in line:
                 log(f"ptxas[{name}]: {line.strip()}")
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                spills[name] = spills.get(name, 0) + int(m.group(1)) + int(m.group(2))
+    results["ptxas_spill_bytes"] = spills
     log(f"built {sorted(_build.sources())} in {results['build_s']:.1f} s")
 
     def phase(name, fn, *args):
@@ -1391,8 +1476,13 @@ def main() -> int:
                    "y and state fp32",
              launches=zamba_launches["ssd"],
              max_abs_err=max(r["max_abs_err"] for r in results["ssd_cases"]),
-             kernel_ms=sd["ms"], ms=sd["ms"], plain_ms=sd["plain_ms"],
-             bound_ms=sd["bound_ms"], bound_by=sd["bound_by"], library_ms=None),
+             kernel_ms=sd["ms"], ms=sd["ms"], ms_events=sd["ms_events"],
+             plain_ms=sd["plain_ms"], bound_ms=sd["bound_ms"], bound_by=sd["bound_by"],
+             bound_fma_ms=sd["bound_fma_ms"], library_ms=None, blocks=sd["blocks"],
+             device_kernels_per_call=sd["device_kernels_per_call"],
+             host_us_per_call=sd["host_us_per_call"],
+             t2048={k: results["ssd_timing_2048"][k]
+                    for k in ("ms", "plain_ms", "bound_ms", "bound_fma_ms", "blocks")}),
     ]
     for name, line in (("rmsnorm", 18), ("rmsnorm_add", 26)):
         t = rn[name]

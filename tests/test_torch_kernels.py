@@ -41,7 +41,8 @@ from repro_torch.kernels.paged_attention.ops import (paged_attention, scratch_sh
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_add
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_add_ref, rmsnorm_ref
-from repro_torch.kernels.ssd.ops import ssd, ssd_fwd
+from repro_torch.kernels.ssd import ops as ssd_ops
+from repro_torch.kernels.ssd.ops import ssd, ssd_fwd, ssd_plan
 from repro_torch.kernels.ssd.ref import ssd_chunked_ref
 from repro_torch.models import attention as tattn
 
@@ -453,6 +454,98 @@ def test_ssd_fwd_kernel_matches_plain_on_card(cuda, dt, T, H, P, G, N, chunk):
     torch.testing.assert_close(y.float(), want.to(x.dtype).float(), **tol)
 
 
+# the bf16 SSD kernel's card cases: chunk edges (chunks of 64) up to 32
+# chunks, batch, groups, widths, a dt = 0 tail, unaligned rows
+SSD_CARD_T = [1, 63, 64, 65, 128, 511, 512, 2048]
+
+
+def _ssd_check(y, state, args, T=None):
+    """y (and the final state) against ``ssd_chunked`` on the first T
+    positions of ``args`` (all of them by default)."""
+    if T is not None:
+        args = [a[:, :T] if a.dim() > 1 else a for a in args]
+    want_y, want_s = ssd_chunked_ref(*args, chunk=256, return_state=True)
+    assert y.dtype == torch.float32
+    torch.testing.assert_close(y[:, :want_y.shape[1]], want_y, **_ssd_card_tol(want_y))
+    if state is not None:
+        torch.testing.assert_close(state, want_s, **_ssd_card_tol(want_s))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("T", SSD_CARD_T)
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("G", [1, 2])
+def test_ssd_kernel_edges_on_card(cuda, dt, T, B, G):
+    """The model layout at chunk edges, from strided views: y and the
+    final state, one launch a call."""
+    args = _ssd_conv_views(B, T, 4, 64, G, 64, dt, cuda, seed=T + B + G)
+    before = ssd.launches
+    y, state = ssd(*args, chunk=256)
+    torch.cuda.synchronize()
+    assert ssd.launches == before + 1
+    _ssd_check(y, state, args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("N", [8, 16, 64])
+@pytest.mark.parametrize("P", [8, 16, 64])
+def test_ssd_kernel_widths_on_card(cuda, dt, N, P):
+    args = _ssd_conv_views(2, 130, 4, P, 2, N, dt, cuda, seed=N * P)
+    y, state = ssd(*args, chunk=256)
+    torch.cuda.synchronize()
+    _ssd_check(y, state, args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("T", [1, 37, 300, 511])
+def test_ssd_kernel_valid_tail_on_card(cuda, dt, T):
+    """A prompt of T padded to bucket 512 with dt = 0 past it (x, B and C
+    left random there): the final state equals the exact-length scan's."""
+    args = list(_ssd_conv_views(1, 512, 8, 64, 1, 64, dt, cuda, seed=T))
+    args[1][:, T:] = 0.0
+    y, state = ssd(*args, chunk=256)
+    torch.cuda.synchronize()
+    _ssd_check(y, state, args, T=T)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("T", SSD_CARD_T)
+def test_ssd_fwd_kernel_edges_on_card(cuda, dt, T):
+    """The TPU layout at chunk edges: y in x's dtype (bf16 at the card's
+    bf16 tolerance, one rounding of the fp32 result)."""
+    x, d, A, bm, cm = (a.transpose(1, 2) if a.dim() > 1 else a
+                       for a in _ssd_conv_views(2, T, 4, 64, 2, 64, dt, cuda, seed=T))
+    y = ssd_fwd(x, d, A, bm, cm)
+    torch.cuda.synchronize()
+    t = lambda a: a.transpose(1, 2)
+    want = t(ssd_chunked_ref(t(x), t(d), A, t(bm), t(cm), chunk=256))
+    assert y.dtype == x.dtype
+    tol = _card_tol(dt) if dt == "bfloat16" else _ssd_card_tol(want)
+    torch.testing.assert_close(y.float(), want.to(x.dtype).float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("P,N", [(64, 64), (20, 12)])
+def test_ssd_kernel_unaligned_rows_on_card(cuda, dt, P, N):
+    """Rows that are not 16-byte aligned (x, B and C one element into
+    their buffer) or not a multiple of 8 wide: staged by scalar loads."""
+    B, T, H, G = 2, 200, 4, 2
+    rng = np.random.default_rng(P + N)
+    buf = _t(rng.normal(size=(B, T, 1 + H * P + 2 * G * N)).astype(np.float32), dt, cuda)
+    x, bm, cm = torch.split(buf[..., 1:], [H * P, G * N, G * N], dim=-1)
+    d = _t(rng.uniform(0.01, 0.2, size=(B, T, H)).astype(np.float32), "float32", cuda)
+    A = _t(-rng.uniform(0.5, 2.0, size=(H,)).astype(np.float32), "float32", cuda)
+    args = (x.reshape(B, T, H, P), d, A, bm.reshape(B, T, G, N), cm.reshape(B, T, G, N))
+    y, state = ssd(*args, chunk=256)
+    torch.cuda.synchronize()
+    _ssd_check(y, state, args)
+
+
 # ---------------------------------------------------------------------------
 # The redesigned kernels' arithmetic and checks, on the CPU
 # ---------------------------------------------------------------------------
@@ -631,3 +724,94 @@ def test_paged_kernel_split_edges_on_card(cuda, dt, bs, rep, kwargs):
     assert paged_attention.launches == before + 1
     want = paged_attention_ref(*args, lt, tt, **kwargs)
     torch.testing.assert_close(out.float(), want.float(), **_card_tol(dt))
+
+
+def _ssd_split_rounding(T, split, H=64, P=64, N=64, Q=64):
+    """The bf16 kernel's arithmetic in torch: chunks of 64, the chunk
+    states (B_k w_k) x_k^T, the state pass in fp32, C.S_prev and (scores o
+    decay o dt_k).x, with the three operands that are not exact in bf16
+    entering their products as one bf16 rounding, or (``split``) as the
+    kernel's two terms hi = bf16(v), lo = bf16(v - hi); fp32 products of
+    the rounded values, as the tensor cores accumulate.  Returns each
+    output's (y, state) error against ``ssd_chunked`` over the card's
+    limit, 1e-4 of the largest entry plus 1e-4 of each entry."""
+    bf = lambda t: t.bfloat16().float()
+    rnd = (lambda t: bf(t) + bf(t - bf(t))) if split else bf
+    args = _ssd_conv_views(1, T, H, P, 1, N, "bfloat16", "cpu", seed=T)
+    want = ssd_chunked_ref(*args, chunk=256, return_state=True)
+    x, dt, A, Bm, Cm = args
+    nc = -(-T // Q)
+    pad = lambda a: torch.nn.functional.pad(a.float(), [0, 0] * (a.dim() - 2) + [0, nc * Q - T])
+    xc, Bc, Cc = (pad(a).reshape(1, nc, Q, H, -1) for a in (x, Bm.expand(1, T, H, N),
+                                                               Cm.expand(1, T, H, N)))
+    dtc = pad(dt).reshape(1, nc, Q, H)
+    cum = torch.cumsum(dtc * A, 2)
+    seg = cum[:, :, -1]
+    w = torch.exp(seg[:, :, None] - cum) * dtc
+    states = torch.einsum("bckhn,bckhp->bchnp", rnd(Bc * w[..., None]), xc)
+    S, prev = torch.zeros(1, H, N, P), []
+    for c in range(nc):
+        prev.append(S)
+        S = S * torch.exp(seg[:, c])[..., None, None] + states[:, c]
+    inter = torch.einsum("bcqhn,bchnp->bcqhp", Cc, rnd(torch.stack(prev, 1)))
+    inter = inter * torch.exp(cum)[..., None]
+    ct = cum.permute(0, 1, 3, 2)
+    mask = torch.ones(Q, Q, dtype=torch.bool).tril()
+    diff = torch.where(mask, ct[..., :, None] - ct[..., None, :], 0.0)
+    sd = torch.einsum("bcqhn,bckhn->bchqk", Cc, Bc) * torch.exp(diff)
+    sd = torch.where(mask, sd * dtc.permute(0, 1, 3, 2)[..., None, :], 0.0)
+    y = (inter + torch.einsum("bchqk,bckhp->bcqhp", rnd(sd), xc)).reshape(1, nc * Q, H, P)
+    return [((g - w).abs() / (1e-4 * w.abs().max() + 1e-4 * w.abs())).max().item()
+            for g, w in ((y[:, :T], want[0]), (S, want[1]))]
+
+
+@pytest.mark.parametrize("T", [37, 300, 512])
+def test_ssd_split_keeps_card_tolerance(T):
+    """Why the bf16 SSD kernel feeds B_k w_k, the carried state and the
+    decayed scores to the tensor cores as two bf16 terms: one rounding of
+    them puts y and the state ~10x outside the card's limit at zamba's
+    width; hi + lo leaves a few percent of it."""
+    single, split = _ssd_split_rounding(T, False), _ssd_split_rounding(T, True)
+    assert min(single) > 2.0, single
+    assert max(split) <= 0.25, split
+
+
+@pytest.mark.parametrize("B,T,H,N,P", [(1, 512, 64, 64, 64), (1, 2048, 64, 64, 64),
+                                       (1, 1, 64, 64, 64), (3, 65, 4, 8, 16),
+                                       (8, 64, 64, 64, 64), (2, 300, 6, 5, 3)])
+def test_ssd_plan(B, T, H, N, P):
+    """The split from shapes alone: chunks of 64, a chunk-state and a
+    chunk-scan block per (chunk, head, batch), four state-pass blocks per
+    (head, batch); the scratch holds every chunk's 64 x 64 state (whatever
+    N and P) and seg."""
+    plan = ssd_plan(B, T, H, N, P)
+    nc = -(-T // 64)
+    assert plan["n_chunks"] == nc and (nc - 1) * 64 < T <= nc * 64
+    assert plan["scratch"] == {"states": (B, H, nc, 64 * 64), "segs": (B, H, nc)}
+    assert plan["scratch_floats"] == B * H * nc * (64 * 64 + 1)
+    assert plan["blocks"] == {"chunk_state": nc * H * B, "chunk_scan": nc * H * B,
+                              "state_pass": 4 * H * B}
+    if (B, T) == (1, 512):                       # the timing shape: 512 blocks a pass
+        assert plan["blocks"]["chunk_scan"] == 512 >= 132
+        assert plan["scratch"]["states"] == (1, 64, 8, 64 * 64)     # 8 MB of fp32
+
+
+def test_ssd_kernel_checks():
+    """The CUDA path's own checks, on CPU tensors."""
+    x = torch.zeros(2, 16, 4, 64, dtype=torch.bfloat16)
+    bm = torch.zeros(2, 16, 1, 64, dtype=torch.bfloat16)
+    A = torch.zeros(4)
+    y = torch.zeros(2, 16, 4, 64)
+    ssd_ops._check_kernel(x, A, bm, bm, y, None, seq_axis=1)
+    with pytest.raises(ValueError, match="N, P <= 64"):
+        big = torch.zeros(2, 16, 1, 65, dtype=torch.bfloat16)
+        ssd_ops._check_kernel(x, A, big, big, y, None, seq_axis=1)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_ops._check_kernel(x, A, bm, bm, y.transpose(2, 3), None, seq_axis=1)
+    with pytest.raises(TypeError, match="does not write"):
+        ssd_ops._check_kernel(x.float(), A, bm.float(), bm.float(), y.bfloat16(), None,
+                              seq_axis=1)
+    with pytest.raises(ValueError, match="grid"):
+        wide = torch.zeros(1, 2, 65536, 8, dtype=torch.bfloat16)
+        ssd_ops._check_kernel(wide, torch.zeros(65536), wide[:, :, :1], wide[:, :, :1],
+                              wide.float(), None, seq_axis=1)
