@@ -45,17 +45,29 @@ Phases (any failure raises and the script exits non-zero):
    design's, and the bf16 tensor cores', the row's own), the blocks of each
    of the kernel's passes and its device kernels per call; print the
    wrapper's host microseconds per call.
-2e. Hold ``rmsnorm`` and ``rmsnorm_add`` against their plain versions at
-   (512, 2048) and (8, 4096), bf16 and fp32 (``TOL``; the new residual of
-   ``rmsnorm_add`` bitwise), and time them beside
-   ``torch.nn.functional.rms_norm`` with weight ``1 + gamma``.  The times
-   of 2d and 2e are device time per call from ``torch.profiler``
-   (``device_ms``); back-to-back CUDA events, host-bound for calls of a
-   few microseconds, are kept beside them as ``*_events``.
+2e. Hold the RMSNorm kernel's three entries against their plain versions
+   at the main paths' (rows, width) (``RMSNORM_PATHS``): smollm-360m's
+   (8, 960), (512, 960) and (4096, 960), zamba2's (8, 2048) and
+   (512, 2048), and (8, 4096) and (512, 4096), bf16 and fp32 (``TOL``; the
+   new residual of ``rmsnorm_add`` bitwise); the gated form (skip and gate
+   folded into the out-norm) at the 4096-wide shapes, on views into
+   zamba2's projections.  Time them in bf16 beside their plain versions
+   (the gated form's plain version is the eager chain it replaces) and
+   ``torch.nn.functional.rms_norm`` with weight ``1 + gamma``: L2-cold
+   (each call on its own copy of the inputs, ``COLD_BYTES`` of copies
+   between two reads of one), and warm beside it (``*_warm``: one set of
+   inputs, resident in the 50 MB L2 across calls).  Print each wrapper's
+   host microseconds per call beside its plain chain's.  The times of 2d
+   and 2e are device time per call from ``torch.profiler``
+   (``device_ms``); 2d keeps back-to-back CUDA events, host-bound for
+   calls of a few microseconds, beside them as ``*_events``.
 3. Drive the port's main path at full ``smollm-360m`` width with random
    weights from seed 0: a paged ``ServeEngine`` with both kernels serves
    16 greedy requests (prompts 16-512, budgets 32-64).  The launch counts
-   must equal 32 x prefills (flash) and 32 x decode steps (paged); the
+   must equal 32 x prefills (flash), 32 x decode steps (paged), 33 x
+   (prefills + decode steps) (rmsnorm: ``ln1`` of each layer, ``ln_f``)
+   and 32 x (prefills + decode steps) (rmsnorm_add: ``ln2`` with the
+   residual add before it); the
    kernel path's prefill and first decode-step logits must agree with the
    ``chunked``/``ref`` path's (fp32 with TF32 off, and bf16); a few
    requests also run on the slotted layout.
@@ -64,8 +76,10 @@ Phases (any failure raises and the script exits non-zero):
    the faithful program for 6 steps and ZeRO for 3, through
    ``train.loop.train``.  Losses must be finite, and batch 0's loss after
    the faithful run below step 1's (on the same batch); the launch
-   counts must equal ``steps`` (flat_adam) and ``2 x 32 x 2 x steps``
-   (flash: forward and remat's recompute, per slice); step 1's loss and
+   counts must equal ``steps`` (flat_adam), ``2 x 32 x 2 x steps``
+   (flash: forward and remat's recompute, per slice), ``(2 x 32 + 1) x 2
+   x steps`` (rmsnorm: ``ln1`` twice a layer, ``ln_f``) and ``2 x 32 x 2 x
+   steps`` (rmsnorm_add); step 1's loss and
    grad norm on the kernel path must agree with the plain path's (fp32
    with TF32 off, and bf16); a step on inf-poisoned parameters must be a
    bitwise no-op in both programs; a checkpoint must round-trip bitwise.
@@ -78,8 +92,10 @@ Phases (any failure raises and the script exits non-zero):
    zeroing of free lanes included) after every step.  Every request must
    end ``ok`` with its full budget; the launch counts must equal 38 x
    prefills (ssd), 7 x prefills (flash), 7 x (prefills + decode steps)
-   (rmsnorm_add) and 84 x (prefills + decode steps) (rmsnorm: 7 shared
-   ``ln1``, 38 x 2 Mamba2 norms, ``ln_f``).  At full width, from the same
+   (rmsnorm_add), 46 x (prefills + decode steps) (rmsnorm: 7 shared
+   ``ln1``, 38 Mamba2 ``ln``, ``ln_f``) and 38 x (prefills + decode
+   steps) (rmsnorm_gated: each Mamba2 out-norm with its skip and gate).
+   At full width, from the same
    inputs, the kernel path's shared block and Mamba2 block (prefill at
    bucket 512 and decode) must agree with the ``chunked`` path's within
    ``BLOCK_TOL`` (fp32 with TF32 off, and bf16), and the whole model's
@@ -92,7 +108,9 @@ Phases (any failure raises and the script exits non-zero):
    decode step's idle share, and a profiled kernel-path prefill at bucket
    512: device ms, idle share, launches, the top device kernels and the
    SSD kernels' share of the device time.
-6. Print the seconds of each phase, the card's name and power limit, one
+6. Print the launches, device ms and idle share of the profiled dense and
+   zamba decode steps and zamba prefill, the seconds of each phase, the
+   card's name and power limit, one
    ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
    {...}}``.  Details go to ``results.json`` in ``OUT_DIR``.
 
@@ -161,6 +179,22 @@ SSD_SHAPE = (1, 512, 64, 64, 1, 64)        # B, T, H, P, G, N: a zamba2 prefill
 # output's largest entry (see zamba_block_agreement)
 BLOCK_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 ZAMBA_LAYERS, ZAMBA_SHARED = 38, 7
+ZAMBA_D_INNER, ZAMBA_HEAD_DIM = 4096, 64
+# the RMSNorm shapes (rows, width) of the main paths and the path that
+# gives each: smollm-360m's d_model (960) in a decode step of 8 lanes, a
+# prefill at bucket 512 and a training slice (4 x 1024 tokens); zamba2's
+# d_model (2048) in a decode step and a bucket-512 prefill; its d_inner
+# (4096) at the same rows, the gated out-norm's (no path calls rmsnorm or
+# rmsnorm_add that wide)
+RMSNORM_PATHS = {(8, 960): "dense decode", (512, 960): "dense prefill",
+                 (4096, 960): "dense train", (8, 2048): "zamba decode",
+                 (512, 2048): "zamba prefill", (8, 4096): "zamba decode (gated only)",
+                 (512, 4096): "zamba prefill (gated only)"}
+RMSNORM_SHAPES = tuple(RMSNORM_PATHS)
+# 2e times each call on inputs that are not in the card's 50 MB L2: the
+# timed calls rotate through copies of the inputs that hold at least this
+# many bytes together
+COLD_BYTES = 128 << 20
 
 
 def log(*a):
@@ -191,11 +225,17 @@ def device_profile(torch, fn, iters: int = 50) -> tuple[float | None, dict]:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    evs = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    for _ in range(3):
+        # the record of a window of a few hundred microseconds has come
+        # back empty (once, a window of 50 calls of a 2-microsecond kernel):
+        # the window is measured again, up to twice
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+        if evs:
+            break
     names = {e.key[:100]: dict(calls=e.count / iters, ms=e.self_device_time_total / 1e3 / iters)
              for e in evs}
     return (sum(e.self_device_time_total for e in evs) / 1e3 / iters if evs else None), names
@@ -599,54 +639,114 @@ def ssd_timing(torch, dev, T, *, plain_iters: int, host: bool = False) -> dict:
 
 
 def check_rmsnorm(torch, dev, results):
-    """The RMSNorm kernels vs their plain versions; timed beside
-    ``F.rms_norm`` (weight ``1 + gamma`` in x's dtype: the same function up
-    to that weight's rounding)."""
+    """The RMSNorm kernel's three entries vs their plain versions, bf16 and
+    fp32 (``TOL``; the new residual of ``rmsnorm_add`` bitwise), at the
+    main paths' shapes (``RMSNORM_PATHS``); the gated form on views into
+    zamba2's projections as the Mamba2 block passes them.  Timed in bf16
+    beside the plain versions and ``F.rms_norm`` (weight ``1 + gamma`` in
+    x's dtype: the same function up to that weight's rounding), L2-cold
+    (``COLD_BYTES``) and warm (one set of inputs, resident in L2 across
+    calls), with each wrapper's host microseconds beside its plain
+    chain's."""
+    import itertools
+
     import torch.nn.functional as F
-    from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_add
-    from repro_torch.kernels.rmsnorm.ref import rmsnorm_add_ref, rmsnorm_ref
+    from repro_torch.kernels.rmsnorm.ops import plan, rmsnorm, rmsnorm_add, rmsnorm_gated
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_add_ref, rmsnorm_gated_ref, rmsnorm_ref
+
+    def rotating(fn, sets):
+        """``fn`` on the next set of inputs from the iterator ``sets`` at
+        each call.  One iterator serves every cold timing of a shape, so
+        that at least ``COLD_BYTES`` lie between two reads of a copy."""
+        return lambda: fn(*next(sets))
 
     gen = torch.Generator(device=dev).manual_seed(5)
     rows, timings = [], []
-    for shape in ((512, 2048), (8, 4096)):
+    for shape in RMSNORM_SHAPES:
+        n, D = shape
         for dt in ("bfloat16", "float32"):
-            x, r = ((torch.randn(*shape, generator=gen, device=dev) * 3).to(getattr(torch, dt))
+            tdt = getattr(torch, dt)
+            # copies of x, r and gamma: copy 0 is checked, all are timed
+            k = -(-COLD_BYTES // (n * D * tdt.itemsize)) if dt == "bfloat16" else 1
+            X, R = ((torch.randn(k, *shape, generator=gen, device=dev) * 3).to(tdt)
                     for _ in range(2))
-            g = torch.randn(shape[1], generator=gen, device=dev) * 0.1
+            G = torch.randn(k, D, generator=gen, device=dev) * 0.1
+            x, r, g = X[0], R[0], G[0]
             out = rmsnorm(x, g)
             normed, summed = rmsnorm_add(x, r, g)
             torch.cuda.synchronize()
             want_n, want_s = rmsnorm_add_ref(x, r, g)
-            row = dict(shape=list(shape), dtype=dt,
+            tpr, nv = plan(n, D, tdt)
+            row = dict(shape=list(shape), dtype=dt, threads_per_row=tpr, vectors_per_thread=nv,
                        rmsnorm_max_abs_err=max_err(torch, out, rmsnorm_ref(x, g), dt),
                        rmsnorm_add_max_abs_err=max_err(torch, normed, want_n, dt),
                        rmsnorm_add_sum_bitwise=bool(torch.equal(summed, want_s)))
             assert row["rmsnorm_add_sum_bitwise"], row
+            gated = D == ZAMBA_D_INNER
+            if gated:
+                kg = -(-COLD_BYTES // (n * D * 10)) if dt == "bfloat16" else 1
+                gas = [gated_inputs(torch, dev, n, dt, gen) for _ in range(kg)]
+                row["rmsnorm_gated_max_abs_err"] = max_err(
+                    torch, rmsnorm_gated(**gas[0]), rmsnorm_gated_ref(**gas[0]), dt)
             rows.append(row)
             log(f"rmsnorm {json.dumps(row)}")
             if dt != "bfloat16":
                 continue
-            n, D = shape
-            w = (1.0 + g).to(x.dtype)
-            for name, fn, plain, lib, nio in (
-                    ("rmsnorm", lambda: rmsnorm(x, g), lambda: rmsnorm_ref(x, g),
-                     lambda: F.rms_norm(x, (D,), weight=w, eps=1e-6), 2),
-                    ("rmsnorm_add", lambda: rmsnorm_add(x, r, g),
-                     lambda: rmsnorm_add_ref(x, r, g), None, 4)):
-                # ms, plain_ms, library_ms: device time per call (profiler);
-                # *_events: back-to-back CUDA events, host-bound at these sizes
-                tm = dict(kernel=name, shape=list(shape), dtype=dt)
-                tm["bound_ms"], tm["bound_by"] = bound(
-                    (nio + 2) * n * D, nio * n * D * x.element_size() + 4 * D, "float32")
-                tm["ms"], tm["plain_ms"] = device_ms(torch, fn), device_ms(torch, plain)
-                tm["library_ms"] = device_ms(torch, lib) if lib else None
-                tm["ms_events"] = time_ms(torch, fn, 500)
-                tm["plain_ms_events"] = time_ms(torch, plain, 200)
-                tm["library_ms_events"] = time_ms(torch, lib, 500) if lib else None
+            sets = list(zip(X, R, G, (1.0 + G).to(tdt)))
+            cold = itertools.cycle(sets)
+            cases = [("rmsnorm", lambda x, r, g, w: rmsnorm(x, g),
+                      lambda x, r, g, w: rmsnorm_ref(x, g),
+                      lambda x, r, g, w: F.rms_norm(x, (D,), weight=w, eps=1e-6), sets, cold,
+                      4 * n * D, 2 * n * D * x.element_size() + 4 * D),
+                     ("rmsnorm_add", lambda x, r, g, w: rmsnorm_add(x, r, g),
+                      lambda x, r, g, w: rmsnorm_add_ref(x, r, g), None, sets, cold,
+                      5 * n * D, 4 * n * D * x.element_size() + 4 * D)]
+            if gated:
+                # y fp32 from the scan, x and z bf16 views, out bf16; D fp32
+                cases.append(("rmsnorm_gated", lambda ga: rmsnorm_gated(**ga),
+                              lambda ga: rmsnorm_gated_ref(**ga), None, [(ga,) for ga in gas],
+                              itertools.cycle([(ga,) for ga in gas]),
+                              10 * n * D, n * D * (4 + 3 * x.element_size()) + 4 * D
+                              + 4 * (D // ZAMBA_HEAD_DIM)))
+            for name, fn, plain, lib, args, cold, flops, nbytes in cases:
+                # ms, plain_ms, library_ms: device time per call (profiler)
+                # over the rotated copies; *_warm: the same on copy 0 alone;
+                # host_us: the wrapper's (and the plain chain's) host
+                # microseconds per call
+                tm = dict(kernel=name, shape=list(shape), dtype=dt, path=RMSNORM_PATHS[shape],
+                          input_copies=len(args))
+                tm["bound_ms"], tm["bound_by"] = bound(flops, nbytes, "float32")
+                tm["ms"], kernels = device_profile(torch, rotating(fn, cold), 200)
+                tm["device_kernels_per_call"] = kernels_per_call(kernels)
+                assert tm["device_kernels_per_call"] == 1, kernels
+                tm["ms_warm"] = device_ms(torch, lambda: fn(*args[0]), 200)
+                tm["plain_ms"] = device_ms(torch, rotating(plain, cold))
+                tm["plain_ms_warm"] = device_ms(torch, lambda: plain(*args[0]))
+                tm["library_ms"] = device_ms(torch, rotating(lib, cold), 200) if lib else None
+                tm["library_ms_warm"] = (device_ms(torch, lambda: lib(*args[0]), 200)
+                                         if lib else None)
+                tm["host_us"] = host_us(torch, lambda: fn(*args[0]))
+                tm["plain_host_us"] = host_us(torch, lambda: plain(*args[0]), 300)
                 timings.append(tm)
                 log(f"rmsnorm timing {json.dumps(tm)}")
     results["rmsnorm_cases"] = rows
     results["rmsnorm_timing"] = timings
+
+
+def gated_inputs(torch, dev, n, dt, gen) -> dict:
+    """The gated form's arguments as a zamba2 Mamba2 block hands them over
+    for ``n`` rows: y fp32 (the scan's output), z and x the first
+    ``d_inner`` columns of the in-projection (8,384 wide) and of the conv
+    output (4,224 wide) in ``dt``, ``out_ln`` and ``D_skip`` fp32."""
+    tdt = getattr(torch, dt)
+    H = ZAMBA_D_INNER // ZAMBA_HEAD_DIM
+    proj = torch.randn(n, 2 * ZAMBA_D_INNER + 2 * 64 + H, generator=gen, device=dev).to(tdt)
+    conv = torch.randn(n, ZAMBA_D_INNER + 2 * 64, generator=gen, device=dev).to(tdt)
+    return dict(y=torch.randn(n, ZAMBA_D_INNER, generator=gen, device=dev) * 2,
+                z=proj[:, :ZAMBA_D_INNER], x=conv[:, :ZAMBA_D_INNER],
+                gamma=torch.randn(ZAMBA_D_INNER, generator=gen, device=dev) * 0.1,
+                d_skip=torch.rand(H, generator=gen, device=dev) + 0.5,
+                head_dim=ZAMBA_HEAD_DIM)
 
 
 # ---------------------------------------------------------------------------
@@ -692,10 +792,18 @@ def serve(torch, cfg, params, reqs, engine_cfg, dev, *, check: bool = False):
     return eng, rids, steps, prefilled, wall
 
 
+def dense_norms(pre: int, dec: int) -> dict:
+    """RMSNorm launches of a dense smollm-360m serving run: per prefill and
+    decode step ``ln1`` in each layer and ``ln_f`` (rmsnorm), ``ln2`` with
+    its residual add in each layer (rmsnorm_add)."""
+    return {"rmsnorm": (N_LAYERS + 1) * (pre + dec), "rmsnorm_add": N_LAYERS * (pre + dec)}
+
+
 def main_path(torch, dev, results):
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_add
     from repro_torch.models import lm
     from repro_torch.serve import EngineConfig
 
@@ -709,11 +817,12 @@ def main_path(torch, dev, results):
     # warm-up (cuBLAS handles, allocator) on two short requests, then the
     # measured run with the launch counts set to 0 just before it
     serve(torch, cfg, params, [(reqs[0][0][:16], 4), (reqs[1][0][:32], 4)], ec, dev)
-    flash_attention.launches = 0
-    paged_attention.launches = 0
+    kernels = (flash_attention, paged_attention, rmsnorm, rmsnorm_add)
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels:
+        k.launches = 0
     eng, rids, steps, prefilled, wall = serve(torch, cfg, params, reqs, ec, dev)
-    launches = {"flash_attention": flash_attention.launches,
-                "paged_attention": paged_attention.launches}
+    launches = {k.__name__: k.launches for k in kernels}
     st = eng.stats
     eng.check_invariants()
     comps = [eng.completions[r] for r in rids]
@@ -722,6 +831,8 @@ def main_path(torch, dev, results):
     assert not bad, f"requests not served in full: {bad}"
     assert launches["flash_attention"] == N_LAYERS * st["prefills"] > 0, (launches, st)
     assert launches["paged_attention"] == N_LAYERS * st["decode_steps"] > 0, (launches, st)
+    norms = dense_norms(st["prefills"], st["decode_steps"])
+    assert all(launches[k] == v for k, v in norms.items()), (launches, norms, st)
     tokens = sum(len(c.tokens) for c in comps)
     decode_only = [t for t, p in zip(steps, prefilled) if not p]
     e2e = dict(requests=len(comps), tokens=tokens, wall_s=wall, tokens_per_s=tokens / wall,
@@ -759,8 +870,9 @@ def main_path(torch, dev, results):
     del ref_eng, eng32
     results["profile"] = profile_decode(torch, cfg, params, reqs, ec, dev)
 
-    # a few requests on the slotted layout: the flash kernel still runs
-    flash_attention.launches = 0
+    # a few requests on the slotted layout: flash and the norms still run
+    for k in (flash_attention, rmsnorm, rmsnorm_add):
+        k.launches = 0
     sl_eng, sl_rids, _, _, _ = serve(
         torch, cfg, params, [(p[:64], 8) for p, _ in reqs[:4]],
         dataclasses.replace(ec, kv_layout="slotted", max_slots=4, max_len=128), dev)
@@ -768,7 +880,11 @@ def main_path(torch, dev, results):
     assert all(sl_eng.completions[r].status == "ok" and len(sl_eng.completions[r].tokens) == 8
                for r in sl_rids)
     assert flash_attention.launches == N_LAYERS * sl_eng.stats["prefills"] == 4 * N_LAYERS
-    e2e["slotted"] = dict(requests=4, launches_flash=flash_attention.launches)
+    sl_norms = dense_norms(sl_eng.stats["prefills"], sl_eng.stats["decode_steps"])
+    assert (rmsnorm.launches, rmsnorm_add.launches) == tuple(sl_norms.values()), sl_norms
+    e2e["slotted"] = dict(requests=4, launches_flash=flash_attention.launches,
+                          launches_rmsnorm=rmsnorm.launches,
+                          launches_rmsnorm_add=rmsnorm_add.launches)
     results["main_path"] = e2e
     results["logits"] = logit_agreement(torch, dev, base, params, reqs[2][0])
     return launches
@@ -890,10 +1006,11 @@ def rel_err(torch, a, b) -> float:
 
 def zamba_path(torch, dev, results):
     """Full-width zamba2-1.2b through the slotted engine on the kernel path
-    (flash, ssd, rmsnorm, rmsnorm_add).  Returns the launch counts."""
+    (flash, ssd, rmsnorm, rmsnorm_add, rmsnorm_gated).  Returns the launch
+    counts."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention.ops import flash_attention
-    from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_add
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_add, rmsnorm_gated
     from repro_torch.kernels.ssd.ops import ssd
     from repro_torch.models import zamba
     from repro_torch.serve import EngineConfig
@@ -905,7 +1022,7 @@ def zamba_path(torch, dev, results):
     params = zamba.init(cfg, seed=0, device=dev)
     reqs = requests(cfg.vocab)
     ec = EngineConfig(max_slots=MAX_SLOTS, max_len=MAX_LEN, kv_layout="slotted")
-    kernels = (flash_attention, ssd, rmsnorm, rmsnorm_add)
+    kernels = (flash_attention, ssd, rmsnorm, rmsnorm_add, rmsnorm_gated)
     serve(torch, cfg, params, [(reqs[0][0][:16], 4), (reqs[1][0][:32], 4)], ec, dev)
     torch.cuda.reset_peak_memory_stats()
     for k in kernels:
@@ -918,9 +1035,13 @@ def zamba_path(torch, dev, results):
            if c.status != "ok" or len(c.tokens) != b]
     assert not bad, f"requests not served in full: {bad}"
     pre, dec = st["prefills"], st["decode_steps"]
-    norms = ZAMBA_SHARED + 2 * ZAMBA_LAYERS + 1
+    # per prefill and decode step: rmsnorm for the shared block's ln1, each
+    # Mamba2 layer's ln and ln_f; the gated form for each Mamba2 out-norm
+    # (with its skip and gate); rmsnorm_add for the shared block's ln2
     want = {"flash_attention": ZAMBA_SHARED * pre, "ssd": ZAMBA_LAYERS * pre,
-            "rmsnorm": norms * (pre + dec), "rmsnorm_add": ZAMBA_SHARED * (pre + dec)}
+            "rmsnorm": (ZAMBA_SHARED + ZAMBA_LAYERS + 1) * (pre + dec),
+            "rmsnorm_add": ZAMBA_SHARED * (pre + dec),
+            "rmsnorm_gated": ZAMBA_LAYERS * (pre + dec)}
     assert launches == want and pre > 0 and dec > 0, (launches, want, st)
     tokens = sum(len(c.tokens) for c in comps)
     decode_only = [t for t, p in zip(steps, prefilled) if not p]
@@ -1297,6 +1418,7 @@ def train_path(torch, dev, results):
     from repro_torch.data import make_batch_fn
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flat_adam.ops import flat_adam
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_add
     from repro_torch.launch.mesh import init_group
     from repro_torch.optim import OptConfig
     from repro_torch.train import TrainSettings
@@ -1313,11 +1435,11 @@ def train_path(torch, dev, results):
         launches = {}
         for name, settings, steps in programs:
             torch.cuda.reset_peak_memory_stats()
-            flat_adam.launches = 0
-            flash_attention.launches = 0
+            kernels = (flat_adam, flash_attention, rmsnorm, rmsnorm_add)
+            for k in kernels:
+                k.launches = 0
             res, times, losses = train_run(torch, base, shape, group, opt, settings, steps)
-            launches[name] = {"flat_adam": flat_adam.launches,
-                              "flash_attention": flash_attention.launches}
+            launches[name] = {k.__name__: k.launches for k in kernels}
             warm = times[1:]
             row = dict(steps=steps, losses=losses, step_ms=times,
                        step_ms_median=float(np.median(warm)),
@@ -1329,6 +1451,10 @@ def train_path(torch, dev, results):
             assert all(np.isfinite(losses)) and res["skipped_steps"] == 0, row
             assert launches[name]["flat_adam"] == steps, row
             assert launches[name]["flash_attention"] == 2 * N_LAYERS * TRAIN_SLICES * steps, row
+            # per slice: ln1 and ln2 (with its add) in each layer, forward
+            # and remat's recompute, and ln_f once
+            assert launches[name]["rmsnorm"] == (2 * N_LAYERS + 1) * TRAIN_SLICES * steps, row
+            assert launches[name]["rmsnorm_add"] == 2 * N_LAYERS * TRAIN_SLICES * steps, row
             if name == "faithful":
                 # each step's batch is new, and the stream's map has to be
                 # learned token by token, so the per-step loss stays near
@@ -1422,7 +1548,6 @@ def main() -> int:
     pg = {t["lengths_from"]: t for t in results["paged_timing"]}
     fa = results["flat_adam_timing"]
     sd = results["ssd_timing"]
-    rn = {t["kernel"]: t for t in results["rmsnorm_timing"] if t["shape"] == [512, 2048]}
     # each row carries its time as kernel_ms and, for the chip check's
     # reader, as ms (the same number)
     kernels = [
@@ -1484,17 +1609,50 @@ def main() -> int:
              t2048={k: results["ssd_timing_2048"][k]
                     for k in ("ms", "plain_ms", "bound_ms", "bound_fma_ms", "blocks")}),
     ]
-    for name, line in (("rmsnorm", 18), ("rmsnorm_add", 26)):
-        t = rn[name]
+    rn = {(t["kernel"], *t["shape"]): t for t in results["rmsnorm_timing"]}
+    # each row at a shape of the path whose launches it reports: rmsnorm
+    # and rmsnorm_add at the dense decode step's (phase 3), the gated form
+    # at the zamba prefill's (phase 5); the paths' other shapes beside,
+    # with the launches of zamba (2048 wide) and of the train step
+    # (4096, 960).  The gated form has no TPU kernel of its own: it is
+    # _rmsnorm_kernel's port with the reference's jnp skip and gate
+    # (models/ssm.py:244-246) folded into its load.
+    for name, line, shape, x_desc in (
+            ("rmsnorm", 18, (8, 960), "x (8, 960) bf16, gamma (960,) fp32"),
+            ("rmsnorm_add", 26, (8, 960), "x, r (8, 960) bf16, gamma (960,) fp32"),
+            ("rmsnorm_gated", 18, (512, 4096), "y (512, 4096) fp32, z, x (512, 4096) bf16 "
+             "views, gamma (4096,), D (64,) fp32")):
+        t = rn[(name, *shape)]
+        per_path = {} if name == "rmsnorm_gated" else dict(
+            train_launches=train_launches[name], train_shape="(4096, 960)",
+            zamba_launches=zamba_launches[name], zamba_shapes="(8, 2048), (512, 2048)")
         kernels.append(dict(
             name=name, route="cuda", source="src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
             replaces=f"src/repro/kernels/rmsnorm/kernel.py:{line}",
-            jax_function=f"repro.kernels.rmsnorm.kernel.{name}",
-            shape="x (512, 2048) bf16, gamma (2048,) fp32",
-            launches=zamba_launches[name],
-            max_abs_err=max(r[f"{name}_max_abs_err"] for r in results["rmsnorm_cases"]),
-            kernel_ms=t["ms"], ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-            bound_by=t["bound_by"], library_ms=t["library_ms"]))
+            jax_function=("repro.models.ssm.mamba_block_fwd (skip, gate, rms_norm)"
+                          if name == "rmsnorm_gated" else f"repro.kernels.rmsnorm.kernel.{name}"),
+            shape=x_desc, path=t["path"],
+            launches=(zamba_launches if name == "rmsnorm_gated" else launches)[name],
+            **per_path,
+            max_abs_err=max(r[f"{name}_max_abs_err"] for r in results["rmsnorm_cases"]
+                            if f"{name}_max_abs_err" in r),
+            kernel_ms=t["ms"], ms=t["ms"], ms_warm=t["ms_warm"], plain_ms=t["plain_ms"],
+            bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=t["library_ms"],
+            host_us_per_call=t["host_us"], plain_host_us_per_call=t["plain_host_us"],
+            other_shapes={f"{n}x{d}": {k: u[k] for k in ("path", "ms", "ms_warm", "bound_ms",
+                                                          "library_ms", "host_us")}
+                          for (k_, n, d), u in rn.items() if k_ == name and (n, d) != shape}))
+    steps = {name: results[key] and {k: results[key][k] for k in keys}
+             for name, key, keys in (
+                 ("dense decode step", "profile", ("kernel_launches_per_step",
+                                                   "device_ms_per_step", "device_idle_share")),
+                 ("zamba decode step", "zamba_profile", ("kernel_launches_per_step",
+                                                         "device_ms_per_step",
+                                                         "device_idle_share")),
+                 ("zamba prefill 512", "zamba_prefill_profile", ("launches", "device_ms",
+                                                                 "device_idle_share")))}
+    results["step_profiles"] = steps
+    log(f"profiled steps: {json.dumps(steps)}")
     results["kernels"] = kernels
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "results.json").write_text(json.dumps(results, indent=1))

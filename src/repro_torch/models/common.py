@@ -128,6 +128,28 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6):
     return (y * (1.0 + gamma.float())).to(dt)
 
 
+def norm(cfg, x, gamma):
+    """RMSNorm of a model's blocks: the CUDA kernel's wrapper under
+    ``attn_impl="kernel"`` (its plain version on a CPU tensor), else the
+    plain :func:`rms_norm`."""
+    if cfg.attn_impl == "kernel":
+        from repro_torch.kernels.rmsnorm.ops import rmsnorm
+        return rmsnorm(x, gamma, eps=cfg.norm_eps)
+    return rms_norm(x, gamma, cfg.norm_eps)
+
+
+def norm_add(cfg, x, residual, gamma):
+    """``s = x + residual`` and ``rms_norm(s)``; returns ``(normed, s)``.
+    The kernel normalises the fp32 sum before it rounds to ``x.dtype``; the
+    plain path rounds first, as the reference does (``x = x + o`` then
+    ``rms_norm(x)``).  ``s`` is the same in both."""
+    if cfg.attn_impl == "kernel":
+        from repro_torch.kernels.rmsnorm.ops import rmsnorm_add
+        return rmsnorm_add(x, residual, gamma, eps=cfg.norm_eps)
+    s = x + residual
+    return rms_norm(s, gamma, cfg.norm_eps), s
+
+
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
     """Gemma-2 logit soft-capping: cap * tanh(x / cap)."""
     return cap * torch.tanh(x / cap)

@@ -19,6 +19,12 @@ slice of the stacked cache ``(L, ...)``, where the reference carries the
 cache through a ``fori_loop`` with dynamic updates.  Functions that
 mutate a cache also return it, mirroring the reference's signatures.
 
+Norms: under ``cfg.attn_impl == "kernel"`` each RMSNorm is one launch of
+the RMSNorm kernels (``common.norm``), and the residual add before ``ln2``
+is folded into ``rmsnorm_add`` (``common.norm_add``), which normalises the
+unrounded fp32 sum: in bf16 one rounding apart from the plain path, which
+rounds ``x + o`` first; the residual stream itself is bitwise the same.
+
 MoE, VLM and gemma2's alternating local/global layers raise
 ``NotImplementedError``: they arrive with later slices of the port.
 """
@@ -42,8 +48,9 @@ from .common import (
     decode_positions,
     dtype_of,
     init_tree,
+    norm,
+    norm_add,
     remat_wrap,
-    rms_norm,
     softcap,
 )
 
@@ -149,8 +156,8 @@ def _attn_proj(cfg, h, bp, positions):
     k = (h @ _w(bp, "wk", cfg)).reshape(B, S, Hk, dh)
     v = (h @ _w(bp, "wv", cfg)).reshape(B, S, Hk, dh)
     if cfg.qk_norm:
-        q = rms_norm(q, bp["qnorm"], cfg.norm_eps)
-        k = rms_norm(k, bp["knorm"], cfg.norm_eps)
+        q = norm(cfg, q, bp["qnorm"])
+        k = norm(cfg, k, bp["knorm"])
     q = rope(q, positions, cfg.rope_theta)
     if _q_scale(cfg) != 1.0:
         q = q * _q_scale(cfg)
@@ -166,7 +173,7 @@ def _ffn(cfg, x, bp):
 
 def _block_fwd(cfg, x, bp, positions, *, window: int):
     """One transformer block, prefill path.  Returns (x, (k, v))."""
-    h = rms_norm(x, bp["ln1"], cfg.norm_eps)
+    h = norm(cfg, x, bp["ln1"])
     q, k, v = _attn_proj(cfg, h, bp, positions)
     if cfg.attn_impl == "kernel":
         from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -177,9 +184,8 @@ def _block_fwd(cfg, x, bp, positions, *, window: int):
             q, k, v, causal=True, window=window, softcap=cfg.attn_softcap,
             q_chunk=min(256, q.shape[1]), kv_chunk=min(256, k.shape[1]))
     B, S = x.shape[:2]
-    x = x + attn.reshape(B, S, -1) @ _w(bp, "wo", cfg)
-    x = x + _ffn(cfg, rms_norm(x, bp["ln2"], cfg.norm_eps), bp)
-    return x, (k, v)
+    h, x = norm_add(cfg, x, attn.reshape(B, S, -1) @ _w(bp, "wo", cfg), bp["ln2"])
+    return x + _ffn(cfg, h, bp), (k, v)
 
 
 def _block_decode(cfg, x, bp, kc, vc, cur_index, *, window: int, attn_fn=None):
@@ -189,13 +195,13 @@ def _block_decode(cfg, x, bp, kc, vc, cur_index, *, window: int, attn_fn=None):
     numerically identical.  Returns x; kc/vc are written in place."""
     dh, H, Hk = cfg.head_dim, cfg.n_heads, cfg.n_kv
     B = x.shape[0]
-    h = rms_norm(x, bp["ln1"], cfg.norm_eps)
+    h = norm(cfg, x, bp["ln1"])
     q = (h @ _w(bp, "wq", cfg)).reshape(B, H, dh)
     k = (h @ _w(bp, "wk", cfg)).reshape(B, Hk, dh)
     v = (h @ _w(bp, "wv", cfg)).reshape(B, Hk, dh)
     if cfg.qk_norm:
-        q = rms_norm(q, bp["qnorm"], cfg.norm_eps)
-        k = rms_norm(k, bp["knorm"], cfg.norm_eps)
+        q = norm(cfg, q, bp["qnorm"])
+        k = norm(cfg, k, bp["knorm"])
     pos = decode_positions(cur_index, B, x.device)
     q = rope(q[:, None], pos, cfg.rope_theta)[:, 0]
     if _q_scale(cfg) != 1.0:
@@ -207,8 +213,8 @@ def _block_decode(cfg, x, bp, kc, vc, cur_index, *, window: int, attn_fn=None):
                                 softcap=cfg.attn_softcap)
     else:
         attn = attn_fn(q, kc, vc, k, v, window)
-    x = x + attn.reshape(B, H * dh) @ _w(bp, "wo", cfg)
-    return x + _ffn(cfg, rms_norm(x, bp["ln2"], cfg.norm_eps), bp)
+    h, x = norm_add(cfg, x, attn.reshape(B, H * dh) @ _w(bp, "wo", cfg), bp["ln2"])
+    return x + _ffn(cfg, h, bp)
 
 
 def _layer(params, i):
@@ -256,7 +262,7 @@ def forward(cfg: ArchConfig, params, tokens, *, remat=True,
         if collect_kv:
             ks.append(k)
             vs.append(v)
-    x = rms_norm(x, params["ln_f"], cfg.norm_eps)
+    x = norm(cfg, x, params["ln_f"])
     return x, ((torch.stack(ks), torch.stack(vs)) if collect_kv else None)
 
 
@@ -330,7 +336,7 @@ def _decode_walk(cfg, params, cache, x, cur_index, attn_fn):
         x = _block_decode(cfg, x, _layer(params, i), cache["k"][i],
                           cache["v"][i], cur_index, window=cfg.window,
                           attn_fn=attn_fn)
-    x = rms_norm(x, params["ln_f"], cfg.norm_eps)
+    x = norm(cfg, x, params["ln_f"])
     return unembed(cfg, params, x), cache
 
 

@@ -10,8 +10,9 @@ the same function with the state carried in shared memory.
 Shapes follow Mamba2: x (B,T,H,P); dt (B,T,H); A (H,) negative;
 B/C (B,T,G,N) with H % G == 0.
 
-Every norm of the block goes through :func:`norm`, which picks the RMSNorm
-kernel or the plain ``rms_norm`` by ``cfg.attn_impl``.
+Every norm of the block goes through :func:`~repro_torch.models.common.norm`
+or, for the out-norm with its skip and gate, :func:`norm_gated`: each picks
+its RMSNorm kernel or the plain ``rms_norm`` by ``cfg.attn_impl``.
 """
 from __future__ import annotations
 
@@ -19,29 +20,23 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from .common import ParamSpec, dtype_of, rms_norm
+from .common import ParamSpec, dtype_of, norm, rms_norm
 
 
-def norm(cfg: ArchConfig, x, gamma):
-    """RMSNorm of the family's blocks: the CUDA kernel's wrapper under
-    ``attn_impl="kernel"`` (its plain version on a CPU tensor), else the
-    plain ``rms_norm``."""
+def norm_gated(cfg: ArchConfig, y, x, z, d_skip, gamma):
+    """The out-norm with its skip and gate: ``rms_norm(((y + D x) in the
+    compute dtype) * silu(z))``, y (fp32) and x ``(..., H, P)``, z ``(...,
+    H * P)``.  Under ``attn_impl="kernel"`` one launch of the gated RMSNorm
+    kernel, which reads x and z (views into the block's projections)
+    through their row strides; else the plain path's eager ops, each
+    rounding to the compute dtype as the kernel reproduces."""
     if cfg.attn_impl == "kernel":
-        from repro_torch.kernels.rmsnorm.ops import rmsnorm
-        return rmsnorm(x, gamma, eps=cfg.norm_eps)
-    return rms_norm(x, gamma, cfg.norm_eps)
-
-
-def norm_add(cfg: ArchConfig, x, residual, gamma):
-    """``s = x + residual`` and ``rms_norm(s)``; returns ``(normed, s)``.
-    The kernel normalises the fp32 sum before it rounds to ``x.dtype``; the
-    plain path rounds first, as the reference does (``x = x + o`` then
-    ``rms_norm(x)``).  ``s`` is the same in both."""
-    if cfg.attn_impl == "kernel":
-        from repro_torch.kernels.rmsnorm.ops import rmsnorm_add
-        return rmsnorm_add(x, residual, gamma, eps=cfg.norm_eps)
-    s = x + residual
-    return rms_norm(s, gamma, cfg.norm_eps), s
+        from repro_torch.kernels.rmsnorm.ops import rmsnorm_gated
+        return rmsnorm_gated(y.flatten(-2), z, gamma, x=x.flatten(-2), d_skip=d_skip,
+                             head_dim=y.shape[-1], eps=cfg.norm_eps)
+    y = y + d_skip.float()[:, None] * x.float()
+    y = y.flatten(-2).to(dtype_of(cfg.compute_dtype))
+    return rms_norm(y * F.silu(z), gamma, cfg.norm_eps)
 
 
 # ---------------------------------------------------------------------------
@@ -264,9 +259,7 @@ def mamba_block_fwd(cfg: ArchConfig, x, bp, *, return_state: bool = False,
         dtv = torch.where(valid[..., None], dtv, 0.0)
     A = -torch.exp(bp["A_log"].float())
     y, ssm_state = _ssd(cfg, xh, dtv, A, bm, cm)
-    y = y + bp["D_skip"].float()[None, None, :, None] * xh.float()
-    y = y.reshape(B_, T, d_inner).to(dtype_of(cfg.compute_dtype))
-    y = norm(cfg, y * F.silu(z), bp["out_ln"])
+    y = norm_gated(cfg, y, xh, z, bp["D_skip"], bp["out_ln"])
     out = x + y @ _w(bp, "out_proj", cfg)
     if return_state:
         return out, (ssm_state, conv_state)
@@ -305,7 +298,5 @@ def mamba_block_decode(cfg: ArchConfig, x, bp, ssm_state, conv_state):
     dtv = F.softplus(dt.float() + bp["dt_bias"].float())
     A = -torch.exp(bp["A_log"].float())
     ssm_state, y = ssd_decode_step(ssm_state, xh, dtv, A, bm, cm)
-    y = y + bp["D_skip"].float()[None, :, None] * xh.float()
-    y = y.reshape(B_, d_inner).to(dtype_of(cfg.compute_dtype))
-    y = norm(cfg, y * F.silu(z), bp["out_ln"])
+    y = norm_gated(cfg, y, xh, z, bp["D_skip"], bp["out_ln"])
     return x + y @ _w(bp, "out_proj", cfg), ssm_state, conv_state

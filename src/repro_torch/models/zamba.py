@@ -16,7 +16,7 @@ Simplifications vs the released checkpoints (as in the reference): the
 per-invocation LoRA deltas on the shared block are omitted; the shared
 block's attention operates at d_model (after the concat projection).
 Training (``loss_fn``) waits for a later slice: neither package has a
-backward kernel for the SSD scan or the norms.
+backward kernel for the SSD scan.
 """
 from __future__ import annotations
 
@@ -25,7 +25,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from .attention import chunked_attention, decode_attention, rope
-from .common import ParamSpec, cast_tree, decode_positions, dtype_of, init_tree
+from .common import ParamSpec, cast_tree, decode_positions, dtype_of, init_tree, norm, norm_add
 from .lm import ATTN_IMPLS
 from .ssm import (
     FP32_PARAMS,
@@ -33,8 +33,6 @@ from .ssm import (
     mamba_block_fwd,
     mamba_block_specs,
     mamba_state_specs,
-    norm,
-    norm_add,
 )
 
 # serve-engine state kind: each lane carries BOTH a slotted KV segment

@@ -815,3 +815,274 @@ def test_ssd_kernel_checks():
         wide = torch.zeros(1, 2, 65536, 8, dtype=torch.bfloat16)
         ssd_ops._check_kernel(wide, torch.zeros(65536), wide[:, :, :1], wide[:, :, :1],
                               wide.float(), None, seq_axis=1)
+
+
+# ---------------------------------------------------------------------------
+# The RMSNorm kernel's three entries: the gated form, gradients, the plan
+# ---------------------------------------------------------------------------
+
+# (leading dims, heads, head_dim): prefill-like (B, T) rows and decode-like
+# (B,) rows; 3 x 12 is 36 columns, not a multiple of the kernel's vector
+GATED_SHAPES = [((2, 7), 4, 16), ((5,), 3, 12)]
+# the card sweep of every entry
+RMSNORM_CARD_ROWS = [1, 8, 512, 4096]
+RMSNORM_CARD_D = [12, 20, 64, 960, 2048, 4096, 8192]
+
+
+def _gated_views(lead, H, P, dt, device="cpu", *, seed, y_dt="float32", offset=0):
+    """y (fp32 or ``y_dt``, contiguous) and z, x as split views of one
+    wider buffer, as the Mamba2 block hands them over (z from ``proj``, x
+    from ``conv_out``: row stride 2 * H * P + 8 + offset, inner stride 1;
+    ``offset`` 1 starts them off 16-byte alignment), plus gamma and D as
+    numpy arrays and the tensors.  Returns (numpy dict, torch dict)."""
+    rng = np.random.default_rng(seed)
+    D = H * P
+    buf = rng.normal(size=lead + (2 * D + 8 + offset,)).astype(np.float32) * 2
+    a = dict(y=rng.normal(size=lead + (D,)).astype(np.float32) * 2,
+             z=buf[..., offset:offset + D], x=buf[..., offset + D:offset + 2 * D],
+             g=(rng.normal(size=(D,)) * 0.1).astype(np.float32),
+             d=rng.uniform(0.5, 1.5, size=(H,)).astype(np.float32))
+    tb = _t(buf, dt, device)
+    t = dict(y=_t(a["y"], y_dt, device), z=tb[..., offset:offset + D],
+             x=tb[..., offset + D:offset + 2 * D], g=_t(a["g"], "float32", device),
+             d=_t(a["d"], "float32", device))
+    return a, t
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("lead,H,P", GATED_SHAPES)
+@pytest.mark.parametrize("skip", [True, False])
+def test_rmsnorm_gated_matches_reference(dt, lead, H, P, skip):
+    """``rmsnorm_gated_ref`` and the wrapper (plain on CPU) against the
+    reference's own expression (``models/ssm.py:244-246``): ``y + D x`` in
+    fp32, rounded to the compute dtype, then ``rms_norm(y * silu(z))`` with
+    ``repro.models.common.rms_norm``; without the skip, ``y`` rounded.  x
+    and z are strided split views.  fp32 1e-5 (the same fp32 arithmetic,
+    another exp and reduction order); bf16 the rmsnorm cases' 2e-2 (outputs
+    rounded once, and the roundings of the intermediates are the same)."""
+    pytest.importorskip("jax")
+    import jax
+    import jax.numpy as jnp
+    from repro.models.common import rms_norm as j_rms_norm
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm_gated
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_gated_ref
+
+    a, t = _gated_views(lead, H, P, dt, seed=H * P + len(lead))
+    assert not t["x"].is_contiguous() and not t["z"].is_contiguous()
+    cdt = jnp.dtype(dt)
+    jy = jnp.asarray(a["y"])
+    if skip:
+        jx = jnp.asarray(a["x"], cdt).reshape(lead + (H, P))
+        jy = (jy.reshape(lead + (H, P)) + jnp.asarray(a["d"])[:, None]
+              * jx.astype(jnp.float32)).reshape(lead + (H * P,))
+    jz = jnp.asarray(a["z"], cdt)
+    want = np.asarray(j_rms_norm(jy.astype(cdt) * jax.nn.silu(jz), jnp.asarray(a["g"]), 1e-6),
+                      np.float32)
+    kw = dict(x=t["x"], d_skip=t["d"], head_dim=P) if skip else {}
+    tol = dict(atol=1e-5, rtol=1e-5) if dt == "float32" else _tol(dt)
+    for got in (rmsnorm_gated_ref(t["y"], t["z"], t["g"], **kw),
+                rmsnorm_gated(t["y"], t["z"], t["g"], **kw)):
+        assert got.dtype == getattr(torch, dt) and got.shape == t["z"].shape
+        np.testing.assert_allclose(got.float().numpy(), want, **tol)
+
+
+@pytest.mark.parametrize("name", ["rmsnorm", "rmsnorm_add", "rmsnorm_gated"])
+def test_rmsnorm_wrapper_grads_match_plain(name):
+    """Through the wrappers' autograd Function (forward: the kernel, or the
+    plain version on a CPU tensor; backward: a recompute through the plain
+    version) against autograd through the plain version: gradients for
+    every input, gamma included, fp32 within 1e-6 (the same plain
+    backward).  Without grad mode, or with no input requiring grad, the
+    wrapper returns a tensor outside autograd (no Function, no graph)."""
+    from repro_torch.kernels.rmsnorm import ops
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_gated_ref
+
+    rng = np.random.default_rng(11)
+    if name == "rmsnorm_gated":
+        _, t = _gated_views((3, 5), 4, 8, "float32", seed=2)
+        inputs = [t["y"], t["z"], t["g"], t["x"], t["d"]]
+        fn = lambda y, z, g, x, d: ops.rmsnorm_gated(y, z, g, x=x, d_skip=d, head_dim=8)
+        ref = lambda y, z, g, x, d: rmsnorm_gated_ref(y, z, g, x, d, 8)
+    else:
+        buf = _t(rng.normal(size=(3, 5, 40)).astype(np.float32), "float32")
+        g = _t((rng.normal(size=(16,)) * 0.1).astype(np.float32), "float32")
+        x, r = buf[..., :16], buf[..., 20:36]
+        inputs = [x, r, g] if name == "rmsnorm_add" else [x, g]
+        fn = getattr(ops, name)
+        ref = rmsnorm_add_ref if name == "rmsnorm_add" else rmsnorm_ref
+    douts = None
+    grads = {}
+    for path, f in (("wrapper", fn), ("plain", ref)):
+        xs = [x.detach().clone().requires_grad_() for x in inputs]
+        outs = f(*xs)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        if path == "wrapper":
+            assert all(type(o.grad_fn).__name__ == "_NormBackward" for o in outs)
+        if douts is None:
+            douts = [torch.tensor(rng.normal(size=o.shape).astype(np.float32)) for o in outs]
+        grads[path] = torch.autograd.grad(outs, xs, douts)
+    assert len(grads["wrapper"]) == len(inputs)
+    for a, b in zip(grads["wrapper"], grads["plain"]):
+        torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-6)
+    with torch.no_grad():
+        outs = fn(*[x.detach().requires_grad_() for x in inputs])
+    assert all(o.grad_fn is None for o in (outs if isinstance(outs, tuple) else (outs,)))
+    outs = fn(*inputs)
+    assert all(o.grad_fn is None for o in (outs if isinstance(outs, tuple) else (outs,)))
+
+
+def test_rmsnorm_gated_rejects_bad_inputs():
+    """The gated wrapper's checks on either device, and the kernel's own
+    (``_check_kernel``: inner stride 1, rows at one stride, width) on CPU
+    tensors."""
+    from repro_torch.kernels.rmsnorm import ops
+
+    y, z, x = torch.zeros(4, 12), torch.zeros(4, 12), torch.zeros(4, 12)
+    g, d = torch.zeros(12), torch.zeros(3)
+    ops.rmsnorm_gated(y, z, g, x=x, d_skip=d, head_dim=4)
+    with pytest.raises(ValueError, match="one value per head"):
+        ops.rmsnorm_gated(y, z, g, x=x, d_skip=torch.zeros(4), head_dim=4)
+    with pytest.raises(ValueError, match="one value per head"):
+        ops.rmsnorm_gated(y, z, g, x=x, d_skip=d, head_dim=5)
+    with pytest.raises(ValueError, match="d_skip without x"):
+        ops.rmsnorm_gated(y, z, g, d_skip=d, head_dim=4)
+    with pytest.raises(ValueError, match="x .* != z"):
+        ops.rmsnorm_gated(y, z, g, x=x.bfloat16(), d_skip=d, head_dim=4)
+    with pytest.raises(ValueError, match="float32 or"):
+        ops.rmsnorm_gated(y.bfloat16(), z, g, x=x, d_skip=d, head_dim=4)
+    with pytest.raises(TypeError, match="d_skip"):
+        ops.rmsnorm_gated(y, z, g, x=x, d_skip=d.double(), head_dim=4)
+    with pytest.raises(TypeError):
+        ops.rmsnorm_gated(y, z.double(), g)
+    with pytest.raises(ValueError, match="last dim"):
+        ops.rmsnorm_gated(y, z, torch.zeros(11))
+    # the CUDA kernel's checks
+    wide = torch.zeros(4, 30)
+    assert ops._check_kernel("k", g, y, wide[:, 2:14], d_skip=d) == [12, 30]
+    with pytest.raises(ValueError, match="inner stride 1"):
+        ops._check_kernel("k", g, y, wide[:, ::2][:, :12])
+    with pytest.raises(ValueError, match="inner stride 1"):
+        ops._check_kernel("k", torch.zeros(4), torch.zeros(4, 4).t())
+    with pytest.raises(ValueError, match="one stride"):
+        ops._check_kernel("k", g, torch.zeros(2, 5, 12)[:, :3])
+    with pytest.raises(ValueError, match="contiguous"):
+        ops._check_kernel("k", torch.zeros(24)[::2], y)
+    with pytest.raises(ValueError, match="at most 8192"):
+        ops._check_kernel("k", torch.zeros(8193), torch.zeros(1, 8193))
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("D", RMSNORM_CARD_D + [4608, 5, 8191])
+def test_rmsnorm_plan(dt, D):
+    """The thread mapping the wrappers launch with, from the shape alone:
+    every row covered, at most 32 values a thread, powers of two; a decode
+    call (8 rows) spreads each row of 2048 or more over a whole block, a
+    prefill (512 rows) packs several rows a block, and the grid of a wide
+    call has at least one block per SM."""
+    from repro_torch.kernels.rmsnorm.ops import MAX_VALUES, THREADS, plan
+
+    vec = 8 if dt == "bfloat16" else 4
+    for rows in RMSNORM_CARD_ROWS + [3, 120, 7680]:
+        tpr, nv = plan(rows, D, getattr(torch, dt))
+        assert tpr & (tpr - 1) == 0 and nv & (nv - 1) == 0 and tpr <= THREADS
+        assert tpr * nv * vec >= D and nv * vec <= MAX_VALUES
+        rpb = THREADS // tpr
+        blocks = -(-rows // rpb)
+        if rows == 8 and D >= 2048:
+            assert tpr == THREADS
+        if rows == 512 and D in (2048, 4096):
+            assert rpb >= 2 and blocks >= 132
+    with pytest.raises(ValueError, match="D <= 8192"):
+        plan(8, 8193, getattr(torch, dt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("gdt", DTYPES)
+@pytest.mark.parametrize("rows", RMSNORM_CARD_ROWS)
+@pytest.mark.parametrize("D", RMSNORM_CARD_D)
+def test_rmsnorm_entries_sweep_on_card(cuda, dt, gdt, rows, D):
+    """All three entries against their plain versions, x and r (and the
+    gated form's x and z) as strided views at a padded row stride, gamma
+    (and D) in either dtype; the sum of ``rmsnorm_add`` bitwise; one
+    launch each."""
+    from repro_torch.kernels.rmsnorm import ops
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_gated_ref
+
+    rng = np.random.default_rng(rows + D)
+    buf = _t(rng.normal(size=(rows, 2 * D + 8)).astype(np.float32) * 3, dt, cuda)
+    x, r = buf[:, :D], buf[:, D + 8:]
+    g = _t((rng.normal(size=(D,)) * 0.1).astype(np.float32), gdt, cuda)
+    hd = int(np.gcd(D, 64))
+    d = _t(rng.uniform(0.5, 1.5, size=(D // hd,)).astype(np.float32), gdt, cuda)
+    y = _t(rng.normal(size=(rows, D)).astype(np.float32), "float32", cuda)
+    before = (ops.rmsnorm.launches, ops.rmsnorm_add.launches, ops.rmsnorm_gated.launches)
+    out = ops.rmsnorm(x, g)
+    normed, summed = ops.rmsnorm_add(x, r, g)
+    gated = ops.rmsnorm_gated(y, r, g, x=x, d_skip=d, head_dim=hd)
+    torch.cuda.synchronize()
+    assert (ops.rmsnorm.launches, ops.rmsnorm_add.launches,
+            ops.rmsnorm_gated.launches) == tuple(b + 1 for b in before)
+    torch.testing.assert_close(out.float(), rmsnorm_ref(x, g).float(), **_card_tol(dt))
+    want_n, want_s = rmsnorm_add_ref(x, r, g)
+    torch.testing.assert_close(normed.float(), want_n.float(), **_card_tol(dt))
+    assert torch.equal(summed, want_s)
+    want_g = rmsnorm_gated_ref(y, r, g, x, d, hd)
+    torch.testing.assert_close(gated.float(), want_g.float(), **_card_tol(dt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("lead,H,P", GATED_SHAPES + [((8,), 64, 64), ((1, 512), 64, 64)])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("y_of_z", [False, True])
+def test_rmsnorm_gated_views_on_card(cuda, dt, lead, H, P, offset, y_of_z):
+    """The gated form on the Mamba2 block's views (zamba2's decode and
+    bucket-512 prefill shapes, and narrow ones), rows 16-byte aligned or
+    one element off, y fp32 or of z's dtype, with and without the skip;
+    then ``rmsnorm`` and ``rmsnorm_add`` on the same unaligned views."""
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm_gated
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_gated_ref
+
+    _, t = _gated_views(lead, H, P, dt, cuda, seed=H + P + offset,
+                        y_dt=dt if y_of_z else "float32", offset=offset)
+    for kw in (dict(x=t["x"], d_skip=t["d"], head_dim=P), {}):
+        got = rmsnorm_gated(t["y"], t["z"], t["g"], **kw)
+        torch.cuda.synchronize()
+        want = rmsnorm_gated_ref(t["y"], t["z"], t["g"], kw.get("x"), kw.get("d_skip"), P)
+        torch.testing.assert_close(got.float(), want.float(), **_card_tol(dt))
+    out = rmsnorm(t["z"], t["g"])
+    normed, summed = rmsnorm_add(t["z"], t["x"], t["g"])
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), rmsnorm_ref(t["z"], t["g"]).float(), **_card_tol(dt))
+    want_n, want_s = rmsnorm_add_ref(t["z"], t["x"], t["g"])
+    torch.testing.assert_close(normed.float(), want_n.float(), **_card_tol(dt))
+    assert torch.equal(summed, want_s)
+
+
+@pytest.mark.cuda
+def test_rmsnorm_kernels_reject_on_card(cuda):
+    """A CUDA tensor the kernel does not take raises: no fallback."""
+    x = torch.zeros(4, 8200, device=cuda)
+    with pytest.raises(ValueError, match="at most 8192"):
+        rmsnorm(x, torch.zeros(8200, device=cuda))
+    with pytest.raises(ValueError, match="inner stride 1"):
+        rmsnorm(torch.zeros(16, 4, device=cuda).t(), torch.zeros(16, device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tpr,nv", [(1, 1), (128, 1), (3, 4), (512, 1), (256, 8)])
+def test_rmsnorm_launcher_refuses_bad_plan(cuda, tpr, nv):
+    """The C launcher checks the mapping it is handed: threads per row a
+    power of two of at most a block, vectors per thread one the kernel is
+    built for, and together covering a bf16 row of 2048 (256 vectors)."""
+    from repro_torch.kernels.rmsnorm import ops
+
+    x = torch.zeros(8, 2048, dtype=torch.bfloat16, device=cuda)
+    g, out = torch.zeros(2048, device=cuda), torch.empty_like(x)
+    rc = ops._entry("rmsnorm_fwd")(x.data_ptr(), 2048, g.data_ptr(), out.data_ptr(), 1, 0,
+                                   8, 2048, 1e-6, tpr, nv, ops._stream(x))
+    assert rc != 0
+    assert ops._entry("rmsnorm_fwd")(x.data_ptr(), 2048, g.data_ptr(), out.data_ptr(), 1, 0,
+                                     8, 2048, 1e-6, *ops.plan(8, 2048, x.dtype),
+                                     ops._stream(x)) == 0

@@ -241,3 +241,34 @@ def test_rope_and_rms_norm(dt):
         np.asarray(jcommon.decode_positions(jnp.asarray([3, 4]), 2)),
         tcommon.decode_positions(torch.tensor([3, 4]), 2).numpy())
     assert tcommon.decode_positions(7, 3).tolist() == [[7], [7], [7]]
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("impl", ["chunked", "kernel"])
+def test_qk_norm_prefill_and_decode_parity(mesh, rules, dt, impl):
+    """QK-RMSNorm (``qk_norm=True``, qwen3's) on the dense smoke config,
+    with random nonzero ``qnorm``/``knorm`` scales: a slotted prefill and
+    one decode step against the reference.  Under ``impl="kernel"`` the
+    q and k norms go through the RMSNorm wrapper (its plain version on
+    CPU tensors), as every other norm does."""
+    jcfg = dataclasses.replace(jax_smoke("smollm-360m"), compute_dtype=dt, qk_norm=True)
+    tcfg = dataclasses.replace(get_smoke_config("smollm-360m"), compute_dtype=dt,
+                               qk_norm=True, attn_impl=impl)
+    jp = jax.tree.map(np.asarray, jreg.get_module(jcfg).init(jcfg, jax.random.PRNGKey(0)))
+    rng = np.random.default_rng(8)
+    for name in ("qnorm", "knorm"):
+        jp["blocks"][name] = (rng.normal(size=jp["blocks"][name].shape) * 0.3).astype(np.float32)
+    tp = tlm.cast_for_compute(tcfg, params_from_numpy(tcfg, jp, device="cpu"))
+    jp = jax.tree.map(jnp.asarray, jp)
+    toks = _tokens(jcfg, (1, 32), 2)
+    jc = {k: jnp.zeros(s.shape, s.dtype) for k, s in jlm.make_cache_specs(jcfg, 2, 64).items()}
+    jc, jl = jlm.prefill_slot(jcfg, mesh, rules, jp, jc, jnp.asarray(toks), 1, 27)
+    tc = {k: torch.zeros_like(s, device="cpu")
+          for k, s in tlm.make_cache_specs(tcfg, 2, 64).items()}
+    tc, tl = tlm.prefill_slot(tcfg, tp, tc, torch.tensor(toks), 1, 27)
+    _close(jl, tl, dt)
+    _close(jc["k"], tc["k"], dt)
+    tk, idx = _tokens(jcfg, (2,), 9), np.array([3, 27], np.int32)
+    jl, _ = jlm.decode_step(jcfg, mesh, rules, jp, jc, jnp.asarray(tk), jnp.asarray(idx))
+    tl, _ = tlm.decode_step(tcfg, tp, tc, torch.tensor(tk), torch.tensor(idx))
+    _close(jl, tl, dt)

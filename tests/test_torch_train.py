@@ -129,6 +129,40 @@ def test_remat_recomputes_flash_forward_once_per_layer(jparams, monkeypatch):
         assert len(calls) == per_layer * cfg.n_layers
 
 
+def test_remat_recomputes_norms_once_per_layer(jparams, monkeypatch):
+    """Under ``attn_impl="kernel"`` every norm of the training forward is
+    one call of the RMSNorm wrappers' forward (the kernel on the card):
+    per layer ``ln1`` through ``rmsnorm`` and ``ln2`` with its residual add
+    through ``rmsnorm_add``, run again by remat's recompute, and ``ln_f``
+    once; their backward recomputes through the plain versions and calls
+    neither.  ``chip_smoke.py`` phase 4 asserts the same counts on the
+    kernels' launches."""
+    from repro_torch.kernels.rmsnorm import ops as norm_ops
+
+    cfg = _tcfg("float32", "kernel")
+    calls = {"_rmsnorm": 0, "_rmsnorm_add": 0}
+    for name in calls:
+        real = getattr(norm_ops, name)
+
+        def counted(*a, _real=real, _name=name, **kw):
+            calls[_name] += 1
+            return _real(*a, **kw)
+
+        monkeypatch.setattr(norm_ops, name, counted)
+    for remat, per_layer in ((True, 2), (False, 1)):
+        calls.update(_rmsnorm=0, _rmsnorm_add=0)
+        params = _tparams(jparams)
+        for _, l in tree_leaves(params):
+            l.requires_grad_()
+        loss, _ = tlm.loss_fn(cfg, params, {"tokens": torch.tensor(_tokens(256, (2, 17), 1))},
+                              remat=remat)
+        loss.backward()
+        assert calls == {"_rmsnorm": per_layer * cfg.n_layers + 1,
+                         "_rmsnorm_add": per_layer * cfg.n_layers}
+        assert all(float(params["blocks"][n].grad.abs().sum()) > 0 for n in ("ln1", "ln2"))
+        assert float(params["ln_f"].grad.abs().sum()) > 0
+
+
 @pytest.mark.parametrize("kw", [dict(causal=True), dict(causal=False),
                                 dict(causal=True, window=24),
                                 dict(causal=True, softcap=20.0)])
