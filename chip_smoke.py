@@ -63,14 +63,31 @@ Phases (any failure raises and the script exits non-zero):
    calls of a few microseconds, beside them as ``*_events``.
 3. Drive the port's main path at full ``smollm-360m`` width with random
    weights from seed 0: a paged ``ServeEngine`` with both kernels serves
-   16 greedy requests (prompts 16-512, budgets 32-64).  The launch counts
+   16 greedy requests (prompts 16-512, budgets 32-64), every decode step a
+   replay of the CUDA graph its engine captured (``core.aot``).  First a
+   graph check: 8 decode steps of 8 busy lanes two ways, the eager program
+   on a deep clone of the state and the graph on the state itself; the
+   tokens and every state leaf must be bitwise equal.  It runs twice:
+   greedy, and sampled with a temperature, top-k and top-p (the
+   stochastic, masked graph, drawing from its registered generator).  After the measured
+   run the engine's program cache must hold one decode program and one
+   prefill per prompt bucket, the engine one decode graph, and both stay
+   flat while it serves four of the requests again (``builds``,
+   ``cache_hits``, ``executables``, ``graphs`` printed).
+   The launch counts
    must equal 32 x prefills (flash), 32 x decode steps (paged), 33 x
    (prefills + decode steps) (rmsnorm: ``ln1`` of each layer, ``ln_f``)
    and 32 x (prefills + decode steps) (rmsnorm_add: ``ln2`` with the
    residual add before it); the
    kernel path's prefill and first decode-step logits must agree with the
    ``chunked``/``ref`` path's (fp32 with TF32 off, and bf16); a few
-   requests also run on the slotted layout.
+   requests also run on the slotted layout.  The profiled decode step
+   (a replay and the token fetch) gives launches, device ms and idle
+   share, beside the host ms of one replay and the launches and device ms
+   of the eager program it replays; the port's kernels in the profiled
+   replays must equal, wrapper by wrapper, the launches the graph adds to
+   the wrappers' counters on each replay (the counters the launch-count
+   gates read).
 4. Train full-width ``smollm-360m`` (seed 0, bf16 compute, both kernels)
    over a 1-rank NCCL group at seq 1024, global batch 8, 2 slices, remat:
    the faithful program for 6 steps and ZeRO for 3, through
@@ -89,7 +106,9 @@ Phases (any failure raises and the script exits non-zero):
 5. Serve full-width ``zamba2-1.2b`` (seed-0 weights, bf16, slotted, 8
    lanes, max_len 1024, ``attn_impl="kernel"``): 16 greedy requests with
    phase 3's prompt lengths and budgets, ``check_invariants`` (recurrent
-   zeroing of free lanes included) after every step.  Every request must
+   zeroing of free lanes included) after every step, decode steps as
+   graph replays with phase 3's graph check and build counts before and
+   after the run.  Every request must
    end ``ok`` with its full budget; the launch counts must equal 38 x
    prefills (ssd), 7 x prefills (flash), 7 x (prefills + decode steps)
    (rmsnorm_add), 46 x (prefills + decode steps) (rmsnorm: 7 shared
@@ -108,7 +127,20 @@ Phases (any failure raises and the script exits non-zero):
    decode step's idle share, and a profiled kernel-path prefill at bucket
    512: device ms, idle share, launches, the top device kernels and the
    SSD kernels' share of the device time.
-6. Print the launches, device ms and idle share of the profiled dense and
+6. The function API (``repro_torch.core``) on the card, one worker
+   (``fork()``): (a) the paper's Appendix A program (``examples/
+   synk_sgd.py`` in the port's API: a CNN trained by ``synk.function`` on
+   ``synk.data`` with ``batch=`` indices and ``all_reduce(..., "avg")``,
+   10 epochs) must reach a train accuracy above 0.4; (b) full-width
+   ``smollm-360m`` (fp32, TF32 off, ``attn_impl="kernel"``) loss and
+   gradients through ``synk.function(loss_and_grads, [Scatter,
+   Broadcast], (Reduce("mean"), Reduce("mean")))`` on 8 rows of 256
+   tokens read by ``batch=`` global ids from a ``scatter_data`` corpus on
+   the card: ``num_slices`` 1 and 2 against a direct ``lm.loss_fn`` and
+   autograd on the same rows, loss within 1e-5 and gradient norm within
+   1e-4 (relative); the flash and RMSNorm launches per call equal their
+   formulas; one build per signature and resident parameters skipped.
+7. Print the launches, device ms and idle share of the profiled dense and
    zamba decode steps and zamba prefill, the seconds of each phase, the
    card's name and power limit, one
    ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
@@ -792,6 +824,120 @@ def serve(torch, cfg, params, reqs, engine_cfg, dev, *, check: bool = False):
     return eng, rids, steps, prefilled, wall
 
 
+def clone_state(torch, tree):
+    """A deep copy of an engine's state: every tensor cloned, the sampling
+    generator's state copied into a new generator."""
+    if isinstance(tree, dict):
+        return {k: clone_state(torch, v) for k, v in tree.items()}
+    if isinstance(tree, torch.Generator):
+        gen = torch.Generator(device=tree.device)
+        gen.set_state(tree.get_state())
+        return gen
+    return tree.clone()
+
+
+def state_leaves(torch, state, prefix=""):
+    """(name, tensor) of every tensor leaf of an engine's state."""
+    for k in sorted(state):
+        v = state[k]
+        if isinstance(v, dict):
+            yield from state_leaves(torch, v, f"{prefix}{k}/")
+        elif torch.is_tensor(v):
+            yield prefix + k, v
+
+
+def bitwise_equal(torch, a, b) -> bool:
+    """Same shape, dtype and bits (a float's sign of zero and NaN payload
+    included)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+        a, b = a.contiguous().view(ints), b.contiguous().view(ints)
+    return bool(torch.equal(a, b))
+
+
+# the sampling of graph_check's sampled pass: a temperature (the
+# stochastic program, drawing from the registered generator) with top-k
+# and top-p (its masked form)
+SAMPLED = dict(temperature=0.8, top_k=40, top_p=0.95)
+
+
+def graph_check(torch, cfg, params, reqs, ec, dev, steps: int = 8,
+                sampling: dict | None = None) -> dict:
+    """The captured decode graph against the eager program it captured: an
+    engine admits the first ``MAX_SLOTS`` requests (greedy, or with
+    ``sampling``'s temperature, top-k and top-p) and takes its first
+    decode step (which builds the graph); then it takes ``steps`` more
+    steps, each of which (after the engine has mapped blocks and pushed
+    its mirrors) runs the eager program on a deep clone of the state (the
+    sampling generator's state copied) and replays the graph on the state
+    itself.  The sampled tokens must be equal and every state leaf bitwise
+    equal: the two launch the same kernels in the same order on the same
+    inputs, and draw the same uniforms from the same generator state."""
+    from repro_torch.core.aot import CudaGraphProgram
+    from repro_torch.serve import ServeEngine
+
+    sampling = sampling or {}
+    flags = dict(stochastic=sampling.get("temperature", 0) > 0,
+                 masked=bool(sampling.get("top_k")) or 0 < sampling.get("top_p", 1) < 1)
+    eng = ServeEngine(cfg, params, ec, device=dev)
+    for p, b in reqs[:MAX_SLOTS]:
+        eng.submit(p, max_new_tokens=b, **sampling)
+    while eng.counters["decode_steps"] < 1:
+        eng.step()
+    graph = eng._decode_entry(**flags)
+    assert isinstance(graph, CudaGraphProgram), type(graph)
+    assert eng.stats["graphs"] == 1, eng.stats
+    eager = eng.decode_program(**flags)
+    bad = []
+
+    def checked(params, state):
+        step = graph.replays
+        clone = clone_state(torch, state)
+        want = eager(params, clone)
+        got = graph(params, state)
+        torch.cuda.synchronize()
+        if not bitwise_equal(torch, got, want):
+            bad.append((step, "tokens"))
+        bad.extend((step, name) for (name, a), (_, b) in zip(state_leaves(torch, state),
+                                                            state_leaves(torch, clone))
+                   if not bitwise_equal(torch, a, b))
+        return got
+
+    eng._decode_entry = lambda **flags: checked
+    try:
+        for _ in range(steps):
+            eng.step()
+    finally:
+        del eng._decode_entry       # the engine's own method again: no cycle keeps it alive
+    assert eng.counters["decode_steps"] == steps + 1 and not eng.completions
+    build_s = list(eng.graphs.build_seconds.values())
+    out = dict(**flags, steps=steps, lanes=MAX_SLOTS, replays=graph.replays, mismatches=bad,
+               leaves=len(list(state_leaves(torch, eng.state))),
+               graph_build_s=build_s[0], launches_counted_per_replay=[
+                   (c.__name__, n) for c, n in graph.launches])
+    log(f"graph check: {json.dumps(out)}")
+    assert not bad and graph.replays == steps, out
+    return out
+
+
+def steady_builds(eng, reqs) -> dict:
+    """The engine serves ``reqs`` again: its program cache must build
+    nothing more (builds flat after warm-up) and only hit, and it captures
+    no new graph."""
+    keys = ("builds", "cache_hits", "executables", "graphs")
+    before = {k: eng.stats[k] for k in keys}
+    for p, b in reqs:
+        eng.submit(p, max_new_tokens=b)
+    eng.drain()
+    after = {k: eng.stats[k] for k in keys}
+    out = dict(before=before, after=after, requests=len(reqs))
+    assert (after["builds"], after["graphs"]) == (before["builds"], before["graphs"]) \
+        and after["cache_hits"] > before["cache_hits"], out
+    return out
+
+
 def dense_norms(pre: int, dec: int) -> dict:
     """RMSNorm launches of a dense smollm-360m serving run: per prefill and
     decode step ``ln1`` in each layer and ``ln_f`` (rmsnorm), ``ln2`` with
@@ -814,9 +960,13 @@ def main_path(torch, dev, results):
     reqs = requests(cfg.vocab)
     ec = EngineConfig(max_slots=MAX_SLOTS, max_len=MAX_LEN, kv_layout="paged",
                       page_size=PAGE, paged_attn="kernel")
-    # warm-up (cuBLAS handles, allocator) on two short requests, then the
-    # measured run with the launch counts set to 0 just before it
+    # warm-up (cuBLAS handles, allocator) on two short requests, the graph
+    # check, then the measured run with the launch counts set to 0 just
+    # before it
     serve(torch, cfg, params, [(reqs[0][0][:16], 4), (reqs[1][0][:32], 4)], ec, dev)
+    results["graph_check"] = {
+        "greedy": graph_check(torch, cfg, params, reqs, ec, dev),
+        "sampled": graph_check(torch, cfg, params, reqs, ec, dev, sampling=SAMPLED)}
     kernels = (flash_attention, paged_attention, rmsnorm, rmsnorm_add)
     torch.cuda.reset_peak_memory_stats()
     for k in kernels:
@@ -825,6 +975,7 @@ def main_path(torch, dev, results):
     launches = {k.__name__: k.launches for k in kernels}
     st = eng.stats
     eng.check_invariants()
+    programs = program_builds(eng, reqs)
     comps = [eng.completions[r] for r in rids]
     bad = [(c.rid, c.status, len(c.tokens), b) for c, (_, b) in zip(comps, reqs)
            if c.status != "ok" or len(c.tokens) != b]
@@ -843,10 +994,12 @@ def main_path(torch, dev, results):
                decode_only_steps=len(decode_only), step_ms_mean=wall * 1e3 / len(steps),
                kv_reserved_bytes=st["kv_reserved_bytes"],
                kv_peak_used_bytes=st["kv_peak_used_bytes"],
-               max_memory_allocated=torch.cuda.max_memory_allocated(), launches=launches)
-    log(f"main path (paged, kernels): {tokens} tokens in {wall:.3f} s = "
+               max_memory_allocated=torch.cuda.max_memory_allocated(), launches=launches,
+               programs=programs)
+    log(f"main path (paged, kernels, decode graph): {tokens} tokens in {wall:.3f} s = "
         f"{tokens / wall:.1f} tok/s; decode step median {e2e['decode_step_ms_median']:.2f} ms "
-        f"over {len(decode_only)} decode-only steps; launches {launches}")
+        f"over {len(decode_only)} decode-only steps; launches {launches}; "
+        f"programs {json.dumps(programs)}")
 
     # the same requests through the plain paths: greedy agreement, printed
     # and not gated (random weights leave near-ties that bf16 rounding
@@ -890,6 +1043,22 @@ def main_path(torch, dev, results):
     return launches
 
 
+def program_builds(eng, reqs) -> dict:
+    """The engine's program cache after a run: one decode program and one
+    prefill per prompt bucket the run used, one decode graph, then flat
+    while the engine serves four of the requests again (``steady_builds``)."""
+    from repro_torch.serve import bucket_for
+
+    st = eng.stats
+    buckets = sorted({bucket_for(int(p.size), eng.buckets) for p, _ in reqs})
+    out = dict(builds=st["builds"], cache_hits=st["cache_hits"],
+               executables=st["executables"], graphs=st["graphs"], buckets=buckets,
+               decode_build_s=list(eng.graphs.build_seconds.values()))
+    assert st["builds"] == st["executables"] == 1 + len(buckets) and st["graphs"] == 1, out
+    out["steady"] = steady_builds(eng, reqs[:4])
+    return out
+
+
 def agreement(a, b) -> dict:
     """Greedy streams a vs b: requests identical, share of equal tokens."""
     pos = [np.mean(np.array(x) == np.array(y)) for x, y in zip(a, b)]
@@ -905,6 +1074,37 @@ PORT_KERNEL = re.compile(r"^(void )?\(anonymous namespace\)::(tc::|simt::)?(flas
 SSD_KERNEL = re.compile(r"^(void )?\(anonymous namespace\)::(tc::|simt::)?ssd_")
 
 
+# the wrapper that launches a port kernel of a decode step, by the kernel's
+# name in a profile: rmsnorm_kernel's second template argument is its mode
+# (plain, add, gated); paged_combine_kernel, the second kernel of a
+# paged_attention call, is counted with its split kernel
+DECODE_WRAPPER = ((re.compile(r"::rmsnorm_kernel<[^,]+, 0,"), "rmsnorm"),
+                  (re.compile(r"::rmsnorm_kernel<[^,]+, 1,"), "rmsnorm_add"),
+                  (re.compile(r"::rmsnorm_kernel<[^,]+, 2,"), "rmsnorm_gated"),
+                  (re.compile(r"::paged_split_kernel<"), "paged_attention"))
+
+
+def replay_launches(kernels, steps: int) -> dict:
+    """{wrapper name: launches per step} of the port's kernels in a profile
+    of ``steps`` decode-graph replays: what the replays really launched,
+    to hold against the counts the graph adds to the wrappers' counters.
+    Each kernel's calls per step are rounded to a whole launch (the
+    profiler can miss the first launches of its window)."""
+    per, combine = {}, 0
+    for e in kernels:
+        if not PORT_KERNEL.match(e.key):
+            continue
+        n = round(e.count / steps)
+        if "::paged_combine_kernel<" in e.key:
+            combine += n
+            continue
+        name = next((w for rx, w in DECODE_WRAPPER if rx.search(e.key)), None)
+        assert name is not None, f"a decode replay launched {e.key[:100]}"
+        per[name] = per.get(name, 0) + n
+    assert combine == per.get("paged_attention", 0), (combine, per)
+    return per
+
+
 def port_kernels(kernels, per: float) -> list[dict]:
     """The port's own kernels in a profile: name, calls and device ms per
     ``per``."""
@@ -915,7 +1115,13 @@ def port_kernels(kernels, per: float) -> list[dict]:
 def profile_decode(torch, cfg, params, reqs, ec, dev, steps: int = 5):
     """Device time of a few decode steps with all 8 lanes busy, by kernel,
     from ``torch.profiler``; the idle share is taken against the step
-    time of the same steps run again unprofiled."""
+    time of the same steps run again unprofiled.  The steps are the
+    engine's: one replay of the captured decode graph and the token fetch.
+    The port's kernels in the profiled replays must be, wrapper by wrapper,
+    the launches the graph adds to the wrappers' counters per replay.
+    Then the host ms of one replay alone (no fetch, a synchronize after
+    it), and the eager program the graph captured, run and profiled on
+    the same state: its launches and device ms per step."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serve import ServeEngine
 
@@ -936,19 +1142,52 @@ def profile_decode(torch, cfg, params, reqs, ec, dev, steps: int = 5):
             eng.step()
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
-    if not kernels:
+    # the engine's host mirror stops here: the calls below advance the
+    # device state directly
+    replay = eng._decode_entry(stochastic=False, masked=False)
+    counted = {c.__name__: n for c, n in replay.launches}
+    replay_ms = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        replay(eng.params, eng.state)
+        replay_ms.append((time.perf_counter() - t) * 1e3)
+    eager = eng.decode_program(stochastic=False, masked=False)
+    eager(eng.params, eng.state)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(steps):
+        eager(eng.params, eng.state)
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CUDA]) as eprof:
+        for _ in range(steps):
+            eager(eng.params, eng.state)
+        torch.cuda.synchronize()
+    ekernels = [e for e in eprof.key_averages() if e.device_type.name == "CUDA"]
+    if not kernels or not ekernels:
         log("profile: torch.profiler recorded no device activity (not measured)")
         return None
+    # the launch counts the graph adds on every replay, held against what
+    # the profiled replays launched
+    measured = replay_launches(kernels, steps)
+    assert measured == counted, (measured, counted)
     total_us = sum(e.self_device_time_total for e in kernels)
+    eager_us = sum(e.self_device_time_total for e in ekernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
     out = dict(steps=steps, lanes=MAX_SLOTS, step_ms_unprofiled=step_ms,
                device_ms_per_step=total_us / 1e3 / steps,
                device_idle_share=1 - total_us / 1e3 / steps / step_ms,
                kernel_launches_per_step=sum(e.count for e in kernels) / steps,
+               replay_host_ms=replay_ms, replay_host_ms_median=float(np.median(replay_ms)),
+               eager_step_ms=eager_ms, eager_device_ms_per_step=eager_us / 1e3 / steps,
+               eager_kernel_launches_per_step=sum(e.count for e in ekernels) / steps,
+               eager_device_idle_share=1 - eager_us / 1e3 / steps / eager_ms,
                top=[dict(name=e.key[:80], calls_per_step=e.count / steps,
                          ms_per_step=e.self_device_time_total / 1e3 / steps)
                     for e in top],
-               port_kernels_per_step=port_kernels(kernels, steps))
+               port_kernels_per_step=port_kernels(kernels, steps),
+               replay_launches_per_step=measured, counted_launches_per_replay=counted)
     log(f"profile: {json.dumps(out)}")
     return out
 
@@ -1024,12 +1263,16 @@ def zamba_path(torch, dev, results):
     ec = EngineConfig(max_slots=MAX_SLOTS, max_len=MAX_LEN, kv_layout="slotted")
     kernels = (flash_attention, ssd, rmsnorm, rmsnorm_add, rmsnorm_gated)
     serve(torch, cfg, params, [(reqs[0][0][:16], 4), (reqs[1][0][:32], 4)], ec, dev)
+    results["zamba_graph_check"] = {
+        "greedy": graph_check(torch, cfg, params, reqs, ec, dev),
+        "sampled": graph_check(torch, cfg, params, reqs, ec, dev, sampling=SAMPLED)}
     torch.cuda.reset_peak_memory_stats()
     for k in kernels:
         k.launches = 0
     eng, rids, steps, prefilled, wall = serve(torch, cfg, params, reqs, ec, dev, check=True)
     launches = {k.__name__: k.launches for k in kernels}
     st = eng.stats
+    programs = program_builds(eng, reqs)
     comps = [eng.completions[r] for r in rids]
     bad = [(c.rid, c.status, len(c.tokens), b) for c, (_, b) in zip(comps, reqs)
            if c.status != "ok" or len(c.tokens) != b]
@@ -1052,10 +1295,11 @@ def zamba_path(torch, dev, results):
                decode_only_steps=len(decode_only), state_kind=st["state_kind"],
                kv_reserved_bytes=st["kv_reserved_bytes"],
                max_memory_allocated=torch.cuda.max_memory_allocated(), launches=launches,
-               invariants_checked_steps=len(steps))
-    log(f"zamba2 (slotted, kernels): {tokens} tokens in {wall:.3f} s = {tokens / wall:.1f} "
-        f"tok/s; decode step median {e2e['decode_step_ms_median']:.2f} ms over "
-        f"{len(decode_only)} decode-only steps; launches {launches}")
+               invariants_checked_steps=len(steps), programs=programs)
+    log(f"zamba2 (slotted, kernels, decode graph): {tokens} tokens in {wall:.3f} s = "
+        f"{tokens / wall:.1f} tok/s; decode step median {e2e['decode_step_ms_median']:.2f} ms "
+        f"over {len(decode_only)} decode-only steps; launches {launches}; "
+        f"programs {json.dumps(programs)}")
 
     ref_cfg = dataclasses.replace(base, attn_impl="chunked")
     ref_eng, ref_rids, _, _, ref_wall = serve(torch, ref_cfg, params, reqs, ec, dev)
@@ -1484,6 +1728,151 @@ def train_path(torch, dev, results):
 
 
 # ---------------------------------------------------------------------------
+# Phase 6: the function API (core) at full width
+# ---------------------------------------------------------------------------
+
+APPENDIX_LR = 0.05
+# the full-width loss through synk.function, fp32 with TF32 off: the
+# sliced and direct losses are the same fp32 sums in another grouping
+FUNCTION_TOL = dict(loss=1e-5, grad_norm=1e-4)
+FUNCTION_ROWS, FUNCTION_SEQ, FUNCTION_CORPUS = 8, 256, 64
+
+
+def appendix_a(torch, synk) -> dict:
+    """The paper's Appendix A program in the port's API, as the reference's
+    ``examples/synk_sgd.py`` runs it: a small CNN on 2048 class-shifted
+    16 x 16 images, per-worker SGD steps through ``synk.function`` on
+    ``synk.data`` with ``batch=`` indices, then ``all_reduce(..., "avg")``
+    of the workers' parameters; 10 epochs of batch 256.  The weights come
+    from numpy (seed 0), not ``jax.random``."""
+    import torch.nn.functional as F
+
+    def forward(p, x):
+        x = F.max_pool2d(F.relu(F.conv2d(x, p["conv"], padding=1)), 2)
+        return F.relu(x.reshape(x.shape[0], -1) @ p["w1"]) @ p["w2"]
+
+    def train_fn(x, y, params):
+        p = {k: v.detach().requires_grad_() for k, v in params.items()}
+        loss = F.cross_entropy(forward(p, x), y.long())
+        grads = torch.autograd.grad(loss, list(p.values()))
+        return loss, {k: v - APPENDIX_LR * g for (k, v), g in zip(p.items(), grads)}
+
+    ctx = synk.current()
+    train = synk.function(train_fn, inputs=[synk.Scatter(), synk.Scatter(), synk.Broadcast()],
+                          outputs=(synk.Reduce("mean"), synk.Reduce(None)))
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(2048, 1, 16, 16)).astype(np.float32)
+    labels = rng.integers(0, 10, size=(2048,)).astype(np.int32)
+    X += labels[:, None, None, None] * 0.6
+    X_train, y_train = synk.data(X), synk.data(labels)
+    init = np.random.default_rng(0)
+    params_local = synk.distribute({
+        "conv": (init.normal(size=(8, 1, 3, 3)) * 0.3).astype(np.float32),
+        "w1": (init.normal(size=(8 * 8 * 8, 64)) * 0.05).astype(np.float32),
+        "w2": (init.normal(size=(64, 10)) * 0.1).astype(np.float32)})
+    t = time.perf_counter()
+    losses = []
+    for _ in range(10):
+        order = rng.permutation(len(X_train))
+        for i in range(0, len(order), 256):
+            host_params = synk.get_value(params_local, 0)
+            loss, new = train(X_train, y_train, host_params, batch=order[i:i + 256])
+            # Reduce(None) is the workers' stack: this rank keeps its row
+            mine = {k: v[ctx.rank] for k, v in new.items()}
+            params_local = synk.all_reduce(synk.LocalValues(mine), "avg")
+        losses.append(float(loss))
+    seconds = time.perf_counter() - t
+    final = synk.as_replicated(params_local, check=False)
+    with torch.no_grad():
+        pred = forward(final, torch.from_numpy(X[:256]).to(ctx.device)).argmax(-1).cpu().numpy()
+    out = dict(epochs=10, steps=train.stats["calls"], epoch_losses=losses, seconds=seconds,
+               train_accuracy=float((pred == labels[:256]).mean()), stats=train.stats)
+    log(f"appendix A (synk SGD, 1 worker on the card): {json.dumps(out)}")
+    assert out["train_accuracy"] > 0.4, out
+    return out
+
+
+def function_path(torch, dev, results):
+    """Phase 6: ``repro_torch.core`` on the card, one worker (``fork()``
+    without a torchrun environment): the Appendix A program, then the
+    full-width smollm-360m loss and gradients through ``synk.function``
+    (flash and RMSNorm kernels inside), sliced and not, against a direct
+    ``lm.loss_fn`` and autograd on the same rows."""
+    import repro_torch.core as synk
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import leaves, map_tree, unflatten
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_add
+    from repro_torch.models import lm
+
+    synk.reset()
+    ctx = synk.fork()
+    assert (ctx.n_data, ctx.device.type) == (1, dev.type), ctx      # the card
+    out = {"appendix_a": appendix_a(torch, synk)}
+
+    cfg = dataclasses.replace(get_config("smollm-360m"), attn_impl="kernel",
+                              compute_dtype="float32")
+    assert cfg.n_layers == N_LAYERS
+    params = lm.init(cfg, seed=0, device=dev)
+    rng = np.random.default_rng(0)
+    corpus = rng.integers(0, cfg.vocab, (FUNCTION_CORPUS, FUNCTION_SEQ + 1)).astype(np.int32)
+    ds = synk.scatter_data(corpus)
+    ids = rng.permutation(FUNCTION_CORPUS)[:FUNCTION_ROWS]
+
+    def loss_and_grads(tokens, params):
+        p = map_tree(lambda t: t.detach().requires_grad_(), params)
+        loss, _ = lm.loss_fn(cfg, p, {"tokens": tokens})
+        return loss, unflatten(p, torch.autograd.grad(loss, leaves(p)))
+
+    def norm(grads):
+        return float(torch.sqrt(sum((g.double() ** 2).sum() for g in leaves(grads))))
+
+    f = synk.function(loss_and_grads, [synk.Scatter(), synk.Broadcast()],
+                      (synk.Reduce("mean"), synk.Reduce("mean")))
+    runs = {}
+    for name, slices in (("warm", 1), ("slices_1", 1), ("slices_2", 2)):
+        for k in (flash_attention, rmsnorm, rmsnorm_add):
+            k.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss, grads = f(ds, params, batch=ids, num_slices=slices)
+        torch.cuda.synchronize()
+        runs[name] = dict(host_ms=(time.perf_counter() - t) * 1e3, loss=float(loss),
+                          grad_norm=norm(grads),
+                          launches={k.__name__: k.launches
+                                    for k in (flash_attention, rmsnorm, rmsnorm_add)})
+        del grads
+    rows = torch.from_numpy(corpus[ids]).to(dev)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    loss, grads = loss_and_grads(rows, params)
+    torch.cuda.synchronize()
+    runs["direct"] = dict(host_ms=(time.perf_counter() - t) * 1e3, loss=float(loss.detach()),
+                          grad_norm=norm(grads))
+    del grads
+    rel = {name: {k: abs(runs[name][k] - runs["direct"][k]) / abs(runs["direct"][k])
+                  for k in ("loss", "grad_norm")} for name in ("slices_1", "slices_2")}
+    rel["slices_2_vs_1"] = {k: abs(runs["slices_2"][k] - runs["slices_1"][k])
+                            / abs(runs["slices_1"][k]) for k in ("loss", "grad_norm")}
+    out["loss"] = dict(rows=FUNCTION_ROWS, seq=FUNCTION_SEQ, dtype="float32", runs=runs,
+                       rel_err=rel, tolerance=FUNCTION_TOL, stats=f.stats)
+    log(f"synk.function loss (smollm-360m, full width, fp32): {json.dumps(out['loss'])}")
+    for r in rel.values():
+        assert all(r[k] <= FUNCTION_TOL[k] for k in r), rel
+    for name, slices in (("slices_1", 1), ("slices_2", 2)):
+        # per slice: forward and remat's recompute of each layer
+        n = runs[name]["launches"]
+        assert n["flash_attention"] == 2 * N_LAYERS * slices, runs
+        assert n["rmsnorm"] == (2 * N_LAYERS + 1) * slices, runs
+        assert n["rmsnorm_add"] == 2 * N_LAYERS * slices, runs
+    st = f.stats
+    assert st["builds"] == 2 and st["calls"] == 3 and st["device_put_skips"] > 0, st
+    results["function_api"] = out
+    synk.reset()
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1541,6 +1930,7 @@ def main() -> int:
     launches = phase("3 serve", main_path)
     train_launches = phase("4 train", train_path)
     zamba_launches = phase("5 zamba serve", zamba_path)
+    phase("6 function API", function_path)
     results["phase_s"] = phase_s
     results["seconds"] = time.perf_counter() - t_start
 
@@ -1642,13 +2032,13 @@ def main() -> int:
             other_shapes={f"{n}x{d}": {k: u[k] for k in ("path", "ms", "ms_warm", "bound_ms",
                                                           "library_ms", "host_us")}
                           for (k_, n, d), u in rn.items() if k_ == name and (n, d) != shape}))
+    decode_keys = ("kernel_launches_per_step", "device_ms_per_step", "device_idle_share",
+                   "step_ms_unprofiled", "replay_host_ms_median",
+                   "eager_kernel_launches_per_step", "eager_device_ms_per_step", "eager_step_ms")
     steps = {name: results[key] and {k: results[key][k] for k in keys}
              for name, key, keys in (
-                 ("dense decode step", "profile", ("kernel_launches_per_step",
-                                                   "device_ms_per_step", "device_idle_share")),
-                 ("zamba decode step", "zamba_profile", ("kernel_launches_per_step",
-                                                         "device_ms_per_step",
-                                                         "device_idle_share")),
+                 ("dense decode step", "profile", decode_keys),
+                 ("zamba decode step", "zamba_profile", decode_keys),
                  ("zamba prefill 512", "zamba_prefill_profile", ("launches", "device_ms",
                                                                  "device_idle_share")))}
     results["step_profiles"] = steps

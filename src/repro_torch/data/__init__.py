@@ -1,4 +1,4 @@
 """Deterministic synthetic data (the reference's ``data/pipeline.py``)."""
-from .pipeline import DataConfig, SyntheticTokens, make_batch_fn
+from .pipeline import DataConfig, SyntheticTokens, host_corpus, make_batch_fn
 
-__all__ = ["DataConfig", "SyntheticTokens", "make_batch_fn"]
+__all__ = ["DataConfig", "SyntheticTokens", "host_corpus", "make_batch_fn"]

@@ -4,7 +4,7 @@ Batches are a pure function of (seed, step): resume-after-failure replays
 the exact same stream with no stored iterator state — the data-side half of
 fault tolerance.  The code is the reference's numpy, so the token stream is
 bitwise the reference's.  The VLM and audio frontends arrive with their
-families, and ``host_corpus`` (a Synkhronos data object) with ``core/``.
+families.
 """
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ import dataclasses
 import numpy as np
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
+from repro_torch.core.data import SynkData
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,3 +57,9 @@ def make_batch_fn(cfg: ArchConfig, shape: ShapeConfig, seed: int = 0):
         return {"tokens": toks.batch(step)}
 
     return fn
+
+
+def host_corpus(cfg: ArchConfig, n_examples: int, seq_len: int, seed: int = 0) -> SynkData:
+    """A shared-memory-style corpus for the input-indexing path."""
+    stream = SyntheticTokens(DataConfig(cfg.vocab, seq_len, n_examples, seed))
+    return SynkData(stream.batch(0))

@@ -24,20 +24,31 @@ NEG_INF = -2.0e38
 # RoPE
 # ---------------------------------------------------------------------------
 
-def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10_000.0):
-    """Rotary embedding in fp32, cast back.  x: (..., S, H, D);
-    positions: (..., S)."""
-    d = x.shape[-1]
-    half = d // 2
+def rope_tables(positions: torch.Tensor, head_dim: int, theta: float = 10_000.0):
+    """RoPE's ``(cos, sin)`` for ``positions`` (..., S), each (..., S, 1,
+    head_dim // 2) fp32.  A forward computes them once and hands them to
+    every layer's :func:`apply_rope` (q and k alike)."""
+    half = head_dim // 2
     freqs = torch.exp(
-        -torch.arange(0, half, dtype=torch.float32, device=x.device)
+        -torch.arange(0, half, dtype=torch.float32, device=positions.device)
         * (math.log(theta) / half))
     angles = positions[..., :, None].float() * freqs        # (..., S, half)
-    cos = torch.cos(angles)[..., :, None, :]                # (..., S, 1, half)
-    sin = torch.sin(angles)[..., :, None, :]
+    return torch.cos(angles)[..., :, None, :], torch.sin(angles)[..., :, None, :]
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
+    """Rotary embedding of x (..., S, H, D) from :func:`rope_tables`, in
+    fp32, cast back."""
+    half = x.shape[-1] // 2
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10_000.0):
+    """Rotary embedding in fp32, cast back.  x: (..., S, H, D);
+    positions: (..., S)."""
+    return apply_rope(x, *rope_tables(positions.to(x.device), x.shape[-1], theta))
 
 
 # ---------------------------------------------------------------------------

@@ -16,6 +16,8 @@ import math
 
 import torch
 
+from repro_torch.core.tree import map_tree, tree_leaves  # noqa: F401  (the port's one tree walker)
+
 
 def dtype_of(name) -> torch.dtype:
     """``"bfloat16"`` / ``"float32"`` (config strings) -> torch dtype."""
@@ -50,16 +52,6 @@ def init_param(gen: torch.Generator, spec: ParamSpec, device) -> torch.Tensor:
     return (x * scale).to(spec.dtype)
 
 
-def tree_leaves(tree, prefix=()):
-    """(path, leaf) pairs of a nested dict in sorted-key order: the
-    reference's tree order (``jax.tree.flatten`` sorts dict keys)."""
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from tree_leaves(tree[k], prefix + (k,))
-    else:
-        yield prefix, tree
-
-
 def tree_from_leaves(paths, leaves) -> dict:
     """Inverse of :func:`tree_leaves`: a nested dict from paths and leaves."""
     out: dict = {}
@@ -69,12 +61,6 @@ def tree_from_leaves(paths, leaves) -> dict:
             node = node.setdefault(k, {})
         node[path[-1]] = leaf
     return out
-
-
-def map_tree(fn, tree):
-    if isinstance(tree, dict):
-        return {k: map_tree(fn, v) for k, v in tree.items()}
-    return fn(tree)
 
 
 def cast_tree(tree: dict, dtype: torch.dtype, keep: frozenset, device=None) -> dict:

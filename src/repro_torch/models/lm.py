@@ -38,8 +38,9 @@ from .attention import (
     chunked_attention,
     decode_attention,
     paged_decode_attention,
+    apply_rope,
     paged_write_positions,
-    rope,
+    rope_tables,
 )
 from .common import (
     ParamSpec,
@@ -149,7 +150,9 @@ def _w(bp, name, cfg):
     return bp[name].to(dtype_of(cfg.compute_dtype))
 
 
-def _attn_proj(cfg, h, bp, positions):
+def _attn_proj(cfg, h, bp, rope_cs):
+    """q, k, v of one layer; ``rope_cs`` = ``rope_tables`` of the
+    positions, computed once per forward."""
     B, S, _ = h.shape
     dh, H, Hk = cfg.head_dim, cfg.n_heads, cfg.n_kv
     q = (h @ _w(bp, "wq", cfg)).reshape(B, S, H, dh)
@@ -158,10 +161,10 @@ def _attn_proj(cfg, h, bp, positions):
     if cfg.qk_norm:
         q = norm(cfg, q, bp["qnorm"])
         k = norm(cfg, k, bp["knorm"])
-    q = rope(q, positions, cfg.rope_theta)
+    q = apply_rope(q, *rope_cs)
     if _q_scale(cfg) != 1.0:
         q = q * _q_scale(cfg)
-    k = rope(k, positions, cfg.rope_theta)
+    k = apply_rope(k, *rope_cs)
     return q, k, v
 
 
@@ -171,10 +174,10 @@ def _ffn(cfg, x, bp):
     return (_gate(cfg, g) * u) @ _w(bp, "wd", cfg)
 
 
-def _block_fwd(cfg, x, bp, positions, *, window: int):
+def _block_fwd(cfg, x, bp, rope_cs, *, window: int):
     """One transformer block, prefill path.  Returns (x, (k, v))."""
     h = norm(cfg, x, bp["ln1"])
-    q, k, v = _attn_proj(cfg, h, bp, positions)
+    q, k, v = _attn_proj(cfg, h, bp, rope_cs)
     if cfg.attn_impl == "kernel":
         from repro_torch.kernels.flash_attention.ops import flash_attention
         attn = flash_attention(q, k, v, causal=True, window=window,
@@ -188,11 +191,13 @@ def _block_fwd(cfg, x, bp, positions, *, window: int):
     return x + _ffn(cfg, h, bp), (k, v)
 
 
-def _block_decode(cfg, x, bp, kc, vc, cur_index, *, window: int, attn_fn=None):
+def _block_decode(cfg, x, bp, kc, vc, cur_index, rope_cs, *, window: int, attn_fn=None):
     """One block, single-token decode.  x: (B, D).  ``attn_fn(q, kc, vc,
     k_new, v_new, window)`` replaces the slotted cache write + attention
     (the paged path); everything around it is shared, so the layouts stay
-    numerically identical.  Returns x; kc/vc are written in place."""
+    numerically identical.  ``rope_cs``: ``rope_tables`` of the lanes'
+    positions (B, 1), computed once per step.  Returns x; kc/vc are
+    written in place."""
     dh, H, Hk = cfg.head_dim, cfg.n_heads, cfg.n_kv
     B = x.shape[0]
     h = norm(cfg, x, bp["ln1"])
@@ -202,11 +207,10 @@ def _block_decode(cfg, x, bp, kc, vc, cur_index, *, window: int, attn_fn=None):
     if cfg.qk_norm:
         q = norm(cfg, q, bp["qnorm"])
         k = norm(cfg, k, bp["knorm"])
-    pos = decode_positions(cur_index, B, x.device)
-    q = rope(q[:, None], pos, cfg.rope_theta)[:, 0]
+    q = apply_rope(q[:, None], *rope_cs)[:, 0]
     if _q_scale(cfg) != 1.0:
         q = q * _q_scale(cfg)
-    k = rope(k[:, None], pos, cfg.rope_theta)[:, 0]
+    k = apply_rope(k[:, None], *rope_cs)[:, 0]
     q = q.reshape(B, Hk, H // Hk, dh)
     if attn_fn is None:
         attn = decode_attention(q, kc, vc, k, v, cur_index, window=window,
@@ -251,9 +255,10 @@ def forward(cfg: ArchConfig, params, tokens, *, remat=True,
     x = embed_tokens(cfg, params, tokens)
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
+    rope_cs = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
 
     def body(x, bp):
-        return _block_fwd(cfg, x, bp, positions, window=cfg.window)
+        return _block_fwd(cfg, x, bp, rope_cs, window=cfg.window)
 
     body = remat_wrap(body, remat)
     ks, vs = [], []
@@ -332,9 +337,11 @@ def _decode_walk(cfg, params, cache, x, cur_index, attn_fn):
     """Per-layer decode walk shared by the slotted and paged layouts; each
     layer reads and writes its slice ``cache[..][i]`` (a view) in place."""
     check_supported(cfg)
+    pos = decode_positions(cur_index, x.shape[0], x.device)
+    rope_cs = rope_tables(pos, cfg.head_dim, cfg.rope_theta)
     for i in range(cfg.n_layers):
         x = _block_decode(cfg, x, _layer(params, i), cache["k"][i],
-                          cache["v"][i], cur_index, window=cfg.window,
+                          cache["v"][i], cur_index, rope_cs, window=cfg.window,
                           attn_fn=attn_fn)
     x = norm(cfg, x, params["ln_f"])
     return unembed(cfg, params, x), cache

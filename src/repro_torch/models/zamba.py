@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from .attention import chunked_attention, decode_attention, rope
+from .attention import apply_rope, chunked_attention, decode_attention, rope_tables
 from .common import ParamSpec, cast_tree, decode_positions, dtype_of, init_tree, norm, norm_add
 from .lm import ATTN_IMPLS
 from .ssm import (
@@ -117,18 +117,26 @@ def _mlp(cfg, h, sp):
     return (F.silu(g) * u) @ _w(sp, "wd", cfg)
 
 
-def _shared_fwd(cfg, x, x0, sp):
+def _prefill_rope(cfg, B, S, device):
+    positions = torch.arange(S, dtype=torch.int32, device=device).expand(B, S)
+    return rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+
+
+def _shared_fwd(cfg, x, x0, sp, rope_cs=None):
     """Shared transformer block, prefill.  x/x0: (B,S,D).  Returns
-    (x', (k, v)) with k after RoPE."""
+    (x', (k, v)) with k after RoPE.  ``rope_cs``: the positions'
+    ``rope_tables``, which a forward computes once for every invocation
+    (made here when left None)."""
     B, S, _ = x.shape
     dh, H, Hk = cfg.head_dim, cfg.n_heads, cfg.n_kv
     u = torch.cat([norm(cfg, x, sp["ln1"]), x0], dim=-1) @ _w(sp, "proj_in", cfg)
-    positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
+    if rope_cs is None:
+        rope_cs = _prefill_rope(cfg, B, S, x.device)
     q = (u @ _w(sp, "wq", cfg)).reshape(B, S, H, dh)
     k = (u @ _w(sp, "wk", cfg)).reshape(B, S, Hk, dh)
     v = (u @ _w(sp, "wv", cfg)).reshape(B, S, Hk, dh)
-    q = rope(q, positions, cfg.rope_theta)
-    kr = rope(k, positions, cfg.rope_theta)
+    q = apply_rope(q, *rope_cs)
+    kr = apply_rope(k, *rope_cs)
     if cfg.attn_impl == "kernel":
         from repro_torch.kernels.flash_attention.ops import flash_attention
         attn = flash_attention(q, kr, v, causal=True)
@@ -140,20 +148,26 @@ def _shared_fwd(cfg, x, x0, sp):
     return x + _mlp(cfg, h, sp), (kr, v)
 
 
-def _shared_decode(cfg, x, x0, sp, kc, vc, cur_index):
+def _decode_rope(cfg, cur_index, B, device):
+    # scalar (aligned batch) or (B,) vector (slotted serve: per-lane
+    # positions) — decode_attention handles both
+    return rope_tables(decode_positions(cur_index, B, device), cfg.head_dim, cfg.rope_theta)
+
+
+def _shared_decode(cfg, x, x0, sp, kc, vc, cur_index, rope_cs=None):
     """Shared block, one token per lane.  x/x0: (B,D); kc/vc (B,S,Hk,dh)
-    are written in place at ``cur_index``."""
+    are written in place at ``cur_index``.  ``rope_cs`` as in
+    :func:`_shared_fwd`, of the lanes' positions."""
     B = x.shape[0]
     dh, H, Hk = cfg.head_dim, cfg.n_heads, cfg.n_kv
     u = torch.cat([norm(cfg, x, sp["ln1"]), x0], dim=-1) @ _w(sp, "proj_in", cfg)
     q = (u @ _w(sp, "wq", cfg)).reshape(B, H, dh)
     k = (u @ _w(sp, "wk", cfg)).reshape(B, Hk, dh)
     v = (u @ _w(sp, "wv", cfg)).reshape(B, Hk, dh)
-    # scalar (aligned batch) or (B,) vector (slotted serve: per-lane
-    # positions) — decode_attention handles both
-    pos = decode_positions(cur_index, B, x.device)
-    q = rope(q[:, None], pos, cfg.rope_theta)[:, 0].reshape(B, Hk, H // Hk, dh)
-    k = rope(k[:, None], pos, cfg.rope_theta)[:, 0]
+    if rope_cs is None:
+        rope_cs = _decode_rope(cfg, cur_index, B, x.device)
+    q = apply_rope(q[:, None], *rope_cs)[:, 0].reshape(B, Hk, H // Hk, dh)
+    k = apply_rope(k[:, None], *rope_cs)[:, 0]
     attn = decode_attention(q, kc, vc, k, v, cur_index)
     o = attn.reshape(B, H * dh) @ _w(sp, "wo", cfg)
     h, x = norm_add(cfg, x, o, sp["ln2"])
@@ -190,10 +204,11 @@ def forward(cfg, params, tokens, *, collect: bool = False, plen: int | None = No
         valid = (torch.arange(tokens.shape[1], device=x.device) < plen)[None, :]
         x = torch.where(valid[..., None], x, 0.0)     # pad activations stay finite
     x0 = x
+    rope_cs = _prefill_rope(cfg, *tokens.shape, x.device)
     kvs, ssm, conv = [], [], []
     off = 0
     for n in _segments(cfg):
-        x, kv = _shared_fwd(cfg, x, x0, params["shared"])
+        x, kv = _shared_fwd(cfg, x, x0, params["shared"], rope_cs)
         kvs.append(kv)
         for i in range(off, off + n):
             if collect:
@@ -256,10 +271,11 @@ def decode_step(cfg, params, cache, tokens, cur_index):
     check_supported(cfg)
     x = _embed(cfg, params, tokens)
     x0 = x
+    rope_cs = _decode_rope(cfg, cur_index, x.shape[0], x.device)
     off = 0
     for si, n in enumerate(_segments(cfg)):
         x = _shared_decode(cfg, x, x0, params["shared"], cache["k"][si],
-                           cache["v"][si], cur_index)
+                           cache["v"][si], cur_index, rope_cs)
         for i in range(off, off + n):
             x, s, c = mamba_block_decode(cfg, x, _layer(params, i), cache["ssm"][i],
                                          cache["conv"][i])

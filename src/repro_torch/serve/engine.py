@@ -30,11 +30,31 @@ tables, which request owns which lane), advanced by the same rules the
 device applies, so it never reads device state back except the sampled
 tokens.
 
+Programs come from an :class:`~repro_torch.core.aot.AotCache` (the
+reference's ``aot=``, shareable between engines), whose ``builds``,
+``cache_hits`` and entry count (``executables``) feed :attr:`stats`:
+
+* the decode program, keyed on (layout, ``stochastic``, ``masked``);
+* one eager prefill program per prompt bucket, counted so the
+  reference's build contract holds: one decode plus one per bucket, flat
+  in steady state.
+
+On a CUDA device each decode step runs as a CUDA graph of the decode
+program captured on this engine's state buffers
+(:func:`~repro_torch.core.aot.device_program`: one eager step, then the
+capture; every later step is one replay and the token fetch).  The
+graphs are bound to those buffers, so they live in the engine's own
+``AotCache`` (:attr:`graphs`, counted in :attr:`stats` as ``graphs``)
+and go with the engine, never in a shared one.  On the CPU the decode
+program runs eagerly.  Nothing falls back to eager on the card: a
+capture that fails raises.
+Between steps the host pushes its block-table and ``active`` mirrors by
+copying into the captured buffers.
+
 Not ported yet — each raises ``NotImplementedError`` when set to a
 non-default value: chunked prefill, the prefix cache, preempt admission,
 the host tier and hold/park, speculative decoding, retries, host-side
-sampling (``fused_sampling=False``), deadlines.  Eager PyTorch has no AOT
-builds, so the reference's ``builds`` counters are absent.
+sampling (``fused_sampling=False``), deadlines.
 
     engine = ServeEngine(cfg, params, EngineConfig(max_slots=8, max_len=256,
                                                    kv_layout="paged"))
@@ -53,6 +73,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.aot import AotCache, device_program
 from repro_torch.device import resolve_device
 from repro_torch.models import registry
 from .cache import RecurrentCache, bucket_for, make_slot_state, prompt_buckets
@@ -126,7 +147,6 @@ class _Slot:
     prefilled: int = 0            # prompt positions prefilled so far
     generated: int = 0
 
-
 # Terminal per-request statuses (Completion.status), the reference's set.
 STATUSES = ("ok", "timeout", "cancelled", "failed", "shed")
 
@@ -168,7 +188,8 @@ class ServeEngine:
     """
 
     def __init__(self, cfg: ArchConfig, params, engine: EngineConfig = EngineConfig(),  # noqa: B008 - frozen
-                 *, device=None, clock: Callable[[], float] = time.perf_counter):
+                 *, device=None, clock: Callable[[], float] = time.perf_counter,
+                 aot: AotCache | None = None):
         if not registry.supports_slot_serving(cfg):
             raise ValueError(f"family {cfg.family!r} does not support slot serving")
         if engine.kv_layout not in ("slotted", "paged"):
@@ -214,16 +235,26 @@ class ServeEngine:
             self.state = make_paged_state(cfg, engine.max_slots, engine.max_len,
                                           self._num_blocks, bs, self.device,
                                           engine.seed)
-            self._decode = paged_decode_program(cfg, eos_id=engine.eos_id,
-                                                impl=engine.paged_attn)
+            self._decode_fn = paged_decode_program(cfg, eos_id=engine.eos_id,
+                                                   impl=engine.paged_attn)
             self._prefill = paged_prefill_program(cfg, eos_id=engine.eos_id)
         else:
             self._num_blocks = 0
             self.state = make_slot_state(cfg, engine.max_slots, engine.max_len,
                                          self.device, engine.seed)
-            self._decode = slot_decode_program(cfg, eos_id=engine.eos_id)
+            self._decode_fn = slot_decode_program(cfg, eos_id=engine.eos_id)
             self._prefill = slot_prefill_program(cfg, eos_id=engine.eos_id)
         self.kv_reserved_bytes = cache_nbytes(self.state["cache"])
+        # NOT ``aot or ...``: AotCache defines __len__, so a fresh (empty)
+        # shared cache is falsy
+        self.aot = aot if aot is not None else AotCache("serve")
+        # this engine's decode graphs, on its own buffers (CUDA only)
+        self.graphs = AotCache("decode_graphs")
+        # every static option that changes a program (the reference's
+        # _sampler_key); the cfg carries attn_impl and the dtypes
+        e = engine
+        self._program_key = (cfg, e.max_slots, e.max_len, e.eos_id, e.kv_layout,
+                             e.page_size, self._num_blocks, e.paged_attn)
 
         self.queue: deque[_Pending] = deque()
         self.slots: list[_Slot | None] = [None] * engine.max_slots
@@ -314,16 +345,14 @@ class ServeEngine:
         in particular after an eviction, so stale lanes' sink-routed
         writes can't land in re-allocated blocks."""
         if self._tables_dirty:
-            self.state["tables"] = torch.tensor(self.tables.table,
-                                                device=self.device)
+            self.state["tables"].copy_(torch.from_numpy(self.tables.table))
             self._tables_dirty = False
 
     def _push_active(self) -> None:
         """A host-side eviction (a non-finite lane) clears the lane's
         ``active`` bit on the host; push the mirror before the next decode."""
         if self._active_dirty:
-            self.state["active"] = torch.tensor(self._active_mirror,
-                                                device=self.device)
+            self.state["active"].copy_(torch.from_numpy(self._active_mirror))
             self._active_dirty = False
 
     def _admit(self, req: _Pending, slot: int) -> None:
@@ -350,16 +379,15 @@ class ServeEngine:
         padded = np.zeros((1, C), np.int32)
         padded[0, : s.plen] = s.prompt
         chunk = torch.tensor(padded, device=self.device)
+        prefill = self._prefill_entry(C)
         if self.paged:
             self._map_blocks(slot, blocks_for(s.plen, self.econ.page_size))
             self._push_tables()
-            self.state, out = self._prefill(
-                self.params, self.state, chunk, slot, 0, s.plen, s.limit,
-                s.temperature, s.top_k, s.top_p)
+            _, out = prefill(self.params, self.state, chunk, slot, 0, s.plen, s.limit,
+                             s.temperature, s.top_k, s.top_p)
         else:
-            self.state, out = self._prefill(
-                self.params, self.state, chunk, slot, s.plen, s.limit,
-                s.temperature, s.top_k, s.top_p)
+            _, out = prefill(self.params, self.state, chunk, slot, s.plen, s.limit,
+                             s.temperature, s.top_k, s.top_p)
         tok = int(out[0])                       # the prefill's host sync
         self._last_op = "prefill"
         s.prefilled = s.plen
@@ -481,10 +509,10 @@ class ServeEngine:
         self._push_active()
         lanes = [self.slots[i] for i in active_slots]
         sampled = [s for s in lanes if s.temperature > 0]
-        self.state, out = self._decode(
-            self.params, self.state, stochastic=bool(sampled),
+        decode = self._decode_entry(
+            stochastic=bool(sampled),
             masked=any(s.top_k > 0 or 0 < s.top_p < 1 for s in sampled))
-        toks = out.cpu().numpy()                # the one per-step host sync
+        toks = decode(self.params, self.state).cpu().numpy()   # the one host sync
         self._last_op = "decode"
         self._note_kv_usage(frozenset(active_slots))
         self.counters["decode_steps"] += 1
@@ -494,6 +522,36 @@ class ServeEngine:
             self._advance_lane(i, int(toks[i]), now)
         self._note_kv_usage()
         return True
+
+    # ------------------------------------------------------------------
+    # Programs (through the shared AotCache)
+    # ------------------------------------------------------------------
+    def decode_program(self, *, stochastic: bool, masked: bool) -> Callable:
+        """The eager decode program: ``fn(params, state) -> tok``, one step
+        in place (what the captured graph replays)."""
+        decode_fn = self._decode_fn
+
+        def fn(params, state):
+            return decode_fn(params, state, stochastic=stochastic, masked=masked)[1]
+        return fn
+
+    def _decode_entry(self, *, stochastic: bool, masked: bool) -> Callable:
+        """The decode program for these sampling flags: ``entry(params,
+        state) -> tok``.  On the card, a graph of it captured on this
+        engine's buffers (its first call is the step that warmed it)."""
+        key = ("slot_decode", stochastic, masked) + self._program_key
+        fn = self.aot.get(key, lambda: self.decode_program(stochastic=stochastic,
+                                                           masked=masked))
+        if self.device.type != "cuda":
+            return fn
+        gens = (self.state["generator"],) if stochastic else ()
+        return self.graphs.get(key, lambda: device_program(fn, (self.params, self.state),
+                                                           generators=gens))
+
+    def _prefill_entry(self, bucket: int) -> Callable:
+        """The prefill program of a prompt bucket (eager; counted)."""
+        return self.aot.get(("slot_prefill", bucket) + self._program_key,
+                            lambda: self._prefill)
 
     def drain(self) -> None:
         while self.step():
@@ -557,7 +615,9 @@ class ServeEngine:
     @property
     def stats(self) -> dict:
         return {
-            **self.counters,
+            **self.counters, **self.aot.stats,
+            "executables": len(self.aot),
+            "graphs": len(self.graphs),
             "kv_layout": self.econ.kv_layout,
             "state_kind": self.kind,
             "kv_reserved_bytes": self.kv_reserved_bytes,

@@ -3,16 +3,18 @@ engine, with sampling fused on the device.
 
 The port of the reference's ``serve/step.py`` for whole-prompt prefill
 and plain decode.  A "program" is a closure ``fn(params, state, ...) ->
-(state, tok)`` that runs eagerly: it updates the state dict's cache in
-place and replaces its scheduling vectors, and returns the sampled tokens
-on the device — the host fetches one ``(max_slots,)`` int32 vector per
-decode step, never logits.
+(state, tok)`` that runs eagerly: it updates every tensor of the state
+dict in place (no leaf is rebound, so a CUDA graph captured of the decode
+program replays on the same buffers, ``core.aot``), and returns the
+sampled tokens on the device — the host fetches one ``(max_slots,)``
+int32 vector per decode step, never logits.
 
 Where the reference branches on device values inside the program
 (``lax.cond`` on "any lane samples" / "any lane masks"), an eager branch
 would cost a host sync; the engine passes those two facts from its host
 mirror (``stochastic``, ``masked``) instead, and they are derived from the
-tensors only when left ``None``.
+tensors only when left ``None``.  The engine always passes both, and keys
+its captured decode graphs on them: a graph holds no host sync.
 """
 from __future__ import annotations
 
@@ -119,8 +121,10 @@ def _decode_program(decode_fn, *, eos_id: int | None, freeze=None):
             done |= active & (tok == eos_id)
         act_new = active & ~done
         if freeze is not None:
-            cache = freeze(cache, act_new)
-        state.update(cache=cache, tokens=tok, lengths=new_len, active=act_new)
+            freeze(cache, act_new)
+        state["tokens"].copy_(tok)
+        state["lengths"].copy_(new_len)
+        state["active"].copy_(act_new)
         return state, tok
 
     return fn
@@ -205,16 +209,14 @@ def slot_prefill_program(cfg: ArchConfig, *, eos_id: int | None = None):
     rec = RecurrentCache(cfg)
 
     def fn(params, state, prompt, slot, plen, limit, temp, top_k, top_p):
-        cache, logits = mod.prefill_slot(cfg, params, state["cache"], prompt,
-                                         slot, plen)
-        state["cache"] = cache
+        _, logits = mod.prefill_slot(cfg, params, state["cache"], prompt, slot, plen)
         tok = _seed_slot(state, slot, logits, length=plen, limit=limit,
                          temp=temp, top_k=top_k, top_p=top_p, is_last=True,
                          eos_id=eos_id)
         if rec:
             keep_self = torch.arange(state["active"].shape[0],
                                      device=logits.device) == slot
-            state["cache"] = rec.freeze(cache, state["active"] | keep_self)
+            rec.freeze(state["cache"], state["active"] | keep_self)
         return state, tok
 
     return fn
@@ -237,9 +239,8 @@ def paged_prefill_program(cfg: ArchConfig, *, eos_id: int | None = None,
 
     def fn(params, state, chunk, slot, start, plen, limit, temp, top_k, top_p):
         table_row = state["tables"][slot]
-        cache, logits = mod.prefill_slot_paged(
+        _, logits = mod.prefill_slot_paged(
             cfg, params, state["cache"], chunk, table_row, plen)
-        state["cache"] = cache
         end = min(chunk.shape[1], plen)
         tok = _seed_slot(state, slot, logits, length=end, limit=limit,
                          temp=temp, top_k=top_k, top_p=top_p,

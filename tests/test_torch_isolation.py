@@ -35,7 +35,8 @@ def test_port_imports_no_jax_or_reference(path):
 
 def test_scan_sees_every_port_module():
     names = {p.name for p in PORT_FILES}
-    assert {"engine.py", "lm.py", "ops.py", "_build.py", "chip_smoke.py"} <= names
+    assert {"engine.py", "lm.py", "ops.py", "_build.py", "chip_smoke.py", "aot.py",
+            "function.py", "collectives.py"} <= names
 
 
 def test_no_device_without_card_raises(monkeypatch):
