@@ -88,6 +88,34 @@ Phases (any failure raises and the script exits non-zero):
    replays must equal, wrapper by wrapper, the launches the graph adds to
    the wrappers' counters on each replay (the counters the launch-count
    gates read).
+3b. The paged engine's scheduling features on phase 3's engine
+   (``feature_requests``: eight prompts share a 320-token prefix, seven
+   with 16-192 tokens of their own and one the bare prefix; eight random
+   prompts of 16-512 tokens; budgets 32-64): ``prefill_chunk`` 128, the
+   prefix cache and ``admission="preempt"`` on 96 usable blocks, every
+   program built first (``prebuild``).  Every request must end ``ok`` with
+   its budget; ``check_invariants`` after every step; more chunks than
+   prefills, and prefix hits, COW copies, preemptions, resumes and
+   replayed tokens; one decode graph and builds flat; launches as the
+   engine's counters predict (flash 32 per chunk that starts at 0, paged
+   32 per decode step, the norms per chunk and step).  Prints tokens/s,
+   the decode step's median and p90, a first and a continuation chunk's
+   host and device ms and idle share (``profile_chunk``), a prefix-hit
+   admission against the same prompt's miss (``prefix_hit_ms``), peak
+   memory.
+3c. Preempt admission alone (no chunks, no prefix cache, 96 blocks) on
+   phase 3's requests: preemptions fire and every stream equals phase
+   3's bitwise (the resumes re-prefill through the same bucket program and
+   replay through decode).
+3d. One 512-token prompt's last-position logits on the kernel path, four
+   chunks of 128 and a 320-position prefix plus one continuation, within
+   ``LOGIT_TOL`` of the plain path's whole-bucket prefill's largest logit
+   in fp32 (TF32 off); bf16 printed.
+3e. Phase 3b's engine under a seeded ``FaultPlan`` (seed 0, rate 0.05 at
+   the four engine sites), ``max_retries`` 2 and a deadline of 60 engine
+   steps (a ``StepClock``) on four requests: every request ends in a
+   status, invariants after every step, faults injected, builds flat, and
+   every ``ok`` stream equals phase 3b's bitwise (retries recompute).
 4. Train full-width ``smollm-360m`` (seed 0, bf16 compute, both kernels)
    over a 1-rank NCCL group at seq 1024, global batch 8, 2 slices, remat:
    the faithful program for 6 steps and ZeRO for 3, through
@@ -127,6 +155,11 @@ Phases (any failure raises and the script exits non-zero):
    decode step's idle share, and a profiled kernel-path prefill at bucket
    512: device ms, idle share, launches, the top device kernels and the
    SSD kernels' share of the device time.
+5b. Phase 5's engine and requests again; after 8 decode steps the host
+   ``preempt()``s the last two occupied lanes.  Their resumes re-prefill
+   (flash, ssd, the norms) and replay; every stream must equal phase 5's
+   bitwise, with invariants after every step and the launches 18
+   prefills and the decode steps predict.
 6. The function API (``repro_torch.core``) on the card, one worker
    (``fork()``): (a) the paper's Appendix A program (``examples/
    synk_sgd.py`` in the port's API: a CNN trained by ``synk.function`` on
@@ -259,14 +292,18 @@ def device_profile(torch, fn, iters: int = 50) -> tuple[float | None, dict]:
     torch.cuda.synchronize()
     for _ in range(3):
         # the record of a window of a few hundred microseconds has come
-        # back empty (once, a window of 50 calls of a 2-microsecond kernel):
-        # the window is measured again, up to twice
+        # back empty (once, a window of 50 calls of a 2-microsecond kernel)
+        # or short (once, 33 of 200 launches of one): the window is
+        # measured again, up to twice, while a kernel's launches are not a
+        # whole number per call to within the first launches the record
+        # can miss (see kernels_per_call)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
         evs = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
-        if evs:
+        if evs and all(abs(e.count - iters * max(1, round(e.count / iters)))
+                       <= max(1, iters // 50) for e in evs):
             break
     names = {e.key[:100]: dict(calls=e.count / iters, ms=e.self_device_time_total / 1e3 / iters)
              for e in evs}
@@ -794,26 +831,50 @@ def requests(vocab: int, n: int = 16, seed: int = 0):
             for p, b in zip(plens, budgets)]
 
 
-def serve(torch, cfg, params, reqs, engine_cfg, dev, *, check: bool = False):
-    """Submit every request at once and drain; returns (engine, per-step
-    host times in ms, whether each step ran a prefill, wall seconds): one
-    synchronized span over the whole drain loop. ``check`` sweeps
-    ``check_invariants`` after every step; the sweep (from a synchronize
-    after the step to its end) is taken out of the wall time."""
+class StepClock:
+    """An engine clock that advances one unit per engine step (``serve``
+    ticks it): deadlines become a property of the schedule, not of the
+    host's speed, so a run with deadlines is reproducible."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        return self.t
+
+
+def serve(torch, cfg, params, reqs, engine_cfg, dev, *, check: bool = False,
+          prebuild: bool = False, faults=None, deadlines: dict | None = None):
+    """Submit every request at once and drain; returns (engine, rids,
+    per-step host times in ms, whether each step ran a prefill chunk, wall
+    seconds): one synchronized span over the whole drain loop. ``check``
+    sweeps ``check_invariants`` after every step; the sweep (from a
+    synchronize after the step to its end) is taken out of the wall time.
+    ``prebuild`` builds every program first; ``faults`` is the engine's
+    ``FaultPlan``; ``deadlines`` maps a request's index to its
+    ``deadline_s``, on a ``StepClock``."""
     from repro_torch.serve import ServeEngine
 
-    eng = ServeEngine(cfg, params, engine_cfg, device=dev)
-    rids = [eng.submit(p, max_new_tokens=b) for p, b in reqs]
+    clock = StepClock()
+    eng = ServeEngine(cfg, params, engine_cfg, device=dev, faults=faults,
+                      **(dict(clock=clock) if deadlines else {}))
+    if prebuild:
+        eng.prebuild()
+        built = eng.stats["builds"]
+    deadlines = deadlines or {}
+    rids = [eng.submit(p, max_new_tokens=b, deadline_s=deadlines.get(i))
+            for i, (p, b) in enumerate(reqs)]
     steps, prefilled = [], []
     swept = 0.0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     while eng.has_work():
-        before = eng.counters["prefills"]
+        before = eng.counters["prefill_chunks"]
         t = time.perf_counter()
         eng.step()
         steps.append((time.perf_counter() - t) * 1e3)
-        prefilled.append(eng.counters["prefills"] != before)
+        prefilled.append(eng.counters["prefill_chunks"] != before)
+        clock.t += 1.0
         if check:
             torch.cuda.synchronize()
             t = time.perf_counter()
@@ -821,6 +882,9 @@ def serve(torch, cfg, params, reqs, engine_cfg, dev, *, check: bool = False):
             swept += time.perf_counter() - t
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0 - swept
+    if prebuild:
+        # prebuild() covered every program the schedule dispatched
+        assert eng.stats["builds"] == built, (built, eng.stats)
     return eng, rids, steps, prefilled, wall
 
 
@@ -980,6 +1044,7 @@ def main_path(torch, dev, results):
     bad = [(c.rid, c.status, len(c.tokens), b) for c, (_, b) in zip(comps, reqs)
            if c.status != "ok" or len(c.tokens) != b]
     assert not bad, f"requests not served in full: {bad}"
+    results["phase3_streams"] = [list(c.tokens) for c in comps]
     assert launches["flash_attention"] == N_LAYERS * st["prefills"] > 0, (launches, st)
     assert launches["paged_attention"] == N_LAYERS * st["decode_steps"] > 0, (launches, st)
     norms = dense_norms(st["prefills"], st["decode_steps"])
@@ -1239,6 +1304,315 @@ def rel_err(torch, a, b) -> float:
 
 
 # ---------------------------------------------------------------------------
+# Phases 3b-3e: the paged engine's scheduling features at full width
+# ---------------------------------------------------------------------------
+
+FEATURE_CHUNK = 128           # prefill_chunk of phases 3b and 3e
+FEATURE_BLOCKS = 97           # 96 usable blocks: about half of 8 lanes' worst case
+SHARED_PREFIX = 320           # 20 full blocks
+CHAOS_RATE = 0.05             # per consult, at each of the four engine sites
+CHAOS_DEADLINE_STEPS = 60.0   # deadline_s of four requests in phase 3e, on a StepClock
+CHAOS_DEADLINED = (3, 7, 11, 15)
+
+
+def feature_requests(vocab: int, seed: int = 1):
+    """Phase 3b's 16 greedy requests.  Eight share one 320-token prefix (20
+    full blocks): seven add 16-192 tokens of their own, in whole blocks,
+    and the eighth is the prefix alone (its match covers the whole prompt,
+    so its tail block is copied and its last position recomputed).  Eight
+    more have random prompts of 16-512 tokens.  Budgets 32-64.  Shared and
+    random prompts alternate; the bare prefix comes last, when other lanes
+    hold the whole prefix."""
+    rng = np.random.default_rng(seed)
+    # lengths and budgets first, so they do not depend on the vocabulary
+    own, plens, budgets = rng.integers(1, 13, 7), rng.integers(16, 513, 8), rng.integers(32, 65, 16)
+    prefix = rng.integers(0, vocab, SHARED_PREFIX).astype(np.int32)
+    shared = [np.concatenate([prefix, rng.integers(0, vocab, 16 * int(k))]).astype(np.int32)
+              for k in own]
+    rand = [rng.integers(0, vocab, int(n)).astype(np.int32) for n in plens]
+    prompts = [p for pair in zip(shared, rand) for p in pair] + [rand[7], prefix.copy()]
+    return [(p, int(b)) for p, b in zip(prompts, budgets)]
+
+
+def feature_engine(**kw):
+    """Phase 3's engine settings with the features of phase 3b (or ``kw``)."""
+    from repro_torch.serve import EngineConfig
+
+    fields = dict(prefill_chunk=FEATURE_CHUNK, prefix_cache=True, admission="preempt",
+                  num_blocks=FEATURE_BLOCKS)
+    fields.update(kw)
+    return EngineConfig(max_slots=MAX_SLOTS, max_len=MAX_LEN, kv_layout="paged",
+                        page_size=PAGE, paged_attn="kernel", **fields)
+
+
+def feature_launches(st) -> dict:
+    """What the engine's counters predict of a paged run's launches: flash
+    on each chunk that starts at 0 (32 layers), paged attention on each
+    decode step (32), and the norms of each chunk (first or continuation)
+    and decode step (``dense_norms``)."""
+    return {"flash_attention": N_LAYERS * st["prefill_first_chunks"],
+            "paged_attention": N_LAYERS * st["decode_steps"],
+            **dense_norms(st["prefill_chunks"], st["decode_steps"])}
+
+
+def feature_run(torch, cfg, params, reqs, ec, dev, **kw) -> dict:
+    """One full-width paged run with the invariants swept after every step
+    and every program built first: the launch counts (set to 0 just
+    before) must equal what the engine's counters predict, the program
+    cache stay flat, and the engine capture one decode graph."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_add
+
+    kernels = (flash_attention, paged_attention, rmsnorm, rmsnorm_add)
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels:
+        k.launches = 0
+    eng, rids, steps, prefilled, wall = serve(torch, cfg, params, reqs, ec, dev, check=True,
+                                              prebuild=True, **kw)
+    launches = {k.__name__: k.launches for k in kernels}
+    st = eng.stats
+    want = feature_launches(st)
+    assert launches == want and st["decode_steps"] > 0, (launches, want, st)
+    # builds flat after prebuild() (``serve`` checks), one decode graph
+    assert st["graphs"] == 1, st
+    comps = [eng.completions[r] for r in rids]
+    tokens = sum(len(c.tokens) for c in comps)
+    decode_only = [t for t, p in zip(steps, prefilled) if not p]
+    keys = ("prefills", "prefill_chunks", "prefill_first_chunks", "decode_steps",
+            "prefill_tokens", "prefix_lookup_tokens", "prefix_hit_tokens", "cow_copies",
+            "preemptions", "resumed", "replayed_tokens", "retries", "faults_injected",
+            "faults_detected", "admitted", "evicted", "builds", "graphs",
+            "kv_peak_used_bytes", *(f"status_{x}" for x in ("ok", "timeout", "cancelled",
+                                                            "failed")))
+    out = dict(requests=len(comps), tokens=tokens, wall_s=wall, tokens_per_s=tokens / wall,
+               steps=len(steps), decode_only_steps=len(decode_only),
+               decode_step_ms_median=float(np.median(decode_only)) if decode_only else None,
+               decode_step_ms_p90=float(np.percentile(decode_only, 90)) if decode_only else None,
+               max_memory_allocated=torch.cuda.max_memory_allocated(),
+               counters={k: st[k] for k in keys}, launches=launches,
+               invariants_checked_steps=len(steps))
+    if "faults" in st:
+        out["faults"] = st["faults"]
+    return out, [list(c.tokens) for c in comps], [c.status for c in comps]
+
+
+def profile_chunk(torch, cfg, params, dev, iters: int = 5) -> dict | None:
+    """One lane's prefill chunks at full width, kernel path: a first chunk
+    (positions [0, 128): flash) and a continuation (positions [384, 512)
+    against the lane's 384 earlier positions: ``chunked_attention``), each
+    timed on the host after a synchronize (median of ``iters``) and
+    profiled once: device ms, launches, idle share."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import lm
+
+    p = lm.cast_for_compute(cfg, params, dev)
+    nb = MAX_LEN // PAGE
+    cache = {k: torch.zeros_like(s, device=dev)
+             for k, s in lm.make_paged_cache_specs(cfg, nb + 1, PAGE).items()}
+    table = torch.arange(1, nb + 1, dtype=torch.int32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    prompt = torch.randint(0, cfg.vocab, (1, 512), dtype=torch.int32, device=dev, generator=gen)
+    C = FEATURE_CHUNK
+
+    def run(start):
+        chunk = prompt[:, start:start + C]
+        if start == 0:
+            return lm.prefill_slot_paged(cfg, p, cache, chunk, table, 512)
+        return lm.prefill_chunk_paged(cfg, p, cache, chunk, table, start, 512)
+
+    for start in range(0, 512, C):                # writes the lane, warms both programs
+        run(start)
+    out = {}
+    for name, start in (("first", 0), ("continuation", 384)):
+        times = []
+        for _ in range(iters):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            run(start)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run(start)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+        if not kernels:
+            log("chunk profile: torch.profiler recorded no device activity (not measured)")
+            return None
+        host = float(np.median(times))
+        dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+        out[name] = dict(start=start, chunk=C, host_ms_median=host, host_ms=times,
+                         device_ms=dev_ms, device_idle_share=1 - dev_ms / host,
+                         launches=sum(e.count for e in kernels),
+                         top=[dict(name=e.key[:80], calls=e.count,
+                                   ms=e.self_device_time_total / 1e3) for e in top])
+    log(f"prefill chunks (kernel path, 128 positions): {json.dumps(out)}")
+    del p, cache
+    return out
+
+
+def prefix_hit_ms(torch, cfg, params, reqs, dev) -> dict:
+    """Admission to first token of a shared-prefix prompt, host ms after a
+    synchronize, with the 320-token prefix cached (another request with
+    the prefix was served before) and without; on phase 3b's engine
+    settings, each engine warmed (its decode graph captured) by one short
+    request first.  Both include the step's one decode."""
+    from repro_torch.serve import Completion, ServeEngine
+
+    out = {"hit": [], "miss": []}
+    others = [p for p, _ in reqs[:14:2]]                # shared-prefix prompts
+    for i in range(3):
+        for case in ("miss", "hit"):
+            eng = ServeEngine(cfg, params, feature_engine(), device=dev)
+            eng.prebuild()
+            eng.submit(reqs[1][0][:16], max_new_tokens=3)
+            if case == "hit":
+                eng.submit(others[i], max_new_tokens=1)
+            eng.drain()
+            prompt = others[i + 3]
+            before = dict(eng.counters)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            rid = eng.submit(prompt, max_new_tokens=2)
+            while not (eng.live.get(rid) or eng.completions.get(rid) or
+                       Completion(0, 0, 0, [], [], 0, 0)).tokens:
+                eng.step()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            delta = {k: eng.counters[k] - before[k]
+                     for k in ("prefix_hit_tokens", "prefill_chunks", "decode_steps")}
+            out[case].append(dict(ms=ms, plen=int(prompt.size), hit_tokens=delta[
+                "prefix_hit_tokens"], chunks=delta["prefill_chunks"],
+                decode_steps=delta["decode_steps"]))
+            del eng
+    assert all(r["hit_tokens"] == SHARED_PREFIX for r in out["hit"]), out
+    assert all(r["hit_tokens"] == 0 for r in out["miss"]), out
+    out["hit_ms_median"] = float(np.median([r["ms"] for r in out["hit"]]))
+    out["miss_ms_median"] = float(np.median([r["ms"] for r in out["miss"]]))
+    log(f"prefix-hit admission to first token: {json.dumps(out)}")
+    return out
+
+
+def continuation_logits(torch, dev, base, params, prompt) -> dict:
+    """Phase 3d: one 512-token prompt's last-position logits on the kernel
+    path, (1) prefilled in four chunks of 128 and (2) after a 320-position
+    prefix (as a prefix hit finds it) by one continuation of 192, against
+    the plain path's whole-bucket prefill.  fp32 (TF32 off) is gated at
+    ``LOGIT_TOL`` (of the largest logit, phase 3's kernel-against-plain
+    gate); bf16 is printed."""
+    from repro_torch.models import lm
+
+    out = {}
+    plen = int(prompt.size)
+    assert plen == 512
+    nb = MAX_LEN // PAGE
+    table = torch.zeros(nb, dtype=torch.int32, device=dev)
+    table[: plen // PAGE] = torch.arange(1, plen // PAGE + 1, dtype=torch.int32)
+    tokens = torch.tensor(prompt[None], device=dev)
+    for dt in ("float32", "bfloat16"):
+        res = {}
+
+        def fresh(c):
+            return {k: torch.zeros_like(s, device=dev)
+                    for k, s in lm.make_paged_cache_specs(c, nb + 1, PAGE).items()}
+
+        plain = dataclasses.replace(base, compute_dtype=dt, attn_impl="chunked")
+        pp = lm.cast_for_compute(plain, params, dev)
+        _, want = lm.prefill_slot_paged(plain, pp, fresh(plain), tokens, table, plen)
+        cfg = dataclasses.replace(base, compute_dtype=dt, attn_impl="kernel")
+        p = lm.cast_for_compute(cfg, params, dev)
+        cases = {"chunks_4x128": (0, 128, 256, 384), "prefix_320_then_192": (0, 320)}
+        for name, starts in cases.items():
+            cache = fresh(cfg)
+            ends = starts[1:] + (plen,)
+            for a, b in zip(starts, ends):
+                if a == 0:
+                    _, got = lm.prefill_slot_paged(cfg, p, cache, tokens[:, :b], table, plen)
+                else:
+                    _, got = lm.prefill_chunk_paged(cfg, p, cache, tokens[:, a:b], table, a,
+                                                    plen)
+            res[name] = dict(rel_err=rel_err(torch, got, want),
+                             argmax_equal=bool(got.argmax() == want.argmax()))
+        _, whole = lm.prefill_slot_paged(cfg, p, fresh(cfg), tokens, table, plen)
+        res["kernel_whole_bucket_rel_err"] = rel_err(torch, whole, want)
+        res["tolerance"] = LOGIT_TOL[dt]
+        out[dt] = res
+        log(f"continuation logits {dt}: {json.dumps(res)}")
+        del pp, p
+    assert all(out["float32"][n]["rel_err"] <= LOGIT_TOL["float32"]
+               for n in ("chunks_4x128", "prefix_320_then_192")), out
+    return out
+
+
+def feature_path(torch, dev, results):
+    """Phases 3b-3e on full-width smollm-360m (seed-0 weights, bf16, the
+    kernel path, phase 3's engine).  Returns phase 3b's launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.serve import ENGINE_FAULT_SITES, STATUSES, FaultPlan
+
+    base = get_config("smollm-360m")
+    cfg = dataclasses.replace(base, attn_impl="kernel")
+    params = lm.init(cfg, seed=0, device=dev)
+    reqs = feature_requests(cfg.vocab)
+    out = {}
+
+    # 3b: chunked prefill, the prefix cache and preempt admission together
+    b, streams_b, status_b = feature_run(torch, cfg, params, reqs, feature_engine(), dev)
+    c = b["counters"]
+    short = [(i, len(t), bud) for i, (t, (_, bud)) in enumerate(zip(streams_b, reqs))
+             if len(t) != bud]
+    assert status_b == ["ok"] * len(reqs) and not short, (status_b, short)
+    assert c["prefill_chunks"] > c["prefills"], c
+    for k in ("prefix_hit_tokens", "cow_copies", "preemptions", "resumed", "replayed_tokens"):
+        assert c[k] > 0, (k, c)
+    log(f"3b features (chunk {FEATURE_CHUNK}, prefix cache, preempt, {FEATURE_BLOCKS} "
+        f"blocks): {b['tokens']} tokens in {b['wall_s']:.3f} s = {b['tokens_per_s']:.1f} "
+        f"tok/s; decode step median {b['decode_step_ms_median']:.2f} ms p90 "
+        f"{b['decode_step_ms_p90']:.2f} ms; {json.dumps(b)}")
+    b["chunk_profile"] = profile_chunk(torch, cfg, params, dev)
+    b["prefix_hit_admission"] = prefix_hit_ms(torch, cfg, params, reqs, dev)
+    out["3b"] = b
+
+    # 3c: preempt admission alone on phase 3's traffic: the replayed
+    # streams are phase 3's bitwise
+    phase3 = requests(cfg.vocab)
+    cc, streams_c, _ = feature_run(torch, cfg, params, phase3,
+                                   feature_engine(prefill_chunk=0, prefix_cache=False), dev)
+    same = [i for i, (x, y) in enumerate(zip(streams_c, results["phase3_streams"])) if x == y]
+    cc["identical_to_phase3"] = len(same)
+    log(f"3c preempt only: {json.dumps(cc)}")
+    assert cc["counters"]["preemptions"] > 0, cc
+    assert len(same) == len(phase3), (same, cc)
+    out["3c"] = cc
+
+    # 3d: continuation logits against the whole-bucket prefill
+    prompt = np.random.default_rng(8).integers(0, cfg.vocab, 512).astype(np.int32)
+    out["3d"] = continuation_logits(torch, dev, base, params, prompt)
+
+    # 3e: chaos on phase 3b's engine; retries recompute, so every request
+    # that ends ok is phase 3b's stream
+    plan = FaultPlan(0, {site: CHAOS_RATE for site in ENGINE_FAULT_SITES})
+    e, streams_e, status_e = feature_run(
+        torch, cfg, params, reqs, feature_engine(max_retries=2), dev, faults=plan,
+        deadlines={i: CHAOS_DEADLINE_STEPS for i in CHAOS_DEADLINED})
+    assert all(st in STATUSES for st in status_e), status_e
+    ok = [i for i, st in enumerate(status_e) if st == "ok"]
+    diverged = [i for i in ok if streams_e[i] != streams_b[i]]
+    not_prefix = [i for i, st in enumerate(status_e)
+                  if st != "ok" and streams_e[i] != streams_b[i][: len(streams_e[i])]]
+    e.update(statuses=status_e, ok=len(ok), ok_diverged=diverged, non_ok_not_prefix=not_prefix)
+    log(f"3e chaos (rate {CHAOS_RATE}, seed 0): {json.dumps(e)}")
+    assert e["counters"]["faults_injected"] > 0, e
+    assert not diverged, e
+    out["3e"] = e
+    results["features"] = out
+    del params
+    return b["launches"]
+
+
+# ---------------------------------------------------------------------------
 # Phase 5: Zamba2 hybrid serving at full width
 # ---------------------------------------------------------------------------
 
@@ -1278,13 +1652,7 @@ def zamba_path(torch, dev, results):
            if c.status != "ok" or len(c.tokens) != b]
     assert not bad, f"requests not served in full: {bad}"
     pre, dec = st["prefills"], st["decode_steps"]
-    # per prefill and decode step: rmsnorm for the shared block's ln1, each
-    # Mamba2 layer's ln and ln_f; the gated form for each Mamba2 out-norm
-    # (with its skip and gate); rmsnorm_add for the shared block's ln2
-    want = {"flash_attention": ZAMBA_SHARED * pre, "ssd": ZAMBA_LAYERS * pre,
-            "rmsnorm": (ZAMBA_SHARED + ZAMBA_LAYERS + 1) * (pre + dec),
-            "rmsnorm_add": ZAMBA_SHARED * (pre + dec),
-            "rmsnorm_gated": ZAMBA_LAYERS * (pre + dec)}
+    want = zamba_launches(pre, dec)
     assert launches == want and pre > 0 and dec > 0, (launches, want, st)
     tokens = sum(len(c.tokens) for c in comps)
     decode_only = [t for t, p in zip(steps, prefilled) if not p]
@@ -1300,6 +1668,10 @@ def zamba_path(torch, dev, results):
         f"{tokens / wall:.1f} tok/s; decode step median {e2e['decode_step_ms_median']:.2f} ms "
         f"over {len(decode_only)} decode-only steps; launches {launches}; "
         f"programs {json.dumps(programs)}")
+    t = time.perf_counter()
+    results["zamba_preempt"] = zamba_preempt(torch, cfg, params, reqs, ec, dev,
+                                             [list(c.tokens) for c in comps])
+    results["zamba_preempt"]["seconds"] = time.perf_counter() - t
 
     ref_cfg = dataclasses.replace(base, attn_impl="chunked")
     ref_eng, ref_rids, _, _, ref_wall = serve(torch, ref_cfg, params, reqs, ec, dev)
@@ -1317,6 +1689,67 @@ def zamba_path(torch, dev, results):
     results["zamba_blocks"] = zamba_block_agreement(torch, dev, base, params, reqs[2][0])
     results["zamba_logits"] = zamba_logit_agreement(torch, dev, base, params, reqs[2][0])
     return launches
+
+
+ZAMBA_PREEMPT_AFTER = 8       # decode steps before phase 5b preempts two lanes
+
+
+def zamba_launches(pre: int, dec: int) -> dict:
+    """Launches of a zamba2 serving run with ``pre`` prefills and ``dec``
+    decode steps: per prefill and decode step rmsnorm for the shared
+    block's ln1, each Mamba2 layer's ln and ln_f; the gated form for each
+    Mamba2 out-norm (with its skip and gate); rmsnorm_add for the shared
+    block's ln2; flash and ssd per prefill."""
+    return {"flash_attention": ZAMBA_SHARED * pre, "ssd": ZAMBA_LAYERS * pre,
+            "rmsnorm": (ZAMBA_SHARED + ZAMBA_LAYERS + 1) * (pre + dec),
+            "rmsnorm_add": ZAMBA_SHARED * (pre + dec),
+            "rmsnorm_gated": ZAMBA_LAYERS * (pre + dec)}
+
+
+def zamba_preempt(torch, cfg, params, reqs, ec, dev, want) -> dict:
+    """Phase 5b: phase 5's engine and requests; after ``ZAMBA_PREEMPT_AFTER``
+    decode steps the host preempts the two busiest lanes' requests (the
+    last two occupied lanes).  Their resumes re-prefill the prompt through
+    the same bucket program (flash, ssd and the norms) and replay the
+    emitted tokens through decode, so every stream must equal phase 5's
+    (``want``) bitwise; invariants (recurrent zeroing included) after
+    every step, and the launches those 18 prefills and the decode steps
+    predict."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_add, rmsnorm_gated
+    from repro_torch.kernels.ssd.ops import ssd
+    from repro_torch.serve import ServeEngine
+
+    kernels = (flash_attention, ssd, rmsnorm, rmsnorm_add, rmsnorm_gated)
+    eng = ServeEngine(cfg, params, ec, device=dev)
+    rids = [eng.submit(p, max_new_tokens=b) for p, b in reqs]
+    for k in kernels:
+        k.launches = 0
+    victims = None
+    while eng.has_work():
+        eng.step()
+        eng.check_invariants()
+        if victims is None and eng.counters["decode_steps"] >= ZAMBA_PREEMPT_AFTER:
+            lanes = [i for i, s in enumerate(eng.slots) if s is not None][-2:]
+            victims = [eng.slots[i].rid for i in lanes]
+            emitted = [len(eng.live[r].tokens) for r in victims]
+            for i in lanes:
+                eng.preempt(i)
+            eng.check_invariants()
+    launches = {k.__name__: k.launches for k in kernels}
+    st = eng.stats
+    got = [list(eng.completions[r].tokens) for r in rids]
+    same = [i for i, (x, y) in enumerate(zip(got, want)) if x == y]
+    out = dict(victims=victims, emitted_before=emitted, identical_to_phase5=len(same),
+               launches=launches, prefills=st["prefills"], decode_steps=st["decode_steps"],
+               preemptions=st["preemptions"], resumed=st["resumed"],
+               replayed_tokens=st["replayed_tokens"], graphs=st["graphs"])
+    log(f"5b zamba2 host preemption: {json.dumps(out)}")
+    assert st["preemptions"] == st["resumed"] == 2 and st["replayed_tokens"] > 0, out
+    assert st["prefills"] == len(reqs) + 2 and st["graphs"] == 1, out
+    assert launches == zamba_launches(st["prefills"], st["decode_steps"]), out
+    assert len(same) == len(reqs), out
+    return out
 
 
 def prefill_ms(torch, dev, base, params, iters: int = 5) -> dict:
@@ -1928,12 +2361,15 @@ def main() -> int:
     phase("2d ssd", check_ssd)
     phase("2e rmsnorm", check_rmsnorm)
     launches = phase("3 serve", main_path)
+    features_launches = phase("3b-3e serve features", feature_path)
     train_launches = phase("4 train", train_path)
     zamba_launches = phase("5 zamba serve", zamba_path)
     phase("6 function API", function_path)
     results["phase_s"] = phase_s
     results["seconds"] = time.perf_counter() - t_start
 
+    zp = results["zamba_preempt"]["launches"]
+    phase_s["5b zamba preempt (inside 5)"] = results["zamba_preempt"]["seconds"]
     fl = {t["shape"]: t for t in results["flash_timing"]}
     pg = {t["lengths_from"]: t for t in results["paged_timing"]}
     fa = results["flat_adam_timing"]
@@ -1947,8 +2383,10 @@ def main() -> int:
              jax_function="repro.kernels.flash_attention.kernel.flash_attention_fwd",
              shape="q (1, 512, 15, 64), k/v (1, 512, 5, 64), bf16, causal",
              launches=launches["flash_attention"],
+             features_launches=features_launches["flash_attention"],
              train_launches=train_launches["flash_attention"],
              zamba_launches=zamba_launches["flash_attention"],
+             zamba_preempt_launches=zp["flash_attention"],
              max_abs_err=max(r["max_abs_err"] for r in results["flash_cases"]
                              if r["dtype"] == "bfloat16"),
              kernel_ms=fl["serve"]["ms"], ms=fl["serve"]["ms"],
@@ -1966,6 +2404,7 @@ def main() -> int:
              jax_function="repro.kernels.paged_attention.kernel.paged_attention_fwd",
              shape="q (8, 5, 3, 64), pools (513, 16, 5, 64), bf16, lengths 1..1023",
              launches=launches["paged_attention"],
+             features_launches=features_launches["paged_attention"],
              max_abs_err=max(r["max_abs_err"] for r in results["paged_cases"]
                              if r["dtype"] == "bfloat16"),
              kernel_ms=pg["random"]["ms"], ms=pg["random"]["ms"],
@@ -1989,7 +2428,7 @@ def main() -> int:
              jax_function="repro.kernels.ssd.kernel.ssd_fwd",
              shape="x (1, 512, 64, 64) bf16, dt (1, 512, 64), B/C (1, 512, 1, 64); "
                    "y and state fp32",
-             launches=zamba_launches["ssd"],
+             launches=zamba_launches["ssd"], zamba_preempt_launches=zp["ssd"],
              max_abs_err=max(r["max_abs_err"] for r in results["ssd_cases"]),
              kernel_ms=sd["ms"], ms=sd["ms"], ms_events=sd["ms_events"],
              plain_ms=sd["plain_ms"], bound_ms=sd["bound_ms"], bound_by=sd["bound_by"],
@@ -2013,9 +2452,11 @@ def main() -> int:
             ("rmsnorm_gated", 18, (512, 4096), "y (512, 4096) fp32, z, x (512, 4096) bf16 "
              "views, gamma (4096,), D (64,) fp32")):
         t = rn[(name, *shape)]
-        per_path = {} if name == "rmsnorm_gated" else dict(
+        per_path = dict(zamba_preempt_launches=zp[name]) if name == "rmsnorm_gated" else dict(
+            features_launches=features_launches[name],
             train_launches=train_launches[name], train_shape="(4096, 960)",
-            zamba_launches=zamba_launches[name], zamba_shapes="(8, 2048), (512, 2048)")
+            zamba_launches=zamba_launches[name], zamba_preempt_launches=zp[name],
+            zamba_shapes="(8, 2048), (512, 2048)")
         kernels.append(dict(
             name=name, route="cuda", source="src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
             replaces=f"src/repro/kernels/rmsnorm/kernel.py:{line}",

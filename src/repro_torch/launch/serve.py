@@ -11,8 +11,18 @@ family's kernels ("kernel": the flash CUDA kernel for prefill attention
 and, for zamba2, the SSD scan and RMSNorm kernels; "chunked": plain
 PyTorch) and ``--paged-attn`` the paged decode attention ("kernel" or
 "ref").  zamba2 serves on the slotted layout only: ``--kv-layout paged``
-is refused.  On a CPU device the kernel settings run the kernels' plain
-versions.  The router front-end arrives with a later slice.
+is refused, and so are the paged-only scheduling flags.  On a CPU device
+the kernel settings run the kernels' plain versions.
+
+The paged engine's scheduling features, and the robustness knobs:
+
+    python -m repro_torch.launch.serve --arch smollm-360m --smoke \
+        --device cpu --kv-layout paged --prefill-chunk 8 --prefix-cache \
+        --admission preempt --chaos-rate 0.05 --deadline-s 30
+
+``--chaos-rate`` injects seeded faults (``--chaos-seed``) at every engine
+fault site; faulted requests retry up to ``--max-retries`` times.  The
+router front-end arrives with a later slice.
 """
 from __future__ import annotations
 
@@ -25,7 +35,12 @@ import numpy as np
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.device import resolve_device
 from repro_torch.models import registry
-from repro_torch.serve import EngineConfig, ServeEngine
+from repro_torch.serve import (
+    ENGINE_FAULT_SITES,
+    EngineConfig,
+    FaultPlan,
+    ServeEngine,
+)
 
 
 def run_stream(cfg, params, args, rng, device) -> ServeEngine:
@@ -34,10 +49,17 @@ def run_stream(cfg, params, args, rng, device) -> ServeEngine:
     max_len = args.prompt_len + args.new_tokens + 8
     if args.kv_layout == "paged":
         max_len = -(-max_len // args.page_size) * args.page_size
+    faults = None
+    if args.chaos_rate > 0:
+        faults = FaultPlan(args.chaos_seed + 1,
+                           {site: args.chaos_rate for site in ENGINE_FAULT_SITES})
     engine = ServeEngine(cfg, params, EngineConfig(
         max_slots=args.max_slots, max_len=max_len, seed=args.seed,
         kv_layout=args.kv_layout, page_size=args.page_size,
-        num_blocks=args.num_blocks, paged_attn=args.paged_attn), device=device)
+        num_blocks=args.num_blocks, paged_attn=args.paged_attn,
+        prefill_chunk=args.prefill_chunk, prefix_cache=args.prefix_cache,
+        admission=args.admission, max_retries=args.max_retries),
+        device=device, faults=faults)
     arrivals = np.cumsum(rng.exponential(1.0 / args.rate, args.requests))
     prompts = [rng.integers(0, cfg.vocab, rng.integers(2, args.prompt_len + 1))
                .astype(np.int32) for _ in range(args.requests)]
@@ -49,7 +71,8 @@ def run_stream(cfg, params, args, rng, device) -> ServeEngine:
         now = time.perf_counter() - t0
         while i < len(prompts) and arrivals[i] <= now:
             engine.submit(prompts[i], max_new_tokens=int(budgets[i]),
-                          temperature=args.temperature, rid=i)
+                          temperature=args.temperature, rid=i,
+                          deadline_s=args.deadline_s)
             i += 1
         if not engine.step() and i < len(prompts):
             time.sleep(max(0.0, t0 + arrivals[i] - time.perf_counter()))
@@ -71,7 +94,17 @@ def run_stream(cfg, params, args, rng, device) -> ServeEngine:
     print(f"-- prefills {s['prefills']} decode_steps {s['decode_steps']} "
           f"kv {s['kv_peak_used_bytes'] / 2**20:.2f} MiB peak used / "
           f"{s['kv_reserved_bytes'] / 2**20:.2f} MiB reserved  "
-          f"status ok {s['status_ok']} failed {s['status_failed']}")
+          f"status ok {s['status_ok']} failed {s['status_failed']} "
+          f"timeout {s['status_timeout']} cancelled {s['status_cancelled']}")
+    if args.kv_layout == "paged":
+        print(f"-- prefill chunks {s['prefill_chunks']}  prefix hit_rate "
+              f"{s['prefix_hit_rate']:.2f} cow {s['cow_copies']}  preempt "
+              f"{s['preemptions']} resume {s['resumed']} replayed "
+              f"{s['replayed_tokens']}")
+    if faults is not None:
+        print(f"-- chaos[seed {args.chaos_seed}]: faults injected "
+              f"{s['faults_injected']} detected {s['faults_detected']} retries "
+              f"{s['retries']}")
     return engine
 
 
@@ -93,6 +126,25 @@ def main(argv=None):
                     help="KV block size (paged layout)")
     ap.add_argument("--num-blocks", type=int, default=None,
                     help="KV pool size in blocks (paged; default worst case)")
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help=">0: admit prompts in chunks of this many tokens "
+                         "interleaved with decode (paged only)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="refcounted shared-prefix block reuse (paged)")
+    ap.add_argument("--admission", choices=("deficit", "preempt"),
+                    default="deficit",
+                    help="deficit: gate admission on worst-case block "
+                         "commitments; preempt: run the pool near full and "
+                         "evict-and-requeue the lowest-priority lane (paged)")
+    ap.add_argument("--deadline-s", type=float, default=None,
+                    help="per-request time to live from submission")
+    ap.add_argument("--max-retries", type=int, default=2,
+                    help="retries of a faulted request before it ends 'failed'")
+    ap.add_argument("--chaos-rate", type=float, default=0.0,
+                    help=">0: seeded faults at every engine fault site with "
+                         "this per-consult probability")
+    ap.add_argument("--chaos-seed", type=int, default=0,
+                    help="FaultPlan seed (reproducible fault schedules)")
     ap.add_argument("--device", default=None,
                     help="torch device; default the card (raises without one)")
     ap.add_argument("--attn-impl", choices=("chunked", "kernel"),

@@ -39,6 +39,7 @@ from .attention import (
     decode_attention,
     paged_decode_attention,
     apply_rope,
+    paged_gather,
     paged_write_positions,
     rope_tables,
 )
@@ -174,11 +175,16 @@ def _ffn(cfg, x, bp):
     return (_gate(cfg, g) * u) @ _w(bp, "wd", cfg)
 
 
-def _block_fwd(cfg, x, bp, rope_cs, *, window: int):
-    """One transformer block, prefill path.  Returns (x, (k, v))."""
+def _block_fwd(cfg, x, bp, rope_cs, *, window: int, attn_fn=None):
+    """One transformer block, prefill path.  Returns (x, (k, v)).
+    ``attn_fn(q, k, v, window)`` replaces the attention (a chunked-prefill
+    continuation's, :func:`_block_chunk`); everything around it is
+    shared."""
     h = norm(cfg, x, bp["ln1"])
     q, k, v = _attn_proj(cfg, h, bp, rope_cs)
-    if cfg.attn_impl == "kernel":
+    if attn_fn is not None:
+        attn = attn_fn(q, k, v, window)
+    elif cfg.attn_impl == "kernel":
         from repro_torch.kernels.flash_attention.ops import flash_attention
         attn = flash_attention(q, k, v, causal=True, window=window,
                                softcap=cfg.attn_softcap)
@@ -302,6 +308,31 @@ def make_paged_cache_specs(cfg: ArchConfig, num_blocks: int, block_size: int) ->
     return {"k": c, "v": c}
 
 
+def copy_paged_block(cfg: ArchConfig, cache, src: int, dst: int):
+    """Copy physical pool block ``src`` to ``dst`` in every cache leaf, in
+    place: the prefix cache's copy-on-write step (a new request's prompt
+    covers a shared block whole but must rewrite its tail position, since
+    the sampling position is always recomputed; the lane gets the private
+    copy).  Leaves are (L, NB, bs, Hk, dh); the block axis is ``ndim - 4``.
+    One indexed copy per leaf, on the current stream, so it is ordered
+    before the continuation chunk that overwrites the copy's tail."""
+    for c in cache.values():
+        axis = c.dim() - 4
+        c.select(axis, dst).copy_(c.select(axis, src))
+    return cache
+
+
+def prefill(cfg: ArchConfig, params, tokens, *, max_len: int | None = None):
+    """Whole-batch prefill: tokens (B, S) -> (slotted cache {k, v} of
+    (L, B, max_len, Hk, dh), the KV of positions [0, S) and zeros past it;
+    logits (B, V) at the last position)."""
+    hidden, (k, v) = forward(cfg, params, tokens, remat=False, collect_kv=True)
+    S = tokens.shape[1]
+    pad = [0, 0, 0, 0, 0, max(0, (max_len or S) - S)]
+    cache = {"k": F.pad(k, pad), "v": F.pad(v, pad)}
+    return cache, unembed(cfg, params, hidden[:, -1])
+
+
 def prefill_slot(cfg: ArchConfig, params, cache, tokens, slot: int, plen: int):
     """Prefill ONE prompt into lane ``slot`` of the slotted cache.
 
@@ -331,6 +362,58 @@ def prefill_slot_paged(cfg: ArchConfig, params, cache, tokens, table_row, plen: 
         paged_write_positions(cache[name], table_row, pos, new[:, 0], valid)
     last = min(max(plen - 1, 0), C - 1)
     return cache, unembed(cfg, params, hidden[:, last])
+
+
+def _block_chunk(cfg, x, bp, kp, vp, table_row, start: int, plen: int, rope_cs, *,
+                 window: int):
+    """One transformer block of a chunked-prefill continuation.
+
+    x: (1, C, D) hidden of prompt positions [start, start+C); kp/vp: this
+    layer's pools (NB, bs, Hk, dh), written in place.  Rides
+    :func:`_block_fwd` with an attention override: write the chunk's K/V
+    through the table (positions ``>= plen`` to the sink), gather the
+    lane, and attend the chunk's queries against it with
+    ``chunked_attention(q_offset=start)`` (the lane's stale tail past
+    ``start+C`` is causally masked; pad rows never feed valid rows).
+    Returns x."""
+    C = x.shape[1]
+    pos = start + torch.arange(C, device=x.device)
+    valid = pos < plen
+
+    def attn_fn(q, k, v, w):
+        paged_write_positions(kp, table_row, pos, k[0], valid)
+        paged_write_positions(vp, table_row, pos, v[0], valid)
+        kl = paged_gather(kp, table_row[None])         # (1, nb*bs, Hk, dh)
+        vl = paged_gather(vp, table_row[None])
+        return chunked_attention(q, kl, vl, causal=True, window=w,
+                                 softcap=cfg.attn_softcap, q_chunk=min(256, C),
+                                 kv_chunk=min(256, kl.shape[1]), q_offset=start)
+
+    x, _ = _block_fwd(cfg, x, bp, rope_cs, window=window, attn_fn=attn_fn)
+    return x
+
+
+def prefill_chunk_paged(cfg: ArchConfig, params, cache, tokens, table_row,
+                        start: int, plen: int):
+    """Continue a chunked prefill: prompt positions [start, start+C)
+    against the lane's paged KV (``start > 0``; the first chunk goes
+    through :func:`prefill_slot_paged`).  tokens: (1, C), right-padded on
+    the last chunk.  Every norm goes through ``common.norm``/``norm_add``
+    (one RMSNorm kernel launch each on the kernel path); the attention is
+    ``chunked_attention`` on both paths (the flash kernel has no query
+    offset).  Returns (cache, logits (1, V) at prompt position
+    ``min(plen, start+C) - 1``), the cache in place."""
+    check_supported(cfg)
+    x = embed_tokens(cfg, params, tokens)
+    C = tokens.shape[1]
+    pos = start + torch.arange(C, dtype=torch.int32, device=x.device)
+    rope_cs = rope_tables(pos[None], cfg.head_dim, cfg.rope_theta)
+    for i in range(cfg.n_layers):
+        x = _block_chunk(cfg, x, _layer(params, i), cache["k"][i], cache["v"][i],
+                         table_row, start, plen, rope_cs, window=cfg.window)
+    x = norm(cfg, x, params["ln_f"])
+    last = min(max(plen - 1 - start, 0), C - 1)
+    return cache, unembed(cfg, params, x[:, last])
 
 
 def _decode_walk(cfg, params, cache, x, cur_index, attn_fn):

@@ -1,9 +1,26 @@
-"""Continuous-batching serving: engine, programs, slotted and paged caches."""
+"""Continuous-batching serving: engine, programs, slotted and paged caches,
+fault injection and the batch entry points."""
 from .cache import bucket_for, make_slot_state, prompt_buckets
 from .engine import STATUSES, Completion, EngineConfig, ServeEngine
-from .faults import NONFINITE_TOKEN, UNCOMMITTED
-from .paged import BlockAllocator, SlotTables, blocks_for, cache_nbytes, make_paged_state
+from .faults import (
+    ENGINE_FAULT_SITES,
+    FAULT_SITES,
+    NONFINITE_TOKEN,
+    REPLICA_FAULT_SITES,
+    UNCOMMITTED,
+    FaultPlan,
+)
+from .loop import ServeConfig, generate, generate_static
+from .paged import (
+    BlockAllocator,
+    SlotTables,
+    blocks_for,
+    cache_nbytes,
+    make_paged_state,
+    prefix_keys,
+)
 from .step import (
+    paged_copy_program,
     paged_decode_program,
     paged_prefill_program,
     sample_tokens,
@@ -12,9 +29,12 @@ from .step import (
 )
 
 __all__ = [
-    "BlockAllocator", "Completion", "EngineConfig", "NONFINITE_TOKEN",
-    "STATUSES", "ServeEngine", "SlotTables", "UNCOMMITTED", "blocks_for",
-    "bucket_for", "cache_nbytes", "make_paged_state", "make_slot_state",
-    "paged_decode_program", "paged_prefill_program", "prompt_buckets",
-    "sample_tokens", "slot_decode_program", "slot_prefill_program",
+    "BlockAllocator", "Completion", "ENGINE_FAULT_SITES", "EngineConfig",
+    "FAULT_SITES", "FaultPlan", "NONFINITE_TOKEN", "REPLICA_FAULT_SITES",
+    "STATUSES", "ServeConfig", "ServeEngine", "SlotTables", "UNCOMMITTED",
+    "blocks_for", "bucket_for", "cache_nbytes", "generate", "generate_static",
+    "make_paged_state", "make_slot_state", "paged_copy_program",
+    "paged_decode_program", "paged_prefill_program", "prefix_keys",
+    "prompt_buckets", "sample_tokens", "slot_decode_program",
+    "slot_prefill_program",
 ]

@@ -17,7 +17,13 @@ decode loop's only host sync is the sampled-token fetch:
     temps    (N,) f32    per-slot sampling temperature (0 = greedy)
     top_ks   (N,) int32  per-slot top-k mask (0 = off)
     top_ps   (N,) f32    per-slot nucleus threshold (<=0 or >=1 = off)
+    replay   (N,) bool   the lane's next decode input is a recorded token
+                         the host forces (a preempted request's resume);
+                         the recurrent freeze keeps such a lane's state
     generator            seeded torch.Generator on the device (sampling)
+
+Every vector is a fixed buffer: the host copies into it (never rebinds
+it), so a CUDA graph captured on the state stays valid.
 
 Prompt lengths are bucketed (powers of two) as in the reference, so the
 prefill shapes repeat across admissions.
@@ -77,6 +83,7 @@ def sched_state(max_slots: int, device, seed: int = 0) -> dict:
         "temps": z(torch.float32),
         "top_ks": z(torch.int32),
         "top_ps": z(torch.float32),
+        "replay": z(torch.bool),
         "generator": torch.Generator(device=device).manual_seed(seed),
     }
 
@@ -103,10 +110,11 @@ class RecurrentCache:
       recurrent leaves wholesale with the state snapshot at the prompt
       end; nothing of a previous occupant survives.
     * **evict-time zeroing** — every decode/prefill program passes its
-      post-step ``active`` vector through :meth:`freeze`, which zeroes
-      the recurrent leaves of every inactive lane in the same step (a
-      lane finishing on the device is zeroed in the step that finishes
-      it).  So after a decode step an inactive lane's recurrent state is
+      post-step ``active`` vector (or'ed with ``replay``: a resumed lane
+      whose recorded token the host forces keeps its state even when the
+      device reads it as done) through :meth:`freeze`, which zeroes the
+      recurrent leaves of every inactive lane in the same step (a lane
+      finishing on the device is zeroed in the step that finishes it).  So after a decode step an inactive lane's recurrent state is
       exactly zero: no stale recurrence advances, and no inf/NaN can
       accumulate in dead lanes.
 

@@ -1,0 +1,76 @@
+"""Batched serving entry points, the port of the reference's
+``serve/loop.py``.
+
+``generate`` is a thin wrapper over the continuous-batching
+:class:`~repro_torch.serve.engine.ServeEngine`: every prompt is submitted
+at once into a ``max_slots = batch`` engine with one exact prompt bucket,
+so its greedy tokens are the static loop's while it runs through the
+slotted cache, fused sampling and the engine's programs.
+
+``generate_static`` is the fixed-batch loop: one whole-batch prefill,
+then every sequence decodes to the full token budget, sampling on the
+logits each step.  It serves families the engine does not (none among
+the ported ones) and is the baseline the engine is held against.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import registry
+from .step import sample_tokens
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    max_new_tokens: int = 16
+    temperature: float = 0.0       # 0 => greedy
+    seed: int = 0
+
+
+def generate(cfg: ArchConfig, params, prompts, serve: ServeConfig | None = None, *,
+             device=None) -> np.ndarray:
+    """prompts (B, S) int32 -> (B, max_new_tokens) int32 generated tokens,
+    through the engine (on the card unless ``device="cpu"``)."""
+    serve = serve or ServeConfig()
+    if not registry.supports_slot_serving(cfg):
+        return generate_static(cfg, params, prompts, serve, device=device)
+    from .engine import EngineConfig, ServeEngine
+
+    prompts = np.asarray(prompts, np.int32)
+    B, S = prompts.shape
+    engine = ServeEngine(cfg, params, EngineConfig(
+        max_slots=B, max_len=S + serve.max_new_tokens, seed=serve.seed,
+        # equal-length prompts: one exact bucket
+        prefill_buckets=(S,)), device=device)
+    out = engine.run(list(prompts), max_new_tokens=serve.max_new_tokens,
+                     temperature=serve.temperature)
+    return np.stack(out, axis=0)
+
+
+def generate_static(cfg: ArchConfig, params, prompts, serve: ServeConfig | None = None,
+                    *, device=None) -> np.ndarray:
+    """The static-batch loop: prefill once (``mod.prefill``), then decode
+    the whole batch to the full budget (``mod.decode_step`` at one shared
+    position), sampling each step from a ``torch.Generator`` seeded with
+    ``serve.seed`` (greedy at temperature 0).  Returns (B,
+    max_new_tokens) int32."""
+    serve = serve or ServeConfig()
+    device = resolve_device(device)
+    mod = registry.get_module(cfg)
+    params = mod.cast_for_compute(cfg, params, device)
+    tokens = torch.as_tensor(np.asarray(prompts, np.int32), device=device)
+    B, S = tokens.shape
+    cache, logits = mod.prefill(cfg, params, tokens, max_len=S + serve.max_new_tokens)
+    gen = torch.Generator(device=device).manual_seed(serve.seed)
+    temps = torch.full((B,), float(serve.temperature), device=device)
+    out = []
+    for cur in range(S, S + serve.max_new_tokens):
+        tok = sample_tokens(logits, gen, temps)
+        out.append(tok)
+        logits, cache = mod.decode_step(cfg, params, cache, tok, cur)
+    return torch.stack(out, dim=1).cpu().numpy()

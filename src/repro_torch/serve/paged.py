@@ -1,7 +1,8 @@
 """Paged KV cache: host-side block allocator + device-resident paged state.
 
 The port of the reference's ``serve/paged.py`` (the host-RAM tier arrives
-with a later slice).  The slotted cache reserves ``max_slots x max_len``
+with a later slice): the allocator, the block tables, the prefix cache's
+chain keys (:func:`prefix_keys`) and the device-resident state.  The slotted cache reserves ``max_slots x max_len``
 KV positions up front; the paged layout replaces the per-lane tensor with
 a shared pool of fixed-size blocks:
 
@@ -19,13 +20,13 @@ writes from padded prefill tails and freed lanes land there instead of
 in live blocks.
 
 :class:`BlockAllocator` and :class:`SlotTables` are host-side numpy logic,
-copied from the reference (their prefix-cache methods come along; the
-engine's prefix cache arrives with a later slice).  The device sees only
-the ``tables`` tensor, re-pushed whenever a row changes.
+copied from the reference.  The device sees only the ``tables`` tensor,
+copied into in place whenever a row changes.
 """
 from __future__ import annotations
 
 import bisect
+import hashlib
 from collections import OrderedDict
 
 import numpy as np
@@ -42,6 +43,24 @@ def blocks_for(positions: int, block_size: int) -> int:
     if positions <= 0:
         return 0
     return -(-positions // block_size)
+
+
+def prefix_keys(tokens, block_size: int) -> list[bytes]:
+    """Chain keys for every full block-aligned prefix of ``tokens``.
+
+    Key ``j`` digests tokens ``[0, (j+1)*block_size)`` (int32 bytes)
+    through a rolling sha256, byte for byte the reference's keys: two
+    chains share a key iff their token prefixes are identical, and key
+    ``j`` commits to the whole history, since block ``j``'s KV depends on
+    every earlier position through attention.
+    """
+    t = np.ascontiguousarray(np.asarray(tokens, np.int32))
+    h = hashlib.sha256()
+    out: list[bytes] = []
+    for j in range(t.size // block_size):
+        h.update(t[j * block_size:(j + 1) * block_size].tobytes())
+        out.append(h.digest())
+    return out
 
 
 class BlockAllocator:
@@ -175,6 +194,10 @@ class BlockAllocator:
         self._index[key] = block
         self._block_key[block] = key
         return True
+
+    def indexed(self, key: bytes) -> bool:
+        """Whether a chain key is indexed (no hit/miss counting)."""
+        return key in self._index
 
     def lookup(self, keys: list[bytes]) -> list[int]:
         """Longest indexed chain prefix of ``keys`` (no refs taken —

@@ -1,8 +1,8 @@
 """Serving programs: prefill and decode steps of the continuous-batching
 engine, with sampling fused on the device.
 
-The port of the reference's ``serve/step.py`` for whole-prompt prefill
-and plain decode.  A "program" is a closure ``fn(params, state, ...) ->
+The port of the reference's ``serve/step.py`` for whole-prompt and
+chunked prefill, the prefix cache's block copy, and plain decode.  A "program" is a closure ``fn(params, state, ...) ->
 (state, tok)`` that runs eagerly: it updates every tensor of the state
 dict in place (no leaf is rebound, so a CUDA graph captured of the decode
 program replays on the same buffers, ``core.aot``), and returns the
@@ -104,6 +104,9 @@ def _decode_program(decode_fn, *, eos_id: int | None, freeze=None):
     ``freeze(cache, active)`` (recurrent state kinds) zeroes the recurrent
     leaves of the lanes inactive after the step — evict-time zeroing in
     the same step (see :class:`~repro_torch.serve.cache.RecurrentCache`).
+    A lane whose ``replay`` bit is set keeps its state: the host forces
+    its recorded token next and may keep it alive though the device reads
+    it as done (a spurious EOS resampled at another generator position).
     """
 
     def fn(params, state, *, stochastic=None, masked=None):
@@ -121,7 +124,7 @@ def _decode_program(decode_fn, *, eos_id: int | None, freeze=None):
             done |= active & (tok == eos_id)
         act_new = active & ~done
         if freeze is not None:
-            freeze(cache, act_new)
+            freeze(cache, act_new | state["replay"])
         state["tokens"].copy_(tok)
         state["lengths"].copy_(new_len)
         state["active"].copy_(act_new)
@@ -203,7 +206,10 @@ def slot_prefill_program(cfg: ArchConfig, *, eos_id: int | None = None):
     recurrent snapshot at position ``plen``.  Recurrent leaves are zeroed
     on the way out for the inactive lanes other than ``slot``: the slot
     being prefilled keeps its fresh state even if its first token already
-    ends it, and the next step's freeze zeroes it then.
+    ends it (a resumed lane's host forces its recorded token and keeps
+    it), and the next step's freeze zeroes it then.  Lanes in ``replay``
+    are kept as in the decode program: a mid-replay lane's device
+    ``active`` bit can read False until the host's next push.
     """
     mod = registry.get_module(cfg)
     rec = RecurrentCache(cfg)
@@ -216,7 +222,7 @@ def slot_prefill_program(cfg: ArchConfig, *, eos_id: int | None = None):
         if rec:
             keep_self = torch.arange(state["active"].shape[0],
                                      device=logits.device) == slot
-            rec.freeze(state["cache"], state["active"] | keep_self)
+            rec.freeze(state["cache"], state["active"] | state["replay"] | keep_self)
         return state, tok
 
     return fn
@@ -224,27 +230,51 @@ def slot_prefill_program(cfg: ArchConfig, *, eos_id: int | None = None):
 
 def paged_prefill_program(cfg: ArchConfig, *, eos_id: int | None = None,
                           first: bool = True):
-    """Prefill one chunk of a request in lane ``slot`` of the paged cache.
-    Only ``first=True`` (the chunk starts at position 0 — here always the
-    whole bucketed prompt) is ported; continuation chunks arrive with
-    chunked prefill.
+    """Prefill ONE chunk of a request in lane ``slot`` of the paged cache:
+    chunked prefill's unit of work, and the whole-prompt admission when
+    the chunk is the full bucket.
+
+    ``first=True``: the chunk starts at position 0 and runs the plain
+    ``forward`` (bitwise the slotted prefill; flash on the kernel path);
+    ``start`` is ignored.  ``first=False``: a continuation at ``start``
+    through ``prefill_chunk_paged``.  One program per (chunk size,
+    first) pair.
 
     ``fn(params, state, chunk (1, C), slot, start, plen, limit, temp,
-    top_k, top_p) -> (state, tok (1,))``; ``start`` is ignored (0).
+    top_k, top_p) -> (state, tok (1,))``; the scalars are host Python
+    values.  The lane's scheduling entries advance every chunk
+    (``lengths`` = positions prefilled); the lane activates, and the
+    token means something, only on the chunk covering position
+    ``plen - 1``.
     """
-    if not first:
-        raise NotImplementedError(
-            "chunked-prefill continuations arrive with a later slice")
     mod = registry.get_module(cfg)
 
     def fn(params, state, chunk, slot, start, plen, limit, temp, top_k, top_p):
         table_row = state["tables"][slot]
-        _, logits = mod.prefill_slot_paged(
-            cfg, params, state["cache"], chunk, table_row, plen)
-        end = min(chunk.shape[1], plen)
+        if first:
+            start = 0
+            _, logits = mod.prefill_slot_paged(
+                cfg, params, state["cache"], chunk, table_row, plen)
+        else:
+            _, logits = mod.prefill_chunk_paged(
+                cfg, params, state["cache"], chunk, table_row, start, plen)
+        end = min(start + chunk.shape[1], plen)
         tok = _seed_slot(state, slot, logits, length=end, limit=limit,
                          temp=temp, top_k=top_k, top_p=top_p,
                          is_last=end >= plen, eos_id=eos_id)
         return state, tok
+
+    return fn
+
+
+def paged_copy_program(cfg: ArchConfig):
+    """Copy one physical KV block of the paged pool, in place: the prefix
+    cache's copy-on-write (:func:`repro_torch.models.lm.copy_paged_block`).
+    ``fn(state, src, dst) -> state``; one program serves every copy."""
+    mod = registry.get_module(cfg)
+
+    def fn(state, src, dst):
+        mod.copy_paged_block(cfg, state["cache"], src, dst)
+        return state
 
     return fn

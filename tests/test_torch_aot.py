@@ -136,8 +136,12 @@ def test_engine_never_rebinds_a_state_tensor(arch, layout):
     before = _addresses(eng.state)
     eng.run(_prompts(cfg, rng, [3, 20, 9, 14, 5]), max_new_tokens=4)
     eng.submit(_prompts(cfg, rng, [6])[0], max_new_tokens=30)
+    rid = eng.submit(_prompts(cfg, rng, [7])[0], max_new_tokens=30)
     eng.step()
-    eng._fail_nonfinite(next(i for i, s in enumerate(eng.slots) if s is not None), "test")
+    eng.preempt(next(i for i, s in enumerate(eng.slots) if s is not None))
+    eng.step()                                      # the resume pushes the whole mirror
+    eng.step()
+    eng.cancel(rid)
     eng.drain()                                     # pushes tables and active
     assert _addresses(eng.state) == before
 
