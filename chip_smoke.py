@@ -116,6 +116,39 @@ Phases (any failure raises and the script exits non-zero):
    steps (a ``StepClock``) on four requests: every request ends in a
    status, invariants after every step, faults injected, builds flat, and
    every ``ok`` stream equals phase 3b's bitwise (retries recompute).
+3f. Phase 3c's engine with the host-RAM tier (``host_tier=True``) on phase
+   3's requests: every stream phase 3's bitwise; lanes spill and restore
+   (the counters ``TIER_3F``, a smoke-width CPU rehearsal's, exactly); a
+   resume the tier restores is not prefilled again: flash launches 32 x
+   prefills, prefills 16 plus the resumes the tier could not restore,
+   replayed tokens only theirs; one decode graph, builds flat (the
+   transport is prebuilt).  The tier logs each lane spill's and restore's
+   blocks; after the run the transport alone is timed at each of those
+   sizes (host ms, bytes and GB/s each way, a read and a write from rows
+   of one buffer and one block a copy) beside a plain pinned ``copy_`` of
+   the same bytes; tokens/s beside 3c's, measured the same way.
+3g. Phase 3b's engine with a tier of ``TIER_3G_BLOCKS`` block units:
+   reclaimed prefix blocks spill, later admissions promote them back, lanes
+   restore (``TIER_3G`` exactly).  After every step each block promoted in
+   it must hold, bitwise, the payload the tier kept for it.  The requests
+   that re-admit on a promoted chain (``TIER_3G_PROMOTED``) restart their
+   prefill where it ends, inside the first chunk, where 3b restarted at 0:
+   each stream must equal, bitwise, a tierless engine's whose device cache
+   holds the same chain (``prefix_witness``); every other stream is 3b's
+   bitwise.  Tokens/s beside 3b's.
+3h. Phase 3's engine with a tier and ``park_idle_s`` on a StepClock: a
+   lane held and released in place (no restore, no spill), a lane held
+   past the threshold (it parks, its lane refills, its release restores
+   with no replay), ``save_snapshot`` mid-run and ``restore_snapshot``
+   into a fresh engine sharing the program cache (drained there: every
+   stream phase 3's), two requests exported to a third engine sharing
+   cache and tier (the moved lane restores by copy there); every stream
+   phase 3's bitwise, launches as the three engines' counters predict,
+   builds flat, one graph each.
+3i. Phase 3's engine with ``fused_sampling=False`` (the programs return the
+   logits, the host samples): greedy streams phase 3's bitwise, one decode
+   graph, launches as the counters predict; tokens/s and the decode step
+   beside phase 3's, and the logits bytes fetched per step.
 4. Train full-width ``smollm-360m`` (seed 0, bf16 compute, both kernels)
    over a 1-rank NCCL group at seq 1024, global batch 8, 2 slices, remat:
    the faithful program for 6 steps and ZeRO for 3, through
@@ -160,6 +193,14 @@ Phases (any failure raises and the script exits non-zero):
    (flash, ssd, the norms) and replay; every stream must equal phase 5's
    bitwise, with invariants after every step and the launches 18
    prefills and the decode steps predict.
+5c. Phase 5's engine with a host tier: a lane held after 4 decode steps
+   (a hybrid lane spills at once: its KV segment and recurrent leaves,
+   ~99.5 MB) and released 3 steps later (restored by copy), then 5b's two
+   preemptions, whose resumes restore by copy: 16 prefills (ssd 38 x 16),
+   no replayed token, every stream phase 5's bitwise, the recurrent-zero
+   sweep after every step.  Prints the release's host ms, and the lane
+   transport alone after the run (a read and a write, host ms and GB/s)
+   beside a plain pinned ``copy_`` of the same bytes.
 6. The function API (``repro_torch.core``) on the card, one worker
    (``fork()``): (a) the paper's Appendix A program (``examples/
    synk_sgd.py`` in the port's API: a CNN trained by ``synk.function`` on
@@ -844,19 +885,21 @@ class StepClock:
 
 
 def serve(torch, cfg, params, reqs, engine_cfg, dev, *, check: bool = False,
-          prebuild: bool = False, faults=None, deadlines: dict | None = None):
+          prebuild: bool = False, faults=None, deadlines: dict | None = None,
+          host_tier=None, after_step=None):
     """Submit every request at once and drain; returns (engine, rids,
     per-step host times in ms, whether each step ran a prefill chunk, wall
     seconds): one synchronized span over the whole drain loop. ``check``
-    sweeps ``check_invariants`` after every step; the sweep (from a
-    synchronize after the step to its end) is taken out of the wall time.
-    ``prebuild`` builds every program first; ``faults`` is the engine's
-    ``FaultPlan``; ``deadlines`` maps a request's index to its
-    ``deadline_s``, on a ``StepClock``."""
+    sweeps ``check_invariants`` after every step, and ``after_step(engine)``
+    runs after it; the sweep (from a synchronize after the step to its
+    end) is taken out of the wall time.  ``prebuild`` builds every program
+    first; ``faults`` is the engine's ``FaultPlan``; ``deadlines`` maps a
+    request's index to its ``deadline_s``, on a ``StepClock``;
+    ``host_tier`` is the engine's ``HostTier`` instance."""
     from repro_torch.serve import ServeEngine
 
     clock = StepClock()
-    eng = ServeEngine(cfg, params, engine_cfg, device=dev, faults=faults,
+    eng = ServeEngine(cfg, params, engine_cfg, device=dev, faults=faults, host_tier=host_tier,
                       **(dict(clock=clock) if deadlines else {}))
     if prebuild:
         eng.prebuild()
@@ -875,10 +918,13 @@ def serve(torch, cfg, params, reqs, engine_cfg, dev, *, check: bool = False,
         steps.append((time.perf_counter() - t) * 1e3)
         prefilled.append(eng.counters["prefill_chunks"] != before)
         clock.t += 1.0
-        if check:
+        if check or after_step is not None:
             torch.cuda.synchronize()
             t = time.perf_counter()
-            eng.check_invariants()
+            if check:
+                eng.check_invariants()
+            if after_step is not None:
+                after_step(eng)
             swept += time.perf_counter() - t
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0 - swept
@@ -1359,7 +1405,8 @@ def feature_run(torch, cfg, params, reqs, ec, dev, **kw) -> dict:
     """One full-width paged run with the invariants swept after every step
     and every program built first: the launch counts (set to 0 just
     before) must equal what the engine's counters predict, the program
-    cache stay flat, and the engine capture one decode graph."""
+    cache stay flat, and the engine capture one decode graph.  Returns
+    (figures, streams, statuses, engine)."""
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.paged_attention.ops import paged_attention
     from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_add
@@ -1394,7 +1441,7 @@ def feature_run(torch, cfg, params, reqs, ec, dev, **kw) -> dict:
                invariants_checked_steps=len(steps))
     if "faults" in st:
         out["faults"] = st["faults"]
-    return out, [list(c.tokens) for c in comps], [c.status for c in comps]
+    return out, [list(c.tokens) for c in comps], [c.status for c in comps], eng
 
 
 def profile_chunk(torch, cfg, params, dev, iters: int = 5) -> dict | None:
@@ -1559,7 +1606,7 @@ def feature_path(torch, dev, results):
     out = {}
 
     # 3b: chunked prefill, the prefix cache and preempt admission together
-    b, streams_b, status_b = feature_run(torch, cfg, params, reqs, feature_engine(), dev)
+    b, streams_b, status_b, _ = feature_run(torch, cfg, params, reqs, feature_engine(), dev)
     c = b["counters"]
     short = [(i, len(t), bud) for i, (t, (_, bud)) in enumerate(zip(streams_b, reqs))
              if len(t) != bud]
@@ -1574,11 +1621,12 @@ def feature_path(torch, dev, results):
     b["chunk_profile"] = profile_chunk(torch, cfg, params, dev)
     b["prefix_hit_admission"] = prefix_hit_ms(torch, cfg, params, reqs, dev)
     out["3b"] = b
+    results["phase3b_streams"] = streams_b
 
     # 3c: preempt admission alone on phase 3's traffic: the replayed
     # streams are phase 3's bitwise
     phase3 = requests(cfg.vocab)
-    cc, streams_c, _ = feature_run(torch, cfg, params, phase3,
+    cc, streams_c, _, _ = feature_run(torch, cfg, params, phase3,
                                    feature_engine(prefill_chunk=0, prefix_cache=False), dev)
     same = [i for i, (x, y) in enumerate(zip(streams_c, results["phase3_streams"])) if x == y]
     cc["identical_to_phase3"] = len(same)
@@ -1594,7 +1642,7 @@ def feature_path(torch, dev, results):
     # 3e: chaos on phase 3b's engine; retries recompute, so every request
     # that ends ok is phase 3b's stream
     plan = FaultPlan(0, {site: CHAOS_RATE for site in ENGINE_FAULT_SITES})
-    e, streams_e, status_e = feature_run(
+    e, streams_e, status_e, _ = feature_run(
         torch, cfg, params, reqs, feature_engine(max_retries=2), dev, faults=plan,
         deadlines={i: CHAOS_DEADLINE_STEPS for i in CHAOS_DEADLINED})
     assert all(st in STATUSES for st in status_e), status_e
@@ -1610,6 +1658,458 @@ def feature_path(torch, dev, results):
     results["features"] = out
     del params
     return b["launches"]
+
+
+# ---------------------------------------------------------------------------
+# Phases 3f-3i: the host-RAM tier, hold/park, snapshots, migration and host
+# sampling on the dense engine
+# ---------------------------------------------------------------------------
+
+# The counters phases 3f and 3g must show: what a smoke-width CPU rehearsal
+# of the same engine settings and traffic gives (the schedule does not
+# depend on the values computed: greedy, no EOS, chain keys of 16 tokens;
+# ``tests/test_torch_host_tier.py::test_chip_smoke_tier_schedules`` runs
+# it).  ``spilled_blocks`` is spilled_bytes over one block's bytes.
+TIER_KEYS = ("prefills", "prefill_chunks", "prefill_first_chunks", "decode_steps",
+             "preemptions", "resumed", "replayed_tokens", "spills", "restores",
+             "spill_drops", "prefix_spills", "host_prefix_hits", "prefix_hit_tokens",
+             "cow_copies", "spilled_blocks", "restored_blocks")
+TIER_3F = dict(prefills=16, prefill_chunks=16, prefill_first_chunks=16, decode_steps=190,
+               preemptions=6, resumed=6, replayed_tokens=0, spills=6, restores=6,
+               spill_drops=0, prefix_spills=0, host_prefix_hits=0, prefix_hit_tokens=0,
+               cow_copies=0, spilled_blocks=69, restored_blocks=69)
+TIER_3G = dict(prefills=16, prefill_chunks=48, prefill_first_chunks=14, decode_steps=207,
+               preemptions=15, resumed=15, replayed_tokens=0, spills=5, restores=5,
+               spill_drops=0, prefix_spills=308, host_prefix_hits=2, prefix_hit_tokens=2271,
+               cow_copies=1, spilled_blocks=414, restored_blocks=108)
+TIER_3G_BLOCKS = 128          # host_tier_blocks of phase 3g
+# the requests of 3g that re-admit on a chain promoted from the tier, and
+# where their prefill restarts (the end of the promoted chain), by the same
+# rehearsal: each promotion stopped when the free list ran out, inside the
+# prompt's first chunk
+TIER_3G_PROMOTED = {9: 16, 14: 16}
+PARK_STEPS = 3.0              # park_idle_s of phase 3h, on a StepClock
+COPY_ITERS = 5
+
+
+def block_bytes(cfg) -> int:
+    """Bytes of one paged KV block: K and V of every layer."""
+    return 2 * cfg.n_layers * PAGE * cfg.n_kv * cfg.head_dim * 2
+
+
+def logging_tier(capacity: int | None = None):
+    """A ``HostTier`` (the engine takes it as ``host_tier=``) that records
+    what moves through it: the blocks of each lane spill it admits
+    (``lanes_in``) and restores (``lanes_out``), and each prefix block it
+    hands back for promotion, with its payload (``promoted``)."""
+    from repro_torch.serve import HostTier
+
+    class LoggingTier(HostTier):
+        def __init__(self):
+            super().__init__(capacity)
+            self.lanes_in, self.lanes_out, self.promoted = [], [], []
+
+        def put_lane(self, sp):
+            ok = super().put_lane(sp)
+            if ok:
+                self.lanes_in.append(len(sp.blocks or ()))
+            return ok
+
+        def pop_lane(self, rid):
+            sp = super().pop_lane(rid)
+            if sp is not None:
+                self.lanes_out.append(len(sp.blocks or ()))
+            return sp
+
+        def pop_block(self, key):
+            payload = super().pop_block(key)
+            if payload is not None:
+                self.promoted.append((key, payload))
+            return payload
+
+    return LoggingTier()
+
+
+def promotion_check(torch, tier, checked: list):
+    """A ``serve(after_step=)`` hook: each prefix block ``tier`` promoted
+    in the step must be indexed on the card and hold, bitwise, the payload
+    the tier kept for it (the bytes read when the block was reclaimed);
+    its key goes to ``checked``."""
+    def after(eng):
+        for key, payload in tier.promoted[len(checked):]:
+            b = eng.alloc.block_of(key)
+            assert b is not None, "a promoted block left the card within its step"
+            for name, c in eng.state["cache"].items():
+                assert bitwise_equal(torch, c.select(c.dim() - 4, b).cpu(),
+                                     payload[name].cpu()), (name, b)
+            checked.append(key)
+    return after
+
+
+def promoted_starts(tier, reqs) -> dict:
+    """{request index: prefill restart} for each request whose prompt's
+    chain holds a key ``tier`` promoted: the end of its last promoted
+    block."""
+    from repro_torch.serve.paged import prefix_keys
+
+    keys = {k for k, _ in tier.promoted}
+    out = {}
+    for i, (p, _) in enumerate(reqs):
+        ends = [j + 1 for j, k in enumerate(prefix_keys(p, PAGE)) if k in keys]
+        if ends:
+            out[i] = max(ends) * PAGE
+    return out
+
+
+def prefix_witness(cfg, params, reqs, starts: dict, ec, dev) -> dict:
+    """The streams of the requests in ``starts`` on a tierless engine
+    (``ec``) whose device prefix cache holds exactly each prompt's first
+    ``start`` positions.  A primer of the same length that shares only
+    those tokens runs first with a budget of 1: its first chunk writes
+    them as the request's own first chunk did (the same chunk program;
+    rows up to ``start`` see only those tokens).  Then the request matches
+    ``start`` positions on the card, prefills the rest through the
+    continuation chunks a promoted chain leads to, and decodes.  Returns
+    {index: stream}."""
+    from repro_torch.serve import ServeEngine
+
+    eng = ServeEngine(cfg, params, ec, device=dev)
+
+    def drain():
+        while eng.has_work():
+            eng.step()
+            eng.check_invariants()
+
+    for i, s in starts.items():
+        primer = reqs[i][0].copy()
+        primer[s:] = (primer[s:] + 1) % cfg.vocab
+        eng.submit(primer, max_new_tokens=1)
+    drain()
+    hits = eng.counters["prefix_hit_tokens"]
+    rids = {i: eng.submit(reqs[i][0], max_new_tokens=reqs[i][1]) for i in starts}
+    drain()
+    assert eng.counters["prefix_hit_tokens"] - hits == sum(starts.values()), eng.counters
+    assert eng.counters["preemptions"] == 0, eng.counters
+    return {i: list(eng.completions[r].tokens) for i, r in rids.items()}
+
+
+def plain_copy_rates(torch, dev, nbytes: int) -> dict:
+    """GB/s of one plain ``copy_`` of ``nbytes`` between a pinned host buffer
+    and the card, each way (median of ``COPY_ITERS``, synchronized)."""
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    card = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    out = {}
+    for name, dst, src in (("d2h", host, card), ("h2d", card, host)):
+        ms = []
+        for _ in range(COPY_ITERS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            dst.copy_(src, non_blocking=True)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+        out[name] = dict(ms=float(np.median(ms)), gb_per_s=nbytes / float(np.median(ms)) / 1e6)
+    return out
+
+
+def timed(torch, fn, iters: int = COPY_ITERS) -> tuple[dict, object]:
+    """Host ms of ``fn()``, synchronized before and after: the first call
+    (new pinned buffers, for a read) and the median of ``iters`` more."""
+    ms, out = [], None
+    for _ in range(iters + 1):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+    return dict(first_ms=ms[0], ms=float(np.median(ms[1:]))), out
+
+
+def transport_rates(torch, cfg, state, blocks: int, *, per_block: bool = False) -> dict:
+    """The tier's paged transport alone, on a drained engine's pool:
+    ``blocks`` blocks read to pinned host memory (one gather a leaf, one
+    synchronize: a lane spill) and written back (one copy a leaf: a
+    restore), and written back from the same payloads one block a copy
+    (``write_rows``: payloads that are not rows of one buffer), host ms
+    and GB/s; the plain pinned ``copy_`` of the same bytes each way; with
+    ``per_block``, the read one block a call (a synchronize each: the
+    reference's fetch, and each reclaimed prefix block's)."""
+    from repro_torch.serve import paged_block_read_program, paged_block_write_program
+
+    read, write = paged_block_read_program(cfg), paged_block_write_program(cfg)
+    ids = list(range(1, blocks + 1))
+    out = {}
+    out["read"], payloads = timed(torch, lambda: read(state, ids))
+    out["write"], _ = timed(torch, lambda: write(state, payloads, ids))
+    out["write_rows"], _ = timed(torch, lambda: write(state, payloads[::-1], ids[::-1]))
+    if per_block:
+        out["read_per_block"], _ = timed(torch, lambda: [read(state, [b]) for b in ids])
+    nbytes = sum(int(a.nbytes) for p in payloads for a in p.values())
+    for r in out.values():
+        r["gb_per_s"] = nbytes / r["ms"] / 1e6
+    dev = next(iter(state["cache"].values())).device
+    out.update(blocks=blocks, bytes=nbytes, plain=plain_copy_rates(torch, dev, nbytes))
+    return out
+
+
+def lane_copies(torch, cfg, state, tier, bb: int) -> dict:
+    """Each lane spill's and restore's blocks and bytes (``tier``'s log),
+    and the transport alone at every size among them (``transport_rates``:
+    a spill is a read, a restore a write); the read one block a call at
+    the largest."""
+    sizes = sorted(set(tier.lanes_in) | set(tier.lanes_out))
+    rates = {n: transport_rates(torch, cfg, state, n, per_block=n == sizes[-1]) for n in sizes}
+    return dict(spill_blocks=tier.lanes_in, restore_blocks=tier.lanes_out, block_bytes=bb,
+                transport={str(n): r for n, r in rates.items()})
+
+
+def tier_counters(eng, bb: int) -> dict:
+    c = dict(eng.counters)
+    c["spilled_blocks"], c["restored_blocks"] = c["spilled_bytes"] // bb, c["restored_bytes"] // bb
+    assert c["spilled_bytes"] % bb == 0 == c["restored_bytes"] % bb, (c, bb)
+    return {k: c[k] for k in TIER_KEYS}
+
+
+def dense_launch_kernels():
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_add
+
+    return (flash_attention, paged_attention, rmsnorm, rmsnorm_add)
+
+
+def hold_park_snapshot(torch, cfg, params, reqs, dev, want) -> dict:
+    """Phase 3h on phase 3's engine with a tier and ``park_idle_s`` on a
+    StepClock: a lane held and released in place (no restore), a lane held
+    past the threshold (it parks, its lane refills, its release restores
+    with no replay), ``save_snapshot`` mid-run and ``restore_snapshot`` into
+    a fresh engine sharing the program cache (drained there), and two
+    requests exported to a third engine sharing cache and tier (drained
+    there).  Every stream, wherever it finishes, is phase 3's bitwise."""
+    import tempfile
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.serve import EngineConfig, HostTier, ServeEngine
+
+    kernels = dense_launch_kernels()
+    ec = EngineConfig(max_slots=MAX_SLOTS, max_len=MAX_LEN, kv_layout="paged", page_size=PAGE,
+                      paged_attn="kernel", host_tier=True, park_idle_s=PARK_STEPS)
+    tier = HostTier()
+    work = ("prefill_chunks", "prefill_first_chunks", "decode_steps")
+
+    def engine(**kw):
+        return ServeEngine(cfg, params, ec, device=dev, clock=StepClock(), **kw)
+
+    def decoding(eng):
+        return [s.rid for s in eng.slots if s is not None and s.generated >= 1 and not s.held]
+
+    def drain(eng):
+        while eng.has_work():
+            eng.step()
+            eng.check_invariants()
+            eng.clock.t += 1.0
+        return {r: list(c.tokens) for r, c in eng.completions.items() if c.status == "ok"}
+
+    a = engine(host_tier=tier)
+    a.prebuild()
+    built = a.stats["builds"]
+    for k in kernels:
+        k.launches = 0
+    rids = [a.submit(p, max_new_tokens=b) for p, b in reqs]
+    out, done, other_work = dict(events=[]), {}, dict.fromkeys(work, 0)
+    kept = parked = park_release = None
+    step = 0
+    t0 = time.perf_counter()
+    while a.has_work():
+        if step == 4:
+            kept = decoding(a)[0]
+            before = (a.counters["restores"], a.counters["spills"])
+            assert a.hold(kept)
+        if step == 6:                   # held 2 steps: under the park threshold
+            a.release(kept)
+            assert (a.counters["restores"], a.counters["spills"]) == before, a.counters
+            out["events"].append(dict(step=step, held_in_place=kept))
+        if step == 10:
+            parked = decoding(a)[-1]
+            lane = a._find_lane(parked)
+            assert a.hold(parked)
+        if parked is not None and parked in a.parked and a.slots[lane] is not None:
+            # parked, and its lane refilled from the queue
+            park_release = (a.counters["restores"], a.counters["replayed_tokens"])
+            out["events"].append(dict(step=step, parked=parked, refilled_by=a.slots[lane].rid))
+            a.release(parked)
+            parked = None
+        if step == 20:
+            with tempfile.TemporaryDirectory() as tmp:
+                mgr = CheckpointManager(tmp)
+                a.save_snapshot(mgr, step)
+                b = engine(aot=a.aot)
+                assert b.restore_snapshot(mgr) == step
+            start = {k: b.counters[k] for k in work}
+            restored = drain(b)
+            for k in work:
+                other_work[k] += b.counters[k] - start[k]
+            out["snapshot"] = dict(step=step, graphs=b.stats["graphs"], counters={
+                k: b.counters[k] for k in ("prefills", "decode_steps", "replayed_tokens",
+                                           "snapshot_restores")})
+            assert b.stats["graphs"] == 1, b.stats
+            assert all(restored.get(r) == want[r] for r in rids), "restored streams diverged"
+            del b
+        if step == 24:
+            c = engine(aot=a.aot, host_tier=tier)
+            moved = [decoding(a)[0], next(r.rid for r in a.queue if not r.resume)]
+            for r in moved:
+                snap = json.loads(json.dumps(a.export_request(r)))
+                c.import_request(snap, front=snap["pending"]["resume"])
+            done.update(drain(c))
+            for k in work:
+                other_work[k] += c.counters[k]
+            out["migration"] = dict(step=step, moved=moved, graphs=c.stats["graphs"], counters={
+                k: c.counters[k] for k in ("imported", "restores", "prefills",
+                                           "replayed_tokens")})
+            assert sorted(done) == sorted(moved) and c.counters["restores"] == 1, out
+            assert c.stats["graphs"] == 1, c.stats
+            del c
+        a.step()
+        a.check_invariants()
+        a.clock.t += 1.0
+        step += 1
+        assert step < 2000
+    torch.cuda.synchronize()
+    out["wall_s"] = time.perf_counter() - t0
+    done.update(drain(a))
+    launches = {k.__name__: k.launches for k in kernels}
+    total = {k: a.counters[k] + other_work[k] for k in work}
+    want_launches = {"flash_attention": N_LAYERS * total["prefill_first_chunks"],
+                     "paged_attention": N_LAYERS * total["decode_steps"],
+                     **dense_norms(total["prefill_chunks"], total["decode_steps"])}
+    bad = [r for r in rids if done.get(r) != want[r]]
+    out.update(launches=launches, work=total, builds=a.aot.stats["builds"], diverged=bad,
+               park_release=park_release, counters={k: a.counters[k] for k in (
+                   "holds", "releases", "parked", "spills", "restores", "replayed_tokens",
+                   "exported", "prefills", "decode_steps")})
+    log(f"3h hold/park/snapshot/migration: {json.dumps(out)}")
+    assert not bad and park_release is not None, out
+    assert launches == want_launches, (launches, want_launches)
+    assert a.aot.stats["builds"] == built and a.stats["graphs"] == 1, out
+    assert a.counters["holds"] == 2 == a.counters["releases"] and a.counters["parked"] == 1
+    assert a.counters["restores"] == park_release[0] + 1, out
+    assert a.counters["replayed_tokens"] == park_release[1] == 0, out
+    assert a.counters["exported"] == 2, out
+    return out
+
+
+def tier_path(torch, dev, results):
+    """Phases 3f-3i on full-width smollm-360m (seed-0 weights, bf16, the
+    kernel path).  Returns each phase's launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.serve import EngineConfig
+
+    base = get_config("smollm-360m")
+    cfg = dataclasses.replace(base, attn_impl="kernel")
+    params = lm.init(cfg, seed=0, device=dev)
+    bb = block_bytes(cfg)
+    phase3, want3 = requests(cfg.vocab), results["phase3_streams"]
+    out, launches = {}, {}
+
+    # 3f: preempt admission (phase 3c) with the tier: resumes restore by copy
+    tier = logging_tier()
+    f, streams_f, _, eng = feature_run(
+        torch, cfg, params, phase3, feature_engine(prefill_chunk=0, prefix_cache=False,
+                                                   host_tier=True), dev, host_tier=tier)
+    f["tier_counters"] = tc = tier_counters(eng, bb)
+    f["host_tier"] = eng.stats["host_tier"]
+    f["copies"] = lane_copies(torch, cfg, eng.state, tier, bb)
+    f["tokens_per_s_3c"] = results["features"]["3c"]["tokens_per_s"]
+    del eng
+    same = [i for i, (x, y) in enumerate(zip(streams_f, want3)) if x == y]
+    f["identical_to_phase3"] = len(same)
+    log(f"3f tier on preempt admission: {f['tokens']} tokens in {f['wall_s']:.3f} s = "
+        f"{f['tokens_per_s']:.1f} tok/s (3c {f['tokens_per_s_3c']:.1f}); {json.dumps(f)}")
+    assert len(same) == len(phase3), f
+    assert tc["spills"] >= 1 and tc["restores"] >= 1, tc
+    assert tc["prefills"] == len(phase3) + tc["resumed"] - tc["restores"], tc
+    assert f["launches"]["flash_attention"] == N_LAYERS * tc["prefills"], f
+    if tc["resumed"] == tc["restores"]:
+        assert tc["replayed_tokens"] == 0, tc
+    assert tc == TIER_3F, (tc, TIER_3F)
+    assert sum(tier.lanes_in) == tc["spilled_blocks"], (tier.lanes_in, tc)
+    out["3f"], launches["3f"] = f, f["launches"]
+
+    # 3g: phase 3b's engine with a bounded tier: prefix spills and promotions
+    reqs_b = feature_requests(cfg.vocab)
+    tier, checked = logging_tier(TIER_3G_BLOCKS), []
+    ec_b = feature_engine(host_tier=True, host_tier_blocks=TIER_3G_BLOCKS)
+    g, streams_g, _, eng = feature_run(torch, cfg, params, reqs_b, ec_b, dev, host_tier=tier,
+                                  after_step=promotion_check(torch, tier, checked))
+    g["tier_counters"] = tc = tier_counters(eng, bb)
+    g["host_tier"] = eng.stats["host_tier"]
+    g["copies"] = lane_copies(torch, cfg, eng.state, tier, bb)
+    g["tokens_per_s_3b"] = results["features"]["3b"]["tokens_per_s"]
+    del eng
+    # every promoted block held its spilled payload bitwise (promotion_check)
+    g["promotions_checked"] = len(checked)
+    # a request that re-admits on a promoted chain restarts its prefill
+    # where the chain ends, where 3b restarted at 0: its first chunk's
+    # remaining positions come from a continuation (chunked_attention) in
+    # place of flash.  Its witness is a tierless engine whose device cache
+    # holds the same chain (prefix_witness); every other stream is 3b's
+    starts = promoted_starts(tier, reqs_b)
+    witness = prefix_witness(cfg, params, reqs_b, starts, feature_engine(), dev)
+    want_b = results["phase3b_streams"]
+    want_g = [witness.get(i, w) for i, w in enumerate(want_b)]
+    bad = [i for i, (x, y) in enumerate(zip(streams_g, want_g)) if x != y]
+    g.update(promoted_starts={str(i): s for i, s in starts.items()}, diverged=bad,
+             identical_to_phase3b=sum(x == y for x, y in zip(streams_g, want_b)),
+             promoted_against_3b={str(i): agreement([streams_g[i]], [want_b[i]])
+                                  for i in starts})
+    log(f"3g tier on phase 3b's engine ({TIER_3G_BLOCKS} host blocks): {g['tokens']} tokens in "
+        f"{g['wall_s']:.3f} s = {g['tokens_per_s']:.1f} tok/s (3b {g['tokens_per_s_3b']:.1f}); "
+        f"{json.dumps(g)}")
+    assert not bad, g
+    assert len(checked) == tc["host_prefix_hits"], (len(checked), tc)
+    assert starts == TIER_3G_PROMOTED, (starts, TIER_3G_PROMOTED)
+    for k in ("prefix_spills", "host_prefix_hits", "restores"):
+        assert tc[k] > 0, (k, tc)
+    assert tc == TIER_3G, (tc, TIER_3G)
+    out["3g"], launches["3g"] = g, g["launches"]
+
+    # 3h: hold, park, snapshot and migration on phase 3's engine
+    t = time.perf_counter()
+    out["3h"] = hold_park_snapshot(torch, cfg, params, phase3, dev, want3)
+    out["3h"]["seconds"] = time.perf_counter() - t
+    launches["3h"] = out["3h"]["launches"]
+
+    # 3i: phase 3's engine with host sampling
+    kernels = dense_launch_kernels()
+    for k in kernels:
+        k.launches = 0
+    ec = EngineConfig(max_slots=MAX_SLOTS, max_len=MAX_LEN, kv_layout="paged", page_size=PAGE,
+                      paged_attn="kernel", fused_sampling=False)
+    eng, rids, steps, prefilled, wall = serve(torch, cfg, params, phase3, ec, dev, check=True,
+                                              prebuild=True)
+    st = eng.stats
+    li = {k.__name__: k.launches for k in kernels}
+    streams_i = [list(eng.completions[r].tokens) for r in rids]
+    tokens = sum(len(s) for s in streams_i)
+    decode_only = [t for t, p in zip(steps, prefilled) if not p]
+    i = dict(tokens=tokens, wall_s=wall, tokens_per_s=tokens / wall,
+             tokens_per_s_phase3=results["main_path"]["tokens_per_s"],
+             decode_step_ms_median=float(np.median(decode_only)),
+             decode_step_ms_median_phase3=results["main_path"]["decode_step_ms_median"],
+             logits_bytes_per_step=MAX_SLOTS * cfg.vocab * 4, prefills=st["prefills"],
+             decode_steps=st["decode_steps"], graphs=st["graphs"], builds=st["builds"],
+             launches=li, identical_to_phase3=sum(x == y for x, y in zip(streams_i, want3)))
+    log(f"3i host sampling: {tokens} tokens in {wall:.3f} s = {i['tokens_per_s']:.1f} tok/s "
+        f"(phase 3 {i['tokens_per_s_phase3']:.1f}); {json.dumps(i)}")
+    assert i["identical_to_phase3"] == len(phase3), i
+    assert st["graphs"] == 1, st
+    assert li == feature_launches(st), (li, st)
+    del eng
+    out["3i"], launches["3i"] = i, li
+    results["tier"] = out
+    del params
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1672,6 +2172,10 @@ def zamba_path(torch, dev, results):
     results["zamba_preempt"] = zamba_preempt(torch, cfg, params, reqs, ec, dev,
                                              [list(c.tokens) for c in comps])
     results["zamba_preempt"]["seconds"] = time.perf_counter() - t
+    t = time.perf_counter()
+    results["zamba_tier"] = zamba_tier(torch, cfg, params, reqs, ec, dev,
+                                       [list(c.tokens) for c in comps])
+    results["zamba_tier"]["seconds"] = time.perf_counter() - t
 
     ref_cfg = dataclasses.replace(base, attn_impl="chunked")
     ref_eng, ref_rids, _, _, ref_wall = serve(torch, ref_cfg, params, reqs, ec, dev)
@@ -1749,6 +2253,105 @@ def zamba_preempt(torch, cfg, params, reqs, ec, dev, want) -> dict:
     assert st["prefills"] == len(reqs) + 2 and st["graphs"] == 1, out
     assert launches == zamba_launches(st["prefills"], st["decode_steps"]), out
     assert len(same) == len(reqs), out
+    return out
+
+
+ZAMBA_HOLD_AT, ZAMBA_HOLD_STEPS = 4, 3   # phase 5c: hold after 4 decode steps, for 3
+
+
+def zamba_tier(torch, cfg, params, reqs, ec, dev, want) -> dict:
+    """Phase 5c: phase 5's engine with a host tier.  After
+    ``ZAMBA_HOLD_AT`` decode steps the host holds the first lane (a hybrid
+    lane spills at once: its KV segment and recurrent leaves) and releases
+    it ``ZAMBA_HOLD_STEPS`` steps later (restored by copy); after
+    ``ZAMBA_PREEMPT_AFTER`` it preempts the last two occupied lanes as 5b
+    does, and their resumes restore by copy instead of re-prefilling (ssd
+    38 x 16, not 5b's 38 x 18).  Every stream must equal phase 5's bitwise,
+    with invariants (the recurrent-zero sweep included) after every step."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_add, rmsnorm_gated
+    from repro_torch.kernels.ssd.ops import ssd
+    from repro_torch.models import registry
+    from repro_torch.serve import ServeEngine
+
+    kernels = (flash_attention, ssd, rmsnorm, rmsnorm_add, rmsnorm_gated)
+    eng = ServeEngine(cfg, params, dataclasses.replace(ec, host_tier=True), device=dev)
+    eng.prebuild()
+    built = eng.stats["builds"]
+    axes = registry.lane_leaf_axes(cfg)
+    lane_bytes = sum(c.numel() // MAX_SLOTS * c.element_size()
+                     for n, c in eng.state["cache"].items() if n in axes)
+    rids = [eng.submit(p, max_new_tokens=b) for p, b in reqs]
+    for k in kernels:
+        k.launches = 0
+    held = victims = release_ms = None
+    held_at = 0
+    t0 = time.perf_counter()
+    while eng.has_work():
+        eng.step()
+        eng.check_invariants()
+        dec = eng.counters["decode_steps"]
+        if held is None and dec >= ZAMBA_HOLD_AT:
+            held = next(s.rid for s in eng.slots if s is not None and s.generated >= 1)
+            assert eng.hold(held) and eng.counters["spills"] == 1, eng.counters
+            held_at = dec
+        elif release_ms is None and held is not None and dec >= held_at + ZAMBA_HOLD_STEPS:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            eng.release(held)
+            torch.cuda.synchronize()
+            release_ms = (time.perf_counter() - t) * 1e3
+            eng.check_invariants()
+        elif victims is None and release_ms is not None and dec >= ZAMBA_PREEMPT_AFTER:
+            lanes = [i for i, s in enumerate(eng.slots) if s is not None][-2:]
+            victims = [eng.slots[i].rid for i in lanes]
+            for i in lanes:
+                eng.preempt(i)
+            eng.check_invariants()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels}
+    st = eng.stats
+    got = [list(eng.completions[r].tokens) for r in rids]
+    same = sum(x == y for x, y in zip(got, want))
+    copies = lane_transport(torch, cfg, eng.state)
+    assert copies["bytes"] == lane_bytes, (copies, lane_bytes)
+    copies["release"] = dict(ms=release_ms, gb_per_s=lane_bytes / release_ms / 1e6)
+    out = dict(held=held, victims=victims, identical_to_phase5=same, launches=launches,
+               lane_bytes=lane_bytes, copies=copies, wall_s=wall, tokens_per_s=sum(
+                   len(t) for t in got) / wall, graphs=st["graphs"], builds=st["builds"],
+               host_tier=st["host_tier"], counters={k: st[k] for k in (
+                   "prefills", "decode_steps", "holds", "releases", "preemptions", "resumed",
+                   "spills", "restores", "replayed_tokens", "spilled_bytes",
+                   "restored_bytes")})
+    log(f"5c zamba2 host tier: {json.dumps(out)}")
+    assert same == len(reqs), out
+    assert st["holds"] == st["releases"] == 1 and st["preemptions"] == st["resumed"] == 2, out
+    assert st["spills"] == st["restores"] == 3 and st["replayed_tokens"] == 0, out
+    assert st["spilled_bytes"] == st["restored_bytes"] == 3 * lane_bytes, out
+    assert st["prefills"] == len(reqs) and st["graphs"] == 1 and st["builds"] == built, out
+    assert launches == zamba_launches(st["prefills"], st["decode_steps"]), out
+    return out
+
+
+def lane_transport(torch, cfg, state, slot: int = 0) -> dict:
+    """The tier's lane transport alone on a drained engine's slot cache:
+    lane ``slot`` read to pinned host memory (a spill: one copy a leaf, one
+    synchronize) and written back (a restore), host ms and GB/s, beside a
+    plain pinned ``copy_`` of the same bytes each way."""
+    from repro_torch.models import registry
+    from repro_torch.serve import lane_read_program, lane_write_program
+
+    axes = registry.lane_leaf_axes(cfg)
+    read, write = lane_read_program(cfg, axes=axes), lane_write_program(cfg, axes=axes)
+    out = {}
+    out["read"], payload = timed(torch, lambda: read(state, slot))
+    out["write"], _ = timed(torch, lambda: write(state, payload, slot))
+    nbytes = sum(int(a.nbytes) for a in payload.values())
+    for r in out.values():
+        r["gb_per_s"] = nbytes / r["ms"] / 1e6
+    dev = next(iter(state["cache"].values())).device
+    out.update(bytes=nbytes, plain=plain_copy_rates(torch, dev, nbytes))
     return out
 
 
@@ -2362,6 +2965,7 @@ def main() -> int:
     phase("2e rmsnorm", check_rmsnorm)
     launches = phase("3 serve", main_path)
     features_launches = phase("3b-3e serve features", feature_path)
+    tier_launches = phase("3f-3i host tier, snapshots, host sampling", tier_path)
     train_launches = phase("4 train", train_path)
     zamba_launches = phase("5 zamba serve", zamba_path)
     phase("6 function API", function_path)
@@ -2369,7 +2973,17 @@ def main() -> int:
     results["seconds"] = time.perf_counter() - t_start
 
     zp = results["zamba_preempt"]["launches"]
+    zt = results["zamba_tier"]["launches"]
     phase_s["5b zamba preempt (inside 5)"] = results["zamba_preempt"]["seconds"]
+    phase_s["5c zamba host tier (inside 5)"] = results["zamba_tier"]["seconds"]
+
+    def tier_rows(name):
+        """A kernel's launches on phases 3f-3i and 5c (where it runs)."""
+        out = {ph: n[name] for ph, n in tier_launches.items() if name in n}
+        if name in zt:
+            out["5c"] = zt[name]
+        return out
+
     fl = {t["shape"]: t for t in results["flash_timing"]}
     pg = {t["lengths_from"]: t for t in results["paged_timing"]}
     fa = results["flat_adam_timing"]
@@ -2387,6 +3001,7 @@ def main() -> int:
              train_launches=train_launches["flash_attention"],
              zamba_launches=zamba_launches["flash_attention"],
              zamba_preempt_launches=zp["flash_attention"],
+             tier_launches=tier_rows("flash_attention"),
              max_abs_err=max(r["max_abs_err"] for r in results["flash_cases"]
                              if r["dtype"] == "bfloat16"),
              kernel_ms=fl["serve"]["ms"], ms=fl["serve"]["ms"],
@@ -2405,6 +3020,7 @@ def main() -> int:
              shape="q (8, 5, 3, 64), pools (513, 16, 5, 64), bf16, lengths 1..1023",
              launches=launches["paged_attention"],
              features_launches=features_launches["paged_attention"],
+             tier_launches=tier_rows("paged_attention"),
              max_abs_err=max(r["max_abs_err"] for r in results["paged_cases"]
                              if r["dtype"] == "bfloat16"),
              kernel_ms=pg["random"]["ms"], ms=pg["random"]["ms"],
@@ -2429,6 +3045,7 @@ def main() -> int:
              shape="x (1, 512, 64, 64) bf16, dt (1, 512, 64), B/C (1, 512, 1, 64); "
                    "y and state fp32",
              launches=zamba_launches["ssd"], zamba_preempt_launches=zp["ssd"],
+             tier_launches=tier_rows("ssd"),
              max_abs_err=max(r["max_abs_err"] for r in results["ssd_cases"]),
              kernel_ms=sd["ms"], ms=sd["ms"], ms_events=sd["ms_events"],
              plain_ms=sd["plain_ms"], bound_ms=sd["bound_ms"], bound_by=sd["bound_by"],
@@ -2464,7 +3081,7 @@ def main() -> int:
                           if name == "rmsnorm_gated" else f"repro.kernels.rmsnorm.kernel.{name}"),
             shape=x_desc, path=t["path"],
             launches=(zamba_launches if name == "rmsnorm_gated" else launches)[name],
-            **per_path,
+            **per_path, tier_launches=tier_rows(name),
             max_abs_err=max(r[f"{name}_max_abs_err"] for r in results["rmsnorm_cases"]
                             if f"{name}_max_abs_err" in r),
             kernel_ms=t["ms"], ms=t["ms"], ms_warm=t["ms_warm"], plain_ms=t["plain_ms"],

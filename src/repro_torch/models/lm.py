@@ -301,6 +301,13 @@ def make_cache_specs(cfg: ArchConfig, batch: int, max_len: int) -> dict:
     return {"k": c, "v": c}
 
 
+def lane_leaf_axes(cfg: ArchConfig) -> dict:
+    """``{cache leaf: lane axis}`` of the slotted cache: everything one lane
+    owns, the host tier's unit of a whole-lane spill.  Both leaves put the
+    lane right after the layer axis."""
+    return {"k": 1, "v": 1}
+
+
 def make_paged_cache_specs(cfg: ArchConfig, num_blocks: int, block_size: int) -> dict:
     """Paged KV pool (L, NB, bs, Hk, dh) as meta tensors."""
     shape = (cfg.n_layers, num_blocks, block_size, cfg.n_kv, cfg.head_dim)

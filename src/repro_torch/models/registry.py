@@ -68,6 +68,6 @@ def recurrent_leaf_axes(cfg: ArchConfig) -> dict:
 def lane_leaf_axes(cfg: ArchConfig) -> dict:
     """``{leaf name: lane axis}`` of every slot-cache leaf a lane owns (KV
     segments and recurrent leaves alike); empty for families that do not
-    declare it.  The host tier's spill unit, when it is ported."""
+    declare it.  The host tier's unit of a slotted lane spill."""
     fn = getattr(get_module(cfg), "lane_leaf_axes", None)
     return fn(cfg) if fn else {}

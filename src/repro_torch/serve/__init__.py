@@ -13,13 +13,20 @@ from .faults import (
 from .loop import ServeConfig, generate, generate_static
 from .paged import (
     BlockAllocator,
+    HostTier,
+    LaneSpill,
     SlotTables,
     blocks_for,
     cache_nbytes,
+    check_tiered,
     make_paged_state,
     prefix_keys,
 )
 from .step import (
+    lane_read_program,
+    lane_write_program,
+    paged_block_read_program,
+    paged_block_write_program,
     paged_copy_program,
     paged_decode_program,
     paged_prefill_program,
@@ -30,11 +37,12 @@ from .step import (
 
 __all__ = [
     "BlockAllocator", "Completion", "ENGINE_FAULT_SITES", "EngineConfig",
-    "FAULT_SITES", "FaultPlan", "NONFINITE_TOKEN", "REPLICA_FAULT_SITES",
-    "STATUSES", "ServeConfig", "ServeEngine", "SlotTables", "UNCOMMITTED",
-    "blocks_for", "bucket_for", "cache_nbytes", "generate", "generate_static",
-    "make_paged_state", "make_slot_state", "paged_copy_program",
-    "paged_decode_program", "paged_prefill_program", "prefix_keys",
-    "prompt_buckets", "sample_tokens", "slot_decode_program",
-    "slot_prefill_program",
+    "FAULT_SITES", "FaultPlan", "HostTier", "LaneSpill", "NONFINITE_TOKEN",
+    "REPLICA_FAULT_SITES", "STATUSES", "ServeConfig", "ServeEngine", "SlotTables",
+    "UNCOMMITTED", "blocks_for", "bucket_for", "cache_nbytes", "check_tiered",
+    "generate", "generate_static", "lane_read_program", "lane_write_program",
+    "make_paged_state", "make_slot_state", "paged_block_read_program",
+    "paged_block_write_program", "paged_copy_program", "paged_decode_program",
+    "paged_prefill_program", "prefix_keys", "prompt_buckets", "sample_tokens",
+    "slot_decode_program", "slot_prefill_program",
 ]

@@ -36,7 +36,31 @@ On the paged layout, the scheduling features of the reference:
   ``replay`` leaf), so its stream is the unpreempted one; a prefix-cache
   chain covering the prompt restores it mid-decode instead.
 
-On every layout and state kind: host-initiated :meth:`ServeEngine.preempt`,
+On every layout and state kind:
+
+* the **host-RAM tier** (``host_tier``, :class:`~repro_torch.serve.paged.HostTier`):
+  a preempted lane's decode state (its KV blocks, or its whole lane slice
+  per ``registry.lane_leaf_axes``) spills to host memory and its resume
+  restores it by copy, without prefill or replay; LRU-reclaimed prefix
+  blocks spill too, and admission promotes them back (a second-level
+  prefix cache);
+* **hold/park**: :meth:`~ServeEngine.hold` pauses a decoding lane in place
+  (a recurrent or hybrid lane spills at once, since the decode freeze
+  zeroes inactive lanes), :meth:`~ServeEngine.release` resumes it, and a
+  lane held past ``park_idle_s`` parks off the card (its lane frees, its
+  state stays in the tier);
+* **snapshots and migration**: :meth:`~ServeEngine.snapshot` /
+  :meth:`~ServeEngine.restore` (and ``save_snapshot``/``restore_snapshot``
+  through a ``CheckpointManager``) serialize the engine's host truth as
+  JSON; :meth:`~ServeEngine.export_request` /
+  :meth:`~ServeEngine.import_request` move one request to another engine
+  (of either package: the JSON shape is the reference's);
+* ``fused_sampling=False``: the programs return the logits and the host
+  samples them with the same sampler and a host generator seeded from
+  ``EngineConfig.seed`` (the reference's baseline); greedy streams are the
+  fused path's, and on the CPU stochastic ones too.
+
+Host-initiated :meth:`ServeEngine.preempt`,
 :meth:`~ServeEngine.cancel`, per-request deadlines (``submit(...,
 deadline_s=)`` against the ``clock``), and a seeded
 :class:`~repro_torch.serve.faults.FaultPlan` (``faults=``) whose faults,
@@ -79,12 +103,8 @@ program runs eagerly.  Nothing falls back to eager on the card: a
 capture that fails raises.  A preemption, a cancel or a copy-on-write
 never rebuilds a graph.
 
-Not ported yet — each raises ``NotImplementedError`` when set to a
-non-default value: the host-RAM tier (``host_tier``,
-``host_tier_blocks``) and hold/park (``park_idle_s``), speculative
-decoding (``spec_draft``, ``spec_k``) and host-side sampling
-(``fused_sampling=False``); snapshot/restore and request export/import
-arrive with the tier.
+Not ported yet: speculative decoding (``spec_draft``, ``spec_k`` raise
+``NotImplementedError`` when set).
 
     engine = ServeEngine(cfg, params, EngineConfig(max_slots=8, max_len=256,
                                                    kv_layout="paged",
@@ -97,6 +117,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import json
 import time
 from collections import deque
 from typing import Any, Callable, Sequence
@@ -112,16 +133,24 @@ from .cache import RecurrentCache, bucket_for, make_slot_state, prompt_buckets
 from .faults import NONFINITE_TOKEN, FaultPlan
 from .paged import (
     BlockAllocator,
+    HostTier,
+    LaneSpill,
     SlotTables,
     blocks_for,
     cache_nbytes,
+    check_tiered,
     make_paged_state,
     prefix_keys,
 )
 from .step import (
+    lane_read_program,
+    lane_write_program,
+    paged_block_read_program,
+    paged_block_write_program,
     paged_copy_program,
     paged_decode_program,
     paged_prefill_program,
+    sample_tokens,
     slot_decode_program,
     slot_prefill_program,
 )
@@ -143,6 +172,7 @@ class EngineConfig:
     seed: int = 0
     # prompt-length buckets; None -> powers of two up to max_len
     prefill_buckets: tuple[int, ...] | None = None
+    # False: the programs return logits and the host samples them
     fused_sampling: bool = True
     # --- KV layout -----------------------------------------------------
     kv_layout: str = "slotted"    # "slotted" | "paged"
@@ -162,19 +192,22 @@ class EngineConfig:
     admission: str = "deficit"
     # faulted-lane retries (through preempt-and-requeue) before "failed"
     max_retries: int = 2
+    # --- host-RAM tier (any layout and state kind) ---------------------
+    # spill a preempted lane's state to host RAM and restore it by copy at
+    # resume; reclaimed prefix blocks spill too; held lanes may park
     host_tier: bool = False
+    # the tier's budget in KV-block units (paged payloads); None =
+    # unbounded; ignored when the caller passes a shared HostTier
     host_tier_blocks: int | None = None
+    # a held lane parks off the card after this many clock seconds; None
+    # = held lanes stay until release()
     park_idle_s: float | None = None
     spec_draft: Any = None
     spec_k: int = 0
 
 
-# fields this slice does not port: each must keep its default
+# fields not ported yet: each must keep its default
 _NOT_PORTED = {
-    "fused_sampling": "host-side sampling",
-    "host_tier": "the host-RAM tier",
-    "host_tier_blocks": "the host-RAM tier",
-    "park_idle_s": "hold/park",
     "spec_draft": "speculative decoding",
     "spec_k": "speculative decoding",
 }
@@ -198,6 +231,8 @@ class _Slot:
     hasher: Any = None            # incremental chain hash (prefix_keys
     hashed: int = 0               # equivalent); blocks digested so far
     deadline: float | None = None # absolute clock() time the request expires
+    held: bool = False            # hold(): paused between user turns
+    held_since: float | None = None  # clock() of the hold (park threshold)
 
 
 # Terminal per-request statuses (Completion.status), the reference's set.
@@ -249,7 +284,9 @@ class ServeEngine:
     """Continuous-batching serve engine (see the module docstring).
 
     Invariants (swept by :meth:`check_invariants`): every in-flight
-    request is owned by exactly one lane or one queued resume; paged
+    request is owned by exactly one lane, one queued resume or one parked
+    request; with a tier, four-state block conservation across the pool
+    and the tier and one owner per chain key (:func:`check_tiered`); paged
     block conservation (``free + live + cached == capacity``, refcounts
     covering every mapping, every lane's written KV inside its mapped
     blocks, no shared block past a lane's written KV, deficit admission
@@ -260,7 +297,8 @@ class ServeEngine:
 
     def __init__(self, cfg: ArchConfig, params, engine: EngineConfig = EngineConfig(),  # noqa: B008 - frozen
                  *, device=None, clock: Callable[[], float] = time.perf_counter,
-                 faults: FaultPlan | None = None, aot: AotCache | None = None):
+                 faults: FaultPlan | None = None, aot: AotCache | None = None,
+                 host_tier: HostTier | None = None):
         if not registry.supports_slot_serving(cfg):
             raise ValueError(f"family {cfg.family!r} does not support slot serving")
         if engine.kv_layout not in ("slotted", "paged"):
@@ -317,13 +355,42 @@ class ServeEngine:
                                           self._num_blocks, bs, self.device,
                                           engine.seed)
             self._decode_fn = paged_decode_program(cfg, eos_id=engine.eos_id,
-                                                   impl=engine.paged_attn)
+                                                   impl=engine.paged_attn,
+                                                   fused=engine.fused_sampling)
         else:
             self._num_blocks = 0
             self.state = make_slot_state(cfg, engine.max_slots, engine.max_len,
                                          self.device, engine.seed)
-            self._decode_fn = slot_decode_program(cfg, eos_id=engine.eos_id)
+            self._decode_fn = slot_decode_program(cfg, eos_id=engine.eos_id,
+                                                  fused=engine.fused_sampling)
         self.kv_reserved_bytes = cache_nbytes(self.state["cache"])
+
+        # --- host-RAM tier ---------------------------------------------
+        # paged engines spill block by block; slotted engines spill the
+        # whole-lane slice the family declares
+        self._lane_axes = {} if self.paged else registry.lane_leaf_axes(cfg)
+        if engine.park_idle_s is not None and not engine.host_tier:
+            raise ValueError("park_idle_s requires host_tier=True")
+        if engine.host_tier_blocks is not None and not engine.host_tier:
+            raise ValueError("host_tier_blocks requires host_tier=True")
+        if engine.host_tier:
+            if not self.paged and not self._lane_axes:
+                raise ValueError(
+                    f"family {cfg.family!r} declares no lane_leaf_axes: the host "
+                    "tier has nothing to spill on the slotted layout")
+            # a caller's tier is shared (spills outlive this engine)
+            self.tier = host_tier if host_tier is not None else HostTier(
+                engine.host_tier_blocks)
+            if self.paged and engine.prefix_cache:
+                self.alloc.on_evict = self._spill_block
+        else:
+            if host_tier is not None:
+                raise ValueError("host_tier instance passed but EngineConfig.host_tier "
+                                 "is False")
+            self.tier = None
+        # rid -> pending resume of a lane parked off the card by hold() and
+        # park_idle_s; it re-enters the queue on release()
+        self.parked: dict[int, _Pending] = {}
         # NOT ``aot or ...``: AotCache defines __len__, so a fresh (empty)
         # shared cache is falsy
         self.aot = aot if aot is not None else AotCache("serve")
@@ -332,8 +399,8 @@ class ServeEngine:
         # every static option that changes a program (the reference's
         # _sampler_key); the cfg carries attn_impl and the dtypes
         e = engine
-        self._program_key = (cfg, e.max_slots, e.max_len, e.eos_id, e.kv_layout,
-                             e.page_size, self._num_blocks, e.paged_attn)
+        self._program_key = (cfg, e.max_slots, e.max_len, e.eos_id, e.fused_sampling,
+                             e.kv_layout, e.page_size, self._num_blocks, e.paged_attn)
 
         self.queue: deque[_Pending] = deque()
         self.slots: list[_Slot | None] = [None] * engine.max_slots
@@ -347,7 +414,14 @@ class ServeEngine:
             "prefill_tokens", "prefix_lookup_tokens", "prefix_hit_tokens",
             "cow_copies", "preemptions", "resumed", "replayed_tokens",
             *(f"status_{s}" for s in STATUSES), "retries", "faults_injected",
-            "faults_detected"), 0)
+            "faults_detected", "snapshot_restores",
+            # per-request migration
+            "exported", "imported",
+            # host-RAM tier: lane spills and restores, bytes each way,
+            # spilled prefix blocks and their promotions, payloads the tier
+            # refused (the resume replays), hold/park
+            "spills", "restores", "spilled_bytes", "restored_bytes", "spill_drops",
+            "prefix_spills", "host_prefix_hits", "holds", "releases", "parked"), 0)
         self._next_rid = 0
         # lanes barred from admission for one more step after a fault
         # (quarantine): one cooldown step keeps a hot fault site from
@@ -355,6 +429,9 @@ class ServeEngine:
         self._quarantine = [0] * engine.max_slots
         # the deadline sweep runs once some request carries a deadline
         self._has_deadlines = False
+        # fused_sampling=False: the host sampler's generator, seeded as the
+        # device's, so on the CPU it draws what the fused programs draw
+        self._host_gen = torch.Generator().manual_seed(engine.seed)
         self._tok_mirror = np.zeros(engine.max_slots, np.int32)
         self._active_mirror = np.zeros(engine.max_slots, bool)
         self._active_dirty = False
@@ -369,8 +446,9 @@ class ServeEngine:
     # Programs (through the shared AotCache)
     # ------------------------------------------------------------------
     def decode_program(self, *, stochastic: bool, masked: bool) -> Callable:
-        """The eager decode program: ``fn(params, state) -> tok``, one step
-        in place (what the captured graph replays)."""
+        """The eager decode program: ``fn(params, state) -> tok`` (the
+        logits with ``fused_sampling=False``), one step in place (what the
+        captured graph replays)."""
         decode_fn = self._decode_fn
 
         def fn(params, state):
@@ -383,7 +461,11 @@ class ServeEngine:
     def _decode_entry(self, *, stochastic: bool, masked: bool) -> Callable:
         """The decode program for these sampling flags: ``entry(params,
         state) -> tok``.  On the card, a graph of it captured on this
-        engine's buffers (its first call is the step that warmed it)."""
+        engine's buffers (its first call is the step that warmed it).
+        Without fused sampling the device program does not sample, so one
+        program (and graph) serves every sampling form."""
+        if not self.econ.fused_sampling:
+            stochastic = masked = False
         key = self._decode_key(stochastic, masked)
         fn = self.aot.get(key, lambda: self.decode_program(stochastic=stochastic,
                                                            masked=masked))
@@ -397,10 +479,10 @@ class ServeEngine:
         """The prefill program of a bucket or chunk size (eager; counted):
         the first chunk, or (paged) a continuation from ``start > 0``."""
         def build():
-            eos = self.econ.eos_id
+            eos, fused = self.econ.eos_id, self.econ.fused_sampling
             if self.paged:
-                return paged_prefill_program(self.cfg, eos_id=eos, first=first)
-            return slot_prefill_program(self.cfg, eos_id=eos)
+                return paged_prefill_program(self.cfg, eos_id=eos, first=first, fused=fused)
+            return slot_prefill_program(self.cfg, eos_id=eos, fused=fused)
         return self.aot.get(("slot_prefill", chunk, first) + self._program_key, build)
 
     def _copy_entry(self) -> Callable:
@@ -408,17 +490,41 @@ class ServeEngine:
         return self.aot.get(("paged_copy",) + self._program_key,
                             lambda: paged_copy_program(self.cfg))
 
+    # -- host-tier transport (built once each, like every program) ------
+    def _block_read_entry(self) -> Callable:
+        """Read blocks to host memory (a lane spill, a prefix spill)."""
+        return self.aot.get(("tier_block_read",) + self._program_key,
+                            lambda: paged_block_read_program(self.cfg))
+
+    def _block_write_entry(self) -> Callable:
+        """Write blocks from host payloads (a restore, a promotion)."""
+        return self.aot.get(("tier_block_write",) + self._program_key,
+                            lambda: paged_block_write_program(self.cfg))
+
+    def _lane_read_entry(self) -> Callable:
+        """Read one lane's whole cache slice (a slotted spill)."""
+        return self.aot.get(("tier_lane_read",) + self._program_key,
+                            lambda: lane_read_program(self.cfg, axes=self._lane_axes))
+
+    def _lane_write_entry(self) -> Callable:
+        """Write one lane's whole cache slice (a slotted restore)."""
+        return self.aot.get(("tier_lane_write",) + self._program_key,
+                            lambda: lane_write_program(self.cfg, axes=self._lane_axes))
+
     def prebuild(self) -> None:
         """Build every program this engine can dispatch: the decode
         program for each sampling form, the prefill of each bucket or
         chunk size (and its continuation, under chunked prefill or the
-        prefix cache: a hit prefills a suffix), and the block copy.  Prefix
-        hits and preemption resumes make the prefill schedule
-        timing-dependent, so a warm-up trace does not guarantee coverage;
-        after this ``builds`` stays flat.  The decode graph is captured at
-        the first decode step (it needs the engine's live buffers)."""
+        prefix cache: a hit prefills a suffix), the block copy, and the
+        tier's transport.  Prefix hits and preemption resumes make the
+        prefill schedule timing-dependent, so a warm-up trace does not
+        guarantee coverage; after this ``builds`` stays flat.  The decode
+        graph is captured at the first decode step (it needs the engine's
+        live buffers)."""
         e = self.econ
-        for stochastic, masked in ((False, False), (True, False), (True, True)):
+        forms = ((False, False), (True, False), (True, True)) if e.fused_sampling \
+            else ((False, False),)
+        for stochastic, masked in forms:
             self.aot.get(self._decode_key(stochastic, masked),
                          lambda: self.decode_program(stochastic=stochastic,
                                                      masked=masked))
@@ -429,6 +535,14 @@ class ServeEngine:
                 self._prefill_entry(C, first=False)
         if self.paged and e.prefix_cache:
             self._copy_entry()
+        if self.tier is not None:
+            # the first eviction under load must not build
+            if self.paged:
+                self._block_read_entry()
+                self._block_write_entry()
+            else:
+                self._lane_read_entry()
+                self._lane_write_entry()
 
     # ------------------------------------------------------------------
     # Request lifecycle
@@ -479,11 +593,11 @@ class ServeEngine:
         return rid
 
     def cancel(self, rid: int) -> bool:
-        """Cancel a request wherever it is: queued (removed), or on a lane
-        mid-prefill or mid-decode (evicted: block refs drop, the deficit
-        commitment refunds).  It completes ``"cancelled"`` with the tokens
-        it emitted.  False if it already completed; ``KeyError`` for an
-        unknown rid."""
+        """Cancel a request wherever it is: queued or parked (removed), or
+        on a lane mid-prefill or mid-decode (evicted: block refs drop, the
+        deficit commitment refunds).  It completes ``"cancelled"`` with the
+        tokens it emitted.  False if it already completed; ``KeyError`` for
+        an unknown rid."""
         if rid in self.completions:
             return False
         for idx, req in enumerate(self.queue):
@@ -491,17 +605,106 @@ class ServeEngine:
                 del self.queue[idx]
                 self._terminate_queued(req, "cancelled")
                 return True
-        for slot, s in enumerate(self.slots):
-            if s is not None and s.rid == rid:
-                self._terminate(slot, "cancelled")
-                return True
+        if rid in self.parked:
+            self._terminate_queued(self.parked.pop(rid), "cancelled")
+            return True
+        slot = self._find_lane(rid)
+        if slot is not None:
+            self._terminate(slot, "cancelled")
+            return True
         raise KeyError(f"unknown rid {rid}")
+
+    def _find_lane(self, rid: int) -> int | None:
+        for i, s in enumerate(self.slots):
+            if s is not None and s.rid == rid:
+                return i
+        return None
+
+    def hold(self, rid: int) -> bool:
+        """Pause a decoding lane in place (an agent turn waiting on a tool,
+        say): the lane keeps its slot and, for KV state, its device state,
+        but its ``active`` bit clears so decode skips it.  Held lanes are
+        first in line for preemption and park off the card after
+        ``park_idle_s``.  A recurrent or hybrid lane spills to the tier at
+        once, since the decode freeze zeroes inactive lanes' recurrent
+        leaves: holding one needs a host tier.  Returns False if the tier
+        refuses the spill (the lane keeps decoding); True for a lane
+        already held.  ``KeyError`` for a rid not on a lane."""
+        slot = self._find_lane(rid)
+        if slot is None:
+            raise KeyError(f"rid {rid} is not on a lane")
+        s = self.slots[slot]
+        if s.held:
+            return True
+        if s.prefilled < s.plen or s.generated < 1:
+            raise ValueError(f"rid {rid} is mid-prefill; cannot hold")
+        if self.rec:
+            if not self._lane_spillable(s):
+                raise ValueError(
+                    "holding a recurrent/hybrid lane requires a host tier "
+                    "(the freeze zeroes inactive lanes' recurrent state)")
+            if not self._spill_lane(slot):
+                return False
+        s.held = True
+        s.held_since = self.clock()
+        self._active_mirror[slot] = False
+        self._active_dirty = True
+        self.counters["holds"] += 1
+        return True
+
+    def release(self, rid: int) -> None:
+        """Resume a held or parked request.  A held lane's ``active`` bit
+        comes back (a recurrent lane first restores its hold-time spill:
+        the device copy was zeroed); a parked request re-enters the queue
+        at the front and resumes through admission, by copy if its spill
+        survived.  ``KeyError`` if the rid is neither held nor parked."""
+        if rid in self.parked:
+            self.queue.appendleft(self.parked.pop(rid))
+            self.counters["releases"] += 1
+            return
+        slot = self._find_lane(rid)
+        if slot is None or not self.slots[slot].held:
+            raise KeyError(f"rid {rid} is not held or parked")
+        s = self.slots[slot]
+        s.held = False
+        s.held_since = None
+        self._active_mirror[slot] = True
+        if self.rec:
+            sp = self.tier.pop_lane(rid)
+            assert sp is not None and sp.kind == "lane", \
+                "held recurrent lane lost its hold-time spill"
+            self._lane_write_entry()(self.state, sp.leaves, slot)
+            self.counters["restores"] += 1
+            self.counters["restored_bytes"] += sp.nbytes
+            # push the whole mirror now: a program before the push would
+            # freeze-zero the restored leaves, and the fused sampler zeroed
+            # the held lane's ``tokens`` entry
+            self._push_sched()
+            self._sched_dirty = False
+        else:
+            # the fused sampler wrote 0 into the inactive lane's ``tokens``:
+            # its decode input goes back with the active bit
+            self._sched_dirty = True
+        self.counters["releases"] += 1
+
+    def _park(self, slot: int) -> None:
+        """Move a long-held lane off the card: spill (unless its hold-time
+        spill covers it), then preempt; a held lane's pending goes to
+        ``self.parked``.  If the tier refuses the spill the lane parks
+        anyway and its release replays."""
+        s = self.slots[slot]
+        if not self.tier.has_lane(s.rid) and self._lane_spillable(s):
+            self._spill_lane(slot)
+        self._preempt(slot, spill=False)
 
     def free_slots(self) -> list[int]:
         return [i for i, s in enumerate(self.slots) if s is None]
 
     def has_work(self) -> bool:
-        return bool(self.queue) or any(s is not None for s in self.slots)
+        # parked requests are unfinished work off the card: drain() callers
+        # must release() them
+        return bool(self.queue) or bool(self.parked) or any(
+            s is not None for s in self.slots)
 
     # -- paged block bookkeeping ---------------------------------------
     def _can_admit(self, req: _Pending) -> bool:
@@ -520,10 +723,12 @@ class ServeEngine:
         return self.alloc.available - self._deficit >= blocks_for(limit, bs)
 
     def _pick_victim(self) -> int | None:
-        """Lowest-priority occupied lane: the highest rid (last arrived)."""
+        """Lowest-priority occupied lane: held (idle) lanes first, then the
+        highest rid (last arrived)."""
         best = None
         for i, s in enumerate(self.slots):
-            if s is not None and (best is None or s.rid > self.slots[best].rid):
+            if s is not None and (best is None or (s.held, s.rid) > (
+                    self.slots[best].held, self.slots[best].rid)):
                 best = i
         return best
 
@@ -566,22 +771,74 @@ class ServeEngine:
     def preempt(self, slot: int) -> None:
         """Host-initiated preempt-and-requeue of the live lane ``slot`` (any
         layout or state kind): the request requeues at the queue front with
-        its prompt, emitted tokens and sampling state; its resume
-        re-prefills only the prompt (the same bucket program, so the same
-        state, KV or recurrent) and replays the emitted tokens through
+        its prompt, emitted tokens and sampling state.  With a host tier
+        the lane spills and its resume restores it by copy; otherwise the
+        resume re-prefills only the prompt (the same bucket program, so the
+        same state, KV or recurrent) and replays the emitted tokens through
         decode, so the resumed stream is the unpreempted one."""
         if self.slots[slot] is None:
             raise ValueError(f"slot {slot} is not serving a request")
         self._preempt(slot)
 
-    def _preempt(self, slot: int) -> None:
+    def _lane_spillable(self, s: _Slot) -> bool:
+        """Whether a lane's decode state can move to the tier: fully
+        prefilled and mid-decode (a mid-prefill lane holds nothing a replay
+        rebuilds dearer), on a layout with a transport."""
+        if self.tier is None or s.generated < 1 or s.prefilled < s.plen:
+            return False
+        return self.paged or bool(self._lane_axes)
+
+    def _capture_spill(self, slot: int) -> LaneSpill:
+        """Copy a lane's decode state to host memory as a LaneSpill (not yet
+        in the tier: the caller admits it, and replays when refused).  A
+        paged lane's blocks come in one gather, one payload per block."""
+        s = self.slots[slot]
+        if self.paged:
+            payloads = self._block_read_entry()(self.state, self.tables.blocks(slot))
+            return LaneSpill(s.rid, "paged", s.prefilled, s.generated, blocks=payloads)
+        leaves = self._lane_read_entry()(self.state, slot)
+        return LaneSpill(s.rid, "lane", s.prefilled, s.generated, leaves=leaves)
+
+    def _spill_lane(self, slot: int) -> bool:
+        """Capture and admit a lane spill; counted either way."""
+        sp = self._capture_spill(slot)
+        if self.tier.put_lane(sp):
+            self.counters["spills"] += 1
+            self.counters["spilled_bytes"] += sp.nbytes
+            return True
+        self.counters["spill_drops"] += 1
+        return False
+
+    def _spill_block(self, block: int, key: bytes | None) -> None:
+        """``BlockAllocator.on_evict``: an LRU-reclaimed prefix block's KV
+        moves to the tier before its block is reused, so the cached chain
+        spills instead of dying and a later admission promotes it.  The
+        read is enqueued before the new owner's writes and synchronized
+        before the payload is kept."""
+        if key is None:
+            return
+        payload = self._block_read_entry()(self.state, [block])[0]
+        if self.tier.put_block(key, payload):
+            self.counters["prefix_spills"] += 1
+            self.counters["spilled_bytes"] += sum(int(a.nbytes) for a in payload.values())
+        else:
+            self.counters["spill_drops"] += 1
+
+    def _preempt(self, slot: int, *, spill: bool = True) -> None:
         """Evict a live lane back to the queue front: its emitted tokens
         and sampling state requeue as a resume request, the table row
-        nulls (paged) and every block reference drops.  The resume replays
-        (the reference's ``spill=False`` path; the host tier that restores
-        a spilled lane arrives with a later slice)."""
+        nulls (paged) and every block reference drops.  With a tier the
+        lane spills first and its resume is a copy; without one, when the
+        tier refuses, or with ``spill=False`` (a fault retry recomputes
+        rather than restore suspect state) the resume replays.  A held
+        lane's pending goes to ``self.parked`` instead of the queue:
+        preempting idle work parks it early."""
         s = self.slots[slot]
         comp = self.live[s.rid]
+        if spill and self._lane_spillable(s) and not (s.held and self.tier.has_lane(s.rid)):
+            # a held recurrent lane spilled at hold() and its device copy
+            # has been zeroed since: that spill is the truth
+            self._spill_lane(slot)
         if self.paged:
             # min_free damps re-admission until the pool can cover one
             # block more than the lane held, capped at its worst case
@@ -589,17 +846,24 @@ class ServeEngine:
             min_free = min(self.tables.mapped(slot) + 1, wc)
         else:
             min_free = 0
-        # resumes go to the FRONT: successive victims within a step have
-        # decreasing rids, so rid order (FCFS priority) is kept
-        self.queue.appendleft(_Pending(
+        pending = _Pending(
             s.rid, s.prompt, comp.max_new_tokens, s.temperature, s.top_k, s.top_p,
             comp.submit_time, deadline=s.deadline, resume=True, limit=s.limit,
-            replay=tuple(comp.tokens), min_free=min_free))
+            replay=tuple(comp.tokens), min_free=0 if s.held else min_free)
+        if s.held:
+            # parked until release(); min_free resets, the pool pressure it
+            # damped will be long gone
+            self.parked[s.rid] = pending
+            self.counters["parked"] += 1
+        else:
+            # resumes go to the FRONT: successive victims within a step
+            # have decreasing rids, so rid order (FCFS priority) is kept
+            self.queue.appendleft(pending)
+            self.counters["preemptions"] += 1
         self._vacate(slot)
         if self.paged:
             self._release_blocks(slot)
         self._last_op = "preempt"
-        self.counters["preemptions"] += 1
 
     def _vacate(self, slot: int, *, push_active: bool = True) -> None:
         """Free lane ``slot`` on the host: its ``active`` and ``replay``
@@ -677,18 +941,118 @@ class ServeEngine:
                 st[name].copy_(torch.from_numpy(arr))
         self._active_dirty = False
 
+    def _promote_host_chain(self, keys: list[bytes], have: int) -> int:
+        """Extend a device chain match with the tier's prefix blocks: each
+        gets a free block, its payload written there (one write for all),
+        published under its key and parked cached, so the ordinary
+        lookup, share and COW treat it like any cached chain.  Promotion
+        only takes free blocks; it never evicts cached ones (the two tiers
+        would thrash).  Returns the number promoted."""
+        if self.tier is None:
+            return 0
+        payloads, blocks = [], []
+        for key in keys[have:]:
+            if not self.tier.has_block(key) or self.alloc.num_free == 0:
+                break
+            payload = self.tier.pop_block(key)
+            b = self.alloc.alloc()          # the free list is not empty: no eviction
+            self.alloc.publish(b, key)
+            self.alloc.free(b)              # parks in the cached set, indexed
+            payloads.append(payload)
+            blocks.append(b)
+            self.counters["host_prefix_hits"] += 1
+            self.counters["restored_bytes"] += sum(int(a.nbytes) for a in payload.values())
+        if blocks:
+            self._block_write_entry()(self.state, payloads, blocks)
+        return len(blocks)
+
+    def _chain_lookup(self, keys: list[bytes]) -> list[int]:
+        """Device chain lookup, extended through the tier: where the device
+        match ends and the tier holds the next chain blocks, promote them
+        first (the counter-free ``indexed`` probe sizes the device match,
+        so hit and miss count once per admission)."""
+        if self.tier is not None:
+            have = 0
+            for k in keys:
+                if not self.alloc.indexed(k):
+                    break
+                have += 1
+            if have < len(keys):
+                self._promote_host_chain(keys, have)
+        return self.alloc.lookup(keys)
+
+    def _try_tier_restore(self, slot: int, req: _Pending) -> bool:
+        """Resume's fastest path: the tier holds the lane's spill, so copy
+        it back and continue mid-decode: no prefill, no replay of the
+        covered tokens, and the continuation bitwise the never-evicted one
+        (the payload is the evicted state).  A stale spill (older than the
+        replay record, as after a restore refused for pool room) restores
+        as a partial resume whose uncovered tokens replay through decode.
+        The spill stays, and the resume replays, when the pool is short; a
+        spill of another prompt or layout is dropped."""
+        sp = self.tier.peek_lane(req.rid) if self.tier is not None else None
+        if sp is None:
+            return False
+        s = self.slots[slot]
+        plen = int(req.prompt.size)
+        k_cov = sp.generated
+        if sp.prefilled != plen or not (1 <= k_cov <= len(req.replay)) \
+                or sp.kind != ("paged" if self.paged else "lane"):
+            self.tier.drop_lane(req.rid)
+            return False
+        if sp.kind == "paged":
+            if self.alloc.available < len(sp.blocks):
+                return False            # leave the spill; this resume replays
+            blocks = []
+            for _ in sp.blocks:
+                b = self._alloc_block(slot)
+                if b is None:
+                    # an injected alloc fault retried the lane itself (its
+                    # partial table released, its spill dropped)
+                    return False
+                blocks.append(b)
+                self.tables.append(slot, b)
+                if self.econ.admission == "deficit":
+                    self._deficit -= 1
+                self._tables_dirty = True
+            self._block_write_entry()(self.state, sp.blocks, blocks)
+            # fresh private blocks: publication restarts (publish() dedups
+            # against the original blocks if their keys are still indexed)
+            s.pub_upto = 0
+            s.hasher = None
+            s.hashed = 0
+        else:
+            self._lane_write_entry()(self.state, sp.leaves, slot)
+        self.tier.pop_lane(req.rid)
+        seq = np.concatenate([req.prompt, np.asarray(req.replay, np.int32)])
+        s.prefilled = plen
+        s.generated = k_cov                 # next decode input is seq[plen + k_cov - 1]
+        self._tok_mirror[slot] = int(seq[plen + k_cov - 1])
+        self._active_mirror[slot] = True
+        self.counters["restores"] += 1
+        self.counters["restored_bytes"] += sp.nbytes
+        if sp.kind == "lane" and self.rec:
+            # restored recurrent leaves: the device must see the lane active
+            # before any later program of this step, or its freeze zeroes them
+            self._push_sched()
+            self._sched_dirty = False
+        else:
+            self._sched_dirty = True
+        return True
+
     def _try_restore(self, slot: int, req: _Pending) -> bool:
         """Resume fast path: if the prefix cache still holds a block chain
         covering the whole prompt (typically the lane's own published
         blocks), share it and restore the lane mid-decode — no prefill, and
         the original KV of every covered position.  The device sees the
-        restored lane through a scheduling push."""
+        restored lane through a scheduling push.  A chain the pool lost
+        re-extends from the tier (:meth:`_promote_host_chain`)."""
         k = len(req.replay)
         plen = int(req.prompt.size)
         bs = self.econ.page_size
         seq = np.concatenate([req.prompt, np.asarray(req.replay, np.int32)])
         written = seq[: plen + k - 1]        # positions whose KV existed
-        chain = self.alloc.lookup(prefix_keys(written, bs))
+        chain = self._chain_lookup(prefix_keys(written, bs))
         matched = len(chain) * bs
         if matched < plen:
             # prefill + decode replay; _match_prefix counts this lookup
@@ -720,7 +1084,7 @@ class ServeEngine:
         bs = self.econ.page_size
         plen = int(prompt.size)
         self.counters["prefix_lookup_tokens"] += plen
-        chain = self.alloc.lookup(prefix_keys(prompt, bs))
+        chain = self._chain_lookup(prefix_keys(prompt, bs))
         if not chain:
             return 0
         cow = len(chain) * bs >= plen
@@ -766,6 +1130,15 @@ class ServeEngine:
             wc = blocks_for(limit, self.econ.page_size)
             self._slot_wc[slot] = wc
             self._deficit += wc
+        # the resume ladder: the tier's lane spill first (everything the
+        # lane had written), then the device/host prefix chains, then
+        # prefill and decode replay
+        if req.resume and req.replay and self.tier is not None \
+                and self.tier.has_lane(req.rid):
+            if self._try_tier_restore(slot, req):
+                return
+            if self.slots[slot] is None:
+                return                        # the lane faulted mid-restore
         if self.paged and self.econ.prefix_cache:
             if req.resume and req.replay and self._try_restore(slot, req):
                 return                        # restored mid-decode
@@ -817,7 +1190,12 @@ class ServeEngine:
             while s.hashed <= j:
                 s.hasher.update(block_tokens(s.hashed))
                 s.hashed += 1
-            self.alloc.publish(blocks[j], s.hasher.digest())
+            digest = s.hasher.digest()
+            self.alloc.publish(blocks[j], digest)
+            if self.tier is not None and self.alloc.indexed(digest):
+                # the key is device-indexed again: drop any host copy, so
+                # every key has one owner (check_tiered)
+                self.tier.discard_block(digest)
         s.pub_upto = full
 
     def _prefill_next_chunk(self, slot: int) -> None:
@@ -849,6 +1227,11 @@ class ServeEngine:
         else:
             _, out = self._prefill_entry(C)(self.params, self.state, chunk, slot,
                                             s.plen, s.limit, *sampling)
+        fused = self.econ.fused_sampling
+        if not fused and (end >= s.plen or s.temperature > 0):
+            # host sampling: the fused program samples every chunk, so a
+            # stochastic lane draws here on every chunk too
+            tok = self._host_sample_prefill(out, s)
         s.prefilled = end
         self._last_op = "prefill"
         self.counters["prefill_chunks"] += 1
@@ -858,11 +1241,14 @@ class ServeEngine:
         if end < s.plen:
             return                              # more chunks to come
         self.counters["prefills"] += 1
-        tok = int(out[0])                       # the prefill's host sync
+        if fused:
+            tok = int(out[0])                   # the prefill's host sync
         if tok == NONFINITE_TOKEN:
             # the prompt's sampling position saw non-finite logits
             self.counters["faults_detected"] += 1
             self._retry_lane(slot, "non-finite logits at prefill")
+            if not fused:
+                self._writeback_sampled()
             return
         now = self.clock()
         comp = self.live[s.rid]
@@ -885,6 +1271,35 @@ class ServeEngine:
             self._active_mirror[slot] = not done
             if done:
                 self._finish(slot, now)
+        if not fused:
+            self._writeback_sampled()
+
+    def _host_sample(self, logits, temps, top_ks, top_ps, *, stochastic: bool,
+                     masked: bool) -> np.ndarray:
+        """``fused_sampling=False``: sample host logits (fp32 CPU tensor, one
+        row a lane) with the fused sampler's own arithmetic and the host
+        generator (``EngineConfig.seed``); the flags are the ones the fused
+        program would get.  Non-finite rows give :data:`NONFINITE_TOKEN`."""
+        tok = sample_tokens(
+            logits, self._host_gen, torch.as_tensor(temps, dtype=torch.float32),
+            top_ks=torch.as_tensor(top_ks, dtype=torch.int32),
+            top_ps=torch.as_tensor(top_ps, dtype=torch.float32),
+            stochastic=stochastic, masked=masked).numpy()
+        finite = torch.isfinite(logits).all(dim=-1).numpy()
+        return np.where(finite, tok, np.int32(NONFINITE_TOKEN)).astype(np.int32)
+
+    def _host_sample_prefill(self, out, s: _Slot) -> int:
+        """The host-sampled first token of a prefill chunk's logits."""
+        logits = out.cpu()                      # the prefill's host sync
+        return int(self._host_sample(
+            logits, [s.temperature], [s.top_k], [s.top_p], stochastic=s.temperature > 0,
+            masked=s.top_k > 0 or 0 < s.top_p < 1)[0])
+
+    def _writeback_sampled(self) -> None:
+        """Host sampling: copy the host's tokens and active bits into the
+        device's vectors (in place) before the next program."""
+        self.state["tokens"].copy_(torch.from_numpy(self._tok_mirror))
+        self.state["active"].copy_(torch.from_numpy(self._active_mirror))
 
     def _finish(self, slot: int, now: float) -> None:
         # natural EOS/budget eviction: the device already deactivated the
@@ -907,6 +1322,8 @@ class ServeEngine:
         self._vacate(slot, push_active=push_active)
         if self.paged:
             self._release_blocks(slot)
+        if self.tier is not None:
+            self.tier.drop_lane(s.rid)
         self.counters["evicted"] += 1
         self.counters[f"status_{status}"] += 1
 
@@ -926,6 +1343,8 @@ class ServeEngine:
         comp.status = status
         comp.error = error
         self.completions[req.rid] = comp
+        if self.tier is not None:
+            self.tier.drop_lane(req.rid)
         self.counters[f"status_{status}"] += 1
 
     def _retry_lane(self, slot: int, reason: str) -> None:
@@ -933,7 +1352,9 @@ class ServeEngine:
         logits, a failed prefill dispatch or block alloc): the request
         requeues through the preempt path (its resume recomputes and
         replays through the programs already built) until its
-        ``max_retries`` are spent, then ends ``"failed"``."""
+        ``max_retries`` are spent, then ends ``"failed"``.  A faulted
+        lane's state is suspect: it never spills, and an earlier spill
+        drops."""
         s = self.slots[slot]
         comp = self.live[s.rid]
         comp.retries += 1
@@ -942,7 +1363,9 @@ class ServeEngine:
         if comp.retries > self.econ.max_retries:
             self._terminate(slot, "failed", error=reason)
         else:
-            self._preempt(slot)
+            if self.tier is not None:
+                self.tier.drop_lane(s.rid)
+            self._preempt(slot, spill=False)
 
     def _expire_deadlines(self) -> None:
         """Terminate every queued or live request whose deadline passed
@@ -954,6 +1377,9 @@ class ServeEngine:
             self.queue = deque(r for r in self.queue if r.rid not in dead)
             for req in expired:
                 self._terminate_queued(req, "timeout")
+        for rid in [r for r, req in self.parked.items()
+                    if req.deadline is not None and now >= req.deadline]:
+            self._terminate_queued(self.parked.pop(rid), "timeout")
         for slot, s in enumerate(self.slots):
             if s is not None and s.deadline is not None and now >= s.deadline:
                 self._terminate(slot, "timeout", now=now)
@@ -1014,13 +1440,21 @@ class ServeEngine:
     # The serving loop
     # ------------------------------------------------------------------
     def step(self) -> bool:
-        """Expire deadlines, advance in-flight chunked prefills (one chunk
-        per lane), admit every queued request a free lane (and, paged, the
-        block budget) can take, then advance every fully prefilled lane by
-        one token.  Returns False when idle."""
+        """Expire deadlines, park lanes held past ``park_idle_s``, advance
+        in-flight chunked prefills (one chunk per lane), admit every queued
+        request a free lane (and, paged, the block budget) can take, then
+        advance every fully prefilled, unheld lane by one token.  Returns
+        False when idle."""
         progressed = False
         if self._has_deadlines:
             self._expire_deadlines()
+        if self.tier is not None and self.econ.park_idle_s is not None:
+            now = self.clock()
+            for slot, s in enumerate(self.slots):
+                if s is not None and s.held and s.held_since is not None \
+                        and now - s.held_since >= self.econ.park_idle_s:
+                    self._park(slot)
+                    progressed = True
         for slot in range(self.econ.max_slots):
             s = self.slots[slot]
             if s is not None and s.prefilled < s.plen:
@@ -1043,7 +1477,7 @@ class ServeEngine:
 
         def active():
             return [i for i, s in enumerate(self.slots)
-                    if s is not None and s.prefilled >= s.plen]
+                    if s is not None and s.prefilled >= s.plen and not s.held]
 
         active_slots = active()
         if active_slots and self.paged:
@@ -1066,10 +1500,19 @@ class ServeEngine:
                 self._push_active()
             lanes = [self.slots[i] for i in active_slots]
             sampled = [s for s in lanes if s.temperature > 0]
-            decode = self._decode_entry(
-                stochastic=bool(sampled),
-                masked=any(s.top_k > 0 or 0 < s.top_p < 1 for s in sampled))
-            toks = decode(self.params, self.state).cpu().numpy()   # the one host sync
+            flags = dict(stochastic=bool(sampled),
+                         masked=any(s.top_k > 0 or 0 < s.top_p < 1 for s in sampled))
+            out = self._decode_entry(**flags)(self.params, self.state)
+            if self.econ.fused_sampling:
+                toks = out.cpu().numpy()        # the one host sync
+            else:
+                def per_lane(f, dt):
+                    return np.array([0 if s is None else f(s) for s in self.slots], dt)
+
+                toks = self._host_sample(       # the logits fetch is the sync
+                    out.cpu(), per_lane(lambda s: s.temperature, np.float32),
+                    per_lane(lambda s: s.top_k, np.int32),
+                    per_lane(lambda s: s.top_p, np.float32), **flags)
             self._last_op = "decode"
             self._note_kv_usage(frozenset(active_slots))
             self.counters["decode_steps"] += 1
@@ -1084,6 +1527,8 @@ class ServeEngine:
             now = self.clock()
             for i in active_slots:
                 self._advance_lane(i, int(toks[i]), now)
+            if not self.econ.fused_sampling:
+                self._writeback_sampled()
             progressed = True
         self._note_kv_usage()
         return progressed
@@ -1103,6 +1548,205 @@ class ServeEngine:
         return [np.asarray(self.completions[r].tokens, np.int32) for r in rids]
 
     # ------------------------------------------------------------------
+    # Snapshots and per-request migration
+    # ------------------------------------------------------------------
+    # The engine's durable truth is on the host: the queue, the parked
+    # requests, the Completions and their token streams.  Device state (the
+    # KV pool, block tables, the prefix index, the tier's payloads) is a
+    # cache of it: a lane's state is recomputable from its prompt and
+    # recorded tokens through the resume path.  A snapshot therefore
+    # serializes every live lane as a front-of-queue resume and drops the
+    # device side; a fresh engine restored from it re-prefills and replays,
+    # bitwise the uninterrupted streams under greedy decoding.  It is plain
+    # JSON in the reference's shape (format 1), so it rides a
+    # CheckpointManager's meta.json, and one package's export imports into
+    # the other.
+
+    _SNAP_FORMAT = 1
+
+    @staticmethod
+    def _snap_pending(req: _Pending) -> dict:
+        return {
+            "rid": req.rid,
+            "prompt": [int(t) for t in req.prompt],
+            "max_new_tokens": req.max_new_tokens,
+            "temperature": req.temperature,
+            "top_k": req.top_k,
+            "top_p": req.top_p,
+            "submit_time": req.submit_time,
+            "deadline": req.deadline,
+            "resume": req.resume,
+            "limit": req.limit,
+            "replay": [int(t) for t in req.replay],
+        }
+
+    @staticmethod
+    def _snap_completion(comp: Completion) -> dict:
+        return {
+            "rid": comp.rid,
+            "prompt_len": comp.prompt_len,
+            "max_new_tokens": comp.max_new_tokens,
+            "tokens": [int(t) for t in comp.tokens],
+            "token_times": [float(t) for t in comp.token_times],
+            "submit_time": comp.submit_time,
+            "finish_time": comp.finish_time,
+            "status": comp.status,
+            "error": comp.error,
+            "retries": comp.retries,
+        }
+
+    @staticmethod
+    def _load_completion(d: dict) -> Completion:
+        return Completion(
+            rid=int(d["rid"]), prompt_len=int(d["prompt_len"]),
+            max_new_tokens=int(d["max_new_tokens"]),
+            tokens=[int(t) for t in d["tokens"]],
+            token_times=[float(t) for t in d["token_times"]],
+            submit_time=float(d["submit_time"]), finish_time=float(d["finish_time"]),
+            status=d["status"], error=d["error"], retries=int(d["retries"]))
+
+    @staticmethod
+    def _load_pending(d: dict, prompt: np.ndarray) -> _Pending:
+        # min_free resets to 0: it damped re-admission against the old
+        # engine's pool pressure, which stayed behind
+        return _Pending(
+            int(d["rid"]), prompt, int(d["max_new_tokens"]), float(d["temperature"]),
+            int(d["top_k"]), float(d["top_p"]), float(d["submit_time"]),
+            deadline=d["deadline"], resume=bool(d["resume"]), limit=int(d["limit"]),
+            replay=tuple(int(t) for t in d["replay"]))
+
+    def _econ_json(self) -> dict:
+        # a JSON round trip (tuples -> lists), so a snapshot read back from
+        # disk compares equal to a live config
+        return json.loads(json.dumps(dataclasses.asdict(self.econ)))
+
+    def snapshot(self) -> dict:
+        """The engine's host truth as a JSON-able dict: live lanes become
+        front-of-queue resumes in rid order (as :meth:`preempt` would
+        requeue them), then the queue, then the parked requests (a hold is
+        scheduling state: they resume decoding after a restart).  Device
+        caches are dropped.  Consistent at any step boundary."""
+        on_lane = sorted((i for i, s in enumerate(self.slots) if s is not None),
+                         key=lambda i: self.slots[i].rid)
+        pend = []
+        for slot in on_lane:
+            s = self.slots[slot]
+            comp = self.live[s.rid]
+            pend.append(self._snap_pending(_Pending(
+                s.rid, s.prompt, comp.max_new_tokens, s.temperature, s.top_k, s.top_p,
+                comp.submit_time, deadline=s.deadline, resume=True, limit=s.limit,
+                replay=tuple(comp.tokens))))
+        pend.extend(self._snap_pending(req) for req in self.queue)
+        pend.extend(self._snap_pending(self.parked[r]) for r in sorted(self.parked))
+        return {
+            "format": self._SNAP_FORMAT,
+            "arch": self.cfg.name,
+            "engine": self._econ_json(),
+            "queue": pend,
+            # every in-flight rid's Completion (lane occupants, queued
+            # resumes, parked): restore re-links them, so replay forcing and
+            # the streams carry across the restart
+            "live": {str(r): self._snap_completion(c) for r, c in self.live.items()},
+            "completions": {str(r): self._snap_completion(c)
+                            for r, c in self.completions.items()},
+            "counters": dict(self.counters),
+            "next_rid": self._next_rid,
+        }
+
+    def restore(self, snap: dict) -> None:
+        """Rebuild serving state from :meth:`snapshot` into this engine,
+        which must be fresh (the same arch and ``EngineConfig``, no request
+        served).  The device caches are rebuilt by re-prefilling prompts
+        and replaying recorded tokens; drive with :meth:`step` as usual."""
+        if int(snap.get("format", -1)) != self._SNAP_FORMAT:
+            raise ValueError(f"unsupported snapshot format {snap.get('format')!r}")
+        if snap["arch"] != self.cfg.name:
+            raise ValueError(f"snapshot is for arch {snap['arch']!r}, engine is "
+                             f"{self.cfg.name!r}")
+        if snap["engine"] != self._econ_json():
+            raise ValueError("snapshot EngineConfig does not match this engine's")
+        if self.has_work() or self.live or self.completions or self.counters["admitted"]:
+            raise ValueError("restore() requires a fresh engine")
+        for req in snap["queue"]:
+            if req["deadline"] is not None:
+                self._has_deadlines = True
+            self.queue.append(self._load_pending(req, np.asarray(req["prompt"], np.int32)))
+        self.live = {int(r): self._load_completion(c) for r, c in snap["live"].items()}
+        self.completions = {int(r): self._load_completion(c)
+                            for r, c in snap["completions"].items()}
+        self.counters.update(snap["counters"])
+        self._next_rid = int(snap["next_rid"])
+        self.counters["snapshot_restores"] += 1
+
+    def export_request(self, rid: int) -> dict:
+        """Remove one in-flight request from this engine and serialize it
+        for another (a drain, a failover).  A lane occupant is preempted
+        first (its blocks free, its deficit refunds; with a tier its spill
+        stays there, so an engine sharing the tier restores it by copy).
+        Returns ``{"pending": ..., "completion": ... | None}``, JSON-able,
+        shaped like one entry of :meth:`snapshot`.  ``KeyError`` for an
+        unknown rid, ``ValueError`` for a terminal one."""
+        if rid in self.completions:
+            raise ValueError(f"rid {rid} is already terminal")
+        slot = self._find_lane(rid)
+        if slot is not None:
+            self._preempt(slot)         # now front-of-queue (or parked, if held)
+        if rid in self.parked:
+            req = self.parked.pop(rid)
+        else:
+            idx = next((i for i, r in enumerate(self.queue) if r.rid == rid), None)
+            if idx is None:
+                raise KeyError(f"unknown rid {rid}")
+            req = self.queue[idx]
+            del self.queue[idx]
+        comp = self.live.pop(rid, None) if req.resume else None
+        self.counters["exported"] += 1
+        return {"pending": self._snap_pending(req),
+                "completion": None if comp is None else self._snap_completion(comp)}
+
+    def import_request(self, snap: dict, *, front: bool = False) -> int:
+        """Install a request another engine exported.  ``front=True`` keeps
+        the queue-front priority a preemption would have had.  It then
+        admits and resumes through the ordinary path (a copy from a shared
+        tier, or re-prefill and replay): bitwise the uninterrupted stream
+        under greedy decoding.  Unlike :meth:`restore` this works on a busy
+        engine; the rid must be new to it."""
+        req = snap["pending"]
+        rid = int(req["rid"])
+        if (rid in self.live or rid in self.completions or rid in self.parked
+                or any(r.rid == rid for r in self.queue)):
+            raise ValueError(f"rid {rid} already known to this engine")
+        resume = bool(req["resume"])
+        comp = snap.get("completion")
+        if resume and comp is None:
+            raise ValueError(f"resume import of rid {rid} without its live Completion")
+        prompt = self.validate(np.asarray(req["prompt"], np.int32), int(req["max_new_tokens"]))
+        if req["deadline"] is not None:
+            self._has_deadlines = True
+        pending = self._load_pending(req, prompt)
+        if resume:
+            self.live[rid] = self._load_completion(comp)
+        (self.queue.appendleft if front else self.queue.append)(pending)
+        self._next_rid = max(self._next_rid, rid + 1)
+        self.counters["imported"] += 1
+        return rid
+
+    def save_snapshot(self, mgr, step: int) -> None:
+        """Persist :meth:`snapshot` through a
+        :class:`~repro_torch.checkpoint.manager.CheckpointManager` (atomic:
+        a crash mid-save leaves the previous checkpoint restorable)."""
+        mgr.save(step, {}, extra_meta={"engine_snapshot": self.snapshot()})
+
+    def restore_snapshot(self, mgr, step: int | None = None) -> int:
+        """Restore from the checkpoint :meth:`save_snapshot` wrote (the
+        latest when ``step`` is None).  Returns its step."""
+        step, meta = mgr.load_meta(step)
+        if "engine_snapshot" not in meta:
+            raise KeyError(f"checkpoint step {step} has no engine snapshot")
+        self.restore(meta["engine_snapshot"])
+        return step
+
+    # ------------------------------------------------------------------
     # Invariants and stats
     # ------------------------------------------------------------------
     def check_invariants(self) -> None:
@@ -1115,13 +1759,17 @@ class ServeEngine:
         lanes = [s.rid for s in self.slots if s is not None]
         if len(set(lanes)) != len(lanes):
             raise AssertionError(f"a request owns two lanes: {lanes}")
-        inflight = sorted(lanes + [r.rid for r in self.queue if r.resume])
+        inflight = sorted(lanes + [r.rid for r in self.queue if r.resume]
+                          + list(self.parked))
         if inflight != sorted(self.live):
-            raise AssertionError(f"live rids {sorted(self.live)} != lane/resume "
+            raise AssertionError(f"live rids {sorted(self.live)} != lane/resume/parked "
                                  f"rids {inflight}")
+        for rid, req in self.parked.items():
+            if not (req.resume and req.rid == rid):
+                raise AssertionError(f"parked rid {rid} is not a resume pending")
         if not all(0 <= q <= 1 for q in self._quarantine):
             raise AssertionError(f"quarantine out of range: {self._quarantine}")
-        if self.rec and self._last_op == "decode":
+        if self.rec and self.econ.fused_sampling and self._last_op == "decode":
             # evict-time zeroing: after a decode step every free lane's
             # recurrent state is exactly zero (host-side evictions zero one
             # program later)
@@ -1130,8 +1778,10 @@ class ServeEngine:
                 raise AssertionError(
                     f"an evicted lane in {free} holds non-zero recurrent state")
         if not self.paged:
+            if self.tier is not None:
+                self.tier.check()
             return
-        self.alloc.check()
+        check_tiered(self.alloc, self.tier)
         self.tables.check(refcount=self.alloc.refcount if self.econ.prefix_cache else None)
         bs = self.econ.page_size
         for i, s in enumerate(self.slots):
@@ -1177,6 +1827,15 @@ class ServeEngine:
             looked = self.counters["prefix_lookup_tokens"]
             out["prefix_hit_rate"] = (
                 self.counters["prefix_hit_tokens"] / looked if looked else 0.0)
+        if self.tier is not None:
+            t = self.tier
+            out["host_tier"] = {
+                "spilled_lanes": t.spilled_lanes, "spilled_blocks": t.spilled_blocks,
+                "used_bytes": t.used_bytes, "capacity_blocks": t.capacity_blocks,
+                "lane_spills": t.lane_spills, "lane_restores": t.lane_restores,
+                "prefix_spills": t.prefix_spills, "prefix_hits": t.prefix_hits,
+                "drops": t.drops,
+            }
         if self.faults is not None:
             out["faults"] = self.faults.stats()
         return out

@@ -1,8 +1,9 @@
 """Paged KV cache: host-side block allocator + device-resident paged state.
 
-The port of the reference's ``serve/paged.py`` (the host-RAM tier arrives
-with a later slice): the allocator, the block tables, the prefix cache's
-chain keys (:func:`prefix_keys`) and the device-resident state.  The slotted cache reserves ``max_slots x max_len``
+The port of the reference's ``serve/paged.py``: the allocator, the block
+tables, the prefix cache's chain keys (:func:`prefix_keys`), the host-RAM
+tier (:class:`LaneSpill`, :class:`HostTier`, :func:`check_tiered`) and the
+device-resident state.  The slotted cache reserves ``max_slots x max_len``
 KV positions up front; the paged layout replaces the per-lane tensor with
 a shared pool of fixed-size blocks:
 
@@ -106,6 +107,12 @@ class BlockAllocator:
         self.hits = 0          # lookup chains that matched at least a block
         self.misses = 0
         self.cache_evictions = 0
+        # optional hook fired as ``on_evict(block, key)`` when an LRU cached
+        # block is reclaimed for reuse: before its index entry drops and
+        # before the new owner writes, so the host tier can still read the
+        # block's KV (the second-level prefix cache: reclaimed chains spill
+        # instead of dying)
+        self.on_evict = None
 
     @property
     def capacity(self) -> int:
@@ -145,6 +152,8 @@ class BlockAllocator:
             b = self._free.pop(0)
         elif self._cached:
             b, _ = self._cached.popitem(last=False)   # evict LRU cached
+            if self.on_evict is not None:
+                self.on_evict(b, self._block_key.get(b))
             self._forget(b)
             self.cache_evictions += 1
         else:
@@ -198,6 +207,10 @@ class BlockAllocator:
     def indexed(self, key: bytes) -> bool:
         """Whether a chain key is indexed (no hit/miss counting)."""
         return key in self._index
+
+    def block_of(self, key: bytes) -> int | None:
+        """The block indexed under ``key``, or None (no hit/miss counting)."""
+        return self._index.get(key)
 
     def lookup(self, keys: list[bytes]) -> list[int]:
         """Longest indexed chain prefix of ``keys`` (no refs taken —
@@ -297,6 +310,251 @@ class SlotTables:
             for b, n in counts.items():
                 assert refcount(b) >= n, (
                     f"block {b} mapped {n}x but refcount {refcount(b)}")
+
+
+# ---------------------------------------------------------------------------
+# Host-RAM tier
+# ---------------------------------------------------------------------------
+
+
+def _tree_nbytes(tree: dict) -> int:
+    """Bytes of a payload's leaves (host tensors or numpy arrays: both have
+    ``nbytes``, the view's own size for a view)."""
+    return sum(int(a.nbytes) for a in tree.values())
+
+
+class LaneSpill:
+    """One preempted or parked lane's decode state, resident in host RAM.
+
+    ``kind`` selects the payload:
+
+    * ``"paged"``: ``blocks`` is one ``{leaf: tensor}`` per mapped block,
+      in logical order (the lane's KV, block by block);
+    * ``"lane"``: ``leaves`` is one ``{leaf: tensor}`` lane slice (the
+      slotted KV segment and/or recurrent leaves, per
+      ``registry.lane_leaf_axes``).
+
+    ``prefilled``/``generated`` pin the schedule position the payload
+    holds: a restore writes it back and resumes decode at
+    ``prompt[plen + generated - 1]``, the input the lane would have fed
+    next, so the continuation is bitwise the never-evicted one.
+    """
+
+    __slots__ = ("rid", "kind", "prefilled", "generated", "blocks", "leaves", "nbytes")
+
+    def __init__(self, rid: int, kind: str, prefilled: int, generated: int,
+                 blocks: list | None = None, leaves: dict | None = None):
+        self.rid = rid
+        self.kind = kind
+        self.prefilled = prefilled
+        self.generated = generated
+        self.blocks = blocks or []
+        self.leaves = leaves
+        self.nbytes = sum(_tree_nbytes(t) for t in self.blocks + [self.leaves or {}])
+
+
+class HostTier:
+    """Second-level store for KV and decode state in host RAM.
+
+    Two payload families share one bounded pool:
+
+    * **lane spills** (:class:`LaneSpill`, keyed by request id): a
+      preempted or parked lane's whole decode state, restored O(copy) at
+      resume instead of replaying its generated tokens;
+    * **prefix blocks** (keyed by :class:`BlockAllocator`'s chain keys):
+      LRU-reclaimed prefix-cache blocks spill here instead of dying, so
+      the tier is a second-level prefix cache that admission consults.
+
+    Capacity is counted in **block units** (``capacity_blocks``; None =
+    unbounded): each paged payload block is one unit, and prefix blocks
+    are the only evictable residents (a lane spill pins its units until
+    it is restored or dropped: it backs an in-flight request).  Whole-lane
+    spills (``kind == "lane"``) are outside the block budget; the lane
+    count bounds them.
+
+    One tier may be shared by several engines: request ids are unique
+    across them and payloads are plain host tensors, so one engine's
+    spill restores on another.
+
+    Conservation: attached to an allocator, the device's three block
+    states gain a fourth, *spilled*; :func:`check_tiered` sweeps
+    ``free + live + cached + spilled == capacity`` across both pools.
+    """
+
+    def __init__(self, capacity_blocks: int | None = None):
+        if capacity_blocks is not None and capacity_blocks < 0:
+            raise ValueError(f"capacity_blocks must be >= 0, got {capacity_blocks}")
+        self.capacity_blocks = capacity_blocks
+        self._lanes: dict[int, LaneSpill] = {}
+        self._prefix: OrderedDict[bytes, dict] = OrderedDict()  # LRU
+        self._bytes = 0
+        # monotone counters (the engine folds them into its stats)
+        self.lane_spills = 0
+        self.lane_restores = 0
+        self.prefix_spills = 0
+        self.prefix_hits = 0
+        self.drops = 0          # payloads refused, or LRU-dropped for room
+        self.spilled_bytes = 0
+        self.restored_bytes = 0
+
+    # -- accounting -----------------------------------------------------
+    @property
+    def spilled_blocks(self) -> int:
+        """Block units resident (prefix blocks + paged lane blocks)."""
+        return len(self._prefix) + sum(len(sp.blocks) for sp in self._lanes.values())
+
+    @property
+    def spilled_lanes(self) -> int:
+        return len(self._lanes)
+
+    @property
+    def host_free(self) -> int | None:
+        """Remaining block units (None when unbounded)."""
+        if self.capacity_blocks is None:
+            return None
+        return self.capacity_blocks - self.spilled_blocks
+
+    @property
+    def used_bytes(self) -> int:
+        return self._bytes
+
+    def _make_room(self, units: int) -> bool:
+        """Free ``units`` block units by LRU-dropping prefix blocks; lane
+        spills are never evicted (they back in-flight requests)."""
+        if self.capacity_blocks is None:
+            return True
+        while self.capacity_blocks - self.spilled_blocks < units and self._prefix:
+            _, payload = self._prefix.popitem(last=False)
+            self._bytes -= _tree_nbytes(payload)
+            self.drops += 1
+        return self.capacity_blocks - self.spilled_blocks >= units
+
+    # -- lane spills ----------------------------------------------------
+    def put_lane(self, sp: LaneSpill) -> bool:
+        """Admit a lane spill (replacing an older one of the same rid);
+        False if the tier cannot make room (the resume then replays)."""
+        old = self._lanes.pop(sp.rid, None)
+        if old is not None:
+            self._bytes -= old.nbytes
+        if not self._make_room(len(sp.blocks)):
+            self.drops += 1
+            return False
+        self._lanes[sp.rid] = sp
+        self._bytes += sp.nbytes
+        self.lane_spills += 1
+        self.spilled_bytes += sp.nbytes
+        return True
+
+    def has_lane(self, rid: int) -> bool:
+        return rid in self._lanes
+
+    def peek_lane(self, rid: int) -> LaneSpill | None:
+        return self._lanes.get(rid)
+
+    def pop_lane(self, rid: int) -> LaneSpill | None:
+        """Remove and return a lane spill (a restore's commit)."""
+        sp = self._lanes.pop(rid, None)
+        if sp is not None:
+            self._bytes -= sp.nbytes
+            self.lane_restores += 1
+            self.restored_bytes += sp.nbytes
+        return sp
+
+    def drop_lane(self, rid: int) -> None:
+        """Discard a lane spill without restoring it (a terminal request,
+        or a faulted lane whose state is suspect)."""
+        sp = self._lanes.pop(rid, None)
+        if sp is not None:
+            self._bytes -= sp.nbytes
+
+    # -- prefix blocks --------------------------------------------------
+    def put_block(self, key: bytes, payload: dict) -> bool:
+        """Admit one reclaimed prefix block under its chain ``key``."""
+        if key in self._prefix:
+            self._prefix.move_to_end(key)             # already resident
+            return True
+        if not self._make_room(1):
+            self.drops += 1
+            return False
+        nb = _tree_nbytes(payload)
+        self._prefix[key] = payload
+        self._bytes += nb
+        self.prefix_spills += 1
+        self.spilled_bytes += nb
+        return True
+
+    def has_block(self, key: bytes) -> bool:
+        return key in self._prefix
+
+    def match_chain(self, keys: list[bytes], start: int = 0) -> int:
+        """How many consecutive chain keys of ``keys[start:]`` are resident
+        here: the tier's extension of a device chain match."""
+        n = 0
+        for k in keys[start:]:
+            if k not in self._prefix:
+                break
+            n += 1
+        return n
+
+    def pop_block(self, key: bytes) -> dict | None:
+        """Remove and return a prefix block (restored to the device and
+        published there: move semantics keep one owner per chain key)."""
+        payload = self._prefix.pop(key, None)
+        if payload is not None:
+            nb = _tree_nbytes(payload)
+            self._bytes -= nb
+            self.prefix_hits += 1
+            self.restored_bytes += nb
+        return payload
+
+    def discard_block(self, key: bytes) -> None:
+        """Drop a host copy without restoring it: the same chain key was
+        published on the device again, and each key has one owner."""
+        payload = self._prefix.pop(key, None)
+        if payload is not None:
+            self._bytes -= _tree_nbytes(payload)
+
+    def check(self) -> None:
+        """Invariant sweep: the byte tally matches the payloads, and a
+        bounded tier stays inside its block budget."""
+        nb = sum(sp.nbytes for sp in self._lanes.values()) + sum(
+            _tree_nbytes(p) for p in self._prefix.values())
+        assert nb == self._bytes, f"tier byte tally {self._bytes} != {nb}"
+        for rid, sp in self._lanes.items():
+            assert sp.rid == rid and sp.kind in ("paged", "lane")
+            assert (sp.kind == "paged") == (sp.leaves is None)
+        if self.capacity_blocks is not None:
+            assert self.spilled_blocks <= self.capacity_blocks, (
+                f"tier over budget: {self.spilled_blocks} block units > "
+                f"{self.capacity_blocks}")
+
+
+def check_tiered(alloc: BlockAllocator, tier: HostTier | None) -> None:
+    """Four-state conservation across the device pool and the host tier.
+
+    Each pool keeps its own partition (``free + live + cached ==
+    capacity`` on the device, ``spilled + host_free == capacity_blocks``
+    on a bounded tier), and every chain key has one owner: indexed on the
+    device **xor** resident in the tier (a spill moves it out, a promotion
+    moves it back, a republish discards the host copy).  Together:
+    ``free + live + cached + spilled == capacity`` over both pools with
+    no block counted twice.
+    """
+    alloc.check()
+    if tier is None:
+        return
+    tier.check()
+    both = set(alloc._index) & set(tier._prefix)
+    assert not both, f"{len(both)} chain keys owned by device index AND host tier"
+    if tier.capacity_blocks is None:
+        return
+    total = alloc.num_free + alloc.in_use + alloc.num_cached \
+        + tier.spilled_blocks + tier.host_free
+    assert total == alloc.capacity + tier.capacity_blocks, (
+        f"tiered conservation broken: free {alloc.num_free} + live "
+        f"{alloc.in_use} + cached {alloc.num_cached} + spilled "
+        f"{tier.spilled_blocks} + host_free {tier.host_free} != "
+        f"{alloc.capacity + tier.capacity_blocks}")
 
 
 # ---------------------------------------------------------------------------

@@ -189,9 +189,22 @@ def test_sampled_requests_are_seeded(models):
     ("park_idle_s", 1.0),
 ])
 def test_unported_options_raise(models, field, value):
+    """Speculative decoding is still not ported and raises; the host tier,
+    host sampling and hold/park are, and construct (``park_idle_s`` only
+    with a tier, as in the reference)."""
     _, _, tcfg, tp, prompts = models
-    with pytest.raises(NotImplementedError, match=field):
-        ServeEngine(tcfg, tp, EngineConfig(**{field: value}), device="cpu")
+    if field.startswith("spec"):
+        with pytest.raises(NotImplementedError, match=field):
+            ServeEngine(tcfg, tp, EngineConfig(**{field: value}), device="cpu")
+        return
+    extra = {}
+    if field == "park_idle_s":
+        with pytest.raises(ValueError, match="requires host_tier"):
+            ServeEngine(tcfg, tp, EngineConfig(**{field: value}), device="cpu")
+        extra = dict(host_tier=True)
+    eng = ServeEngine(tcfg, tp, EngineConfig(**{field: value}, **extra), device="cpu")
+    assert getattr(eng.econ, field) == value
+    assert eng.run(prompts[:2], max_new_tokens=3)[0].size == 3
 
 
 def test_launcher_runs_on_cpu(capsys):
