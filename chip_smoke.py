@@ -149,6 +149,25 @@ Phases (any failure raises and the script exits non-zero):
    logits, the host samples): greedy streams phase 3's bitwise, one decode
    graph, launches as the counters predict; tokens/s and the decode step
    beside phase 3's, and the logits bytes fetched per step.
+3j. Phase 3's engine with speculative decoding (``SPEC_K`` 3; the draft
+   is the same config, its weights moved ``DRAFT_ALPHA`` 0.15 toward an
+   init from seed 1): every round is one replay of the spec graph (k + 1
+   draft steps and the k + 1 verify steps); 8 rounds run the eager spec
+   program on a deep clone beside the replay on the state, rows and every
+   leaf bitwise equal; every stream equals phase 3's bitwise; builds 1 spec
+   program and a prefill and a draft prefill per bucket, flat on a second
+   serve, one spec graph; launches and counter identities as predicted
+   (``spec_launches``, ``spec_identities``). Prints tokens/s beside phase
+   3's, the acceptance rate and tokens a lane a round, a profiled round
+   (launches, device ms, idle share, one replay's host ms) and its
+   breakdown (a draft step, a verify step, rollback; ``spec_breakdown``).
+3k. 3f's engine with speculation: preemptions land mid-round and each
+   resume restores by copy and rebuilds the draft by one draft prefill; 0
+   replayed tokens; streams phase 3's bitwise.
+3l. 3b's engine with speculation, invariants after every step (rejected
+   writes never land in a shared block): every request ``ok``; a request
+   whose prefills start where they started in 3b gives 3b's stream, one
+   whose start moved its ``prefix_witness``'s.
 4. Train full-width ``smollm-360m`` (seed 0, bf16 compute, both kernels)
    over a 1-rank NCCL group at seq 1024, global batch 8, 2 slices, remat:
    the faithful program for 6 steps and ZeRO for 3, through
@@ -201,6 +220,12 @@ Phases (any failure raises and the script exits non-zero):
    sweep after every step.  Prints the release's host ms, and the lane
    transport alone after the run (a read and a write, host ms and GB/s)
    beside a plain pinned ``copy_`` of the same bytes.
+5d. Phase 5's engine with speculation (a zamba draft moved
+   ``ZAMBA_DRAFT_ALPHA`` 0.02) and 5b's two preemptions mid-round: both
+   sides roll recurrent state back through snapshot buffers allocated once
+   (their bytes printed); the spec graph check; streams phase 5's bitwise;
+   the draft's dead recurrent lanes zero after every round; builds flat;
+   launches as predicted; the profiled round and its breakdown.
 6. The function API (``repro_torch.core``) on the card, one worker
    (``fork()``): (a) the paper's Appendix A program (``examples/
    synk_sgd.py`` in the port's API: a CNN trained by ``synk.function`` on
@@ -215,7 +240,8 @@ Phases (any failure raises and the script exits non-zero):
    1e-4 (relative); the flash and RMSNorm launches per call equal their
    formulas; one build per signature and resident parameters skipped.
 7. Print the launches, device ms and idle share of the profiled dense and
-   zamba decode steps and zamba prefill, the seconds of each phase, the
+   zamba decode steps and zamba prefill (the spec rounds' print with
+   their phases), the seconds of each phase, the
    card's name and power limit, one
    ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
    {...}}``.  Details go to ``results.json`` in ``OUT_DIR``.
@@ -886,7 +912,7 @@ class StepClock:
 
 def serve(torch, cfg, params, reqs, engine_cfg, dev, *, check: bool = False,
           prebuild: bool = False, faults=None, deadlines: dict | None = None,
-          host_tier=None, after_step=None):
+          host_tier=None, after_step=None, draft_params=None, engine_cls=None):
     """Submit every request at once and drain; returns (engine, rids,
     per-step host times in ms, whether each step ran a prefill chunk, wall
     seconds): one synchronized span over the whole drain loop. ``check``
@@ -895,12 +921,15 @@ def serve(torch, cfg, params, reqs, engine_cfg, dev, *, check: bool = False,
     end) is taken out of the wall time.  ``prebuild`` builds every program
     first; ``faults`` is the engine's ``FaultPlan``; ``deadlines`` maps a
     request's index to its ``deadline_s``, on a ``StepClock``;
-    ``host_tier`` is the engine's ``HostTier`` instance."""
+    ``host_tier`` is the engine's ``HostTier`` instance; ``draft_params``
+    the spec engine's draft weights; ``engine_cls`` a ``ServeEngine``
+    subclass to build."""
     from repro_torch.serve import ServeEngine
 
     clock = StepClock()
-    eng = ServeEngine(cfg, params, engine_cfg, device=dev, faults=faults, host_tier=host_tier,
-                      **(dict(clock=clock) if deadlines else {}))
+    eng = (engine_cls or ServeEngine)(cfg, params, engine_cfg, device=dev, faults=faults,
+                                      host_tier=host_tier, draft_params=draft_params,
+                                      **(dict(clock=clock) if deadlines else {}))
     if prebuild:
         eng.prebuild()
         built = eng.stats["builds"]
@@ -1154,10 +1183,12 @@ def main_path(torch, dev, results):
     return launches
 
 
-def program_builds(eng, reqs) -> dict:
-    """The engine's program cache after a run: one decode program and one
-    prefill per prompt bucket the run used, one decode graph, then flat
-    while the engine serves four of the requests again (``steady_builds``)."""
+def program_builds(eng, reqs, per_bucket: int = 1) -> dict:
+    """The engine's program cache after a run without restores: one decode
+    (or spec) program and ``per_bucket`` programs per prompt bucket the run
+    used (a prefill; speculating, also a draft prefill), one graph, then
+    flat while the engine serves four of the requests again
+    (``steady_builds``)."""
     from repro_torch.serve import bucket_for
 
     st = eng.stats
@@ -1165,7 +1196,8 @@ def program_builds(eng, reqs) -> dict:
     out = dict(builds=st["builds"], cache_hits=st["cache_hits"],
                executables=st["executables"], graphs=st["graphs"], buckets=buckets,
                decode_build_s=list(eng.graphs.build_seconds.values()))
-    assert st["builds"] == st["executables"] == 1 + len(buckets) and st["graphs"] == 1, out
+    assert st["builds"] == st["executables"] == 1 + per_bucket * len(buckets) \
+        and st["graphs"] == 1, out
     out["steady"] = steady_builds(eng, reqs[:4])
     return out
 
@@ -1401,12 +1433,12 @@ def feature_launches(st) -> dict:
             **dense_norms(st["prefill_chunks"], st["decode_steps"])}
 
 
-def feature_run(torch, cfg, params, reqs, ec, dev, **kw) -> dict:
+def feature_run(torch, cfg, params, reqs, ec, dev, predict=feature_launches, **kw) -> dict:
     """One full-width paged run with the invariants swept after every step
     and every program built first: the launch counts (set to 0 just
-    before) must equal what the engine's counters predict, the program
-    cache stay flat, and the engine capture one decode graph.  Returns
-    (figures, streams, statuses, engine)."""
+    before) must equal what the engine's counters predict (``predict``),
+    the program cache stay flat, and the engine capture one decode (or
+    spec) graph.  Returns (figures, streams, statuses, engine)."""
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.paged_attention.ops import paged_attention
     from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_add
@@ -1419,7 +1451,7 @@ def feature_run(torch, cfg, params, reqs, ec, dev, **kw) -> dict:
                                               prebuild=True, **kw)
     launches = {k.__name__: k.launches for k in kernels}
     st = eng.stats
-    want = feature_launches(st)
+    want = predict(st)
     assert launches == want and st["decode_steps"] > 0, (launches, want, st)
     # builds flat after prebuild() (``serve`` checks), one decode graph
     assert st["graphs"] == 1, st
@@ -1431,7 +1463,8 @@ def feature_run(torch, cfg, params, reqs, ec, dev, **kw) -> dict:
             "preemptions", "resumed", "replayed_tokens", "retries", "faults_injected",
             "faults_detected", "admitted", "evicted", "builds", "graphs",
             "kv_peak_used_bytes", *(f"status_{x}" for x in ("ok", "timeout", "cancelled",
-                                                            "failed")))
+                                                            "failed")),
+            *(SPEC_KEYS if eng.spec else ()))
     out = dict(requests=len(comps), tokens=tokens, wall_s=wall, tokens_per_s=tokens / wall,
                steps=len(steps), decode_only_steps=len(decode_only),
                decode_step_ms_median=float(np.median(decode_only)) if decode_only else None,
@@ -1606,7 +1639,11 @@ def feature_path(torch, dev, results):
     out = {}
 
     # 3b: chunked prefill, the prefix cache and preempt admission together
-    b, streams_b, status_b, _ = feature_run(torch, cfg, params, reqs, feature_engine(), dev)
+    # (the engine logs where each prefill starts, for phase 3l)
+    b, streams_b, status_b, eng_b = feature_run(torch, cfg, params, reqs, feature_engine(), dev,
+                                                engine_cls=start_log_engine())
+    results["phase3b_starts"] = eng_b.prefill_starts(len(reqs))
+    del eng_b
     c = b["counters"]
     short = [(i, len(t), bud) for i, (t, (_, bud)) in enumerate(zip(streams_b, reqs))
              if len(t) != bud]
@@ -2113,6 +2150,494 @@ def tier_path(torch, dev, results):
 
 
 # ---------------------------------------------------------------------------
+# Phases 3j-3l and 5d: speculative decoding
+# ---------------------------------------------------------------------------
+
+SPEC_K = 3                    # draft proposals a lane a round
+DRAFT_SEED = 1                # the drafts' fresh init
+DRAFT_ALPHA = 0.15            # the dense draft: (1 - a) x phase 3's weights + a x that init
+ZAMBA_DRAFT_ALPHA = 0.02      # the zamba draft's mix (the reference's for recurrent state)
+SPEC_KEYS = ("spec_steps", "spec_rounds", "spec_drafted", "spec_accepted", "spec_rejected",
+             "spec_committed", "spec_draft_prefills", "releases")
+SPEC_PROFILE_ROUNDS = 3
+
+
+def laps():
+    """``lap(name)`` records the seconds since the previous lap (or since
+    ``laps()``) under ``name`` and returns the dict of laps so far."""
+    last, out = [time.perf_counter()], {}
+
+    def lap(name):
+        now = time.perf_counter()
+        out[name], last[0] = now - last[0], now
+        return out
+    return lap
+
+
+def start_log_engine():
+    """A ``ServeEngine`` that logs where each prefill of a request starts
+    (the prompt positions its prefix-cache match covered) and counts the
+    resumes a prefix chain restores without a prefill (``chain_restores``).
+    It changes nothing the engine computes."""
+    from repro_torch.serve import ServeEngine
+
+    class StartLog(ServeEngine):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.starts, self.chain_restores = [], 0
+
+        def _match_prefix(self, slot, prompt):
+            start = super()._match_prefix(slot, prompt)
+            self.starts.append((self.slots[slot].rid if self.slots[slot] else None, start))
+            return start
+
+        def _try_restore(self, slot, req):
+            ok = super()._try_restore(slot, req)
+            self.chain_restores += ok
+            return ok
+
+        def prefill_starts(self, n: int) -> list:
+            """[the starts of request i's prefills, in order] for rids 0..n-1."""
+            out = [[] for _ in range(n)]
+            for rid, start in self.starts:
+                out[rid].append(start)
+            return out
+
+    return StartLog
+
+
+def draft_params_for(cfg, params, alpha: float, dev):
+    """The phases' draft: the target's config, its weights moved ``alpha``
+    toward an init from ``DRAFT_SEED`` (the launcher's ``draft_mix``)."""
+    from repro_torch.launch.serve import draft_mix
+
+    return draft_mix(cfg, params, alpha, DRAFT_SEED, dev)
+
+
+def spec_launches(st) -> dict:
+    """What a dense spec run's counters predict of its launches: flash on
+    each chunk that starts at 0 and each draft prefill (32 layers each),
+    paged attention on each of a round's ``SPEC_K + 1`` verify steps, the
+    norms on each chunk and draft prefill and on each of a round's
+    ``2 (SPEC_K + 1)`` decode steps (the draft's and the verify ladder's)."""
+    steps = (SPEC_K + 1) * st["spec_steps"]
+    return {"flash_attention": N_LAYERS * (st["prefill_first_chunks"] + st["spec_draft_prefills"]),
+            "paged_attention": N_LAYERS * steps,
+            **dense_norms(st["prefill_chunks"] + st["spec_draft_prefills"], 2 * steps)}
+
+
+def spec_identities(eng) -> dict:
+    """The counter identities of a spec run whatever the draft accepts:
+    one round a decode step; one draft prefill for each completed prefill,
+    tier restore, prefix-chain restore and release (``start_log_engine``
+    counts the chain restores); ``SPEC_K`` drafted a lane-round when no
+    lane replays; at least one token committed a lane-round."""
+    st = eng.stats
+    chain = getattr(eng, "chain_restores", 0)
+    out = dict(spec_steps=st["spec_steps"], decode_steps=st["decode_steps"],
+               draft_prefills=st["spec_draft_prefills"], prefills=st["prefills"],
+               restores=st["restores"], chain_restores=chain, releases=st["releases"])
+    assert st["spec_steps"] == st["decode_steps"] > 0, out
+    assert st["spec_draft_prefills"] == st["prefills"] + st["restores"] + chain \
+        + st["releases"], out
+    assert 0 <= st["spec_accepted"] <= st["spec_drafted"], st
+    assert st["spec_committed"] >= st["spec_rounds"], st
+    if st["replayed_tokens"] == 0:
+        assert st["spec_drafted"] == SPEC_K * st["spec_rounds"], st
+    return out
+
+
+def spec_figures(st) -> dict:
+    return dict(spec_acceptance_rate=st["spec_acceptance_rate"],
+                tokens_per_decode_dispatch=st["tokens_per_decode_dispatch"],
+                **{k: st[k] for k in SPEC_KEYS})
+
+
+def round_summary(profile: dict) -> dict:
+    """A profiled round's headline figures (``profile_spec``)."""
+    b = profile["breakdown"]
+    return {k: profile.get(k) for k in ("kernel_launches_per_round", "device_ms_per_round",
+                                        "replay_host_ms_median", "device_idle_share")} | {
+        k: b[k] for k in ("draft_ms", "verify_ms", "rollback_ms")}
+
+
+def spec_graph_check(torch, cfg, params, dparams, reqs, ec, dev, steps: int = 8):
+    """The captured spec graph against the eager spec program, as
+    ``graph_check`` holds the decode graph: 8 lanes admitted, the first
+    round builds the graph, then ``steps`` rounds each run the eager
+    program on a deep clone of the state and replay the graph on the state
+    itself.  The rows and every leaf (the draft's cache, its snapshots and
+    ``keep`` included) must be bitwise equal.  Returns (figures, the
+    engine, its lanes still decoding, for ``profile_spec``)."""
+    from repro_torch.core.aot import CudaGraphProgram
+    from repro_torch.serve import ServeEngine
+
+    eng = ServeEngine(cfg, params, ec, device=dev, draft_params=dparams)
+    for p, b in reqs[:MAX_SLOTS]:
+        eng.submit(p, max_new_tokens=b)
+    while eng.counters["decode_steps"] < 1:
+        eng.step()
+    flags = dict(stochastic=False, masked=False)
+    graph = eng._spec_entry(**flags)
+    assert isinstance(graph, CudaGraphProgram), type(graph)
+    assert eng.stats["graphs"] == 1, eng.stats
+    eager = eng.spec_program(**flags)
+    bad = []
+
+    def checked(params, dparams, state):
+        step = graph.replays
+        clone = clone_state(torch, state)
+        want = eager(params, dparams, clone)
+        got = graph(params, dparams, state)
+        torch.cuda.synchronize()
+        if not bitwise_equal(torch, got, want):
+            bad.append((step, "rows"))
+        bad.extend((step, name) for (name, a), (_, b) in zip(state_leaves(torch, state),
+                                                            state_leaves(torch, clone))
+                   if not bitwise_equal(torch, a, b))
+        return got
+
+    eng._spec_entry = lambda **flags: checked
+    try:
+        for _ in range(steps):
+            eng.step()
+    finally:
+        del eng._spec_entry         # the engine's own method again
+    out = dict(steps=steps, lanes=MAX_SLOTS, replays=graph.replays, mismatches=bad,
+               leaves=len(list(state_leaves(torch, eng.state))),
+               graph_build_s=list(eng.graphs.build_seconds.values())[0],
+               launches_counted_per_replay=[(c.__name__, n) for c, n in graph.launches])
+    log(f"spec graph check: {json.dumps(out)}")
+    assert not bad and graph.replays == steps, out
+    return out, eng
+
+
+def spec_breakdown(torch, eng, iters: int = 3) -> dict:
+    """Where a round's device time goes, each part timed alone
+    (``device_profile``) on a deep clone of the engine's state: one draft
+    decode step and one verify step, each times the round's ``SPEC_K + 1``,
+    and the recurrent snapshots and rollbacks of both sides (none for a KV
+    model: rejected positions are truncated, no work).  Also the draft
+    step's largest device kernels (its attention runs plain over
+    ``max_len`` positions a lane: no kernel)."""
+    from repro_torch.models import registry
+
+    e = eng.econ
+    cfg, dcfg = eng.cfg, e.spec_draft
+    mod, dmod = registry.get_module(cfg), registry.get_module(dcfg)
+    st = clone_state(torch, eng.state)
+    tok, lengths, mask = st["tokens"], st["lengths"], st["active"]
+    bufs = st["spec"]
+
+    def draft():
+        dmod.decode_step(dcfg, eng.draft_params, st["draft"], tok, lengths)
+
+    def verify():
+        if eng.paged:
+            mod.decode_step_paged(cfg, eng.params, st["cache"], tok, lengths, st["tables"],
+                                  impl=e.paged_attn)
+        else:
+            mod.decode_step(cfg, eng.params, st["cache"], tok, lengths)
+
+    def rollback():
+        # the spec program's snapshot, select and freeze traffic, both sides
+        rec, drec, cache, dcache = eng.rec, eng._draft_rec, st["cache"], st["draft"]
+        if rec:
+            rec.snapshot(cache, bufs["keep"])
+            for _ in range(SPEC_K + 1):
+                rec.rollback(bufs["keep"], cache, mask)
+            rec.snapshot(bufs["keep"], cache)
+            rec.freeze(cache, mask)
+        if drec:
+            dst = bufs["dstates"]
+            for i in range(SPEC_K):
+                drec.snapshot(dcache, {n: b[i] for n, b in dst.items()})
+            sel = {n: b[0] for n, b in dst.items()}
+            for j in range(1, SPEC_K):
+                drec.rollback(sel, {n: b[j] for n, b in dst.items()}, mask)
+            drec.rollback(dcache, sel, mask)
+            drec.freeze(dcache, mask)
+
+    draft_ms, draft_kernels = device_profile(torch, draft, iters)
+    verify_ms = device_ms(torch, verify, iters)
+    per_round = lambda ms: None if ms is None else ms * (SPEC_K + 1)
+    out = dict(draft_step_ms=draft_ms, verify_step_ms=verify_ms,
+               draft_ms=per_round(draft_ms), verify_ms=per_round(verify_ms),
+               rollback_ms=device_ms(torch, rollback, iters) if (eng.rec or eng._draft_rec)
+               else 0.0,
+               draft_step_top=sorted(({"name": k[:80], "ms_per_step": v["ms"],
+                                       "calls_per_step": v["calls"]}
+                                      for k, v in draft_kernels.items()),
+                                     key=lambda d: -d["ms_per_step"])[:6])
+    del st
+    return out
+
+
+def profiled(torch, run) -> list:
+    """The device kernels (``key_averages`` entries) ``run()`` launched,
+    recorded by ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+
+
+def profile_spec(torch, eng, steps: int = SPEC_PROFILE_ROUNDS):
+    """Profiled spec rounds on ``eng`` (``spec_graph_check``'s engine, its
+    lanes mid-decode), as ``profile_decode`` profiles a decode step: rounds
+    timed unprofiled, then profiled (``torch.profiler``: launches, device
+    ms, idle share against the unprofiled time); the port's kernels in the
+    profiled replays equal, wrapper by wrapper, the launches the graph adds
+    on each replay; the host ms of one replay alone; and the round's
+    breakdown (``spec_breakdown``)."""
+    lap = laps()
+    lanes = sum(s is not None for s in eng.slots)
+    rounds0 = eng.counters["decode_steps"]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(steps):
+        eng.step()
+    torch.cuda.synchronize()
+    round_ms = (time.perf_counter() - t) * 1e3 / steps
+    kernels = profiled(torch, lambda: [eng.step() for _ in range(steps)])
+    assert eng.counters["decode_steps"] == rounds0 + 2 * steps and not eng.queue, eng.counters
+    replay = eng._spec_entry(stochastic=False, masked=False)
+    counted = {c.__name__: n for c, n in replay.launches}
+    replay_ms = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        replay(eng.params, eng.draft_params, eng.state)
+        replay_ms.append((time.perf_counter() - t) * 1e3)
+    torch.cuda.synchronize()
+    lap("rounds")
+    out = dict(rounds=steps, lanes=lanes, round_ms_unprofiled=round_ms,
+               replay_host_ms=replay_ms, replay_host_ms_median=float(np.median(replay_ms)),
+               counted_launches_per_replay=counted,
+               breakdown=spec_breakdown(torch, eng))
+    out["seconds"] = lap("breakdown")
+    if kernels:
+        measured = replay_launches(kernels, steps)
+        assert measured == counted, (measured, counted)
+        total_us = sum(e.self_device_time_total for e in kernels)
+        out.update(device_ms_per_round=total_us / 1e3 / steps,
+                   device_idle_share=1 - total_us / 1e3 / steps / round_ms,
+                   kernel_launches_per_round=sum(e.count for e in kernels) / steps,
+                   replay_launches_per_round=measured,
+                   top=[dict(name=e.key[:80], calls_per_round=e.count / steps,
+                             ms_per_round=e.self_device_time_total / 1e3 / steps)
+                        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]])
+    else:
+        log("spec profile: torch.profiler recorded no device activity (not measured)")
+    log(f"spec round profile: {json.dumps(out)}")
+    return out
+
+
+def spec_path(torch, dev, results):
+    """Phases 3j-3l on full-width smollm-360m (seed-0 weights, bf16, the
+    kernel path) with speculative decoding, ``SPEC_K`` 3 and a draft of
+    the same config moved ``DRAFT_ALPHA`` toward an init from seed 1.
+    Returns each phase's launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.serve import EngineConfig
+
+    lap = laps()
+    base = get_config("smollm-360m")
+    cfg = dataclasses.replace(base, attn_impl="kernel")
+    params = lm.init(cfg, seed=0, device=dev)
+    dparams = draft_params_for(cfg, params, DRAFT_ALPHA, dev)
+    lap("weights")
+    phase3, want3 = requests(cfg.vocab), results["phase3_streams"]
+    spec = dict(spec_draft=cfg, spec_k=SPEC_K)
+    out, launches = {}, {}
+
+    # 3j: phase 3's engine with speculation
+    ec = EngineConfig(max_slots=MAX_SLOTS, max_len=MAX_LEN, kv_layout="paged", page_size=PAGE,
+                      paged_attn="kernel", **spec)
+    graph, checked = spec_graph_check(torch, cfg, params, dparams, phase3, ec, dev)
+    lap("3j graph check")
+    profile = profile_spec(torch, checked)
+    del checked
+    lap("3j profile")
+    kernels = dense_launch_kernels()
+    for k in kernels:
+        k.launches = 0
+    eng, rids, steps, prefilled, wall = serve(torch, cfg, params, phase3, ec, dev, check=True,
+                                              draft_params=dparams)
+    st = eng.stats
+    lj = {k.__name__: k.launches for k in kernels}
+    streams = [list(eng.completions[r].tokens) for r in rids]
+    tokens = sum(len(x) for x in streams)
+    decode_only = [t for t, p in zip(steps, prefilled) if not p]
+    j = dict(tokens=tokens, wall_s=wall, tokens_per_s=tokens / wall,
+             tokens_per_s_phase3=results["main_path"]["tokens_per_s"],
+             round_ms_median=float(np.median(decode_only)),
+             decode_step_ms_median_phase3=results["main_path"]["decode_step_ms_median"],
+             identical_to_phase3=sum(x == y for x, y in zip(streams, want3)),
+             launches=lj, identities=spec_identities(eng), **spec_figures(st),
+             graph_check=graph)
+    assert lj == spec_launches(st), (lj, spec_launches(st), st)
+    j["programs"] = program_builds(eng, phase3, per_bucket=2)
+    j["profile"] = profile
+    del eng
+    lap("3j run")
+    card = results["nvidia_smi"]
+    rounds = round_summary(profile)
+    log(f"3j spec on phase 3's engine (k {SPEC_K}, alpha {DRAFT_ALPHA}) [{card}]: {tokens} "
+        f"tokens in {wall:.3f} s = {j['tokens_per_s']:.1f} tok/s (phase 3 "
+        f"{j['tokens_per_s_phase3']:.1f}); acceptance {j['spec_acceptance_rate']:.4f}, tokens a "
+        f"lane a round {j['tokens_per_decode_dispatch']:.4f}; a round {json.dumps(rounds)}; "
+        f"{json.dumps(j)}")
+    assert j["identical_to_phase3"] == len(phase3), j
+    out["3j"], launches["3j"] = j, lj
+
+    # 3k: 3f's engine (3c's tight pool, preempt admission, the host tier)
+    # with speculation: preemptions land mid-round, resumes restore by copy
+    # and rebuild the draft by one draft prefill
+    ec_k = feature_engine(prefill_chunk=0, prefix_cache=False, host_tier=True, **spec)
+    k, streams_k, _, eng = feature_run(torch, cfg, params, phase3, ec_k, dev,
+                                       predict=spec_launches, draft_params=dparams)
+    k["identities"] = spec_identities(eng)
+    k.update(spec_figures(eng.stats), tokens_per_s_3f=results["tier"]["3f"]["tokens_per_s"],
+             identical_to_phase3=sum(x == y for x, y in zip(streams_k, want3)))
+    del eng
+    c = k["counters"]
+    log(f"3k spec on 3f's engine [{card}]: {k['tokens']} tokens in {k['wall_s']:.3f} s = "
+        f"{k['tokens_per_s']:.1f} tok/s (3f {k['tokens_per_s_3f']:.1f}); acceptance "
+        f"{k['spec_acceptance_rate']:.4f}, tokens a lane a round "
+        f"{k['tokens_per_decode_dispatch']:.4f}; a round (3j's program and shapes) "
+        f"{json.dumps(rounds)}; {json.dumps(k)}")
+    assert k["identical_to_phase3"] == len(phase3), k
+    assert c["preemptions"] > 0 and c["replayed_tokens"] == 0, c
+    assert c["prefills"] == len(phase3) and c["resumed"] == k["identities"]["restores"], k
+    out["3k"], launches["3k"] = k, k["launches"]
+    lap("3k")
+
+    # 3l: 3b's engine (chunked prefill, the prefix cache, preemption) with
+    # speculation, the invariants (no overshoot in a shared block) after
+    # every step.  A request whose prefills start where they started in 3b
+    # (the same set of starts; a resume may re-prefill from the same start
+    # once more or less) must give 3b's stream; one whose start moved
+    # (speculation changes when prefix hits happen) its prefix witness's at
+    # its first start
+    reqs_b = feature_requests(cfg.vocab)
+    l_, streams_l, status_l, eng = feature_run(
+        torch, cfg, params, reqs_b, feature_engine(**spec), dev, predict=spec_launches,
+        draft_params=dparams, engine_cls=start_log_engine())
+    lap("3l run")
+    l_["identities"] = spec_identities(eng)
+    l_.update(spec_figures(eng.stats))
+    starts_l, starts_b = eng.prefill_starts(len(reqs_b)), results["phase3b_starts"]
+    del eng
+    moved = {i: s[0] for i, (s, sb) in enumerate(zip(starts_l, starts_b)) if set(s) != set(sb)}
+    witness = prefix_witness(cfg, params, reqs_b, moved, feature_engine(), dev) if moved else {}
+    want_l = [witness.get(i, w) for i, w in enumerate(results["phase3b_streams"])]
+    bad = [i for i, (x, y) in enumerate(zip(streams_l, want_l)) if x != y]
+    l_.update(tokens_per_s_3b=results["features"]["3b"]["tokens_per_s"],
+              moved_starts={str(i): [starts_b[i], starts_l[i]] for i in moved}, diverged=bad,
+              statuses=status_l)
+    log(f"3l spec on 3b's engine [{card}]: {l_['tokens']} tokens in {l_['wall_s']:.3f} s = "
+        f"{l_['tokens_per_s']:.1f} tok/s (3b {l_['tokens_per_s_3b']:.1f}); acceptance "
+        f"{l_['spec_acceptance_rate']:.4f}, tokens a lane a round "
+        f"{l_['tokens_per_decode_dispatch']:.4f}; a round (3j's program and shapes) "
+        f"{json.dumps(rounds)}; {json.dumps(l_)}")
+    assert status_l == ["ok"] * len(reqs_b), status_l
+    assert not bad, l_
+    out["3l"], launches["3l"] = l_, l_["launches"]
+    out["seconds"] = lap("3l witness")
+    results["spec"] = out
+    del params, dparams
+    return launches
+
+
+def zamba_spec(torch, cfg, params, reqs, ec, dev, want, tokens_per_s: float,
+               card: str = "") -> dict:
+    """Phase 5d: phase 5's engine with speculative decoding (``SPEC_K`` 3, a
+    zamba draft moved ``ZAMBA_DRAFT_ALPHA`` toward an init from seed 1):
+    both sides roll their recurrent leaves back through the snapshot
+    buffers.  After ``ZAMBA_PREEMPT_AFTER`` rounds the host preempts the
+    last two occupied lanes, as 5b does, mid-speculation; their resumes
+    re-prefill, rebuild the draft and replay.  Every stream must equal
+    phase 5's (``want``) bitwise, with the invariants after every step
+    (the draft's dead recurrent lanes zero after every round included),
+    the graph check, builds flat after ``prebuild`` and the launches the
+    counters predict.  Prints the snapshot buffers' bytes."""
+    from repro_torch.core.tree import leaves
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_add, rmsnorm_gated
+    from repro_torch.kernels.ssd.ops import ssd
+    from repro_torch.serve import ServeEngine
+
+    kernels = (flash_attention, ssd, rmsnorm, rmsnorm_add, rmsnorm_gated)
+    lap = laps()
+    dparams = draft_params_for(cfg, params, ZAMBA_DRAFT_ALPHA, dev)
+    sec = dataclasses.replace(ec, spec_draft=cfg, spec_k=SPEC_K)
+    lap("weights")
+    graph, checked = spec_graph_check(torch, cfg, params, dparams, reqs, sec, dev)
+    lap("graph check")
+    profile = profile_spec(torch, checked)
+    del checked
+    lap("profile")
+    eng = ServeEngine(cfg, params, sec, device=dev, draft_params=dparams)
+    eng.prebuild()
+    lap("engine")
+    built = eng.stats["builds"]
+    bufs = eng.state["spec"]
+    snapshot_bytes = sum(t.numel() * t.element_size()
+                         for t in leaves({"keep": bufs["keep"], "dstates": bufs["dstates"]}))
+    rids = [eng.submit(p, max_new_tokens=b) for p, b in reqs]
+    for k in kernels:
+        k.launches = 0
+    victims, swept = None, 0.0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while eng.has_work():
+        eng.step()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        eng.check_invariants()
+        if victims is None and eng.counters["decode_steps"] >= ZAMBA_PREEMPT_AFTER:
+            lanes = [i for i, s in enumerate(eng.slots) if s is not None][-2:]
+            victims = [eng.slots[i].rid for i in lanes]
+            for i in lanes:
+                eng.preempt(i)
+            eng.check_invariants()
+        swept += time.perf_counter() - t
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0 - swept
+    launches = {k.__name__: k.launches for k in kernels}
+    st = eng.stats
+    got = [list(eng.completions[r].tokens) for r in rids]
+    predicted = zamba_launches(st["prefills"] + st["spec_draft_prefills"],
+                               2 * (SPEC_K + 1) * st["spec_steps"])
+    out = dict(victims=victims, identical_to_phase5=sum(x == y for x, y in zip(got, want)),
+               tokens=sum(len(x) for x in got), wall_s=wall,
+               tokens_per_s=sum(len(x) for x in got) / wall, tokens_per_s_phase5=tokens_per_s,
+               snapshot_buffer_bytes=snapshot_bytes, launches=launches,
+               identities=spec_identities(eng), **spec_figures(st), graph_check=graph,
+               graphs=st["graphs"], builds=st["builds"],
+               counters={k: st[k] for k in ("prefills", "decode_steps", "preemptions",
+                                            "resumed", "replayed_tokens")})
+    draft_zero = eng._draft_rec.lanes_are_zero(eng.state["draft"], range(MAX_SLOTS))
+    del eng
+    out["profile"] = profile
+    out["seconds_by_part"] = lap("run")
+    log(f"5d zamba2 spec (k {SPEC_K}, alpha {ZAMBA_DRAFT_ALPHA}, two preemptions) [{card}]: "
+        f"{out['tokens']} tokens in {wall:.3f} s = {out['tokens_per_s']:.1f} tok/s (phase 5 "
+        f"{tokens_per_s:.1f}); acceptance {out['spec_acceptance_rate']:.4f}, tokens a lane a "
+        f"round {out['tokens_per_decode_dispatch']:.4f}; snapshot buffers {snapshot_bytes} B; "
+        f"a round {json.dumps(round_summary(profile))}; {json.dumps(out)}")
+    assert out["identical_to_phase5"] == len(reqs), out
+    assert st["preemptions"] == st["resumed"] == 2 and draft_zero, out
+    assert st["graphs"] == 1 and st["builds"] == built, out
+    assert launches == predicted, (launches, predicted)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 5: Zamba2 hybrid serving at full width
 # ---------------------------------------------------------------------------
 
@@ -2176,6 +2701,11 @@ def zamba_path(torch, dev, results):
     results["zamba_tier"] = zamba_tier(torch, cfg, params, reqs, ec, dev,
                                        [list(c.tokens) for c in comps])
     results["zamba_tier"]["seconds"] = time.perf_counter() - t
+    t = time.perf_counter()
+    results["zamba_spec"] = zamba_spec(torch, cfg, params, reqs, ec, dev,
+                                       [list(c.tokens) for c in comps], e2e["tokens_per_s"],
+                                       results["nvidia_smi"])
+    results["zamba_spec"]["seconds"] = time.perf_counter() - t
 
     ref_cfg = dataclasses.replace(base, attn_impl="chunked")
     ref_eng, ref_rids, _, _, ref_wall = serve(torch, ref_cfg, params, reqs, ec, dev)
@@ -2966,6 +3496,7 @@ def main() -> int:
     launches = phase("3 serve", main_path)
     features_launches = phase("3b-3e serve features", feature_path)
     tier_launches = phase("3f-3i host tier, snapshots, host sampling", tier_path)
+    spec_launch = phase("3j-3l speculative decoding", spec_path)
     train_launches = phase("4 train", train_path)
     zamba_launches = phase("5 zamba serve", zamba_path)
     phase("6 function API", function_path)
@@ -2976,12 +3507,21 @@ def main() -> int:
     zt = results["zamba_tier"]["launches"]
     phase_s["5b zamba preempt (inside 5)"] = results["zamba_preempt"]["seconds"]
     phase_s["5c zamba host tier (inside 5)"] = results["zamba_tier"]["seconds"]
+    phase_s["5d zamba speculative decoding (inside 5)"] = results["zamba_spec"]["seconds"]
+    zs = results["zamba_spec"]["launches"]
 
     def tier_rows(name):
         """A kernel's launches on phases 3f-3i and 5c (where it runs)."""
         out = {ph: n[name] for ph, n in tier_launches.items() if name in n}
         if name in zt:
             out["5c"] = zt[name]
+        return out
+
+    def spec_rows(name):
+        """A kernel's launches on phases 3j-3l and 5d (where it runs)."""
+        out = {ph: n[name] for ph, n in spec_launch.items() if name in n}
+        if name in zs:
+            out["5d"] = zs[name]
         return out
 
     fl = {t["shape"]: t for t in results["flash_timing"]}
@@ -3002,6 +3542,7 @@ def main() -> int:
              zamba_launches=zamba_launches["flash_attention"],
              zamba_preempt_launches=zp["flash_attention"],
              tier_launches=tier_rows("flash_attention"),
+             spec_launches=spec_rows("flash_attention"),
              max_abs_err=max(r["max_abs_err"] for r in results["flash_cases"]
                              if r["dtype"] == "bfloat16"),
              kernel_ms=fl["serve"]["ms"], ms=fl["serve"]["ms"],
@@ -3021,6 +3562,7 @@ def main() -> int:
              launches=launches["paged_attention"],
              features_launches=features_launches["paged_attention"],
              tier_launches=tier_rows("paged_attention"),
+             spec_launches=spec_rows("paged_attention"),
              max_abs_err=max(r["max_abs_err"] for r in results["paged_cases"]
                              if r["dtype"] == "bfloat16"),
              kernel_ms=pg["random"]["ms"], ms=pg["random"]["ms"],
@@ -3045,7 +3587,7 @@ def main() -> int:
              shape="x (1, 512, 64, 64) bf16, dt (1, 512, 64), B/C (1, 512, 1, 64); "
                    "y and state fp32",
              launches=zamba_launches["ssd"], zamba_preempt_launches=zp["ssd"],
-             tier_launches=tier_rows("ssd"),
+             tier_launches=tier_rows("ssd"), spec_launches=spec_rows("ssd"),
              max_abs_err=max(r["max_abs_err"] for r in results["ssd_cases"]),
              kernel_ms=sd["ms"], ms=sd["ms"], ms_events=sd["ms_events"],
              plain_ms=sd["plain_ms"], bound_ms=sd["bound_ms"], bound_by=sd["bound_by"],
@@ -3081,7 +3623,7 @@ def main() -> int:
                           if name == "rmsnorm_gated" else f"repro.kernels.rmsnorm.kernel.{name}"),
             shape=x_desc, path=t["path"],
             launches=(zamba_launches if name == "rmsnorm_gated" else launches)[name],
-            **per_path, tier_launches=tier_rows(name),
+            **per_path, tier_launches=tier_rows(name), spec_launches=spec_rows(name),
             max_abs_err=max(r[f"{name}_max_abs_err"] for r in results["rmsnorm_cases"]
                             if f"{name}_max_abs_err" in r),
             kernel_ms=t["ms"], ms=t["ms"], ms_warm=t["ms_warm"], plain_ms=t["plain_ms"],

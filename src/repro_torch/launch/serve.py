@@ -21,7 +21,16 @@ The paged engine's scheduling features, and the robustness knobs:
         --admission preempt --chaos-rate 0.05 --deadline-s 30
 
 ``--chaos-rate`` injects seeded faults (``--chaos-seed``) at every engine
-fault site; faulted requests retry up to ``--max-retries`` times.  The
+fault site; faulted requests retry up to ``--max-retries`` times.
+
+Speculative decoding, on any layout and family:
+
+    python -m repro_torch.launch.serve --arch smollm-360m --smoke \
+        --device cpu --spec-k 3 --spec-draft-alpha 0.15
+
+The draft is the target's config with its weights mixed ``alpha`` toward
+an init from ``--seed + 1`` (a stand-in for a trained draft); the summary
+prints the acceptance rate and the tokens committed a lane a round.  The
 router front-end arrives with a later slice.
 """
 from __future__ import annotations
@@ -33,6 +42,7 @@ import time
 import numpy as np
 
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
+from repro_torch.core.tree import map_tree
 from repro_torch.device import resolve_device
 from repro_torch.models import registry
 from repro_torch.serve import (
@@ -41,6 +51,14 @@ from repro_torch.serve import (
     FaultPlan,
     ServeEngine,
 )
+
+
+def draft_mix(cfg, params, alpha: float, seed: int, device):
+    """A same-architecture draft: ``(1 - alpha) * params + alpha *`` a fresh
+    init from ``seed``.  Cheap to stand up, and it accepts often enough to
+    show multi-token rounds; smaller ``alpha``, higher acceptance."""
+    noise = registry.get_module(cfg).init(cfg, seed=seed, device=device)
+    return map_tree(lambda p, n: (1 - alpha) * p + alpha * n, params, noise)
 
 
 def run_stream(cfg, params, args, rng, device) -> ServeEngine:
@@ -53,13 +71,17 @@ def run_stream(cfg, params, args, rng, device) -> ServeEngine:
     if args.chaos_rate > 0:
         faults = FaultPlan(args.chaos_seed + 1,
                            {site: args.chaos_rate for site in ENGINE_FAULT_SITES})
+    spec = args.spec_k > 0
+    draft_params = draft_mix(cfg, params, args.spec_draft_alpha, args.seed + 1,
+                             device) if spec else None
     engine = ServeEngine(cfg, params, EngineConfig(
         max_slots=args.max_slots, max_len=max_len, seed=args.seed,
         kv_layout=args.kv_layout, page_size=args.page_size,
         num_blocks=args.num_blocks, paged_attn=args.paged_attn,
         prefill_chunk=args.prefill_chunk, prefix_cache=args.prefix_cache,
-        admission=args.admission, max_retries=args.max_retries),
-        device=device, faults=faults)
+        admission=args.admission, max_retries=args.max_retries,
+        spec_draft=cfg if spec else None, spec_k=args.spec_k),
+        device=device, faults=faults, draft_params=draft_params)
     arrivals = np.cumsum(rng.exponential(1.0 / args.rate, args.requests))
     prompts = [rng.integers(0, cfg.vocab, rng.integers(2, args.prompt_len + 1))
                .astype(np.int32) for _ in range(args.requests)]
@@ -101,6 +123,10 @@ def run_stream(cfg, params, args, rng, device) -> ServeEngine:
               f"{s['prefix_hit_rate']:.2f} cow {s['cow_copies']}  preempt "
               f"{s['preemptions']} resume {s['resumed']} replayed "
               f"{s['replayed_tokens']}")
+    if spec:
+        print(f"-- spec k={args.spec_k} alpha={args.spec_draft_alpha}: accept "
+              f"{s['spec_acceptance_rate']:.2f} tok/round "
+              f"{s['tokens_per_decode_dispatch']:.2f} rounds {s['spec_steps']}")
     if faults is not None:
         print(f"-- chaos[seed {args.chaos_seed}]: faults injected "
               f"{s['faults_injected']} detected {s['faults_detected']} retries "
@@ -145,6 +171,13 @@ def main(argv=None):
                          "this per-consult probability")
     ap.add_argument("--chaos-seed", type=int, default=0,
                     help="FaultPlan seed (reproducible fault schedules)")
+    ap.add_argument("--spec-k", type=int, default=0,
+                    help=">0: speculative decoding; a draft proposes this many "
+                         "tokens a lane, verified in one target program; greedy "
+                         "output is unchanged")
+    ap.add_argument("--spec-draft-alpha", type=float, default=0.1,
+                    help="draft weights = (1-a)*target + a*fresh init; smaller a, "
+                         "higher acceptance")
     ap.add_argument("--device", default=None,
                     help="torch device; default the card (raises without one)")
     ap.add_argument("--attn-impl", choices=("chunked", "kernel"),

@@ -114,12 +114,16 @@ class RecurrentCache:
       whose recorded token the host forces keeps its state even when the
       device reads it as done) through :meth:`freeze`, which zeroes the
       recurrent leaves of every inactive lane in the same step (a lane
-      finishing on the device is zeroed in the step that finishes it).  So after a decode step an inactive lane's recurrent state is
+      finishing on the device is zeroed in the step that finishes it).
+      So after a decode step an inactive lane's recurrent state is
       exactly zero: no stale recurrence advances, and no inf/NaN can
       accumulate in dead lanes.
 
-    ``snapshot``/``rollback`` (speculative decoding) arrive with that
-    feature.
+    Speculative decoding rolls lanes back with :meth:`snapshot` and
+    :meth:`rollback`.  The decode step writes the recurrent leaves in
+    place, so a snapshot is a copy, never an alias of the live tensors:
+    into fresh tensors, or into buffers allocated once (``out=``, as the
+    spec program does, so a CUDA graph captured on them stays valid).
     """
 
     def __init__(self, cfg: ArchConfig):
@@ -139,6 +143,31 @@ class RecurrentCache:
             shape = [1] * leaf.ndim
             shape[axis] = active.shape[0]
             leaf.masked_fill_(~active.reshape(shape), 0)
+        return cache
+
+    def snapshot(self, cache: dict, out: dict | None = None) -> dict:
+        """A copy of the recurrent leaves of ``cache`` as a flat dict: into
+        ``out``'s tensors (``copy_``, the same shapes) when given, else into
+        new ones."""
+        if out is None:
+            return {name: cache[name].clone() for name in self.leaf_axes}
+        for name in self.leaf_axes:
+            out[name].copy_(cache[name])
+        return out
+
+    def rollback(self, cache: dict, snap: dict, keep) -> dict:
+        """Per-lane select, in place into ``cache``: lanes whose ``keep``
+        bit is True (``(max_slots,)`` bool) keep their values, the others
+        take ``snap``'s (a :meth:`snapshot`, or any dict of the same
+        leaves).  A select, not arithmetic: every bit of either side (NaN
+        payloads, signed zeros) passes through, so a kept lane stays
+        bitwise what it was and a rolled-back lane is bitwise the
+        snapshot."""
+        for name, axis in self.leaf_axes.items():
+            leaf = cache[name]
+            shape = [1] * leaf.ndim
+            shape[axis] = keep.shape[0]
+            torch.where(keep.reshape(shape), leaf, snap[name], out=leaf)
         return cache
 
     def lane_is_zero(self, cache: dict, slot: int) -> bool:

@@ -58,7 +58,15 @@ On every layout and state kind:
 * ``fused_sampling=False``: the programs return the logits and the host
   samples them with the same sampler and a host generator seeded from
   ``EngineConfig.seed`` (the reference's baseline); greedy streams are the
-  fused path's, and on the CPU stochastic ones too.
+  fused path's, and on the CPU stochastic ones too;
+* **speculative decoding** (``spec_draft``, ``spec_k``): each step a draft
+  model proposes ``spec_k`` greedy tokens a lane and the target verifies
+  all ``spec_k + 1`` positions in the same program
+  (:func:`~repro_torch.serve.step.spec_decode_program`), one
+  ``(max_slots, spec_k + 1)`` fetch a round; greedy streams are the
+  sequential engine's bitwise.  The draft's cache is one more (slotted)
+  leaf of the state, ``state["draft"]``, rebuilt by a draft prefill over
+  the committed history whenever a lane starts decoding or is restored.
 
 Host-initiated :meth:`ServeEngine.preempt`,
 :meth:`~ServeEngine.cancel`, per-request deadlines (``submit(...,
@@ -86,14 +94,16 @@ Programs come from an :class:`~repro_torch.core.aot.AotCache` (the
 reference's ``aot=``, shareable between engines), whose ``builds``,
 ``cache_hits`` and entry count (``executables``) feed :attr:`stats`:
 
-* the decode program, keyed on (layout, ``stochastic``, ``masked``);
+* the decode program (or, speculating, the spec program), keyed on
+  (layout, ``stochastic``, ``masked``);
 * one eager prefill program per (bucket or chunk size, first chunk or
-  continuation), and the paged block copy, counted so the reference's
+  continuation), the draft's prefill per bucket, and the paged block
+  copy, counted so the reference's
   build contract holds: flat in steady state (:meth:`prebuild` covers
   every program a schedule can dispatch).
 
-On a CUDA device each decode step runs as a CUDA graph of the decode
-program captured on this engine's state buffers
+On a CUDA device each decode step (or spec round) runs as a CUDA graph of
+its program captured on this engine's state buffers
 (:func:`~repro_torch.core.aot.device_program`: one eager step, then the
 capture; every later step is one replay and the token fetch).  The
 graphs are bound to those buffers, so they live in the engine's own
@@ -102,9 +112,6 @@ and go with the engine, never in a shared one.  On the CPU the decode
 program runs eagerly.  Nothing falls back to eager on the card: a
 capture that fails raises.  A preemption, a cancel or a copy-on-write
 never rebuilds a graph.
-
-Not ported yet: speculative decoding (``spec_draft``, ``spec_k`` raise
-``NotImplementedError`` when set).
 
     engine = ServeEngine(cfg, params, EngineConfig(max_slots=8, max_len=256,
                                                    kv_layout="paged",
@@ -130,7 +137,7 @@ from repro_torch.core.aot import AotCache, device_program
 from repro_torch.device import resolve_device
 from repro_torch.models import registry
 from .cache import RecurrentCache, bucket_for, make_slot_state, prompt_buckets
-from .faults import NONFINITE_TOKEN, FaultPlan
+from .faults import NONFINITE_TOKEN, UNCOMMITTED, FaultPlan
 from .paged import (
     BlockAllocator,
     HostTier,
@@ -153,6 +160,9 @@ from .step import (
     sample_tokens,
     slot_decode_program,
     slot_prefill_program,
+    spec_buffers,
+    spec_decode_program,
+    spec_draft_prefill_program,
 )
 
 PAGED_ATTN_IMPLS = ("ref", "kernel")
@@ -202,15 +212,13 @@ class EngineConfig:
     # a held lane parks off the card after this many clock seconds; None
     # = held lanes stay until release()
     park_idle_s: float | None = None
+    # --- speculative decoding (any layout and state kind) --------------
+    # the draft model's ArchConfig: each step it proposes ``spec_k``
+    # greedy tokens a lane and the target verifies all ``spec_k + 1``
+    # positions in one program; greedy output is the sequential engine's
+    # bitwise.  Requires fused_sampling; both fields set together
     spec_draft: Any = None
     spec_k: int = 0
-
-
-# fields not ported yet: each must keep its default
-_NOT_PORTED = {
-    "spec_draft": "speculative decoding",
-    "spec_k": "speculative decoding",
-}
 
 
 @dataclasses.dataclass
@@ -298,7 +306,7 @@ class ServeEngine:
     def __init__(self, cfg: ArchConfig, params, engine: EngineConfig = EngineConfig(),  # noqa: B008 - frozen
                  *, device=None, clock: Callable[[], float] = time.perf_counter,
                  faults: FaultPlan | None = None, aot: AotCache | None = None,
-                 host_tier: HostTier | None = None):
+                 host_tier: HostTier | None = None, draft_params=None):
         if not registry.supports_slot_serving(cfg):
             raise ValueError(f"family {cfg.family!r} does not support slot serving")
         if engine.kv_layout not in ("slotted", "paged"):
@@ -306,12 +314,6 @@ class ServeEngine:
         if engine.paged_attn not in PAGED_ATTN_IMPLS:
             raise ValueError(f"paged_attn {engine.paged_attn!r} not in "
                              f"{PAGED_ATTN_IMPLS}")
-        defaults = EngineConfig()
-        for field, what in _NOT_PORTED.items():
-            if getattr(engine, field) != getattr(defaults, field):
-                raise NotImplementedError(
-                    f"EngineConfig.{field}={getattr(engine, field)!r}: {what} "
-                    "is not ported yet")
         self.kind = registry.state_kind(cfg)
         self.rec = RecurrentCache(cfg)
         self.paged = engine.kv_layout == "paged"
@@ -330,6 +332,22 @@ class ServeEngine:
                     "per-lane recurrent state is O(1) in sequence length — "
                     "there is no seq axis to page; use kv_layout='slotted'")
             raise ValueError(f"family {cfg.family!r} does not support paged serving")
+        self.spec = engine.spec_draft is not None
+        if self.spec != (engine.spec_k > 0):
+            raise ValueError("spec_draft and spec_k must be set together "
+                             f"(spec_draft={engine.spec_draft!r}, spec_k={engine.spec_k})")
+        if self.spec:
+            if not engine.fused_sampling:
+                raise ValueError("speculative decoding requires fused_sampling=True "
+                                 "(the verify rows ride the fused int32 fetch)")
+            if not registry.supports_slot_serving(engine.spec_draft):
+                raise ValueError(f"draft family {engine.spec_draft.family!r} does not "
+                                 "support slot serving")
+            if engine.spec_draft.vocab != cfg.vocab:
+                raise ValueError(f"draft vocab {engine.spec_draft.vocab} != target vocab "
+                                 f"{cfg.vocab}: verify compares token ids")
+        elif draft_params is not None:
+            raise ValueError("draft_params passed but EngineConfig.spec_draft is None")
         self.cfg, self.econ, self.clock = cfg, engine, clock
         # deterministic fault injection (serve/faults.py); None = off
         self.faults = faults
@@ -365,6 +383,32 @@ class ServeEngine:
                                                   fused=engine.fused_sampling)
         self.kv_reserved_bytes = cache_nbytes(self.state["cache"])
 
+        # --- speculative decoding: the draft's lanes and the round's buffers
+        # the draft cache is always slotted (a paged target too) and never
+        # spills: committed tokens determine it, so every restore rebuilds
+        # it by one draft prefill over the history (greedy output does not
+        # depend on the draft's values, only how many tokens a round commits)
+        self.draft_params = None
+        self._draft_rec = None
+        if self.spec:
+            dcfg = engine.spec_draft
+            dmod = registry.get_module(dcfg)
+            if draft_params is None:
+                # a deterministic draft from the engine seed (real
+                # deployments pass trained draft weights)
+                draft_params = dmod.init(dcfg, seed=engine.seed, device=self.device)
+            self.draft_params = dmod.cast_for_compute(dcfg, draft_params, self.device)
+            self.state["draft"] = make_slot_state(dcfg, engine.max_slots, engine.max_len,
+                                                  self.device)["cache"]
+            self.state["spec"] = spec_buffers(cfg, dcfg, self.state["cache"],
+                                              self.state["draft"], k=engine.spec_k,
+                                              max_slots=engine.max_slots)
+            self._draft_rec = RecurrentCache(dcfg)
+            # draft rebuilds cover committed histories (prompt + emitted
+            # tokens), which can outgrow the largest prompt bucket
+            self._spec_buckets = self.buckets if max(self.buckets) >= engine.max_len \
+                else self.buckets + (engine.max_len,)
+
         # --- host-RAM tier ---------------------------------------------
         # paged engines spill block by block; slotted engines spill the
         # whole-lane slice the family declares
@@ -397,17 +441,21 @@ class ServeEngine:
         # this engine's decode graphs, on its own buffers (CUDA only)
         self.graphs = AotCache("decode_graphs")
         # every static option that changes a program (the reference's
-        # _sampler_key); the cfg carries attn_impl and the dtypes
+        # _sampler_key); the cfg carries attn_impl and the dtypes.  Spec
+        # changes the state (the draft's leaves), so every program keys on
+        # the draft's config and spec_k
         e = engine
         self._program_key = (cfg, e.max_slots, e.max_len, e.eos_id, e.fused_sampling,
-                             e.kv_layout, e.page_size, self._num_blocks, e.paged_attn)
+                             e.kv_layout, e.page_size, self._num_blocks, e.paged_attn,
+                             e.spec_draft, e.spec_k)
 
         self.queue: deque[_Pending] = deque()
         self.slots: list[_Slot | None] = [None] * engine.max_slots
         self.live: dict[int, Completion] = {}
         self.completions: dict[int, Completion] = {}
         # the reference's counters, plus ``prefill_first_chunks`` (chunks
-        # that start at position 0: the ones the flash kernel computes)
+        # that start at position 0: the ones the flash kernel computes) and
+        # ``spec_draft_prefills`` (the draft's rebuilds, flash's other user)
         self.counters = dict.fromkeys((
             "prefills", "prefill_chunks", "prefill_first_chunks", "decode_steps",
             "admitted", "evicted", "dead_slot_steps", "kv_peak_used_bytes",
@@ -421,7 +469,12 @@ class ServeEngine:
             # spilled prefix blocks and their promotions, payloads the tier
             # refused (the resume replays), hold/park
             "spills", "restores", "spilled_bytes", "restored_bytes", "spill_drops",
-            "prefix_spills", "host_prefix_hits", "holds", "releases", "parked"), 0)
+            "prefix_spills", "host_prefix_hits", "holds", "releases", "parked",
+            # speculative decoding: verify rounds (spec_steps), lane-rounds
+            # (an active lane in a round), draft tokens proposed, accepted
+            # and chains ended by a mismatch, tokens committed
+            "spec_steps", "spec_rounds", "spec_drafted", "spec_accepted",
+            "spec_rejected", "spec_committed", "spec_draft_prefills"), 0)
         self._next_rid = 0
         # lanes barred from admission for one more step after a fault
         # (quarantine): one cooldown step keeps a hot fault site from
@@ -475,6 +528,54 @@ class ServeEngine:
         return self.graphs.get(key, lambda: device_program(fn, (self.params, self.state),
                                                            generators=gens))
 
+    def spec_program(self, *, stochastic: bool, masked: bool) -> Callable:
+        """The eager spec program: ``fn(params, dparams, state) -> rows``,
+        one draft-and-verify round in place (what the captured graph
+        replays)."""
+        e = self.econ
+        spec_fn = spec_decode_program(self.cfg, e.spec_draft, k=e.spec_k, eos_id=e.eos_id,
+                                      paged=self.paged, impl=e.paged_attn)
+
+        def fn(params, dparams, state):
+            return spec_fn(params, dparams, state, stochastic=stochastic, masked=masked)[1]
+        return fn
+
+    def _spec_key(self, stochastic: bool, masked: bool) -> tuple:
+        return ("spec_decode", stochastic, masked) + self._program_key
+
+    def _spec_entry(self, *, stochastic: bool, masked: bool) -> Callable:
+        """The spec program for these sampling flags: ``entry(params,
+        dparams, state) -> rows``.  On the card, a graph of it captured on
+        this engine's buffers, the generator registered when it samples
+        (its first call is the round that warmed it)."""
+        key = self._spec_key(stochastic, masked)
+        fn = self.aot.get(key, lambda: self.spec_program(stochastic=stochastic,
+                                                         masked=masked))
+        if self.device.type != "cuda":
+            return fn
+        gens = (self.state["generator"],) if stochastic else ()
+        return self.graphs.get(key, lambda: device_program(
+            fn, (self.params, self.draft_params, self.state), generators=gens))
+
+    def _spec_prefill_entry(self, bucket: int) -> Callable:
+        """The draft's prefill of a history bucket (eager; counted)."""
+        return self.aot.get(("spec_draft_prefill", bucket) + self._program_key,
+                            lambda: spec_draft_prefill_program(self.econ.spec_draft))
+
+    def _spec_draft_prefill(self, slot: int, hist: np.ndarray) -> None:
+        """Seed lane ``slot``'s draft cache with the committed history
+        ``hist`` (the prompt, or the prompt and the committed tokens up to
+        the pending decode input, not including it), bucketed like the
+        target's prefill."""
+        hist = np.asarray(hist, np.int32).reshape(-1)
+        bucket = bucket_for(int(hist.size), self._spec_buckets)
+        padded = np.zeros((1, bucket), np.int32)
+        padded[0, : hist.size] = hist
+        self._spec_prefill_entry(bucket)(self.draft_params, self.state,
+                                         torch.tensor(padded, device=self.device), slot,
+                                         int(hist.size))
+        self.counters["spec_draft_prefills"] += 1
+
     def _prefill_entry(self, chunk: int, first: bool = True) -> Callable:
         """The prefill program of a bucket or chunk size (eager; counted):
         the first chunk, or (paged) a continuation from ``start > 0``."""
@@ -516,18 +617,24 @@ class ServeEngine:
         program for each sampling form, the prefill of each bucket or
         chunk size (and its continuation, under chunked prefill or the
         prefix cache: a hit prefills a suffix), the block copy, and the
-        tier's transport.  Prefix hits and preemption resumes make the
+        tier's transport; speculating, the spec program for each sampling
+        form in place of the decode program, and the draft's prefill of
+        each history bucket.  Prefix hits and preemption resumes make the
         prefill schedule timing-dependent, so a warm-up trace does not
         guarantee coverage; after this ``builds`` stays flat.  The decode
-        graph is captured at the first decode step (it needs the engine's
-        live buffers)."""
+        (or spec) graph is captured at the first decode step (it needs the
+        engine's live buffers)."""
         e = self.econ
         forms = ((False, False), (True, False), (True, True)) if e.fused_sampling \
             else ((False, False),)
         for stochastic, masked in forms:
-            self.aot.get(self._decode_key(stochastic, masked),
-                         lambda: self.decode_program(stochastic=stochastic,
-                                                     masked=masked))
+            if self.spec:
+                self.aot.get(self._spec_key(stochastic, masked),
+                             lambda: self.spec_program(stochastic=stochastic, masked=masked))
+            else:
+                self.aot.get(self._decode_key(stochastic, masked),
+                             lambda: self.decode_program(stochastic=stochastic,
+                                                         masked=masked))
         chunks = (e.prefill_chunk,) if (self.paged and e.prefill_chunk) else self.buckets
         for C in chunks:
             self._prefill_entry(C, first=True)
@@ -543,6 +650,9 @@ class ServeEngine:
             else:
                 self._lane_read_entry()
                 self._lane_write_entry()
+        if self.spec:
+            for C in self._spec_buckets:
+                self._spec_prefill_entry(C)
 
     # ------------------------------------------------------------------
     # Request lifecycle
@@ -685,6 +795,13 @@ class ServeEngine:
             # the fused sampler wrote 0 into the inactive lane's ``tokens``:
             # its decode input goes back with the active bit
             self._sched_dirty = True
+        if self.spec:
+            # a held recurrent draft lane was zeroed while inactive (a KV
+            # draft survives, but one path rebuilds both): the committed
+            # history determines the draft state
+            comp = self.live[rid]
+            self._spec_draft_prefill(slot, np.concatenate([
+                s.prompt, np.asarray(comp.tokens[: s.generated - 1], np.int32)]))
         self.counters["releases"] += 1
 
     def _park(self, slot: int) -> None:
@@ -1038,6 +1155,11 @@ class ServeEngine:
             self._sched_dirty = False
         else:
             self._sched_dirty = True
+        if self.spec:
+            # a spill carries the target's state only: rebuild the draft
+            # over the history the spill covers (up to the pending input
+            # seq[plen + k_cov - 1], not including it)
+            self._spec_draft_prefill(slot, seq[: plen + k_cov - 1])
         return True
 
     def _try_restore(self, slot: int, req: _Pending) -> bool:
@@ -1071,6 +1193,10 @@ class ServeEngine:
         self._tok_mirror[slot] = int(seq[matched])
         self._active_mirror[slot] = True
         self._sched_dirty = True             # pushed before the next decode
+        if self.spec:
+            # the chain restores the target's KV only: rebuild the draft
+            # over the restored history (before the pending input seq[matched])
+            self._spec_draft_prefill(slot, seq[:matched])
         return True
 
     # -- admission ------------------------------------------------------
@@ -1241,6 +1367,9 @@ class ServeEngine:
         if end < s.plen:
             return                              # more chunks to come
         self.counters["prefills"] += 1
+        if self.spec:
+            # the lane decodes from here: seed its draft with the prompt
+            self._spec_draft_prefill(slot, s.prompt)
         if fused:
             tok = int(out[0])                   # the prefill's host sync
         if tok == NONFINITE_TOKEN:
@@ -1488,8 +1617,12 @@ class ServeEngine:
                 s = self.slots[i]
                 if s is None:
                     continue                    # preempted by an earlier map
-                next_pos = min(s.plen + s.generated - 1, s.limit - 1)
-                self._map_blocks(i, next_pos // self.econ.page_size + 1)
+                # speculating, a round writes up to spec_k positions past the
+                # next one: map that horizon (capped at the budget) so a
+                # rejected step's overshoot lands in the lane's own fresh
+                # blocks, never in a shared one
+                horizon = s.plen + s.generated - 1 + (self.econ.spec_k if self.spec else 0)
+                self._map_blocks(i, min(horizon, s.limit - 1) // self.econ.page_size + 1)
             self._push_tables()
             active_slots = active()
         if active_slots:
@@ -1502,36 +1635,92 @@ class ServeEngine:
             sampled = [s for s in lanes if s.temperature > 0]
             flags = dict(stochastic=bool(sampled),
                          masked=any(s.top_k > 0 or 0 < s.top_p < 1 for s in sampled))
-            out = self._decode_entry(**flags)(self.params, self.state)
-            if self.econ.fused_sampling:
-                toks = out.cpu().numpy()        # the one host sync
+            if self.spec:
+                rows = self._spec_entry(**flags)(self.params, self.draft_params, self.state)
+                self._spec_round(active_slots, rows.cpu().numpy())  # the one host sync
             else:
-                def per_lane(f, dt):
-                    return np.array([0 if s is None else f(s) for s in self.slots], dt)
-
-                toks = self._host_sample(       # the logits fetch is the sync
-                    out.cpu(), per_lane(lambda s: s.temperature, np.float32),
-                    per_lane(lambda s: s.top_k, np.int32),
-                    per_lane(lambda s: s.top_p, np.float32), **flags)
-            self._last_op = "decode"
-            self._note_kv_usage(frozenset(active_slots))
-            self.counters["decode_steps"] += 1
-            self.counters["dead_slot_steps"] += self.econ.max_slots - len(active_slots)
-            if self.faults is not None:
-                lane = self.faults.pick("decode_logits", active_slots)
-                if lane is not None:
-                    # as if the device had found non-finite logits there
-                    self.counters["faults_injected"] += 1
-                    toks = toks.copy()
-                    toks[lane] = NONFINITE_TOKEN
-            now = self.clock()
-            for i in active_slots:
-                self._advance_lane(i, int(toks[i]), now)
-            if not self.econ.fused_sampling:
-                self._writeback_sampled()
+                self._decode_round(active_slots, flags)
             progressed = True
         self._note_kv_usage()
         return progressed
+
+    def _decode_round(self, active_slots: list[int], flags: dict) -> None:
+        """One decode step over the active lanes and its host side: the
+        token fetch (or the host sampler's), then each lane's commit."""
+        out = self._decode_entry(**flags)(self.params, self.state)
+        if self.econ.fused_sampling:
+            toks = out.cpu().numpy()            # the one host sync
+        else:
+            def per_lane(f, dt):
+                return np.array([0 if s is None else f(s) for s in self.slots], dt)
+
+            toks = self._host_sample(           # the logits fetch is the sync
+                out.cpu(), per_lane(lambda s: s.temperature, np.float32),
+                per_lane(lambda s: s.top_k, np.int32),
+                per_lane(lambda s: s.top_p, np.float32), **flags)
+        self._last_op = "decode"
+        self._note_kv_usage(frozenset(active_slots))
+        self.counters["decode_steps"] += 1
+        self.counters["dead_slot_steps"] += self.econ.max_slots - len(active_slots)
+        if self.faults is not None:
+            lane = self.faults.pick("decode_logits", active_slots)
+            if lane is not None:
+                # as if the device had found non-finite logits there
+                self.counters["faults_injected"] += 1
+                toks = toks.copy()
+                toks[lane] = NONFINITE_TOKEN
+        now = self.clock()
+        for i in active_slots:
+            self._advance_lane(i, int(toks[i]), now)
+        if not self.econ.fused_sampling:
+            self._writeback_sampled()
+
+    def _spec_round(self, active_slots: list[int], rows: np.ndarray) -> None:
+        """The host side of a spec round: commit each active lane's row in
+        order through :meth:`_advance_lane` up to its first
+        :data:`UNCOMMITTED` entry, a fault or its finish, and count the
+        speculation (replay rounds force one recorded token and speculate
+        nothing)."""
+        self._last_op = "decode"
+        self._note_kv_usage(frozenset(active_slots))
+        self.counters["decode_steps"] += 1
+        self.counters["dead_slot_steps"] += self.econ.max_slots - len(active_slots)
+        self.counters["spec_steps"] += 1
+        self.counters["spec_rounds"] += len(active_slots)
+        if self.faults is not None:
+            lane = self.faults.pick("decode_logits", active_slots)
+            if lane is not None:
+                # as if the device had found non-finite logits at the
+                # lane's first position
+                self.counters["faults_injected"] += 1
+                rows = rows.copy()
+                rows[lane, 0] = NONFINITE_TOKEN
+        now = self.clock()
+        k = self.econ.spec_k
+        for i in active_slots:
+            s = self.slots[i]
+            replaying = s.generated < s.emit_from
+            c, outcome = 0, "ok"
+            for tok in rows[i]:
+                tok = int(tok)
+                if tok == UNCOMMITTED:
+                    break                       # the first rejected position
+                outcome = self._advance_lane(i, tok, now)
+                if outcome == "fault":
+                    break
+                c += 1
+                if outcome == "done":
+                    break
+            self.counters["spec_committed"] += c
+            if not replaying:
+                self.counters["spec_drafted"] += k
+                # the first commit scores the pending token, each later one
+                # accepts a draft proposal
+                self.counters["spec_accepted"] += max(c - 1, 0)
+                if outcome == "ok" and c <= k:
+                    # the chain ended on a mismatch (not a finish, a fault
+                    # or the row's end)
+                    self.counters["spec_rejected"] += 1
 
     def drain(self) -> None:
         while self.step():
@@ -1777,6 +1966,13 @@ class ServeEngine:
             if not self.rec.lanes_are_zero(self.state["cache"], free):
                 raise AssertionError(
                     f"an evicted lane in {free} holds non-zero recurrent state")
+        if self.spec and self._draft_rec and self._last_op == "decode":
+            # the spec program's draft-side freeze is the only thing that
+            # zeroes dead draft lanes: swept like the target's
+            free = [i for i, s in enumerate(self.slots) if s is None]
+            if not self._draft_rec.lanes_are_zero(self.state["draft"], free):
+                raise AssertionError(
+                    f"an evicted lane in {free} holds non-zero draft recurrent state")
         if not self.paged:
             if self.tier is not None:
                 self.tier.check()
@@ -1821,6 +2017,15 @@ class ServeEngine:
             "state_kind": self.kind,
             "kv_reserved_bytes": self.kv_reserved_bytes,
         }
+        if self.spec:
+            drafted = self.counters["spec_drafted"]
+            out["spec_acceptance_rate"] = (
+                self.counters["spec_accepted"] / drafted if drafted else 0.0)
+            # committed tokens a lane a round: the sequential engine's is
+            # 1.0, so above 1.0 speculation pays for its round
+            rounds = self.counters["spec_rounds"]
+            out["tokens_per_decode_dispatch"] = (
+                self.counters["spec_committed"] / rounds if rounds else 0.0)
         if self.paged:
             out["prefix_cached_blocks"] = self.alloc.num_cached
             out["prefix_cache_evictions"] = self.alloc.cache_evictions

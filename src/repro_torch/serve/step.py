@@ -1,8 +1,9 @@
 """Serving programs: prefill and decode steps of the continuous-batching
 engine, with sampling fused on the device, and the host tier's transport.
 
-The port of the reference's ``serve/step.py`` for whole-prompt and
-chunked prefill, the prefix cache's block copy, plain decode and the four
+The port of the reference's ``serve/step.py``: whole-prompt and chunked
+prefill, the prefix cache's block copy, plain decode, speculative decoding
+(draft and verify in one program, and the draft's prefill) and the four
 spill/restore programs.  A "program" is a closure ``fn(params, state, ...)
 -> (state, tok)`` that runs eagerly: it updates every tensor of the state
 dict in place (no leaf is rebound, so a CUDA graph captured of the decode
@@ -28,7 +29,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import registry
 from repro_torch.models.attention import NEG_INF
 from .cache import RecurrentCache
-from .faults import NONFINITE_TOKEN
+from .faults import NONFINITE_TOKEN, UNCOMMITTED
 
 
 # ---------------------------------------------------------------------------
@@ -298,6 +299,187 @@ def paged_copy_program(cfg: ArchConfig):
 
     def fn(state, src, dst):
         mod.copy_paged_block(cfg, state["cache"], src, dst)
+        return state
+
+    return fn
+
+
+# ---------------------------------------------------------------------------
+# Speculative decoding (draft and verify)
+# ---------------------------------------------------------------------------
+
+
+def spec_buffers(cfg: ArchConfig, dcfg: ArchConfig, cache: dict, draft: dict, *,
+                 k: int, max_slots: int) -> dict:
+    """The fixed buffers of :func:`spec_decode_program`, allocated once at
+    engine build (``state["spec"]``), so a CUDA graph captured on them
+    stays valid:
+
+    rows     (max_slots, k + 1) int32  the round's output (the host fetch)
+    keep     {leaf: like the target's recurrent leaf}  the state after each
+             lane's last committed verify step (recurrent targets only)
+    dstates  {leaf: (k, *draft leaf)}  the draft's recurrent leaves after
+             each of its first ``k`` steps (recurrent drafts only; the
+             live leaf is the state after step ``k``)
+
+    For zamba2-1.2b at 8 lanes one copy of the recurrent leaves is 326.5
+    MB (ssm 318.8, conv 7.7), so a zamba target and draft at ``k = 3``
+    hold four copies, 1.31 GB (the reference keeps ``k + 2``)."""
+    rec, drec = RecurrentCache(cfg), RecurrentCache(dcfg)
+    dev = next(iter(cache.values())).device
+    return {
+        "rows": torch.zeros(max_slots, k + 1, dtype=torch.int32, device=dev),
+        "keep": {n: torch.zeros_like(cache[n]) for n in rec.leaf_axes},
+        "dstates": {n: torch.zeros((k,) + tuple(draft[n].shape), dtype=draft[n].dtype,
+                                   device=dev) for n in drec.leaf_axes},
+    }
+
+
+def spec_decode_program(cfg: ArchConfig, dcfg: ArchConfig, *, k: int,
+                        eos_id: int | None = None, paged: bool = False,
+                        impl: str = "ref"):
+    """One speculative decode round over every lane: the draft model
+    (``dcfg``, its cache ``state["draft"]``, always slotted) proposes
+    ``k`` greedy tokens a lane, the target scores all ``k + 1`` positions,
+    and each lane commits its accepted prefix: up to ``k + 1`` tokens a
+    round instead of one.
+
+    ``fn(params, dparams, state, *, stochastic=None, masked=None) ->
+    (state, rows)``: ``rows`` is ``state["spec"]["rows"]`` (:func:`spec_buffers`),
+    the round's one host fetch.  Entry ``(lane, i)`` is the ``i``-th
+    committed token of the lane's round, :data:`UNCOMMITTED` past the
+    accepted prefix, or :data:`NONFINITE_TOKEN` for a committed position
+    whose logits were non-finite (the plain decode program's quarantine
+    contract).
+
+    Accept rule: target step ``i`` consumes ``u_i`` (``u_0`` the lane's
+    pending token, then ``u_i = draft_i``) at position ``lengths + i`` and
+    samples ``y_i``; the chain stays valid while ``y_{i-1} == draft_{i-1}``,
+    so every committed ``y_i`` is computed from exactly the committed
+    tokens: greedy, it is bitwise what the sequential engine samples,
+    whatever the draft proposed.  ``valid`` drops at the first mismatch
+    (that position's ``y`` still commits: the target's own sample), on
+    done (budget or EOS), on non-finite logits, and after step 0 for a
+    ``replay`` lane (the host forces its recorded tokens one a round).
+    Stochastic lanes draw each position from ``state["generator"]``, as
+    the reference draws ``fold_in(sub, i)``; only greedy is held bitwise.
+
+    State, all in place:
+
+    * KV (slotted or paged): write, then truncate.  Rejected positions
+      leave junk past the commit point, rewritten before the lane attends
+      them; on the paged layout the engine maps the whole horizon first,
+      so the junk lands in the lane's own fresh blocks, never a shared one.
+    * recurrent leaves: ``keep`` follows the state after each lane's last
+      committed step (:meth:`RecurrentCache.rollback`) and replaces the
+      live leaves at the end; the draft's leaves take its state after step
+      ``c_len - 1`` (the committed tokens minus the new pending one).
+    * both sides then freeze with ``act_new | replay``; ``lengths`` grows
+      by the committed count, ``tokens`` takes each lane's last commit.
+    """
+    if k < 1:
+        raise ValueError(f"spec_k must be >= 1, got {k}")
+    mod = registry.get_module(cfg)
+    dmod = registry.get_module(dcfg)
+    rec = RecurrentCache(cfg)
+    drec = RecurrentCache(dcfg)
+
+    def target_step(params, state, tok, pos):
+        if paged:
+            return mod.decode_step_paged(cfg, params, state["cache"], tok, pos,
+                                         state["tables"], impl=impl)
+        return mod.decode_step(cfg, params, state["cache"], tok, pos)
+
+    def fn(params, dparams, state, *, stochastic=None, masked=None):
+        active, replay, lengths = state["active"], state["replay"], state["lengths"]
+        bufs = state["spec"]
+        dcache = state["draft"]
+
+        # the draft: k proposals and one step that consumes the last, so
+        # its cache covers lengths .. lengths + k
+        drafts = []
+        z = state["tokens"]
+        for i in range(k + 1):
+            dlogits, _ = dmod.decode_step(dcfg, dparams, dcache, z, lengths + i)
+            if i < k:
+                if drec:
+                    drec.snapshot(dcache, {n: b[i] for n, b in bufs["dstates"].items()})
+                z = dlogits.float().argmax(dim=-1).to(torch.int32)
+                drafts.append(z)
+
+        # the target's verify ladder
+        cache = state["cache"]
+        keep = bufs["keep"]
+        if rec:
+            rec.snapshot(cache, keep)
+        rows = bufs["rows"]
+        valid = active
+        c_len = torch.zeros_like(lengths)
+        last_tok = torch.zeros_like(lengths)
+        any_done = torch.zeros_like(active)
+        u = state["tokens"]
+        for i in range(k + 1):
+            logits, _ = target_step(params, state, u, lengths + i)
+            tok = sample_tokens(logits, state["generator"], state["temps"],
+                                top_ks=state["top_ks"], top_ps=state["top_ps"],
+                                stochastic=stochastic, masked=masked)
+            finite = torch.isfinite(logits).all(dim=-1)
+            y = torch.where(finite, tok, NONFINITE_TOKEN).to(torch.int32)
+            done = finite & (lengths + (i + 1) >= state["limits"])
+            if eos_id is not None:
+                done |= finite & (y == eos_id)
+            committed = valid & finite
+            rows[:, i] = torch.where(valid, y, UNCOMMITTED)
+            last_tok = torch.where(committed, y, last_tok)
+            c_len = c_len + committed.to(torch.int32)
+            any_done |= committed & done
+            if rec:
+                rec.rollback(keep, cache, ~committed)     # keep <- cache where committed
+            if i < k:
+                valid = valid & finite & ~done & ~replay & (y == drafts[i])
+                u = drafts[i]
+
+        act_new = active & ~any_done
+        if rec:
+            rec.snapshot(keep, cache)                    # the live leaves <- keep
+            rec.freeze(cache, act_new | replay)
+        if drec:
+            # the draft's state after step c_len - 1 (step 0 for a lane
+            # that committed nothing): select into dstates[0], then into
+            # the live leaves, which hold the state after step k
+            sel = {n: b[0] for n, b in bufs["dstates"].items()}
+            for j in range(1, k):
+                drec.rollback(sel, {n: b[j] for n, b in bufs["dstates"].items()}, c_len <= j)
+            drec.rollback(dcache, sel, c_len > k)
+            drec.freeze(dcache, act_new | replay)
+        state["tokens"].copy_(torch.where(active, last_tok, 0))
+        state["lengths"].add_(c_len)
+        state["active"].copy_(act_new)
+        return state, rows
+
+    return fn
+
+
+def spec_draft_prefill_program(dcfg: ArchConfig):
+    """Seed the draft's lane from a token history: prefill ``hist`` (the
+    prompt and every committed token but the pending one, padded to a
+    bucket) into draft lane ``slot``, in place.
+
+    ``fn(dparams, state, hist (1, bucket), slot, plen) -> state``.  It runs
+    when a lane starts decoding and on every restore (tier, prefix chain,
+    a held lane's release): the draft is rebuilt from the committed
+    history, never restored.  Its state is not bitwise a decode-built one,
+    and need not be: committed tokens never depend on the draft's values,
+    only how many commit a round does.
+
+    No freeze: the device ``active`` vector can be stale mid-admission,
+    so a freeze here could zero a lane another restore seeded earlier in
+    the same engine step.  The spec decode program freezes the draft
+    every round, which is when the invariant sweep checks it."""
+    dmod = registry.get_module(dcfg)
+
+    def fn(dparams, state, hist, slot, plen):
+        dmod.prefill_slot(dcfg, dparams, state["draft"], hist, slot, plen)
         return state
 
     return fn

@@ -27,6 +27,7 @@ squares); the reference's prod (``exp`` of a summed ``log``) within 1e-6
 relative of the port's exact product; SGD within 1e-6 relative after 5
 steps.
 """
+import gc
 import multiprocessing
 import os
 import socket
@@ -152,10 +153,18 @@ def _rank(rank, address, out_dir):
     ctx = synk.fork(backend="gloo", rank=rank, world=WORLD, address=address, device="cpu")
     try:
         assert (ctx.n_data, ctx.rank) == (WORLD, rank)
-        res = _checks(synk, torch, _torch_grad)
+        torch.save(_checks(synk, torch, _torch_grad), out_dir / f"rank{rank}.pt")
+        # both ranks are past their last collective before either tears
+        # the group down (rank 0 hosts its store)
+        torch.distributed.barrier()
     finally:
         ctx.group.close()
-    torch.save(res, out_dir / f"rank{rank}.pt")
+        # drop every reference to the destroyed group (the global context
+        # holds one), so its store and gloo threads are freed here, while
+        # the interpreter is whole, not during its teardown
+        synk.reset()
+        del ctx
+        gc.collect()
 
 
 def _reference(out_dir):

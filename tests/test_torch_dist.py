@@ -20,6 +20,7 @@ at most 0.1% of elements more than 5e-5 apart, for the reason given in
 differences near zero into moves of up to ±lr); losses within 1e-5.
 """
 import dataclasses
+import gc
 import multiprocessing
 import socket
 
@@ -122,9 +123,16 @@ def _worker(rank, address, out_dir):
                                log_every=0))
         res["elastic_m_local"] = out["opt_state"]["m"]
         res["elastic_v_local"] = out["opt_state"]["v"]
+        torch.save(res, out_dir / f"rank{rank}.pt")
+        # both ranks are past their last collective before either tears
+        # the group down (rank 0 hosts its store)
+        dist.barrier()
     finally:
         group.close()
-    torch.save(res, out_dir / f"rank{rank}.pt")
+        # nothing else holds the group: its store and gloo threads are
+        # freed here, not during the interpreter's teardown
+        del group
+        gc.collect()
 
 
 def _free_port():

@@ -189,15 +189,15 @@ def test_sampled_requests_are_seeded(models):
     ("park_idle_s", 1.0),
 ])
 def test_unported_options_raise(models, field, value):
-    """Speculative decoding is still not ported and raises; the host tier,
-    host sampling and hold/park are, and construct (``park_idle_s`` only
-    with a tier, as in the reference)."""
+    """Nothing is left unported: every option constructs and serves, and
+    raises only what the reference's validation raises (``spec_k`` only
+    with ``spec_draft``, ``park_idle_s`` only with a tier)."""
     _, _, tcfg, tp, prompts = models
-    if field.startswith("spec"):
-        with pytest.raises(NotImplementedError, match=field):
-            ServeEngine(tcfg, tp, EngineConfig(**{field: value}), device="cpu")
-        return
     extra = {}
+    if field == "spec_k":
+        with pytest.raises(ValueError, match="spec_draft and spec_k must be set together"):
+            ServeEngine(tcfg, tp, EngineConfig(**{field: value}), device="cpu")
+        extra = dict(spec_draft=tcfg)
     if field == "park_idle_s":
         with pytest.raises(ValueError, match="requires host_tier"):
             ServeEngine(tcfg, tp, EngineConfig(**{field: value}), device="cpu")
