@@ -12,9 +12,10 @@
   (bounded, injectable sleep) before surfacing.
 * Restore checks every leaf's shape against a template and returns host
   numpy arrays; the caller places them (``train/loop.py``).
-
-The reference's ``obs`` hook (flight-recorder dumps on failure) arrives
-with the observability slice of the port.
+* Observability: with an ``obs`` handle (:class:`~repro_torch.obs.Observer`)
+  an async save's failure and the retry budget's exhaustion are recorded
+  and dump the flight recorder, so the events before the failed save land
+  on disk beside the error.
 """
 from __future__ import annotations
 
@@ -58,11 +59,12 @@ def _unflatten_like(template, flat: dict[str, np.ndarray], prefix=()):
 class CheckpointManager:
     def __init__(self, directory: str, keep_k: int = 3, *,
                  save_retries: int = 3, retry_backoff_s: float = 0.05,
-                 sleep: Callable[[float], None] = time.sleep):
+                 sleep: Callable[[float], None] = time.sleep, obs=None):
         if save_retries < 1:
             raise ValueError("save_retries must be >= 1")
         self.dir = directory
         self.keep_k = keep_k
+        self.obs = obs
         # bounded retry around transient save I/O: attempt save_retries
         # times total, backing off retry_backoff_s * 2**attempt between
         # tries.  ``sleep`` is injectable so tests don't wait in real time.
@@ -106,6 +108,10 @@ class CheckpointManager:
             self._thread = None
         if self._error is not None:
             err, self._error = self._error, None
+            if self.obs is not None:
+                self.obs.record("ckpt_async_failure", error=repr(err))
+                self.obs.dump("checkpoint_async_save_failed",
+                              context={"dir": self.dir, "error": repr(err)})
             raise RuntimeError("async checkpoint save failed") from err
 
     def _write_guarded(self, step: int, host: dict, meta: dict) -> None:
@@ -122,8 +128,15 @@ class CheckpointManager:
         for attempt in range(self.save_retries):
             try:
                 return self._write_once(step, host, meta)
-            except OSError:
+            except OSError as e:
                 if attempt + 1 >= self.save_retries:
+                    if self.obs is not None:
+                        self.obs.record("ckpt_retry_exhausted", step=step,
+                                        attempts=self.save_retries, error=repr(e))
+                        self.obs.dump("checkpoint_save_retries_exhausted",
+                                      context={"dir": self.dir, "step": step,
+                                               "attempts": self.save_retries,
+                                               "error": repr(e)})
                     raise
                 self._sleep(self.retry_backoff_s * 2 ** attempt)
 

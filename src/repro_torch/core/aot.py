@@ -39,7 +39,9 @@ class AotCache:
 
     Every miss also records its build wall seconds in
     ``build_seconds`` (always wall time, even when the owning engine runs
-    on a fake clock — compile cost is a real-world budget); ``top_builds``
+    on a fake clock — compile cost is a real-world budget), and emits an
+    ``aot_build`` trace span when an ``obs`` handle
+    (:class:`~repro_torch.obs.Observer`) is attached; ``top_builds``
     reports the slowest.
 
     Invariants: ``builds == len(self)`` (every miss stores exactly one
@@ -49,11 +51,12 @@ class AotCache:
     engines/benches can never recompile behind a caller's back).
     """
 
-    def __init__(self, name: str = "aot"):
+    def __init__(self, name: str = "aot", *, obs=None):
         self.name = name
         self._entries: dict[Any, Any] = {}
         self.stats = {"builds": 0, "cache_hits": 0}
         self.build_seconds: dict[Any, float] = {}
+        self.obs = obs
 
     def __len__(self) -> int:
         return len(self._entries)
@@ -69,9 +72,13 @@ class AotCache:
         entry = self._entries.get(key)
         if entry is None:
             self.stats["builds"] += 1
+            sid = None if self.obs is None else self.obs.begin(
+                "aot_build", cat="aot", track=self.name, key=str(key))
             t0 = time.perf_counter()
             entry = build()
             self.build_seconds[key] = time.perf_counter() - t0
+            if self.obs is not None:
+                self.obs.end(sid)
             self._entries[key] = entry
         else:
             self.stats["cache_hits"] += 1

@@ -1,10 +1,26 @@
-"""Serving launcher: one continuous-batching engine under a Poisson request
-stream, on the card unless ``--device cpu``:
+"""Serving launcher: continuous-batching engine replicas behind the router
+front-end (``serve/router.py``) under a Poisson request stream, on the card
+unless ``--device cpu``.  ``--replicas 1`` (the default) is one engine
+behind the router's admission queue:
 
     python -m repro_torch.launch.serve --arch smollm-360m \\
         --requests 16 --rate 20 --max-slots 8 --kv-layout paged
 
     python -m repro_torch.launch.serve --arch zamba2-1.2b --requests 16
+
+Several replicas with crash failover, load shedding and a zero-downtime
+drain (the last replica, after ``--drain-at`` completions); seeded replica
+crashes and stalls with ``--replica-chaos-rate``:
+
+    python -m repro_torch.launch.serve --arch smollm-360m --smoke \
+        --device cpu --requests 32 --replicas 3 --drain-at 8 \
+        --shed-queue-depth 16
+
+``--trace-out PATH`` writes the request and engine timeline as a Chrome
+trace (``chrome://tracing``, ``ui.perfetto.dev``); ``--flightrec-dir DIR``
+arms the flight recorder (a failed invariant sweep dumps the last events
+there).  The summary prints each replica's line, the statuses, failovers
+and migrations, and the latency by status from the merged histograms.
 
 The weights are random, from ``--seed``.  ``--attn-impl`` picks the
 family's kernels ("kernel": the flash CUDA kernel for prefill attention
@@ -30,8 +46,12 @@ Speculative decoding, on any layout and family:
 
 The draft is the target's config with its weights mixed ``alpha`` toward
 an init from ``--seed + 1`` (a stand-in for a trained draft); the summary
-prints the acceptance rate and the tokens committed a lane a round.  The
-router front-end arrives with a later slice.
+prints the acceptance rate and the tokens committed a lane a round.
+
+The static batch loop (one fixed batch to the full budget):
+
+    python -m repro_torch.launch.serve --arch smollm-360m --smoke \
+        --device cpu --engine static --batch 4
 """
 from __future__ import annotations
 
@@ -45,11 +65,17 @@ from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.core.tree import map_tree
 from repro_torch.device import resolve_device
 from repro_torch.models import registry
+from repro_torch.obs import Observer, merged_histogram, to_chrome_trace, validate
 from repro_torch.serve import (
     ENGINE_FAULT_SITES,
+    REPLICA_FAULT_SITES,
+    STATUSES,
     EngineConfig,
     FaultPlan,
-    ServeEngine,
+    Router,
+    RouterConfig,
+    ServeConfig,
+    generate_static,
 )
 
 
@@ -61,27 +87,75 @@ def draft_mix(cfg, params, alpha: float, seed: int, device):
     return map_tree(lambda p, n: (1 - alpha) * p + alpha * n, params, noise)
 
 
-def run_stream(cfg, params, args, rng, device) -> ServeEngine:
-    """Drive one engine with a Poisson arrival trace; print each request
-    and a summary.  Returns the drained engine."""
+def run_static(cfg, params, args, rng, device) -> np.ndarray:
+    """One fixed batch of random prompts to the full budget through
+    ``generate_static``; prints each row and returns them."""
+    prompts = rng.integers(0, cfg.vocab, (args.batch, args.prompt_len)).astype(np.int32)
+    out = generate_static(cfg, params, prompts,
+                          ServeConfig(max_new_tokens=args.new_tokens,
+                                      temperature=args.temperature, seed=args.seed),
+                          device=device)
+    for i, row in enumerate(out):
+        print(f"seq{i}: {row.tolist()}")
+    return out
+
+
+def print_latency_summary(router) -> None:
+    """Per-status latency table: p50/p99 time to first token and
+    per-token latency, one row per terminal status that occurred, from the
+    ``ttft_ms_<status>``/``tpot_ms_<status>`` histograms merged across the
+    router's registry and every replica's."""
+    regs = [router.obs.metrics] + [h.engine.obs.metrics for h in router.replicas]
+    rs = router.stats
+    print("-- latency by status (p50/p99 ms):")
+    for status in STATUSES:
+        n = rs.get(f"status_{status}", 0)
+        if not n:
+            continue
+        ttft = merged_histogram(f"ttft_ms_{status}", regs)
+        tpot = merged_histogram(f"tpot_ms_{status}", regs)
+        fmt = lambda h: (f"{h.quantile(0.50):8.1f}/{h.quantile(0.99):8.1f}"
+                         if h.count else "       -/       -")
+        print(f"   {status:9s} n={n:4d}  ttft {fmt(ttft)}  per-token {fmt(tpot)}")
+
+
+def run_stream(cfg, params, args, rng, device) -> Router:
+    """Drive ``--replicas`` engines behind the router with a Poisson
+    arrival trace; print each request and a summary.  Returns the drained
+    router."""
+    if args.drain_at is not None and args.replicas < 2:
+        raise SystemExit("--drain-at needs --replicas >= 2 (draining the only "
+                         "replica leaves nothing to migrate onto)")
     max_len = args.prompt_len + args.new_tokens + 8
     if args.kv_layout == "paged":
         max_len = -(-max_len // args.page_size) * args.page_size
     faults = None
+    if args.replica_chaos_rate > 0:
+        faults = FaultPlan(args.chaos_seed,
+                           {site: args.replica_chaos_rate for site in REPLICA_FAULT_SITES})
+    engine_faults = None
     if args.chaos_rate > 0:
-        faults = FaultPlan(args.chaos_seed + 1,
-                           {site: args.chaos_rate for site in ENGINE_FAULT_SITES})
+        engine_faults = [FaultPlan(args.chaos_seed + 1 + i,
+                                   {site: args.chaos_rate for site in ENGINE_FAULT_SITES})
+                         for i in range(args.replicas)]
     spec = args.spec_k > 0
     draft_params = draft_mix(cfg, params, args.spec_draft_alpha, args.seed + 1,
                              device) if spec else None
-    engine = ServeEngine(cfg, params, EngineConfig(
+    obs = None
+    if args.trace_out or args.flightrec_dir:
+        # the tracer and the recorder's ring (a failed invariant sweep
+        # dumps to --flightrec-dir); the metrics are on either way
+        obs = Observer.full(dump_dir=args.flightrec_dir or ".", name="router")
+    router = Router(cfg, params, EngineConfig(
         max_slots=args.max_slots, max_len=max_len, seed=args.seed,
         kv_layout=args.kv_layout, page_size=args.page_size,
         num_blocks=args.num_blocks, paged_attn=args.paged_attn,
         prefill_chunk=args.prefill_chunk, prefix_cache=args.prefix_cache,
         admission=args.admission, max_retries=args.max_retries,
         spec_draft=cfg if spec else None, spec_k=args.spec_k),
-        device=device, faults=faults, draft_params=draft_params)
+        RouterConfig(replicas=args.replicas, shed_queue_depth=args.shed_queue_depth),
+        device=device, faults=faults, engine_faults=engine_faults, obs=obs,
+        draft_params=draft_params)
     arrivals = np.cumsum(rng.exponential(1.0 / args.rate, args.requests))
     prompts = [rng.integers(0, cfg.vocab, rng.integers(2, args.prompt_len + 1))
                .astype(np.int32) for _ in range(args.requests)]
@@ -89,55 +163,86 @@ def run_stream(cfg, params, args, rng, device) -> ServeEngine:
 
     t0 = time.perf_counter()
     i = 0
-    while i < len(prompts) or engine.has_work():
+    drained = False
+    while i < len(prompts) or router.has_work():
         now = time.perf_counter() - t0
         while i < len(prompts) and arrivals[i] <= now:
-            engine.submit(prompts[i], max_new_tokens=int(budgets[i]),
+            router.submit(prompts[i], max_new_tokens=int(budgets[i]),
                           temperature=args.temperature, rid=i,
                           deadline_s=args.deadline_s)
             i += 1
-        if not engine.step() and i < len(prompts):
+        if args.drain_at is not None and not drained \
+                and len(router.completions) >= args.drain_at:
+            idx = args.replicas - 1
+            moved = router.drain(idx)
+            print(f"-- drained replica {idx}: migrated {moved} in-flight requests "
+                  "to survivors")
+            drained = True
+        if not router.step() and i < len(prompts):
             time.sleep(max(0.0, t0 + arrivals[i] - time.perf_counter()))
     wall = time.perf_counter() - t0
 
     tokens = 0
     for rid in range(len(prompts)):
-        c = engine.completions[rid]
+        c = router.completions[rid]
         tokens += len(c.tokens)
         lat = (f"{(c.finish_time - c.submit_time) / len(c.tokens) * 1e3:.1f}"
                " ms/tok" if c.tokens else "-")
         note = f"  [{c.error}]" if c.error else ""
-        print(f"req{rid}: {c.status:9s} plen={c.prompt_len} "
+        where = router.placements.get(rid)
+        place = f"r{where}" if where is not None else "--"
+        print(f"req{rid}: {c.status:9s} {place} plen={c.prompt_len} "
               f"new={len(c.tokens)} {lat}  {c.tokens}{note}")
-    s = engine.stats
-    print(f"-- {tokens} tokens in {wall:.2f}s = {tokens / wall:.1f} tok/s on "
-          f"{device} ({args.kv_layout}, attn {cfg.attn_impl}, paged_attn "
-          f"{args.paged_attn})")
-    print(f"-- prefills {s['prefills']} decode_steps {s['decode_steps']} "
-          f"kv {s['kv_peak_used_bytes'] / 2**20:.2f} MiB peak used / "
-          f"{s['kv_reserved_bytes'] / 2**20:.2f} MiB reserved  "
-          f"status ok {s['status_ok']} failed {s['status_failed']} "
-          f"timeout {s['status_timeout']} cancelled {s['status_cancelled']}")
-    if args.kv_layout == "paged":
-        print(f"-- prefill chunks {s['prefill_chunks']}  prefix hit_rate "
-              f"{s['prefix_hit_rate']:.2f} cow {s['cow_copies']}  preempt "
-              f"{s['preemptions']} resume {s['resumed']} replayed "
-              f"{s['replayed_tokens']}")
-    if spec:
-        print(f"-- spec k={args.spec_k} alpha={args.spec_draft_alpha}: accept "
-              f"{s['spec_acceptance_rate']:.2f} tok/round "
-              f"{s['tokens_per_decode_dispatch']:.2f} rounds {s['spec_steps']}")
-    if faults is not None:
-        print(f"-- chaos[seed {args.chaos_seed}]: faults injected "
-              f"{s['faults_injected']} detected {s['faults_detected']} retries "
-              f"{s['retries']}")
-    return engine
+    print(f"-- {tokens} tokens in {wall:.2f}s = {tokens / wall:.1f} tok/s across "
+          f"{args.replicas} replica(s) on {device} ({args.kv_layout}, attn "
+          f"{cfg.attn_impl}, paged_attn {args.paged_attn})")
+    for h in router.replicas:
+        s = h.engine.stats
+        line = (f"-- replica {h.idx} [{h.state}] state[{s['state_kind']}/{args.kv_layout}]: "
+                f"{s['kv_peak_used_bytes'] / 2**20:.2f} MiB peak used / "
+                f"{h.engine.kv_reserved_bytes / 2**20:.2f} MiB reserved  "
+                f"prefills {s['prefills']} decode_steps {s['decode_steps']}")
+        if args.kv_layout == "paged":
+            line += (f"  chunks {s['prefill_chunks']} prefix hit_rate "
+                     f"{s['prefix_hit_rate']:.2f} cow {s['cow_copies']} preempt "
+                     f"{s['preemptions']} resume {s['resumed']} replayed "
+                     f"{s['replayed_tokens']}")
+        if spec:
+            line += (f"  spec k={args.spec_k} alpha={args.spec_draft_alpha}: accept "
+                     f"{s['spec_acceptance_rate']:.2f} tok/round "
+                     f"{s['tokens_per_decode_dispatch']:.2f} rounds {s['spec_steps']}")
+        print(line)
+    rs = router.stats
+    print(f"-- status: ok {rs['status_ok']} timeout {rs['status_timeout']} "
+          f"cancelled {rs['status_cancelled']} failed {rs['status_failed']} "
+          f"shed {rs['status_shed']}  failovers {rs['failovers']} "
+          f"migrated {rs['migrated']}")
+    if faults is not None or engine_faults is not None:
+        eng = [h.engine.stats for h in router.replicas]
+        print(f"-- chaos[seed {args.chaos_seed}]: engine faults injected "
+              f"{sum(s['faults_injected'] for s in eng)} detected "
+              f"{sum(s['faults_detected'] for s in eng)} retries "
+              f"{sum(s['retries'] for s in eng)}  replicas dead {rs['replicas_dead']} "
+              f"stalls {rs['stalls_injected']}/{rs['stalls_detected']} "
+              "(injected/detected)")
+    print_latency_summary(router)
+    if args.trace_out:
+        ev = router.obs.tracer.events
+        info = validate(ev)
+        to_chrome_trace(ev, args.trace_out)
+        print(f"-- trace: {info['events']} events / {info['spans']} spans / "
+              f"{info['requests']} requests -> {args.trace_out} "
+              "(load in chrome://tracing or ui.perfetto.dev)")
+    return router
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=ARCH_IDS, required=True)
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--engine", choices=("continuous", "static"), default="continuous")
+    ap.add_argument("--batch", type=int, default=4,
+                    help="rows of the static loop's batch (--engine static)")
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--new-tokens", type=int, default=16)
     ap.add_argument("--temperature", type=float, default=0.0)
@@ -146,6 +251,19 @@ def main(argv=None):
                     help="Poisson arrival rate, requests/s")
     ap.add_argument("--max-slots", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
+    # the router front-end
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="engine replicas behind the router (one program cache "
+                         "and one weight copy; crash failover between them)")
+    ap.add_argument("--shed-queue-depth", type=int, default=64,
+                    help="bounded admission queue: a submission beyond this "
+                         "depth ends with status 'shed'")
+    ap.add_argument("--drain-at", type=int, default=None,
+                    help="after this many completions, drain the last replica "
+                         "(zero-downtime migration); needs --replicas >= 2")
+    ap.add_argument("--replica-chaos-rate", type=float, default=0.0,
+                    help=">0: seeded replica crashes and stalls at this per-tick "
+                         "probability (router failover; use --replicas >= 2)")
     ap.add_argument("--kv-layout", choices=("slotted", "paged"),
                     default="slotted")
     ap.add_argument("--page-size", type=int, default=16,
@@ -178,6 +296,12 @@ def main(argv=None):
     ap.add_argument("--spec-draft-alpha", type=float, default=0.1,
                     help="draft weights = (1-a)*target + a*fresh init; smaller a, "
                          "higher acceptance")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write the request and engine timeline as a Chrome trace "
+                         "(chrome://tracing, ui.perfetto.dev)")
+    ap.add_argument("--flightrec-dir", default=None, metavar="DIR",
+                    help="arm the flight recorder: a failed invariant sweep dumps "
+                         "the last events as flightrec_*.json here")
     ap.add_argument("--device", default=None,
                     help="torch device; default the card (raises without one)")
     ap.add_argument("--attn-impl", choices=("chunked", "kernel"),
@@ -192,6 +316,8 @@ def main(argv=None):
     cfg = dataclasses.replace(cfg, attn_impl=args.attn_impl)
     params = registry.get_module(cfg).init(cfg, seed=0, device=device)
     rng = np.random.default_rng(args.seed)
+    if args.engine == "static":
+        return run_static(cfg, params, args, rng, device)
     return run_stream(cfg, params, args, rng, device)
 
 

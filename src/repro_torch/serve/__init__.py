@@ -1,5 +1,5 @@
-"""Continuous-batching serving: engine, programs, slotted and paged caches,
-fault injection and the batch entry points."""
+"""Continuous-batching serving: engine, router front-end, programs, slotted
+and paged caches, fault injection and the batch entry points."""
 from .cache import bucket_for, make_slot_state, prompt_buckets
 from .engine import STATUSES, Completion, EngineConfig, ServeEngine
 from .faults import (
@@ -11,6 +11,7 @@ from .faults import (
     FaultPlan,
 )
 from .loop import ServeConfig, generate, generate_static
+from .router import ReplicaHandle, Router, RouterConfig
 from .paged import (
     BlockAllocator,
     HostTier,
@@ -38,7 +39,8 @@ from .step import (
 __all__ = [
     "BlockAllocator", "Completion", "ENGINE_FAULT_SITES", "EngineConfig",
     "FAULT_SITES", "FaultPlan", "HostTier", "LaneSpill", "NONFINITE_TOKEN",
-    "REPLICA_FAULT_SITES", "STATUSES", "ServeConfig", "ServeEngine", "SlotTables",
+    "REPLICA_FAULT_SITES", "ReplicaHandle", "Router", "RouterConfig", "STATUSES",
+    "ServeConfig", "ServeEngine", "SlotTables",
     "UNCOMMITTED", "blocks_for", "bucket_for", "cache_nbytes", "check_tiered",
     "generate", "generate_static", "lane_read_program", "lane_write_program",
     "make_paged_state", "make_slot_state", "paged_block_read_program",

@@ -90,6 +90,15 @@ before the program that needs it (tables before every program after a
 table change; the whole scheduling mirror after a resume or a forced
 replay token); it never rebinds a buffer.
 
+Observability (:class:`~repro_torch.obs.Observer`, ``obs=``): the
+counters are typed metrics (``kv_peak_used_bytes`` a gauge, every other
+key a monotone counter), each terminal status feeds ``ttft_ms_<status>``
+and ``tpot_ms_<status>`` histograms, and with a tracer every lifecycle
+site of the reference emits its mark, instant or span (``decode``,
+``prefill_chunk``); a failed :meth:`~ServeEngine.check_invariants` dumps
+the flight recorder.  No emit synchronizes the device or changes a
+program key.
+
 Programs come from an :class:`~repro_torch.core.aot.AotCache` (the
 reference's ``aot=``, shareable between engines), whose ``builds``,
 ``cache_hits`` and entry count (``executables``) feed :attr:`stats`:
@@ -136,6 +145,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.aot import AotCache, device_program
 from repro_torch.device import resolve_device
 from repro_torch.models import registry
+from repro_torch.obs import MetricMap, Observer
 from .cache import RecurrentCache, bucket_for, make_slot_state, prompt_buckets
 from .faults import NONFINITE_TOKEN, UNCOMMITTED, FaultPlan
 from .paged import (
@@ -306,7 +316,8 @@ class ServeEngine:
     def __init__(self, cfg: ArchConfig, params, engine: EngineConfig = EngineConfig(),  # noqa: B008 - frozen
                  *, device=None, clock: Callable[[], float] = time.perf_counter,
                  faults: FaultPlan | None = None, aot: AotCache | None = None,
-                 host_tier: HostTier | None = None, draft_params=None):
+                 obs: Observer | None = None, host_tier: HostTier | None = None,
+                 draft_params=None):
         if not registry.supports_slot_serving(cfg):
             raise ValueError(f"family {cfg.family!r} does not support slot serving")
         if engine.kv_layout not in ("slotted", "paged"):
@@ -435,11 +446,18 @@ class ServeEngine:
         # rid -> pending resume of a lane parked off the card by hold() and
         # park_idle_s; it re-enters the queue on release()
         self.parked: dict[int, _Pending] = {}
+        # observability (repro_torch.obs): metrics are always live (typed
+        # counters behind the ``self.counters`` mapping); tracing and the
+        # flight recorder run only when the caller's Observer carries them,
+        # every emit behind an ``is not None``: a default engine pays one
+        # attribute check a site, no device synchronize, no program-key change
+        self.obs = obs if obs is not None else Observer(name="engine")
+        self._track = self.obs.name
         # NOT ``aot or ...``: AotCache defines __len__, so a fresh (empty)
         # shared cache is falsy
-        self.aot = aot if aot is not None else AotCache("serve")
+        self.aot = aot if aot is not None else AotCache("serve", obs=self.obs)
         # this engine's decode graphs, on its own buffers (CUDA only)
-        self.graphs = AotCache("decode_graphs")
+        self.graphs = AotCache("decode_graphs", obs=self.obs)
         # every static option that changes a program (the reference's
         # _sampler_key); the cfg carries attn_impl and the dtypes.  Spec
         # changes the state (the draft's leaves), so every program keys on
@@ -455,8 +473,10 @@ class ServeEngine:
         self.completions: dict[int, Completion] = {}
         # the reference's counters, plus ``prefill_first_chunks`` (chunks
         # that start at position 0: the ones the flash kernel computes) and
-        # ``spec_draft_prefills`` (the draft's rebuilds, flash's other user)
-        self.counters = dict.fromkeys((
+        # ``spec_draft_prefills`` (the draft's rebuilds, flash's other user),
+        # backed by typed metrics: ``kv_peak_used_bytes`` is a Gauge (a peak,
+        # see _note_kv_usage), every other key a monotone Counter
+        self.counters = MetricMap(self.obs.metrics, (
             "prefills", "prefill_chunks", "prefill_first_chunks", "decode_steps",
             "admitted", "evicted", "dead_slot_steps", "kv_peak_used_bytes",
             "prefill_tokens", "prefix_lookup_tokens", "prefix_hit_tokens",
@@ -474,7 +494,9 @@ class ServeEngine:
             # (an active lane in a round), draft tokens proposed, accepted
             # and chains ended by a mismatch, tokens committed
             "spec_steps", "spec_rounds", "spec_drafted", "spec_accepted",
-            "spec_rejected", "spec_committed", "spec_draft_prefills"), 0)
+            "spec_rejected", "spec_committed", "spec_draft_prefills"),
+            gauges=("kv_peak_used_bytes",))
+        self._kv_gauge = self.obs.metrics.gauge("kv_peak_used_bytes")
         self._next_rid = 0
         # lanes barred from admission for one more step after a fault
         # (quarantine): one cooldown step keeps a hot fault site from
@@ -700,6 +722,9 @@ class ServeEngine:
             self._has_deadlines = True
         self.queue.append(_Pending(rid, prompt, max_new_tokens, float(temperature),
                                    eff_k, eff_p, now, deadline=deadline))
+        if self.obs.tracer is not None:
+            self.obs.mark("submit", rid, track=self._track, plen=int(prompt.size),
+                          max_new=max_new_tokens)
         return rid
 
     def cancel(self, rid: int) -> bool:
@@ -760,6 +785,8 @@ class ServeEngine:
         self._active_mirror[slot] = False
         self._active_dirty = True
         self.counters["holds"] += 1
+        if self.obs.tracer is not None:
+            self.obs.mark("hold", rid, track=self._track, slot=slot)
         return True
 
     def release(self, rid: int) -> None:
@@ -771,6 +798,8 @@ class ServeEngine:
         if rid in self.parked:
             self.queue.appendleft(self.parked.pop(rid))
             self.counters["releases"] += 1
+            if self.obs.tracer is not None:
+                self.obs.mark("release", rid, track=self._track, parked=True)
             return
         slot = self._find_lane(rid)
         if slot is None or not self.slots[slot].held:
@@ -803,6 +832,8 @@ class ServeEngine:
             self._spec_draft_prefill(slot, np.concatenate([
                 s.prompt, np.asarray(comp.tokens[: s.generated - 1], np.int32)]))
         self.counters["releases"] += 1
+        if self.obs.tracer is not None:
+            self.obs.mark("release", rid, track=self._track, slot=slot)
 
     def _park(self, slot: int) -> None:
         """Move a long-held lane off the card: spill (unless its hold-time
@@ -857,6 +888,9 @@ class ServeEngine:
             # injected transient pool exhaustion: the lane retries through
             # the preempt-and-requeue path a real fault takes
             self.counters["faults_injected"] += 1
+            if self.obs.tracer is not None:
+                self.obs.instant("fault", track=self._track, site="alloc",
+                                 rid=self.slots[slot].rid)
             self._retry_lane(slot, "injected block-alloc fault")
             return None
         while True:
@@ -922,6 +956,9 @@ class ServeEngine:
         if self.tier.put_lane(sp):
             self.counters["spills"] += 1
             self.counters["spilled_bytes"] += sp.nbytes
+            if self.obs.tracer is not None:
+                self.obs.mark("spill", sp.rid, track=self._track, slot=slot, kind=sp.kind,
+                              nbytes=sp.nbytes)
             return True
         self.counters["spill_drops"] += 1
         return False
@@ -935,9 +972,12 @@ class ServeEngine:
         if key is None:
             return
         payload = self._block_read_entry()(self.state, [block])[0]
+        nb = sum(int(a.nbytes) for a in payload.values())
         if self.tier.put_block(key, payload):
             self.counters["prefix_spills"] += 1
-            self.counters["spilled_bytes"] += sum(int(a.nbytes) for a in payload.values())
+            self.counters["spilled_bytes"] += nb
+            if self.obs.tracer is not None:
+                self.obs.instant("prefix_spill", track=self._track, nbytes=nb)
         else:
             self.counters["spill_drops"] += 1
 
@@ -972,6 +1012,8 @@ class ServeEngine:
             # damped will be long gone
             self.parked[s.rid] = pending
             self.counters["parked"] += 1
+            if self.obs.tracer is not None:
+                self.obs.mark("park", s.rid, track=self._track, slot=slot)
         else:
             # resumes go to the FRONT: successive victims within a step
             # have decreasing rids, so rid order (FCFS priority) is kept
@@ -981,6 +1023,9 @@ class ServeEngine:
         if self.paged:
             self._release_blocks(slot)
         self._last_op = "preempt"
+        if not s.held and self.obs.tracer is not None:
+            self.obs.mark("preempt", s.rid, track=self._track, slot=slot,
+                          emitted=len(comp.tokens))
 
     def _vacate(self, slot: int, *, push_active: bool = True) -> None:
         """Free lane ``slot`` on the host: its ``active`` and ``replay``
@@ -1048,6 +1093,7 @@ class ServeEngine:
             # injected lost push: the host mirror is the truth, so recovery
             # is the same push again
             self.counters["faults_injected"] += 1
+            self.obs.instant("fault", track=self._track, site="sched_push")
             pushes = 2
         st = self.state
         for _ in range(pushes):
@@ -1081,6 +1127,8 @@ class ServeEngine:
             self.counters["restored_bytes"] += sum(int(a.nbytes) for a in payload.values())
         if blocks:
             self._block_write_entry()(self.state, payloads, blocks)
+            if self.obs.tracer is not None:
+                self.obs.instant("host_promote", track=self._track, blocks=len(blocks))
         return len(blocks)
 
     def _chain_lookup(self, keys: list[bytes]) -> list[int]:
@@ -1160,6 +1208,9 @@ class ServeEngine:
             # over the history the spill covers (up to the pending input
             # seq[plen + k_cov - 1], not including it)
             self._spec_draft_prefill(slot, seq[: plen + k_cov - 1])
+        if self.obs.tracer is not None:
+            self.obs.mark("restore", req.rid, track=self._track, slot=slot,
+                          source="host_tier", kind=sp.kind, nbytes=sp.nbytes)
         return True
 
     def _try_restore(self, slot: int, req: _Pending) -> bool:
@@ -1241,6 +1292,9 @@ class ServeEngine:
     def _admit(self, req: _Pending, slot: int) -> None:
         plen = int(req.prompt.size)
         limit = req.limit if req.resume else plen + req.max_new_tokens - 1
+        if self.obs.tracer is not None:
+            self.obs.mark("admit", req.rid, track=self._track, slot=slot,
+                          resume=req.resume)
         if not req.resume:
             self.live[req.rid] = Completion(
                 rid=req.rid, prompt_len=plen, max_new_tokens=req.max_new_tokens,
@@ -1267,7 +1321,10 @@ class ServeEngine:
                 return                        # the lane faulted mid-restore
         if self.paged and self.econ.prefix_cache:
             if req.resume and req.replay and self._try_restore(slot, req):
-                return                        # restored mid-decode
+                # restored mid-decode: nothing to prefill
+                if self.obs.tracer is not None:
+                    self.obs.mark("restore", req.rid, track=self._track, slot=slot)
+                return
             start = self._match_prefix(slot, req.prompt)
             if start < 0:
                 return                        # the lane preempted itself mapping COW
@@ -1333,8 +1390,22 @@ class ServeEngine:
             # injected dispatch failure before the program runs: nothing
             # advanced on the device, the lane requeues and retries
             self.counters["faults_injected"] += 1
+            if self.obs.tracer is not None:
+                self.obs.instant("fault", track=self._track, site="prefill",
+                                 rid=self.slots[slot].rid)
             self._retry_lane(slot, "injected prefill-dispatch fault")
             return
+        s = self.slots[slot]
+        if self.obs.tracer is None:
+            self._prefill_chunk_run(slot)
+        else:
+            # host time: the chunk's dispatch (and, where it samples, its
+            # token fetch), never a synchronize of its own
+            with self.obs.span("prefill_chunk", track=self._track, rid=s.rid,
+                               start=s.prefilled, chunk=s.chunk):
+                self._prefill_chunk_run(slot)
+
+    def _prefill_chunk_run(self, slot: int) -> None:
         s = self.slots[slot]
         start = s.prefilled
         C = s.chunk
@@ -1391,9 +1462,13 @@ class ServeEngine:
             self._active_mirror[slot] = True
             self._sched_dirty = True
             self.counters["replayed_tokens"] += 1
+            if self.obs.tracer is not None:
+                self.obs.mark("replay", s.rid, track=self._track, pending=s.emit_from)
         else:
             comp.tokens.append(tok)
             comp.token_times.append(now)
+            if self.obs.tracer is not None:
+                self.obs.mark("first_token", s.rid, track=self._track)
             self._tok_mirror[slot] = tok
             done = (s.plen >= s.limit) or (
                 self.econ.eos_id is not None and tok == self.econ.eos_id)
@@ -1430,6 +1505,22 @@ class ServeEngine:
         self.state["tokens"].copy_(torch.from_numpy(self._tok_mirror))
         self.state["active"].copy_(torch.from_numpy(self._active_mirror))
 
+    def _observe_terminal(self, comp: Completion) -> None:
+        """Latency histograms and the request's terminal trace mark: the
+        one exit point every termination path funnels through.  TTFT is
+        the first token's host arrival minus submission, the per-token
+        latency the total latency over the emitted tokens (a request that
+        emitted nothing records no latency)."""
+        st = comp.status
+        if comp.tokens:
+            self.obs.metrics.histogram(f"ttft_ms_{st}").observe(
+                max(0.0, (comp.token_times[0] - comp.submit_time) * 1e3))
+            self.obs.metrics.histogram(f"tpot_ms_{st}").observe(
+                max(0.0, (comp.finish_time - comp.submit_time) * 1e3 / len(comp.tokens)))
+        if self.obs.tracer is not None:
+            self.obs.mark("terminal", comp.rid, track=self._track, status=st,
+                          tokens=len(comp.tokens), retries=comp.retries)
+
     def _finish(self, slot: int, now: float) -> None:
         # natural EOS/budget eviction: the device already deactivated the
         # lane itself, so no active-mirror push is owed
@@ -1455,6 +1546,7 @@ class ServeEngine:
             self.tier.drop_lane(s.rid)
         self.counters["evicted"] += 1
         self.counters[f"status_{status}"] += 1
+        self._observe_terminal(comp)
 
     def _terminate_queued(self, req: _Pending, status: str,
                           error: str | None = None) -> None:
@@ -1475,6 +1567,7 @@ class ServeEngine:
         if self.tier is not None:
             self.tier.drop_lane(req.rid)
         self.counters[f"status_{status}"] += 1
+        self._observe_terminal(comp)
 
     def _retry_lane(self, slot: int, reason: str) -> None:
         """Quarantine and bounded retry for a faulted lane (non-finite
@@ -1489,6 +1582,9 @@ class ServeEngine:
         comp.retries += 1
         self.counters["retries"] += 1
         self._quarantine[slot] = 1
+        if self.obs.tracer is not None:
+            self.obs.mark("retry", s.rid, track=self._track, reason=reason,
+                          retries=comp.retries)
         if comp.retries > self.econ.max_retries:
             self._terminate(slot, "failed", error=reason)
         else:
@@ -1528,8 +1624,7 @@ class ServeEngine:
                        for i, s in enumerate(self.slots) if s is not None)
             used = self.kv_reserved_bytes * ntok // (
                 self.econ.max_slots * self.econ.max_len)
-        self.counters["kv_peak_used_bytes"] = max(
-            self.counters["kv_peak_used_bytes"], used)
+        self._kv_gauge.set_max(used)
 
     def _advance_lane(self, i: int, tok: int, now: float) -> str:
         """Commit ONE fetched token for lane ``i``.  Returns ``"fault"``
@@ -1635,18 +1730,24 @@ class ServeEngine:
             sampled = [s for s in lanes if s.temperature > 0]
             flags = dict(stochastic=bool(sampled),
                          masked=any(s.top_k > 0 or 0 < s.top_p < 1 for s in sampled))
+            # the decode span covers dispatch (a graph replay on the card)
+            # and the token fetch, the step's one host sync: host time of
+            # the step's critical path, on the engine's clock
+            sid = None if self.obs.tracer is None else self.obs.begin(
+                "decode", track=self._track, lanes=len(active_slots))
             if self.spec:
                 rows = self._spec_entry(**flags)(self.params, self.draft_params, self.state)
-                self._spec_round(active_slots, rows.cpu().numpy())  # the one host sync
+                self._spec_round(active_slots, rows.cpu().numpy(), sid)  # the one host sync
             else:
-                self._decode_round(active_slots, flags)
+                self._decode_round(active_slots, flags, sid)
             progressed = True
         self._note_kv_usage()
         return progressed
 
-    def _decode_round(self, active_slots: list[int], flags: dict) -> None:
+    def _decode_round(self, active_slots: list[int], flags: dict, sid=None) -> None:
         """One decode step over the active lanes and its host side: the
-        token fetch (or the host sampler's), then each lane's commit."""
+        token fetch (or the host sampler's), then each lane's commit.
+        ``sid`` is the open ``decode`` span, ended after the fetch."""
         out = self._decode_entry(**flags)(self.params, self.state)
         if self.econ.fused_sampling:
             toks = out.cpu().numpy()            # the one host sync
@@ -1662,11 +1763,15 @@ class ServeEngine:
         self._note_kv_usage(frozenset(active_slots))
         self.counters["decode_steps"] += 1
         self.counters["dead_slot_steps"] += self.econ.max_slots - len(active_slots)
+        self.obs.end(sid)
         if self.faults is not None:
             lane = self.faults.pick("decode_logits", active_slots)
             if lane is not None:
                 # as if the device had found non-finite logits there
                 self.counters["faults_injected"] += 1
+                if self.obs.tracer is not None:
+                    self.obs.instant("fault", track=self._track, site="decode_logits",
+                                     rid=self.slots[lane].rid)
                 toks = toks.copy()
                 toks[lane] = NONFINITE_TOKEN
         now = self.clock()
@@ -1675,7 +1780,7 @@ class ServeEngine:
         if not self.econ.fused_sampling:
             self._writeback_sampled()
 
-    def _spec_round(self, active_slots: list[int], rows: np.ndarray) -> None:
+    def _spec_round(self, active_slots: list[int], rows: np.ndarray, sid=None) -> None:
         """The host side of a spec round: commit each active lane's row in
         order through :meth:`_advance_lane` up to its first
         :data:`UNCOMMITTED` entry, a fault or its finish, and count the
@@ -1687,12 +1792,16 @@ class ServeEngine:
         self.counters["dead_slot_steps"] += self.econ.max_slots - len(active_slots)
         self.counters["spec_steps"] += 1
         self.counters["spec_rounds"] += len(active_slots)
+        self.obs.end(sid)
         if self.faults is not None:
             lane = self.faults.pick("decode_logits", active_slots)
             if lane is not None:
                 # as if the device had found non-finite logits at the
                 # lane's first position
                 self.counters["faults_injected"] += 1
+                if self.obs.tracer is not None:
+                    self.obs.instant("fault", track=self._track, site="decode_logits",
+                                     rid=self.slots[lane].rid)
                 rows = rows.copy()
                 rows[lane, 0] = NONFINITE_TOKEN
         now = self.clock()
@@ -1866,6 +1975,8 @@ class ServeEngine:
         self.counters.update(snap["counters"])
         self._next_rid = int(snap["next_rid"])
         self.counters["snapshot_restores"] += 1
+        self.obs.instant("snapshot_restore", track=self._track, queued=len(self.queue),
+                         live=len(self.live))
 
     def export_request(self, rid: int) -> dict:
         """Remove one in-flight request from this engine and serialize it
@@ -1890,6 +2001,8 @@ class ServeEngine:
             del self.queue[idx]
         comp = self.live.pop(rid, None) if req.resume else None
         self.counters["exported"] += 1
+        if self.obs.tracer is not None:
+            self.obs.mark("export", rid, track=self._track, resume=req.resume)
         return {"pending": self._snap_pending(req),
                 "completion": None if comp is None else self._snap_completion(comp)}
 
@@ -1918,6 +2031,8 @@ class ServeEngine:
         (self.queue.appendleft if front else self.queue.append)(pending)
         self._next_rid = max(self._next_rid, rid + 1)
         self.counters["imported"] += 1
+        if self.obs.tracer is not None:
+            self.obs.mark("import", rid, track=self._track, resume=resume, front=front)
         return rid
 
     def save_snapshot(self, mgr, step: int) -> None:
@@ -1939,7 +2054,33 @@ class ServeEngine:
     # Invariants and stats
     # ------------------------------------------------------------------
     def check_invariants(self) -> None:
-        """Conservation sweep.  Raises ``AssertionError`` on a breach."""
+        """Conservation sweep.  Raises ``AssertionError`` on a breach; a
+        failed sweep first records it and dumps the flight recorder (when
+        one is attached), so the events before the breach land on disk
+        with the message."""
+        try:
+            self._check_invariants()
+        except AssertionError as e:
+            self.obs.record("invariant_failure", engine=self._track, error=str(e))
+            self.obs.dump("engine_invariant_failure", context={
+                "engine": self._track,
+                "error": str(e),
+                "live_rids": sorted(self.live),
+                "queued_rids": [r.rid for r in self.queue],
+                "counters": dict(self.counters),
+            })
+            raise
+
+    def _check_invariants(self) -> None:
+        # metric-kind hygiene: the peak gauge never became a counter (or
+        # the reverse) behind the MetricMap facade
+        self.obs.metrics.check()
+        kind = self.obs.metrics.kind
+        if kind("kv_peak_used_bytes") != "gauge":
+            raise AssertionError("kv_peak_used_bytes must be a gauge (peak set, not a sum)")
+        for k in ("decode_steps", "admitted", "evicted", "preemptions"):
+            if kind(k) != "counter":
+                raise AssertionError(f"{k} must be a counter")
         for comp in self.completions.values():
             if comp.status not in STATUSES:
                 raise AssertionError(f"rid {comp.rid}: unknown status {comp.status!r}")

@@ -24,11 +24,13 @@ from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.data import make_batch_fn
 from repro_torch.models import registry
 from repro_torch.models.common import map_tree
+from repro_torch.obs import Observer
 from repro_torch.optim import OptConfig, init_state
 from repro_torch.optim.buckets import make_buckets, reshard_scattered
 from repro_torch.optim.flat import flatten, tree_leaves, unflatten
 from repro_torch.train.step import (
     TrainSettings,
+    to_device,
     build_train_step,
     flat_engine_mode,
     flat_layout_for,
@@ -94,9 +96,17 @@ def train(
     *,
     resume: bool = True,
     on_step: Callable[[int, dict], None] | None = None,
+    obs: Observer | None = None,
 ) -> dict:
     """Runs the loop on this worker; returns the final metrics summary.
-    (The reference's ``obs`` hook arrives with the observability slice.)"""
+
+    With an :class:`~repro_torch.obs.Observer` every step records a
+    ``step_ms`` histogram, and the summary embeds the metrics snapshot
+    (``out["metrics"]``).  With a tracer too, each step emits the phase
+    spans ``stage_batch`` / ``h2d`` / ``dispatch`` / ``device_wait`` (and
+    ``ckpt_save``).  ``device_wait`` synchronizes the device: traced, the
+    loop adds that one host sync a step (it separates host staging and
+    dispatch from device compute); untraced, it makes none."""
     step_fn = build_train_step(cfg, group, opt, settings)
     mode = step_fn._flat_engine
     batch_fn = make_batch_fn(cfg, shape, loop.seed)
@@ -105,7 +115,7 @@ def train(
         raise ValueError(f"global batch {B} does not split over {group.world} workers")
     lo, hi = group.rank * B // group.world, (group.rank + 1) * B // group.world
 
-    mgr = CheckpointManager(loop.ckpt_dir, loop.keep_k) if loop.ckpt_dir else None
+    mgr = CheckpointManager(loop.ckpt_dir, loop.keep_k, obs=obs) if loop.ckpt_dir else None
     # flat-engine provenance rides the checkpoint meta: a ZeRO
     # checkpoint's scattered m/v bake in (n_shards, bucket boundaries),
     # which a restore onto a different dp size must know to undo
@@ -134,10 +144,27 @@ def train(
     losses, t0 = [], time.perf_counter()
     metrics: dict = {}
     skipped = []   # per-step device scalars; summed once at the end
+    traced = obs is not None and obs.tracer is not None
+    step_hist = obs.metrics.histogram("step_ms") if obs is not None else None
     for step in range(start, loop.steps):
-        host = batch_fn(step)
-        batch = {k: v[lo:hi] for k, v in host.items()}
-        params, opt_state, metrics = step_fn(params, opt_state, batch)
+        ts = time.perf_counter()
+        if traced:
+            with obs.span("stage_batch", cat="train", track="train", step=step):
+                host = batch_fn(step)
+                batch = {k: v[lo:hi] for k, v in host.items()}
+            with obs.span("h2d", cat="train", track="train"):
+                batch = to_device(batch, group.device)
+            with obs.span("dispatch", cat="train", track="train"):
+                params, opt_state, metrics = step_fn(params, opt_state, batch)
+            # traced only: wait for the device, so the span boundary
+            # separates staging and dispatch from compute
+            with obs.span("device_wait", cat="train", track="train"):
+                if group.device.type == "cuda":
+                    torch.cuda.synchronize(group.device)
+        else:
+            host = batch_fn(step)
+            batch = {k: v[lo:hi] for k, v in host.items()}
+            params, opt_state, metrics = step_fn(params, opt_state, batch)
         if "skipped" in metrics:
             skipped.append(metrics["skipped"])
         if loop.log_every and (step + 1) % loop.log_every == 0:
@@ -147,13 +174,19 @@ def train(
                 print(f"[train] step {step + 1:5d} loss {loss:.4f} "
                       f"({time.perf_counter() - t0:.1f}s)", flush=True)
         if mgr and loop.ckpt_every and (step + 1) % loop.ckpt_every == 0:
-            save(step + 1, blocking=False)
+            if traced:
+                with obs.span("ckpt_save", cat="train", track="train", step=step + 1):
+                    save(step + 1, blocking=False)
+            else:
+                save(step + 1, blocking=False)
         if on_step:
             on_step(step, metrics)
+        if step_hist is not None:
+            step_hist.observe((time.perf_counter() - ts) * 1e3)
     if mgr:
         save(loop.steps, blocking=True)
         mgr.wait()
-    return {
+    out = {
         "final_loss": float(metrics["loss"]) if metrics else float("nan"),
         "losses": losses,
         # non-finite-gradient steps the flat engine turned into bitwise
@@ -162,6 +195,9 @@ def train(
         "params": params,
         "opt_state": opt_state,
     }
+    if obs is not None:
+        out["metrics"] = obs.metrics.snapshot()
+    return out
 
 
 def _restore(cfg, group, opt, mgr, step_fn):

@@ -183,7 +183,7 @@ def _make_compute_grads(cfg: ArchConfig, settings: TrainSettings):
     return compute_grads
 
 
-def _to_device(batch: dict, device) -> dict:
+def to_device(batch: dict, device) -> dict:
     """Host batches go to the device through pinned memory, asynchronously
     (a pageable copy would wait for the card)."""
     out = {}
@@ -228,7 +228,7 @@ def build_train_step(cfg: ArchConfig, group, opt: OptConfig,
     compute_grads = _make_compute_grads(cfg, settings)
 
     def train_step(params, opt_state, batch):
-        loss, metrics, grads = compute_grads(params, _to_device(batch, group.device))
+        loss, metrics, grads = compute_grads(params, to_device(batch, group.device))
         loss, metrics = _pmean_metrics(loss, metrics, group)
         if group.pg is not None:
             for _, g in tree_leaves(grads):
@@ -274,7 +274,7 @@ def _build_flat_train_step(cfg, group, opt, settings, mode: str):
         return x
 
     def train_step(params, opt_state, batch):
-        loss, metrics, grads = compute_grads(params, _to_device(batch, group.device), layout)
+        loss, metrics, grads = compute_grads(params, to_device(batch, group.device), layout)
         loss, metrics = _pmean_metrics(loss, metrics, group)
         gflat = flatten(layout, grads)
         del grads

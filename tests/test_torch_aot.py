@@ -28,7 +28,10 @@ smoke width with head dim 64 so the paged kernel takes it:
   stays with the engine: the shared cache holds no graph;
 * the ``data_ptr`` guard raises when a state leaf is rebound;
 * two stochastic replays draw different uniforms;
-* the kernel wrappers' launch counters advance on every replay.
+* the kernel wrappers' launch counters advance on every replay;
+* tracing is invisible: a traced engine's replays launch what an
+  untraced one's do, sample the same tokens and build nothing more;
+* a router counts each replica's graph capture as a fleet build.
 """
 import dataclasses
 import math
@@ -349,3 +352,62 @@ def test_launch_counters_advance_per_replay(cuda):
         eng.step()
         after = (paged_attention.launches, rmsnorm.launches, rmsnorm_add.launches)
         assert tuple(a - b for a, b in zip(after, before)) == (L, L + 1, L)
+
+
+@pytest.mark.cuda
+def test_traced_replay_launches_what_an_untraced_one_does(cuda):
+    """Tracing is invisible on the card: an engine with the full observer
+    replays the same graph, launches the same kernels a step and samples
+    the same tokens as an untraced one, and builds nothing more."""
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_add
+    from repro_torch.obs import Observer, validate
+
+    counted = (paged_attention, rmsnorm, rmsnorm_add)
+    runs = []
+    for obs in (None, Observer.full(name="engine")):
+        cfg, plain = _card_engine("dense", "paged", cuda)
+        eng = ServeEngine(cfg, plain.params, plain.econ, device=cuda, obs=obs)
+        _busy(cfg, eng)
+        builds = (eng.stats["builds"], eng.stats["graphs"])
+        deltas, toks = [], []
+        for _ in range(3):
+            before = [k.launches for k in counted]
+            eng.step()
+            deltas.append([k.launches - b for k, b in zip(counted, before)])
+            toks.append([list(c.tokens) for c in eng.live.values()])
+        assert (eng.stats["builds"], eng.stats["graphs"]) == builds
+        runs.append((deltas, toks, eng))
+    (d0, t0, _), (d1, t1, traced) = runs
+    assert d0 == d1 and t0 == t1
+    L = cfg.n_layers
+    assert d1 == [[L, L + 1, L]] * 3
+    assert validate(traced.obs.tracer.events)["spans"] > 0
+    names = [e["name"] for e in traced.obs.tracer.events if e["ph"] == "B"]
+    assert names.count("decode") >= 4 and "aot_build" in names
+
+
+@pytest.mark.cuda
+def test_router_counts_graph_captures_as_builds(cuda):
+    """Each replica captures its decode graph at its own first decode step,
+    in its own cache: the router counts the capture as a fleet build (the
+    service-time EWMA's compile-clean guard) and reports it in ``stats``."""
+    from repro_torch.serve import Router, RouterConfig
+
+    cfg, plain = _card_engine("dense", "slotted", cuda)
+    router = Router(cfg, plain.params, plain.econ, RouterConfig(replicas=2), device=cuda)
+    router.prebuild()
+    built = router.stats["builds"]
+    rng = np.random.default_rng(0)
+    for p in _prompts(cfg, rng, [5, 12, 20, 9]):
+        router.submit(p, max_new_tokens=4)
+    router.run()
+    st = router.stats
+    assert st["builds"] == built and st["graph_builds"] == st["graphs"] == 2
+    assert router.fleet_builds() == built + 2
+    assert router._ewma_service is None     # every interval so far held a capture
+    for p in _prompts(cfg, rng, [7, 11]):
+        router.submit(p, max_new_tokens=4)
+    router.run()
+    assert router.stats["graph_builds"] == 2 and router._ewma_service is not None
+    assert all(c.status == "ok" for c in router.completions.values())

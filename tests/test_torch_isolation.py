@@ -36,7 +36,8 @@ def test_port_imports_no_jax_or_reference(path):
 def test_scan_sees_every_port_module():
     names = {p.name for p in PORT_FILES}
     assert {"engine.py", "lm.py", "ops.py", "_build.py", "chip_smoke.py", "aot.py",
-            "function.py", "collectives.py"} <= names
+            "function.py", "collectives.py", "router.py", "metrics.py", "trace.py",
+            "recorder.py"} <= names
 
 
 def test_no_device_without_card_raises(monkeypatch):
@@ -44,13 +45,15 @@ def test_no_device_without_card_raises(monkeypatch):
     from repro_torch.device import resolve_device
     from repro_torch.models import common, lm
     from repro_torch.models.convert import params_from_numpy
-    from repro_torch.serve import ServeEngine
+    from repro_torch.serve import Router, ServeEngine
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = get_smoke_config("smollm-360m")
     params = lm.init(cfg, seed=0, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ServeEngine(cfg, params)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Router(cfg, params)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         params_from_numpy(cfg, common.map_tree(lambda t: t.numpy(), params))
     with pytest.raises(RuntimeError, match="no CUDA device"):

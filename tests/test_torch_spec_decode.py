@@ -617,13 +617,14 @@ def test_spec_cross_package_migration(dense, mesh, rules, direction):
 def test_launcher_spec_on_cpu(capsys):
     from repro_torch.launch.serve import main
 
-    eng = main(["--arch", "smollm-360m", "--smoke", "--device", "cpu", "--requests", "4",
-                "--rate", "1000", "--new-tokens", "8", "--kv-layout", "paged",
-                "--spec-k", "3", "--spec-draft-alpha", "0.15"])
+    router = main(["--arch", "smollm-360m", "--smoke", "--device", "cpu", "--requests", "4",
+                   "--rate", "1000", "--new-tokens", "8", "--kv-layout", "paged",
+                   "--spec-k", "3", "--spec-draft-alpha", "0.15"])
     out = capsys.readouterr().out
     assert "spec k=3" in out and "accept" in out and "tok/round" in out
+    eng = router.replicas[0].engine
     assert eng.spec and eng.econ.spec_k == 3 and eng.counters["spec_steps"] > 0
-    assert eng.stats["status_ok"] == 4
+    assert router.stats["status_ok"] == 4
 
 
 # ---------------------------------------------------------------------------

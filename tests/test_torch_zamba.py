@@ -305,7 +305,7 @@ def test_launcher_serves_smoke_on_cpu(capsys):
     assert len(eng.completions) == 6
     assert all(c.status == "ok" and len(c.tokens) == c.max_new_tokens
                for c in eng.completions.values())
-    assert "status ok 6 failed 0" in capsys.readouterr().out
+    assert "-- status: ok 6 timeout 0 cancelled 0 failed 0" in capsys.readouterr().out
 
 
 def test_launcher_without_card_raises(monkeypatch):
