@@ -22,7 +22,16 @@ Phases (any failure raises and the script exits non-zero):
    names are printed); paged at random lengths 1..1023 and at phase 3's
    own lengths, with its split count and device kernels per call.  Print
    each wrapper's host microseconds per call (1,000 calls, one
-   synchronize).
+   synchronize).  Head dim 128 (gemma2-27b's 32/16 heads and deepseek-67b's
+   64/8): flash causal, window 4096 at S 4608 (the window's edge), softcap
+   50 and both, bf16 and fp32; paged at rep 2 (Hk 16) and rep 8 (Hk 8) on
+   lanes both sides of 4096, plain, softcap 50, and window 4096 with
+   softcap 50.  Timed: flash at gemma2's bucket-512 prefill (1, 512, 32,
+   16, 128), causal, and at (1, 8192, 32, 16, 128) with window 4096, each
+   also at softcap 50 (``ms_softcap``), SDPA beside (with a band mask for
+   the window); paged at phase 7's lengths (six short lanes and the two
+   long ones), the local layer's call (window 4096, softcap 50) and the
+   global layer's (softcap 50).
 2b. Hold the ``flat_adam`` kernel against its plain version (fp32, atol
    and rtol 1e-6: the same fp32 formula, differing only in ``powf``,
    ``sqrtf``, division and FMA contraction by an ulp or two) for n in
@@ -262,9 +271,30 @@ Phases (any failure raises and the script exits non-zero):
    autograd on the same rows, loss within 1e-5 and gradient norm within
    1e-4 (relative); the flash and RMSNorm launches per call equal their
    formulas; one build per signature and resident parameters skipped.
-7. Print the launches, device ms and idle share of the profiled dense and
-   zamba decode steps and zamba prefill (the spec rounds' print with
-   their phases), the seconds of each phase, the
+7. Full-width ``gemma2-27b`` (46 layers, bf16 weights from seed 0 made
+   in bf16, ``attn_impl="kernel"``) through the paged engine (page 16,
+   ``max_len`` 8192, 8 lanes, ``GEMMA_BLOCKS`` 1,025 blocks: 6.18 GB of
+   KV) on phase 3's 16 requests plus two prompts of 4,500-5,000 tokens
+   (budget 64), longer than the local layers' window of 4,096.  Memory
+   from earlier phases is freed first (``memory_allocated`` printed).
+   Gates: every request ``ok`` with its full budget; 8 graph replays
+   bitwise the eager program; after ``prebuild`` the builds are the three
+   decode forms and a prefill per bucket, flat through the run, one decode
+   graph; launches flash 46 a prefill, paged 46 and ``rmsnorm`` 139 /
+   ``rmsnorm_add`` 46 a decode step and a prefill (ln1, the post-norms
+   ln1b and ln2b, ln_f; ln2 with its residual add); a profiled decode
+   step's port kernels equal the graph's counts; kernel-path logits
+   within 1e-1 of the largest |logit| of the plain path's (chunked, paged
+   ref) on one long prompt's prefill and 4 decode steps, and within 1e-3
+   in fp32 (TF32 off) at full width and 4 layers (the full-depth fp32
+   model does not fit one card).  Prints tokens/s, decode step median and
+   p90 host ms, the profiled decode step's launches, device ms and idle
+   share beside its bound (the weights and the attended KV over 3.35
+   TB/s), the long prefill's device ms beside its bound, and peak memory
+   beside the weights and pool.
+8. Print the launches, device ms and idle share of the profiled dense,
+   zamba and gemma2 decode steps and zamba prefill (the spec rounds' print
+   with their phases), the seconds of each phase, the
    card's name and power limit, one
    ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
    {...}}``.  Details go to ``results.json`` in ``OUT_DIR``.
@@ -275,6 +305,7 @@ without a CUDA card or outside the repository.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import re
 import shutil
@@ -315,10 +346,14 @@ GRAD_TOL = {"bfloat16": dict(scale=2e-2, rtol=1e-2), "float32": dict(atol=1e-5, 
 STEP_TOL = {"float32": dict(loss=1e-5, grad_norm=1e-3),
             "bfloat16": dict(loss=1e-2, grad_norm=5e-2)}
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_SLICES = 1024, 8, 2
-# flash timing shapes (name, B, S, H, Hk), bf16, causal: a smollm-360m
-# prefill at bucket 512, the training step's (batch 4 a slice, seq 1024),
-# a zamba2-1.2b shared-block prefill at bucket 512 (rep 1)
-FLASH_TIMING = (("serve", 1, 512, 15, 5), ("train", 4, 1024, 15, 5), ("zamba", 1, 512, 32, 32))
+# flash timing shapes (name, B, S, H, Hk, D, window), bf16, causal: a
+# smollm-360m prefill at bucket 512, the training step's (batch 4 a slice,
+# seq 1024), a zamba2-1.2b shared-block prefill at bucket 512 (rep 1), a
+# gemma2-27b prefill at bucket 512 and its long local-layer prefill at
+# bucket 8192 (window 4096)
+FLASH_TIMING = (("serve", 1, 512, 15, 5, 64, 0), ("train", 4, 1024, 15, 5, 64, 0),
+                ("zamba", 1, 512, 32, 32, 64, 0), ("gemma2 serve", 1, 512, 32, 16, 128, 0),
+                ("gemma2 long", 1, 8192, 32, 16, 128, 4096))
 SMOLLM_VOCAB = 49152
 
 N_LAYERS = 32
@@ -334,15 +369,33 @@ SSD_SHAPE = (1, 512, 64, 64, 1, 64)        # B, T, H, P, G, N: a zamba2 prefill
 # output's largest entry (see zamba_block_agreement)
 BLOCK_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 ZAMBA_LAYERS, ZAMBA_SHARED = 38, 7
+# phase 7: full-width gemma2-27b on the paged engine
+GEMMA_LAYERS = 46
+GEMMA_MAX_LEN = 8192
+GEMMA_BLOCKS = 1025           # 1,024 usable blocks of 16: 6.18 GB of bf16 KV
+GEMMA_LONG = (4500, 5001)     # the two long prompts' lengths are drawn from [lo, hi)
+GEMMA_LONG_BUDGET = 64
+GEMMA_WINDOW = 4096
+GEMMA_SOFTCAP = 50.0
+GEMMA_FP32_LAYERS = 4         # the fp32 logit check's depth: two (local, global) pairs
+GEMMA_LOGIT_STEPS = 4         # decode steps of phase 7's logit check
+# phase 2's head-dim-128 cases: gemma2-27b's (q heads, KV heads) and
+# deepseek-67b's; flash at S 1024 and at S 4608, past the window; paged
+# lanes on both sides of the window (the last stale) in tables of 8192
+D128_HEADS = ((32, 16), (64, 8))
+FLASH_D128_S = (1024, 4608)
+PAGED_D128_LENGTHS = (4000, 4095, 4096, 4097, 4700, 6000, 8191, 100)
 ZAMBA_D_INNER, ZAMBA_HEAD_DIM = 4096, 64
 # the RMSNorm shapes (rows, width) of the main paths and the path that
 # gives each: smollm-360m's d_model (960) in a decode step of 8 lanes, a
 # prefill at bucket 512 and a training slice (4 x 1024 tokens); zamba2's
 # d_model (2048) in a decode step and a bucket-512 prefill; its d_inner
-# (4096) at the same rows, the gated out-norm's (no path calls rmsnorm or
-# rmsnorm_add that wide)
+# (4096) at the same rows, the gated out-norm's (no zamba path calls
+# rmsnorm or rmsnorm_add that wide); gemma2-27b's d_model (4608) in a
+# decode step and a bucket-512 prefill
 RMSNORM_PATHS = {(8, 960): "dense decode", (512, 960): "dense prefill",
-                 (4096, 960): "dense train", (8, 2048): "zamba decode",
+                 (4096, 960): "dense train", (8, 4608): "gemma2 decode",
+                 (512, 4608): "gemma2 prefill", (8, 2048): "zamba decode",
                  (512, 2048): "zamba prefill", (8, 4096): "zamba decode (gated only)",
                  (512, 4096): "zamba prefill (gated only)"}
 RMSNORM_SHAPES = tuple(RMSNORM_PATHS)
@@ -471,40 +524,77 @@ def check_flash(torch, dev, results):
             row = dict(S=S, dtype=dt, **kw, max_abs_err=err)
             rows.append(row)
             log(f"flash {json.dumps(row)}")
+    # head dim 128: gemma2-27b's heads (32/16) and deepseek-67b's (64/8),
+    # causal, gemma2's local window at its edge, its softcap, and both
+    short, long = FLASH_D128_S
+    w, cap = dict(window=GEMMA_WINDOW), dict(softcap=GEMMA_SOFTCAP)
+    for H, Hk in D128_HEADS:
+        for S, kw in ((short, dict(causal=True)), (long, dict(causal=True, **w)),
+                      (short, dict(causal=True, **cap)), (long, dict(causal=True, **w, **cap))):
+            for dt in ("bfloat16", "float32"):
+                q, k, v = (torch.randn(1, S, h, 128, generator=gen, device=dev)
+                           .to(getattr(torch, dt)) for h in (H, Hk, Hk))
+                out = flash_attention(q, k, v, **kw)
+                torch.cuda.synchronize()
+                want = attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                     **kw).transpose(1, 2)
+                row = dict(S=S, D=128, H=H, Hk=Hk, dtype=dt, **kw,
+                           max_abs_err=max_err(torch, out, want, dt))
+                rows.append(row)
+                log(f"flash {json.dumps(row)}")
+                del q, k, v, out, want
     results["flash_cases"] = rows
 
     # timing, bf16, causal, at the main paths' shapes: device time per call
     # from the profiler (ms), back-to-back CUDA events beside it
-    # (ms_events); SDPA, which the port never calls, as the yardstick
+    # (ms_events); SDPA, which the port never calls, as the yardstick (with
+    # a boolean band mask where the row has a window)
     timings = []
-    for name, B, S, H, Hk in FLASH_TIMING:
+    for name, B, S, H, Hk, D, window in FLASH_TIMING:
         dt = "bfloat16"
         q, k, v = (torch.randn(B, S, h, D, generator=gen, device=dev).to(torch.bfloat16)
                    for h in (H, Hk, Hk))
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         qc, kc, vc = (x.contiguous() for x in (qt, kt, vt))
-        kernel = lambda: flash_attention(q, k, v, causal=True)
-        plain = lambda: attention_ref(qt, kt, vt, causal=True)
-        lib = lambda: F.scaled_dot_product_attention(qc, kc, vc, is_causal=True,
-                                                     enable_gqa=True)
+        kernel = lambda: flash_attention(q, k, v, causal=True, window=window)
+        plain = lambda: attention_ref(qt, kt, vt, causal=True, window=window)
+        if window:
+            # a band mask with GQA: the KV heads expanded outside the timed
+            # call, so SDPA's memory-efficient kernel (which takes a mask)
+            # can run it
+            i = torch.arange(S, device=dev)
+            band = (i[None] <= i[:, None]) & (i[None] > i[:, None] - window)
+            ke, ve = (x.repeat_interleave(H // Hk, dim=1) for x in (kc, vc))
+            lib = lambda: F.scaled_dot_product_attention(qc, ke, ve, attn_mask=band)
+        else:
+            lib = lambda: F.scaled_dot_product_attention(qc, kc, vc, is_causal=True,
+                                                         enable_gqa=True)
         out = kernel()
         torch.cuda.synchronize()
         want = plain().transpose(1, 2)
-        pairs = B * S * (S + 1) // 2                 # causal (query, key) pairs
+        # causal (query, key) pairs, within the window where there is one
+        w = window or S
+        pairs = B * sum(min(i + 1, w) for i in range(S))
         row = dict(shape=name, q=[B, S, H, D], kv=[B, S, Hk, D], dtype=dt, causal=True,
-                   max_abs_err=max_err(torch, out, want, dt),
+                   window=window, max_abs_err=max_err(torch, out, want, dt),
                    library_max_abs_err=(lib().transpose(1, 2).float() - want.float()).abs().max().item())
         row["bound_ms"], row["bound_by"] = bound(4 * D * H * pairs,
                                                  2 * B * S * D * (2 * H + 2 * Hk), dt)
         iters = 200 if B * S <= 512 else 50
-        row["ms"], kernels = device_profile(torch, kernel)
+        row["ms"], kernels = device_profile(torch, kernel, 50 if S <= 1024 else 10)
         row["device_kernels_per_call"] = kernels_per_call(kernels)
-        row["plain_ms"] = device_ms(torch, plain, 20)
-        row["library_ms"], row["library_kernels"] = device_profile(torch, lib)
+        row["plain_ms"] = device_ms(torch, plain, 20 if S <= 1024 else 3)
+        row["library_ms"], row["library_kernels"] = device_profile(
+            torch, lib, 50 if S <= 1024 else 10)
         row["vs_library"] = row["ms"] / row["library_ms"] if row["ms"] and row["library_ms"] else None
-        row["ms_events"] = time_ms(torch, kernel, iters)
-        row["plain_ms_events"] = time_ms(torch, plain, 20)
-        row["library_ms_events"] = time_ms(torch, lib, iters)
+        row["ms_events"] = time_ms(torch, kernel, iters if S <= 1024 else 10)
+        row["plain_ms_events"] = time_ms(torch, plain, 20 if S <= 1024 else 3)
+        row["library_ms_events"] = time_ms(torch, lib, iters if S <= 1024 else 10)
+        if name.startswith("gemma2"):
+            # gemma2's own setting: the attention softcap (SDPA has none)
+            row["ms_softcap"] = device_ms(torch, lambda: flash_attention(
+                q, k, v, causal=True, window=window, softcap=GEMMA_SOFTCAP),
+                50 if S <= 1024 else 10)
         if name == "serve":
             row["host_us_per_call"] = host_us(torch, kernel)
         timings.append(row)
@@ -537,14 +627,24 @@ def paged_inputs(torch, dev, dt, *, layers=1, B=MAX_SLOTS, Hk=5, rep=3, D=64, nb
     return (q, kp, vp, torch.tensor(lengths, device=dev), torch.tensor(tables, device=dev))
 
 
-def pool_positions_read(lengths, tables, bs: int) -> int:
+def attended(lengths, window: int = 0) -> np.ndarray:
+    """Positions each lane attends: [0, length], or the last ``window`` of
+    them."""
+    n = np.asarray(lengths, np.int64) + 1
+    return np.minimum(n, window) if window else n
+
+
+def pool_positions_read(lengths, tables, bs: int, window: int = 0) -> int:
     """Distinct pool positions (block, offset) a decode step must read: each
-    lane's positions [0, length] through its table row.  A position mapped by
-    several lanes, as the sink block 0 is by every stale lane, counts once."""
+    lane's positions [0, length] (with a window, those above length -
+    window) through its table row.  A position mapped by several lanes, as
+    the sink block 0 is by every stale lane, counts once."""
     need = np.zeros((int(tables.max()) + 1, bs), bool)
     for length, row in zip(lengths, tables):
-        for j in range(min(int(length) // bs + 1, row.size)):
-            need[row[j], : min(bs, int(length) - j * bs + 1)] = True
+        length = int(length)
+        first = length - window + 1 if window else 0
+        for p in range(max(first, 0), min(length + 1, row.size * bs)):
+            need[row[p // bs], p % bs] = True
     return int(need.sum())
 
 
@@ -563,42 +663,73 @@ def check_paged(torch, dev, results):
             row = dict(dtype=dt, **kw, max_abs_err=max_err(torch, out, want, dt))
             rows.append(row)
             log(f"paged {json.dumps(row)}")
+    # head dim 128 at gemma2's rep 2 (16 KV heads) and deepseek's rep 8 (8),
+    # tables of max_len 8192, lanes on both sides of gemma2's window
+    lens = PAGED_D128_LENGTHS
+    for H, Hk in D128_HEADS:
+        rep = H // Hk
+        for kw in (dict(), dict(softcap=GEMMA_SOFTCAP),
+                   dict(window=GEMMA_WINDOW, softcap=GEMMA_SOFTCAP)):
+            for dt in ("bfloat16", "float32"):
+                q, kp, vp, lengths, tables = paged_inputs(
+                    torch, dev, dt, Hk=Hk, rep=rep, D=128, nb=GEMMA_MAX_LEN // PAGE,
+                    lengths=lens, nulled=(7,))
+                out = paged_attention(q, kp[0], vp[0], lengths, tables, **kw)
+                torch.cuda.synchronize()
+                want = paged_attention_ref(q, kp[0], vp[0], lengths, tables, **kw)
+                row = dict(dtype=dt, D=128, Hk=Hk, rep=rep, lengths=lens, **kw,
+                           max_abs_err=max_err(torch, out, want, dt))
+                rows.append(row)
+                log(f"paged {json.dumps(row)}")
+                del q, kp, vp, out, want
     results["paged_cases"] = rows
     # timing at the decode step's shape: 8 lanes, 5 KV heads x 3 queries,
     # bs 16, bf16; 8 layers of pools (84 MB, over the 50 MB L2) walked in
     # turn, so each launch finds its pool cold, as a layer's does in
     # decode.  Lengths: random 1..1023 (two lanes stale), and phase 3's own
     # (its profiled decode steps: the first 8 prompts, ~10 tokens in).
+    # Phase 7's rows: gemma2-27b's decode (16 KV heads x 2 queries, D 128,
+    # tables of 512 blocks) at the lengths of phase 7's profiled steps (its
+    # first 8 requests: the two long prompts and six short ones, ~10 tokens
+    # in), as a local layer calls it (window 4096, softcap 50) and a global
+    # one (softcap 50); 8 layers of pools (4.3 GB) walked in turn.
     dt = "bfloat16"
     L = 8
     phase3 = [int(p.size) + 10 for p, _ in requests(SMOLLM_VOCAB)[:MAX_SLOTS]]
+    phase7 = [int(p.size) + 10 for p, _ in gemma2_requests(SMOLLM_VOCAB)[:MAX_SLOTS]]
+    gemma = dict(Hk=16, rep=2, D=128, nb=GEMMA_MAX_LEN // PAGE)
     timings = []
-    for name, lens, nulled in (("random", None, (6, 7)), ("phase 3", phase3, ())):
+    for name, lens, nulled, shape, kw in (
+            ("random", None, (6, 7), {}, {}), ("phase 3", phase3, (), {}, {}),
+            ("phase 7 local", phase7, (), gemma,
+             dict(window=GEMMA_WINDOW, softcap=GEMMA_SOFTCAP)),
+            ("phase 7 global", phase7, (), gemma, dict(softcap=GEMMA_SOFTCAP))):
         q, kp, vp, lengths, tables = paged_inputs(torch, dev, dt, layers=L, lengths=lens,
-                                                  nulled=nulled)
+                                                  nulled=nulled, **shape)
         B, Hk, rep, D = q.shape
-        n = lengths.long() + 1                   # positions [0, length] per lane
+        window = kw.get("window", 0)
+        n = attended(lengths.cpu().numpy(), window)   # positions attended per lane
         esize = q.element_size()
-        read = pool_positions_read(lengths.cpu().numpy(), tables.cpu().numpy(), PAGE)
+        read = pool_positions_read(lengths.cpu().numpy(), tables.cpu().numpy(), PAGE, window)
         nbytes = (read * Hk * D * 2 + 2 * q.numel()) * esize \
             + 4 * (lengths.numel() + tables.numel())
         bps, n_split = split_plan(tables.shape[1], PAGE)
-        row = dict(lengths_from=name, dtype=dt, lanes=B, lengths=lengths.tolist(),
-                   nulled_lanes=list(nulled), pool_positions_read=read,
+        row = dict(lengths_from=name, dtype=dt, lanes=B, q=list(q.shape), lengths=lengths.tolist(),
+                   **kw, nulled_lanes=list(nulled), pool_positions_read=read,
                    positions_attended=int(n.sum()), blocks_per_split=bps, n_split=n_split,
                    split_ctas=B * Hk * n_split)
         row["bound_ms"], row["bound_by"] = bound(4 * D * rep * Hk * int(n.sum()), nbytes, dt)
-        out = paged_attention(q, kp[0], vp[0], lengths, tables)
+        out = paged_attention(q, kp[0], vp[0], lengths, tables, **kw)
         torch.cuda.synchronize()
         row["max_abs_err"] = max_err(torch, out, paged_attention_ref(q, kp[0], vp[0], lengths,
-                                                                     tables), dt)
+                                                                     tables, **kw), dt)
         i = [0]
 
         def step(fn):
             def go():
                 layer = i[0] % L
                 i[0] += 1
-                return fn(q, kp[layer], vp[layer], lengths, tables)
+                return fn(q, kp[layer], vp[layer], lengths, tables, **kw)
             return go
 
         row["ms"], kernels = device_profile(torch, step(paged_attention), 200)
@@ -613,6 +744,7 @@ def check_paged(torch, dev, results):
             row["host_us_per_call"] = host_us(torch, step(paged_attention))
         timings.append(row)
         log(f"paged timing {json.dumps(row)}")
+        del q, kp, vp, out
     results["paged_timing"] = timings
 
 
@@ -921,6 +1053,17 @@ def requests(vocab: int, n: int = 16, seed: int = 0):
             for p, b in zip(plens, budgets)]
 
 
+def gemma2_requests(vocab: int, seed: int = 7):
+    """Phase 7's traffic: two prompts of ``GEMMA_LONG`` tokens (budget
+    ``GEMMA_LONG_BUDGET``), longer than gemma2's local window, first, so
+    that the graph check and the profiled decode steps hold them; then
+    phase 3's 16 requests (their prompt lengths and budgets)."""
+    rng = np.random.default_rng(seed)
+    longs = [(rng.integers(0, vocab, int(n)).astype(np.int32), GEMMA_LONG_BUDGET)
+             for n in rng.integers(*GEMMA_LONG, 2)]
+    return longs + requests(vocab)
+
+
 class StepClock:
     """An engine clock that advances one unit per engine step (``serve``
     ticks it): deadlines become a property of the schedule, not of the
@@ -1202,7 +1345,9 @@ def main_path(torch, dev, results):
                           launches_rmsnorm=rmsnorm.launches,
                           launches_rmsnorm_add=rmsnorm_add.launches)
     results["main_path"] = e2e
-    results["logits"] = logit_agreement(torch, dev, base, params, reqs[2][0])
+    cfgs = [dataclasses.replace(base, compute_dtype=dt) for dt in ("float32", "bfloat16")]
+    results["logits"] = logit_agreement(
+        torch, dev, ((c, lm.cast_for_compute(c, params, dev)) for c in cfgs), reqs[2][0])
     return launches
 
 
@@ -1359,43 +1504,52 @@ def profile_decode(torch, cfg, params, reqs, ec, dev, steps: int = 5, obs=None):
     return out
 
 
-def logit_agreement(torch, dev, base, params, prompt):
-    """Prefill (flash kernel vs chunked) and the first decode step (paged
-    kernel vs ref, from the same cache) through the lm entry points, in
-    fp32 compute with TF32 off and in bf16."""
+def logit_agreement(torch, dev, models, prompt, steps: int = 1) -> dict:
+    """One prompt through the lm entry points, for each ``(cfg, params)``
+    of ``models`` (params already in ``cfg``'s compute dtype; fp32 runs
+    with TF32 off), on the kernel path (flash, paged kernel, norm kernels)
+    and the plain path (chunked attention, the paged gather, plain norms):
+    the prefill at the prompt's bucket (the next power of two, as the
+    engine's), then ``steps`` decode steps, each path on its own cache and
+    fed the plain path's greedy token.  The largest logit difference of
+    each, as a share of the plain path's largest |logit|, within
+    ``LOGIT_TOL``.  Keyed by compute dtype."""
     from repro_torch.models import lm
 
-    out = {}
     plen = int(prompt.size)
-    C = 1 << (plen - 1).bit_length()                  # the prompt's bucket
-    nb = MAX_LEN // PAGE
-    table = torch.zeros(nb, dtype=torch.int32, device=dev)
-    table[: plen // PAGE + 1] = torch.arange(1, plen // PAGE + 2, dtype=torch.int32)
+    C = 1 << (plen - 1).bit_length()
+    nb = (C + steps) // PAGE + 1
+    table = torch.arange(1, nb + 1, dtype=torch.int32, device=dev)
     chunk = torch.zeros(1, C, dtype=torch.int32, device=dev)
     chunk[0, :plen] = torch.tensor(prompt, device=dev)
-    for dt in ("float32", "bfloat16"):
-        cfg = dataclasses.replace(base, compute_dtype=dt)
-        p = lm.cast_for_compute(cfg, params, dev)
+    out = {}
+    for cfg, params in models:
+        paths = {"kernel": (dataclasses.replace(cfg, attn_impl="kernel"), "kernel"),
+                 "plain": (dataclasses.replace(cfg, attn_impl="chunked"), "ref")}
         caches, logits = {}, {}
-        for impl in ("kernel", "chunked"):
-            c = {k: torch.zeros_like(s, device=dev)
-                 for k, s in lm.make_paged_cache_specs(cfg, nb + 1, PAGE).items()}
-            caches[impl], logits[impl] = lm.prefill_slot_paged(
-                dataclasses.replace(cfg, attn_impl=impl), p, c, chunk, table, plen)
-        pre = rel_err(torch, logits["kernel"], logits["chunked"])
-        tok = logits["chunked"].float().argmax(-1).to(torch.int32)
+        for name, (c, _) in paths.items():
+            caches[name] = {k: torch.zeros_like(s, device=dev)
+                            for k, s in lm.make_paged_cache_specs(c, nb + 1, PAGE).items()}
+            _, lg = lm.prefill_slot_paged(c, params, caches[name], chunk, table, plen)
+            logits[name] = [lg]
         lengths = torch.tensor([plen], dtype=torch.int32, device=dev)
-        dec = {}
-        for impl in ("kernel", "ref"):
-            c = {k: v.clone() for k, v in caches["chunked"].items()}
-            dec[impl], _ = lm.decode_step_paged(cfg, p, c, tok, lengths, table[None], impl=impl)
-        d = rel_err(torch, dec["kernel"], dec["ref"])
-        out[dt] = dict(prefill_rel_err=pre, decode_rel_err=d, tolerance=LOGIT_TOL[dt],
-                       prompt_len=plen, bucket=C,
-                       prefill_argmax_equal=bool(logits["kernel"].argmax() == logits["chunked"].argmax()),
-                       decode_argmax_equal=bool(dec["kernel"].argmax() == dec["ref"].argmax()))
-        log(f"logits {dt}: {json.dumps(out[dt])}")
-        assert pre <= LOGIT_TOL[dt] and d <= LOGIT_TOL[dt], out[dt]
+        for _ in range(steps):
+            tok = logits["plain"][-1].float().argmax(-1).to(torch.int32)
+            for name, (c, impl) in paths.items():
+                lg, _ = lm.decode_step_paged(c, params, caches[name], tok, lengths, table[None],
+                                             impl=impl)
+                logits[name].append(lg)
+            lengths = lengths + 1
+        del caches
+        errs = [rel_err(torch, a, b) for a, b in zip(logits["kernel"], logits["plain"])]
+        dt = cfg.compute_dtype
+        out[dt] = dict(layers=cfg.n_layers, prompt_len=plen, bucket=C, decode_steps=steps,
+                       prefill_rel_err=errs[0], decode_rel_err=errs[1:],
+                       tolerance=LOGIT_TOL[dt],
+                       argmax_equal=[bool(a.argmax() == b.argmax())
+                                     for a, b in zip(logits["kernel"], logits["plain"])])
+        log(f"logits {dt} ({cfg.n_layers} layers): {json.dumps(out[dt])}")
+        assert max(errs) <= LOGIT_TOL[dt], out[dt]
     return out
 
 
@@ -3755,6 +3909,204 @@ def function_path(torch, dev, results):
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: full-width gemma2-27b on the paged engine
+# ---------------------------------------------------------------------------
+
+
+def free(torch):
+    """Drop what the earlier work left unreferenced, cycles included, and
+    return the allocator's cached blocks to the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def gemma2_launches(pre: int, dec: int) -> dict:
+    """Launches of a gemma2-27b serving run: per prefill flash in each
+    layer; per decode step paged in each layer; per prefill and decode
+    step ``ln1`` and the post-norms ``ln1b``/``ln2b`` in each layer and
+    ``ln_f`` (rmsnorm), ``ln2`` with its residual add in each layer
+    (rmsnorm_add)."""
+    L = GEMMA_LAYERS
+    return {"flash_attention": L * pre, "paged_attention": L * dec,
+            "rmsnorm": (3 * L + 1) * (pre + dec), "rmsnorm_add": L * (pre + dec)}
+
+
+def prefill_work(cfg, n: int) -> tuple[int, int]:
+    """(attention, matmul) operations of a gemma2 prefill over ``n``
+    positions: causal pairs in the global layers, pairs within the window
+    in the local ones, and every block matmul once a position."""
+    H, dh, L = cfg.n_heads, cfg.head_dim, cfg.n_layers
+    pairs_global = n * (n + 1) // 2
+    pairs_local = sum(min(i + 1, cfg.window) for i in range(n))
+    attn = 4 * dh * H * (L // 2) * (pairs_global + pairs_local)
+    return attn, 2 * n * (cfg.n_params_dense - cfg.vocab * cfg.d_model)
+
+
+def profile_long_prefill(torch, dev, cfg, params, prompt, bucket: int) -> dict | None:
+    """Device time of one long prompt's prefill as the engine runs it
+    (``prefill_slot_paged`` at the prompt's bucket, kernel path), beside
+    its bound: the weights read once and the operations the prompt needs
+    (its own positions, not the bucket's padding, and the last row's
+    logits) at 989 TFLOP/s.  The bucket's figure, the work the engine
+    chose to do, is printed beside it as ``padded_bound_ms``."""
+    from repro_torch.models import lm
+
+    plen = int(prompt.size)
+    nb = bucket // PAGE
+    table = torch.zeros(nb, dtype=torch.int32, device=dev)
+    table[: plen // PAGE + 1] = torch.arange(1, plen // PAGE + 2, dtype=torch.int32)
+    chunk = torch.zeros(1, bucket, dtype=torch.int32, device=dev)
+    chunk[0, :plen] = torch.tensor(prompt, device=dev)
+    cache = {k: torch.zeros_like(s, device=dev)
+             for k, s in lm.make_paged_cache_specs(cfg, plen // PAGE + 2, PAGE).items()}
+    run = lambda: lm.prefill_slot_paged(cfg, params, cache, chunk, table, plen)
+    t = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t) * 1e3
+    ms, kernels = device_profile(torch, run, 2)
+    if ms is None:
+        log("gemma2 long prefill: torch.profiler recorded no device activity (not measured)")
+        return None
+    logits = 2 * cfg.d_model * cfg.vocab
+    weights = param_bytes(params)
+    attn, matmul = prefill_work(cfg, plen)
+    padded_attn, padded_matmul = prefill_work(cfg, bucket)
+    out = dict(bucket=bucket, prompt_len=plen, device_ms=ms, host_ms=host_ms,
+               launches=sum(v["calls"] for v in kernels.values()),
+               attention_tflop=attn / 1e12, matmul_tflop=matmul / 1e12,
+               padded_attention_tflop=padded_attn / 1e12,
+               padded_matmul_tflop=padded_matmul / 1e12,
+               flash_ms=sum(v["ms"] for k, v in kernels.items() if "flash_fwd_kernel" in k),
+               top=sorted(({"name": k, **v} for k, v in kernels.items()),
+                          key=lambda e: -e["ms"])[:6])
+    out["bound_ms"], out["bound_by"] = bound(attn + matmul + logits, weights, "bfloat16")
+    out["padded_bound_ms"], _ = bound(padded_attn + padded_matmul + logits, weights,
+                                      "bfloat16")
+    log(f"gemma2 long prefill: {json.dumps(out)}")
+    return out
+
+
+def gemma2_path(torch, dev, results):
+    """Full-width gemma2-27b (46 layers, bf16) through the paged engine on
+    the kernel path (flash, paged, rmsnorm, rmsnorm_add).  Returns the
+    launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_add
+    from repro_torch.models import lm
+    from repro_torch.serve import EngineConfig, bucket_for, prompt_buckets
+
+    free(torch)
+    at_entry = torch.cuda.memory_allocated()
+    log(f"phase 7: {at_entry / 1e9:.3f} GB allocated at entry")
+    base = get_config("gemma2-27b")
+    assert base.n_layers == GEMMA_LAYERS and base.window == GEMMA_WINDOW
+    assert base.attn_softcap == GEMMA_SOFTCAP and base.alt_local_global
+    cfg = dataclasses.replace(base, attn_impl="kernel", param_dtype="bfloat16")
+    t = time.perf_counter()
+    params = lm.init(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    weights = param_bytes(params)
+    reqs = gemma2_requests(cfg.vocab)
+    ec = EngineConfig(max_slots=MAX_SLOTS, max_len=GEMMA_MAX_LEN, kv_layout="paged",
+                      page_size=PAGE, paged_attn="kernel", num_blocks=GEMMA_BLOCKS)
+    pool = GEMMA_BLOCKS * PAGE * 2 * GEMMA_LAYERS * cfg.n_kv * cfg.head_dim * 2
+    long_buckets = [bucket_for(int(p.size), prompt_buckets(GEMMA_MAX_LEN)) for p, _ in reqs[:2]]
+    log(f"gemma2-27b: {weights / 1e9:.2f} GB of bf16 weights made in {init_s:.1f} s; pool "
+        f"{GEMMA_BLOCKS} blocks = {pool / 1e9:.2f} GB; long prompts "
+        f"{[int(p.size) for p, _ in reqs[:2]]} at bucket {long_buckets}")
+
+    # warm-up, the graph check (8 replays against the eager program, on
+    # the two long lanes and six short ones), then the measured run with
+    # the counts set to 0 just before it
+    serve(torch, cfg, params, [(reqs[2][0][:16], 4), (reqs[3][0][:32], 4)], ec, dev)
+    free(torch)
+    results["gemma2_graph_check"] = graph_check(torch, cfg, params, reqs, ec, dev)
+    free(torch)
+    kernels = (flash_attention, paged_attention, rmsnorm, rmsnorm_add)
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels:
+        k.launches = 0
+    eng, rids, steps, prefilled, wall = serve(torch, cfg, params, reqs, ec, dev, check=True,
+                                              prebuild=True)
+    launches = {k.__name__: k.launches for k in kernels}
+    peak = torch.cuda.max_memory_allocated()
+    st = eng.stats
+    comps = [eng.completions[r] for r in rids]
+    bad = [(c.rid, c.status, len(c.tokens), b) for c, (_, b) in zip(comps, reqs)
+           if c.status != "ok" or len(c.tokens) != b]
+    assert not bad, f"requests not served in full: {bad}"
+    pre, dec = st["prefills"], st["decode_steps"]
+    want = gemma2_launches(pre, dec)
+    assert launches == want and pre == len(reqs) and dec > 0, (launches, want, st)
+    # prebuild: the decode program of each sampling form and the prefill of
+    # each bucket, nothing more through the run (``serve`` checks it), and
+    # the one decode graph captured at the first decode step
+    programs = dict(builds=st["builds"], buckets=list(eng.buckets), graphs=st["graphs"],
+                    decode_graph_build_s=list(eng.graphs.build_seconds.values()))
+    assert st["builds"] == 3 + len(eng.buckets) and st["graphs"] == 1, programs
+    programs["steady"] = steady_builds(eng, reqs[2:6])
+    tokens = sum(len(c.tokens) for c in comps)
+    decode_only = [t for t, p in zip(steps, prefilled) if not p]
+    e2e = dict(requests=len(comps), tokens=tokens, wall_s=wall, tokens_per_s=tokens / wall,
+               prefills=pre, decode_steps=dec, prompt_tokens=st["prefill_tokens"],
+               long_prompts=[int(p.size) for p, _ in reqs[:2]], long_buckets=long_buckets,
+               decode_step_ms_median=float(np.median(decode_only)),
+               decode_step_ms_p90=float(np.percentile(decode_only, 90)),
+               decode_only_steps=len(decode_only), step_ms_mean=wall * 1e3 / len(steps),
+               kv_reserved_bytes=st["kv_reserved_bytes"],
+               kv_peak_used_bytes=st["kv_peak_used_bytes"], weights_bytes=weights,
+               pool_bytes=pool, memory_allocated_at_entry=at_entry,
+               max_memory_allocated=peak, launches=launches, launches_expected=want,
+               programs=programs, init_s=init_s)
+    log(f"gemma2-27b (paged, kernels, decode graph) [{results['nvidia_smi']}]: {tokens} tokens "
+        f"in {wall:.3f} s = {tokens / wall:.1f} tok/s; decode step median "
+        f"{e2e['decode_step_ms_median']:.2f} ms, p90 {e2e['decode_step_ms_p90']:.2f} ms over "
+        f"{len(decode_only)} decode-only steps; launches {launches}; peak memory "
+        f"{peak / 1e9:.2f} GB (weights {weights / 1e9:.2f} + pool {pool / 1e9:.2f}); "
+        f"programs {json.dumps(programs)}")
+    del eng
+    free(torch)
+
+    prof = profile_decode(torch, cfg, params, reqs, ec, dev)
+    if prof is not None:
+        lens = [int(p.size) + 8 for p, _ in reqs[:MAX_SLOTS]]   # ~ the profiled steps'
+        kv = sum(2 * cfg.n_kv * cfg.head_dim * 2 * (GEMMA_LAYERS // 2)
+                 * (min(n, GEMMA_WINDOW) + n) for n in lens)
+        prof["bound_ms"], prof["bound_by"] = bound(
+            2 * MAX_SLOTS * cfg.n_params_dense, weights + kv, "bfloat16")
+        prof["bound_bytes"] = weights + kv
+        log(f"gemma2 decode step: {prof['kernel_launches_per_step']:.0f} launches, "
+            f"{prof['device_ms_per_step']:.3f} device ms, idle share "
+            f"{prof['device_idle_share']:.3f}, bound {prof['bound_ms']:.3f} ms "
+            f"({prof['bound_by']})")
+    results["gemma2_profile"] = prof
+    free(torch)
+    e2e["long_prefill"] = profile_long_prefill(torch, dev, cfg, params, reqs[0][0],
+                                               long_buckets[0])
+    free(torch)
+    results["gemma2_logits"] = logit_agreement(torch, dev, [(cfg, params)], reqs[0][0],
+                                               steps=GEMMA_LOGIT_STEPS)
+    del params
+    free(torch)
+    # fp32 (TF32 off) at full width and 4 layers: the 46-layer fp32 model
+    # (109 GB) does not fit the card
+    c32 = dataclasses.replace(base, n_layers=GEMMA_FP32_LAYERS, compute_dtype="float32")
+    p32 = lm.init(c32, seed=0, device=dev)
+    log(f"gemma2 fp32 logit check cut to {GEMMA_FP32_LAYERS} layers "
+        f"({param_bytes(p32) / 1e9:.2f} GB of fp32 weights)")
+    results["gemma2_logits"].update(logit_agreement(torch, dev, [(c32, p32)], reqs[0][0],
+                                                    steps=GEMMA_LOGIT_STEPS))
+    del p32
+    free(torch)
+    results["gemma2"] = e2e
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3816,6 +4168,7 @@ def main() -> int:
     train_launches = phase("4 train", train_path)
     zamba_launches = phase("5 zamba serve", zamba_path)
     phase("6 function API", function_path)
+    gemma2_counts = phase("7 gemma2 serve", gemma2_path)
     results["phase_s"] = phase_s
     results["seconds"] = time.perf_counter() - t_start
 
@@ -3842,6 +4195,9 @@ def main() -> int:
 
     fl = {t["shape"]: t for t in results["flash_timing"]}
     pg = {t["lengths_from"]: t for t in results["paged_timing"]}
+    g7 = {name: gemma2_counts.get(name, 0) for name in (
+        "flash_attention", "paged_attention", "flat_adam", "ssd", "rmsnorm", "rmsnorm_add",
+        "rmsnorm_gated")}
     fa = results["flat_adam_timing"]
     sd = results["ssd_timing"]
     # each row carries its time as kernel_ms and, for the chip check's
@@ -3861,6 +4217,7 @@ def main() -> int:
              spec_launches=spec_rows("flash_attention"),
              router_launches=router_launches["flash_attention"],
              traced_launches=traced_launches["flash_attention"],
+             gemma2_launches=g7["flash_attention"],
              max_abs_err=max(r["max_abs_err"] for r in results["flash_cases"]
                              if r["dtype"] == "bfloat16"),
              kernel_ms=fl["serve"]["ms"], ms=fl["serve"]["ms"],
@@ -3871,7 +4228,13 @@ def main() -> int:
              library="torch.nn.functional.scaled_dot_product_attention (device time)",
              host_us_per_call=fl["serve"]["host_us_per_call"],
              other_shapes={n: {k: fl[n][k] for k in ("q", "ms", "ms_events", "library_ms",
-                                                      "bound_ms")} for n in ("train", "zamba")}),
+                                                      "bound_ms")} for n in ("train", "zamba")},
+             d128={n: {k: fl[n][k] for k in ("q", "window", "ms", "ms_softcap", "ms_events",
+                                             "plain_ms", "library_ms", "bound_ms", "bound_by")}
+                   for n in ("gemma2 serve", "gemma2 long")},
+             d128_max_abs_err={dt: max(r["max_abs_err"] for r in results["flash_cases"]
+                                       if r.get("D") == 128 and r["dtype"] == dt)
+                               for dt in ("bfloat16", "float32")}),
         dict(name="paged_attention", route="cuda",
              source="src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
              replaces="src/repro/kernels/paged_attention/kernel.py:30",
@@ -3883,6 +4246,7 @@ def main() -> int:
              spec_launches=spec_rows("paged_attention"),
              router_launches=router_launches["paged_attention"],
              traced_launches=traced_launches["paged_attention"],
+             gemma2_launches=g7["paged_attention"],
              max_abs_err=max(r["max_abs_err"] for r in results["paged_cases"]
                              if r["dtype"] == "bfloat16"),
              kernel_ms=pg["random"]["ms"], ms=pg["random"]["ms"],
@@ -3891,13 +4255,19 @@ def main() -> int:
              library_ms=None, n_split=pg["random"]["n_split"],
              device_kernels_per_call=pg["random"]["device_kernels_per_call"],
              host_us_per_call=pg["random"]["host_us_per_call"],
-             phase3_lengths={k: pg["phase 3"][k] for k in ("ms", "ms_events", "bound_ms")}),
+             phase3_lengths={k: pg["phase 3"][k] for k in ("ms", "ms_events", "bound_ms")},
+             d128={n: {k: pg[n][k] for k in ("q", "lengths", "ms", "ms_events", "plain_ms",
+                                             "bound_ms", "bound_by", "n_split")}
+                   for n in ("phase 7 local", "phase 7 global")},
+             d128_max_abs_err={dt: max(r["max_abs_err"] for r in results["paged_cases"]
+                                       if r.get("D") == 128 and r["dtype"] == dt)
+                               for dt in ("bfloat16", "float32")}),
         dict(name="flat_adam", route="cuda",
              source="src/repro_torch/kernels/flat_adam/csrc/flat_adam.cu",
              replaces="src/repro/kernels/flat_adam/kernel.py:18",
              jax_function="repro.kernels.flat_adam.kernel.flat_adam",
              shape=f"p, g, m, v ({fa['n']},) fp32, t 1000, wd 0",
-             launches=train_launches["flat_adam"],
+             launches=train_launches["flat_adam"], gemma2_launches=g7["flat_adam"],
              max_abs_err=max(r["max_abs_err"] for r in results["flat_adam_cases"]),
              kernel_ms=fa["kernel_ms"], ms=fa["kernel_ms"], plain_ms=fa["plain_ms"],
              bound_ms=fa["bound_ms"], bound_by=fa["bound_by"], library_ms=fa["library_ms"]),
@@ -3907,6 +4277,7 @@ def main() -> int:
              shape="x (1, 512, 64, 64) bf16, dt (1, 512, 64), B/C (1, 512, 1, 64); "
                    "y and state fp32",
              launches=zamba_launches["ssd"], zamba_preempt_launches=zp["ssd"],
+             gemma2_launches=g7["ssd"],
              tier_launches=tier_rows("ssd"), spec_launches=spec_rows("ssd"),
              max_abs_err=max(r["max_abs_err"] for r in results["ssd_cases"]),
              kernel_ms=sd["ms"], ms=sd["ms"], ms_events=sd["ms_events"],
@@ -3944,7 +4315,8 @@ def main() -> int:
                           if name == "rmsnorm_gated" else f"repro.kernels.rmsnorm.kernel.{name}"),
             shape=x_desc, path=t["path"],
             launches=(zamba_launches if name == "rmsnorm_gated" else launches)[name],
-            **per_path, tier_launches=tier_rows(name), spec_launches=spec_rows(name),
+            gemma2_launches=g7[name], **per_path, tier_launches=tier_rows(name),
+            spec_launches=spec_rows(name),
             max_abs_err=max(r[f"{name}_max_abs_err"] for r in results["rmsnorm_cases"]
                             if f"{name}_max_abs_err" in r),
             kernel_ms=t["ms"], ms=t["ms"], ms_warm=t["ms_warm"], plain_ms=t["plain_ms"],
@@ -3960,6 +4332,7 @@ def main() -> int:
              for name, key, keys in (
                  ("dense decode step", "profile", decode_keys),
                  ("zamba decode step", "zamba_profile", decode_keys),
+                 ("gemma2 decode step", "gemma2_profile", decode_keys + ("bound_ms",)),
                  ("zamba prefill 512", "zamba_prefill_profile", ("launches", "device_ms",
                                                                  "device_idle_share")))}
     results["step_profiles"] = steps

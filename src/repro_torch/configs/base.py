@@ -14,6 +14,8 @@ import importlib
 ARCH_IDS = (
     "smollm-360m",
     "zamba2-1.2b",
+    "gemma2-27b",
+    "deepseek-67b",
 )
 
 

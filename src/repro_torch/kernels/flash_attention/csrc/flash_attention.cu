@@ -10,26 +10,36 @@
 // (B, Sq, H, D), k and v (B, Sk, Hk, D), all contiguous -- so no transpose
 // is ever materialised.  Inputs are bf16 or fp32; accumulation is fp32.
 //
+// Head dims: 64 (smollm, zamba) and 128 (gemma2, deepseek), one template
+// instantiation each.
+//
 // What bounds it on the H100.  At the serving path's prefill shapes
 // (S <= 1024, D = 64, 15 heads) the attention moves a few MB and does a
 // few GFLOP: the roofline bound is ~1-2 us, on bytes below S ~ 700 and on
 // bf16 tensor-core operations (989 TFLOP/s) above.  What a kernel loses
 // against that is latency: a q tile walks up to S/64 KV tiles in turn.
+// gemma2-27b's long prefills (S 8192, 32 heads, D 128) do ~1 TFLOP of
+// attention (half of it under the local layers' window) and are bound by
+// operations.
 //
 // bf16 design (tensor cores).  One CTA of one warpgroup (128 threads) per
 // (64-row q tile, q-head, batch); grid (H, B, q tiles) with the q tile
 // reversed, so that the longest tiles (most KV tiles under causality) of
 // every head start first and the tail is short.
 //   * Both products are wgmma.mma_async m64n64k16, bf16 in, fp32
-//     accumulate.  S = Q.K^T: Q (loaded once) and K are K-major tiles in
-//     shared memory, rows of 64 bf16 = 128 bytes under the 128-byte swizzle
+//     accumulate.  A 64-row tile is D / 64 panels of 64 columns, 8 KB
+//     each: rows of 64 bf16 = 128 bytes under the 128-byte swizzle
 //     (16-byte chunk c of row r at chunk c ^ (r % 8)), the layout the
-//     wgmma descriptor's B128 mode reads; the four k16 steps over D advance
-//     the descriptor's start by 32 bytes.  O += P.V: P comes from registers
-//     as the A operand -- the fp32 accumulator fragment of S is, element for
+//     wgmma descriptor's B128 mode reads.  S = Q.K^T: Q (loaded once) and
+//     K are K-major; k16 step kk over D starts in panel kk / 4, 32 * (kk %
+//     4) bytes along its rows.  O += P.V: P comes from registers as the A
+//     operand -- the fp32 accumulator fragment of S is, element for
 //     element, the A fragment of P -- and V is the B operand in the
-//     transposed (MN-major) form, read from the same swizzled row layout
-//     (the four k16 steps over keys advance the start by 16 rows).
+//     transposed (MN-major) form, read from the same swizzled panels (the
+//     four k16 steps over keys advance the start by 16 rows).  Each panel
+//     of V is one swizzle atom wide in N, so a k16 step is one m64n64k16
+//     product per panel into that panel's 32 accumulators: D = 128 holds
+//     64 fp32 of O a thread and issues 16 P.V products a tile.
 //   * P is split into two bf16 terms, hi = bf16(p) and lo = bf16(p - hi),
 //     and both are multiplied into O (8 wgmmas per tile instead of 4), so
 //     P.V carries ~16 bits of P, not 8.  With one bf16 rounding of P the
@@ -44,7 +54,8 @@
 //     MUFU op per score); each thread holds two rows, reduced across its
 //     quad by shuffles.
 //   * K/V tiles of 64 keys arrive by cp.async 16-byte copies into a
-//     3-stage shared-memory ring (56 KB, dynamic): tile j+1 has landed when
+//     3-stage shared-memory ring (dynamic: Q and the ring are 56 KB at D
+//     64, 112 KB at D 128): tile j+1 has landed when
 //     tile j's softmax starts (its Q.K^T is issued then), and tile j+2's
 //     copy flies during tile j.  Ragged Sq/Sk edges are zero-filled copies
 //     (src-size 0) plus the masks; only edge, diagonal and window-edge
@@ -198,12 +209,13 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+template <int D>
 int launch(const float* q, const float* k, const float* v, float* o, int B, int H,
            int Hk, int Sq, int Sk, int causal, int window, float softcap,
            float scale, cudaStream_t stream) {
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<64><<<grid, NTHREADS, 0, stream>>>(q, k, v, o, H, Hk, Sq, Sk, causal,
-                                                       window, softcap, scale);
+  flash_fwd_kernel<D><<<grid, NTHREADS, 0, stream>>>(q, k, v, o, H, Hk, Sq, Sk, causal,
+                                                      window, softcap, scale);
   return (int)cudaGetLastError();
 }
 
@@ -216,14 +228,20 @@ int launch(const float* q, const float* k, const float* v, float* o, int B, int 
 namespace tc {
 
 typedef __nv_bfloat16 bf16;
-constexpr int D = 64;                  // head dim: one 128-byte swizzled row
 constexpr int BM = 64;                 // query rows per CTA (one warpgroup)
 constexpr int BN = 64;                 // keys per KV tile
 constexpr int NTHREADS = 128;
 constexpr int STAGES = 3;              // depth of the K/V ring
-constexpr int TILE = 64 * D * 2;       // bytes of a 64-row bf16 tile: 8 KB
-constexpr int SMEM = (1 + 2 * STAGES) * TILE;   // Q | K, V per stage
+constexpr int PANEL = 64 * 64 * 2;     // bytes of 64 rows x 64 bf16 columns: 8 KB
 constexpr float LOG2E = 1.4426950408889634f;
+
+// A tile of 64 rows at head dim D: D / 64 panels; Q | K, V per stage
+template <int D> struct Tiles {
+  static_assert(D % 64 == 0, "head dim must be a multiple of 64");
+  static constexpr int PANELS = D / 64;
+  static constexpr int TILE = PANELS * PANEL;
+  static constexpr int SMEM = (1 + 2 * STAGES) * TILE;
+};
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -246,15 +264,19 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Copy rows [row0, row0 + 64) of a (rows, D) matrix whose row r starts at
-// base + r * stride into a swizzled tile; rows at or past n are zeros.
+// base + r * stride into a swizzled tile (chunk c of a row in panel c / 8);
+// rows at or past n are zeros.
+template <int D>
 __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* base, long stride,
                                           int row0, int n, int tid) {
+  constexpr int CPR = D / 8;           // 16-byte chunks a row
 #pragma unroll
-  for (int i = 0; i < 64 * 8 / NTHREADS; ++i) {
+  for (int i = 0; i < 64 * CPR / NTHREADS; ++i) {
     const int e = tid + i * NTHREADS;
-    const int r = e >> 3, c = e & 7;
+    const int r = e / CPR, c = e % CPR;
     const bool ok = row0 + r < n;
-    cp_async16(dst + swz(r, c), base + (ok ? (row0 + r) * stride : 0) + c * 8, ok);
+    cp_async16(dst + (c >> 3) * PANEL + swz(r, c & 7),
+               base + (ok ? (row0 + r) * stride : 0) + c * 8, ok);
   }
 }
 
@@ -322,23 +344,31 @@ __device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// S = Q.K^T for one K tile: four k16 steps over D, each 32 bytes further
-// along the swizzled rows.  SBO = 1024 bytes, the stride of 8-row groups.
+// S = Q.K^T for one K tile: D / 16 k16 steps over D; step kk starts in
+// panel kk / 4, 32 * (kk % 4) bytes along its swizzled rows.  SBO = 1024
+// bytes, the stride of 8-row groups.
+template <int D>
 __device__ __forceinline__ void qk(float (&s)[32], uint32_t sq, uint32_t sk) {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    wgmma_ss(s, desc(sq + 32 * kk, 1, 64), desc(sk + 32 * kk, 1, 64), kk > 0);
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk >> 2) * PANEL + 32 * (kk & 3);
+    wgmma_ss(s, desc(sq + off, 1, 64), desc(sk + off, 1, 64), kk > 0);
+  }
 }
 
 // O += P.V for one V tile, P as 16 registers of bf16 pairs (the accumulator
-// fragment of S): four k16 steps over keys, each 16 rows (2 KB) further;
+// fragment of S): four k16 steps over keys, each 16 rows (2 KB) further,
+// one product per 64-column panel of V into that panel's accumulators;
 // MN-major B128, 8-key groups 1024 bytes apart (N = 64 is one swizzle
 // atom wide, so the MN stride is not used).
-__device__ __forceinline__ void pv(float (&o)[32], const uint32_t (&p)[16], uint32_t sv) {
+template <int P>
+__device__ __forceinline__ void pv(float (&o)[P][32], const uint32_t (&p)[16], uint32_t sv) {
 #pragma unroll
   for (int kk = 0; kk < BN / 16; ++kk)
-    wgmma_rs(o, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3],
-             desc(sv + 2048 * kk, 64, 64));
+#pragma unroll
+    for (int pn = 0; pn < P; ++pn)
+      wgmma_rs(o[pn], p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3],
+               desc(sv + pn * PANEL + 2048 * kk, 64, 64));
 }
 
 // 2**x in one MUFU op; results under 2**-126 flush to 0, far below any
@@ -354,11 +384,13 @@ __device__ __forceinline__ float ex2(float x) {
 //
 // Accumulator fragment of m64nNk16 (f32): element i of thread (warp w, lane
 // l) of a warpgroup is row 16 w + l / 4 + 8 ((i >> 1) & 1), column 8 (i >> 2)
-// + 2 (l % 4) + (i & 1).
+// + 2 (l % 4) + (i & 1); O's panel pn holds columns 64 pn + that column.
+template <int D>
 __global__ void __launch_bounds__(NTHREADS)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ o, int H, int Hk,
                  int Sq, int Sk, int causal, int window, float softcap, float scale) {
+  constexpr int P = Tiles<D>::PANELS, TILE = Tiles<D>::TILE;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t sq = (smem_addr(smem_raw) + 1023) & ~1023u;   // swizzle atoms 1024-aligned
   const uint32_t skv = sq + TILE;                // stage i: K at + 2i TILE, V at + (2i + 1) TILE
@@ -381,10 +413,10 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* vb = v + ((long)b * Sk * Hk + hk) * D;
   auto kv_stage = [&](int j) { return skv + 2 * ((j - lo) % STAGES) * TILE; };
   auto copy_kv = [&](int j) {
-    load_tile(kv_stage(j), kb, kv_stride, j * BN, Sk, tid);
-    load_tile(kv_stage(j) + TILE, vb, kv_stride, j * BN, Sk, tid);
+    load_tile<D>(kv_stage(j), kb, kv_stride, j * BN, Sk, tid);
+    load_tile<D>(kv_stage(j) + TILE, vb, kv_stride, j * BN, Sk, tid);
   };
-  load_tile(sq, q + ((long)b * Sq * H + h) * D, (long)H * D, q0, Sq, tid);
+  load_tile<D>(sq, q + ((long)b * Sq * H + h) * D, (long)H * D, q0, Sq, tid);
   if (lo < hi) copy_kv(lo);
   cp_async_commit();
   if (lo + 1 < hi) copy_kv(lo + 1);
@@ -392,9 +424,13 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   // sc: the scores of the tile being reduced; sn: the next tile's, whose
   // Q.K^T runs on the tensor cores while sc's softmax runs on the ALUs
-  float acc[32], sc[32], sn[32];
+  float acc[P][32], sc[32], sn[32];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = sn[i] = 0.f;
+  for (int i = 0; i < 32; ++i) {
+    sn[i] = 0.f;
+#pragma unroll
+    for (int pn = 0; pn < P; ++pn) acc[pn][i] = 0.f;
+  }
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
   const float sl2 = scale * LOG2E;
   if (lo < hi) {
@@ -403,7 +439,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();
     fence_regs(sn);
     wg_fence();
-    qk(sn, sq, kv_stage(lo));
+    qk<D>(sn, sq, kv_stage(lo));
     wg_commit();
     wg_wait0();
     fence_regs(sn);
@@ -420,7 +456,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (j + 1 < hi) {
       fence_regs(sn);
       wg_fence();
-      qk(sn, sq, kv_stage(j + 1));
+      qk<D>(sn, sq, kv_stage(j + 1));
       wg_commit();
     }
     fence_regs(sc);                              // the softmax begins after that issue
@@ -472,17 +508,21 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + ps[r];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) acc[i] *= alpha[(i >> 1) & 1];
+    for (int pn = 0; pn < P; ++pn)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[pn][i] *= alpha[(i >> 1) & 1];
 
-    fence_regs(acc);
+#pragma unroll
+    for (int pn = 0; pn < P; ++pn) fence_regs(acc[pn]);
     fence_regs(ph);
     fence_regs(pl);
     wg_fence();
-    pv(acc, ph, kv_stage(j) + TILE);
-    pv(acc, pl, kv_stage(j) + TILE);
+    pv<P>(acc, ph, kv_stage(j) + TILE);
+    pv<P>(acc, pl, kv_stage(j) + TILE);
     wg_commit();
     wg_wait0();                                  // the next Q.K^T and this P.V
-    fence_regs(acc);
+#pragma unroll
+    for (int pn = 0; pn < P; ++pn) fence_regs(acc[pn]);
     fence_regs(ph);
     fence_regs(pl);
     fence_regs(sn);
@@ -498,30 +538,34 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const float inv = 1.f / fmaxf(l[r], 1e-30f);
     bf16* orow = o + (((long)b * Sq + row) * H + h) * D + 2 * (lane & 3);
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n) =
-          __floats2bfloat162_rn(acc[4 * n + 2 * r] * inv, acc[4 * n + 2 * r + 1] * inv);
+    for (int pn = 0; pn < P; ++pn)
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 64 * pn + 8 * n) = __floats2bfloat162_rn(
+            acc[pn][4 * n + 2 * r] * inv, acc[pn][4 * n + 2 * r + 1] * inv);
   }
 }
 
+template <int D>
 int launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int H, int Hk,
            int Sq, int Sk, int causal, int window, float softcap, float scale,
            cudaStream_t stream) {
   const int nq = (Sq + BM - 1) / BM;
   if (B > 65535 || nq > 65535) return (int)cudaErrorInvalidValue;
-  constexpr int smem = SMEM + 1024;              // 1024 for the alignment of the atoms
-  static bool smem_set[64] = {};                 // once per process and device
+  constexpr int smem = Tiles<D>::SMEM + 1024;    // 1024 for the alignment of the atoms
+  static bool smem_set[64] = {};                 // once per process, device and D
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (dev >= 64) return (int)cudaErrorInvalidDevice;
   if (!smem_set[dev]) {
-    err = cudaFuncSetAttribute(flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    err = cudaFuncSetAttribute(flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
     if (err != cudaSuccess) return (int)err;
     smem_set[dev] = true;
   }
-  flash_fwd_kernel<<<dim3(H, B, nq), NTHREADS, smem, stream>>>(q, k, v, o, H, Hk, Sq, Sk, causal,
-                                                               window, softcap, scale);
+  flash_fwd_kernel<D><<<dim3(H, B, nq), NTHREADS, smem, stream>>>(q, k, v, o, H, Hk, Sq, Sk,
+                                                                  causal, window, softcap, scale);
   return (int)cudaGetLastError();
 }
 
@@ -530,22 +574,34 @@ int launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int H, i
 }  // namespace
 
 // C entry point.  dtype: 0 = float32 (FMA kernel), 1 = bfloat16 (wgmma
-// kernel); head dim 64 only, the one the ported configs use.  One device
-// kernel per call.  Returns the launch's cudaGetLastError() (0 = launched).
+// kernel); head dim 64 or 128, the ones the ported configs use.  One
+// device kernel per call.  Returns the launch's cudaGetLastError() (0 =
+// launched).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* o, int dtype, int B, int H, int Hk,
                                    int Sq, int Sk, int D, int causal,
                                    int window, float softcap, float scale,
                                    void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D != 64 || Hk < 1 || H % Hk) return (int)cudaErrorInvalidValue;
-  if (dtype == 0)
-    return simt::launch(static_cast<const float*>(q), static_cast<const float*>(k),
-                       static_cast<const float*>(v), static_cast<float*>(o), B, H, Hk,
-                       Sq, Sk, causal, window, softcap, scale, st);
-  if (dtype == 1)
-    return tc::launch(static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-                      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), B,
-                      H, Hk, Sq, Sk, causal, window, softcap, scale, st);
+  if ((D != 64 && D != 128) || Hk < 1 || H % Hk) return (int)cudaErrorInvalidValue;
+  if (dtype == 0) {
+    const float *qf = static_cast<const float*>(q), *kf = static_cast<const float*>(k),
+                *vf = static_cast<const float*>(v);
+    float* of = static_cast<float*>(o);
+    return D == 64 ? simt::launch<64>(qf, kf, vf, of, B, H, Hk, Sq, Sk, causal, window,
+                                      softcap, scale, st)
+                   : simt::launch<128>(qf, kf, vf, of, B, H, Hk, Sq, Sk, causal, window,
+                                       softcap, scale, st);
+  }
+  if (dtype == 1) {
+    typedef __nv_bfloat16 bf16;
+    const bf16 *qb = static_cast<const bf16*>(q), *kb = static_cast<const bf16*>(k),
+               *vb = static_cast<const bf16*>(v);
+    bf16* ob = static_cast<bf16*>(o);
+    return D == 64 ? tc::launch<64>(qb, kb, vb, ob, B, H, Hk, Sq, Sk, causal, window, softcap,
+                                    scale, st)
+                   : tc::launch<128>(qb, kb, vb, ob, B, H, Hk, Sq, Sk, causal, window, softcap,
+                                     scale, st);
+  }
   return (int)cudaErrorInvalidValue;
 }

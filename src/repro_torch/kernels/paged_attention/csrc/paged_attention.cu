@@ -9,7 +9,8 @@
 //
 // Layout: q and o are (B, Hk, rep, D); the pools (NB, bs, Hk, D); lengths
 // (B,) and tables (B, nb) int32.  Inputs are bf16 or fp32; accumulation is
-// fp32.
+// fp32.  Head dims 64 and 128 (one template instantiation each), rep up
+// to 8 (gemma2-27b's decode has rep 2 at D 128, deepseek-67b's rep 8).
 //
 // What bounds it on the H100.  A decode step does ~4 FLOPs per KV byte it
 // reads, two orders of magnitude below the card's ~295 FLOP/byte balance
@@ -25,10 +26,11 @@
 //     from the values of `lengths`: the grid is the same every step and the
 //     call makes no host sync.  A split that begins past its lane's length,
 //     or lies wholly below the window, returns at once.  A live split issues
-//     cp.async 16-byte copies of all its K and V rows (128 contiguous bytes
+//     cp.async 16-byte copies of all its K and V rows (2 D contiguous bytes
 //     per position and head in bf16) before it computes, so every load of
-//     the split is in flight together; rows land 128-byte swizzled (chunk c
-//     of position p at c ^ (p % 8)), so the score pass, one position per
+//     the split is in flight together; they land in dynamic shared memory
+//     (2 x 64 positions x D elements: 16-64 KB), rows swizzled (chunk c of
+//     position p at c ^ (p % 8)), so the score pass, one position per
 //     thread, reads shared memory without bank conflicts.  It computes the
 //     rep scores per position in fp32, its softmax partial (m, l, acc) over
 //     its positions, and writes the partial to fp32 scratch shaped (B, Hk,
@@ -121,8 +123,11 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
   constexpr int E = 16 / sizeof(T);    // elements per 16-byte chunk
   constexpr int CPR = D / E;           // chunks per row (8 bf16, 16 fp32)
   static_assert(CPR >= 8, "the swizzle needs 8 chunks a row");
-  __shared__ __align__(16) T ks[SPLIT_POS * D];
-  __shared__ __align__(16) T vs[SPLIT_POS * D];
+  constexpr int DP = D / 2;            // dim pairs: P.V threads per rep group
+  static_assert(NTHREADS % DP == 0, "P.V maps whole dim-pair groups");
+  extern __shared__ __align__(16) unsigned char kv_smem[];
+  T* ks = reinterpret_cast<T*>(kv_smem);          // SPLIT_POS * D
+  T* vs = ks + SPLIT_POS * D;                      // SPLIT_POS * D
   __shared__ __align__(16) float qs[MAX_REP * D];
   __shared__ float ps[MAX_REP][SPLIT_POS];
 
@@ -195,11 +200,12 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
   }
   __syncthreads();
 
-  // P.V: thread (dim pair 2dp, 2dp + 1; rep group g) takes reps g, g + 4
+  // P.V: thread (dim pair 2dp, 2dp + 1; rep group g) takes reps g, g + G,
+  // G = NTHREADS / DP groups (4 at D 64, 2 at D 128)
   {
-    const int d = 2 * (tid % 32), g = tid / 32;
+    const int d = 2 * (tid % DP), g = tid / DP;
     const int c = d / E, x = d % E;
-    for (int r = g; r < rep; r += 4) {
+    for (int r = g; r < rep; r += NTHREADS / DP) {
       float a0 = 0.f, a1 = 0.f;
 #pragma unroll 8
       for (int p = p0; p < p1; ++p) {
@@ -266,15 +272,27 @@ int launch(const void* q, const void* kp, const void* vp, const int* lengths,
            int nb, int bps, int n_split, int window, float softcap, float scale,
            cudaStream_t stream) {
   if (Hk > 65535 || n_split > 65535) return (int)cudaErrorInvalidValue;
+  constexpr int smem = 2 * SPLIT_POS * D * (int)sizeof(T);   // K and V of a split
+  static bool smem_set[64] = {};       // once per process, device and instantiation
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (!smem_set[dev]) {
+    err = cudaFuncSetAttribute(paged_split_kernel<T, D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    smem_set[dev] = true;
+  }
   const long n = (long)B * Hk * n_split * rep;
   float* part_m = scratch;
   float* part_l = scratch + n;
   float* part_acc = scratch + 2 * n;
-  paged_split_kernel<T, D><<<dim3(B, Hk, n_split), NTHREADS, 0, stream>>>(
+  paged_split_kernel<T, D><<<dim3(B, Hk, n_split), NTHREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kp), static_cast<const T*>(vp),
       lengths, tables, part_m, part_l, part_acc, Hk, rep, bs, nb, bps, n_split, window,
       softcap, scale);
-  cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   paged_combine_kernel<T, D><<<dim3(B, Hk), rep * D, 0, stream>>>(
       lengths, part_m, part_l, part_acc, static_cast<T*>(o), Hk, rep, bs, nb, bps, n_split,
@@ -284,8 +302,8 @@ int launch(const void* q, const void* kp, const void* vp, const int* lengths,
 
 }  // namespace
 
-// C entry point.  dtype: 0 = float32, 1 = bfloat16; head dim 64 only, the
-// one the ported configs use.  `scratch` holds B * Hk * n_split * rep * (D +
+// C entry point.  dtype: 0 = float32, 1 = bfloat16; head dim 64 or 128, the
+// ones the ported configs use.  `scratch` holds B * Hk * n_split * rep * (D +
 // 2) floats: the splits' m, then l, then acc.  Two device kernels per call
 // (split, combine).  Returns the launches' cudaGetLastError() (0 =
 // launched).
@@ -295,15 +313,16 @@ extern "C" int paged_attention_fwd(const void* q, const void* k_pool,
                                    int dtype, int B, int Hk, int rep, int D, int bs,
                                    int nb, int bps, int n_split, int window,
                                    float softcap, float scale, void* stream) {
-  if (D != 64 || rep < 1 || rep > MAX_REP || bs < 1 || bs > MAX_BS || nb < 1 || bps < 1
-      || bps * bs > SPLIT_POS || n_split != (nb + bps - 1) / bps)
+  if ((D != 64 && D != 128) || rep < 1 || rep > MAX_REP || bs < 1 || bs > MAX_BS || nb < 1
+      || bps < 1 || bps * bs > SPLIT_POS || n_split != (nb + bps - 1) / bps)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<float, 64>(q, k_pool, v_pool, lengths, tables, o, scratch, B, Hk, rep, bs,
-                             nb, bps, n_split, window, softcap, scale, st);
+#define PAGED_LAUNCH(T, DD)                                                                  \
+  launch<T, DD>(q, k_pool, v_pool, lengths, tables, o, scratch, B, Hk, rep, bs, nb, bps,     \
+                n_split, window, softcap, scale, st)
+  if (dtype == 0) return D == 64 ? PAGED_LAUNCH(float, 64) : PAGED_LAUNCH(float, 128);
   if (dtype == 1)
-    return launch<__nv_bfloat16, 64>(q, k_pool, v_pool, lengths, tables, o, scratch, B, Hk,
-                                     rep, bs, nb, bps, n_split, window, softcap, scale, st);
+    return D == 64 ? PAGED_LAUNCH(__nv_bfloat16, 64) : PAGED_LAUNCH(__nv_bfloat16, 128);
+#undef PAGED_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

@@ -25,7 +25,7 @@ from repro_torch.kernels import _build
 from .ref import paged_attention_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64,)                # compiled head dims (csrc)
+_HEAD_DIMS = (64, 128)            # compiled head dims (csrc)
 MAX_REP = 8                     # query heads per KV head the kernel holds
 MAX_BLOCK_SIZE = 32             # positions per table block the kernel takes
 SPLIT_POSITIONS = 64            # positions one split holds at most (csrc)
@@ -71,10 +71,10 @@ def _check(q, k_pool, v_pool, lengths, tables):
 
 
 def _check_kernel(q, k_pool, v_pool, lengths, tables):
-    """What the CUDA kernel takes beyond ``_check``: head dim 64, rep and
-    block size within its limits, contiguous inputs, pools and q at
-    16-byte aligned addresses (its ``cp.async`` copies move 16 bytes), and
-    a grid that fits."""
+    """What the CUDA kernel takes beyond ``_check``: head dim 64 or 128,
+    rep and block size within its limits, contiguous inputs, pools and q
+    at 16-byte aligned addresses (its ``cp.async`` copies move 16 bytes),
+    and a grid that fits."""
     B, Hk, rep, D = q.shape
     bs, nb = k_pool.shape[1], tables.shape[1]
     if D not in _HEAD_DIMS or not 1 <= rep <= MAX_REP \

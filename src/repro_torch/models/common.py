@@ -38,9 +38,15 @@ class ParamSpec:
     init_scale: float | None = None   # None -> fan-in scaled normal
 
 
+INIT_CHUNK = 1 << 28           # fp32 normal draws at a time
+
+
 def init_param(gen: torch.Generator, spec: ParamSpec, device) -> torch.Tensor:
     """Zeros where ``init_scale == 0``; ``init_scale * N(0, 1)`` where it is
-    set; else a fan-in normal (``1/sqrt(shape[-2])``), as the reference."""
+    set; else a fan-in normal (``1/sqrt(shape[-2])``), as the reference.
+    The normal is drawn in fp32, ``INIT_CHUNK`` values at a time, into a leaf
+    of the stored dtype, so a full-width model (gemma2-27b: 54 GB in bf16)
+    never holds a whole fp32 copy of its largest leaf beside it."""
     if spec.init_scale == 0.0:
         return torch.zeros(spec.shape, dtype=spec.dtype, device=device)
     if spec.init_scale is not None:
@@ -48,8 +54,13 @@ def init_param(gen: torch.Generator, spec: ParamSpec, device) -> torch.Tensor:
     else:
         fan_in = spec.shape[-2] if len(spec.shape) >= 2 else max(spec.shape[-1], 1)
         scale = 1.0 / math.sqrt(fan_in)
-    x = torch.randn(spec.shape, generator=gen, device=device, dtype=torch.float32)
-    return (x * scale).to(spec.dtype)
+    out = torch.empty(spec.shape, dtype=spec.dtype, device=device)
+    flat = out.view(-1)
+    for i in range(0, flat.numel(), INIT_CHUNK):
+        n = min(INIT_CHUNK, flat.numel() - i)
+        flat[i:i + n] = torch.randn(n, generator=gen, device=device,
+                                    dtype=torch.float32) * scale
+    return out
 
 
 def tree_from_leaves(paths, leaves) -> dict:

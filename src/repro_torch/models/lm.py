@@ -1,9 +1,19 @@
-"""Decoder-only LM, dense family (llama-arch: smollm, stablelm, deepseek).
+"""Decoder-only LM, dense family (llama-arch: smollm, stablelm, deepseek;
+gemma2's alternating local/global layers).
 
 The port of the reference's ``models/lm.py`` for serving and training.
-Parameters are nested dicts of tensors with the reference's tree (layers
-stacked on axis 0); a layer's weights are views ``blocks[name][i]``, so
-the layer loop never copies.
+Parameters are nested dicts of tensors with the reference's tree: layers
+stacked on the leading axes, ``(L,)``, or ``(L/2, 2)`` for gemma2, whose
+pairs are (local, global); a layer's weights are views
+``blocks[name][idx]`` (:func:`_lead_index`), so the layer loop never
+copies.  Every walk visits the layers in order, layer ``i`` with its
+window (:func:`_window`: under gemma2 ``cfg.window`` for even ``i``, full
+causal for odd).
+
+gemma2 (``alt_local_global``): embeddings scaled by ``sqrt(d_model)``
+rounded to the compute dtype first (as the reference's
+``jnp.asarray(np.sqrt(D), cdt)``), post-norms ``ln1b`` on the attention
+output and ``ln2b`` on the FFN output, each before its residual add.
 
 Weight casts: the reference casts every fp32 weight to the compute dtype
 at each use, which XLA fuses; eager PyTorch would copy the whole model
@@ -15,20 +25,25 @@ per-use cast ``_w``, so the cast is part of the graph and gradients land
 in fp32.
 
 Caches are updated IN PLACE: each layer attends through a view of its
-slice of the stacked cache ``(L, ...)``, where the reference carries the
-cache through a ``fori_loop`` with dynamic updates.  Functions that
-mutate a cache also return it, mirroring the reference's signatures.
+slice of the stacked cache ``(lead..., ...)``, where the reference
+carries the cache through a ``fori_loop`` with dynamic updates.
+Functions that mutate a cache also return it, mirroring the reference's
+signatures.
 
 Norms: under ``cfg.attn_impl == "kernel"`` each RMSNorm is one launch of
 the RMSNorm kernels (``common.norm``), and the residual add before ``ln2``
 is folded into ``rmsnorm_add`` (``common.norm_add``), which normalises the
 unrounded fp32 sum: in bf16 one rounding apart from the plain path, which
 rounds ``x + o`` first; the residual stream itself is bitwise the same.
+gemma2's post-norms are one ``norm`` launch each: ``ln2`` stays
+``norm_add`` over ``x + ln1b(o)``.
 
-MoE, VLM and gemma2's alternating local/global layers raise
-``NotImplementedError``: they arrive with later slices of the port.
+MoE and VLM raise ``NotImplementedError``: they arrive with a later slice
+of the port.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -58,7 +73,7 @@ from .common import (
 
 STATE_KIND = "kv"
 ATTN_IMPLS = ("chunked", "kernel")
-NORM_PARAMS = frozenset({"ln1", "ln2", "ln_f", "qnorm", "knorm"})
+NORM_PARAMS = frozenset({"ln1", "ln2", "ln1b", "ln2b", "ln_f", "qnorm", "knorm"})
 
 
 def check_supported(cfg: ArchConfig) -> None:
@@ -67,10 +82,6 @@ def check_supported(cfg: ArchConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family arrives with the MoE/VLM/"
             "audio slice of the port")
-    if cfg.alt_local_global:
-        raise NotImplementedError(
-            f"{cfg.name}: gemma2's alternating local/global layers arrive "
-            "with the gemma2 slice of the port")
     if cfg.family != "dense":
         raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is not "
                                   "an lm family")
@@ -83,8 +94,32 @@ def check_supported(cfg: ArchConfig) -> None:
 # ---------------------------------------------------------------------------
 
 
+def _leading(cfg: ArchConfig) -> tuple[int, ...]:
+    """The layer axes every block parameter and cache leaf leads with:
+    ``(L,)``, or ``(L/2, 2)`` (local, global) pairs under gemma2."""
+    if cfg.alt_local_global:
+        if cfg.n_layers % 2:
+            raise ValueError(f"{cfg.name}: alternating layers need an even "
+                             f"layer count, got {cfg.n_layers}")
+        return (cfg.n_layers // 2, 2)
+    return (cfg.n_layers,)
+
+
+def _lead_index(cfg: ArchConfig, i: int) -> tuple[int, ...]:
+    """Layer ``i``'s index into the leading axes."""
+    return divmod(i, 2) if cfg.alt_local_global else (i,)
+
+
+def _window(cfg: ArchConfig, i: int) -> int:
+    """Layer ``i``'s attention window (0: full causal); a gemma2 pair is
+    (local, global)."""
+    if cfg.alt_local_global:
+        return (cfg.window, 0)[i % 2]
+    return cfg.window
+
+
 def block_specs(cfg: ArchConfig) -> dict:
-    L = (cfg.n_layers,)
+    L = _leading(cfg)
     D, dh, H, Hk, F_ = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv, cfg.d_ff
     dt = dtype_of(cfg.param_dtype)
     s = {
@@ -101,6 +136,9 @@ def block_specs(cfg: ArchConfig) -> dict:
     if cfg.qk_norm:
         s["qnorm"] = ParamSpec(L + (dh,), dt, init_scale=0.0)
         s["knorm"] = ParamSpec(L + (dh,), dt, init_scale=0.0)
+    if cfg.alt_local_global:                 # gemma2 post-norms
+        s["ln1b"] = ParamSpec(L + (D,), dt, init_scale=0.0)
+        s["ln2b"] = ParamSpec(L + (D,), dt, init_scale=0.0)
     return s
 
 
@@ -193,8 +231,8 @@ def _block_fwd(cfg, x, bp, rope_cs, *, window: int, attn_fn=None):
             q, k, v, causal=True, window=window, softcap=cfg.attn_softcap,
             q_chunk=min(256, q.shape[1]), kv_chunk=min(256, k.shape[1]))
     B, S = x.shape[:2]
-    h, x = norm_add(cfg, x, attn.reshape(B, S, -1) @ _w(bp, "wo", cfg), bp["ln2"])
-    return x + _ffn(cfg, h, bp), (k, v)
+    h, x = _attn_out(cfg, x, attn.reshape(B, S, -1) @ _w(bp, "wo", cfg), bp)
+    return _ffn_out(cfg, x, _ffn(cfg, h, bp), bp), (k, v)
 
 
 def _block_decode(cfg, x, bp, kc, vc, cur_index, rope_cs, *, window: int, attn_fn=None):
@@ -223,12 +261,46 @@ def _block_decode(cfg, x, bp, kc, vc, cur_index, rope_cs, *, window: int, attn_f
                                 softcap=cfg.attn_softcap)
     else:
         attn = attn_fn(q, kc, vc, k, v, window)
-    h, x = norm_add(cfg, x, attn.reshape(B, H * dh) @ _w(bp, "wo", cfg), bp["ln2"])
-    return x + _ffn(cfg, h, bp)
+    h, x = _attn_out(cfg, x, attn.reshape(B, H * dh) @ _w(bp, "wo", cfg), bp)
+    return _ffn_out(cfg, x, _ffn(cfg, h, bp), bp)
 
 
-def _layer(params, i):
-    return {name: p[i] for name, p in params["blocks"].items()}
+def _attn_out(cfg, x, o, bp):
+    """The residual add of the attention output ``o`` (after gemma2's
+    ``ln1b``) and ``ln2`` of the sum: returns ``(ln2(x'), x')``."""
+    if cfg.alt_local_global:
+        o = norm(cfg, o, bp["ln1b"])
+    return norm_add(cfg, x, o, bp["ln2"])
+
+
+def _ffn_out(cfg, x, f, bp):
+    """The residual add of the FFN output (after gemma2's ``ln2b``)."""
+    if cfg.alt_local_global:
+        f = norm(cfg, f, bp["ln2b"])
+    return x + f
+
+
+def _layer(cfg, params, i):
+    idx = _lead_index(cfg, i)
+    return {name: p[idx] for name, p in params["blocks"].items()}
+
+
+def _cache_layer(cfg, cache, i):
+    """Layer ``i``'s (k, v) views of a stacked cache."""
+    idx = _lead_index(cfg, i)
+    return cache["k"][idx], cache["v"][idx]
+
+
+def _stack_layers(cfg, ts):
+    """Per-layer tensors stacked on the leading axes."""
+    t = torch.stack(ts)
+    return t.view(_leading(cfg) + t.shape[1:])
+
+
+def _flat_layers(cfg, t):
+    """A stacked leaf with its leading axes as one layer axis: a view, so a
+    write through it lands in the leaf (a non-contiguous leaf raises)."""
+    return t.view((-1,) + t.shape[len(_leading(cfg)):])
 
 
 # ---------------------------------------------------------------------------
@@ -237,7 +309,14 @@ def _layer(params, i):
 
 
 def embed_tokens(cfg, params, tokens):
-    return F.embedding(tokens.long(), params["embed"].to(dtype_of(cfg.compute_dtype)))
+    cdt = dtype_of(cfg.compute_dtype)
+    x = F.embedding(tokens.long(), params["embed"].to(cdt))
+    if cfg.alt_local_global:
+        # gemma scales embeddings, the scale rounded to cdt first (a Python
+        # float: no host-to-device copy, so a decode graph can capture it;
+        # the product is taken in fp32 and rounded, as a cdt x cdt one is)
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cdt).item()
+    return x
 
 
 def unembed(cfg, params, x):
@@ -255,7 +334,7 @@ def unembed(cfg, params, x):
 def forward(cfg: ArchConfig, params, tokens, *, remat=True,
             collect_kv: bool = False):
     """tokens (B, S) -> (final-normed hidden (B, S, D), kv or None) with kv
-    = (k, v) stacked over layers: (L, B, S, Hk, dh) each.  ``remat``
+    = (k, v) stacked over layers: (lead..., B, S, Hk, dh) each.  ``remat``
     (False | True | "dots", see ``common.remat_wrap``) wraps each block."""
     check_supported(cfg)
     x = embed_tokens(cfg, params, tokens)
@@ -263,18 +342,18 @@ def forward(cfg: ArchConfig, params, tokens, *, remat=True,
     positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
     rope_cs = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
 
-    def body(x, bp):
-        return _block_fwd(cfg, x, bp, rope_cs, window=cfg.window)
+    def body(x, bp, window):
+        return _block_fwd(cfg, x, bp, rope_cs, window=window)
 
     body = remat_wrap(body, remat)
     ks, vs = [], []
     for i in range(cfg.n_layers):
-        x, (k, v) = body(x, _layer(params, i))
+        x, (k, v) = body(x, _layer(cfg, params, i), _window(cfg, i))
         if collect_kv:
             ks.append(k)
             vs.append(v)
     x = norm(cfg, x, params["ln_f"])
-    return x, ((torch.stack(ks), torch.stack(vs)) if collect_kv else None)
+    return x, ((_stack_layers(cfg, ks), _stack_layers(cfg, vs)) if collect_kv else None)
 
 
 def loss_fn(cfg: ArchConfig, params, batch, *, remat=True):
@@ -295,8 +374,9 @@ def loss_fn(cfg: ArchConfig, params, batch, *, remat=True):
 
 
 def make_cache_specs(cfg: ArchConfig, batch: int, max_len: int) -> dict:
-    """Slotted KV cache (L, B, S, Hk, dh) as meta tensors (shape + dtype)."""
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv, cfg.head_dim)
+    """Slotted KV cache (lead..., B, S, Hk, dh) as meta tensors (shape +
+    dtype)."""
+    shape = _leading(cfg) + (batch, max_len, cfg.n_kv, cfg.head_dim)
     c = torch.empty(shape, dtype=dtype_of(cfg.compute_dtype), device="meta")
     return {"k": c, "v": c}
 
@@ -304,13 +384,14 @@ def make_cache_specs(cfg: ArchConfig, batch: int, max_len: int) -> dict:
 def lane_leaf_axes(cfg: ArchConfig) -> dict:
     """``{cache leaf: lane axis}`` of the slotted cache: everything one lane
     owns, the host tier's unit of a whole-lane spill.  Both leaves put the
-    lane right after the layer axis."""
-    return {"k": 1, "v": 1}
+    lane right after the leading layer axes."""
+    lead = len(_leading(cfg))
+    return {"k": lead, "v": lead}
 
 
 def make_paged_cache_specs(cfg: ArchConfig, num_blocks: int, block_size: int) -> dict:
-    """Paged KV pool (L, NB, bs, Hk, dh) as meta tensors."""
-    shape = (cfg.n_layers, num_blocks, block_size, cfg.n_kv, cfg.head_dim)
+    """Paged KV pool (lead..., NB, bs, Hk, dh) as meta tensors."""
+    shape = _leading(cfg) + (num_blocks, block_size, cfg.n_kv, cfg.head_dim)
     c = torch.empty(shape, dtype=dtype_of(cfg.compute_dtype), device="meta")
     return {"k": c, "v": c}
 
@@ -320,7 +401,8 @@ def copy_paged_block(cfg: ArchConfig, cache, src: int, dst: int):
     place: the prefix cache's copy-on-write step (a new request's prompt
     covers a shared block whole but must rewrite its tail position, since
     the sampling position is always recomputed; the lane gets the private
-    copy).  Leaves are (L, NB, bs, Hk, dh); the block axis is ``ndim - 4``.
+    copy).  Leaves are (lead..., NB, bs, Hk, dh); the block axis is
+    ``ndim - 4``.
     One indexed copy per leaf, on the current stream, so it is ordered
     before the continuation chunk that overwrites the copy's tail."""
     for c in cache.values():
@@ -331,7 +413,7 @@ def copy_paged_block(cfg: ArchConfig, cache, src: int, dst: int):
 
 def prefill(cfg: ArchConfig, params, tokens, *, max_len: int | None = None):
     """Whole-batch prefill: tokens (B, S) -> (slotted cache {k, v} of
-    (L, B, max_len, Hk, dh), the KV of positions [0, S) and zeros past it;
+    (lead..., B, max_len, Hk, dh), the KV of positions [0, S) and zeros past it;
     logits (B, V) at the last position)."""
     hidden, (k, v) = forward(cfg, params, tokens, remat=False, collect_kv=True)
     S = tokens.shape[1]
@@ -350,8 +432,8 @@ def prefill_slot(cfg: ArchConfig, params, cache, tokens, slot: int, plen: int):
     """
     hidden, (k, v) = forward(cfg, params, tokens, remat=False, collect_kv=True)
     S = tokens.shape[1]
-    cache["k"][:, slot, :S] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][:, slot, :S] = v[:, 0].to(cache["v"].dtype)
+    for name, new in (("k", k), ("v", v)):
+        cache[name][..., slot, :S, :, :] = new.select(-4, 0).to(cache[name].dtype)
     last = min(max(plen - 1, 0), S - 1)
     return cache, unembed(cfg, params, hidden[:, last])
 
@@ -366,7 +448,8 @@ def prefill_slot_paged(cfg: ArchConfig, params, cache, tokens, table_row, plen: 
     pos = torch.arange(C, device=tokens.device)
     valid = pos < plen
     for name, new in (("k", k), ("v", v)):
-        paged_write_positions(cache[name], table_row, pos, new[:, 0], valid)
+        paged_write_positions(_flat_layers(cfg, cache[name]), table_row, pos,
+                              _flat_layers(cfg, new).select(1, 0), valid)
     last = min(max(plen - 1, 0), C - 1)
     return cache, unembed(cfg, params, hidden[:, last])
 
@@ -416,8 +499,8 @@ def prefill_chunk_paged(cfg: ArchConfig, params, cache, tokens, table_row,
     pos = start + torch.arange(C, dtype=torch.int32, device=x.device)
     rope_cs = rope_tables(pos[None], cfg.head_dim, cfg.rope_theta)
     for i in range(cfg.n_layers):
-        x = _block_chunk(cfg, x, _layer(params, i), cache["k"][i], cache["v"][i],
-                         table_row, start, plen, rope_cs, window=cfg.window)
+        x = _block_chunk(cfg, x, _layer(cfg, params, i), *_cache_layer(cfg, cache, i),
+                         table_row, start, plen, rope_cs, window=_window(cfg, i))
     x = norm(cfg, x, params["ln_f"])
     last = min(max(plen - 1 - start, 0), C - 1)
     return cache, unembed(cfg, params, x[:, last])
@@ -430,9 +513,8 @@ def _decode_walk(cfg, params, cache, x, cur_index, attn_fn):
     pos = decode_positions(cur_index, x.shape[0], x.device)
     rope_cs = rope_tables(pos, cfg.head_dim, cfg.rope_theta)
     for i in range(cfg.n_layers):
-        x = _block_decode(cfg, x, _layer(params, i), cache["k"][i],
-                          cache["v"][i], cur_index, rope_cs, window=cfg.window,
-                          attn_fn=attn_fn)
+        x = _block_decode(cfg, x, _layer(cfg, params, i), *_cache_layer(cfg, cache, i),
+                          cur_index, rope_cs, window=_window(cfg, i), attn_fn=attn_fn)
     x = norm(cfg, x, params["ln_f"])
     return unembed(cfg, params, x), cache
 
@@ -446,7 +528,7 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, cur_index):
 
 def decode_step_paged(cfg: ArchConfig, params, cache, tokens, lengths, tables,
                       *, impl: str = "ref"):
-    """Paged decode: cache leaves are pools (L, NB, bs, Hk, dh); ``tables``
+    """Paged decode: cache leaves are pools (lead..., NB, bs, Hk, dh); ``tables``
     (B, nb) maps lanes' logical blocks to pool blocks and ``lengths`` (B,)
     is both the RoPE position and the write position of the new token.
     ``impl``: "ref" (gather + masked softmax) or "kernel" (the

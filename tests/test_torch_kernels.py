@@ -1086,3 +1086,130 @@ def test_rmsnorm_launcher_refuses_bad_plan(cuda, tpr, nv):
     assert ops._entry("rmsnorm_fwd")(x.data_ptr(), 2048, g.data_ptr(), out.data_ptr(), 1, 0,
                                      8, 2048, 1e-6, *ops.plan(8, 2048, x.dtype),
                                      ops._stream(x)) == 0
+
+
+# ---------------------------------------------------------------------------
+# Head dim 128 (gemma2-27b, deepseek-67b)
+# ---------------------------------------------------------------------------
+
+# gemma2-27b's and deepseek-67b's attention heads (q heads, KV heads)
+HEADS_D128 = [(32, 16), (64, 8)]
+FLASH_D128_KWARGS = FLASH_KWARGS + [dict(causal=True, window=48, softcap=50.0)]
+
+
+def _paged_window_inputs(rep, Hk=2, D=128, bs=16, nb=300, seed=3):
+    """Lanes on both sides of gemma2's window of 4096 (4000, 4095, 4096,
+    4097, 4700), a short lane, length 0 and a stale lane: a windowed lane
+    past 4096 skips its leading blocks and masks within its first live
+    block."""
+    lengths = np.array([4000, 4095, 4096, 4097, 4700, 100, 0, 5], np.int32)
+    rng = np.random.default_rng(seed + rep)
+    B, NB = lengths.size, lengths.size * nb + 1
+    q = rng.normal(size=(B, Hk, rep, D)).astype(np.float32)
+    kp, vp = (rng.normal(size=(NB, bs, Hk, D)).astype(np.float32) for _ in range(2))
+    tables = np.zeros((B, nb), np.int32)
+    free = list(rng.permutation(np.arange(1, NB)))
+    for b in range(B - 1):                           # the last lane is stale
+        for j in range(int(lengths[b]) // bs + 1):
+            tables[b, j] = free.pop()
+    return q, kp, vp, lengths, tables
+
+
+def test_kernel_checks_take_head_dim_128():
+    """Both CUDA paths take head dims 64 and 128 and refuse the rest (160:
+    stablelm-12b's, not compiled)."""
+    for D in (64, 128):
+        q = torch.zeros(1, 16, 4, D, dtype=torch.bfloat16)
+        kv = torch.zeros(1, 16, 2, D, dtype=torch.bfloat16)
+        flash_ops._check_kernel(q, kv, kv)
+        pq, pool = torch.zeros(2, 2, 8, D), torch.zeros(5, 16, 2, D)
+        lengths, tables = torch.zeros(2, dtype=torch.int32), torch.zeros(2, 4, dtype=torch.int32)
+        paged_ops._check_kernel(pq, pool, pool, lengths, tables)
+    q, kv = torch.zeros(1, 16, 4, 160), torch.zeros(1, 16, 2, 160)
+    with pytest.raises(ValueError, match="head dim 160"):
+        flash_ops._check_kernel(q, kv, kv)
+    pq, pool = torch.zeros(2, 2, 2, 160), torch.zeros(5, 16, 2, 160)
+    with pytest.raises(ValueError, match="D=160"):
+        paged_ops._check_kernel(pq, pool, pool, torch.zeros(2, dtype=torch.int32),
+                                torch.zeros(2, 4, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("rep", [2, 8])
+@pytest.mark.parametrize("kwargs", [dict(window=4096, softcap=50.0), dict(window=4096)])
+def test_paged_split_combine_window_4096(rep, kwargs):
+    """The split plan's arithmetic at head dim 128 on lanes across a window
+    of 4096 (leading blocks skipped, the first live block masked), in fp32
+    on the CPU, against the plain version."""
+    q, kp, vp, lengths, tables = (torch.tensor(x) for x in _paged_window_inputs(rep))
+    want = paged_attention_ref(q, kp, vp, lengths, tables, **kwargs)
+    got = _split_combine(q, kp, vp, lengths, tables, **kwargs)
+    torch.testing.assert_close(got, want, **_tol("float32"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("S", [1, 63, 65, 300, 1024])
+@pytest.mark.parametrize("H,Hk", HEADS_D128)
+@pytest.mark.parametrize("kwargs", FLASH_D128_KWARGS)
+def test_flash_kernel_d128_on_card(cuda, dt, S, H, Hk, kwargs):
+    """Head dim 128 at gemma2's and deepseek's head counts, ragged and
+    tile-edge lengths, every mask option and softcap 50."""
+    q, k, v = _flash_inputs(S, H, Hk, 128)
+    args = [_t(x, dt, cuda) for x in (q, k, v)]
+    before = flash_attention.launches
+    out = flash_attention(*args, **kwargs)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = attention_ref(*(a.transpose(1, 2) for a in args), **kwargs).transpose(1, 2)
+    torch.testing.assert_close(out.float(), want.float(), **_card_tol(dt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("kwargs", [dict(causal=True, window=4096),
+                                    dict(causal=True, window=4096, softcap=50.0)])
+def test_flash_kernel_d128_window_edge_on_card(cuda, dt, kwargs):
+    """gemma2's local layer at the window's edge: S 4608 > window 4096,
+    32/16 heads, one sequence."""
+    q, k, v = (x[:1] for x in _flash_inputs(4608, 32, 16, 128))
+    args = [_t(x, dt, cuda) for x in (q, k, v)]
+    out = flash_attention(*args, **kwargs)
+    torch.cuda.synchronize()
+    want = attention_ref(*(a.transpose(1, 2) for a in args), **kwargs).transpose(1, 2)
+    torch.testing.assert_close(out.float(), want.float(), **_card_tol(dt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("rep", [2, 8])
+@pytest.mark.parametrize("kwargs", PAGED_CARD_KWARGS + [dict(window=4096, softcap=50.0)])
+def test_paged_kernel_d128_on_card(cuda, dt, rep, kwargs):
+    """Head dim 128 at rep 2 (gemma2) and 8 (deepseek): split edges, and
+    lanes on both sides of a window of 4096."""
+    for inputs in (_paged_split_inputs(rep, 16, D=128), _paged_window_inputs(rep)):
+        q, kp, vp, lengths, tables = inputs
+        args = [_t(x, dt, cuda) for x in (q, kp, vp)]
+        lt, tt = torch.tensor(lengths, device=cuda), torch.tensor(tables, device=cuda)
+        before = paged_attention.launches
+        out = paged_attention(*args, lt, tt, **kwargs)
+        torch.cuda.synchronize()
+        assert paged_attention.launches == before + 1
+        want = paged_attention_ref(*args, lt, tt, **kwargs)
+        torch.testing.assert_close(out.float(), want.float(), **_card_tol(dt))
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_head_dim_160_on_card(cuda):
+    """A CUDA tensor with a head dim that is not compiled raises: no
+    fallback to the plain version."""
+    before = flash_attention.launches, paged_attention.launches
+    q = torch.zeros(1, 16, 4, 160, dtype=torch.bfloat16, device=cuda)
+    kv = torch.zeros(1, 16, 2, 160, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="head dim 160"):
+        flash_attention(q, kv, kv)
+    pool = torch.zeros(5, 16, 2, 160, device=cuda)
+    with pytest.raises(ValueError, match="D=160"):
+        paged_attention(torch.zeros(2, 2, 2, 160, device=cuda), pool, pool,
+                        torch.zeros(2, dtype=torch.int32, device=cuda),
+                        torch.zeros(2, 4, dtype=torch.int32, device=cuda))
+    assert (flash_attention.launches, paged_attention.launches) == before
