@@ -31,7 +31,17 @@ Phases (any failure raises and the script exits non-zero):
    also at softcap 50 (``ms_softcap``), SDPA beside (with a band mask for
    the window); paged at phase 7's lengths (six short lanes and the two
    long ones), the local layer's call (window 4096, softcap 50) and the
-   global layer's (softcap 50).
+   global layer's (softcap 50).  Head dim 160 (stablelm-12b's 32/8 heads:
+   the flash kernel's 32-column tail panel): flash causal at S 512 and 300,
+   window 4096 at S 4608, softcap 50 and both, bf16 and fp32, timed at
+   (1, 512, 32, 8, 160) and (1, 4096, 32, 8, 160) beside SDPA; ptxas's
+   spill bytes of the bf16 D-160 instantiation printed.  Paged at D 160 rep
+   4 (Hk 8), D 128 rep 16 (Hk 4: qwen3-moe-235b-a22b's 64/4 heads) and D
+   160 rep 16 (the combine kernel's 2 and 4 elements a thread), at random
+   lengths and at phase 8's, plain, softcap 50 and window 4096 with
+   softcap 50, bf16 and fp32; timed at phase 8's call (D 160 rep 4),
+   phase 9's (D 128 rep 8) and the two rep-16 shapes, with bound, split
+   count and device kernels per call.
 2b. Hold the ``flat_adam`` kernel against its plain version (fp32, atol
    and rtol 1e-6: the same fp32 formula, differing only in ``powf``,
    ``sqrtf``, division and FMA contraction by an ulp or two) for n in
@@ -291,10 +301,26 @@ Phases (any failure raises and the script exits non-zero):
    p90 host ms, the profiled decode step's launches, device ms and idle
    share beside its bound (the weights and the attended KV over 3.35
    TB/s), the long prefill's device ms beside its bound, and peak memory
-   beside the weights and pool.
-8. Print the launches, device ms and idle share of the profiled dense,
-   zamba and gemma2 decode steps and zamba prefill (the spec rounds' print
-   with their phases), the seconds of each phase, the
+   beside the weights and pool.  Then the same traffic on a fresh engine:
+   the same streams.
+8. Full-width ``stablelm-12b`` (40 layers, head dim 160 at rep 4, 24.3 GB
+   of bf16 weights from seed 0) through phase 7's engine settings
+   (``STABLELM_BLOCKS`` 1,025 blocks: 3.36 GB of KV) and traffic: phase
+   7's gates (graph, builds, launches flash 40 a prefill, paged 40 a
+   decode step, ``rmsnorm`` 41 and ``rmsnorm_add`` 40 a prefill and a
+   decode step, logits in bf16 at full depth and in fp32 at 4 layers, a
+   second run's streams), the same prints.
+9. Full-width ``qwen3-moe-30b-a3b`` (48 layers, 128 experts top-8, head
+   dim 128 at rep 8, ~61 GB of bf16 weights) through the paged engine at
+   phase 3's settings and traffic (the pool cut to 8 lanes of 1,024: 513
+   blocks), after the earlier models are freed: phase 8's gates, with
+   ``rmsnorm`` 145 (``ln1``, the q and k norms, ``ln_f``) a prefill and a
+   decode step; prints each prefill's ``drop_frac`` (the largest of its
+   layers, recomputed at its bucket) and the decode step's bound, which
+   reads every expert (the (E, C) layout computes all 128 experts' slots).
+10. Print the launches, device ms and idle share of the profiled dense,
+   zamba, gemma2, stablelm and qwen3-moe decode steps and zamba prefill
+   (the spec rounds' print with their phases), the seconds of each phase, the
    card's name and power limit, one
    ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
    {...}}``.  Details go to ``results.json`` in ``OUT_DIR``.
@@ -350,10 +376,13 @@ TRAIN_SEQ, TRAIN_BATCH, TRAIN_SLICES = 1024, 8, 2
 # smollm-360m prefill at bucket 512, the training step's (batch 4 a slice,
 # seq 1024), a zamba2-1.2b shared-block prefill at bucket 512 (rep 1), a
 # gemma2-27b prefill at bucket 512 and its long local-layer prefill at
-# bucket 8192 (window 4096)
+# bucket 8192 (window 4096), a stablelm-12b prefill (head dim 160) at
+# bucket 512 and at S 4096
 FLASH_TIMING = (("serve", 1, 512, 15, 5, 64, 0), ("train", 4, 1024, 15, 5, 64, 0),
                 ("zamba", 1, 512, 32, 32, 64, 0), ("gemma2 serve", 1, 512, 32, 16, 128, 0),
-                ("gemma2 long", 1, 8192, 32, 16, 128, 4096))
+                ("gemma2 long", 1, 8192, 32, 16, 128, 4096),
+                ("stablelm serve", 1, 512, 32, 8, 160, 0),
+                ("stablelm long", 1, 4096, 32, 8, 160, 0))
 SMOLLM_VOCAB = 49152
 
 N_LAYERS = 32
@@ -385,6 +414,23 @@ GEMMA_LOGIT_STEPS = 4         # decode steps of phase 7's logit check
 D128_HEADS = ((32, 16), (64, 8))
 FLASH_D128_S = (1024, 4608)
 PAGED_D128_LENGTHS = (4000, 4095, 4096, 4097, 4700, 6000, 8191, 100)
+# phase 2's head-dim-160 and rep-16 cases: stablelm-12b's (q heads, KV
+# heads); flash at a bucket-512 prefill, a ragged S, and S 4608 past a
+# window of 4096; paged (rep, D, KV heads): stablelm-12b's decode,
+# qwen3-moe-235b-a22b's (64 q heads over 4 KV heads) and the largest
+# instantiation
+D160_HEADS = (32, 8)
+FLASH_D160_S = (512, 300, 4608)
+PAGED_WIDE = ((4, 160, 8), (16, 128, 4), (16, 160, 4))
+# phase 8: full-width stablelm-12b on the paged engine, phase 7's traffic
+STABLELM_LAYERS = 40
+STABLELM_MAX_LEN = 8192
+STABLELM_BLOCKS = 1025        # 1,024 usable blocks of 16: 3.36 GB of bf16 KV
+STABLELM_FP32_LAYERS = 4
+# phase 9: full-width qwen3-moe-30b-a3b on the paged engine, phase 3's
+# traffic
+MOE_LAYERS = 48
+MOE_FP32_LAYERS = 4
 ZAMBA_D_INNER, ZAMBA_HEAD_DIM = 4096, 64
 # the RMSNorm shapes (rows, width) of the main paths and the path that
 # gives each: smollm-360m's d_model (960) in a decode step of 8 lanes, a
@@ -392,12 +438,17 @@ ZAMBA_D_INNER, ZAMBA_HEAD_DIM = 4096, 64
 # d_model (2048) in a decode step and a bucket-512 prefill; its d_inner
 # (4096) at the same rows, the gated out-norm's (no zamba path calls
 # rmsnorm or rmsnorm_add that wide); gemma2-27b's d_model (4608) in a
-# decode step and a bucket-512 prefill
+# decode step and a bucket-512 prefill; stablelm-12b's d_model (5120) in
+# the same two; qwen3-moe-30b-a3b's q-norm (head dim 128, 32 heads a row
+# of d_model) in a decode step (8 x 32 rows) and a bucket-512 prefill (its
+# d_model, 2048, is zamba2's)
 RMSNORM_PATHS = {(8, 960): "dense decode", (512, 960): "dense prefill",
                  (4096, 960): "dense train", (8, 4608): "gemma2 decode",
                  (512, 4608): "gemma2 prefill", (8, 2048): "zamba decode",
                  (512, 2048): "zamba prefill", (8, 4096): "zamba decode (gated only)",
-                 (512, 4096): "zamba prefill (gated only)"}
+                 (512, 4096): "zamba prefill (gated only)", (8, 5120): "stablelm decode",
+                 (512, 5120): "stablelm prefill", (256, 128): "qwen3-moe decode q-norm",
+                 (16384, 128): "qwen3-moe prefill q-norm"}
 RMSNORM_SHAPES = tuple(RMSNORM_PATHS)
 # 2e times each call on inputs that are not in the card's 50 MB L2: the
 # timed calls rotate through copies of the inputs that hold at least this
@@ -543,6 +594,26 @@ def check_flash(torch, dev, results):
                 rows.append(row)
                 log(f"flash {json.dumps(row)}")
                 del q, k, v, out, want
+    # head dim 160 (the tail panel): stablelm-12b's heads (32/8), causal at a
+    # bucket-512 prefill and a ragged S, a window of 4096 at its edge, a
+    # softcap of 50, and both
+    H, Hk = D160_HEADS
+    s512, ragged, long = FLASH_D160_S
+    for S, kw in ((s512, dict(causal=True)), (ragged, dict(causal=True)),
+                  (long, dict(causal=True, **w)), (s512, dict(causal=True, **cap)),
+                  (long, dict(causal=True, **w, **cap))):
+        for dt in ("bfloat16", "float32"):
+            q, k, v = (torch.randn(1, S, h, 160, generator=gen, device=dev)
+                       .to(getattr(torch, dt)) for h in (H, Hk, Hk))
+            out = flash_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            want = attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                 **kw).transpose(1, 2)
+            row = dict(S=S, D=160, H=H, Hk=Hk, dtype=dt, **kw,
+                       max_abs_err=max_err(torch, out, want, dt))
+            rows.append(row)
+            log(f"flash {json.dumps(row)}")
+            del q, k, v, out, want
     results["flash_cases"] = rows
 
     # timing, bf16, causal, at the main paths' shapes: device time per call
@@ -590,8 +661,9 @@ def check_flash(torch, dev, results):
         row["ms_events"] = time_ms(torch, kernel, iters if S <= 1024 else 10)
         row["plain_ms_events"] = time_ms(torch, plain, 20 if S <= 1024 else 3)
         row["library_ms_events"] = time_ms(torch, lib, iters if S <= 1024 else 10)
-        if name.startswith("gemma2"):
-            # gemma2's own setting: the attention softcap (SDPA has none)
+        if name.startswith("gemma2") or name.startswith("stablelm"):
+            # gemma2's own setting, the attention softcap (SDPA has none);
+            # stablelm has none, and its row carries it for the kernel's cost
             row["ms_softcap"] = device_ms(torch, lambda: flash_attention(
                 q, k, v, causal=True, window=window, softcap=GEMMA_SOFTCAP),
                 50 if S <= 1024 else 10)
@@ -682,6 +754,25 @@ def check_paged(torch, dev, results):
                 rows.append(row)
                 log(f"paged {json.dumps(row)}")
                 del q, kp, vp, out, want
+    # head dim 160 and rep 16 (``PAGED_WIDE``), tables of 8192, at random
+    # lengths and at phase 8's (phase 7's traffic, ~10 tokens in)
+    phase8 = [int(p.size) + 10 for p, _ in gemma2_requests(SMOLLM_VOCAB)[:MAX_SLOTS]]
+    for rep, D, Hk in PAGED_WIDE:
+        for lens in (None, phase8):
+            for kw in (dict(), dict(softcap=GEMMA_SOFTCAP),
+                       dict(window=GEMMA_WINDOW, softcap=GEMMA_SOFTCAP)):
+                for dt in ("bfloat16", "float32"):
+                    q, kp, vp, lengths, tables = paged_inputs(
+                        torch, dev, dt, Hk=Hk, rep=rep, D=D, nb=STABLELM_MAX_LEN // PAGE,
+                        lengths=lens, nulled=() if lens else (6, 7), seed=5)
+                    out = paged_attention(q, kp[0], vp[0], lengths, tables, **kw)
+                    torch.cuda.synchronize()
+                    want = paged_attention_ref(q, kp[0], vp[0], lengths, tables, **kw)
+                    row = dict(dtype=dt, D=D, Hk=Hk, rep=rep, lengths=lengths.tolist(), **kw,
+                               max_abs_err=max_err(torch, out, want, dt))
+                    rows.append(row)
+                    log(f"paged {json.dumps(row)}")
+                    del q, kp, vp, out, want
     results["paged_cases"] = rows
     # timing at the decode step's shape: 8 lanes, 5 KV heads x 3 queries,
     # bs 16, bf16; 8 layers of pools (84 MB, over the 50 MB L2) walked in
@@ -698,12 +789,21 @@ def check_paged(torch, dev, results):
     phase3 = [int(p.size) + 10 for p, _ in requests(SMOLLM_VOCAB)[:MAX_SLOTS]]
     phase7 = [int(p.size) + 10 for p, _ in gemma2_requests(SMOLLM_VOCAB)[:MAX_SLOTS]]
     gemma = dict(Hk=16, rep=2, D=128, nb=GEMMA_MAX_LEN // PAGE)
+    wide = {f"rep {rep} D {D}": dict(Hk=Hk, rep=rep, D=D, nb=STABLELM_MAX_LEN // PAGE)
+            for rep, D, Hk in PAGED_WIDE}
     timings = []
+    # phase 8 calls the D-160 rep-4 shape at phase 7's lengths (its
+    # traffic); phase 9 the D-128 rep-8 shape (qwen3-moe-30b-a3b's 32/4
+    # heads) at phase 3's; the rep-16 shapes at phase 3's lengths
     for name, lens, nulled, shape, kw in (
             ("random", None, (6, 7), {}, {}), ("phase 3", phase3, (), {}, {}),
             ("phase 7 local", phase7, (), gemma,
              dict(window=GEMMA_WINDOW, softcap=GEMMA_SOFTCAP)),
-            ("phase 7 global", phase7, (), gemma, dict(softcap=GEMMA_SOFTCAP))):
+            ("phase 7 global", phase7, (), gemma, dict(softcap=GEMMA_SOFTCAP)),
+            ("phase 8", phase7, (), wide["rep 4 D 160"], {}),
+            ("phase 9", phase3, (), dict(Hk=4, rep=8, D=128, nb=MAX_LEN // PAGE), {}),
+            ("rep 16 D 128", phase3, (), wide["rep 16 D 128"], {}),
+            ("rep 16 D 160", phase3, (), wide["rep 16 D 160"], {})):
         q, kp, vp, lengths, tables = paged_inputs(torch, dev, dt, layers=L, lengths=lens,
                                                   nulled=nulled, **shape)
         B, Hk, rep, D = q.shape
@@ -1395,25 +1495,31 @@ DECODE_WRAPPER = ((re.compile(r"::rmsnorm_kernel<[^,]+, 0,"), "rmsnorm"),
                   (re.compile(r"::paged_split_kernel<"), "paged_attention"))
 
 
-def replay_launches(kernels, steps: int) -> dict:
-    """{wrapper name: launches per step} of the port's kernels in a profile
-    of ``steps`` decode-graph replays: what the replays really launched,
-    to hold against the counts the graph adds to the wrappers' counters.
-    Each kernel's calls per step are rounded to a whole launch (the
-    profiler can miss the first launches of its window)."""
-    per, combine = {}, 0
-    for e in kernels:
-        if not PORT_KERNEL.match(e.key):
-            continue
-        n = round(e.count / steps)
-        if "::paged_combine_kernel<" in e.key:
-            combine += n
-            continue
-        name = next((w for rx, w in DECODE_WRAPPER if rx.search(e.key)), None)
-        assert name is not None, f"a decode replay launched {e.key[:100]}"
-        per[name] = per.get(name, 0) + n
-    assert combine == per.get("paged_attention", 0), (combine, per)
-    return per
+def replay_launches(windows, steps: int) -> dict:
+    """{wrapper name: launches per step} of the port's kernels in profile
+    windows of ``steps`` graph replays each: what the replays really
+    launched, to hold against the counts the graph adds to the wrappers'
+    counters.  Each kernel's calls per step are rounded to a whole launch,
+    and each wrapper's count is its largest over the windows: the card's
+    profiler loses records (the first of a window, and now and then some
+    inside a large one), never adds any."""
+    best = {}
+    for kernels in windows:
+        per = {}
+        for e in kernels:
+            if not PORT_KERNEL.match(e.key):
+                continue
+            if "::paged_combine_kernel<" in e.key:
+                name = "paged_combine_kernel"
+            else:
+                name = next((w for rx, w in DECODE_WRAPPER if rx.search(e.key)), None)
+                assert name is not None, f"a decode replay launched {e.key[:100]}"
+            per[name] = per.get(name, 0) + round(e.count / steps)
+        for name, n in per.items():
+            best[name] = max(best.get(name, 0), n)
+    combine = best.pop("paged_combine_kernel", 0)
+    assert combine == best.get("paged_attention", 0), (combine, best)
+    return best
 
 
 def port_kernels(kernels, per: float) -> list[dict]:
@@ -1423,7 +1529,16 @@ def port_kernels(kernels, per: float) -> list[dict]:
             for e in kernels if PORT_KERNEL.match(e.key)]
 
 
-def profile_decode(torch, cfg, params, reqs, ec, dev, steps: int = 5, obs=None):
+# spin kernels that open and close each profiled decode window
+# (``profile_decode``): the card's profiler misses a window's first records,
+# more once it has recorded many windows (on an H100 80GB HBM3 at 700 W, a
+# qwen3-moe window recorded ~28 fewer after phases 2-8 than alone)
+LEAD_IN = 256
+LEAD_IN_CYCLES = 2_000_000    # the first spin's length, ~1 ms
+
+
+def profile_decode(torch, cfg, params, reqs, ec, dev, steps: int = 5, obs=None,
+                   windows: int = 1):
     """Device time of a few decode steps with all 8 lanes busy, by kernel,
     from ``torch.profiler``; the idle share is taken against the step
     time of the same steps run again unprofiled.  The steps are the
@@ -1433,7 +1548,15 @@ def profile_decode(torch, cfg, params, reqs, ec, dev, steps: int = 5, obs=None):
     Then the host ms of one replay alone (no fetch, a synchronize after
     it), and the eager program the graph captured, run and profiled on
     the same state: its launches and device ms per step.  ``obs`` is the
-    engine's ``Observer``."""
+    engine's ``Observer``.  The card's profiler can miss the first records
+    of a window and now and then drops records inside one, the more the
+    larger the window (a qwen3-moe step launches ~6,200 kernels): each
+    window opens with a spin of ``LEAD_IN_CYCLES`` and ``LEAD_IN`` short
+    spin kernels and closes with ``LEAD_IN`` more, all left out of the
+    figures, and ``windows`` windows of ``steps`` steps are
+    recorded: the device time comes from the most complete (the most
+    records), the port's launches from each wrapper's largest count
+    (``replay_launches``)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serve import ServeEngine
 
@@ -1449,11 +1572,20 @@ def profile_decode(torch, cfg, params, reqs, ec, dev, steps: int = 5, obs=None):
         eng.step()
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t) * 1e3 / steps
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            eng.step()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    recorded = []
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(LEAD_IN_CYCLES)
+            for _ in range(LEAD_IN):
+                torch.cuda._sleep(1)
+            for _ in range(steps):
+                eng.step()
+            for _ in range(LEAD_IN):
+                torch.cuda._sleep(1)
+            torch.cuda.synchronize()
+        recorded.append([e for e in prof.key_averages() if e.device_type.name == "CUDA"
+                         and "spin_kernel" not in e.key])
+    kernels = max(recorded, key=lambda w: sum(e.count for e in w))
     # the engine's host mirror stops here: the calls below advance the
     # device state directly
     replay = eng._decode_entry(stochastic=False, masked=False)
@@ -1482,12 +1614,15 @@ def profile_decode(torch, cfg, params, reqs, ec, dev, steps: int = 5, obs=None):
         return None
     # the launch counts the graph adds on every replay, held against what
     # the profiled replays launched
-    measured = replay_launches(kernels, steps)
-    assert measured == counted, (measured, counted)
+    measured = replay_launches(recorded, steps)
+    assert measured == counted, (measured, counted, [
+        (sum(e.count for e in w), {e.key[:60]: e.count for e in w if PORT_KERNEL.match(e.key)})
+        for w in recorded])
     total_us = sum(e.self_device_time_total for e in kernels)
     eager_us = sum(e.self_device_time_total for e in ekernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
     out = dict(steps=steps, lanes=MAX_SLOTS, step_ms_unprofiled=step_ms,
+               launches_per_window=[sum(e.count for e in w) for w in recorded],
                device_ms_per_step=total_us / 1e3 / steps,
                device_idle_share=1 - total_us / 1e3 / steps / step_ms,
                kernel_launches_per_step=sum(e.count for e in kernels) / steps,
@@ -2606,7 +2741,7 @@ def profile_spec(torch, eng, steps: int = SPEC_PROFILE_ROUNDS):
                breakdown=spec_breakdown(torch, eng))
     out["seconds"] = lap("breakdown")
     if kernels:
-        measured = replay_launches(kernels, steps)
+        measured = replay_launches(windows, steps)
         assert measured == counted, (measured, counted)
         total_us = sum(e.self_device_time_total for e in kernels)
         out.update(device_ms_per_round=total_us / 1e3 / steps,
@@ -3932,18 +4067,52 @@ def gemma2_launches(pre: int, dec: int) -> dict:
             "rmsnorm": (3 * L + 1) * (pre + dec), "rmsnorm_add": L * (pre + dec)}
 
 
+def stablelm_launches(pre: int, dec: int) -> dict:
+    """Launches of a stablelm-12b serving run (a plain llama stack): flash
+    in each layer a prefill, paged in each layer a decode step, ``ln1`` in
+    each layer and ``ln_f`` (rmsnorm) and ``ln2`` with its residual add
+    (rmsnorm_add) a prefill and a decode step."""
+    L = STABLELM_LAYERS
+    return {"flash_attention": L * pre, "paged_attention": L * dec,
+            "rmsnorm": (L + 1) * (pre + dec), "rmsnorm_add": L * (pre + dec)}
+
+
+def moe_launches(pre: int, dec: int) -> dict:
+    """Launches of a qwen3-moe-30b-a3b serving run: flash and paged as
+    stablelm's; rmsnorm also on the q and k heads (``qk_norm``: ``ln1``,
+    ``qnorm`` and ``knorm`` in each layer, ``ln_f``).  The MoE layer
+    launches no kernel of the port."""
+    L = MOE_LAYERS
+    return {"flash_attention": L * pre, "paged_attention": L * dec,
+            "rmsnorm": (3 * L + 1) * (pre + dec), "rmsnorm_add": L * (pre + dec)}
+
+
+def layer_windows(cfg) -> list[int]:
+    """Each layer's attention window (0: full causal): gemma2's pairs are
+    (local, global)."""
+    return [cfg.window if not cfg.alt_local_global or i % 2 == 0 else 0
+            for i in range(cfg.n_layers)]
+
+
+def kv_read_bytes(cfg, lens) -> int:
+    """bf16 K and V bytes a decode step reads for lanes of ``lens``
+    positions, each layer within its window."""
+    pos = sum(min(n, w) if w else n for w in layer_windows(cfg) for n in lens)
+    return pos * 2 * cfg.n_kv * cfg.head_dim * 2
+
+
 def prefill_work(cfg, n: int) -> tuple[int, int]:
-    """(attention, matmul) operations of a gemma2 prefill over ``n``
-    positions: causal pairs in the global layers, pairs within the window
-    in the local ones, and every block matmul once a position."""
-    H, dh, L = cfg.n_heads, cfg.head_dim, cfg.n_layers
-    pairs_global = n * (n + 1) // 2
-    pairs_local = sum(min(i + 1, cfg.window) for i in range(n))
-    attn = 4 * dh * H * (L // 2) * (pairs_global + pairs_local)
-    return attn, 2 * n * (cfg.n_params_dense - cfg.vocab * cfg.d_model)
+    """(attention, matmul) operations of a dense prefill over ``n``
+    positions: causal pairs in each layer (within the window in gemma2's
+    local ones), and every block matmul once a position."""
+    H, dh = cfg.n_heads, cfg.head_dim
+    pairs = sum(sum(min(i + 1, w) for i in range(n)) if w else n * (n + 1) // 2
+                for w in layer_windows(cfg))
+    emb = cfg.vocab * cfg.d_model * (1 if cfg.tie_embeddings else 2)
+    return 4 * dh * H * pairs, 2 * n * (cfg.n_params_dense - emb)
 
 
-def profile_long_prefill(torch, dev, cfg, params, prompt, bucket: int) -> dict | None:
+def profile_long_prefill(torch, dev, cfg, params, prompt, bucket: int, label: str) -> dict | None:
     """Device time of one long prompt's prefill as the engine runs it
     (``prefill_slot_paged`` at the prompt's bucket, kernel path), beside
     its bound: the weights read once and the operations the prompt needs
@@ -3967,7 +4136,7 @@ def profile_long_prefill(torch, dev, cfg, params, prompt, bucket: int) -> dict |
     host_ms = (time.perf_counter() - t) * 1e3
     ms, kernels = device_profile(torch, run, 2)
     if ms is None:
-        log("gemma2 long prefill: torch.profiler recorded no device activity (not measured)")
+        log(f"{label} long prefill: torch.profiler recorded no device activity (not measured)")
         return None
     logits = 2 * cfg.d_model * cfg.vocab
     weights = param_bytes(params)
@@ -3984,7 +4153,113 @@ def profile_long_prefill(torch, dev, cfg, params, prompt, bucket: int) -> dict |
     out["bound_ms"], out["bound_by"] = bound(attn + matmul + logits, weights, "bfloat16")
     out["padded_bound_ms"], _ = bound(padded_attn + padded_matmul + logits, weights,
                                       "bfloat16")
-    log(f"gemma2 long prefill: {json.dumps(out)}")
+    log(f"{label} long prefill: {json.dumps(out)}")
+    return out
+
+
+def serve_phase(torch, dev, results, key: str, label: str, cfg, params, reqs, ec,
+                predict) -> tuple[dict, dict]:
+    """A full-width model through the paged engine on the kernel path
+    (flash, paged, rmsnorm, rmsnorm_add): a warm-up, the graph check (8
+    replays against the eager program, ``results[key + "_graph_check"]``),
+    then the measured run with the counts set to 0 just before it.  Gates:
+    every request ``ok`` with its budget; the launches ``predict(prefills,
+    decode steps)``; after ``prebuild`` the three decode forms and a
+    prefill per bucket, flat through the run and a second serve, one
+    decode graph.  Returns (the run's figures, the launches)."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_add
+
+    serve(torch, cfg, params, [(reqs[2][0][:16], 4), (reqs[3][0][:32], 4)], ec, dev)
+    free(torch)
+    results[f"{key}_graph_check"] = graph_check(torch, cfg, params, reqs, ec, dev)
+    free(torch)
+    kernels = (flash_attention, paged_attention, rmsnorm, rmsnorm_add)
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels:
+        k.launches = 0
+    eng, rids, steps, prefilled, wall = serve(torch, cfg, params, reqs, ec, dev, check=True,
+                                              prebuild=True)
+    launches = {k.__name__: k.launches for k in kernels}
+    peak = torch.cuda.max_memory_allocated()
+    st = eng.stats
+    comps = [eng.completions[r] for r in rids]
+    bad = [(c.rid, c.status, len(c.tokens), b) for c, (_, b) in zip(comps, reqs)
+           if c.status != "ok" or len(c.tokens) != b]
+    assert not bad, f"requests not served in full: {bad}"
+    pre, dec = st["prefills"], st["decode_steps"]
+    want = predict(pre, dec)
+    assert launches == want and pre == len(reqs) and dec > 0, (launches, want, st)
+    # prebuild: the decode program of each sampling form and the prefill of
+    # each bucket, nothing more through the run (``serve`` checks it), and
+    # the one decode graph captured at the first decode step
+    programs = dict(builds=st["builds"], buckets=list(eng.buckets), graphs=st["graphs"],
+                    decode_graph_build_s=list(eng.graphs.build_seconds.values()))
+    assert st["builds"] == 3 + len(eng.buckets) and st["graphs"] == 1, programs
+    streams = [list(c.tokens) for c in comps]
+    programs["steady"] = steady_builds(eng, reqs[2:6])
+    tokens = sum(len(c.tokens) for c in comps)
+    decode_only = [t for t, p in zip(steps, prefilled) if not p]
+    e2e = dict(requests=len(comps), tokens=tokens, wall_s=wall, tokens_per_s=tokens / wall,
+               prefills=pre, decode_steps=dec, prompt_tokens=st["prefill_tokens"],
+               decode_step_ms_median=float(np.median(decode_only)),
+               decode_step_ms_p90=float(np.percentile(decode_only, 90)),
+               decode_only_steps=len(decode_only), step_ms_mean=wall * 1e3 / len(steps),
+               kv_reserved_bytes=st["kv_reserved_bytes"],
+               kv_peak_used_bytes=st["kv_peak_used_bytes"], weights_bytes=param_bytes(params),
+               max_memory_allocated=peak, launches=launches, launches_expected=want,
+               programs=programs)
+    log(f"{label} (paged, kernels, decode graph) [{results['nvidia_smi']}]: {tokens} tokens "
+        f"in {wall:.3f} s = {tokens / wall:.1f} tok/s; decode step median "
+        f"{e2e['decode_step_ms_median']:.2f} ms, p90 {e2e['decode_step_ms_p90']:.2f} ms over "
+        f"{len(decode_only)} decode-only steps; launches {launches}; peak memory "
+        f"{peak / 1e9:.2f} GB (weights {e2e['weights_bytes'] / 1e9:.2f}); "
+        f"programs {json.dumps(programs)}")
+    del eng
+    free(torch)
+    # the same traffic again on a fresh engine: the same streams
+    eng, rids, *_ = serve(torch, cfg, params, reqs, ec, dev)
+    again = [list(eng.completions[r].tokens) for r in rids]
+    e2e["second_run_streams_equal"] = again == streams
+    assert again == streams, "a second run's streams differ"
+    del eng
+    free(torch)
+    return e2e, launches
+
+
+def decode_profile(torch, dev, results, label, cfg, params, reqs, ec, flops: float,
+                   steps: int = 5, windows: int = 1):
+    """``profile_decode`` of the first 8 requests, beside the step's bound:
+    the weights and the KV the lanes read (~10 tokens past their prompts,
+    as the profiled steps are) over 3.35 TB/s, or ``flops`` at 989
+    TFLOP/s."""
+    prof = profile_decode(torch, cfg, params, reqs, ec, dev, steps=steps, windows=windows)
+    if prof is not None:
+        lens = [int(p.size) + 8 for p, _ in reqs[:MAX_SLOTS]]   # ~ the profiled steps'
+        nbytes = param_bytes(params) + kv_read_bytes(cfg, lens)
+        prof["bound_ms"], prof["bound_by"] = bound(flops, nbytes, "bfloat16")
+        prof["bound_bytes"] = nbytes
+        log(f"{label} decode step: {prof['kernel_launches_per_step']:.0f} launches, "
+            f"{prof['device_ms_per_step']:.3f} device ms, idle share "
+            f"{prof['device_idle_share']:.3f}, bound {prof['bound_ms']:.3f} ms "
+            f"({prof['bound_by']}) [{results['nvidia_smi']}]")
+    free(torch)
+    return prof
+
+
+def fp32_logits(torch, dev, base, layers: int, prompt, steps: int) -> dict:
+    """``logit_agreement`` in fp32 (TF32 off) at full width and ``layers``
+    layers: the full-depth fp32 model does not fit the card."""
+    from repro_torch.models import lm
+
+    c32 = dataclasses.replace(base, n_layers=layers, compute_dtype="float32")
+    p32 = lm.init(c32, seed=0, device=dev)
+    log(f"{base.name} fp32 logit check cut to {layers} layers "
+        f"({param_bytes(p32) / 1e9:.2f} GB of fp32 weights)")
+    out = logit_agreement(torch, dev, [(c32, p32)], prompt, steps=steps)
+    del p32
+    free(torch)
     return out
 
 
@@ -3993,9 +4268,6 @@ def gemma2_path(torch, dev, results):
     the kernel path (flash, paged, rmsnorm, rmsnorm_add).  Returns the
     launch counts."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention.ops import flash_attention
-    from repro_torch.kernels.paged_attention.ops import paged_attention
-    from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_add
     from repro_torch.models import lm
     from repro_torch.serve import EngineConfig, bucket_for, prompt_buckets
 
@@ -4019,91 +4291,156 @@ def gemma2_path(torch, dev, results):
     log(f"gemma2-27b: {weights / 1e9:.2f} GB of bf16 weights made in {init_s:.1f} s; pool "
         f"{GEMMA_BLOCKS} blocks = {pool / 1e9:.2f} GB; long prompts "
         f"{[int(p.size) for p, _ in reqs[:2]]} at bucket {long_buckets}")
-
-    # warm-up, the graph check (8 replays against the eager program, on
-    # the two long lanes and six short ones), then the measured run with
-    # the counts set to 0 just before it
-    serve(torch, cfg, params, [(reqs[2][0][:16], 4), (reqs[3][0][:32], 4)], ec, dev)
-    free(torch)
-    results["gemma2_graph_check"] = graph_check(torch, cfg, params, reqs, ec, dev)
-    free(torch)
-    kernels = (flash_attention, paged_attention, rmsnorm, rmsnorm_add)
-    torch.cuda.reset_peak_memory_stats()
-    for k in kernels:
-        k.launches = 0
-    eng, rids, steps, prefilled, wall = serve(torch, cfg, params, reqs, ec, dev, check=True,
-                                              prebuild=True)
-    launches = {k.__name__: k.launches for k in kernels}
-    peak = torch.cuda.max_memory_allocated()
-    st = eng.stats
-    comps = [eng.completions[r] for r in rids]
-    bad = [(c.rid, c.status, len(c.tokens), b) for c, (_, b) in zip(comps, reqs)
-           if c.status != "ok" or len(c.tokens) != b]
-    assert not bad, f"requests not served in full: {bad}"
-    pre, dec = st["prefills"], st["decode_steps"]
-    want = gemma2_launches(pre, dec)
-    assert launches == want and pre == len(reqs) and dec > 0, (launches, want, st)
-    # prebuild: the decode program of each sampling form and the prefill of
-    # each bucket, nothing more through the run (``serve`` checks it), and
-    # the one decode graph captured at the first decode step
-    programs = dict(builds=st["builds"], buckets=list(eng.buckets), graphs=st["graphs"],
-                    decode_graph_build_s=list(eng.graphs.build_seconds.values()))
-    assert st["builds"] == 3 + len(eng.buckets) and st["graphs"] == 1, programs
-    programs["steady"] = steady_builds(eng, reqs[2:6])
-    tokens = sum(len(c.tokens) for c in comps)
-    decode_only = [t for t, p in zip(steps, prefilled) if not p]
-    e2e = dict(requests=len(comps), tokens=tokens, wall_s=wall, tokens_per_s=tokens / wall,
-               prefills=pre, decode_steps=dec, prompt_tokens=st["prefill_tokens"],
-               long_prompts=[int(p.size) for p, _ in reqs[:2]], long_buckets=long_buckets,
-               decode_step_ms_median=float(np.median(decode_only)),
-               decode_step_ms_p90=float(np.percentile(decode_only, 90)),
-               decode_only_steps=len(decode_only), step_ms_mean=wall * 1e3 / len(steps),
-               kv_reserved_bytes=st["kv_reserved_bytes"],
-               kv_peak_used_bytes=st["kv_peak_used_bytes"], weights_bytes=weights,
-               pool_bytes=pool, memory_allocated_at_entry=at_entry,
-               max_memory_allocated=peak, launches=launches, launches_expected=want,
-               programs=programs, init_s=init_s)
-    log(f"gemma2-27b (paged, kernels, decode graph) [{results['nvidia_smi']}]: {tokens} tokens "
-        f"in {wall:.3f} s = {tokens / wall:.1f} tok/s; decode step median "
-        f"{e2e['decode_step_ms_median']:.2f} ms, p90 {e2e['decode_step_ms_p90']:.2f} ms over "
-        f"{len(decode_only)} decode-only steps; launches {launches}; peak memory "
-        f"{peak / 1e9:.2f} GB (weights {weights / 1e9:.2f} + pool {pool / 1e9:.2f}); "
-        f"programs {json.dumps(programs)}")
-    del eng
-    free(torch)
-
-    prof = profile_decode(torch, cfg, params, reqs, ec, dev)
-    if prof is not None:
-        lens = [int(p.size) + 8 for p, _ in reqs[:MAX_SLOTS]]   # ~ the profiled steps'
-        kv = sum(2 * cfg.n_kv * cfg.head_dim * 2 * (GEMMA_LAYERS // 2)
-                 * (min(n, GEMMA_WINDOW) + n) for n in lens)
-        prof["bound_ms"], prof["bound_by"] = bound(
-            2 * MAX_SLOTS * cfg.n_params_dense, weights + kv, "bfloat16")
-        prof["bound_bytes"] = weights + kv
-        log(f"gemma2 decode step: {prof['kernel_launches_per_step']:.0f} launches, "
-            f"{prof['device_ms_per_step']:.3f} device ms, idle share "
-            f"{prof['device_idle_share']:.3f}, bound {prof['bound_ms']:.3f} ms "
-            f"({prof['bound_by']})")
-    results["gemma2_profile"] = prof
-    free(torch)
+    e2e, launches = serve_phase(torch, dev, results, "gemma2", "gemma2-27b", cfg, params, reqs,
+                                ec, gemma2_launches)
+    e2e.update(long_prompts=[int(p.size) for p, _ in reqs[:2]], long_buckets=long_buckets,
+               pool_bytes=pool, memory_allocated_at_entry=at_entry, init_s=init_s)
+    results["gemma2_profile"] = decode_profile(torch, dev, results, "gemma2", cfg, params,
+                                               reqs, ec, 2 * MAX_SLOTS * cfg.n_params_dense)
     e2e["long_prefill"] = profile_long_prefill(torch, dev, cfg, params, reqs[0][0],
-                                               long_buckets[0])
+                                               long_buckets[0], "gemma2")
     free(torch)
     results["gemma2_logits"] = logit_agreement(torch, dev, [(cfg, params)], reqs[0][0],
                                                steps=GEMMA_LOGIT_STEPS)
     del params
     free(torch)
-    # fp32 (TF32 off) at full width and 4 layers: the 46-layer fp32 model
-    # (109 GB) does not fit the card
-    c32 = dataclasses.replace(base, n_layers=GEMMA_FP32_LAYERS, compute_dtype="float32")
-    p32 = lm.init(c32, seed=0, device=dev)
-    log(f"gemma2 fp32 logit check cut to {GEMMA_FP32_LAYERS} layers "
-        f"({param_bytes(p32) / 1e9:.2f} GB of fp32 weights)")
-    results["gemma2_logits"].update(logit_agreement(torch, dev, [(c32, p32)], reqs[0][0],
-                                                    steps=GEMMA_LOGIT_STEPS))
-    del p32
-    free(torch)
+    results["gemma2_logits"].update(fp32_logits(torch, dev, base, GEMMA_FP32_LAYERS,
+                                                reqs[0][0], GEMMA_LOGIT_STEPS))
     results["gemma2"] = e2e
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: full-width stablelm-12b on the paged engine
+# ---------------------------------------------------------------------------
+
+
+def stablelm_path(torch, dev, results):
+    """Full-width stablelm-12b (40 layers, head dim 160, bf16) through the
+    paged engine on the kernel path, on phase 7's traffic.  Returns the
+    launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.serve import EngineConfig, bucket_for, prompt_buckets
+
+    free(torch)
+    at_entry = torch.cuda.memory_allocated()
+    log(f"phase 8: {at_entry / 1e9:.3f} GB allocated at entry")
+    base = get_config("stablelm-12b")
+    assert base.n_layers == STABLELM_LAYERS and base.head_dim == 160 and not base.window
+    cfg = dataclasses.replace(base, attn_impl="kernel", param_dtype="bfloat16")
+    t = time.perf_counter()
+    params = lm.init(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    weights = param_bytes(params)
+    reqs = gemma2_requests(cfg.vocab)
+    ec = EngineConfig(max_slots=MAX_SLOTS, max_len=STABLELM_MAX_LEN, kv_layout="paged",
+                      page_size=PAGE, paged_attn="kernel", num_blocks=STABLELM_BLOCKS)
+    pool = STABLELM_BLOCKS * PAGE * 2 * STABLELM_LAYERS * cfg.n_kv * cfg.head_dim * 2
+    long_buckets = [bucket_for(int(p.size), prompt_buckets(STABLELM_MAX_LEN))
+                    for p, _ in reqs[:2]]
+    log(f"stablelm-12b: {weights / 1e9:.2f} GB of bf16 weights made in {init_s:.1f} s; pool "
+        f"{STABLELM_BLOCKS} blocks = {pool / 1e9:.2f} GB; long prompts "
+        f"{[int(p.size) for p, _ in reqs[:2]]} at bucket {long_buckets}")
+    e2e, launches = serve_phase(torch, dev, results, "stablelm", "stablelm-12b", cfg, params,
+                                reqs, ec, stablelm_launches)
+    e2e.update(long_prompts=[int(p.size) for p, _ in reqs[:2]], long_buckets=long_buckets,
+               pool_bytes=pool, memory_allocated_at_entry=at_entry, init_s=init_s)
+    results["stablelm_profile"] = decode_profile(torch, dev, results, "stablelm", cfg, params,
+                                                 reqs, ec, 2 * MAX_SLOTS * cfg.n_params_dense)
+    e2e["long_prefill"] = profile_long_prefill(torch, dev, cfg, params, reqs[0][0],
+                                               long_buckets[0], "stablelm")
+    free(torch)
+    results["stablelm_logits"] = logit_agreement(torch, dev, [(cfg, params)], reqs[0][0],
+                                                 steps=GEMMA_LOGIT_STEPS)
+    del params
+    free(torch)
+    results["stablelm_logits"].update(fp32_logits(torch, dev, base, STABLELM_FP32_LAYERS,
+                                                  reqs[0][0], GEMMA_LOGIT_STEPS))
+    results["stablelm"] = e2e
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: full-width qwen3-moe-30b-a3b on the paged engine
+# ---------------------------------------------------------------------------
+
+
+def moe_drop_fracs(torch, dev, cfg, params, reqs, max_len: int) -> dict:
+    """Each request's prefill recomputed as the engine runs it (the prompt
+    right-padded with zeros to its bucket): the largest ``drop_frac`` of
+    its layers (the reference forward's aux) and their mean, and each
+    layer's mean over the requests."""
+    from repro_torch.models import lm
+    from repro_torch.serve import bucket_for, prompt_buckets
+
+    layers = []
+    for p, _ in reqs:
+        chunk = torch.zeros(1, bucket_for(int(p.size), prompt_buckets(max_len)),
+                            dtype=torch.int32, device=dev)
+        chunk[0, : p.size] = torch.tensor(p, device=dev)
+        aux = {}
+        lm.forward(cfg, params, chunk, remat=False, aux=aux)
+        layers.append(aux["drop_frac_layers"].tolist())
+    by_layer = np.asarray(layers)
+    return dict(max=by_layer.max(1).tolist(), mean=by_layer.mean(1).tolist(),
+                layer_mean=by_layer.mean(0).tolist())
+
+
+def moe_path(torch, dev, results):
+    """Full-width qwen3-moe-30b-a3b (48 layers, 128 experts top-8, bf16)
+    through the paged engine on the kernel path, on phase 3's traffic.
+    Returns the launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.models.moe import expert_capacity
+    from repro_torch.serve import EngineConfig
+
+    free(torch)
+    at_entry = torch.cuda.memory_allocated()
+    log(f"phase 9: {at_entry / 1e9:.3f} GB allocated at entry")
+    base = get_config("qwen3-moe-30b-a3b")
+    assert base.n_layers == MOE_LAYERS and base.family == "moe" and base.qk_norm
+    cfg = dataclasses.replace(base, attn_impl="kernel", param_dtype="bfloat16")
+    t = time.perf_counter()
+    params = lm.init(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    weights = param_bytes(params)
+    reqs = requests(cfg.vocab)
+    # the pool cut to the traffic: 8 lanes of max_len 1024, the engine's
+    # default (max_slots * max_len / page + 1 blocks)
+    ec = EngineConfig(max_slots=MAX_SLOTS, max_len=MAX_LEN, kv_layout="paged",
+                      page_size=PAGE, paged_attn="kernel")
+    blocks = MAX_SLOTS * MAX_LEN // PAGE + 1
+    pool = blocks * PAGE * 2 * MOE_LAYERS * cfg.n_kv * cfg.head_dim * 2
+    log(f"qwen3-moe-30b-a3b: {weights / 1e9:.2f} GB of bf16 weights made in {init_s:.1f} s; "
+        f"pool {blocks} blocks = {pool / 1e9:.2f} GB; decode capacity "
+        f"{expert_capacity(MAX_SLOTS, cfg)} slots an expert")
+    e2e, launches = serve_phase(torch, dev, results, "moe", "qwen3-moe-30b-a3b", cfg, params,
+                                reqs, ec, moe_launches)
+    e2e.update(pool_bytes=pool, pool_blocks=blocks, memory_allocated_at_entry=at_entry,
+               init_s=init_s, decode_capacity=expert_capacity(MAX_SLOTS, cfg))
+    e2e["prefill_drop_frac"] = moe_drop_fracs(torch, dev, cfg, params, reqs, MAX_LEN)
+    log(f"qwen3-moe prefill drop_frac (per request: the largest layer's, the "
+        f"layers' mean; each layer's mean): {json.dumps(e2e['prefill_drop_frac'])}")
+    free(torch)
+    # the (E, C) layout's products read every expert a step: the operations
+    # are those of E x C slots, the bytes all the weights
+    E, F_, D = cfg.moe.num_experts, cfg.moe.d_expert, cfg.d_model
+    expert_ops = 2 * MOE_LAYERS * E * expert_capacity(MAX_SLOTS, cfg) * 3 * D * F_
+    dense_ops = 2 * MAX_SLOTS * (cfg.n_params_dense - MOE_LAYERS * 3 * D * F_ * E)
+    results["moe_profile"] = decode_profile(torch, dev, results, "qwen3-moe", cfg, params,
+                                            reqs, ec, expert_ops + dense_ops, steps=3,
+                                            windows=4)
+    results["moe_logits"] = logit_agreement(torch, dev, [(cfg, params)], reqs[0][0],
+                                            steps=GEMMA_LOGIT_STEPS)
+    del params
+    free(torch)
+    results["moe_logits"].update(fp32_logits(torch, dev, base, MOE_FP32_LAYERS, reqs[0][0],
+                                             GEMMA_LOGIT_STEPS))
+    results["moe"] = e2e
     return launches
 
 
@@ -4144,6 +4481,18 @@ def main() -> int:
             if m:
                 spills[name] = spills.get(name, 0) + int(m.group(1)) + int(m.group(2))
     results["ptxas_spill_bytes"] = spills
+    # the bf16 head-dim-160 flash kernel's own line (the tail panel's 80
+    # accumulators a thread sit at the register limit)
+    results["ptxas_flash_d160_spill_bytes"] = None
+    fn = None
+    for line in logs.get("flash_attention", "").splitlines():
+        if "Function properties for" in line or "Compiling entry function" in line:
+            fn = line
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and fn and "tc16flash_fwd_kernelILi160E" in fn:
+            results["ptxas_flash_d160_spill_bytes"] = int(m.group(1)) + int(m.group(2))
+    log(f"ptxas: bf16 flash at head dim 160 spills "
+        f"{results['ptxas_flash_d160_spill_bytes']} bytes")
     log(f"built {sorted(_build.sources())} in {results['build_s']:.1f} s")
 
     def phase(name, fn, *args):
@@ -4169,6 +4518,8 @@ def main() -> int:
     zamba_launches = phase("5 zamba serve", zamba_path)
     phase("6 function API", function_path)
     gemma2_counts = phase("7 gemma2 serve", gemma2_path)
+    stablelm_counts = phase("8 stablelm serve", stablelm_path)
+    moe_counts = phase("9 qwen3-moe serve", moe_path)
     results["phase_s"] = phase_s
     results["seconds"] = time.perf_counter() - t_start
 
@@ -4195,9 +4546,13 @@ def main() -> int:
 
     fl = {t["shape"]: t for t in results["flash_timing"]}
     pg = {t["lengths_from"]: t for t in results["paged_timing"]}
-    g7 = {name: gemma2_counts.get(name, 0) for name in (
-        "flash_attention", "paged_attention", "flat_adam", "ssd", "rmsnorm", "rmsnorm_add",
-        "rmsnorm_gated")}
+    names = ("flash_attention", "paged_attention", "flat_adam", "ssd", "rmsnorm", "rmsnorm_add",
+             "rmsnorm_gated")
+    g7 = {name: gemma2_counts.get(name, 0) for name in names}
+    s8 = {name: stablelm_counts.get(name, 0) for name in names}
+    m9 = {name: moe_counts.get(name, 0) for name in names}
+    wide_keys = ("q", "lengths", "ms", "ms_events", "plain_ms", "bound_ms", "bound_by",
+                 "n_split", "device_kernels_per_call")
     fa = results["flat_adam_timing"]
     sd = results["ssd_timing"]
     # each row carries its time as kernel_ms and, for the chip check's
@@ -4218,6 +4573,7 @@ def main() -> int:
              router_launches=router_launches["flash_attention"],
              traced_launches=traced_launches["flash_attention"],
              gemma2_launches=g7["flash_attention"],
+             stablelm_launches=s8["flash_attention"], moe_launches=m9["flash_attention"],
              max_abs_err=max(r["max_abs_err"] for r in results["flash_cases"]
                              if r["dtype"] == "bfloat16"),
              kernel_ms=fl["serve"]["ms"], ms=fl["serve"]["ms"],
@@ -4234,7 +4590,14 @@ def main() -> int:
                    for n in ("gemma2 serve", "gemma2 long")},
              d128_max_abs_err={dt: max(r["max_abs_err"] for r in results["flash_cases"]
                                        if r.get("D") == 128 and r["dtype"] == dt)
-                               for dt in ("bfloat16", "float32")}),
+                               for dt in ("bfloat16", "float32")},
+             d160={n: {k: fl[n][k] for k in ("q", "ms", "ms_softcap", "ms_events", "plain_ms",
+                                             "library_ms", "bound_ms", "bound_by")}
+                   for n in ("stablelm serve", "stablelm long")},
+             d160_max_abs_err={dt: max(r["max_abs_err"] for r in results["flash_cases"]
+                                       if r.get("D") == 160 and r["dtype"] == dt)
+                               for dt in ("bfloat16", "float32")},
+             d160_ptxas_spill_bytes=results["ptxas_flash_d160_spill_bytes"]),
         dict(name="paged_attention", route="cuda",
              source="src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
              replaces="src/repro/kernels/paged_attention/kernel.py:30",
@@ -4247,6 +4610,7 @@ def main() -> int:
              router_launches=router_launches["paged_attention"],
              traced_launches=traced_launches["paged_attention"],
              gemma2_launches=g7["paged_attention"],
+             stablelm_launches=s8["paged_attention"], moe_launches=m9["paged_attention"],
              max_abs_err=max(r["max_abs_err"] for r in results["paged_cases"]
                              if r["dtype"] == "bfloat16"),
              kernel_ms=pg["random"]["ms"], ms=pg["random"]["ms"],
@@ -4261,13 +4625,20 @@ def main() -> int:
                    for n in ("phase 7 local", "phase 7 global")},
              d128_max_abs_err={dt: max(r["max_abs_err"] for r in results["paged_cases"]
                                        if r.get("D") == 128 and r["dtype"] == dt)
-                               for dt in ("bfloat16", "float32")}),
+                               for dt in ("bfloat16", "float32")},
+             wide={n: {k: pg[n][k] for k in wide_keys}
+                   for n in ("phase 8", "phase 9", "rep 16 D 128", "rep 16 D 160")},
+             wide_max_abs_err={f"rep {rep} D {D}": {
+                 dt: max(r["max_abs_err"] for r in results["paged_cases"]
+                         if (r.get("rep"), r.get("D"), r["dtype"]) == (rep, D, dt))
+                 for dt in ("bfloat16", "float32")} for rep, D, _ in PAGED_WIDE}),
         dict(name="flat_adam", route="cuda",
              source="src/repro_torch/kernels/flat_adam/csrc/flat_adam.cu",
              replaces="src/repro/kernels/flat_adam/kernel.py:18",
              jax_function="repro.kernels.flat_adam.kernel.flat_adam",
              shape=f"p, g, m, v ({fa['n']},) fp32, t 1000, wd 0",
              launches=train_launches["flat_adam"], gemma2_launches=g7["flat_adam"],
+             stablelm_launches=s8["flat_adam"], moe_launches=m9["flat_adam"],
              max_abs_err=max(r["max_abs_err"] for r in results["flat_adam_cases"]),
              kernel_ms=fa["kernel_ms"], ms=fa["kernel_ms"], plain_ms=fa["plain_ms"],
              bound_ms=fa["bound_ms"], bound_by=fa["bound_by"], library_ms=fa["library_ms"]),
@@ -4277,7 +4648,7 @@ def main() -> int:
              shape="x (1, 512, 64, 64) bf16, dt (1, 512, 64), B/C (1, 512, 1, 64); "
                    "y and state fp32",
              launches=zamba_launches["ssd"], zamba_preempt_launches=zp["ssd"],
-             gemma2_launches=g7["ssd"],
+             gemma2_launches=g7["ssd"], stablelm_launches=s8["ssd"], moe_launches=m9["ssd"],
              tier_launches=tier_rows("ssd"), spec_launches=spec_rows("ssd"),
              max_abs_err=max(r["max_abs_err"] for r in results["ssd_cases"]),
              kernel_ms=sd["ms"], ms=sd["ms"], ms_events=sd["ms_events"],
@@ -4315,7 +4686,8 @@ def main() -> int:
                           if name == "rmsnorm_gated" else f"repro.kernels.rmsnorm.kernel.{name}"),
             shape=x_desc, path=t["path"],
             launches=(zamba_launches if name == "rmsnorm_gated" else launches)[name],
-            gemma2_launches=g7[name], **per_path, tier_launches=tier_rows(name),
+            gemma2_launches=g7[name], stablelm_launches=s8[name], moe_launches=m9[name],
+            **per_path, tier_launches=tier_rows(name),
             spec_launches=spec_rows(name),
             max_abs_err=max(r[f"{name}_max_abs_err"] for r in results["rmsnorm_cases"]
                             if f"{name}_max_abs_err" in r),
@@ -4333,6 +4705,8 @@ def main() -> int:
                  ("dense decode step", "profile", decode_keys),
                  ("zamba decode step", "zamba_profile", decode_keys),
                  ("gemma2 decode step", "gemma2_profile", decode_keys + ("bound_ms",)),
+                 ("stablelm decode step", "stablelm_profile", decode_keys + ("bound_ms",)),
+                 ("qwen3-moe decode step", "moe_profile", decode_keys + ("bound_ms",)),
                  ("zamba prefill 512", "zamba_prefill_profile", ("launches", "device_ms",
                                                                  "device_idle_share")))}
     results["step_profiles"] = steps

@@ -16,6 +16,9 @@ ARCH_IDS = (
     "zamba2-1.2b",
     "gemma2-27b",
     "deepseek-67b",
+    "stablelm-12b",
+    "qwen3-moe-30b-a3b",
+    "qwen3-moe-235b-a22b",
 )
 
 

@@ -10,8 +10,8 @@
 // (B, Sq, H, D), k and v (B, Sk, Hk, D), all contiguous -- so no transpose
 // is ever materialised.  Inputs are bf16 or fp32; accumulation is fp32.
 //
-// Head dims: 64 (smollm, zamba) and 128 (gemma2, deepseek), one template
-// instantiation each.
+// Head dims: 64 (smollm, zamba), 128 (gemma2, deepseek, qwen3-moe) and 160
+// (stablelm-12b), one template instantiation each.
 //
 // What bounds it on the H100.  At the serving path's prefill shapes
 // (S <= 1024, D = 64, 15 heads) the attention moves a few MB and does a
@@ -53,9 +53,17 @@
 //     in the log2 domain (scores scaled by scale * log2(e) once, one ex2
 //     MUFU op per score); each thread holds two rows, reduced across its
 //     quad by shuffles.
+//   * Head dim 160 is two 64-column panels and a 32-column tail panel: rows
+//     of 32 bf16 = 64 bytes under the 64-byte swizzle (chunk c of row r at
+//     chunk c ^ ((r / 2) % 4), 8-row atoms of 512 bytes), which the
+//     descriptors' B64 mode reads.  Q.K^T's last two k16 steps start in it,
+//     0 and 32 bytes along its rows; P.V multiplies it with m64n32k16 into
+//     16 more accumulators a thread (80 of O in all, where padding the
+//     tail to a whole panel would hold 96).  The D-64 and D-128 paths
+//     compile as before: the tail's code is under `if constexpr`.
 //   * K/V tiles of 64 keys arrive by cp.async 16-byte copies into a
 //     3-stage shared-memory ring (dynamic: Q and the ring are 56 KB at D
-//     64, 112 KB at D 128): tile j+1 has landed when
+//     64, 112 KB at D 128, 140 KB at D 160): tile j+1 has landed when
 //     tile j's softmax starts (its Q.K^T is issued then), and tile j+2's
 //     copy flies during tile j.  Ragged Sq/Sk edges are zero-filled copies
 //     (src-size 0) plus the masks; only edge, diagonal and window-edge
@@ -233,13 +241,17 @@ constexpr int BN = 64;                 // keys per KV tile
 constexpr int NTHREADS = 128;
 constexpr int STAGES = 3;              // depth of the K/V ring
 constexpr int PANEL = 64 * 64 * 2;     // bytes of 64 rows x 64 bf16 columns: 8 KB
+constexpr int HALF = 64 * 32 * 2;      // bytes of 64 rows x 32 bf16 columns: 4 KB
 constexpr float LOG2E = 1.4426950408889634f;
 
-// A tile of 64 rows at head dim D: D / 64 panels; Q | K, V per stage
+// A tile of 64 rows at head dim D: D / 64 panels of 64 columns (128-byte
+// swizzle), then a tail panel of 32 columns (64-byte swizzle) where D % 64
+// is 32; Q | K, V per stage
 template <int D> struct Tiles {
-  static_assert(D % 64 == 0, "head dim must be a multiple of 64");
+  static_assert(D % 64 == 0 || D % 64 == 32, "head dim must be 64 k or 64 k + 32");
   static constexpr int PANELS = D / 64;
-  static constexpr int TILE = PANELS * PANEL;
+  static constexpr bool TAIL = D % 64 != 0;
+  static constexpr int TILE = PANELS * PANEL + (TAIL ? HALF : 0);
   static constexpr int SMEM = (1 + 2 * STAGES) * TILE;
 };
 
@@ -250,6 +262,12 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 // byte offset of 16-byte chunk c of row r in a 128-byte-swizzled tile
 __device__ __forceinline__ uint32_t swz(int r, int c) {
   return r * 128 + ((c ^ (r & 7)) << 4);
+}
+
+// ... and in a 64-byte-swizzled tail panel (rows of 4 chunks; the
+// swizzle XORs address bits 4-5 with bits 7-8, i.e. the chunk with r / 2)
+__device__ __forceinline__ uint32_t swz64(int r, int c) {
+  return r * 64 + ((c ^ ((r >> 1) & 3)) << 4);
 }
 
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool full) {
@@ -264,19 +282,23 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Copy rows [row0, row0 + 64) of a (rows, D) matrix whose row r starts at
-// base + r * stride into a swizzled tile (chunk c of a row in panel c / 8);
-// rows at or past n are zeros.
+// base + r * stride into a swizzled tile (chunk c of a row in panel c / 8,
+// the chunks past the whole panels in the tail panel); rows at or past n
+// are zeros.
 template <int D>
 __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* base, long stride,
                                           int row0, int n, int tid) {
   constexpr int CPR = D / 8;           // 16-byte chunks a row
+  constexpr int WHOLE = Tiles<D>::PANELS * 8;
 #pragma unroll
   for (int i = 0; i < 64 * CPR / NTHREADS; ++i) {
     const int e = tid + i * NTHREADS;
     const int r = e / CPR, c = e % CPR;
     const bool ok = row0 + r < n;
-    cp_async16(dst + (c >> 3) * PANEL + swz(r, c & 7),
-               base + (ok ? (row0 + r) * stride : 0) + c * 8, ok);
+    const uint32_t at = (!Tiles<D>::TAIL || c < WHOLE)
+                            ? (c >> 3) * PANEL + swz(r, c & 7)
+                            : Tiles<D>::PANELS * PANEL + swz64(r, c - WHOLE);
+    cp_async16(dst + at, base + (ok ? (row0 + r) * stride : 0) + c * 8, ok);
   }
 }
 
@@ -285,6 +307,12 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* base, long s
 __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
   return (uint64_t)((addr >> 4) & 0x3FFF) | ((uint64_t)(lbo & 0x3FFF) << 16)
        | ((uint64_t)(sbo & 0x3FFF) << 32) | (1ull << 62);
+}
+
+// ... with the 64-byte swizzle: layout type 2 (B64)
+__device__ __forceinline__ uint64_t desc64(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr >> 4) & 0x3FFF) | ((uint64_t)(lbo & 0x3FFF) << 16)
+       | ((uint64_t)(sbo & 0x3FFF) << 32) | (2ull << 62);
 }
 
 __device__ __forceinline__ void wg_fence() {
@@ -310,6 +338,12 @@ template <int N> __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
 #define WG_D32                                                                   \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "      \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define WG_D16                                                                   \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+#define WG_OUT16(d)                                                              \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),        \
+  "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),      \
+  "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
 #define WG_OUT32(d)                                                              \
   "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),        \
   "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),      \
@@ -340,6 +374,25 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], uint32_t a0, uint32_t a
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
 }
 
+#define WG_D16                                                                   \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+#define WG_OUT16(d)                                                              \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),        \
+  "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),      \
+  "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+
+// d += A.B, m64n32k16 (the tail panel's P.V), A from registers, B from
+// shared memory MN-major
+__device__ __forceinline__ void wgmma_rs32(float (&d)[16], uint32_t a0, uint32_t a1,
+                                           uint32_t a2, uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " WG_D16
+      ", {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : WG_OUT16(d)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
 __device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
@@ -349,10 +402,19 @@ __device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
 // bytes, the stride of 8-row groups.
 template <int D>
 __device__ __forceinline__ void qk(float (&s)[32], uint32_t sq, uint32_t sk) {
+  constexpr int WHOLE = Tiles<D>::PANELS * 4;      // k16 steps in whole panels
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
+  for (int kk = 0; kk < WHOLE; ++kk) {
     const uint32_t off = (kk >> 2) * PANEL + 32 * (kk & 3);
     wgmma_ss(s, desc(sq + off, 1, 64), desc(sk + off, 1, 64), kk > 0);
+  }
+  if constexpr (Tiles<D>::TAIL) {
+    // the tail panel's two k16 steps: B64, SBO = 512 bytes (8 rows of 64)
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      const uint32_t off = Tiles<D>::PANELS * PANEL + 32 * kk;
+      wgmma_ss(s, desc64(sq + off, 1, 32), desc64(sk + off, 1, 32), 1);
+    }
   }
 }
 
@@ -371,6 +433,17 @@ __device__ __forceinline__ void pv(float (&o)[P][32], const uint32_t (&p)[16], u
                desc(sv + pn * PANEL + 2048 * kk, 64, 64));
 }
 
+// O's tail columns += P.V over the tail panel of V (at sv + P whole
+// panels): m64n32k16, MN-major B64, one swizzle atom (32 columns) wide,
+// 8-key groups 512 bytes apart, a k16 step 16 rows (1 KB) further.
+template <int P>
+__device__ __forceinline__ void pv_tail(float (&o)[16], const uint32_t (&p)[16], uint32_t sv) {
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk)
+    wgmma_rs32(o, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3],
+               desc64(sv + P * PANEL + 1024 * kk, 32, 32));
+}
+
 // 2**x in one MUFU op; results under 2**-126 flush to 0, far below any
 // softmax weight that counts against the row's maximum (weight 1)
 __device__ __forceinline__ float ex2(float x) {
@@ -384,13 +457,15 @@ __device__ __forceinline__ float ex2(float x) {
 //
 // Accumulator fragment of m64nNk16 (f32): element i of thread (warp w, lane
 // l) of a warpgroup is row 16 w + l / 4 + 8 ((i >> 1) & 1), column 8 (i >> 2)
-// + 2 (l % 4) + (i & 1); O's panel pn holds columns 64 pn + that column.
+// + 2 (l % 4) + (i & 1); O's panel pn holds columns 64 pn + that column,
+// its tail (m64n32k16, 16 elements) columns 64 P + that column.
 template <int D>
 __global__ void __launch_bounds__(NTHREADS)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ o, int H, int Hk,
                  int Sq, int Sk, int causal, int window, float softcap, float scale) {
   constexpr int P = Tiles<D>::PANELS, TILE = Tiles<D>::TILE;
+  constexpr bool TAIL = Tiles<D>::TAIL;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t sq = (smem_addr(smem_raw) + 1023) & ~1023u;   // swizzle atoms 1024-aligned
   const uint32_t skv = sq + TILE;                // stage i: K at + 2i TILE, V at + (2i + 1) TILE
@@ -425,11 +500,16 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // sc: the scores of the tile being reduced; sn: the next tile's, whose
   // Q.K^T runs on the tensor cores while sc's softmax runs on the ALUs
   float acc[P][32], sc[32], sn[32];
+  float acct[TAIL ? 16 : 1];                     // O's tail columns (D 160)
 #pragma unroll
   for (int i = 0; i < 32; ++i) {
     sn[i] = 0.f;
 #pragma unroll
     for (int pn = 0; pn < P; ++pn) acc[pn][i] = 0.f;
+  }
+  if constexpr (TAIL) {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) acct[i] = 0.f;
   }
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
   const float sl2 = scale * LOG2E;
@@ -511,6 +591,11 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int pn = 0; pn < P; ++pn)
 #pragma unroll
       for (int i = 0; i < 32; ++i) acc[pn][i] *= alpha[(i >> 1) & 1];
+    if constexpr (TAIL) {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) acct[i] *= alpha[(i >> 1) & 1];
+      fence_regs(acct);
+    }
 
 #pragma unroll
     for (int pn = 0; pn < P; ++pn) fence_regs(acc[pn]);
@@ -519,10 +604,15 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     wg_fence();
     pv<P>(acc, ph, kv_stage(j) + TILE);
     pv<P>(acc, pl, kv_stage(j) + TILE);
+    if constexpr (TAIL) {
+      pv_tail<P>(acct, ph, kv_stage(j) + TILE);
+      pv_tail<P>(acct, pl, kv_stage(j) + TILE);
+    }
     wg_commit();
     wg_wait0();                                  // the next Q.K^T and this P.V
 #pragma unroll
     for (int pn = 0; pn < P; ++pn) fence_regs(acc[pn]);
+    if constexpr (TAIL) fence_regs(acct);
     fence_regs(ph);
     fence_regs(pl);
     fence_regs(sn);
@@ -543,6 +633,12 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int n = 0; n < 8; ++n)
         *reinterpret_cast<__nv_bfloat162*>(orow + 64 * pn + 8 * n) = __floats2bfloat162_rn(
             acc[pn][4 * n + 2 * r] * inv, acc[pn][4 * n + 2 * r + 1] * inv);
+    if constexpr (TAIL) {
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 64 * P + 8 * n) = __floats2bfloat162_rn(
+            acct[4 * n + 2 * r] * inv, acct[4 * n + 2 * r + 1] * inv);
+    }
   }
 }
 
@@ -574,7 +670,7 @@ int launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int H, i
 }  // namespace
 
 // C entry point.  dtype: 0 = float32 (FMA kernel), 1 = bfloat16 (wgmma
-// kernel); head dim 64 or 128, the ones the ported configs use.  One
+// kernel); head dim 64, 128 or 160, the ones the ported configs use.  One
 // device kernel per call.  Returns the launch's cudaGetLastError() (0 =
 // launched).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
@@ -583,25 +679,20 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    int window, float softcap, float scale,
                                    void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if ((D != 64 && D != 128) || Hk < 1 || H % Hk) return (int)cudaErrorInvalidValue;
-  if (dtype == 0) {
-    const float *qf = static_cast<const float*>(q), *kf = static_cast<const float*>(k),
-                *vf = static_cast<const float*>(v);
-    float* of = static_cast<float*>(o);
-    return D == 64 ? simt::launch<64>(qf, kf, vf, of, B, H, Hk, Sq, Sk, causal, window,
-                                      softcap, scale, st)
-                   : simt::launch<128>(qf, kf, vf, of, B, H, Hk, Sq, Sk, causal, window,
-                                       softcap, scale, st);
-  }
-  if (dtype == 1) {
-    typedef __nv_bfloat16 bf16;
-    const bf16 *qb = static_cast<const bf16*>(q), *kb = static_cast<const bf16*>(k),
-               *vb = static_cast<const bf16*>(v);
-    bf16* ob = static_cast<bf16*>(o);
-    return D == 64 ? tc::launch<64>(qb, kb, vb, ob, B, H, Hk, Sq, Sk, causal, window, softcap,
-                                    scale, st)
-                   : tc::launch<128>(qb, kb, vb, ob, B, H, Hk, Sq, Sk, causal, window, softcap,
-                                     scale, st);
-  }
+  if ((D != 64 && D != 128 && D != 160) || Hk < 1 || H % Hk)
+    return (int)cudaErrorInvalidValue;
+#define FLASH_LAUNCH(NS, T, DD)                                                               \
+  NS::launch<DD>(static_cast<const T*>(q), static_cast<const T*>(k),                          \
+                 static_cast<const T*>(v), static_cast<T*>(o), B, H, Hk, Sq, Sk, causal,      \
+                 window, softcap, scale, st)
+  if (dtype == 0)
+    return D == 64    ? FLASH_LAUNCH(simt, float, 64)
+           : D == 128 ? FLASH_LAUNCH(simt, float, 128)
+                      : FLASH_LAUNCH(simt, float, 160);
+  if (dtype == 1)
+    return D == 64    ? FLASH_LAUNCH(tc, __nv_bfloat16, 64)
+           : D == 128 ? FLASH_LAUNCH(tc, __nv_bfloat16, 128)
+                      : FLASH_LAUNCH(tc, __nv_bfloat16, 160);
+#undef FLASH_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

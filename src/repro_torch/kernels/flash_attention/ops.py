@@ -31,7 +31,7 @@ from repro_torch.models.attention import chunked_attention
 from .ref import attention_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)            # compiled head dims (csrc)
+_HEAD_DIMS = (64, 128, 160)       # compiled head dims (csrc)
 _BLOCK_Q = 64                     # query rows per CTA of the bf16 kernel
 _MAX_GRID_YZ = 65535              # batch and q tiles are grid dims y and z
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
@@ -56,7 +56,7 @@ def _check(q, k, v):
 
 
 def _check_kernel(q, k, v):
-    """What the CUDA kernel takes beyond ``_check``: head dim 64 or 128,
+    """What the CUDA kernel takes beyond ``_check``: head dim 64, 128 or 160,
     contiguous tensors at 16-byte aligned addresses (its ``cp.async``
     copies move 16 bytes), and a grid that fits."""
     B, Sq, _, D = q.shape

@@ -9,8 +9,10 @@
 //
 // Layout: q and o are (B, Hk, rep, D); the pools (NB, bs, Hk, D); lengths
 // (B,) and tables (B, nb) int32.  Inputs are bf16 or fp32; accumulation is
-// fp32.  Head dims 64 and 128 (one template instantiation each), rep up
-// to 8 (gemma2-27b's decode has rep 2 at D 128, deepseek-67b's rep 8).
+// fp32.  Head dims 64, 128 and 160 (one template instantiation each), rep
+// up to 16 (gemma2-27b's decode has rep 2 at D 128, deepseek-67b's and
+// qwen3-moe-30b's rep 8, qwen3-moe-235b's rep 16; stablelm-12b's rep 4 at
+// D 160).
 //
 // What bounds it on the H100.  A decode step does ~4 FLOPs per KV byte it
 // reads, two orders of magnitude below the card's ~295 FLOP/byte balance
@@ -29,15 +31,19 @@
 //     cp.async 16-byte copies of all its K and V rows (2 D contiguous bytes
 //     per position and head in bf16) before it computes, so every load of
 //     the split is in flight together; they land in dynamic shared memory
-//     (2 x 64 positions x D elements: 16-64 KB), rows swizzled (chunk c of
-//     position p at c ^ (p % 8)), so the score pass, one position per
-//     thread, reads shared memory without bank conflicts.  It computes the
+//     (2 x 64 positions x D elements: 16-80 KB, then q and the scores),
+//     rows swizzled (chunk c of position p at c ^ (p % 8) within its group
+//     of 8 chunks; a bf16 row at D 160 is 20 chunks, and its last 4 swizzle
+//     as c ^ (p % 4)), so the score pass, one position per thread, reads
+//     shared memory with few bank conflicts.  It computes the
 //     rep scores per position in fp32, its softmax partial (m, l, acc) over
 //     its positions, and writes the partial to fp32 scratch shaped (B, Hk,
 //     n_split, rep[, D]).  Masked positions get weight 0, so a split whose
 //     keys are all masked writes m = NEG_INF, l = 0.
-//   * paged_combine_kernel, grid (B, Hk), one thread per output element:
-//     works out the lane's live splits from lengths[b] and the window
+//   * paged_combine_kernel, grid (B, Hk), one thread per output element
+//     up to rep * D = 1024, else EPT = 2 or 4 elements a thread (rep * D /
+//     EPT threads), each merged in the same order: works out the lane's
+//     live splits from lengths[b] and the window
 //     itself (splits no CTA wrote are never read), merges them by
 //     log-sum-exp with weight 0 for l = 0, and writes o in q's dtype.
 // Stale lanes (table rows nulled to the sink block 0) read block 0; the
@@ -52,7 +58,7 @@ namespace {
 
 constexpr float NEG_INF = -2.0e38f;
 constexpr int NTHREADS = 128;
-constexpr int MAX_REP = 8;             // query heads per KV head
+constexpr int MAX_REP = 16;            // query heads per KV head
 constexpr int MAX_BS = 32;             // positions per table block
 constexpr int SPLIT_POS = 64;          // positions a split holds at most
 
@@ -112,6 +118,22 @@ __device__ __forceinline__ void lane_blocks(int length, int bs, int nb, int wind
   lo = window > 0 ? max((length - window + 1) / bs, 0) : 0;
 }
 
+// Chunk c of position p's row after the swizzle: c ^ (p % 8) within whole
+// groups of 8 chunks, c ^ (p % 4) in a last group of 4 (D 160 in bf16).
+template <int CPR>
+__device__ __forceinline__ int swizzle(int c, int p) {
+  constexpr int WHOLE = CPR & ~7;
+  static_assert(CPR >= 8 && (CPR - WHOLE == 0 || CPR - WHOLE == 4),
+                "rows of whole groups of 8 chunks, then at most one group of 4");
+  return (WHOLE == CPR || c < WHOLE) ? c ^ (p & 7) : c ^ (p & 3);
+}
+
+// Dynamic shared memory of a split: K and V of SPLIT_POS positions, q in
+// fp32 and the scores
+template <typename T, int D> constexpr int split_smem(int rep) {
+  return 2 * SPLIT_POS * D * (int)sizeof(T) + rep * D * 4 + rep * SPLIT_POS * 4;
+}
+
 template <typename T, int D>
 __global__ void __launch_bounds__(NTHREADS)
 paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
@@ -121,15 +143,13 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
                    int rep, int bs, int nb, int bps, int n_split, int window,
                    float softcap, float scale) {
   constexpr int E = 16 / sizeof(T);    // elements per 16-byte chunk
-  constexpr int CPR = D / E;           // chunks per row (8 bf16, 16 fp32)
-  static_assert(CPR >= 8, "the swizzle needs 8 chunks a row");
-  constexpr int DP = D / 2;            // dim pairs: P.V threads per rep group
-  static_assert(NTHREADS % DP == 0, "P.V maps whole dim-pair groups");
+  constexpr int CPR = D / E;           // chunks per row (8-20 bf16, 16-40 fp32)
+  constexpr int DP = D / 2;            // dim pairs: P.V work items per rep
   extern __shared__ __align__(16) unsigned char kv_smem[];
   T* ks = reinterpret_cast<T*>(kv_smem);          // SPLIT_POS * D
   T* vs = ks + SPLIT_POS * D;                      // SPLIT_POS * D
-  __shared__ __align__(16) float qs[MAX_REP * D];
-  __shared__ float ps[MAX_REP][SPLIT_POS];
+  float* qs = reinterpret_cast<float*>(vs + SPLIT_POS * D);   // rep * D
+  float* ps = qs + rep * D;                        // rep * SPLIT_POS: (rep, position)
 
   const int b = blockIdx.x, h = blockIdx.y, s = blockIdx.z;
   const int length = lengths[b];
@@ -145,7 +165,7 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
   for (int e = tid; e < (p1 - p0) * CPR; e += NTHREADS) {
     const int p = p0 + e / CPR, c = e % CPR;
     const long src = (((long)row[s * bps + p / bs] * bs + p % bs) * Hk + h) * D + c * E;
-    const int dst = p * D + (c ^ (p & 7)) * E;
+    const int dst = p * D + swizzle<CPR>(c, p) * E;
     cp_async16(&ks[dst], kpool + src);
     cp_async16(&vs[dst], vpool + src);
   }
@@ -155,8 +175,8 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
   asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
 
-  // scores: thread (position p, rep group g) takes reps g, g + 2, g + 4,
-  // g + 6; the rep test is warp-uniform and outside the dot products
+  // scores: thread (position p, rep group g) takes reps g, g + 2, ... <
+  // rep; the rep test is warp-uniform and outside the dot products
   {
     const int p = tid % SPLIT_POS, g = tid / SPLIT_POS;
     const bool held = p >= p0 && p < p1;
@@ -170,14 +190,14 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
 #pragma unroll
         for (int c = 0; c < CPR; ++c) {
           float kf[E];
-          chunk_f(&krow[(c ^ (p & 7)) * E], kf);
+          chunk_f(&krow[swizzle<CPR>(c, p) * E], kf);
 #pragma unroll
           for (int x = 0; x < E; ++x) dot += qs[r * D + c * E + x] * kf[x];
         }
       }
       float sc = dot * scale;
       if (softcap > 0.f) sc = softcap * tanhf(sc / softcap);
-      ps[r][p] = ok ? sc : NEG_INF;
+      ps[r * SPLIT_POS + p] = ok ? sc : NEG_INF;
     }
   }
   __syncthreads();
@@ -186,12 +206,13 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
   const int warp = tid / 32, lane = tid % 32;
   const long part = ((long)(b * Hk + h) * n_split + s) * rep;
   for (int r = warp; r < rep; r += NTHREADS / 32) {
-    const float a = ps[r][lane], c = ps[r][lane + 32];
+    float* pr = ps + r * SPLIT_POS;
+    const float a = pr[lane], c = pr[lane + 32];
     const float mr = warp_max(fmaxf(a, c));
     const float pa = a > NEG_INF ? expf(a - mr) : 0.f;
     const float pc = c > NEG_INF ? expf(c - mr) : 0.f;
-    ps[r][lane] = pa;
-    ps[r][lane + 32] = pc;
+    pr[lane] = pa;
+    pr[lane + 32] = pc;
     const float lr = warp_sum(pa + pc);
     if (lane == 0) {
       part_m[part + r] = mr;
@@ -200,70 +221,84 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
   }
   __syncthreads();
 
-  // P.V: thread (dim pair 2dp, 2dp + 1; rep group g) takes reps g, g + G,
-  // G = NTHREADS / DP groups (4 at D 64, 2 at D 128)
-  {
-    const int d = 2 * (tid % DP), g = tid / DP;
+  // P.V: work item e = (rep r, dim pair 2dp, 2dp + 1), e = r * DP + dp,
+  // thread tid takes items tid, tid + NTHREADS, ... (at D 64 and 128 that
+  // is dim pair tid % DP of reps tid / DP, + NTHREADS / DP, ...)
+  for (int e = tid; e < rep * DP; e += NTHREADS) {
+    const int r = e / DP, d = 2 * (e % DP);
     const int c = d / E, x = d % E;
-    for (int r = g; r < rep; r += NTHREADS / DP) {
-      float a0 = 0.f, a1 = 0.f;
+    const float* pr = ps + r * SPLIT_POS;
+    float a0 = 0.f, a1 = 0.f;
 #pragma unroll 8
-      for (int p = p0; p < p1; ++p) {
-        const float2 vv = pair_f(&vs[p * D + (c ^ (p & 7)) * E + x]);
-        const float w = ps[r][p];
-        a0 += w * vv.x;
-        a1 += w * vv.y;
-      }
-      *reinterpret_cast<float2*>(&part_acc[(part + r) * D + d]) = make_float2(a0, a1);
+    for (int p = p0; p < p1; ++p) {
+      const float2 vv = pair_f(&vs[p * D + swizzle<CPR>(c, p) * E + x]);
+      const float w = pr[p];
+      a0 += w * vv.x;
+      a1 += w * vv.y;
     }
+    *reinterpret_cast<float2*>(&part_acc[(part + r) * D + d]) = make_float2(a0, a1);
   }
 }
 
-// One thread per output element (rep * D threads).  The live splits' m
-// and l are staged in shared memory SB splits at a time (one load of each
-// per thread, all in flight together) and merged online across batches.
-template <typename T, int D>
-__global__ void __launch_bounds__(MAX_REP * D)
+// Output element tid + u * blockDim.x (u < EPT) of the lane's rep * D, with
+// rep * D / EPT <= 1024 threads: one element a thread (EPT 1) up to rep * D
+// = 1024, two or four past it.  The live splits' m and l are staged in
+// shared memory SB splits at a time (all the loads in flight together) and
+// merged online across batches; each element's merge is the same sequence
+// of operations whatever EPT is.
+template <typename T, int D, int EPT>
+__global__ void __launch_bounds__(1024)
 paged_combine_kernel(const int* __restrict__ lengths, const float* __restrict__ part_m,
                      const float* __restrict__ part_l, const float* __restrict__ part_acc,
                      T* __restrict__ o, int Hk, int rep, int bs, int nb, int bps,
                      int n_split, int window) {
-  constexpr int SB = D;                // splits staged at once: SB * rep <= rep * D threads
+  constexpr int SB = D;                // splits staged at once
   __shared__ float sm[SB * MAX_REP], sl[SB * MAX_REP];
-  const int b = blockIdx.x, h = blockIdx.y, tid = threadIdx.x;
-  const int r = tid / D, d = tid % D;
+  const int b = blockIdx.x, h = blockIdx.y, tid = threadIdx.x, nt = blockDim.x;
   int lo, hi;
   lane_blocks(lengths[b], bs, nb, window, lo, hi);
   // the splits the split kernel wrote: those that meet [lo, hi)
   const int s0 = lo / bps, s1 = hi > lo ? (hi - 1) / bps + 1 : s0;
   const long part = (long)(b * Hk + h) * n_split;
-  float mg = NEG_INF, lg = 0.f, og = 0.f;
+  float mg[EPT], lg[EPT], og[EPT];
+#pragma unroll
+  for (int u = 0; u < EPT; ++u) {
+    mg[u] = NEG_INF;
+    lg[u] = 0.f;
+    og[u] = 0.f;
+  }
   for (int sb = s0; sb < s1; sb += SB) {
     const int n = min(SB, s1 - sb);
     __syncthreads();                   // the previous batch is read
-    if (tid < n * rep) {
-      sm[tid] = part_m[(part + sb) * rep + tid];
-      sl[tid] = part_l[(part + sb) * rep + tid];
+    for (int i = tid; i < n * rep; i += nt) {
+      sm[i] = part_m[(part + sb) * rep + i];
+      sl[i] = part_l[(part + sb) * rep + i];
     }
     __syncthreads();
-    float bm = NEG_INF;
-    for (int s = 0; s < n; ++s)
-      if (sl[s * rep + r] > 0.f) bm = fmaxf(bm, sm[s * rep + r]);
-    const float m_new = fmaxf(mg, bm);
-    const float alpha = expf(mg - m_new);
-    lg *= alpha;
-    og *= alpha;
-    mg = m_new;
-    const float* acc = part_acc + ((part + sb) * rep + r) * D + d;
+#pragma unroll
+    for (int u = 0; u < EPT; ++u) {
+      const int r = (tid + u * nt) / D, d = (tid + u * nt) % D;
+      float bm = NEG_INF;
+      for (int s = 0; s < n; ++s)
+        if (sl[s * rep + r] > 0.f) bm = fmaxf(bm, sm[s * rep + r]);
+      const float m_new = fmaxf(mg[u], bm);
+      const float alpha = expf(mg[u] - m_new);
+      lg[u] *= alpha;
+      og[u] *= alpha;
+      mg[u] = m_new;
+      const float* acc = part_acc + ((part + sb) * rep + r) * D + d;
 #pragma unroll 4
-    for (int s = 0; s < n; ++s) {
-      const float l = sl[s * rep + r];
-      const float w = l > 0.f ? expf(sm[s * rep + r] - m_new) : 0.f;
-      lg += l * w;
-      og += acc[(long)s * rep * D] * w;   // written by every live split
+      for (int s = 0; s < n; ++s) {
+        const float l = sl[s * rep + r];
+        const float w = l > 0.f ? expf(sm[s * rep + r] - m_new) : 0.f;
+        lg[u] += l * w;
+        og[u] += acc[(long)s * rep * D] * w;   // written by every live split
+      }
     }
   }
-  o[((long)b * Hk + h) * rep * D + tid] = from_f<T>(og / fmaxf(lg, 1e-30f));
+#pragma unroll
+  for (int u = 0; u < EPT; ++u)
+    o[((long)b * Hk + h) * rep * D + tid + u * nt] = from_f<T>(og[u] / fmaxf(lg[u], 1e-30f));
 }
 
 template <typename T, int D>
@@ -272,7 +307,6 @@ int launch(const void* q, const void* kp, const void* vp, const int* lengths,
            int nb, int bps, int n_split, int window, float softcap, float scale,
            cudaStream_t stream) {
   if (Hk > 65535 || n_split > 65535) return (int)cudaErrorInvalidValue;
-  constexpr int smem = 2 * SPLIT_POS * D * (int)sizeof(T);   // K and V of a split
   static bool smem_set[64] = {};       // once per process, device and instantiation
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -280,7 +314,8 @@ int launch(const void* q, const void* kp, const void* vp, const int* lengths,
   if (dev >= 64) return (int)cudaErrorInvalidDevice;
   if (!smem_set[dev]) {
     err = cudaFuncSetAttribute(paged_split_kernel<T, D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               split_smem<T, D>(MAX_REP));
     if (err != cudaSuccess) return (int)err;
     smem_set[dev] = true;
   }
@@ -288,23 +323,33 @@ int launch(const void* q, const void* kp, const void* vp, const int* lengths,
   float* part_m = scratch;
   float* part_l = scratch + n;
   float* part_acc = scratch + 2 * n;
+  const int smem = split_smem<T, D>(rep);
   paged_split_kernel<T, D><<<dim3(B, Hk, n_split), NTHREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kp), static_cast<const T*>(vp),
       lengths, tables, part_m, part_l, part_acc, Hk, rep, bs, nb, bps, n_split, window,
       softcap, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  paged_combine_kernel<T, D><<<dim3(B, Hk), rep * D, 0, stream>>>(
-      lengths, part_m, part_l, part_acc, static_cast<T*>(o), Hk, rep, bs, nb, bps, n_split,
-      window);
+  const int elems = rep * D;
+#define COMBINE(EPT)                                                                         \
+  paged_combine_kernel<T, D, EPT><<<dim3(B, Hk), elems / EPT, 0, stream>>>(                  \
+      lengths, part_m, part_l, part_acc, static_cast<T*>(o), Hk, rep, bs, nb, bps, n_split,  \
+      window)
+  if (elems <= 1024)
+    COMBINE(1);
+  else if (elems <= 2048)
+    COMBINE(2);
+  else
+    COMBINE(4);
+#undef COMBINE
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// C entry point.  dtype: 0 = float32, 1 = bfloat16; head dim 64 or 128, the
-// ones the ported configs use.  `scratch` holds B * Hk * n_split * rep * (D +
-// 2) floats: the splits' m, then l, then acc.  Two device kernels per call
+// C entry point.  dtype: 0 = float32, 1 = bfloat16; head dim 64, 128 or 160,
+// the ones the ported configs use, and rep up to 16.  `scratch` holds B * Hk
+// * n_split * rep * (D + 2) floats: the splits' m, then l, then acc.  Two device kernels per call
 // (split, combine).  Returns the launches' cudaGetLastError() (0 =
 // launched).
 extern "C" int paged_attention_fwd(const void* q, const void* k_pool,
@@ -313,16 +358,21 @@ extern "C" int paged_attention_fwd(const void* q, const void* k_pool,
                                    int dtype, int B, int Hk, int rep, int D, int bs,
                                    int nb, int bps, int n_split, int window,
                                    float softcap, float scale, void* stream) {
-  if ((D != 64 && D != 128) || rep < 1 || rep > MAX_REP || bs < 1 || bs > MAX_BS || nb < 1
-      || bps < 1 || bps * bs > SPLIT_POS || n_split != (nb + bps - 1) / bps)
+  if ((D != 64 && D != 128 && D != 160) || rep < 1 || rep > MAX_REP || bs < 1 || bs > MAX_BS
+      || nb < 1 || bps < 1 || bps * bs > SPLIT_POS || n_split != (nb + bps - 1) / bps)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define PAGED_LAUNCH(T, DD)                                                                  \
   launch<T, DD>(q, k_pool, v_pool, lengths, tables, o, scratch, B, Hk, rep, bs, nb, bps,     \
                 n_split, window, softcap, scale, st)
-  if (dtype == 0) return D == 64 ? PAGED_LAUNCH(float, 64) : PAGED_LAUNCH(float, 128);
+  if (dtype == 0)
+    return D == 64    ? PAGED_LAUNCH(float, 64)
+           : D == 128 ? PAGED_LAUNCH(float, 128)
+                      : PAGED_LAUNCH(float, 160);
   if (dtype == 1)
-    return D == 64 ? PAGED_LAUNCH(__nv_bfloat16, 64) : PAGED_LAUNCH(__nv_bfloat16, 128);
+    return D == 64    ? PAGED_LAUNCH(__nv_bfloat16, 64)
+           : D == 128 ? PAGED_LAUNCH(__nv_bfloat16, 128)
+                      : PAGED_LAUNCH(__nv_bfloat16, 160);
 #undef PAGED_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

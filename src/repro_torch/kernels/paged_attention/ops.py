@@ -25,8 +25,8 @@ from repro_torch.kernels import _build
 from .ref import paged_attention_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)            # compiled head dims (csrc)
-MAX_REP = 8                     # query heads per KV head the kernel holds
+_HEAD_DIMS = (64, 128, 160)       # compiled head dims (csrc)
+MAX_REP = 16                    # query heads per KV head the kernel holds
 MAX_BLOCK_SIZE = 32             # positions per table block the kernel takes
 SPLIT_POSITIONS = 64            # positions one split holds at most (csrc)
 DEVICE_KERNELS = 2              # per call: the splits, then their combine
@@ -71,7 +71,7 @@ def _check(q, k_pool, v_pool, lengths, tables):
 
 
 def _check_kernel(q, k_pool, v_pool, lengths, tables):
-    """What the CUDA kernel takes beyond ``_check``: head dim 64 or 128,
+    """What the CUDA kernel takes beyond ``_check``: head dim 64, 128 or 160,
     rep and block size within its limits, contiguous inputs, pools and q
     at 16-byte aligned addresses (its ``cp.async`` copies move 16 bytes),
     and a grid that fits."""

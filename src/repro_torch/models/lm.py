@@ -1,5 +1,5 @@
 """Decoder-only LM, dense family (llama-arch: smollm, stablelm, deepseek;
-gemma2's alternating local/global layers).
+gemma2's alternating local/global layers) and the qwen3 MoE family.
 
 The port of the reference's ``models/lm.py`` for serving and training.
 Parameters are nested dicts of tensors with the reference's tree: layers
@@ -38,8 +38,14 @@ rounds ``x + o`` first; the residual stream itself is bitwise the same.
 gemma2's post-norms are one ``norm`` launch each: ``ln2`` stays
 ``norm_add`` over ``x + ln1b(o)``.
 
-MoE and VLM raise ``NotImplementedError``: they arrive with a later slice
-of the port.
+MoE (``cfg.moe.num_experts``): each block's FFN is ``moe.moe_ffn`` over
+the block's ``router``, ``wg_e``, ``wu_e`` and ``wd_e`` on every path that
+runs an FFN (prefill, a chunked-prefill continuation, decode); the router
+stays in its stored dtype, as the reference reads it in fp32.  Each call
+routes every row it is given: a bucket's padding, a chunk's own length,
+all of a decode step's lanes.  Training it (``loss_fn``, with the
+reference's ``lb_loss`` term) arrives with the MoE training slice; VLM
+raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -70,21 +76,27 @@ from .common import (
     remat_wrap,
     softcap,
 )
+from .moe import moe_ffn
 
 STATE_KIND = "kv"
 ATTN_IMPLS = ("chunked", "kernel")
 NORM_PARAMS = frozenset({"ln1", "ln2", "ln1b", "ln2b", "ln_f", "qnorm", "knorm"})
+# leaves the serving path reads in their stored dtype: the norm scales and
+# the MoE router (the reference computes router logits in fp32)
+STORED_DTYPE = NORM_PARAMS | {"router"}
 
 
 def check_supported(cfg: ArchConfig) -> None:
     """Raise for the parts of the lm families this slice does not port."""
-    if cfg.family in ("moe", "vlm") or cfg.moe.num_experts:
+    if cfg.family == "vlm":
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family arrives with the MoE/VLM/"
-            "audio slice of the port")
-    if cfg.family != "dense":
+            f"{cfg.name}: the vlm family arrives with the VLM/audio slice of the port")
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is not "
                                   "an lm family")
+    if (cfg.family == "moe") != bool(cfg.moe.num_experts):
+        raise ValueError(f"{cfg.name}: family {cfg.family!r} with "
+                         f"{cfg.moe.num_experts} experts")
     if cfg.attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl {cfg.attn_impl!r} not in {ATTN_IMPLS}")
 
@@ -129,10 +141,17 @@ def block_specs(cfg: ArchConfig) -> dict:
         "wk": ParamSpec(L + (D, Hk * dh), dt),
         "wv": ParamSpec(L + (D, Hk * dh), dt),
         "wo": ParamSpec(L + (H * dh, D), dt),
-        "wg": ParamSpec(L + (D, F_), dt),
-        "wu": ParamSpec(L + (D, F_), dt),
-        "wd": ParamSpec(L + (F_, D), dt),
     }
+    if cfg.moe.num_experts:
+        E, Fe = cfg.moe.num_experts, cfg.moe.d_expert
+        s["router"] = ParamSpec(L + (D, E), dt)
+        s["wg_e"] = ParamSpec(L + (E, D, Fe), dt)
+        s["wu_e"] = ParamSpec(L + (E, D, Fe), dt)
+        s["wd_e"] = ParamSpec(L + (E, Fe, D), dt)
+    else:
+        s["wg"] = ParamSpec(L + (D, F_), dt)
+        s["wu"] = ParamSpec(L + (D, F_), dt)
+        s["wd"] = ParamSpec(L + (F_, D), dt)
     if cfg.qk_norm:
         s["qnorm"] = ParamSpec(L + (dh,), dt, init_scale=0.0)
         s["knorm"] = ParamSpec(L + (dh,), dt, init_scale=0.0)
@@ -164,9 +183,10 @@ def init(cfg: ArchConfig, seed: int = 0, device=None) -> dict:
 
 def cast_for_compute(cfg: ArchConfig, params: dict, device=None) -> dict:
     """The tree the serving path reads: every matmul/embedding weight in
-    the compute dtype (made once here), norm scales as stored."""
+    the compute dtype (made once here), norm scales and the MoE router as
+    stored."""
     check_supported(cfg)
-    return cast_tree(params, dtype_of(cfg.compute_dtype), NORM_PARAMS, device)
+    return cast_tree(params, dtype_of(cfg.compute_dtype), STORED_DTYPE, device)
 
 
 # ---------------------------------------------------------------------------
@@ -207,13 +227,21 @@ def _attn_proj(cfg, h, bp, rope_cs):
     return q, k, v
 
 
-def _ffn(cfg, x, bp):
+def _ffn(cfg, x, bp, aux_sink=None):
+    """The block's FFN: SwiGLU/GeGLU, or under MoE ``moe_ffn`` over every
+    row of ``x``; its aux dict is appended to ``aux_sink`` where one is
+    given."""
+    if cfg.moe.num_experts:
+        out, aux = moe_ffn(x, bp["router"], bp["wg_e"], bp["wu_e"], bp["wd_e"], cfg=cfg)
+        if aux_sink is not None:
+            aux_sink.append(aux)
+        return out
     g = x @ _w(bp, "wg", cfg)
     u = x @ _w(bp, "wu", cfg)
     return (_gate(cfg, g) * u) @ _w(bp, "wd", cfg)
 
 
-def _block_fwd(cfg, x, bp, rope_cs, *, window: int, attn_fn=None):
+def _block_fwd(cfg, x, bp, rope_cs, *, window: int, attn_fn=None, aux_sink=None):
     """One transformer block, prefill path.  Returns (x, (k, v)).
     ``attn_fn(q, k, v, window)`` replaces the attention (a chunked-prefill
     continuation's, :func:`_block_chunk`); everything around it is
@@ -232,7 +260,7 @@ def _block_fwd(cfg, x, bp, rope_cs, *, window: int, attn_fn=None):
             q_chunk=min(256, q.shape[1]), kv_chunk=min(256, k.shape[1]))
     B, S = x.shape[:2]
     h, x = _attn_out(cfg, x, attn.reshape(B, S, -1) @ _w(bp, "wo", cfg), bp)
-    return _ffn_out(cfg, x, _ffn(cfg, h, bp), bp), (k, v)
+    return _ffn_out(cfg, x, _ffn(cfg, h, bp, aux_sink), bp), (k, v)
 
 
 def _block_decode(cfg, x, bp, kc, vc, cur_index, rope_cs, *, window: int, attn_fn=None):
@@ -332,18 +360,23 @@ def unembed(cfg, params, x):
 
 
 def forward(cfg: ArchConfig, params, tokens, *, remat=True,
-            collect_kv: bool = False):
+            collect_kv: bool = False, aux: dict | None = None):
     """tokens (B, S) -> (final-normed hidden (B, S, D), kv or None) with kv
     = (k, v) stacked over layers: (lead..., B, S, Hk, dh) each.  ``remat``
-    (False | True | "dots", see ``common.remat_wrap``) wraps each block."""
+    (False | True | "dots", see ``common.remat_wrap``) wraps each block.
+    ``aux``, where given, receives the reference forward's aux: the MoE
+    layers' ``lb_loss`` summed and ``drop_frac`` maxed over layers (0 for
+    dense models), and each MoE layer's ``drop_frac`` in order
+    (``drop_frac_layers``, (L,) or empty)."""
     check_supported(cfg)
+    sink = [] if aux is not None else None
     x = embed_tokens(cfg, params, tokens)
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
     rope_cs = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
 
     def body(x, bp, window):
-        return _block_fwd(cfg, x, bp, rope_cs, window=window)
+        return _block_fwd(cfg, x, bp, rope_cs, window=window, aux_sink=sink)
 
     body = remat_wrap(body, remat)
     ks, vs = [], []
@@ -353,13 +386,25 @@ def forward(cfg: ArchConfig, params, tokens, *, remat=True,
             ks.append(k)
             vs.append(v)
     x = norm(cfg, x, params["ln_f"])
+    if aux is not None:
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        aux["lb_loss"] = sum((a["lb_loss"] for a in sink), zero)
+        layers = torch.stack([zero] + [a["drop_frac"] for a in sink])
+        aux["drop_frac"] = layers.amax()
+        aux["drop_frac_layers"] = layers[1:]
     return x, ((_stack_layers(cfg, ks), _stack_layers(cfg, vs)) if collect_kv else None)
 
 
 def loss_fn(cfg: ArchConfig, params, batch, *, remat=True):
     """Next-token loss on ``batch["tokens"]`` (B, S + 1).  Returns
     ``(total, {"ce_loss", "lb_loss", "drop_frac"})``; the load-balance
-    loss and drop fraction are 0 for dense models, so total == ce_loss."""
+    loss and drop fraction are 0 for dense models, so total == ce_loss.
+    MoE training (the reference adds its ``lb_loss`` term) is not ported
+    yet."""
+    if cfg.moe.num_experts:
+        raise NotImplementedError(
+            f"{cfg.name}: training the moe family (with its load-balance "
+            "loss) arrives with the MoE training slice of the port")
     tokens = batch["tokens"]
     inp, labels = tokens[:, :-1], tokens[:, 1:]
     hidden, _ = forward(cfg, params, inp, remat=remat)

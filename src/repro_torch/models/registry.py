@@ -1,7 +1,7 @@
 """Family registry: which module serves a config, and how.
 
 The port of the reference's ``models/registry.py`` for the families
-ported so far (dense, hybrid).  Every other family raises
+ported so far (dense, moe, hybrid).  Every other family raises
 ``NotImplementedError`` naming the slice of the port it arrives with.
 """
 from __future__ import annotations
@@ -12,11 +12,10 @@ from repro_torch.configs.base import ArchConfig
 from . import lm, zamba
 from .common import map_tree
 
-_FAMILIES = {"dense": lm, "hybrid": zamba}
+_FAMILIES = {"dense": lm, "moe": lm, "hybrid": zamba}
 _LATER = {
-    "moe": "the MoE/VLM/audio slice",
-    "vlm": "the MoE/VLM/audio slice",
-    "audio": "the MoE/VLM/audio slice",
+    "vlm": "the VLM/audio slice",
+    "audio": "the VLM/audio slice",
     "ssm": "the xLSTM slice",
 }
 

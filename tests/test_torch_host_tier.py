@@ -56,6 +56,18 @@ from repro_torch.serve import (
     paged_block_write_program,
 )
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module: its smoke-width ops are too
+    small to split, and beside the suite's other workers more threads only
+    contend (the chip_smoke rehearsals ran many times slower with 8)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 MAX_SLOTS, MAX_LEN, BS = 3, 48, 8
 
 # the reference's four tier layouts (tests/test_host_tier.py), zamba for

@@ -25,7 +25,11 @@ plain version, summed in another order over up to 512 steps.
 ``rmsnorm_add`` is held like ``rmsnorm``: both the kernel and the plain
 version normalise the unrounded fp32 sum.
 """
+import ctypes
+import os
+import subprocess
 import types
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -607,8 +611,8 @@ def test_paged_kernel_checks():
     pool = torch.zeros(5, 16, 1, 64)
     lengths, tables = torch.zeros(2, dtype=torch.int32), torch.zeros(2, 4, dtype=torch.int32)
     paged_ops._check_kernel(q, pool, pool, lengths, tables)
-    with pytest.raises(ValueError, match="rep=9"):
-        paged_ops._check_kernel(torch.zeros(2, 1, 9, 64), pool, pool, lengths, tables)
+    with pytest.raises(ValueError, match="rep=17"):
+        paged_ops._check_kernel(torch.zeros(2, 1, 17, 64), pool, pool, lengths, tables)
     with pytest.raises(ValueError, match="bs=33"):
         big = torch.zeros(5, 33, 1, 64)
         paged_ops._check_kernel(q, big, big, lengths, tables)
@@ -1116,22 +1120,26 @@ def _paged_window_inputs(rep, Hk=2, D=128, bs=16, nb=300, seed=3):
 
 
 def test_kernel_checks_take_head_dim_128():
-    """Both CUDA paths take head dims 64 and 128 and refuse the rest (160:
-    stablelm-12b's, not compiled)."""
-    for D in (64, 128):
+    """Both CUDA paths take head dims 64, 128 and 160 (stablelm-12b's), the
+    paged one rep up to 16 (qwen3-moe-235b's), and refuse the rest: head
+    dim 96 and rep 17 are not compiled."""
+    lengths, tables = torch.zeros(2, dtype=torch.int32), torch.zeros(2, 4, dtype=torch.int32)
+    for D in (64, 128, 160):
         q = torch.zeros(1, 16, 4, D, dtype=torch.bfloat16)
         kv = torch.zeros(1, 16, 2, D, dtype=torch.bfloat16)
         flash_ops._check_kernel(q, kv, kv)
-        pq, pool = torch.zeros(2, 2, 8, D), torch.zeros(5, 16, 2, D)
-        lengths, tables = torch.zeros(2, dtype=torch.int32), torch.zeros(2, 4, dtype=torch.int32)
-        paged_ops._check_kernel(pq, pool, pool, lengths, tables)
-    q, kv = torch.zeros(1, 16, 4, 160), torch.zeros(1, 16, 2, 160)
-    with pytest.raises(ValueError, match="head dim 160"):
+        for rep in (1, 8, 16):
+            pq, pool = torch.zeros(2, 2, rep, D), torch.zeros(5, 16, 2, D)
+            paged_ops._check_kernel(pq, pool, pool, lengths, tables)
+    q, kv = torch.zeros(1, 16, 4, 96), torch.zeros(1, 16, 2, 96)
+    with pytest.raises(ValueError, match="head dim 96"):
         flash_ops._check_kernel(q, kv, kv)
-    pq, pool = torch.zeros(2, 2, 2, 160), torch.zeros(5, 16, 2, 160)
-    with pytest.raises(ValueError, match="D=160"):
-        paged_ops._check_kernel(pq, pool, pool, torch.zeros(2, dtype=torch.int32),
-                                torch.zeros(2, 4, dtype=torch.int32))
+    pq, pool = torch.zeros(2, 2, 2, 96), torch.zeros(5, 16, 2, 96)
+    with pytest.raises(ValueError, match="D=96"):
+        paged_ops._check_kernel(pq, pool, pool, lengths, tables)
+    pool = torch.zeros(5, 16, 2, 160)
+    with pytest.raises(ValueError, match="rep=17"):
+        paged_ops._check_kernel(torch.zeros(2, 2, 17, 160), pool, pool, lengths, tables)
 
 
 @pytest.mark.parametrize("rep", [2, 8])
@@ -1199,17 +1207,174 @@ def test_paged_kernel_d128_on_card(cuda, dt, rep, kwargs):
 
 
 @pytest.mark.cuda
-def test_kernels_refuse_head_dim_160_on_card(cuda):
-    """A CUDA tensor with a head dim that is not compiled raises: no
-    fallback to the plain version."""
+def test_kernels_refuse_uncompiled_shapes_on_card(cuda):
+    """A CUDA tensor with a head dim (96) or a rep (17) that is not
+    compiled raises: no fallback to the plain version."""
     before = flash_attention.launches, paged_attention.launches
-    q = torch.zeros(1, 16, 4, 160, dtype=torch.bfloat16, device=cuda)
-    kv = torch.zeros(1, 16, 2, 160, dtype=torch.bfloat16, device=cuda)
-    with pytest.raises(ValueError, match="head dim 160"):
+    q = torch.zeros(1, 16, 4, 96, dtype=torch.bfloat16, device=cuda)
+    kv = torch.zeros(1, 16, 2, 96, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="head dim 96"):
         flash_attention(q, kv, kv)
+    lengths = torch.zeros(2, dtype=torch.int32, device=cuda)
+    tables = torch.zeros(2, 4, dtype=torch.int32, device=cuda)
+    pool = torch.zeros(5, 16, 2, 96, device=cuda)
+    with pytest.raises(ValueError, match="D=96"):
+        paged_attention(torch.zeros(2, 2, 2, 96, device=cuda), pool, pool, lengths, tables)
     pool = torch.zeros(5, 16, 2, 160, device=cuda)
-    with pytest.raises(ValueError, match="D=160"):
-        paged_attention(torch.zeros(2, 2, 2, 160, device=cuda), pool, pool,
-                        torch.zeros(2, dtype=torch.int32, device=cuda),
-                        torch.zeros(2, 4, dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError, match="rep=17"):
+        paged_attention(torch.zeros(2, 2, 17, 160, device=cuda), pool, pool, lengths, tables)
     assert (flash_attention.launches, paged_attention.launches) == before
+
+
+# ---------------------------------------------------------------------------
+# Head dim 160 (stablelm-12b) and rep 16 (qwen3-moe-235b)
+# ---------------------------------------------------------------------------
+
+# stablelm-12b's heads (32 q, 8 KV: rep 4 at D 160); the paged cases'
+# (rep, D): stablelm-12b's decode, qwen3-moe-235b's (64 q heads over 4 KV
+# heads at D 128) and the largest instantiation
+HEADS_D160 = [(32, 8)]
+PAGED_WIDE = [(4, 160), (16, 128), (16, 160)]
+
+
+@pytest.mark.parametrize("rep,D", PAGED_WIDE)
+@pytest.mark.parametrize("kwargs", [dict(), dict(window=70, softcap=50.0)])
+def test_paged_split_combine_wide(rep, D, kwargs):
+    """The split plan's arithmetic at D 160 and rep 16, in fp32 on the CPU,
+    against the plain version, at the split edges (and a window that
+    leaves whole splits dead)."""
+    q, kp, vp, lengths, tables = (torch.tensor(x) for x in _paged_split_inputs(rep, 16, D=D))
+    want = paged_attention_ref(q, kp, vp, lengths, tables, **kwargs)
+    got = _split_combine(q, kp, vp, lengths, tables, **kwargs)
+    torch.testing.assert_close(got, want, **_tol("float32"))
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("kwargs", FLASH_D128_KWARGS)
+def test_flash_plain_d160_matches_reference(jref, dt, kwargs):
+    """The wrapper's plain version at head dim 160 against the reference's
+    ``attention_ref`` (what the card's D-160 kernel is held to)."""
+    q, k, v = _flash_inputs(100, 4, 1, 160)
+    args = [_t(x, dt) for x in (q, k, v)]
+    out = flash_attention(*args, **kwargs)
+    jargs = [jref.jnp.asarray(x).astype(dt).transpose(0, 2, 1, 3) for x in (q, k, v)]
+    want = np.asarray(jref.attention_ref(*jargs, **kwargs), np.float32).transpose(0, 2, 1, 3)
+    np.testing.assert_allclose(out.float().numpy(), want, **_tol(dt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("S", [1, 63, 65, 300, 1024])
+@pytest.mark.parametrize("H,Hk", HEADS_D160)
+@pytest.mark.parametrize("kwargs", FLASH_D128_KWARGS)
+def test_flash_kernel_d160_on_card(cuda, dt, S, H, Hk, kwargs):
+    """Head dim 160 (the 32-column tail panel) at stablelm-12b's head
+    counts, ragged and tile-edge lengths, every mask option and softcap."""
+    q, k, v = _flash_inputs(S, H, Hk, 160)
+    args = [_t(x, dt, cuda) for x in (q, k, v)]
+    before = flash_attention.launches
+    out = flash_attention(*args, **kwargs)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = attention_ref(*(a.transpose(1, 2) for a in args), **kwargs).transpose(1, 2)
+    torch.testing.assert_close(out.float(), want.float(), **_card_tol(dt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("bs", [4, 16, 32])
+@pytest.mark.parametrize("rep,D", PAGED_WIDE)
+@pytest.mark.parametrize("kwargs", PAGED_CARD_KWARGS + [dict(window=4096, softcap=50.0)])
+def test_paged_kernel_wide_on_card(cuda, dt, bs, rep, D, kwargs):
+    """D 160 at rep 4 and 16, D 128 at rep 16 (the combine kernel's two
+    and four elements a thread): split edges, and lanes on both sides of a
+    window of 4096."""
+    inputs = [_paged_split_inputs(rep, bs, D=D)]
+    if bs == 16:
+        inputs.append(_paged_window_inputs(rep, D=D))
+    for q, kp, vp, lengths, tables in inputs:
+        args = [_t(x, dt, cuda) for x in (q, kp, vp)]
+        lt, tt = torch.tensor(lengths, device=cuda), torch.tensor(tables, device=cuda)
+        before = paged_attention.launches
+        out = paged_attention(*args, lt, tt, **kwargs)
+        torch.cuda.synchronize()
+        assert paged_attention.launches == before + 1
+        want = paged_attention_ref(*args, lt, tt, **kwargs)
+        torch.testing.assert_close(out.float(), want.float(), **_card_tol(dt))
+
+
+# ---------------------------------------------------------------------------
+# The D-64 and D-128 instantiations give the bits they gave before head dim
+# 160 and rep 16 were added: each case runs through this tree's library and
+# through a library built, in the same run, from an older checkout's
+# sources (``REPRO_PARENT_TREE``, default ``build/parent``: e.g. ``git
+# archive <commit> | tar -x -C build/parent``); skipped without one.
+# ---------------------------------------------------------------------------
+
+BITS_FLASH = [(512, 15, 5, 64, dict(causal=True)), (300, 15, 5, 64, dict(causal=False)),
+              (1024, 15, 5, 64, dict(causal=True, window=100, softcap=30.0)),
+              (1024, 32, 16, 128, dict(causal=True)),
+              (4608, 32, 16, 128, dict(causal=True, window=4096, softcap=50.0)),
+              (300, 64, 8, 128, dict(causal=True))]
+BITS_PAGED = [(3, 64, 16, dict()), (8, 64, 4, dict(window=20)), (2, 128, 16, dict()),
+              (8, 128, 32, dict(window=70, softcap=30.0)), (1, 64, 3, dict(softcap=30.0))]
+
+
+@pytest.fixture(scope="module")
+def parent_libs():
+    """{kernel: the older checkout's library}, built with this tree's flags."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    root = Path(os.environ.get("REPRO_PARENT_TREE",
+                               _build.KERNELS_DIR.parents[2] / "build" / "parent"))
+    out = _build.BUILD_DIR.parent / "parent_kernels"
+    out.mkdir(parents=True, exist_ok=True)
+    libs = {}
+    for name in ("flash_attention", "paged_attention"):
+        src = root / "src" / "repro_torch" / "kernels" / name / "csrc" / f"{name}.cu"
+        if not src.exists():
+            pytest.skip(f"no older checkout's {src}")
+        lib = out / f"{name}.so"
+        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)],
+                       check=True, capture_output=True)
+        libs[name] = ctypes.CDLL(str(lib))
+    return libs
+
+
+def _with_parent(monkeypatch, libs, fn):
+    """``fn()`` with the wrappers' C entries taken from ``libs``."""
+    def entry(name, symbol, argtypes):
+        f = getattr(libs[name], symbol)
+        f.argtypes, f.restype = list(argtypes), ctypes.c_int
+        return f
+
+    with monkeypatch.context() as m:
+        m.setattr(_build, "entry", entry)
+        return fn()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("S,H,Hk,D,kwargs", BITS_FLASH)
+def test_flash_bits_unchanged_on_card(cuda, parent_libs, monkeypatch, dt, S, H, Hk, D, kwargs):
+    args = [_t(x[:1], dt, cuda) for x in _flash_inputs(S, H, Hk, D)]
+    old = _with_parent(monkeypatch, parent_libs, lambda: flash_attention(*args, **kwargs))
+    new = flash_attention(*args, **kwargs)
+    torch.cuda.synchronize()
+    assert torch.equal(old, new)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("rep,D,bs,kwargs", BITS_PAGED)
+def test_paged_bits_unchanged_on_card(cuda, parent_libs, monkeypatch, dt, rep, D, bs, kwargs):
+    inputs = [_paged_split_inputs(rep, bs, D=D)]
+    if bs == 16:
+        inputs.append(_paged_window_inputs(rep, D=D))
+    for q, kp, vp, lengths, tables in inputs:
+        args = [_t(x, dt, cuda) for x in (q, kp, vp)]
+        args += [torch.tensor(lengths, device=cuda), torch.tensor(tables, device=cuda)]
+        old = _with_parent(monkeypatch, parent_libs, lambda: paged_attention(*args, **kwargs))
+        new = paged_attention(*args, **kwargs)
+        torch.cuda.synchronize()
+        assert torch.equal(old, new)

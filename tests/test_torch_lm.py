@@ -209,12 +209,17 @@ def test_params_from_numpy_rejects_mismatch():
 
 def test_unported_families_raise():
     dense = get_smoke_config("smollm-360m")
-    for fam in ("moe", "ssm", "vlm", "audio"):
+    for fam in ("ssm", "vlm", "audio"):
         cfg = dataclasses.replace(get_smoke_config("smollm-360m"), family=fam)
         with pytest.raises(NotImplementedError):
             treg.get_module(cfg)
         assert not treg.supports_slot_serving(cfg)
     assert treg.supports_paged_serving(dense) and treg.state_kind(dense) == "kv"
+    # the moe family is ported (lm serves it); a moe config needs experts
+    moe = dataclasses.replace(dense, family="moe")
+    assert treg.get_module(moe) is treg.get_module(dense)
+    with pytest.raises(ValueError, match="experts"):
+        treg.get_module(moe).param_specs(moe)
 
 
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])

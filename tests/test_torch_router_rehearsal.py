@@ -20,6 +20,17 @@ from repro_torch.core.aot import CudaGraphProgram
 from repro_torch.serve import EngineConfig, ServeEngine
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module: its smoke-width ops are too
+    small to split, and beside the suite's other workers more threads only
+    contend (the chip_smoke rehearsals ran many times slower with 8)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _chip_smoke():
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")

@@ -43,6 +43,18 @@ from repro_torch.models import zamba as tzamba
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.serve import EngineConfig, ServeEngine
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module: its smoke-width ops are too
+    small to split, and beside the suite's other workers more threads only
+    contend (the chip_smoke rehearsals ran many times slower with 8)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ARCH = "zamba2-1.2b"
 IMPLS = ["chunked", "kernel"]
 LENS = [5, 11, 8]
