@@ -66,8 +66,10 @@ Phases (any failure raises and the script exits non-zero):
    wrapper's host microseconds per call.
 2e. Hold the RMSNorm kernel's three entries against their plain versions
    at the main paths' (rows, width) (``RMSNORM_PATHS``): smollm-360m's
-   (8, 960), (512, 960) and (4096, 960), zamba2's (8, 2048) and
-   (512, 2048), and (8, 4096) and (512, 4096), bf16 and fp32 (``TOL``; the
+   (8, 960), (512, 960) and (4096, 960), zamba2's and xlstm-1.3b's (8,
+   2048) and (512, 2048), and (8, 4096) and (512, 4096), whisper-tiny's
+   (8, 384) and (12000, 384), internvl2-76b's (8, 8192) and (1536, 8192)
+   (the kernel's widest row), bf16 and fp32 (``TOL``; the
    new residual of ``rmsnorm_add`` bitwise); the gated form (skip and gate
    folded into the out-norm) at the 4096-wide shapes, on views into
    zamba2's projections.  Time them in bf16 beside their plain versions
@@ -80,6 +82,12 @@ Phases (any failure raises and the script exits non-zero):
    and 2e are device time per call from ``torch.profiler``
    (``device_ms``); 2d keeps back-to-back CUDA events, host-bound for
    calls of a few microseconds, beside them as ``*_events``.
+2f. Flash at the frontend families' shapes (``FLASH_FRONTEND``):
+   whisper-tiny's encoder self-attention (8, 1500, 6, 64) and its prefill
+   cross-attention (32 queries over 1,500 keys), non-causal, the last key
+   tile ragged (1,500 = 23 x 64 + 28); an internvl2-76b prefill (1, 768,
+   64/8 heads of 128), causal; bf16 and fp32 against the plain version,
+   timed in bf16 beside it and SDPA, with the bound.
 3. Drive the port's main path at full ``smollm-360m`` width with random
    weights from seed 0: a paged ``ServeEngine`` with both kernels serves
    16 greedy requests (prompts 16-512, budgets 32-64), every decode step a
@@ -318,8 +326,43 @@ Phases (any failure raises and the script exits non-zero):
    decode step; prints each prefill's ``drop_frac`` (the largest of its
    layers, recomputed at its bucket) and the decode step's bound, which
    reads every expert (the (E, C) layout computes all 128 experts' slots).
-10. Print the launches, device ms and idle share of the profiled dense,
-   zamba, gemma2, stablelm and qwen3-moe decode steps and zamba prefill
+10. Full-width ``xlstm-1.3b`` (48 layers, uncut: 42 mLSTM and 6 sLSTM
+   blocks, d_model 2,048, 4 heads; 7.21 GB of bf16 weights from seed 0
+   made in bf16) through the slotted engine (8 lanes, max_len 1,024; the
+   recurrent state 5.65 GB) on phase 3's traffic, every decode step a
+   graph replay: phase 7's gates (``serve_phase``: full budgets, 8 replays
+   bitwise the eager program, builds flat after ``prebuild``,
+   ``check_invariants`` with the recurrent-zero sweep after every step, a
+   second run's streams, the launches: ``rmsnorm`` 97 a prefill and a
+   decode step, each block's ``ln`` and ``out_ln`` and ``ln_f``, and no
+   other kernel); logits, kernel path against plain, on a prefill and 4
+   decode steps: fp32 (TF32 off) within ``LOGIT_TOL`` on the first segment
+   (``XLSTM_FP32_LAYERS``, 8), bf16 and fp32 at full depth printed and not
+   gated (``xlstm_logits``: random weights amplify the norms' last-bit
+   differences), and the first mLSTM and sLSTM blocks (prefill and 8
+   decode lanes) within ``BLOCK_TOL`` in both dtypes.  Prints tokens/s, the
+   profiled decode step's launches, device ms and idle share beside its
+   bytes bound (the weights, the state read and written), a bucket-512
+   prefill's host and device ms (the sLSTM's Python loop makes it
+   host-bound), peak memory.
+11. ``whisper-tiny`` uncut (4 + 4 layers, d_model 384, 1,500 frames) on
+   ``generate_static``: batch 8, prompts of 32 tokens, frames (8, 1500,
+   384) from seed 0, 64 new tokens.  Gates: flash 12 (3 x 4: encoder,
+   decoder self, cross) and the norms per prefill and decode step
+   (``whisper_launches``), a second run's streams, logits kernel against
+   plain on the prefill and 4 decode steps within ``LOGIT_TOL`` (bf16;
+   fp32 with TF32 off).  Prints tokens/s and the prefill's device ms
+   beside its bound.
+12. ``internvl2-76b`` at full width, 16 of its 80 layers (~31.6 GB of bf16
+   weights; 80 layers, ~141 GB, fit no card), on ``generate_static``:
+   batch 4, patch embeddings (4, 256, 3200) and 128-token prompts from seed
+   0, 32 new tokens from position 384.  Gates: flash 16 a prefill, the
+   norms (``vlm_launches``), a second run's streams, logits within
+   ``LOGIT_TOL`` in bf16 at 16 layers and fp32 at 2.  Prints tokens/s, the
+   prefill's device ms beside its bound (operations), peak memory.
+13. Print the launches, device ms and idle share of the profiled dense,
+   zamba, gemma2, stablelm, qwen3-moe and xlstm decode steps and zamba and
+   xlstm prefills
    (the spec rounds' print with their phases), the seconds of each phase, the
    card's name and power limit, one
    ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
@@ -431,24 +474,56 @@ STABLELM_FP32_LAYERS = 4
 # traffic
 MOE_LAYERS = 48
 MOE_FP32_LAYERS = 4
+# phase 10: full-width xlstm-1.3b (48 layers, uncut) on the slotted engine
+XLSTM_LAYERS = 48
+XLSTM_PREFILL = 512           # the profiled prefill's prompt (bucket 512)
+# the fp32 logit gate's depth: one segment of slstm_every = 8 (7 mLSTM
+# blocks, then the sLSTM block); at full depth random weights amplify fp32
+# summation order past LOGIT_TOL (see xlstm_logits)
+XLSTM_FP32_LAYERS = 8
+# phase 11: whisper-tiny (uncut: 4 encoder and 4 decoder layers) on the
+# static loop
+WHISPER_LAYERS = 4
+WHISPER_BATCH, WHISPER_PROMPT, WHISPER_NEW = 8, 32, 64
+# phase 12: internvl2-76b at full width on the static loop, 16 of its 80
+# layers (80 layers are ~141 GB of bf16 weights: no card holds them)
+VLM_LAYERS = 16
+VLM_FP32_LAYERS = 2
+VLM_BATCH, VLM_PROMPT, VLM_NEW = 4, 128, 32
+FRONTEND_LOGIT_STEPS = 4      # decode steps of phases 10-12's logit checks
+# phase 2f's flash cases (name, B, Sq, Sk, H, Hk, D, causal): whisper-tiny's
+# encoder self-attention over 1,500 frames (a ragged last key tile of 28
+# rows) and its prefill cross-attention (32 prompt tokens over the frames),
+# both non-causal, batch 8; an internvl2-76b prefill (256 image and 512 text
+# positions, 64/8 heads of 128), causal
+FLASH_FRONTEND = (("whisper encoder", 8, 1500, 1500, 6, 6, 64, False),
+                  ("whisper cross", 8, 32, 1500, 6, 6, 64, False),
+                  ("vlm prefill", 1, 768, 768, 64, 8, 128, True))
 ZAMBA_D_INNER, ZAMBA_HEAD_DIM = 4096, 64
 # the RMSNorm shapes (rows, width) of the main paths and the path that
 # gives each: smollm-360m's d_model (960) in a decode step of 8 lanes, a
 # prefill at bucket 512 and a training slice (4 x 1024 tokens); zamba2's
-# d_model (2048) in a decode step and a bucket-512 prefill; its d_inner
-# (4096) at the same rows, the gated out-norm's (no zamba path calls
-# rmsnorm or rmsnorm_add that wide); gemma2-27b's d_model (4608) in a
-# decode step and a bucket-512 prefill; stablelm-12b's d_model (5120) in
-# the same two; qwen3-moe-30b-a3b's q-norm (head dim 128, 32 heads a row
-# of d_model) in a decode step (8 x 32 rows) and a bucket-512 prefill (its
-# d_model, 2048, is zamba2's)
+# and xlstm-1.3b's d_model (2048) in a decode step and a bucket-512
+# prefill; 4096 at the same rows, zamba2's d_inner (the gated out-norm's)
+# and xlstm's mLSTM out-norm (rmsnorm; no path calls rmsnorm_add that
+# wide); gemma2-27b's d_model (4608) in a decode step and a bucket-512
+# prefill; stablelm-12b's d_model (5120) in the same two; qwen3-moe-30b-a3b's
+# q-norm (head dim 128, 32 heads a row of d_model) in a decode step (8 x 32
+# rows) and a bucket-512 prefill (its d_model, 2048, is zamba2's);
+# whisper-tiny's d_model (384) in a decode step of 8 rows and its encoder
+# prefill (8 x 1,500 frames); internvl2-76b's d_model (8192, the kernel's
+# widest) in a decode step and phase 12's prefill (4 x 384 positions)
 RMSNORM_PATHS = {(8, 960): "dense decode", (512, 960): "dense prefill",
                  (4096, 960): "dense train", (8, 4608): "gemma2 decode",
-                 (512, 4608): "gemma2 prefill", (8, 2048): "zamba decode",
-                 (512, 2048): "zamba prefill", (8, 4096): "zamba decode (gated only)",
-                 (512, 4096): "zamba prefill (gated only)", (8, 5120): "stablelm decode",
+                 (512, 4608): "gemma2 prefill", (8, 2048): "zamba and xlstm decode",
+                 (512, 2048): "zamba and xlstm prefill",
+                 (8, 4096): "zamba decode (gated), xlstm decode (mLSTM out-norm)",
+                 (512, 4096): "zamba prefill (gated), xlstm prefill (mLSTM out-norm)",
+                 (8, 5120): "stablelm decode",
                  (512, 5120): "stablelm prefill", (256, 128): "qwen3-moe decode q-norm",
-                 (16384, 128): "qwen3-moe prefill q-norm"}
+                 (16384, 128): "qwen3-moe prefill q-norm", (8, 384): "whisper decode",
+                 (12000, 384): "whisper encoder prefill", (8, 8192): "internvl2 decode",
+                 (1536, 8192): "internvl2 prefill"}
 RMSNORM_SHAPES = tuple(RMSNORM_PATHS)
 # 2e times each call on inputs that are not in the card's 50 MB L2: the
 # timed calls rotate through copies of the inputs that hold at least this
@@ -1138,6 +1213,59 @@ def gated_inputs(torch, dev, n, dt, gen) -> dict:
                 gamma=torch.randn(ZAMBA_D_INNER, generator=gen, device=dev) * 0.1,
                 d_skip=torch.rand(H, generator=gen, device=dev) + 0.5,
                 head_dim=ZAMBA_HEAD_DIM)
+
+
+def check_flash_frontend(torch, dev, results):
+    """Phase 2f: flash at the frontend families' shapes (``FLASH_FRONTEND``):
+    whisper's non-causal encoder and cross-attention over 1,500 keys (the
+    last key tile ragged) and an internvl2 prefill at head dim 128, causal;
+    each against the plain version in bf16 and fp32 (``TOL``), then timed
+    in bf16 beside the plain version and SDPA, with the bound (the pairs'
+    operations, or q, k, v and the output once)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    for name, B, Sq, Sk, H, Hk, D, causal in FLASH_FRONTEND:
+        for dt in ("bfloat16", "float32"):
+            q = torch.randn(B, Sq, H, D, generator=gen, device=dev).to(getattr(torch, dt))
+            k, v = (torch.randn(B, Sk, Hk, D, generator=gen, device=dev).to(getattr(torch, dt))
+                    for _ in range(2))
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            out = flash_attention(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            want = attention_ref(qt, kt, vt, causal=causal).transpose(1, 2)
+            row = dict(shape=name, Sq=Sq, S=Sk, D=D, H=H, Hk=Hk, dtype=dt, causal=causal,
+                       max_abs_err=max_err(torch, out, want, dt))
+            results["flash_cases"].append(row)
+            log(f"flash {json.dumps(row)}")
+            if dt != "bfloat16":
+                continue
+            qc, kc, vc = (x.contiguous() for x in (qt, kt, vt))
+            kernel = lambda: flash_attention(q, k, v, causal=causal)
+            plain = lambda: attention_ref(qt, kt, vt, causal=causal)
+            lib = lambda: F.scaled_dot_product_attention(qc, kc, vc, is_causal=causal,
+                                                         enable_gqa=True)
+            pairs = B * (Sq * (Sq + 1) // 2 if causal else Sq * Sk)
+            tm = dict(shape=name, q=[B, Sq, H, D], kv=[B, Sk, Hk, D], dtype=dt, causal=causal,
+                      window=0, max_abs_err=row["max_abs_err"],
+                      library_max_abs_err=(lib().transpose(1, 2).float() - want.float())
+                      .abs().max().item())
+            tm["bound_ms"], tm["bound_by"] = bound(4 * D * H * pairs,
+                                                   2 * D * (2 * B * Sq * H + 2 * B * Sk * Hk), dt)
+            tm["ms"], kernels = device_profile(torch, kernel, 50)
+            tm["device_kernels_per_call"] = kernels_per_call(kernels)
+            tm["plain_ms"] = device_ms(torch, plain, 10)
+            tm["library_ms"], tm["library_kernels"] = device_profile(torch, lib, 50)
+            tm["vs_library"] = tm["ms"] / tm["library_ms"] if tm["ms"] and tm["library_ms"] \
+                else None
+            tm["ms_events"] = time_ms(torch, kernel, 50)
+            tm["library_ms_events"] = time_ms(torch, lib, 50)
+            results["flash_timing"].append(tm)
+            log(f"flash timing {json.dumps(tm)}")
+            del qc, kc, vc
+        del q, k, v, out, want
 
 
 # ---------------------------------------------------------------------------
@@ -4159,8 +4287,8 @@ def profile_long_prefill(torch, dev, cfg, params, prompt, bucket: int, label: st
 
 def serve_phase(torch, dev, results, key: str, label: str, cfg, params, reqs, ec,
                 predict) -> tuple[dict, dict]:
-    """A full-width model through the paged engine on the kernel path
-    (flash, paged, rmsnorm, rmsnorm_add): a warm-up, the graph check (8
+    """A full-width model through the engine (``ec``'s layout) on the
+    kernel path (flash, paged, rmsnorm, rmsnorm_add): a warm-up, the graph check (8
     replays against the eager program, ``results[key + "_graph_check"]``),
     then the measured run with the counts set to 0 just before it.  Gates:
     every request ``ok`` with its budget; the launches ``predict(prefills,
@@ -4210,7 +4338,8 @@ def serve_phase(torch, dev, results, key: str, label: str, cfg, params, reqs, ec
                kv_peak_used_bytes=st["kv_peak_used_bytes"], weights_bytes=param_bytes(params),
                max_memory_allocated=peak, launches=launches, launches_expected=want,
                programs=programs)
-    log(f"{label} (paged, kernels, decode graph) [{results['nvidia_smi']}]: {tokens} tokens "
+    log(f"{label} ({ec.kv_layout}, kernels, decode graph) [{results['nvidia_smi']}]: "
+        f"{tokens} tokens "
         f"in {wall:.3f} s = {tokens / wall:.1f} tok/s; decode step median "
         f"{e2e['decode_step_ms_median']:.2f} ms, p90 {e2e['decode_step_ms_p90']:.2f} ms over "
         f"{len(decode_only)} decode-only steps; launches {launches}; peak memory "
@@ -4444,6 +4573,446 @@ def moe_path(torch, dev, results):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: full-width xlstm-1.3b on the slotted engine
+# ---------------------------------------------------------------------------
+
+
+def xlstm_launches(pre: int, dec: int) -> dict:
+    """Launches of an xlstm-1.3b serving run: each block's ``ln`` and
+    ``out_ln`` and ``ln_f`` (rmsnorm) a prefill and a decode step.  The
+    cells are plain PyTorch (plain jnp in the reference), and no norm of
+    the family takes a residual."""
+    return {"flash_attention": 0, "paged_attention": 0,
+            "rmsnorm": (2 * XLSTM_LAYERS + 1) * (pre + dec), "rmsnorm_add": 0}
+
+
+def xlstm_prefill(torch, dev, cfg, params, iters: int = 3) -> dict:
+    """One lane's prefill (``prefill_slot``) of a ``XLSTM_PREFILL``-token
+    prompt on the kernel path: host ms (median of ``iters``, synchronized),
+    then device ms, launches and the top kernels from the profiler, the idle
+    share against the host time, and the bound: the weights read once, or
+    the prompt's products (every weight twice a position) at 989 TFLOP/s."""
+    from repro_torch.models import xlstm_lm
+
+    T = XLSTM_PREFILL
+    tokens = torch.randint(0, cfg.vocab, (1, T), dtype=torch.int32, device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(6))
+    cache = {k: torch.zeros_like(s, device=dev)
+             for k, s in xlstm_lm.make_cache_specs(cfg, 1, T).items()}
+    run = lambda: xlstm_lm.prefill_slot(cfg, params, cache, tokens, 0, T)
+    run()
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    host_ms = float(np.median(times))
+    ms, kernels = device_profile(torch, run, 1)
+    n_params = param_bytes(params) // 2
+    out = dict(prompt_len=T, host_ms=times, host_ms_median=host_ms, device_ms=ms,
+               device_idle_share=None if ms is None else 1 - ms / host_ms,
+               launches=sum(v["calls"] for v in kernels.values()),
+               top=sorted(({"name": k, **v} for k, v in kernels.items()),
+                          key=lambda e: -e["ms"])[:6])
+    out["bound_ms"], out["bound_by"] = bound(2 * T * n_params, param_bytes(params), "bfloat16")
+    log(f"xlstm prefill at {T}: {json.dumps(out)}")
+    return out
+
+
+def xlstm_logits(torch, dev, cfg, params, prompt, steps: int, gate: bool) -> dict:
+    """The kernel path (the RMSNorm kernel) against the plain path on one
+    prompt through ``prefill_slot`` and ``steps`` decode steps, each path on
+    its own one-lane cache and fed the plain path's greedy token: the
+    largest logit difference, as a share of the plain path's largest
+    |logit|, within ``LOGIT_TOL`` where ``gate``.
+
+    At full depth with random weights the model amplifies a difference in
+    the last bits of a norm (the kernel sums a row in another order; in
+    bf16 it also rounds once where the plain chain rounds after each op)
+    by orders of magnitude over its 48 layers, in fp32 too (``PERF.md`` has
+    the figures), as zamba's does in bf16 (``zamba_logit_agreement``).  So
+    the full-depth figures are printed and not gated; fp32 is gated on the
+    first segment (``XLSTM_FP32_LAYERS``), and bf16 block by block
+    (:func:`xlstm_block_agreement`)."""
+    from repro_torch.models import xlstm_lm
+
+    toks = torch.tensor(prompt[None], device=dev)
+    caches, logits = {}, {}
+    for impl in ("kernel", "chunked"):
+        c = dataclasses.replace(cfg, attn_impl=impl)
+        caches[impl] = {k: torch.zeros_like(s, device=dev)
+                        for k, s in xlstm_lm.make_cache_specs(c, 1, 1).items()}
+        logits[impl] = [xlstm_lm.prefill_slot(c, params, caches[impl], toks, 0,
+                                              int(prompt.size))[1]]
+    for _ in range(steps):
+        tok = logits["chunked"][-1].float().argmax(-1).to(torch.int32)
+        for impl in ("kernel", "chunked"):
+            c = dataclasses.replace(cfg, attn_impl=impl)
+            logits[impl].append(xlstm_lm.decode_step(c, params, caches[impl], tok, 0)[0])
+    errs = [rel_err(torch, a, b) for a, b in zip(logits["kernel"], logits["chunked"])]
+    dt = cfg.compute_dtype
+    out = dict(layers=cfg.n_layers, prompt_len=int(prompt.size), decode_steps=steps,
+               prefill_rel_err=errs[0], decode_rel_err=errs[1:],
+               tolerance=LOGIT_TOL[dt] if gate else None,
+               argmax_equal=[bool(a.argmax() == b.argmax())
+                             for a, b in zip(logits["kernel"], logits["chunked"])])
+    log(f"xlstm logits {dt} ({cfg.n_layers} layers): {json.dumps(out)}"
+        + ("" if gate else " (not gated)"))
+    if gate:
+        assert max(errs) <= LOGIT_TOL[dt], out
+    return out
+
+
+def xlstm_block_agreement(torch, dev, cfg, params, prompt) -> dict:
+    """At full width, from the same inputs, the kernel path's first mLSTM
+    and first sLSTM block against the plain path's: the prompt's embedding
+    through each (prefill), then one decode token for each of 8 lanes from
+    the prefill's state.  Each output within ``BLOCK_TOL`` of its largest
+    entry (bf16: a rounding or two where the RMSNorm kernel rounds its
+    fp32 result once; fp32: summation order)."""
+    from repro_torch.models import xlstm, xlstm_lm
+
+    x0 = xlstm_lm._embed(cfg, params, torch.tensor(prompt[None], device=dev))
+    res = {}
+    for impl in ("kernel", "chunked"):
+        c = dataclasses.replace(cfg, attn_impl=impl)
+        r = {}
+        for kind, fwd in (("mlstm", xlstm.mlstm_block_fwd), ("slstm", xlstm.slstm_block_fwd)):
+            bp = xlstm_lm._layer(params[kind], 0)
+            y, (conv, cell) = fwd(c, x0, bp)
+            lanes = lambda t: t[:1].expand(MAX_SLOTS, *t.shape[1:]).contiguous()
+            xd = y[0, :MAX_SLOTS, None]
+            d, _ = fwd(c, xd, bp, conv_state=lanes(conv),
+                       cell_state=tuple(lanes(t) for t in cell), decode=True)
+            r[kind], r[kind + "_decode"] = y, d
+        res[impl] = r
+    dt = cfg.compute_dtype
+    errs = {k: rel_err(torch, res["kernel"][k], res["chunked"][k]) for k in res["kernel"]}
+    out = dict(rel_err=errs, tolerance=BLOCK_TOL[dt], prompt_len=int(prompt.size))
+    log(f"xlstm blocks {dt}: {json.dumps(out)}")
+    assert all(e <= BLOCK_TOL[dt] for e in errs.values()), out
+    return out
+
+
+def xlstm_path(torch, dev, results):
+    """Full-width xlstm-1.3b (48 layers: 42 mLSTM, 6 sLSTM; bf16 weights
+    from seed 0 made in bf16) through the slotted engine (8 lanes) on the
+    kernel path, phase 3's traffic: ``serve_phase``'s gates; a profiled
+    decode step beside its bytes bound (the weights, and every lane's
+    recurrent state read and written); a bucket-512 prefill's host and
+    device ms; logits, kernel path against plain, at full depth in bf16
+    and fp32 (TF32 off; 14.4 GB, it fits), printed and not gated (see
+    :func:`xlstm_logits`), fp32 gated on the first segment, and the first
+    mLSTM and sLSTM blocks alone, gated in both dtypes.  Returns the
+    launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import xlstm_lm
+    from repro_torch.serve import EngineConfig
+    from repro_torch.serve.paged import cache_nbytes
+
+    free(torch)
+    at_entry = torch.cuda.memory_allocated()
+    log(f"phase 10: {at_entry / 1e9:.3f} GB allocated at entry")
+    base = get_config("xlstm-1.3b")
+    assert base.family == "ssm" and base.n_layers == XLSTM_LAYERS
+    cfg = dataclasses.replace(base, attn_impl="kernel", param_dtype="bfloat16")
+    t = time.perf_counter()
+    params = xlstm_lm.init(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    weights = param_bytes(params)
+    state = cache_nbytes(xlstm_lm.make_cache_specs(cfg, MAX_SLOTS, MAX_LEN))
+    reqs = requests(cfg.vocab)
+    ec = EngineConfig(max_slots=MAX_SLOTS, max_len=MAX_LEN, kv_layout="slotted")
+    log(f"xlstm-1.3b: {weights / 1e9:.2f} GB of bf16 weights made in {init_s:.1f} s; "
+        f"recurrent state of {MAX_SLOTS} lanes {state / 1e9:.2f} GB")
+    e2e, launches = serve_phase(torch, dev, results, "xlstm", "xlstm-1.3b", cfg, params, reqs,
+                                ec, xlstm_launches)
+    e2e.update(state_bytes=state, memory_allocated_at_entry=at_entry, init_s=init_s)
+    prof = profile_decode(torch, cfg, params, reqs, ec, dev)
+    if prof is not None:
+        # the products' operations (every weight twice a lane) and the mLSTM
+        # state's update and read (4 a C entry a lane), against the weights
+        # and the state read and written once
+        nbytes = weights + 2 * state
+        C = xlstm_lm.make_cache_specs(cfg, MAX_SLOTS, 1)["m_C"].numel()
+        n_params = weights // 2
+        prof["bound_ms"], prof["bound_by"] = bound(2 * MAX_SLOTS * n_params + 4 * C, nbytes,
+                                                   "bfloat16")
+        prof["bound_bytes"] = nbytes
+        log(f"xlstm decode step: {prof['kernel_launches_per_step']:.0f} launches, "
+            f"{prof['device_ms_per_step']:.3f} device ms, idle share "
+            f"{prof['device_idle_share']:.3f}, bound {prof['bound_ms']:.3f} ms "
+            f"({prof['bound_by']}) [{results['nvidia_smi']}]")
+    results["xlstm_profile"] = prof
+    free(torch)
+    e2e["prefill_512"] = results["xlstm_prefill_profile"] = xlstm_prefill(torch, dev, cfg, params)
+    prompt = reqs[2][0]
+    results["xlstm_logits"] = {"bfloat16": xlstm_logits(torch, dev, cfg, params, prompt,
+                                                        FRONTEND_LOGIT_STEPS, gate=False)}
+    results["xlstm_blocks"] = {"bfloat16": xlstm_block_agreement(torch, dev, cfg, params,
+                                                                 prompt)}
+    del params
+    free(torch)
+    c32 = dataclasses.replace(base, compute_dtype="float32")
+    p32 = xlstm_lm.init(c32, seed=0, device=dev)
+    log(f"xlstm-1.3b fp32 checks ({param_bytes(p32) / 1e9:.2f} GB of fp32 weights)")
+    results["xlstm_logits"]["float32_full_depth"] = xlstm_logits(
+        torch, dev, c32, p32, prompt, FRONTEND_LOGIT_STEPS, gate=False)
+    results["xlstm_blocks"]["float32"] = xlstm_block_agreement(torch, dev, c32, p32, prompt)
+    # the first segment (7 mLSTM blocks, the sLSTM block) with the same
+    # weights: the stacked leaves' leading rows, views
+    n = XLSTM_FP32_LAYERS
+    c8 = dataclasses.replace(c32, n_layers=n)
+    p8 = {**p32, "mlstm": {k: v[:n - n // c32.slstm_every] for k, v in p32["mlstm"].items()},
+          "slstm": {k: v[:n // c32.slstm_every] for k, v in p32["slstm"].items()}}
+    results["xlstm_logits"]["float32"] = xlstm_logits(torch, dev, c8, p8, prompt,
+                                                      FRONTEND_LOGIT_STEPS, gate=True)
+    del p32, p8
+    free(torch)
+    results["xlstm"] = e2e
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phases 11-12: the frontend families on the static loop
+# ---------------------------------------------------------------------------
+
+
+def static_logits(torch, dev, mod, cfg, params, tokens, extra, steps: int) -> dict:
+    """A static-loop family's prefill (with its frontend input) and
+    ``steps`` decode steps on the kernel path (flash, the norm kernels) and
+    the plain path (chunked attention, plain norms), each on its own cache
+    and fed the plain path's greedy tokens: the largest logit difference of
+    each, as a share of the plain path's largest |logit|, within
+    ``LOGIT_TOL``."""
+    B, S = tokens.shape
+    n_ctx = S + (cfg.frontend_tokens if cfg.family == "vlm" else 0)
+    run = {}
+    for impl in ("kernel", "chunked"):
+        c = dataclasses.replace(cfg, attn_impl=impl)
+        p = mod.cast_for_compute(c, params, dev)
+        cache, lg = mod.prefill(c, p, tokens, extra, max_len=n_ctx + steps)
+        run[impl] = (c, p, cache, [lg])
+    for i in range(steps):
+        tok = run["chunked"][3][-1].float().argmax(-1).to(torch.int32)
+        for c, p, cache, lgs in run.values():
+            lgs.append(mod.decode_step(c, p, cache, tok, n_ctx + i)[0])
+    a, b = run["kernel"][3], run["chunked"][3]
+    errs = [rel_err(torch, x, y) for x, y in zip(a, b)]
+    dt = cfg.compute_dtype
+    out = dict(layers=cfg.n_layers, batch=B, prompt_len=S, n_ctx=n_ctx, decode_steps=steps,
+               prefill_rel_err=errs[0], decode_rel_err=errs[1:], tolerance=LOGIT_TOL[dt],
+               argmax_equal_rows=[int((x.argmax(-1) == y.argmax(-1)).sum()) for x, y in zip(a, b)])
+    log(f"{cfg.name} logits {dt} ({cfg.n_layers} layers): {json.dumps(out)}")
+    assert max(errs) <= LOGIT_TOL[dt], out
+    return out
+
+
+def static_run(torch, dev, cfg, params, prompts, extra, new: int, predict) -> tuple[dict, dict]:
+    """``generate_static`` of the batch with its frontend input: a short
+    warm-up, then the measured run with the kernel counts set to 0 just
+    before it (gated against ``predict(decode steps)``), then a second run,
+    whose streams must equal the first's.  Returns (figures, launches)."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_add
+    from repro_torch.serve import ServeConfig, generate_static
+
+    generate_static(cfg, params, prompts[:2], ServeConfig(max_new_tokens=2),
+                    extra=extra[:2], device=dev)
+    kernels = (flash_attention, paged_attention, rmsnorm, rmsnorm_add)
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = generate_static(cfg, params, prompts, ServeConfig(max_new_tokens=new), extra=extra,
+                          device=dev)
+    wall = time.perf_counter() - t
+    launches = {k.__name__: k.launches for k in kernels}
+    peak = torch.cuda.max_memory_allocated()
+    want = predict(new)
+    assert launches == want and out.shape == (len(prompts), new), (launches, want, out.shape)
+    again = generate_static(cfg, params, prompts, ServeConfig(max_new_tokens=new), extra=extra,
+                            device=dev)
+    e2e = dict(batch=len(prompts), prompt_len=prompts.shape[1], new_tokens=new,
+               tokens=out.size, wall_s=wall, tokens_per_s=out.size / wall,
+               max_memory_allocated=peak, weights_bytes=param_bytes(params),
+               launches=launches, launches_expected=want,
+               second_run_streams_equal=bool((again == out).all()))
+    assert e2e["second_run_streams_equal"], "a second run's streams differ"
+    return e2e, launches
+
+
+def prefill_profile(torch, dev, mod, cfg, params, tokens, extra, flops: float,
+                    nbytes: float) -> dict:
+    """One kernel-path prefill of the batch (``mod.prefill`` with its
+    frontend input): host ms (synchronized), device ms and launches from the
+    profiler, and the bound of ``flops`` and ``nbytes``."""
+    p = mod.cast_for_compute(cfg, params, dev)
+    run = lambda: mod.prefill(cfg, p, tokens, extra)
+    run()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t) * 1e3
+    ms, kernels = device_profile(torch, run, 3)
+    out = dict(host_ms=host_ms, device_ms=ms, launches=sum(v["calls"] for v in kernels.values()),
+               flash_ms=sum(v["ms"] for k, v in kernels.items() if "flash_fwd_kernel" in k),
+               tflop=flops / 1e12,
+               top=sorted(({"name": k, **v} for k, v in kernels.items()),
+                          key=lambda e: -e["ms"])[:6])
+    out["bound_ms"], out["bound_by"] = bound(flops, nbytes, "bfloat16")
+    return out
+
+
+def whisper_launches(dec: int) -> dict:
+    """Launches of a whisper-tiny static run (one prefill, ``dec`` decode
+    steps): flash in each encoder layer and twice in each decoder layer
+    (self and cross) a prefill; rmsnorm ``ln1`` in each layer and the two
+    final norms a prefill, the decoder's ``ln1`` and ``ln_f`` a decode
+    step; rmsnorm_add the encoder's ``ln2`` and the decoder's ``lnx`` and
+    ``ln2`` a prefill, the decoder's two a decode step."""
+    E = L = WHISPER_LAYERS
+    return {"flash_attention": E + 2 * L, "paged_attention": 0,
+            "rmsnorm": E + L + 2 + (L + 1) * dec, "rmsnorm_add": E + 2 * L + 2 * L * dec}
+
+
+def whisper_prefill_work(cfg, B: int, S: int) -> int:
+    """Operations of a whisper prefill: every product once a row (the
+    encoder's over the frames, the decoder's over the prompt, the cross K/V
+    over the frames), the attention pairs (bidirectional encoder, causal
+    decoder, prompt x frames cross) and the last position's logits."""
+    D, F_, T, H, dh = cfg.d_model, cfg.d_ff, cfg.enc_seq, cfg.n_heads, cfg.head_dim
+    enc = 2 * B * T * cfg.enc_layers * (4 * D * D + 2 * D * F_) \
+        + 4 * dh * H * B * T * T * cfg.enc_layers
+    dec = 2 * B * S * cfg.n_layers * (6 * D * D + 2 * D * F_) \
+        + 2 * B * T * cfg.n_layers * 2 * D * D \
+        + 4 * dh * H * B * cfg.n_layers * (S * (S + 1) // 2 + S * T)
+    from repro_torch.models.whisper import padded_vocab
+    return enc + dec + 2 * B * D * padded_vocab(cfg)
+
+
+def whisper_path(torch, dev, results):
+    """whisper-tiny, uncut (4 + 4 layers, d_model 384, 1,500 frames; weights
+    from seed 0), on ``generate_static``: batch 8, prompts of 32 tokens,
+    frames (8, 1500, 384) drawn from seed 0, 64 new tokens.  Gates: the
+    launches (flash 3 x 4 a prefill, the norms per prefill and step), a
+    second run's streams, logits on the kernel path within ``LOGIT_TOL``
+    of the plain path's on the prefill and 4 decode steps (bf16, and fp32
+    with TF32 off).  Prints tokens/s and a prefill's device ms.  Returns
+    the launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import whisper
+
+    free(torch)
+    base = get_config("whisper-tiny")
+    assert base.family == "audio" and base.n_layers == base.enc_layers == WHISPER_LAYERS
+    cfg = dataclasses.replace(base, attn_impl="kernel")
+    params = whisper.init(cfg, seed=0, device=dev)
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab, (WHISPER_BATCH, WHISPER_PROMPT)).astype(np.int32)
+    frames = rng.normal(size=(WHISPER_BATCH, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+    e2e, launches = static_run(torch, dev, cfg, params, prompts, frames, WHISPER_NEW,
+                               whisper_launches)
+    tokens = torch.tensor(prompts, device=dev)
+    xt = torch.tensor(frames, device=dev)
+    e2e["prefill"] = prefill_profile(
+        torch, dev, whisper, cfg, params, tokens, xt,
+        whisper_prefill_work(cfg, WHISPER_BATCH, WHISPER_PROMPT),
+        param_bytes(whisper.cast_for_compute(cfg, params, dev)) + xt.numel() * 4)
+    log(f"whisper-tiny (static loop, kernels) [{results['nvidia_smi']}]: "
+        f"{e2e['tokens']} tokens in {e2e['wall_s']:.3f} s = {e2e['tokens_per_s']:.1f} tok/s; "
+        f"prefill {json.dumps(e2e['prefill'])}; launches {launches}; peak memory "
+        f"{e2e['max_memory_allocated'] / 1e9:.2f} GB")
+    results["whisper_logits"] = {
+        dt: static_logits(torch, dev, whisper, dataclasses.replace(cfg, compute_dtype=dt),
+                          params, tokens, xt, FRONTEND_LOGIT_STEPS)
+        for dt in ("bfloat16", "float32")}
+    results["whisper"] = e2e
+    del params
+    free(torch)
+    return launches
+
+
+def vlm_launches(dec: int) -> dict:
+    """Launches of an internvl2-76b static run at ``VLM_LAYERS`` layers
+    (one prefill, ``dec`` decode steps): flash in each layer a prefill;
+    ``ln1`` in each layer and ``ln_f`` (rmsnorm) and ``ln2`` with its
+    residual add (rmsnorm_add) a prefill and a decode step.  The decode
+    attention is the plain slotted one, as in the reference."""
+    L = VLM_LAYERS
+    return {"flash_attention": L, "paged_attention": 0, "rmsnorm": (L + 1) * (1 + dec),
+            "rmsnorm_add": L * (1 + dec)}
+
+
+def vlm_path(torch, dev, results):
+    """internvl2-76b at full width, 16 of its 80 layers (bf16 weights from
+    seed 0 made in bf16, ~31.6 GB), on ``generate_static``: batch 4, patch
+    embeddings (4, 256, 3200) and prompts of 128 tokens drawn from seed 0,
+    32 new tokens, decoding from position 384.  Gates: the launches, a
+    second run's streams, logits kernel path against plain within
+    ``LOGIT_TOL`` in bf16 at 16 layers and in fp32 (TF32 off) at 2 layers.
+    Prints tokens/s, the prefill's device ms beside its bound, peak memory.
+    Returns the launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+
+    free(torch)
+    at_entry = torch.cuda.memory_allocated()
+    base = get_config("internvl2-76b")
+    assert base.family == "vlm" and VLM_LAYERS <= base.n_layers
+    cfg = dataclasses.replace(base, n_layers=VLM_LAYERS, attn_impl="kernel",
+                              param_dtype="bfloat16")
+    t = time.perf_counter()
+    params = lm.init(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    weights = param_bytes(params)
+    log(f"phase 12: {at_entry / 1e9:.3f} GB allocated at entry; internvl2-76b at "
+        f"{VLM_LAYERS} of {base.n_layers} layers: {weights / 1e9:.2f} GB of bf16 weights made "
+        f"in {init_s:.1f} s")
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab, (VLM_BATCH, VLM_PROMPT)).astype(np.int32)
+    patches = rng.normal(size=(VLM_BATCH, cfg.frontend_tokens,
+                               cfg.frontend_dim)).astype(np.float32)
+    e2e, launches = static_run(torch, dev, cfg, params, prompts, patches, VLM_NEW, vlm_launches)
+    tokens = torch.tensor(prompts, device=dev)
+    img = torch.tensor(patches, device=dev)
+    n = cfg.frontend_tokens + VLM_PROMPT
+    attn, matmul = prefill_work(cfg, n)
+    flops = VLM_BATCH * (attn + matmul) + 2 * VLM_BATCH * cfg.frontend_tokens \
+        * cfg.frontend_dim * cfg.d_model + 2 * VLM_BATCH * cfg.d_model * cfg.vocab
+    e2e["prefill"] = prefill_profile(torch, dev, lm, cfg, params, tokens, img, flops,
+                                     weights + img.numel() * 4)
+    e2e.update(init_s=init_s, memory_allocated_at_entry=at_entry, layers=VLM_LAYERS,
+               n_ctx=n)
+    log(f"internvl2-76b (static loop, kernels, {VLM_LAYERS} layers) "
+        f"[{results['nvidia_smi']}]: {e2e['tokens']} tokens in {e2e['wall_s']:.3f} s = "
+        f"{e2e['tokens_per_s']:.1f} tok/s; prefill {json.dumps(e2e['prefill'])}; launches "
+        f"{launches}; peak memory {e2e['max_memory_allocated'] / 1e9:.2f} GB (weights "
+        f"{weights / 1e9:.2f})")
+    results["vlm_logits"] = {"bfloat16": static_logits(torch, dev, lm, cfg, params, tokens, img,
+                                                       FRONTEND_LOGIT_STEPS)}
+    del params
+    free(torch)
+    c32 = dataclasses.replace(base, n_layers=VLM_FP32_LAYERS, compute_dtype="float32")
+    p32 = lm.init(c32, seed=0, device=dev)
+    log(f"internvl2-76b fp32 logit check cut to {VLM_FP32_LAYERS} layers "
+        f"({param_bytes(p32) / 1e9:.2f} GB of fp32 weights)")
+    results["vlm_logits"]["float32"] = static_logits(torch, dev, lm, c32, p32, tokens, img,
+                                                     FRONTEND_LOGIT_STEPS)
+    del p32
+    free(torch)
+    results["vlm"] = e2e
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -4508,6 +5077,7 @@ def main() -> int:
     phase("2c flash grad", check_flash_grad)
     phase("2d ssd", check_ssd)
     phase("2e rmsnorm", check_rmsnorm)
+    phase("2f flash frontends", check_flash_frontend)
     launches = phase("3 serve", main_path)
     features_launches = phase("3b-3e serve features", feature_path)
     tier_launches = phase("3f-3i host tier, snapshots, host sampling", tier_path)
@@ -4520,6 +5090,9 @@ def main() -> int:
     gemma2_counts = phase("7 gemma2 serve", gemma2_path)
     stablelm_counts = phase("8 stablelm serve", stablelm_path)
     moe_counts = phase("9 qwen3-moe serve", moe_path)
+    xlstm_counts = phase("10 xlstm serve", xlstm_path)
+    whisper_counts = phase("11 whisper static", whisper_path)
+    vlm_counts = phase("12 internvl2 static", vlm_path)
     results["phase_s"] = phase_s
     results["seconds"] = time.perf_counter() - t_start
 
@@ -4551,6 +5124,10 @@ def main() -> int:
     g7 = {name: gemma2_counts.get(name, 0) for name in names}
     s8 = {name: stablelm_counts.get(name, 0) for name in names}
     m9 = {name: moe_counts.get(name, 0) for name in names}
+    # phases 10-12: each kernel row's launches on the three frontier paths
+    later = {name: dict(xlstm_launches=xlstm_counts.get(name, 0),
+                        whisper_launches=whisper_counts.get(name, 0),
+                        vlm_launches=vlm_counts.get(name, 0)) for name in names}
     wide_keys = ("q", "lengths", "ms", "ms_events", "plain_ms", "bound_ms", "bound_by",
                  "n_split", "device_kernels_per_call")
     fa = results["flat_adam_timing"]
@@ -4597,7 +5174,15 @@ def main() -> int:
              d160_max_abs_err={dt: max(r["max_abs_err"] for r in results["flash_cases"]
                                        if r.get("D") == 160 and r["dtype"] == dt)
                                for dt in ("bfloat16", "float32")},
-             d160_ptxas_spill_bytes=results["ptxas_flash_d160_spill_bytes"]),
+             d160_ptxas_spill_bytes=results["ptxas_flash_d160_spill_bytes"],
+             frontend={n: {k: fl[n][k] for k in ("q", "kv", "causal", "ms", "ms_events",
+                                                  "plain_ms", "library_ms", "bound_ms",
+                                                  "bound_by")}
+                       for n, *_ in FLASH_FRONTEND},
+             frontend_max_abs_err={dt: max(r["max_abs_err"] for r in results["flash_cases"]
+                                           if "Sq" in r and r["dtype"] == dt)
+                                   for dt in ("bfloat16", "float32")},
+             **later["flash_attention"]),
         dict(name="paged_attention", route="cuda",
              source="src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
              replaces="src/repro/kernels/paged_attention/kernel.py:30",
@@ -4631,7 +5216,8 @@ def main() -> int:
              wide_max_abs_err={f"rep {rep} D {D}": {
                  dt: max(r["max_abs_err"] for r in results["paged_cases"]
                          if (r.get("rep"), r.get("D"), r["dtype"]) == (rep, D, dt))
-                 for dt in ("bfloat16", "float32")} for rep, D, _ in PAGED_WIDE}),
+                 for dt in ("bfloat16", "float32")} for rep, D, _ in PAGED_WIDE},
+             **later["paged_attention"]),
         dict(name="flat_adam", route="cuda",
              source="src/repro_torch/kernels/flat_adam/csrc/flat_adam.cu",
              replaces="src/repro/kernels/flat_adam/kernel.py:18",
@@ -4641,7 +5227,8 @@ def main() -> int:
              stablelm_launches=s8["flat_adam"], moe_launches=m9["flat_adam"],
              max_abs_err=max(r["max_abs_err"] for r in results["flat_adam_cases"]),
              kernel_ms=fa["kernel_ms"], ms=fa["kernel_ms"], plain_ms=fa["plain_ms"],
-             bound_ms=fa["bound_ms"], bound_by=fa["bound_by"], library_ms=fa["library_ms"]),
+             bound_ms=fa["bound_ms"], bound_by=fa["bound_by"], library_ms=fa["library_ms"],
+             **later["flat_adam"]),
         dict(name="ssd", route="cuda", source="src/repro_torch/kernels/ssd/csrc/ssd.cu",
              replaces="src/repro/kernels/ssd/kernel.py:23",
              jax_function="repro.kernels.ssd.kernel.ssd_fwd",
@@ -4657,7 +5244,8 @@ def main() -> int:
              device_kernels_per_call=sd["device_kernels_per_call"],
              host_us_per_call=sd["host_us_per_call"],
              t2048={k: results["ssd_timing_2048"][k]
-                    for k in ("ms", "plain_ms", "bound_ms", "bound_fma_ms", "blocks")}),
+                    for k in ("ms", "plain_ms", "bound_ms", "bound_fma_ms", "blocks")},
+             **later["ssd"]),
     ]
     rn = {(t["kernel"], *t["shape"]): t for t in results["rmsnorm_timing"]}
     # each row at a shape of the path whose launches it reports: rmsnorm
@@ -4687,7 +5275,7 @@ def main() -> int:
             shape=x_desc, path=t["path"],
             launches=(zamba_launches if name == "rmsnorm_gated" else launches)[name],
             gemma2_launches=g7[name], stablelm_launches=s8[name], moe_launches=m9[name],
-            **per_path, tier_launches=tier_rows(name),
+            **later[name], **per_path, tier_launches=tier_rows(name),
             spec_launches=spec_rows(name),
             max_abs_err=max(r[f"{name}_max_abs_err"] for r in results["rmsnorm_cases"]
                             if f"{name}_max_abs_err" in r),
@@ -4707,8 +5295,13 @@ def main() -> int:
                  ("gemma2 decode step", "gemma2_profile", decode_keys + ("bound_ms",)),
                  ("stablelm decode step", "stablelm_profile", decode_keys + ("bound_ms",)),
                  ("qwen3-moe decode step", "moe_profile", decode_keys + ("bound_ms",)),
+                 ("xlstm decode step", "xlstm_profile", decode_keys + ("bound_ms",)),
                  ("zamba prefill 512", "zamba_prefill_profile", ("launches", "device_ms",
-                                                                 "device_idle_share")))}
+                                                                 "device_idle_share")),
+                 ("xlstm prefill 512", "xlstm_prefill_profile", ("launches", "device_ms",
+                                                                 "device_idle_share",
+                                                                 "host_ms_median",
+                                                                 "bound_ms")))}
     results["step_profiles"] = steps
     log(f"profiled steps: {json.dumps(steps)}")
     results["kernels"] = kernels

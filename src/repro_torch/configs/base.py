@@ -3,8 +3,9 @@
 A copy of the reference's ``configs/base.py`` (stdlib only).  One
 ``<arch>.py`` per ported architecture lives next to this module; each
 exports ``CONFIG`` (the exact published configuration) and ``SMOKE`` (a
-reduced same-family configuration for CPU smoke tests).  Architectures
-arrive here with their families; ``ARCH_IDS`` lists those ported so far.
+reduced same-family configuration for CPU smoke tests).  ``ARCH_IDS``
+holds every architecture of the reference (in the order the port took
+them).
 """
 from __future__ import annotations
 
@@ -19,6 +20,9 @@ ARCH_IDS = (
     "stablelm-12b",
     "qwen3-moe-30b-a3b",
     "qwen3-moe-235b-a22b",
+    "xlstm-1.3b",
+    "whisper-tiny",
+    "internvl2-76b",
 )
 
 

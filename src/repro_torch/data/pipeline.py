@@ -2,9 +2,9 @@
 
 Batches are a pure function of (seed, step): resume-after-failure replays
 the exact same stream with no stored iterator state — the data-side half of
-fault tolerance.  The code is the reference's numpy, so the token stream is
-bitwise the reference's.  The VLM and audio frontends arrive with their
-families.
+fault tolerance.  The code is the reference's numpy, so the token stream and
+the frontend stubs (VLM patch embeddings, audio frames) are bitwise the
+reference's.
 """
 from __future__ import annotations
 
@@ -45,16 +45,39 @@ class SyntheticTokens:
         return np.stack(toks, axis=1).astype(np.int32)
 
 
+class SyntheticEmbeds:
+    """Deterministic float frontend stubs (VLM patches / audio frames)."""
+
+    def __init__(self, shape: tuple[int, ...], seed: int = 0):
+        self.shape = shape
+        self.seed = seed
+
+    def batch(self, step: int) -> np.ndarray:
+        rng = np.random.default_rng([self.seed, 1_000_003, step])
+        return rng.standard_normal(self.shape, dtype=np.float32)
+
+
 def make_batch_fn(cfg: ArchConfig, shape: ShapeConfig, seed: int = 0):
-    """Returns batch(step) -> {"tokens": (global_batch, seq_len + 1) int32}."""
-    if cfg.family in ("vlm", "audio"):
-        raise NotImplementedError(
-            f"{cfg.family} batches (frontend embeddings) arrive with the "
-            "MoE/VLM/audio slice of the port")
-    toks = SyntheticTokens(DataConfig(cfg.vocab, shape.seq_len, shape.global_batch, seed))
+    """Returns batch(step) -> {"tokens": (global_batch, S_text + 1) int32}
+    plus the family's frontend stub: ``patch_embeds`` (global_batch,
+    frontend_tokens, frontend_dim) for vlm, whose text is ``seq_len -
+    frontend_tokens`` long, and ``frames`` (global_batch, enc_seq,
+    d_model) for audio, both fp32."""
+    s_text = shape.seq_len - (cfg.frontend_tokens if cfg.family == "vlm" else 0)
+    toks = SyntheticTokens(DataConfig(cfg.vocab, s_text, shape.global_batch, seed))
+    extras = {}
+    if cfg.family == "vlm":
+        extras["patch_embeds"] = SyntheticEmbeds(
+            (shape.global_batch, cfg.frontend_tokens, cfg.frontend_dim), seed)
+    if cfg.family == "audio":
+        extras["frames"] = SyntheticEmbeds((shape.global_batch, cfg.enc_seq, cfg.d_model),
+                                           seed)
 
     def fn(step: int) -> dict:
-        return {"tokens": toks.batch(step)}
+        b = {"tokens": toks.batch(step)}
+        for k, gen in extras.items():
+            b[k] = gen.batch(step)
+        return b
 
     return fn
 

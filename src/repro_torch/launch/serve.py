@@ -8,6 +8,11 @@ behind the router's admission queue:
 
     python -m repro_torch.launch.serve --arch zamba2-1.2b --requests 16
 
+    python -m repro_torch.launch.serve --arch xlstm-1.3b --smoke --device cpu
+
+    python -m repro_torch.launch.serve --arch whisper-tiny --smoke \
+        --device cpu --engine static
+
 Several replicas with crash failover, load shedding and a zero-downtime
 drain (the last replica, after ``--drain-at`` completions); seeded replica
 crashes and stalls with ``--replica-chaos-rate``:
@@ -23,12 +28,16 @@ there).  The summary prints each replica's line, the statuses, failovers
 and migrations, and the latency by status from the merged histograms.
 
 The weights are random, from ``--seed``.  ``--attn-impl`` picks the
-family's kernels ("kernel": the flash CUDA kernel for prefill attention
-and, for zamba2, the SSD scan and RMSNorm kernels; "chunked": plain
+family's kernels ("kernel": the flash CUDA kernel for prefill attention,
+the RMSNorm kernels and, for zamba2, the SSD scan; "chunked": plain
 PyTorch) and ``--paged-attn`` the paged decode attention ("kernel" or
-"ref").  zamba2 serves on the slotted layout only: ``--kv-layout paged``
-is refused, and so are the paged-only scheduling flags.  On a CPU device
-the kernel settings run the kernels' plain versions.
+"ref").  zamba2 and xlstm-1.3b serve on the slotted layout only:
+``--kv-layout paged`` is refused, and so are the paged-only scheduling
+flags.  whisper-tiny and internvl2-76b feed per-request frontend inputs
+the engine does not carry: they serve on the static loop (``--engine
+static``; the continuous default falls back to it, as the reference's
+launcher does), with frames or patch embeddings drawn from ``--seed``.
+On a CPU device the kernel settings run the kernels' plain versions.
 
 The paged engine's scheduling features, and the robustness knobs:
 
@@ -89,12 +98,20 @@ def draft_mix(cfg, params, alpha: float, seed: int, device):
 
 def run_static(cfg, params, args, rng, device) -> np.ndarray:
     """One fixed batch of random prompts to the full budget through
-    ``generate_static``; prints each row and returns them."""
+    ``generate_static``, with the family's frontend input drawn from
+    ``rng`` after the prompts (vlm patch embeddings, audio frames) as the
+    reference's launcher draws them; prints each row and returns them."""
     prompts = rng.integers(0, cfg.vocab, (args.batch, args.prompt_len)).astype(np.int32)
+    extra = None
+    if cfg.family == "vlm":
+        extra = rng.normal(size=(args.batch, cfg.frontend_tokens,
+                                 cfg.frontend_dim)).astype(np.float32)
+    if cfg.family == "audio":
+        extra = rng.normal(size=(args.batch, cfg.enc_seq, cfg.d_model)).astype(np.float32)
     out = generate_static(cfg, params, prompts,
                           ServeConfig(max_new_tokens=args.new_tokens,
                                       temperature=args.temperature, seed=args.seed),
-                          device=device)
+                          extra=extra, device=device)
     for i, row in enumerate(out):
         print(f"seq{i}: {row.tolist()}")
     return out
@@ -305,8 +322,8 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device; default the card (raises without one)")
     ap.add_argument("--attn-impl", choices=("chunked", "kernel"),
-                    default="kernel", help="prefill attention (and zamba2's "
-                    "SSD scan and norms)")
+                    default="kernel", help="prefill attention and the norms "
+                    "(and zamba2's SSD scan)")
     ap.add_argument("--paged-attn", choices=("ref", "kernel"),
                     default="kernel", help="paged decode attention")
     args = ap.parse_args(argv)
@@ -316,9 +333,12 @@ def main(argv=None):
     cfg = dataclasses.replace(cfg, attn_impl=args.attn_impl)
     params = registry.get_module(cfg).init(cfg, seed=0, device=device)
     rng = np.random.default_rng(args.seed)
-    if args.engine == "static":
-        return run_static(cfg, params, args, rng, device)
-    return run_stream(cfg, params, args, rng, device)
+    if args.engine == "continuous" and registry.supports_slot_serving(cfg):
+        return run_stream(cfg, params, args, rng, device)
+    if args.engine == "continuous":
+        print(f"# family {cfg.family!r} has no slot-serving support; falling back to "
+              "the static loop")
+    return run_static(cfg, params, args, rng, device)
 
 
 if __name__ == "__main__":

@@ -1,5 +1,6 @@
 """Decoder-only LM, dense family (llama-arch: smollm, stablelm, deepseek;
-gemma2's alternating local/global layers) and the qwen3 MoE family.
+gemma2's alternating local/global layers), the qwen3 MoE family and the
+VLM family (InternVL2's backbone behind its stubbed vision frontend).
 
 The port of the reference's ``models/lm.py`` for serving and training.
 Parameters are nested dicts of tensors with the reference's tree: layers
@@ -44,8 +45,15 @@ runs an FFN (prefill, a chunked-prefill continuation, decode); the router
 stays in its stored dtype, as the reference reads it in fp32.  Each call
 routes every row it is given: a bucket's padding, a chunk's own length,
 all of a decode step's lanes.  Training it (``loss_fn``, with the
-reference's ``lb_loss`` term) arrives with the MoE training slice; VLM
-raises ``NotImplementedError``.
+reference's ``lb_loss`` term) is not ported yet.
+
+VLM (``cfg.family == "vlm"``): the vision frontend is a stub, as in the
+reference.  ``img_proj`` projects precomputed patch embeddings (B,
+frontend_tokens, frontend_dim) to d_model (a plain product) and
+:func:`forward` prepends them to the token embeddings; ``prefill`` takes
+them as ``img_embeds``, and decoding continues at ``frontend_tokens +
+S``.  The family serves on the static loop (``serve.loop.generate_static``),
+not the slot engine, as in the reference.
 """
 from __future__ import annotations
 
@@ -87,11 +95,8 @@ STORED_DTYPE = NORM_PARAMS | {"router"}
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise for the parts of the lm families this slice does not port."""
-    if cfg.family == "vlm":
-        raise NotImplementedError(
-            f"{cfg.name}: the vlm family arrives with the VLM/audio slice of the port")
-    if cfg.family not in ("dense", "moe"):
+    """Raise for a config the lm families do not serve."""
+    if cfg.family not in ("dense", "moe", "vlm"):
         raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is not "
                                   "an lm family")
     if (cfg.family == "moe") != bool(cfg.moe.num_experts):
@@ -172,6 +177,8 @@ def param_specs(cfg: ArchConfig) -> dict:
     }
     if not cfg.tie_embeddings:
         s["unembed"] = ParamSpec((D, cfg.vocab), dt)
+    if cfg.family == "vlm":
+        s["img_proj"] = ParamSpec((cfg.frontend_dim, D), dt)
     return s
 
 
@@ -359,10 +366,12 @@ def unembed(cfg, params, x):
     return logits
 
 
-def forward(cfg: ArchConfig, params, tokens, *, remat=True,
+def forward(cfg: ArchConfig, params, tokens, img_embeds=None, *, remat=True,
             collect_kv: bool = False, aux: dict | None = None):
     """tokens (B, S) -> (final-normed hidden (B, S, D), kv or None) with kv
-    = (k, v) stacked over layers: (lead..., B, S, Hk, dh) each.  ``remat``
+    = (k, v) stacked over layers: (lead..., B, S, Hk, dh) each.  Under the
+    vlm family ``img_embeds`` (B, N, frontend_dim) are projected by
+    ``img_proj`` and prepended: S becomes N + S.  ``remat``
     (False | True | "dots", see ``common.remat_wrap``) wraps each block.
     ``aux``, where given, receives the reference forward's aux: the MoE
     layers' ``lb_loss`` summed and ``drop_frac`` maxed over layers (0 for
@@ -371,6 +380,10 @@ def forward(cfg: ArchConfig, params, tokens, *, remat=True,
     check_supported(cfg)
     sink = [] if aux is not None else None
     x = embed_tokens(cfg, params, tokens)
+    if cfg.family == "vlm":
+        cdt = dtype_of(cfg.compute_dtype)
+        img = img_embeds.to(cdt) @ params["img_proj"].to(cdt)
+        x = torch.cat([img, x], dim=1)
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
     rope_cs = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
@@ -396,7 +409,9 @@ def forward(cfg: ArchConfig, params, tokens, *, remat=True,
 
 
 def loss_fn(cfg: ArchConfig, params, batch, *, remat=True):
-    """Next-token loss on ``batch["tokens"]`` (B, S + 1).  Returns
+    """Next-token loss on ``batch["tokens"]`` (B, S + 1) (and, for the vlm
+    family, ``batch["patch_embeds"]``: the loss reads the hidden states
+    from the last image position on, ``[N - 1, N - 1 + S)``).  Returns
     ``(total, {"ce_loss", "lb_loss", "drop_frac"})``; the load-balance
     loss and drop fraction are 0 for dense models, so total == ce_loss.
     MoE training (the reference adds its ``lb_loss`` term) is not ported
@@ -407,7 +422,10 @@ def loss_fn(cfg: ArchConfig, params, batch, *, remat=True):
             "loss) arrives with the MoE training slice of the port")
     tokens = batch["tokens"]
     inp, labels = tokens[:, :-1], tokens[:, 1:]
-    hidden, _ = forward(cfg, params, inp, remat=remat)
+    hidden, _ = forward(cfg, params, inp, batch.get("patch_embeds"), remat=remat)
+    if cfg.family == "vlm":
+        n = cfg.frontend_tokens
+        hidden = hidden[:, n - 1: n - 1 + labels.shape[1]]
     loss = cross_entropy_loss(unembed(cfg, params, hidden), labels)
     zero = torch.zeros((), dtype=torch.float32, device=loss.device)
     return loss, {"ce_loss": loss, "lb_loss": zero, "drop_frac": zero}
@@ -456,12 +474,14 @@ def copy_paged_block(cfg: ArchConfig, cache, src: int, dst: int):
     return cache
 
 
-def prefill(cfg: ArchConfig, params, tokens, *, max_len: int | None = None):
+def prefill(cfg: ArchConfig, params, tokens, img_embeds=None, *,
+            max_len: int | None = None):
     """Whole-batch prefill: tokens (B, S) -> (slotted cache {k, v} of
     (lead..., B, max_len, Hk, dh), the KV of positions [0, S) and zeros past it;
-    logits (B, V) at the last position)."""
-    hidden, (k, v) = forward(cfg, params, tokens, remat=False, collect_kv=True)
-    S = tokens.shape[1]
+    logits (B, V) at the last position).  vlm: ``img_embeds`` lead the
+    sequence, so the KV covers N + S positions."""
+    hidden, (k, v) = forward(cfg, params, tokens, img_embeds, remat=False, collect_kv=True)
+    S = k.shape[-3]
     pad = [0, 0, 0, 0, 0, max(0, (max_len or S) - S)]
     cache = {"k": F.pad(k, pad), "v": F.pad(v, pad)}
     return cache, unembed(cfg, params, hidden[:, -1])

@@ -1,32 +1,24 @@
 """Family registry: which module serves a config, and how.
 
-The port of the reference's ``models/registry.py`` for the families
-ported so far (dense, moe, hybrid).  Every other family raises
-``NotImplementedError`` naming the slice of the port it arrives with.
+The port of the reference's ``models/registry.py``: every family of the
+reference maps to its module (dense, moe and vlm to ``lm``, hybrid to
+``zamba``, ssm to ``xlstm_lm``, audio to ``whisper``), and the serving
+questions get the reference's answers.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from . import lm, zamba
+from . import lm, whisper, xlstm_lm, zamba
 from .common import map_tree
 
-_FAMILIES = {"dense": lm, "moe": lm, "hybrid": zamba}
-_LATER = {
-    "vlm": "the VLM/audio slice",
-    "audio": "the VLM/audio slice",
-    "ssm": "the xLSTM slice",
-}
+_FAMILIES = {"dense": lm, "moe": lm, "vlm": lm, "hybrid": zamba, "ssm": xlstm_lm,
+             "audio": whisper}
 
 
 def get_module(cfg: ArchConfig):
-    mod = _FAMILIES.get(cfg.family)
-    if mod is None:
-        later = _LATER.get(cfg.family, "a later slice")
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet; it arrives with {later}")
-    return mod
+    return _FAMILIES[cfg.family]
 
 
 def abstract_params(cfg: ArchConfig) -> dict:
@@ -39,8 +31,11 @@ def abstract_params(cfg: ArchConfig) -> dict:
 def supports_slot_serving(cfg: ArchConfig) -> bool:
     """Whether the family works with the continuous-batching engine: it
     exposes ``prefill_slot`` and a ``decode_step`` taking a (B,) position
-    vector."""
-    return cfg.family in _FAMILIES and hasattr(get_module(cfg), "prefill_slot")
+    vector.  The modality families (vlm, audio) are left out, as in the
+    reference: they feed per-request frontend inputs the slot path does not
+    carry, and serve on ``serve.loop.generate_static``."""
+    return cfg.family in ("dense", "moe", "ssm", "hybrid") and hasattr(
+        get_module(cfg), "prefill_slot")
 
 
 def supports_paged_serving(cfg: ArchConfig) -> bool:
@@ -51,8 +46,10 @@ def supports_paged_serving(cfg: ArchConfig) -> bool:
 
 def state_kind(cfg: ArchConfig) -> str:
     """Per-lane decode-state kind the engine manages: ``"kv"`` (a seq-axis
-    KV cache, pageable and lazily overwritten) or ``"hybrid"`` (zamba: a
-    slotted KV segment plus per-lane recurrent leaves)."""
+    KV cache, pageable and lazily overwritten), ``"recurrent"`` (xLSTM:
+    O(1)-in-sequence per-lane state, slotted only, hard-reset at admission
+    and zeroed at eviction) or ``"hybrid"`` (zamba: a slotted KV segment
+    plus per-lane recurrent leaves)."""
     return getattr(get_module(cfg), "STATE_KIND", "kv")
 
 

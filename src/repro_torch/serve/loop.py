@@ -9,8 +9,9 @@ slotted cache, fused sampling and the engine's programs.
 
 ``generate_static`` is the fixed-batch loop: one whole-batch prefill,
 then every sequence decodes to the full token budget, sampling on the
-logits each step.  It serves families the engine does not (none among
-the ported ones) and is the baseline the engine is held against.
+logits each step.  It serves the families the engine does not (the
+modality frontends: vlm patch embeddings, audio frames, passed as
+``extra``) and is the baseline the engine is held against.
 """
 from __future__ import annotations
 
@@ -33,12 +34,14 @@ class ServeConfig:
 
 
 def generate(cfg: ArchConfig, params, prompts, serve: ServeConfig | None = None, *,
-             device=None) -> np.ndarray:
+             extra=None, device=None) -> np.ndarray:
     """prompts (B, S) int32 -> (B, max_new_tokens) int32 generated tokens,
-    through the engine (on the card unless ``device="cpu"``)."""
+    through the engine (on the card unless ``device="cpu"``), or through
+    :func:`generate_static` when ``extra`` (the frontend input) is given or
+    the family is not slot-served."""
     serve = serve or ServeConfig()
-    if not registry.supports_slot_serving(cfg):
-        return generate_static(cfg, params, prompts, serve, device=device)
+    if extra is not None or not registry.supports_slot_serving(cfg):
+        return generate_static(cfg, params, prompts, serve, extra=extra, device=device)
     from .engine import EngineConfig, ServeEngine
 
     prompts = np.asarray(prompts, np.int32)
@@ -53,23 +56,28 @@ def generate(cfg: ArchConfig, params, prompts, serve: ServeConfig | None = None,
 
 
 def generate_static(cfg: ArchConfig, params, prompts, serve: ServeConfig | None = None,
-                    *, device=None) -> np.ndarray:
-    """The static-batch loop: prefill once (``mod.prefill``), then decode
-    the whole batch to the full budget (``mod.decode_step`` at one shared
-    position), sampling each step from a ``torch.Generator`` seeded with
-    ``serve.seed`` (greedy at temperature 0).  Returns (B,
-    max_new_tokens) int32."""
+                    *, extra=None, device=None) -> np.ndarray:
+    """The static-batch loop: prefill once (``mod.prefill``, given
+    ``extra`` where there is one: vlm patch embeddings (B,
+    frontend_tokens, frontend_dim), audio frames (B, enc_seq, d_model)),
+    then decode the whole batch to the full budget (``mod.decode_step`` at
+    one shared position, from ``S`` plus the vlm's image tokens), sampling
+    each step from a ``torch.Generator`` seeded with ``serve.seed`` (greedy
+    at temperature 0).  Returns (B, max_new_tokens) int32."""
     serve = serve or ServeConfig()
     device = resolve_device(device)
     mod = registry.get_module(cfg)
     params = mod.cast_for_compute(cfg, params, device)
     tokens = torch.as_tensor(np.asarray(prompts, np.int32), device=device)
     B, S = tokens.shape
-    cache, logits = mod.prefill(cfg, params, tokens, max_len=S + serve.max_new_tokens)
+    n_ctx = S + (cfg.frontend_tokens if cfg.family == "vlm" else 0)
+    front = () if extra is None else (torch.as_tensor(extra, device=device),)
+    cache, logits = mod.prefill(cfg, params, tokens, *front,
+                                max_len=n_ctx + serve.max_new_tokens)
     gen = torch.Generator(device=device).manual_seed(serve.seed)
     temps = torch.full((B,), float(serve.temperature), device=device)
     out = []
-    for cur in range(S, S + serve.max_new_tokens):
+    for cur in range(n_ctx, n_ctx + serve.max_new_tokens):
         tok = sample_tokens(logits, gen, temps)
         out.append(tok)
         logits, cache = mod.decode_step(cfg, params, cache, tok, cur)

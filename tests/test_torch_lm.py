@@ -21,12 +21,14 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ARCH_IDS as JAX_ARCH_IDS
+from repro.configs import get_config as jax_config
 from repro.configs import get_smoke_config as jax_smoke
 from repro.models import attention as jattn
 from repro.models import common as jcommon
 from repro.models import lm as jlm
 from repro.models import registry as jreg
-from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.models import attention as tattn
 from repro_torch.models import common as tcommon
 from repro_torch.models import lm as tlm
@@ -207,17 +209,25 @@ def test_params_from_numpy_rejects_mismatch():
         params_from_numpy(cfg, tree, device="cpu")
 
 
-def test_unported_families_raise():
-    dense = get_smoke_config("smollm-360m")
-    for fam in ("ssm", "vlm", "audio"):
-        cfg = dataclasses.replace(get_smoke_config("smollm-360m"), family=fam)
-        with pytest.raises(NotImplementedError):
-            treg.get_module(cfg)
-        assert not treg.supports_slot_serving(cfg)
-    assert treg.supports_paged_serving(dense) and treg.state_kind(dense) == "kv"
-    # the moe family is ported (lm serves it); a moe config needs experts
-    moe = dataclasses.replace(dense, family="moe")
-    assert treg.get_module(moe) is treg.get_module(dense)
+@pytest.mark.parametrize("arch", JAX_ARCH_IDS)
+def test_registry_answers_match_reference(arch):
+    """Every architecture of the reference resolves to the port's module of
+    the same name, and the serving questions (slot and paged serving,
+    state kind, recurrent leaves and their lane axes) get the reference
+    registry's answers, for the full and the smoke config."""
+    for get, jget in ((get_config, jax_config), (get_smoke_config, jax_smoke)):
+        cfg, jcfg = get(arch), jget(arch)
+        assert cfg.family == jcfg.family
+        assert treg.get_module(cfg).__name__.rsplit(".", 1)[1] == \
+            jreg.get_module(jcfg).__name__.rsplit(".", 1)[1]
+        assert treg.supports_slot_serving(cfg) == jreg.supports_slot_serving(jcfg)
+        assert treg.supports_paged_serving(cfg) == jreg.supports_paged_serving(jcfg)
+        assert treg.state_kind(cfg) == jreg.state_kind(jcfg)
+        assert treg.recurrent_leaf_axes(cfg) == jreg.recurrent_leaf_axes(jcfg)
+        assert treg.lane_leaf_axes(cfg) == jreg.lane_leaf_axes(jcfg)
+    assert arch in ARCH_IDS
+    # a moe config needs experts (lm serves the moe family)
+    moe = dataclasses.replace(get_smoke_config("smollm-360m"), family="moe")
     with pytest.raises(ValueError, match="experts"):
         treg.get_module(moe).param_specs(moe)
 

@@ -244,7 +244,8 @@ def test_param_specs_match_reference(arch, smoke):
 def test_registry_and_conversion(arch):
     """The family serves as the reference's does, the tree converts whole
     (expert and router leaves under the reference's names), the router
-    keeps its stored dtype in the compute tree, and training raises."""
+    keeps its stored dtype in the compute tree, training raises, and the
+    vlm family resolves to the same module."""
     assert arch in ARCH_IDS
     tcfg, jcfg = get_smoke_config(arch), jax_smoke(arch)
     for q in ("supports_slot_serving", "supports_paged_serving", "state_kind",
@@ -262,8 +263,8 @@ def test_registry_and_conversion(arch):
     assert cast["blocks"]["wg_e"].dtype == torch.bfloat16
     with pytest.raises(NotImplementedError, match="MoE training"):
         tlm.loss_fn(tcfg, tp, {"tokens": torch.zeros(1, 5, dtype=torch.int32)})
-    with pytest.raises(NotImplementedError, match="vlm"):
-        treg.get_module(dataclasses.replace(tcfg, family="vlm"))
+    # the vlm family is served by lm too (not an MoE one: no experts)
+    assert treg.get_module(dataclasses.replace(tcfg, family="vlm")) is tlm
 
 
 # ---------------------------------------------------------------------------
