@@ -63,13 +63,20 @@ Phases (any failure raises and the script exits non-zero):
    from bf16 inputs, beside both bounds (the fp32 FMA pipes', the first
    design's, and the bf16 tensor cores', the row's own), the blocks of each
    of the kernel's passes and its device kernels per call; print the
-   wrapper's host microseconds per call.
+   wrapper's host microseconds per call.  Then the gradient: under grad the
+   wrapper's outputs carry one (the kernel's forward, a backward that
+   recomputes through ``ssd_chunked``), held against autograd through the
+   plain scan at (1, 512) and (2, 1,024) positions of 64 heads, fp32 and
+   bf16: y and the state within ``SSD_TOL``, the gradients bitwise, with
+   the train slice's backward device ms beside its forward's; and the
+   kernel timed at the train slice (2, 1024, 64, 64).
 2e. Hold the RMSNorm kernel's three entries against their plain versions
    at the main paths' (rows, width) (``RMSNORM_PATHS``): smollm-360m's
    (8, 960), (512, 960) and (4096, 960), zamba2's and xlstm-1.3b's (8,
    2048) and (512, 2048), and (8, 4096) and (512, 4096), whisper-tiny's
    (8, 384) and (12000, 384), internvl2-76b's (8, 8192) and (1536, 8192)
-   (the kernel's widest row), bf16 and fp32 (``TOL``; the
+   (the kernel's widest row), phases 13-14's train slices (2048, 2048),
+   (2048, 4096) gated and (32768, 128), bf16 and fp32 (``TOL``; the
    new residual of ``rmsnorm_add`` bitwise); the gated form (skip and gate
    folded into the out-norm) at the 4096-wide shapes, on views into
    zamba2's projections.  Time them in bf16 beside their plain versions
@@ -220,7 +227,8 @@ Phases (any failure raises and the script exits non-zero):
    decode-step host medians (not gated).
 4. Train full-width ``smollm-360m`` (seed 0, bf16 compute, both kernels)
    over a 1-rank NCCL group at seq 1024, global batch 8, 2 slices, remat:
-   the faithful program for 6 steps and ZeRO for 3, through
+   the faithful program for 3 steps and ZeRO for 2 (6 and 3 until phases
+   13-15 joined the script's time limit), through
    ``train.loop.train``.  Losses must be finite, and batch 0's loss after
    the faithful run below step 1's (on the same batch); the launch
    counts must equal ``steps`` (flat_adam), ``2 x 32 x 2 x steps``
@@ -360,7 +368,38 @@ Phases (any failure raises and the script exits non-zero):
    norms (``vlm_launches``), a second run's streams, logits within
    ``LOGIT_TOL`` in bf16 at 16 layers and fp32 at 2.  Prints tokens/s, the
    prefill's device ms beside its bound (operations), peak memory.
-13. Print the launches, device ms and idle share of the profiled dense,
+13. Train full-width ``zamba2-1.2b`` uncut (38 layers, ~1.2 x 10^9 fp32
+   parameters, bf16 compute, ``attn_impl="kernel"``) over a 1-rank NCCL
+   group through the faithful flat program: seq 1024, global batch 4 in 2
+   slices, remat, Adam, 4 steps.  Gates: finite losses and no skipped
+   step; batch 0's loss after the run below step 1's; the launches
+   ``ZT_STEPS`` (flat_adam), ``2 x 38 x 2 x steps`` (ssd and rmsnorm_gated:
+   forward and remat's recompute; the backward recomputes through the
+   plain versions), ``7 x 2 x steps`` (flash and rmsnorm_add: the shared
+   block, not rematted) and ``(2 x 38 + 7 + 1) x 2 x steps`` (rmsnorm); a
+   step on inf-poisoned parameters a bitwise no-op; a checkpoint round
+   trip; step 1 against the plain path (``attn_impl="chunked"``: plain
+   scan, norms and attention, plain Adam) in fp32 with TF32 off, loss
+   within 1e-4 and the gradient's norm within 1e-3 relative, on the first
+   segment (6 layers; the full depth printed).  Prints the step's host ms
+   (median, p90), tokens/s, peak memory, and a profiled step's device ms,
+   idle share and launches beside its bound; then times ``flat_adam`` at
+   the model's flat buffer beside its plain version and
+   ``torch.optim.Adam(fused=True)`` on buffers of that size.
+14. Train ``qwen3-moe-30b-a3b`` at full width and 2 of its 48 layers (~1.9 x
+   10^9 fp32 parameters) on the per-parameter path (the moe family's, as
+   the reference's) with its load-balance term: seq 512, global batch 4 in
+   2 slices, 3 steps, after every earlier model is freed.  Gates: finite
+   losses, batch 0's loss falling, no flat_adam launch, flash ``2 x 2 x 2 x
+   steps`` and the norms by formula, ``lb_loss`` finite and ``drop_frac``
+   in [0, 1] each step (printed), step 1 against the plain path in fp32
+   (loss 1e-4, gradient norm 1e-3 relative).  Prints phase 13's figures.
+15. Train ``whisper-tiny`` uncut (frames from ``SyntheticEmbeds``) and
+   ``xlstm-1.3b`` at full width and 8 of 48 layers (7 mLSTM, 1 sLSTM)
+   through the faithful program, seq 256, global batch 4 in 2 slices, 2
+   steps each.  Gates: finite losses, batch 0's loss falling, one flat_adam
+   launch a step.  Prints step times.
+16. Print the launches, device ms and idle share of the profiled dense,
    zamba, gemma2, stablelm, qwen3-moe and xlstm decode steps and zamba and
    xlstm prefills
    (the spec rounds' print with their phases), the seconds of each phase, the
@@ -420,12 +459,15 @@ TRAIN_SEQ, TRAIN_BATCH, TRAIN_SLICES = 1024, 8, 2
 # seq 1024), a zamba2-1.2b shared-block prefill at bucket 512 (rep 1), a
 # gemma2-27b prefill at bucket 512 and its long local-layer prefill at
 # bucket 8192 (window 4096), a stablelm-12b prefill (head dim 160) at
-# bucket 512 and at S 4096
+# bucket 512 and at S 4096, and the train slices of phases 13 (zamba2-1.2b's
+# shared block, 2 x 1024) and 14 (qwen3-moe-30b-a3b, 2 x 512, rep 8)
 FLASH_TIMING = (("serve", 1, 512, 15, 5, 64, 0), ("train", 4, 1024, 15, 5, 64, 0),
                 ("zamba", 1, 512, 32, 32, 64, 0), ("gemma2 serve", 1, 512, 32, 16, 128, 0),
                 ("gemma2 long", 1, 8192, 32, 16, 128, 4096),
                 ("stablelm serve", 1, 512, 32, 8, 160, 0),
-                ("stablelm long", 1, 4096, 32, 8, 160, 0))
+                ("stablelm long", 1, 4096, 32, 8, 160, 0),
+                ("zamba train", 2, 1024, 32, 32, 64, 0),
+                ("qwen3-moe train", 2, 512, 32, 4, 128, 0))
 SMOLLM_VOCAB = 49152
 
 N_LAYERS = 32
@@ -437,6 +479,10 @@ MAX_SLOTS = 8
 # largest entry plus a share of each entry (see the docstring, 2d)
 SSD_TOL = dict(scale=1e-4, rtol=1e-4)
 SSD_SHAPE = (1, 512, 64, 64, 1, 64)        # B, T, H, P, G, N: a zamba2 prefill
+# the scan under grad (kernel forward, plain recompute backward) vs autograd
+# through the plain scan: y and the state within SSD_TOL, the gradients
+# bitwise (the backward is the plain scan's autograd on the same inputs)
+SSD_GRAD_SHAPES = ((1, 512), (2, 1024))    # (B, T): a zamba2 prefill, a train slice
 # one full-width block, kernel path vs plain path, as a share of the
 # output's largest entry (see zamba_block_agreement)
 BLOCK_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
@@ -512,7 +558,8 @@ ZAMBA_D_INNER, ZAMBA_HEAD_DIM = 4096, 64
 # rows) and a bucket-512 prefill (its d_model, 2048, is zamba2's);
 # whisper-tiny's d_model (384) in a decode step of 8 rows and its encoder
 # prefill (8 x 1,500 frames); internvl2-76b's d_model (8192, the kernel's
-# widest) in a decode step and phase 12's prefill (4 x 384 positions)
+# widest) in a decode step and phase 12's prefill (4 x 384 positions); the
+# train slices of phases 13 and 14 (2 x 1,024 and 2 x 512 x 32 heads of 128)
 RMSNORM_PATHS = {(8, 960): "dense decode", (512, 960): "dense prefill",
                  (4096, 960): "dense train", (8, 4608): "gemma2 decode",
                  (512, 4608): "gemma2 prefill", (8, 2048): "zamba and xlstm decode",
@@ -523,7 +570,10 @@ RMSNORM_PATHS = {(8, 960): "dense decode", (512, 960): "dense prefill",
                  (512, 5120): "stablelm prefill", (256, 128): "qwen3-moe decode q-norm",
                  (16384, 128): "qwen3-moe prefill q-norm", (8, 384): "whisper decode",
                  (12000, 384): "whisper encoder prefill", (8, 8192): "internvl2 decode",
-                 (1536, 8192): "internvl2 prefill"}
+                 (1536, 8192): "internvl2 prefill",
+                 (2048, 2048): "zamba and qwen3-moe train slice",
+                 (2048, 4096): "zamba train slice (gated)",
+                 (32768, 128): "qwen3-moe train slice q-norm"}
 RMSNORM_SHAPES = tuple(RMSNORM_PATHS)
 # 2e times each call on inputs that are not in the card's 50 MB L2: the
 # timed calls rotate through copies of the inputs that hold at least this
@@ -923,6 +973,46 @@ def check_paged(torch, dev, results):
     results["paged_timing"] = timings
 
 
+ADAM_HYPER = dict(lr=1e-3, beta1=0.9, beta2=0.95, eps=1e-8)
+
+
+def adam_inputs(torch, gen, n):
+    """Flat fp32 p, g, m and v of n elements on the generator's device."""
+    dev = gen.device
+    p = torch.randn(n, generator=gen, device=dev) * 0.05
+    g = torch.randn(n, generator=gen, device=dev) * 1e-2
+    m = torch.randn(n, generator=gen, device=dev) * 1e-3
+    v = torch.rand(n, generator=gen, device=dev) * 1e-4
+    return p, g, m, v
+
+
+def adam_timing(torch, bufs) -> dict:
+    """The flat_adam kernel, its plain version and torch's fused Adam (a
+    yardstick the port never calls) on the same flat buffers, at step 1000
+    and wd 0, by CUDA events, beside the bytes bound."""
+    from repro_torch.kernels.flat_adam.ops import flat_adam
+    from repro_torch.kernels.flat_adam.ref import flat_adam_ref
+
+    n = bufs[0].numel()
+    dev = bufs[0].device
+    step = torch.tensor([1000], dtype=torch.int32, device=dev)
+    timing = dict(n=n, t=1000, wd=0.0, dtype="float32")
+    timing["bound_ms"], timing["bound_by"] = bound(14.0 * n, 28.0 * n, "float32")   # 14 flops, 28 bytes an element
+    timing["kernel_ms"] = time_ms(torch, lambda: flat_adam(*bufs, step, **ADAM_HYPER), 20)
+    timing["plain_ms"] = time_ms(torch, lambda: flat_adam_ref(*bufs, step, **ADAM_HYPER), 5)
+    # torch's fused Adam (its L2 weight decay differs from the decoupled
+    # form; with wd = 0 it is the same function), in place
+    p, g, m, v = bufs
+    w = torch.nn.Parameter(p.clone())
+    w.grad = g
+    lib = torch.optim.Adam([w], lr=ADAM_HYPER["lr"], betas=(0.9, 0.95), eps=1e-8,
+                           weight_decay=0.0, fused=True)
+    timing["library_ms"] = time_ms(torch, lib.step, 20)
+    timing["library"] = "torch.optim.Adam(fused=True), wd 0: the same function"
+    log(f"flat_adam timing {json.dumps(timing)}")
+    return timing
+
+
 def check_flat_adam(torch, dev, results):
     """flat_adam kernel vs its plain version over n, t, wd; times at the
     full flat buffer (kernel, plain, and torch's fused Adam as yardstick)."""
@@ -930,48 +1020,21 @@ def check_flat_adam(torch, dev, results):
     from repro_torch.kernels.flat_adam.ref import flat_adam_ref
 
     gen = torch.Generator(device=dev).manual_seed(3)
-    hyper = dict(lr=1e-3, beta1=0.9, beta2=0.95, eps=1e-8)
     rows = []
-
-    def inputs(n):
-        p = torch.randn(n, generator=gen, device=dev) * 0.05
-        g = torch.randn(n, generator=gen, device=dev) * 1e-2
-        m = torch.randn(n, generator=gen, device=dev) * 1e-3
-        v = torch.rand(n, generator=gen, device=dev) * 1e-4
-        return p, g, m, v
-
     for n in (512, 65_537, ADAM_N_FULL):
-        bufs = inputs(n)
+        bufs = adam_inputs(torch, gen, n)
         for t in (1, 1000):
             step = torch.tensor([t], dtype=torch.int32, device=dev)
             for wd in (0.0, 0.1):
-                got = flat_adam(*bufs, step, weight_decay=wd, **hyper)
+                got = flat_adam(*bufs, step, weight_decay=wd, **ADAM_HYPER)
                 torch.cuda.synchronize()
-                want = flat_adam_ref(*bufs, step, weight_decay=wd, **hyper)
+                want = flat_adam_ref(*bufs, step, weight_decay=wd, **ADAM_HYPER)
                 err = max(max_err(torch, a, b, "float32", ADAM_TOL) for a, b in zip(got, want))
                 rows.append(dict(n=n, t=t, wd=wd, max_abs_err=err))
                 log(f"flat_adam {json.dumps(rows[-1])}")
                 del got, want
-        if n != ADAM_N_FULL:
-            continue
-        step = torch.tensor([1000], dtype=torch.int32, device=dev)
-        timing = dict(n=n, t=1000, wd=0.0, dtype="float32")
-        timing["bound_ms"], timing["bound_by"] = bound(14.0 * n, 28.0 * n, "float32")   # 14 flops, 28 bytes an element
-        timing["kernel_ms"] = time_ms(torch, lambda: flat_adam(*bufs, step, **hyper), 20)
-        timing["plain_ms"] = time_ms(torch, lambda: flat_adam_ref(*bufs, step, **hyper), 5)
-        # yardstick the port never calls: torch's fused Adam on the same
-        # buffer (its L2 weight decay differs from the decoupled form;
-        # with wd = 0 it is the same function), in place
-        p, g, m, v = bufs
-        w = torch.nn.Parameter(p.clone())
-        w.grad = g
-        lib = torch.optim.Adam([w], lr=hyper["lr"], betas=(0.9, 0.95), eps=1e-8,
-                               weight_decay=0.0, fused=True)
-        timing["library_ms"] = time_ms(torch, lib.step, 20)
-        timing["library"] = "torch.optim.Adam(fused=True), wd 0: the same function"
-        results["flat_adam_timing"] = timing
-        log(f"flat_adam timing {json.dumps(timing)}")
-        del w, lib
+        if n == ADAM_N_FULL:
+            results["flat_adam_timing"] = adam_timing(torch, bufs)
     results["flat_adam_cases"] = rows
 
 
@@ -1070,17 +1133,100 @@ def check_ssd(torch, dev, results):
     results["ssd_cases"] = rows
     results["ssd_timing"] = ssd_timing(torch, dev, T, plain_iters=20, host=True)
     results["ssd_timing_2048"] = ssd_timing(torch, dev, 2048, plain_iters=5)
+    # the zamba2 train step's call: a slice of 2 sequences of 1,024
+    results["ssd_timing_train"] = ssd_timing(torch, dev, ZT_SEQ, B=ZT_BATCH // ZT_SLICES,
+                                             plain_iters=10)
+    results["ssd_grad"] = ssd_grad(torch, dev)
 
 
-def ssd_timing(torch, dev, T, *, plain_iters: int, host: bool = False) -> dict:
-    """Kernel and plain version at x (1, T, 64, 64) bf16 by device time per
+def ssd_leaves(torch, dev, dt, B, T, H, P, G, N, seed):
+    """Leaves that require grad: one (B, T, H*P + 2*G*N) buffer whose views
+    are x, B and C (as the Mamba2 block hands them over), dt and A."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    buf = torch.randn(B, T, H * P + 2 * G * N, generator=gen, device=dev).to(getattr(torch, dt))
+    d = torch.rand(B, T, H, generator=gen, device=dev) * 0.19 + 0.01
+    A = -(torch.rand(H, generator=gen, device=dev) * 1.5 + 0.5)
+    return [t.requires_grad_() for t in (buf, d, A)]
+
+
+def ssd_views(torch, leaves, H, P, G, N):
+    buf, d, A = leaves
+    B, T = buf.shape[:2]
+    x, bm, cm = torch.split(buf, [H * P, G * N, G * N], dim=-1)
+    return x.reshape(B, T, H, P), d, A, bm.reshape(B, T, G, N), cm.reshape(B, T, G, N)
+
+
+def ssd_grad(torch, dev) -> dict:
+    """The ``ssd`` wrapper under grad (the kernel's forward; the backward
+    recomputes through ``ssd_chunked``) against autograd through
+    ``ssd_chunked_ref``, at zamba2's heads and chunk, fp32 and bf16, at a
+    prefill and at the train step's slice (``SSD_GRAD_SHAPES``): y and the
+    final state within ``SSD_TOL`` (the kernel's forward at the train
+    step's shape), and the gradients for x, B and C (through the buffer
+    they are views of), dt and A bitwise, since the backward is the plain
+    scan's own.  Then the device ms of the zamba2 train call's backward
+    beside its forward's, and the plain forward's and backward's."""
+    from repro_torch.kernels.ssd.ops import ssd
+    from repro_torch.kernels.ssd.ref import ssd_chunked_ref
+
+    _, _, H, P, G, N = SSD_SHAPE
+    kernel = lambda *a: ssd(*a, chunk=256)
+    plain = lambda *a: ssd_chunked_ref(*a, chunk=256, return_state=True)
+    rows = []
+    for B, T in SSD_GRAD_SHAPES:
+        for dt in ("float32", "bfloat16"):
+            dy = torch.randn(B, T, H, P, device=dev,
+                             generator=torch.Generator(device=dev).manual_seed(T))
+            outs, grads = [], []
+            for fn in (kernel, plain):
+                leaves = ssd_leaves(torch, dev, dt, B, T, H, P, G, N, seed=B * T)
+                y, state = fn(*ssd_views(torch, leaves, H, P, G, N))
+                assert y.grad_fn is not None and state.grad_fn is not None
+                outs.append((y.detach(), state.detach()))
+                grads.append(torch.autograd.grad([y], leaves, [dy]))
+            torch.cuda.synchronize()
+            row = dict(x=[B, T, H, P], N=N, G=G, input_dtype=dt, tol=SSD_TOL, grad_tol=0.0)
+            for name, got, want in zip(("y", "state"), *outs):
+                row[name + "_max_abs"] = want.abs().max().item()
+                row[name + "_max_abs_err"] = max_err(
+                    torch, got, want, "float32",
+                    dict(atol=SSD_TOL["scale"] * row[name + "_max_abs"], rtol=SSD_TOL["rtol"]))
+            for name, got, want in zip(("d_xbc", "d_dt", "d_A"), *grads):
+                row[name + "_max_abs"] = want.float().abs().max().item()
+                row[name + "_max_abs_err"] = max_err(torch, got, want, dt,
+                                                     dict(atol=0.0, rtol=0.0))
+            rows.append(row)
+            log(f"ssd grad {json.dumps(row)}")
+            del outs, grads, dy
+    B, T = ZT_BATCH // ZT_SLICES, ZT_SEQ
+    leaves = ssd_leaves(torch, dev, "bfloat16", B, T, H, P, G, N, seed=1)
+    args = ssd_views(torch, leaves, H, P, G, N)
+    dy = torch.randn(B, T, H, P, device=dev)
+    y, _ = kernel(*args)
+    yp, _ = plain(*args)
+    with torch.no_grad():
+        fwd = lambda: kernel(*args)
+        plain_fwd = lambda: plain(*args)
+        timing = dict(x=[B, T, H, P], input_dtype="bfloat16", forward_ms=device_ms(torch, fwd),
+                      plain_forward_ms=device_ms(torch, plain_fwd, 10))
+    timing["backward_ms"] = device_ms(
+        torch, lambda: torch.autograd.grad([y], leaves, [dy], retain_graph=True), 10)
+    timing["plain_backward_ms"] = device_ms(
+        torch, lambda: torch.autograd.grad([yp], leaves, [dy], retain_graph=True), 10)
+    log(f"ssd grad timing {json.dumps(timing)}")
+    return dict(cases=rows, timing=timing)
+
+
+def ssd_timing(torch, dev, T, *, B: int = SSD_SHAPE[0], plain_iters: int,
+               host: bool = False) -> dict:
+    """Kernel and plain version at x (B, T, 64, 64) bf16 by device time per
     call, the kernel's device kernels by name, the blocks of each of its
     passes, and both bounds: the fp32 FMA pipes' (the first design's) and the
     bf16 tensor cores' (bytes at these shapes), the row's own."""
     from repro_torch.kernels.ssd.ops import ssd, ssd_plan
     from repro_torch.kernels.ssd.ref import ssd_chunked_ref
 
-    B, _, H, P, G, N = SSD_SHAPE
+    _, _, H, P, G, N = SSD_SHAPE
     args = ssd_inputs(torch, dev, "bfloat16", B, T, H, P, G, N, seed=1)
     timing = dict(x=[B, T, H, P], N=N, G=G, input_dtype="bfloat16", output="y, state fp32",
                   blocks=ssd_plan(B, T, H, N, P)["blocks"])
@@ -3810,11 +3956,11 @@ def same_bits(torch, a, b) -> bool:
 
 def train_run(torch, cfg, shape, group, opt, settings, steps):
     """``train.loop.train`` for ``steps`` steps; returns (result, per-step
-    wall ms, per-step loss).  The step times come from a synchronize in
-    ``on_step``: the program itself makes no host sync."""
+    wall ms, per-step loss, per-step metrics).  The step times come from a
+    synchronize in ``on_step``: the program itself makes no host sync."""
     from repro_torch.train import LoopConfig, train
 
-    times, losses = [], []
+    times, history = [], []
     torch.cuda.synchronize()
     t = [time.perf_counter()]
 
@@ -3823,51 +3969,61 @@ def train_run(torch, cfg, shape, group, opt, settings, steps):
         now = time.perf_counter()
         times.append((now - t[0]) * 1e3)
         t[0] = now
-        losses.append(metrics["loss"])
+        history.append(metrics)
 
     res = train(cfg, shape, group, opt, settings,
                 LoopConfig(steps=steps, ckpt_every=0, log_every=0, seed=0), on_step=on_step)
-    return res, times, [float(x) for x in losses]
+    history = [{k: float(v) for k, v in m.items()} for m in history]
+    return res, times, [m["loss"] for m in history], history
 
 
-def eval_loss(torch, cfg, params, shape, group) -> float:
-    """The loss of the stream's batch 0 under ``params``, in the train
-    step's slices (the mean of the slices' means, as the step reports)."""
+def eval_loss(torch, cfg, params, shape, group, slices: int = TRAIN_SLICES) -> float:
+    """The loss of the stream's batch 0 (with its frontend extra) under
+    ``params``, in the train step's slices (the mean of the slices' means,
+    as the step reports)."""
     from repro_torch.data import make_batch_fn
-    from repro_torch.models import lm
+    from repro_torch.models import registry
+    from repro_torch.train.step import to_device
 
-    toks = torch.as_tensor(make_batch_fn(cfg, shape, 0)(0)["tokens"], device=group.device)
+    batch = to_device(make_batch_fn(cfg, shape, 0)(0), group.device)
+    parts = [{k: v.chunk(slices)[i] for k, v in batch.items()} for i in range(slices)]
+    loss_fn = registry.get_module(cfg).loss_fn
     with torch.no_grad():
-        return float(sum(lm.loss_fn(cfg, params, {"tokens": t}, remat=False)[0]
-                         for t in toks.chunk(TRAIN_SLICES)) / TRAIN_SLICES)
+        return float(sum(loss_fn(cfg, params, mb, remat=False)[0] for mb in parts) / slices)
 
 
-def step_agreement(torch, base, group, opt, shape, settings):
+def step_agreement(torch, base, group, opt, shape, settings, dtypes=("float32", "bfloat16"),
+                   tol=STEP_TOL, label: str = "", gate: bool = True):
     """Step 1 from the same weights and batch through the kernel path
-    (flash + flat_adam kernel) and the plain path (chunked + plain Adam),
-    in fp32 compute with TF32 off and in bf16."""
+    (every kernel wrapper and, on the flat programs, the flat_adam kernel)
+    and the plain path (``attn_impl="chunked"``: chunked attention, the
+    plain scan and norms, plain Adam), in fp32 compute with TF32 off (and
+    in bf16 where ``dtypes`` has it); relative errors gated at ``tol`` (printed
+    only, without ``gate``)."""
     from repro_torch.data import make_batch_fn
-    from repro_torch.models import lm
+    from repro_torch.models import registry
     from repro_torch.train.step import build_train_step, opt_state_template
 
     batch = make_batch_fn(base, shape, 0)(0)
     out = {}
-    for dt in ("float32", "bfloat16"):
+    for dt in dtypes:
         runs = {}
         for path, impl, kern in (("kernel", "kernel", None), ("plain", "chunked", False)):
             cfg = dataclasses.replace(base, attn_impl=impl, compute_dtype=dt)
             st = dataclasses.replace(settings, flat_kernel=kern)
-            params = lm.init(cfg, seed=0, device=group.device)
+            params = registry.get_module(cfg).init(cfg, seed=0, device=group.device)
             step_fn = build_train_step(cfg, group, opt, st)
-            _, _, m = step_fn(params, opt_state_template(cfg, group, opt, st)(params), batch)
+            # the step's new state is dropped at once: only its metrics stay
+            m = step_fn(params, opt_state_template(cfg, group, opt, st)(params), batch)[2]
             runs[path] = {k: float(m[k]) for k in ("loss", "grad_norm")}
-            del params, m
+            del params, m, step_fn
+            free(torch)
         rel = {k: abs(runs["kernel"][k] - runs["plain"][k]) / abs(runs["plain"][k])
                for k in ("loss", "grad_norm")}
         out[dt] = dict(kernel=runs["kernel"], plain=runs["plain"], rel_err=rel,
-                       tolerance=STEP_TOL[dt])
-        log(f"step 1 agreement {dt}: {json.dumps(out[dt])}")
-        assert all(rel[k] <= STEP_TOL[dt][k] for k in rel), out[dt]
+                       tolerance=tol[dt], layers=base.n_layers)
+        log(f"step 1 agreement {label}{dt}: {json.dumps(out[dt])}")
+        assert not gate or all(rel[k] <= tol[dt][k] for k in rel), out[dt]
     return out
 
 
@@ -3879,7 +4035,8 @@ def skip_is_noop(torch, cfg, group, opt, settings, params, opt_state, batch) -> 
 
     layout = flat_layout_for(cfg)
     flat = flatten(layout, params).clone()
-    flat[0] = float("inf")                         # blocks/ln1[0, 0]
+    # ln_f's first element: every family reads it at every position
+    flat[layout.offsets[layout.paths.index(("ln_f",))]] = float("inf")
     bad = unflatten(layout, flat)
     before = {k: (v.clone() if torch.is_tensor(v) else
                   unflatten(layout, flatten(layout, v).clone())) for k, v in opt_state.items()}
@@ -3893,41 +4050,42 @@ def skip_is_noop(torch, cfg, group, opt, settings, params, opt_state, batch) -> 
 
 
 def checkpoint_roundtrip(torch, params, opt_state, tmp: Path) -> dict:
+    """Save the trainer's state and restore it: every leaf bitwise, each
+    restored leaf compared on the card with the one it was saved from."""
     from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.optim.flat import tree_leaves
 
     shutil.rmtree(tmp, ignore_errors=True)
     t = time.perf_counter()
     mgr = CheckpointManager(str(tmp), keep_k=1)
-    mgr.save(6, {"params": params, "opt": opt_state})
+    tree = {"params": params, "opt": opt_state}
+    mgr.save(6, tree)
     saved = time.perf_counter() - t
-    step, state = mgr.restore({"params": params, "opt": opt_state})
-    restored = {g: _to_torch(torch, tree) for g, tree in state.items()}
-    ok = step == 6 and same_bits(torch, _to_torch(torch, {"params": params, "opt": opt_state}),
-                                 restored)
+    step, state = mgr.restore(tree)
+    restored = dict(tree_leaves(state))
+    ok = step == 6 and all(
+        same_bits(torch, torch.as_tensor(restored.pop(path)).to(leaf.device), leaf)
+        for path, leaf in tree_leaves(tree)) and not restored
     shutil.rmtree(tmp, ignore_errors=True)
     out = dict(step=step, bitwise=ok, save_s=saved, total_s=time.perf_counter() - t)
     assert ok, out
     return out
 
 
-def _to_torch(torch, tree):
-    if isinstance(tree, dict):
-        return {k: _to_torch(torch, v) for k, v in tree.items()}
-    return tree.detach().cpu() if torch.is_tensor(tree) else torch.from_numpy(np.array(tree))
-
-
-def profile_train_step(torch, cfg, group, opt, settings, params, opt_state, batch):
-    """Device time of one faithful train step by kernel, from
-    ``torch.profiler`` (device activity only: the step dispatches some
-    10^5 ops, and host-side events would multiply the trace); the idle
-    share is taken against the same step run unprofiled."""
+def profile_train_step(torch, cfg, group, opt, settings, run: dict, batch):
+    """Device time of one train step by kernel, from ``torch.profiler``
+    (device activity only: the step dispatches some 10^5 ops, and
+    host-side events would multiply the trace); the idle share is taken
+    against the same step run unprofiled.  ``run`` (the loop's result) gives
+    up its ``params`` and ``opt_state``, so that the two steps hold no
+    third copy of the state."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.train.step import build_train_step
 
     step_fn = build_train_step(cfg, group, opt, settings)
     torch.cuda.synchronize()
     t = time.perf_counter()
-    p, o, _ = step_fn(params, opt_state, batch)
+    p, o, _ = step_fn(run.pop("params"), run.pop("opt_state"), batch)
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t) * 1e3
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -3971,15 +4129,16 @@ def train_path(torch, dev, results):
     group = init_group("nccl", 0, 1, f"tcp://127.0.0.1:{free_port()}", device=dev)
     out = {}
     try:
-        programs = (("faithful", TrainSettings(num_slices=TRAIN_SLICES, faithful=True), 6),
-                    ("zero", TrainSettings(num_slices=TRAIN_SLICES, flat_engine="zero"), 3))
+        programs = (("faithful", TrainSettings(num_slices=TRAIN_SLICES, faithful=True), 3),
+                    ("zero", TrainSettings(num_slices=TRAIN_SLICES, flat_engine="zero"), 2))
         launches = {}
         for name, settings, steps in programs:
             torch.cuda.reset_peak_memory_stats()
             kernels = (flat_adam, flash_attention, rmsnorm, rmsnorm_add)
             for k in kernels:
                 k.launches = 0
-            res, times, losses = train_run(torch, base, shape, group, opt, settings, steps)
+            res, times, losses, _ = train_run(torch, base, shape, group, opt, settings,
+                                              steps)
             launches[name] = {k.__name__: k.launches for k in kernels}
             warm = times[1:]
             row = dict(steps=steps, losses=losses, step_ms=times,
@@ -4014,7 +4173,7 @@ def train_path(torch, dev, results):
                     torch, res["params"], res["opt_state"], HERE / "build" / "ckpt_smoke")
                 log(f"train checkpoint: {json.dumps(row['checkpoint'])}")
                 results["train_profile"] = profile_train_step(
-                    torch, base, group, opt, settings, res["params"], res["opt_state"], batch)
+                    torch, base, group, opt, settings, res, batch)
             out[name] = row
             del res
         out["step1"] = step_agreement(torch, base, group, opt, shape, programs[0][1])
@@ -5013,6 +5172,270 @@ def vlm_path(torch, dev, results):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phases 13-15: the trainer on every family
+# ---------------------------------------------------------------------------
+
+# phase 13: zamba2-1.2b uncut, the faithful program, seq 1024, global batch
+# 4 in 2 slices, 4 steps
+ZT_SEQ, ZT_BATCH, ZT_SLICES, ZT_STEPS = 1024, 4, 2, 4
+ZT_FIRST_SEGMENT = 6          # the first segment's layers (one shared invocation)
+# phases 13-14: step 1, kernel path vs plain path, fp32 with TF32 off,
+# relative (the same fp32 arithmetic in another summation order)
+TRAIN_FP32_TOL = {"float32": dict(loss=1e-4, grad_norm=1e-3)}
+# phase 14: qwen3-moe-30b-a3b at full width and 2 of its 48 layers, the
+# per-parameter path, seq 512, global batch 4 in 2 slices, 3 steps
+MT_LAYERS, MT_SEQ, MT_BATCH, MT_SLICES, MT_STEPS = 2, 512, 4, 2, 3
+# phase 15: whisper-tiny uncut and xlstm-1.3b at 8 of 48 layers (7 mLSTM,
+# 1 sLSTM), the faithful program, seq 256, global batch 4 in 2 slices, 2
+# steps each
+FT_SEQ, FT_BATCH, FT_SLICES, FT_STEPS = 256, 4, 2, 2
+XT_LAYERS = 8
+
+
+def train_kernels():
+    """Every kernel wrapper a train step can launch."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flat_adam.ops import flat_adam
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_add, rmsnorm_gated
+    from repro_torch.kernels.ssd.ops import ssd
+
+    return (flat_adam, flash_attention, ssd, rmsnorm, rmsnorm_add, rmsnorm_gated)
+
+
+def causal_pairs(S: int) -> int:
+    return S * (S + 1) // 2
+
+
+def zamba_train_work(cfg, tokens: int, seqs: int, n_flat: int) -> tuple[float, float]:
+    """(flops, bytes) of one zamba2 train step: 6 flops a matmul weight a
+    token (forward and backward), 2 more for each Mamba2 weight (remat's
+    recomputed forward), the shared block's causal attention 3 times its
+    forward; bytes: the flat Adam pass (p, g, m, v read, p, m, v written).
+    The scan's own work (~2% of the products) is left out."""
+    D, V, F_ = cfg.d_model, cfg.vocab, cfg.d_ff
+    d_inner = cfg.ssm.expand * D
+    H = d_inner // cfg.ssm.head_dim
+    d_proj = 2 * d_inner + 2 * cfg.ssm.n_groups * cfg.ssm.state + H
+    mamba = cfg.n_layers * (D * d_proj + d_inner * D)
+    shared = ZAMBA_SHARED * (2 * D * D + 4 * D * D + 3 * D * F_)
+    attn = ZAMBA_SHARED * 4 * cfg.head_dim * cfg.n_heads * causal_pairs(tokens // seqs) * seqs
+    flops = 6.0 * tokens * (mamba + shared + D * V) + 2.0 * tokens * mamba + 3.0 * attn
+    return flops, 28.0 * n_flat
+
+
+def moe_train_work(cfg, tokens: int, seqs: int, kept: float, n_params: int) -> tuple[float, float]:
+    """(flops, bytes) of one qwen3-moe train step: 8 flops a weight a token
+    read (forward, backward and remat's recomputed forward) for the
+    attention projections and the router, each kept choice's expert SwiGLU
+    (``kept``: the share of the step's choices capacity kept), 6 for the
+    unembedding, causal attention 4 times its forward; bytes: Adam over every
+    parameter (28 a parameter)."""
+    D, V, dh = cfg.d_model, cfg.vocab, cfg.head_dim
+    H, Hk, E, F_, K = cfg.n_heads, cfg.n_kv, cfg.moe.num_experts, cfg.moe.d_expert, cfg.moe.top_k
+    dense = cfg.n_layers * (2 * D * H * dh + 2 * D * Hk * dh + D * E)
+    experts = cfg.n_layers * K * kept * 3 * D * F_
+    attn = cfg.n_layers * 4 * dh * H * causal_pairs(tokens // seqs) * seqs
+    flops = 8.0 * tokens * (dense + experts) + 6.0 * tokens * D * V + 4.0 * attn
+    return flops, 28.0 * n_params
+
+
+def family_train(torch, group, cfg, shape, opt, settings, steps: int, want: dict, label: str):
+    """``train.loop.train`` of ``cfg`` for ``steps`` steps on ``group``.
+    Gates: finite losses, no skipped step, the launches ``want`` ({wrapper:
+    count}), and batch 0's loss after the run below step 1's.  Returns
+    (row, the loop's result)."""
+    kernels = train_kernels()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels:
+        k.launches = 0
+    res, times, losses, history = train_run(torch, cfg, shape, group, opt, settings, steps)
+    launches = {k.__name__: k.launches for k in kernels}
+    warm = times[1:] or times
+    row = dict(arch=label, layers=cfg.n_layers, seq=shape.seq_len, batch=shape.global_batch,
+               slices=settings.num_slices, steps=steps, losses=losses, metrics=history,
+               step_ms=times, step_ms_median=float(np.median(warm)),
+               step_ms_p90=float(np.percentile(warm, 90)),
+               tokens_per_s=shape.seq_len * shape.global_batch / (np.median(warm) / 1e3),
+               max_memory_allocated=torch.cuda.max_memory_allocated(),
+               skipped_steps=res["skipped_steps"], launches=launches, launches_expected=want)
+    row["batch0_loss_after"] = eval_loss(torch, cfg, res["params"], shape, group,
+                                         settings.num_slices)
+    log(f"train {label}: {json.dumps(row)}")
+    log(f"train {label}: batch 0 loss {losses[0]:.4f} at step 1, "
+        f"{row['batch0_loss_after']:.4f} after {steps} steps")
+    assert all(np.isfinite(losses)) and res["skipped_steps"] == 0, row
+    assert all(launches[k] == n for k, n in want.items()), row
+    assert row["batch0_loss_after"] < losses[0], row
+    return row, res
+
+
+def n_params(tree) -> int:
+    from repro_torch.optim.flat import tree_leaves
+
+    return sum(t.numel() for _, t in tree_leaves(tree))
+
+
+def zamba_train_path(torch, dev, results):
+    """Phase 13: full-width zamba2-1.2b (38 layers, uncut) trained through
+    the faithful flat program over a 1-rank NCCL group.  Returns the
+    launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import make_batch_fn
+    from repro_torch.launch.mesh import init_group
+    from repro_torch.models import zamba
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import TrainSettings
+    from repro_torch.train.step import flat_layout_for
+
+    free(torch)
+    base = dataclasses.replace(get_config("zamba2-1.2b"), attn_impl="kernel")
+    L, Sh = base.n_layers, zamba.n_shared_invocations(base)
+    assert (L, Sh) == (ZAMBA_LAYERS, ZAMBA_SHARED) and base.compute_dtype == "bfloat16"
+    shape = ShapeConfig("chip-smoke-zamba", "train", ZT_SEQ, ZT_BATCH)
+    settings = TrainSettings(num_slices=ZT_SLICES, faithful=True)
+    opt = OptConfig(kind="adam")
+    per = ZT_SLICES * ZT_STEPS
+    # per slice: each Mamba2 layer's scan, ln and gated out-norm in the
+    # forward and remat's recomputed forward (the backward recomputes
+    # through the plain versions); the shared block's flash, ln1 and ln2
+    # once an invocation (not rematted); ln_f once
+    want = dict(flat_adam=ZT_STEPS, ssd=2 * L * per, flash_attention=Sh * per,
+                rmsnorm=(2 * L + Sh + 1) * per, rmsnorm_add=Sh * per,
+                rmsnorm_gated=2 * L * per)
+    group = init_group("nccl", 0, 1, f"tcp://127.0.0.1:{free_port()}", device=dev)
+    try:
+        row, res = family_train(torch, group, base, shape, opt, settings, ZT_STEPS, want,
+                                "zamba2-1.2b")
+        n_flat = flat_layout_for(base).total
+        row["params"] = n_params(res["params"])
+        row["flat_total"] = n_flat
+        batch = make_batch_fn(base, shape, 0)(ZT_STEPS)
+        row["skip"] = skip_is_noop(torch, base, group, opt, settings, res["params"],
+                                   res["opt_state"], batch)
+        log(f"train zamba2-1.2b skip step: {json.dumps(row['skip'])}")
+        row["checkpoint"] = checkpoint_roundtrip(torch, res["params"], res["opt_state"],
+                                                 HERE / "build" / "ckpt_smoke")
+        log(f"train zamba2-1.2b checkpoint: {json.dumps(row['checkpoint'])}")
+        prof = profile_train_step(torch, base, group, opt, settings, res, batch)
+        del res
+        free(torch)
+        # flat_adam at this flat buffer beside its plain version and fused
+        # Adam, on buffers of its size (the trainer's are freed)
+        bufs = adam_inputs(torch, torch.Generator(device=dev).manual_seed(3), n_flat)
+        row["adam_timing"] = adam_timing(torch, bufs)
+        del bufs
+        free(torch)
+        flops, nbytes = zamba_train_work(base, ZT_SEQ * ZT_BATCH, ZT_BATCH, n_flat)
+        bound_ms, bound_by = bound(flops, nbytes, "bfloat16")
+        row["bound"] = dict(flops=flops, bytes=nbytes, bound_ms=bound_ms, bound_by=bound_by)
+        row["profile"] = prof
+        log(f"train zamba2-1.2b step bound: {json.dumps(row['bound'])}")
+        # step 1, kernel path vs plain path in fp32: the first segment
+        # gated, the whole depth printed
+        row["step1_first_segment"] = step_agreement(
+            torch, dataclasses.replace(base, n_layers=ZT_FIRST_SEGMENT), group, opt, shape,
+            settings, dtypes=("float32",), tol=TRAIN_FP32_TOL, label="zamba2 first segment ")
+        row["step1_full_depth"] = step_agreement(
+            torch, base, group, opt, shape, settings, dtypes=("float32",), tol=TRAIN_FP32_TOL,
+            label="zamba2 full depth ", gate=False)
+    finally:
+        group.close()
+    results["zamba_train"] = row
+    return row["launches"]
+
+
+def moe_train_path(torch, dev, results):
+    """Phase 14: qwen3-moe-30b-a3b at full width, 2 of its 48 layers,
+    trained on the per-parameter path with its load-balance term.
+    Returns the launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import make_batch_fn
+    from repro_torch.launch.mesh import init_group
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import TrainSettings
+    from repro_torch.train.step import flat_engine_mode
+
+    free(torch)
+    log(f"phase 14: {torch.cuda.memory_allocated() / 1e9:.3f} GB allocated at entry")
+    base = dataclasses.replace(get_config("qwen3-moe-30b-a3b"), n_layers=MT_LAYERS,
+                               attn_impl="kernel")
+    assert base.family == "moe" and base.qk_norm
+    shape = ShapeConfig("chip-smoke-moe", "train", MT_SEQ, MT_BATCH)
+    settings = TrainSettings(num_slices=MT_SLICES)
+    opt = OptConfig(kind="adam")
+    L, per = base.n_layers, MT_SLICES * MT_STEPS
+    # per slice: each block's flash, ln1, q- and k-norm and ln2 (with its
+    # add) in the forward and remat's recomputed forward; ln_f once
+    want = dict(flat_adam=0, ssd=0, rmsnorm_gated=0, flash_attention=2 * L * per,
+                rmsnorm=(2 * 3 * L + 1) * per, rmsnorm_add=2 * L * per)
+    group = init_group("nccl", 0, 1, f"tcp://127.0.0.1:{free_port()}", device=dev)
+    try:
+        assert flat_engine_mode(base, group, opt, settings) is None
+        row, res = family_train(torch, group, base, shape, opt, settings, MT_STEPS, want,
+                                "qwen3-moe-30b-a3b")
+        row["params"] = n_params(res["params"])
+        for i, m in enumerate(row["metrics"]):
+            log(f"train qwen3-moe step {i + 1}: loss {m['loss']:.4f} ce {m['ce_loss']:.4f} "
+                f"lb_loss {m['lb_loss']:.4f} drop_frac {m['drop_frac']:.4f}")
+            assert 0.0 <= m["drop_frac"] <= 1.0 and np.isfinite(m["lb_loss"]), m
+        batch = make_batch_fn(base, shape, 0)(MT_STEPS)
+        prof = profile_train_step(torch, base, group, opt, settings, res, batch)
+        del res
+        free(torch)
+        kept = 1.0 - float(np.mean([m["drop_frac"] for m in row["metrics"]]))
+        flops, nbytes = moe_train_work(base, MT_SEQ * MT_BATCH, MT_BATCH, kept, row["params"])
+        bound_ms, bound_by = bound(flops, nbytes, "bfloat16")
+        row["bound"] = dict(flops=flops, bytes=nbytes, kept=kept, bound_ms=bound_ms,
+                            bound_by=bound_by)
+        row["profile"] = prof
+        log(f"train qwen3-moe step bound: {json.dumps(row['bound'])}")
+        row["step1"] = step_agreement(torch, base, group, opt, shape, settings,
+                                      dtypes=("float32",), tol=TRAIN_FP32_TOL,
+                                      label="qwen3-moe ")
+    finally:
+        group.close()
+    results["moe_train"] = row
+    return row["launches"]
+
+
+def frontier_train_path(torch, dev, results):
+    """Phase 15: whisper-tiny uncut and xlstm-1.3b at full width and 8 of
+    48 layers through the faithful program.  Returns {family: launch
+    counts}."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import init_group
+    from repro_torch.models import xlstm_lm
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import TrainSettings
+
+    free(torch)
+    whisper = dataclasses.replace(get_config("whisper-tiny"), attn_impl="kernel")
+    assert whisper.n_layers == whisper.enc_layers == WHISPER_LAYERS
+    xlstm = dataclasses.replace(get_config("xlstm-1.3b"), n_layers=XT_LAYERS, attn_impl="kernel")
+    assert xlstm_lm._layout(xlstm) == (1, 7, 1)            # 7 mLSTM blocks, then 1 sLSTM
+    settings = TrainSettings(num_slices=FT_SLICES, faithful=True)
+    opt = OptConfig(kind="adam")
+    out, launches = {}, {}
+    group = init_group("nccl", 0, 1, f"tcp://127.0.0.1:{free_port()}", device=dev)
+    try:
+        for label, cfg in (("whisper-tiny", whisper), ("xlstm-1.3b", xlstm)):
+            shape = ShapeConfig(f"chip-smoke-{label}", "train", FT_SEQ, FT_BATCH)
+            row, res = family_train(torch, group, cfg, shape, opt, settings, FT_STEPS,
+                                    dict(flat_adam=FT_STEPS), label)
+            row["params"] = n_params(res["params"])
+            del res
+            free(torch)
+            out[label], launches[label] = row, row["launches"]
+    finally:
+        group.close()
+    results["frontier_train"] = out
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -5093,6 +5516,9 @@ def main() -> int:
     xlstm_counts = phase("10 xlstm serve", xlstm_path)
     whisper_counts = phase("11 whisper static", whisper_path)
     vlm_counts = phase("12 internvl2 static", vlm_path)
+    zamba_train_counts = phase("13 zamba train", zamba_train_path)
+    moe_train_counts = phase("14 qwen3-moe train", moe_train_path)
+    frontier_train_counts = phase("15 whisper and xlstm train", frontier_train_path)
     results["phase_s"] = phase_s
     results["seconds"] = time.perf_counter() - t_start
 
@@ -5127,11 +5553,28 @@ def main() -> int:
     # phases 10-12: each kernel row's launches on the three frontier paths
     later = {name: dict(xlstm_launches=xlstm_counts.get(name, 0),
                         whisper_launches=whisper_counts.get(name, 0),
-                        vlm_launches=vlm_counts.get(name, 0)) for name in names}
+                        vlm_launches=vlm_counts.get(name, 0),
+                        zamba_train_launches=zamba_train_counts.get(name, 0),
+                        moe_train_launches=moe_train_counts.get(name, 0),
+                        whisper_train_launches=frontier_train_counts["whisper-tiny"].get(name, 0),
+                        xlstm_train_launches=frontier_train_counts["xlstm-1.3b"].get(name, 0))
+             for name in names}
     wide_keys = ("q", "lengths", "ms", "ms_events", "plain_ms", "bound_ms", "bound_by",
                  "n_split", "device_kernels_per_call")
     fa = results["flat_adam_timing"]
     sd = results["ssd_timing"]
+    # flat_adam at zamba2-1.2b's flat buffer: its device time from phase
+    # 13's profiled step (one launch a step), and by CUDA events beside its
+    # plain version's, fused Adam's and its bytes bound
+    zt = results["zamba_train"]
+    adam_n = zt["flat_total"]
+    at = zt["adam_timing"]
+    adam_zamba = dict(n=adam_n, ms=None, kernel_ms_events=at["kernel_ms"],
+                      plain_ms=at["plain_ms"], library_ms=at["library_ms"],
+                      bound_ms=at["bound_ms"], bound_by=at["bound_by"])
+    if zt["profile"]:
+        adam_zamba["ms"] = sum(k["ms"] for k in zt["profile"]["port_kernels"]
+                               if "flat_adam_kernel" in k["name"]) or None
     # each row carries its time as kernel_ms and, for the chip check's
     # reader, as ms (the same number)
     kernels = [
@@ -5182,6 +5625,10 @@ def main() -> int:
              frontend_max_abs_err={dt: max(r["max_abs_err"] for r in results["flash_cases"]
                                            if "Sq" in r and r["dtype"] == dt)
                                    for dt in ("bfloat16", "float32")},
+             train_shapes={n: {k: fl[n][k] for k in ("q", "kv", "ms", "ms_events", "plain_ms",
+                                                     "library_ms", "bound_ms", "bound_by",
+                                                     "max_abs_err")}
+                           for n in ("zamba train", "qwen3-moe train")},
              **later["flash_attention"]),
         dict(name="paged_attention", route="cuda",
              source="src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
@@ -5228,6 +5675,7 @@ def main() -> int:
              max_abs_err=max(r["max_abs_err"] for r in results["flat_adam_cases"]),
              kernel_ms=fa["kernel_ms"], ms=fa["kernel_ms"], plain_ms=fa["plain_ms"],
              bound_ms=fa["bound_ms"], bound_by=fa["bound_by"], library_ms=fa["library_ms"],
+             train_shapes={"zamba train": adam_zamba},
              **later["flat_adam"]),
         dict(name="ssd", route="cuda", source="src/repro_torch/kernels/ssd/csrc/ssd.cu",
              replaces="src/repro/kernels/ssd/kernel.py:23",
@@ -5245,6 +5693,17 @@ def main() -> int:
              host_us_per_call=sd["host_us_per_call"],
              t2048={k: results["ssd_timing_2048"][k]
                     for k in ("ms", "plain_ms", "bound_ms", "bound_fma_ms", "blocks")},
+             train_shapes={"zamba train": {
+                 **{k: results["ssd_timing_train"][k]
+                    for k in ("x", "ms", "ms_events", "plain_ms", "bound_ms", "bound_by")},
+                 "max_abs_err": {r["input_dtype"]: max(r["y_max_abs_err"], r["state_max_abs_err"])
+                                 for r in results["ssd_grad"]["cases"]
+                                 if r["x"][:2] == [ZT_BATCH // ZT_SLICES, ZT_SEQ]},
+                 "backward_ms": results["ssd_grad"]["timing"]["backward_ms"],
+                 "plain_backward_ms": results["ssd_grad"]["timing"]["plain_backward_ms"]}},
+             grad_max_abs_err={dt: max(r[g + "_max_abs_err"] for r in results["ssd_grad"]["cases"]
+                                       if r["input_dtype"] == dt for g in ("d_xbc", "d_dt", "d_A"))
+                               for dt in ("float32", "bfloat16")},
              **later["ssd"]),
     ]
     rn = {(t["kernel"], *t["shape"]): t for t in results["rmsnorm_timing"]}
@@ -5304,6 +5763,13 @@ def main() -> int:
                                                                  "bound_ms")))}
     results["step_profiles"] = steps
     log(f"profiled steps: {json.dumps(steps)}")
+    train_keys = ("step_ms_unprofiled", "device_busy_ms", "device_idle_share", "kernel_launches")
+    train_steps = {name: prof and {k: prof[k] for k in train_keys}
+                   for name, prof in (("dense train step (4)", results["train_profile"]),
+                                      ("zamba train step (13)", zt["profile"]),
+                                      ("qwen3-moe train step (14)",
+                                       results["moe_train"]["profile"]))}
+    log(f"profiled train steps: {json.dumps(train_steps)}")
     results["kernels"] = kernels
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "results.json").write_text(json.dumps(results, indent=1))

@@ -8,6 +8,15 @@ P)`` fp32 and the final state ``(B, H, N, P)`` fp32, the contract of
 kernel's own layout — x ``(B, H, T, P)``, dt ``(B, H, T)``, Bm/Cm ``(B, G,
 T, N)`` — and returns y in x's dtype, as the TPU kernel does.
 
+``ssd`` is differentiable in x, dt, A, B and C: where grad is on and an
+input requires it, it goes through :class:`_Ssd`, whose forward is the
+launch below and whose backward recomputes through the plain
+``ssd_chunked_ref`` under autograd (the pairing ``flash_attention`` and the
+norms use; neither package has a backward kernel for the scan).  The final
+state's gradient may be absent (training reads only y).  With grad off
+(serving) it launches directly, with no autograd cost.  ``ssd_fwd`` has no
+backward: on a CUDA tensor that requires grad it raises.
+
 On a CUDA tensor both launch the hand-written sm_90a kernels
 (``csrc/ssd.cu``) on PyTorch's current stream, reading every input through
 its strides (the model's x, B and C are views into the conv output: no
@@ -127,10 +136,9 @@ def _launch(x, dt, A, Bm, Cm, y, state, *, seq_axis: int):
     ssd.launches += 1
 
 
-def ssd(x, dt, A, Bm, Cm, *, chunk: int):
-    """Model layout; returns ``(y fp32 (B,T,H,P), final state fp32
-    (B,H,N,P))``."""
-    _check(x, dt, A, Bm, Cm, seq_axis=1)
+def _ssd(x, dt, A, Bm, Cm, *, chunk: int):
+    """The forward of :func:`ssd`: the plain scan on a CPU tensor, the
+    kernels on a CUDA one."""
     if x.device.type == "cpu":
         return ssd_chunked_ref(x, dt, A, Bm, Cm, chunk=chunk, return_state=True)
     B, T, H, P = x.shape
@@ -140,10 +148,51 @@ def ssd(x, dt, A, Bm, Cm, *, chunk: int):
     return y, state
 
 
+class _Ssd(torch.autograd.Function):
+    """:func:`_ssd` forward; backward through ``ssd_chunked_ref`` at the same
+    ``chunk``, for the inputs that need a gradient.  Either output's
+    gradient may be None (not materialised)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, chunk):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, A, Bm, Cm)
+        ctx.chunk = chunk
+        return _ssd(x, dt, A, Bm, Cm, chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        need = ctx.needs_input_grad[:5]
+        pairs = [(o, g) for o, g in zip((0, 1), (dy, dstate)) if g is not None]
+        if not pairs:
+            return (None,) * 6
+        with torch.enable_grad():
+            xs = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, need)]
+            outs = ssd_chunked_ref(*xs, chunk=ctx.chunk, return_state=True)
+            grads = iter(torch.autograd.grad([outs[o] for o, _ in pairs],
+                                             [t for t, n in zip(xs, need) if n],
+                                             [g for _, g in pairs], allow_unused=True))
+        return (*(next(grads) if n else None for n in need), None)
+
+
+def ssd(x, dt, A, Bm, Cm, *, chunk: int):
+    """Model layout; returns ``(y fp32 (B,T,H,P), final state fp32
+    (B,H,N,P))``, differentiable in every input (see the module's note)."""
+    _check(x, dt, A, Bm, Cm, seq_axis=1)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, A, Bm, Cm)):
+        return _Ssd.apply(x, dt, A, Bm, Cm, chunk)
+    return _ssd(x, dt, A, Bm, Cm, chunk=chunk)
+
+
 def ssd_fwd(x, dt, A, Bm, Cm, *, chunk: int = 128):
     """The TPU kernel's layout: x (B,H,T,P), dt (B,H,T), Bm/Cm (B,G,T,N).
-    Returns y (B,H,T,P) in x.dtype."""
+    Returns y (B,H,T,P) in x.dtype.  Forward only: a CUDA input that
+    requires grad raises (the model's path is :func:`ssd`)."""
     _check(x, dt, A, Bm, Cm, seq_axis=2)
+    if x.device.type == "cuda" and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, A, Bm, Cm)):
+        raise ValueError("ssd_fwd has no backward on a CUDA tensor; the model "
+                         "layout's ssd(...) does")
     if x.device.type == "cpu":
         t = lambda a: a.transpose(1, 2)
         return t(ssd_chunked_ref(t(x), t(dt), A, t(Bm), t(Cm), chunk=chunk)).to(x.dtype)

@@ -3,10 +3,19 @@
 
     python -m repro_torch.launch.train --arch smollm-360m --faithful \\
         --seq-len 1024 --global-batch 8 --steps 6
-    python -m repro_torch.launch.train --arch smollm-360m --smoke \\
-        --device cpu --faithful --steps 3
+    python -m repro_torch.launch.train --arch zamba2-1.2b --faithful \\
+        --seq-len 1024 --global-batch 4 --slices 2 --steps 4
+    python -m repro_torch.launch.train --arch qwen3-moe-30b-a3b --smoke \\
+        --device cpu --steps 3
     torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
         --arch smollm-360m --mesh local --faithful --seq-len 1024 --global-batch 16
+
+Every id of ``ARCH_IDS`` trains, each family through its module's
+``loss_fn``: the flat programs (``--faithful``, ``--flat-engine zero``) for
+every family but ``moe``, which takes the per-parameter path (as the
+reference's) and adds its load-balance term to the loss.  The audio and
+vlm families' batches carry their frontend stubs (``frames``,
+``patch_embeds``), split with the tokens.
 
 ``--mesh local`` joins the group ``torchrun`` describes (NCCL on cuda,
 gloo on cpu) and is one worker without it; ``--mesh single`` is always one

@@ -44,8 +44,9 @@ the block's ``router``, ``wg_e``, ``wu_e`` and ``wd_e`` on every path that
 runs an FFN (prefill, a chunked-prefill continuation, decode); the router
 stays in its stored dtype, as the reference reads it in fp32.  Each call
 routes every row it is given: a bucket's padding, a chunk's own length,
-all of a decode step's lanes.  Training it (``loss_fn``, with the
-reference's ``lb_loss`` term) is not ported yet.
+all of a decode step's lanes.  :func:`loss_fn` adds the reference's
+load-balance term, ``1e-2 * lb_loss / n_layers``; the family trains on the
+per-parameter path (``train.step.flat_engine_mode``), as the reference's.
 
 VLM (``cfg.family == "vlm"``): the vision frontend is a stub, as in the
 reference.  ``img_proj`` projects precomputed patch embeddings (B,
@@ -412,23 +413,20 @@ def loss_fn(cfg: ArchConfig, params, batch, *, remat=True):
     """Next-token loss on ``batch["tokens"]`` (B, S + 1) (and, for the vlm
     family, ``batch["patch_embeds"]``: the loss reads the hidden states
     from the last image position on, ``[N - 1, N - 1 + S)``).  Returns
-    ``(total, {"ce_loss", "lb_loss", "drop_frac"})``; the load-balance
-    loss and drop fraction are 0 for dense models, so total == ce_loss.
-    MoE training (the reference adds its ``lb_loss`` term) is not ported
-    yet."""
-    if cfg.moe.num_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: training the moe family (with its load-balance "
-            "loss) arrives with the MoE training slice of the port")
+    ``(total, {"ce_loss", "lb_loss", "drop_frac"})``, the reference's:
+    ``total = ce_loss + 1e-2 * lb_loss / n_layers`` with the MoE layers'
+    ``lb_loss`` summed and ``drop_frac`` their maximum (both 0 for the
+    other families, so total == ce_loss)."""
     tokens = batch["tokens"]
     inp, labels = tokens[:, :-1], tokens[:, 1:]
-    hidden, _ = forward(cfg, params, inp, batch.get("patch_embeds"), remat=remat)
+    aux: dict = {}
+    hidden, _ = forward(cfg, params, inp, batch.get("patch_embeds"), remat=remat, aux=aux)
     if cfg.family == "vlm":
         n = cfg.frontend_tokens
         hidden = hidden[:, n - 1: n - 1 + labels.shape[1]]
     loss = cross_entropy_loss(unembed(cfg, params, hidden), labels)
-    zero = torch.zeros((), dtype=torch.float32, device=loss.device)
-    return loss, {"ce_loss": loss, "lb_loss": zero, "drop_frac": zero}
+    total = loss + 1e-2 * aux["lb_loss"] / max(cfg.n_layers, 1)
+    return total, {"ce_loss": loss, "lb_loss": aux["lb_loss"], "drop_frac": aux["drop_frac"]}
 
 
 # ---------------------------------------------------------------------------

@@ -221,7 +221,8 @@ def _w(bp, name, cfg):
 
 def _ssd(cfg: ArchConfig, xh, dtv, A, bm, cm):
     """The prefill scan with its final state: the CUDA kernel's wrapper
-    under ``attn_impl="kernel"``, else :func:`ssd_chunked`."""
+    under ``attn_impl="kernel"`` (differentiable: its backward recomputes
+    through the plain scan), else :func:`ssd_chunked`."""
     if cfg.attn_impl == "kernel":
         from repro_torch.kernels.ssd.ops import ssd
         return ssd(xh, dtv, A, bm, cm, chunk=cfg.ssm.chunk)

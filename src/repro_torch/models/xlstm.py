@@ -80,7 +80,7 @@ def mlstm_chunked(q, k, v, i_pre, f_pre, *, chunk: int, return_state: bool = Fal
     qc, kc, vc = chunks(qf), chunks(k.float()), chunks(v.float())
     lfc = logf.reshape(B, nc, Q, H).permute(1, 0, 3, 2)    # (nc,B,H,Q)
     lic = logi.reshape(B, nc, Q, H).permute(1, 0, 3, 2)
-    mask = torch.ones(Q, Q, dtype=torch.bool, device=q.device).tril()
+    above = torch.ones(Q, Q, dtype=torch.bool, device=q.device).triu(1)
 
     Cs = torch.zeros(B, H, Dh, Dh, dtype=torch.float32, device=q.device)
     ns = torch.zeros(B, H, Dh, dtype=torch.float32, device=q.device)
@@ -93,10 +93,12 @@ def mlstm_chunked(q, k, v, i_pre, f_pre, *, chunk: int, return_state: bool = Fal
         gmax = torch.cummax(g, dim=-1).values
         M = b + torch.maximum(ms[..., None], gmax)         # (B,H,Q) row stabiliser
 
-        # intra: w[t,s] = exp(b_t - b_s + li_s - M_t), s <= t (a select:
-        # above the diagonal the exponent may overflow)
-        w = torch.exp(b[..., :, None] - b[..., None, :] + li[..., None, :] - M[..., :, None])
-        w = torch.where(mask, w, 0.0)
+        # intra: w[t,s] = exp(b_t - b_s + li_s - M_t), s <= t.  Above the
+        # diagonal the exponent may overflow: it is set to -inf before the
+        # exp, so w is 0 there and the backward never multiplies a zero
+        # gradient by inf
+        e = b[..., :, None] - b[..., None, :] + li[..., None, :] - M[..., :, None]
+        w = torch.exp(e.masked_fill(above, float("-inf")))
         scores = (qi @ ki.transpose(-1, -2)) * w
         num = scores @ vi
         den = scores.sum(dim=-1)

@@ -3,7 +3,7 @@ a single *shared* transformer block (attention + MLP) applied every
 ``attn_every`` layers, taking concat(hidden, original embedding) as input
 (Zamba's global skip), projected back to d_model.
 
-The port of the reference's ``models/zamba.py`` for serving.  Parameters
+The port of the reference's ``models/zamba.py``.  Parameters
 keep the reference's tree (Mamba2 layers stacked on axis 0), so a
 converted JAX tree loads unchanged.  As in ``lm.py``, compute-dtype weight
 copies are made once (:func:`cast_for_compute`) and caches are updated in
@@ -12,11 +12,15 @@ forward in the shared block's prefill attention, the SSD scan kernel in
 every Mamba2 prefill and the RMSNorm kernels for every norm; ``"chunked"``
 runs the plain PyTorch versions.
 
+Training (:func:`loss_fn`) reads the fp32 master parameters through the
+same per-use casts and remats each Mamba2 block (the shared block is not
+rematted, as in the reference).  Every kernel on the path is
+differentiable: flash, the SSD scan and the norms each recompute their
+backward through the plain version.
+
 Simplifications vs the released checkpoints (as in the reference): the
 per-invocation LoRA deltas on the shared block are omitted; the shared
 block's attention operates at d_model (after the concat projection).
-Training (``loss_fn``) waits for a later slice: neither package has a
-backward kernel for the SSD scan.
 """
 from __future__ import annotations
 
@@ -25,7 +29,17 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from .attention import apply_rope, chunked_attention, decode_attention, rope_tables
-from .common import ParamSpec, cast_tree, decode_positions, dtype_of, init_tree, norm, norm_add
+from .common import (
+    ParamSpec,
+    cast_tree,
+    cross_entropy_loss,
+    decode_positions,
+    dtype_of,
+    init_tree,
+    norm,
+    norm_add,
+    remat_wrap,
+)
 from .lm import ATTN_IMPLS
 from .ssm import (
     FP32_PARAMS,
@@ -186,10 +200,16 @@ def _layer(params, i):
     return {name: p[i] for name, p in params["mamba"].items()}
 
 
-def forward(cfg, params, tokens, *, collect: bool = False, plen: int | None = None):
+def forward(cfg, params, tokens, *, remat=True, collect: bool = False,
+            plen: int | None = None):
     """Returns (hidden, cache dict or None): with ``collect=True`` the
     second element is ``{"k", "v", "ssm", "conv"}`` — the shared block's
     stacked KV plus the mamba final states — else ``None``.
+
+    ``remat`` (False | True | "dots", see ``common.remat_wrap``) wraps each
+    Mamba2 block of the training path (``collect=False``), as the
+    reference wraps its per-segment scan body; the shared block is not
+    rematted.
 
     ``plen`` (slot-serving prefill only): positions beyond it are
     right-padding of a length bucket.  The attention KV of padded
@@ -205,6 +225,7 @@ def forward(cfg, params, tokens, *, collect: bool = False, plen: int | None = No
         x = torch.where(valid[..., None], x, 0.0)     # pad activations stay finite
     x0 = x
     rope_cs = _prefill_rope(cfg, *tokens.shape, x.device)
+    block = None if collect else remat_wrap(lambda x, bp: mamba_block_fwd(cfg, x, bp), remat)
     kvs, ssm, conv = [], [], []
     off = 0
     for n in _segments(cfg):
@@ -217,7 +238,7 @@ def forward(cfg, params, tokens, *, collect: bool = False, plen: int | None = No
                 ssm.append(s)
                 conv.append(c)
             else:
-                x = mamba_block_fwd(cfg, x, _layer(params, i))
+                x = block(x, _layer(params, i))
         off += n
     x = norm(cfg, x, params["ln_f"])
     if not collect:
@@ -225,6 +246,18 @@ def forward(cfg, params, tokens, *, collect: bool = False, plen: int | None = No
     return x, {"k": torch.stack([kv[0] for kv in kvs]),
                "v": torch.stack([kv[1] for kv in kvs]),
                "ssm": torch.stack(ssm), "conv": torch.stack(conv)}
+
+
+def loss_fn(cfg: ArchConfig, params, batch, *, remat=True):
+    """Next-token loss on ``batch["tokens"]`` (B, S + 1).  Returns
+    ``(loss, {"ce_loss", "lb_loss", "drop_frac"})`` (the last two 0), as the
+    reference's."""
+    tokens = batch["tokens"]
+    inp, labels = tokens[:, :-1], tokens[:, 1:]
+    hidden, _ = forward(cfg, params, inp, remat=remat)
+    loss = cross_entropy_loss(_unembed(cfg, params, hidden), labels)
+    zero = torch.zeros((), dtype=torch.float32, device=loss.device)
+    return loss, {"ce_loss": loss, "lb_loss": zero, "drop_frac": zero}
 
 
 # ---------------------------------------------------------------------------

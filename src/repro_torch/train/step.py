@@ -16,10 +16,17 @@ its block.  Three programs:
   flat-Adam kernel on the owned 1/N shard (ZeRO optimizer-state sharding:
   ``m``/``v`` are flat scattered buffers), per-bucket all-gather of the
   updated parameters.
-* **per-parameter** (``flat_engine="off"``, or a non-adam rule) — one
-  ``all_reduce`` of the mean per parameter, then ``optim.apply_update``.
-  The reference shards parameters FSDP-style on this path; the port
-  replicates them until the FSDP slice.
+* **per-parameter** (``flat_engine="off"``, a non-adam rule, or the
+  ``moe`` family) — one ``all_reduce`` of the mean per parameter, then
+  ``optim.apply_update``.  The reference shards parameters FSDP-style on
+  this path; the port replicates them until the FSDP slice.
+
+Every family of the reference trains here through its module's
+``loss_fn``: dense, gemma2's pairs, vlm (``patch_embeds`` in the batch),
+hybrid (zamba), ssm (xlstm), audio (whisper, ``frames``) and moe (its
+``lb_loss`` term).  §5.1 slicing splits every entry of the batch on its
+leading axis, the frontend extras with the tokens, and averages the loss
+and each metric (``lb_loss``, ``drop_frac``) over the slices.
 
 Both flat programs keep the fp32 parameters and the Adam moments as views
 of flat buffers (``optim.flat``), so flattening them costs no copy; a step
@@ -110,7 +117,7 @@ def flat_engine_mode(cfg: ArchConfig, group, opt: OptConfig,
     if opt.kind not in ("adam", "adamw"):
         return unavailable(f"requires adam/adamw, got {opt.kind!r}")
     if cfg.family == "moe":
-        return unavailable("MoE loss paths shard_map internally")
+        return unavailable("the moe family trains on the per-parameter path")
     if settings.faithful:
         if want_zero:
             raise ValueError(

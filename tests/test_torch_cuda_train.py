@@ -1,6 +1,7 @@
 """The training slice's kernels on the card: ``flat_adam`` against its plain
 version, the flash gradient against autograd through ``attention_ref``,
-and one faithful train step through both kernels against the same step's
+the SSD scan's gradient against autograd through ``ssd_chunked_ref``, and
+one faithful train step through both kernels against the same step's
 plain versions on the CPU.
 
 Every case is ``cuda``-marked and skips without a card.  The module
@@ -12,7 +13,10 @@ formula; ``powf``, ``sqrtf``, division and FMA contraction differ by an ulp
 or two).  Flash gradient, fp32: 1e-5 + 1e-4 relative (the same sums in
 another order); bf16: 2% of the tensor's largest entry plus 1% — the
 recompute casts each 128-row chunk of k and v to fp32 on its own, so dk
-and dv arrive as bf16-rounded partial sums added in bf16.  Train step,
+and dv arrive as bf16-rounded partial sums added in bf16.  SSD gradient
+(the kernel's forward, the plain scan's recompute backward): fp32 1e-4 of
+each gradient's largest entry, bf16 2e-2 (x, B and C's gradients are
+rounded to bf16).  Train step,
 fp32 with TF32 off: loss 1e-5, grad norm 1e-4 relative, parameters within
 ``3 lr`` with at most 0.1% of elements beyond 5e-5 (Adam's first step
 turns last-bit gradient differences near zero into moves of up to ±lr).
@@ -28,6 +32,8 @@ from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.flat_adam.ops import flat_adam
 from repro_torch.kernels.flat_adam.ref import flat_adam_ref
+from repro_torch.kernels.ssd.ops import ssd
+from repro_torch.kernels.ssd.ref import ssd_chunked_ref
 from repro_torch.launch.mesh import single_device_group
 from repro_torch.models import lm
 from repro_torch.models.common import map_tree
@@ -99,6 +105,69 @@ def test_flash_gradient_on_card(cuda, dt):
         else:
             atol, rtol = 1e-5, 1e-4
         torch.testing.assert_close(x.grad, y.grad, atol=atol, rtol=rtol)
+
+
+def _ssd_leaves(B, T, dt, device, H=64, P=64, G=1, N=64, seed=0):
+    """The scan's inputs as the Mamba2 block hands them over: x, B and C
+    views into one (B, T, H*P + 2*G*N) leaf, dt and A leaves."""
+    rng = np.random.default_rng(seed)
+    buf = torch.tensor(rng.normal(size=(B, T, H * P + 2 * G * N)).astype(np.float32),
+                       device=device).to(getattr(torch, dt)).requires_grad_()
+    d = torch.tensor(rng.uniform(0.01, 0.2, size=(B, T, H)).astype(np.float32),
+                     device=device, requires_grad=True)
+    A = torch.tensor(-rng.uniform(0.5, 2.0, size=(H,)).astype(np.float32), device=device,
+                     requires_grad=True)
+    return buf, d, A
+
+
+def _ssd_args(buf, d, A, H=64, P=64, G=1, N=64):
+    B, T = buf.shape[:2]
+    x, bm, cm = torch.split(buf, [H * P, G * N, G * N], dim=-1)
+    return (x.reshape(B, T, H, P), d, A, bm.reshape(B, T, G, N), cm.reshape(B, T, G, N))
+
+
+@pytest.mark.cuda
+def test_ssd_output_has_grad_fn_on_card(cuda):
+    """On a CUDA tensor that requires grad the kernel's outputs carry a
+    gradient (the forward launches the kernel once; the backward does
+    not launch it)."""
+    leaves = _ssd_leaves(1, 128, "bfloat16", cuda)
+    before = ssd.launches
+    y, state = ssd(*_ssd_args(*leaves), chunk=256)
+    assert ssd.launches == before + 1
+    assert y.grad_fn is not None and state.grad_fn is not None
+    y.sum().backward()
+    assert ssd.launches == before + 1
+    assert all(t.grad is not None and t.grad.abs().sum() > 0 for t in leaves)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,T", [(1, 512), (2, 1024)])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_ssd_gradient_on_card(cuda, B, T, dt, with_state):
+    """The kernel-backed ``ssd`` under grad against autograd through
+    ``ssd_chunked_ref`` at zamba2-1.2b's heads (64 of 64, state 64) and
+    chunk (256): y and the final state (the kernel's forward) within 1e-4
+    of the largest entry plus 1e-4 of each, and the gradients for x, B, C
+    (through their shared leaf), dt and A bitwise, since the backward is the
+    plain scan's autograd on the same inputs.  Without ``with_state`` the
+    final state gets no gradient, as in training."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    dy = torch.randn(B, T, 64, 64, generator=gen, device=cuda)
+    ds = torch.randn(B, 64, 64, 64, generator=gen, device=cuda)
+    values, grads = [], []
+    for fn in (lambda *a: ssd(*a, chunk=256),
+               lambda *a: ssd_chunked_ref(*a, chunk=256, return_state=True)):
+        leaves = _ssd_leaves(B, T, dt, cuda)
+        y, state = fn(*_ssd_args(*leaves))
+        values.append((y.detach(), state.detach()))
+        outs, cots = ([y, state], [dy, ds]) if with_state else ([y], [dy])
+        grads.append(torch.autograd.grad(outs, leaves, cots))
+    for got, want in zip(*values):
+        torch.testing.assert_close(got, want, atol=1e-4 * want.abs().max().item(), rtol=1e-4)
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, atol=0, rtol=0)
 
 
 @pytest.mark.cuda

@@ -10,7 +10,8 @@ below read them, and run the one-worker counterparts in this process:
   and a small collective in different orders;
 * reduce-scatter then all-gather round-trips the summed buffer, bitwise;
 * the faithful step on 2 ranks equals the 1-rank step on the full batch,
-  and ZeRO on 2 ranks equals faithful;
+  and ZeRO on 2 ranks equals faithful; the same faithful check on the
+  hybrid family (``zamba2-1.2b``: the SSD scan under a gradient);
 * a NaN on one rank only makes both ranks skip, bitwise;
 * a ZeRO checkpoint written at dp 2 restores at dp 1 (elastic reshard).
 
@@ -50,24 +51,26 @@ CFG = dataclasses.replace(get_smoke_config("smollm-360m"), compute_dtype="float3
 OPT = OptConfig(kind="adam", lr=LR, bucket_mb=0.01)
 SHAPE = ShapeConfig("t", "train", 16, 8)
 MODES = {"faithful": TrainSettings(faithful=True), "zero": TrainSettings(flat_engine="zero")}
+ZAMBA = dataclasses.replace(get_smoke_config("zamba2-1.2b"), compute_dtype="float32",
+                            attn_impl="kernel")
 
 
 def _batch(i):
     return np.random.default_rng(50 + i).integers(0, CFG.vocab, (8, 17)).astype(np.int32)
 
 
-def _run_steps(group, mode, steps=2, rows=slice(None)):
+def _run_steps(group, mode, steps=2, rows=slice(None), cfg=CFG):
     """``steps`` steps of ``mode`` from seed-0 weights; returns the losses,
     grad norms and the final flat parameters."""
-    params, state = init_replicated(CFG, group, OPT, 0, MODES[mode])
-    step = build_train_step(CFG, group, OPT, MODES[mode])
+    params, state = init_replicated(cfg, group, OPT, 0, MODES[mode])
+    step = build_train_step(cfg, group, OPT, MODES[mode])
     losses, norms = [], []
     for i in range(steps):
         params, state, m = step(params, state, {"tokens": _batch(i)[rows]})
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
     return dict(losses=losses, grad_norms=norms,
-                params=flatten(flat_layout_for(CFG), params).clone(), state=state)
+                params=flatten(flat_layout_for(cfg), params).clone(), state=state)
 
 
 def _times_nan(loss, metrics):
@@ -116,6 +119,9 @@ def _worker(rank, address, out_dir):
                                state_bitwise=all(torch.equal(after[k], before[k])
                                                  for k in before))
             res[mode] = run
+
+        res["zamba"] = _run_steps(group, "faithful", rows=rows, cfg=ZAMBA)
+        del res["zamba"]["state"]
 
         # elastic: a ZeRO run at dp 2 that checkpoints at its end
         out = train(CFG, SHAPE, group, OPT, MODES["zero"],
@@ -192,6 +198,18 @@ def test_faithful_two_ranks_equal_one_rank_full_batch(ranks):
         np.testing.assert_allclose(r["faithful"]["grad_norms"], one["grad_norms"], rtol=1e-4)
         assert_params_close(r["faithful"]["params"], one["params"])
     assert torch.equal(res[0]["faithful"]["params"], res[1]["faithful"]["params"])
+
+
+def test_zamba_faithful_two_ranks_equal_one_rank(ranks):
+    """The paper's program on the hybrid family: 2 ranks of half the batch
+    each equal one worker on the whole batch."""
+    res, _ = ranks
+    one = _run_steps(single_device_group("cpu"), "faithful", cfg=ZAMBA)
+    for r in res:
+        np.testing.assert_allclose(r["zamba"]["losses"], one["losses"], rtol=1e-5)
+        np.testing.assert_allclose(r["zamba"]["grad_norms"], one["grad_norms"], rtol=1e-4)
+        assert_params_close(r["zamba"]["params"], one["params"])
+    assert torch.equal(res[0]["zamba"]["params"], res[1]["zamba"]["params"])
 
 
 def test_zero_equals_faithful(ranks):

@@ -241,11 +241,13 @@ def test_param_specs_match_reference(arch, smoke):
 
 
 @pytest.mark.parametrize("arch", [ARCH, "qwen3-moe-235b-a22b"])
-def test_registry_and_conversion(arch):
+def test_registry_and_conversion(arch, mesh, rules):
     """The family serves as the reference's does, the tree converts whole
     (expert and router leaves under the reference's names), the router
-    keeps its stored dtype in the compute tree, training raises, and the
-    vlm family resolves to the same module."""
+    keeps its stored dtype in the compute tree, ``loss_fn`` gives the
+    reference's total (``ce + 1e-2 lb_loss / n_layers``) and aux in fp32
+    (1e-5 relative; ``drop_frac`` exactly), and the vlm family resolves to
+    the same module."""
     assert arch in ARCH_IDS
     tcfg, jcfg = get_smoke_config(arch), jax_smoke(arch)
     for q in ("supports_slot_serving", "supports_paged_serving", "state_kind",
@@ -261,8 +263,16 @@ def test_registry_and_conversion(arch):
     cast = tlm.cast_for_compute(tcfg, tp)
     assert cast["blocks"]["router"].dtype == tp["blocks"]["router"].dtype
     assert cast["blocks"]["wg_e"].dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="MoE training"):
-        tlm.loss_fn(tcfg, tp, {"tokens": torch.zeros(1, 5, dtype=torch.int32)})
+    toks = np.random.default_rng(0).integers(0, tcfg.vocab, (2, 9)).astype(np.int32)
+    f32 = dataclasses.replace(tcfg, compute_dtype="float32")
+    loss, m = tlm.loss_fn(f32, tp, {"tokens": torch.tensor(toks)})
+    jloss, jm = jlm.loss_fn(dataclasses.replace(jcfg, compute_dtype="float32"), mesh, rules,
+                            tree, {"tokens": jnp.asarray(toks)})
+    assert set(m) == {"ce_loss", "lb_loss", "drop_frac"}
+    assert float(loss) == float(m["ce_loss"] + 1e-2 * m["lb_loss"] / f32.n_layers)
+    for got, want in ((loss, jloss), (m["ce_loss"], jm["ce_loss"]), (m["lb_loss"], jm["lb_loss"])):
+        np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
+    assert float(m["drop_frac"]) == float(jm["drop_frac"])
     # the vlm family is served by lm too (not an MoE one: no experts)
     assert treg.get_module(dataclasses.replace(tcfg, family="vlm")) is tlm
 
