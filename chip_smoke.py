@@ -388,12 +388,28 @@ Phases (any failure raises and the script exits non-zero):
    ``torch.optim.Adam(fused=True)`` on buffers of that size.
 14. Train ``qwen3-moe-30b-a3b`` at full width and 2 of its 48 layers (~1.9 x
    10^9 fp32 parameters) on the per-parameter path (the moe family's, as
-   the reference's) with its load-balance term: seq 512, global batch 4 in
-   2 slices, 3 steps, after every earlier model is freed.  Gates: finite
-   losses, batch 0's loss falling, no flat_adam launch, flash ``2 x 2 x 2 x
-   steps`` and the norms by formula, ``lb_loss`` finite and ``drop_frac``
-   in [0, 1] each step (printed), step 1 against the plain path in fp32
-   (loss 1e-4, gradient norm 1e-3 relative).  Prints phase 13's figures.
+   the reference's) under FSDP, the launcher's default rules, over the
+   1-rank NCCL group (every layer's weights gathered in bf16, again in
+   remat's recompute, every gradient reduce-scattered), with its
+   load-balance term: seq 512, global batch 4 in 2 slices, 3 steps, after
+   every earlier model is freed.  First step 1 of the replicated rules and
+   then of FSDP from the same init and batch (each freed before the next):
+   loss and gradient norm bitwise equal (the parameters' bit digests
+   printed).  Gates: finite losses, batch 0's loss falling, no flat_adam
+   launch, flash ``2 x 2 x 2 x steps`` and the norms by formula, the
+   gathers and reduce-scatters by formula (``fsdp_collectives``),
+   ``lb_loss`` finite and ``drop_frac`` in [0, 1] each step (printed), step
+   1 against the plain path in fp32 (loss 1e-4, gradient norm 1e-3
+   relative).  Prints phase 13's figures and ``bytes_per_rank`` of the
+   48-layer model at 1, 4 and 8 ranks.
+14b. ``zamba2-1.2b`` at full width, its first segment (6 layers, one
+   shared-block invocation), 2 steps of the default settings (the
+   per-parameter path under FSDP, 1-rank NCCL group), phase 13's shape:
+   the ``ssd`` kernel and its autograd Function under gathered weights.
+   Gates: step 1 of the replicated rules and of FSDP bitwise equal, as in
+   phase 14; finite losses, batch 0's loss falling; the launches by phase
+   13's formulas at 6 layers (``ssd`` ``2 x 6 x 2 x steps``) and no
+   flat_adam; the collectives by formula.
 15. Train ``whisper-tiny`` uncut (frames from ``SyntheticEmbeds``) and
    ``xlstm-1.3b`` at full width and 8 of 48 layers (7 mLSTM, 1 sLSTM)
    through the faithful program, seq 256, global batch 4 in 2 slices, 2
@@ -5184,8 +5200,10 @@ ZT_FIRST_SEGMENT = 6          # the first segment's layers (one shared invocatio
 # relative (the same fp32 arithmetic in another summation order)
 TRAIN_FP32_TOL = {"float32": dict(loss=1e-4, grad_norm=1e-3)}
 # phase 14: qwen3-moe-30b-a3b at full width and 2 of its 48 layers, the
-# per-parameter path, seq 512, global batch 4 in 2 slices, 3 steps
+# per-parameter path under FSDP, seq 512, global batch 4 in 2 slices, 3 steps
 MT_LAYERS, MT_SEQ, MT_BATCH, MT_SLICES, MT_STEPS = 2, 512, 4, 2, 3
+# phase 14b: zamba2-1.2b's first segment under FSDP, phase 13's shape, 2 steps
+ZF_STEPS = 2
 # phase 15: whisper-tiny uncut and xlstm-1.3b at 8 of 48 layers (7 mLSTM,
 # 1 sLSTM), the faithful program, seq 256, global batch 4 in 2 slices, 2
 # steps each
@@ -5346,15 +5364,92 @@ def zamba_train_path(torch, dev, results):
     return row["launches"]
 
 
+def fsdp_collectives(cfg, per: int) -> dict:
+    """The all-gathers and reduce-scatters of ``per`` slices under FSDP.
+    Gathers: each rematted layer's sharded leaves twice (the forward and
+    remat's recompute); outside the remat, the embedding lookup once, the
+    unembedding and each of zamba's shared-block invocations twice (the
+    forward, and the backward's gather of the weight its product saved:
+    no full copy outlives the forward).  Each gather of the forward has
+    one reduce-scatter; the recompute's and the backward's have none."""
+    from repro_torch.models import zamba
+    from repro_torch.models.common import ShardRules
+    from repro_torch.optim.fsdp import make_shard_layout
+
+    shards = make_shard_layout(cfg, ShardRules.for_group(None), 1)
+    count = lambda top: sum(1 for p in shards.sharded if p[0] == top)
+    remat, plain = cfg.n_layers * count("blocks"), 2
+    if cfg.family == "hybrid":
+        remat = cfg.n_layers * count("mamba")
+        plain += zamba.n_shared_invocations(cfg) * count("shared")
+    return dict(all_gather=(2 * plain - 1 + 2 * remat) * per,
+                reduce_scatter=(plain + remat) * per)
+
+
+def tree_digest(torch, tree) -> list:
+    """Each fp32 leaf's bits summed as int64 (in slices: no leaf-sized
+    copy), a fingerprint to compare two trees that cannot be held at once."""
+    from repro_torch.optim.flat import tree_leaves
+
+    out = []
+    for _, x in tree_leaves(tree):
+        bits32 = x.detach().reshape(-1).view(torch.int32)
+        out.append(sum(int(c.to(torch.int64).sum()) for c in bits32.split(1 << 26)))
+    return out
+
+
+def rules_step1(torch, cfg, group, opt, shape, settings, label: str) -> dict:
+    """Step 1 from the seed-0 init on batch 0 under the replicated rules,
+    then under FSDP (the gathers and reduce-scatters over ``group``), each
+    run freed before the next.  Gates loss, gradient norm and the updated
+    parameters (their digests) bitwise equal: at one rank a shard is its
+    whole leaf, the gather and the reduce-scatter move bytes without
+    arithmetic, and every sum keeps its order."""
+    from repro_torch.data import make_batch_fn
+    from repro_torch.models import common
+    from repro_torch.models.common import ShardRules
+    from repro_torch.train import build_train_step, init_sharded
+
+    batch = make_batch_fn(cfg, shape, 0)(0)
+    out = {}
+    for name, faithful in (("replicated", True), ("fsdp", False)):
+        rules = ShardRules.for_group(group, faithful=faithful)
+        params, state = init_sharded(cfg, group, opt, 0, settings, rules)
+        step_fn = build_train_step(cfg, group, opt, settings, rules)
+        common.COUNTS.update(all_gather=0, reduce_scatter=0)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        p, _, m = step_fn(params, state, batch)
+        torch.cuda.synchronize()
+        out[name] = dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                         step_ms=(time.perf_counter() - t) * 1e3,
+                         collectives=dict(common.COUNTS), sharded=len(step_fn._shard_layout.sharded),
+                         digest=tree_digest(torch, p))
+        del params, state, p, m, step_fn
+        free(torch)
+    rep, fs = out["replicated"], out["fsdp"]
+    out["bitwise"] = {k: rep[k] == fs[k] for k in ("loss", "grad_norm")}
+    out["params_digest_equal"] = rep["digest"] == fs["digest"]
+    out["max_abs_diff"] = {k: abs(rep[k] - fs[k]) for k in ("loss", "grad_norm")}
+    for r in (rep, fs):
+        r["digest"] = sum(r["digest"])
+    log(f"step 1 {label}, replicated rules against FSDP: {json.dumps(out)}")
+    assert rep["collectives"] == dict(all_gather=0, reduce_scatter=0) and fs["sharded"], out
+    assert all(out["bitwise"].values()), out
+    assert out["params_digest_equal"], out
+    return out
+
+
 def moe_train_path(torch, dev, results):
     """Phase 14: qwen3-moe-30b-a3b at full width, 2 of its 48 layers,
-    trained on the per-parameter path with its load-balance term.
-    Returns the launch counts."""
+    trained on the per-parameter path under FSDP with its load-balance
+    term.  Returns the launch counts."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data import make_batch_fn
     from repro_torch.launch.mesh import init_group
-    from repro_torch.optim import OptConfig
+    from repro_torch.models import common
+    from repro_torch.optim import OptConfig, fsdp
     from repro_torch.train import TrainSettings
     from repro_torch.train.step import flat_engine_mode
 
@@ -5371,11 +5466,23 @@ def moe_train_path(torch, dev, results):
     # add) in the forward and remat's recomputed forward; ln_f once
     want = dict(flat_adam=0, ssd=0, rmsnorm_gated=0, flash_attention=2 * L * per,
                 rmsnorm=(2 * 3 * L + 1) * per, rmsnorm_add=2 * L * per)
+    full = get_config("qwen3-moe-30b-a3b")
+    per_rank = {w: fsdp.bytes_per_rank(full, opt, w) for w in (1, 4, 8)}
+    log(f"qwen3-moe-30b-a3b, {full.n_layers} layers, bytes a rank on the per-parameter "
+        f"path under FSDP (params, grads, Adam m and v): {json.dumps(per_rank)}")
     group = init_group("nccl", 0, 1, f"tcp://127.0.0.1:{free_port()}", device=dev)
     try:
         assert flat_engine_mode(base, group, opt, settings) is None
+        step1_rules = rules_step1(torch, base, group, opt, shape, settings, "qwen3-moe")
+        common.COUNTS.update(all_gather=0, reduce_scatter=0)
         row, res = family_train(torch, group, base, shape, opt, settings, MT_STEPS, want,
                                 "qwen3-moe-30b-a3b")
+        row["collectives"] = dict(common.COUNTS)
+        row["collectives_expected"] = fsdp_collectives(base, per)
+        log(f"train qwen3-moe collectives: {json.dumps(row['collectives'])}")
+        assert row["collectives"] == row["collectives_expected"], row["collectives"]
+        row["step1_rules"] = step1_rules
+        row["bytes_per_rank_48_layers"] = per_rank
         row["params"] = n_params(res["params"])
         for i, m in enumerate(row["metrics"]):
             log(f"train qwen3-moe step {i + 1}: loss {m['loss']:.4f} ce {m['ce_loss']:.4f} "
@@ -5398,6 +5505,52 @@ def moe_train_path(torch, dev, results):
     finally:
         group.close()
     results["moe_train"] = row
+    return row["launches"]
+
+
+def zamba_fsdp_path(torch, dev, results):
+    """Phase 14b: full-width zamba2-1.2b's first segment (6 layers, one
+    shared-block invocation) trained with the default settings, the
+    per-parameter path under FSDP: the ssd kernel and its autograd
+    Function under gathered weights.  Returns the launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import init_group
+    from repro_torch.models import common, zamba
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import TrainSettings
+    from repro_torch.train.step import flat_engine_mode
+
+    free(torch)
+    base = dataclasses.replace(get_config("zamba2-1.2b"), n_layers=ZT_FIRST_SEGMENT,
+                               attn_impl="kernel")
+    L, Sh = base.n_layers, zamba.n_shared_invocations(base)
+    assert (L, Sh) == (ZT_FIRST_SEGMENT, 1)
+    shape = ShapeConfig("chip-smoke-zamba-fsdp", "train", ZT_SEQ, ZT_BATCH)
+    settings = TrainSettings(num_slices=ZT_SLICES)
+    opt = OptConfig(kind="adam")
+    per = ZT_SLICES * ZF_STEPS
+    want = dict(flat_adam=0, ssd=2 * L * per, flash_attention=Sh * per,
+                rmsnorm=(2 * L + Sh + 1) * per, rmsnorm_add=Sh * per,
+                rmsnorm_gated=2 * L * per)
+    group = init_group("nccl", 0, 1, f"tcp://127.0.0.1:{free_port()}", device=dev)
+    try:
+        assert flat_engine_mode(base, group, opt, settings) is None
+        step1_rules = rules_step1(torch, base, group, opt, shape, settings, "zamba2 segment")
+        common.COUNTS.update(all_gather=0, reduce_scatter=0)
+        row, res = family_train(torch, group, base, shape, opt, settings, ZF_STEPS, want,
+                                "zamba2-1.2b first segment, FSDP")
+        row["collectives"] = dict(common.COUNTS)
+        row["collectives_expected"] = fsdp_collectives(base, per)
+        log(f"train zamba2 segment collectives: {json.dumps(row['collectives'])}")
+        assert row["collectives"] == row["collectives_expected"], row["collectives"]
+        row["step1_rules"] = step1_rules
+        row["params"] = n_params(res["params"])
+        del res
+        free(torch)
+    finally:
+        group.close()
+    results["zamba_fsdp_train"] = row
     return row["launches"]
 
 
@@ -5518,6 +5671,7 @@ def main() -> int:
     vlm_counts = phase("12 internvl2 static", vlm_path)
     zamba_train_counts = phase("13 zamba train", zamba_train_path)
     moe_train_counts = phase("14 qwen3-moe train", moe_train_path)
+    zamba_fsdp_counts = phase("14b zamba2 FSDP train", zamba_fsdp_path)
     frontier_train_counts = phase("15 whisper and xlstm train", frontier_train_path)
     results["phase_s"] = phase_s
     results["seconds"] = time.perf_counter() - t_start
@@ -5556,6 +5710,7 @@ def main() -> int:
                         vlm_launches=vlm_counts.get(name, 0),
                         zamba_train_launches=zamba_train_counts.get(name, 0),
                         moe_train_launches=moe_train_counts.get(name, 0),
+                        zamba_fsdp_train_launches=zamba_fsdp_counts.get(name, 0),
                         whisper_train_launches=frontier_train_counts["whisper-tiny"].get(name, 0),
                         xlstm_train_launches=frontier_train_counts["xlstm-1.3b"].get(name, 0))
              for name in names}
@@ -5767,7 +5922,7 @@ def main() -> int:
     train_steps = {name: prof and {k: prof[k] for k in train_keys}
                    for name, prof in (("dense train step (4)", results["train_profile"]),
                                       ("zamba train step (13)", zt["profile"]),
-                                      ("qwen3-moe train step (14)",
+                                      ("qwen3-moe train step (14, FSDP)",
                                        results["moe_train"]["profile"]))}
     log(f"profiled train steps: {json.dumps(train_steps)}")
     results["kernels"] = kernels

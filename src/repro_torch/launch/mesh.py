@@ -14,8 +14,10 @@ and the device: a :class:`DataGroup`.
   ``RANK``/``WORLD_SIZE``/``MASTER_ADDR``/``MASTER_PORT``, NCCL on cuda
   and gloo on cpu.
 
-The reference's ``production`` and ``multipod`` meshes are TPU pods with a
-model axis; they raise until the tensor-parallel/FSDP slice.
+FSDP needs nothing more: the per-parameter train program shards over the
+group's one data axis (``models.common.ShardRules.for_group``).  The
+reference's ``production`` and ``multipod`` meshes are TPU pods with a
+model axis; they raise until the tensor-parallel slice.
 """
 from __future__ import annotations
 
@@ -89,4 +91,4 @@ def make_production_mesh(*, multi_pod: bool = False):
     kind = "multipod" if multi_pod else "production"
     raise NotImplementedError(
         f"the {kind} mesh is a TPU pod with a model axis; it arrives with the "
-        "tensor-parallel and FSDP slice of the port")
+        "tensor-parallel slice of the port")

@@ -9,13 +9,25 @@
         --device cpu --steps 3
     torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
         --arch smollm-360m --mesh local --faithful --seq-len 1024 --global-batch 16
+    torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
+        --arch qwen3-moe-30b-a3b --smoke --device cpu --steps 3
 
 Every id of ``ARCH_IDS`` trains, each family through its module's
-``loss_fn``: the flat programs (``--faithful``, ``--flat-engine zero``) for
-every family but ``moe``, which takes the per-parameter path (as the
-reference's) and adds its load-balance term to the loss.  The audio and
-vlm families' batches carry their frontend stubs (``frames``,
-``patch_embeds``), split with the tokens.
+``loss_fn``.  The rules come from ``--faithful``, as the reference's
+launcher builds them: the train step derives
+``ShardRules.for_group(group, faithful=--faithful)``, whose ``sp`` is
+always False on a data group (the reference turns it off for hybrid and
+ssm; here there is no sequence-parallel axis to turn off).  Without
+``--faithful`` the default
+program is the per-parameter path under FSDP (each rank holds 1/N of
+every weight and of its Adam moments, and gathers a layer's weights while
+it runs); ``--faithful`` selects the paper's flat program, and
+``--flat-engine zero`` the ZeRO flat program.  The ``moe`` family always
+takes the per-parameter path (as the reference's), under FSDP or, with
+``--faithful``, replicated, and adds its load-balance term to the loss.
+The launcher prints which program runs.  The audio and vlm families'
+batches carry their frontend stubs (``frames``, ``patch_embeds``), split
+with the tokens.
 
 ``--mesh local`` joins the group ``torchrun`` describes (NCCL on cuda,
 gloo on cpu) and is one worker without it; ``--mesh single`` is always one
@@ -36,6 +48,21 @@ from repro_torch.configs.base import ShapeConfig
 from repro_torch.launch.mesh import local_group, make_production_mesh, single_device_group
 from repro_torch.optim import OptConfig
 from repro_torch.train import LoopConfig, TrainSettings, train
+from repro_torch.train.step import flat_engine_mode, shard_layout_for
+
+
+def program_name(cfg, group, opt, settings) -> str:
+    """Which train program ``train`` runs for these arguments."""
+    mode = flat_engine_mode(cfg, group, opt, settings)
+    if mode == "faithful":
+        return "the faithful flat program (replicated parameters, bucketed all-reduce)"
+    if mode == "zero":
+        return "the ZeRO flat program (scattered optimizer state)"
+    shards = shard_layout_for(cfg, group, settings)
+    if shards.sharded:
+        return (f"the per-parameter path under FSDP ({len(shards.sharded)} of "
+                f"{len(shards.paths)} leaves sharded over {group.world} rank(s))")
+    return "the per-parameter path, replicated"
 
 
 def main(argv=None):
@@ -80,13 +107,16 @@ def main(argv=None):
     cfg = dataclasses.replace(cfg, attn_impl=args.attn_impl)
     group = (single_device_group(args.device) if args.mesh == "single"
              else local_group(args.device))
+    opt = OptConfig(kind=args.optimizer, lr=args.lr)
+    settings = TrainSettings(num_slices=args.slices, faithful=args.faithful,
+                             flat_engine=args.flat_engine)
     try:
+        program = program_name(cfg, group, opt, settings)
+        if group.rank == 0:
+            print(f"[train] {cfg.name}: {program}", flush=True)
         t0 = time.perf_counter()
         res = train(
-            cfg, shape, group,
-            OptConfig(kind=args.optimizer, lr=args.lr),
-            TrainSettings(num_slices=args.slices, faithful=args.faithful,
-                          flat_engine=args.flat_engine),
+            cfg, shape, group, opt, settings,
             LoopConfig(steps=args.steps, ckpt_every=args.ckpt_every,
                        ckpt_dir=args.ckpt_dir, seed=args.seed),
         )
@@ -97,6 +127,7 @@ def main(argv=None):
         print(f"final loss: {res['final_loss']:.4f}  skipped steps: "
               f"{res['skipped_steps']}  ({args.steps} steps of {shape.global_batch} x "
               f"{shape.seq_len} on {group.world} x {group.device.type}, {wall:.1f} s)")
+    res["program"] = program
     return res
 
 

@@ -1,20 +1,33 @@
-"""Shared model machinery: parameter declaration and initialisation, norms,
-the loss and rematerialisation.
+"""Shared model machinery: parameter declaration and initialisation,
+sharding rules and the FSDP weight gather, norms, the loss and
+rematerialisation.
 
-The port of the reference's ``models/common.py`` for the pieces serving
-and dense training need.  Parameters are nested dicts of tensors with the reference's tree
-structure (layers stacked on axis 0), so a converted JAX pytree and a
-tree from :func:`init_tree` are interchangeable.  There is no sharding
-here: the port runs on one device, so ``constrain``/``wuse`` have no
-counterpart and weight casts are plain ``.to(dtype)``.
+The port of the reference's ``models/common.py``.  Parameters are nested
+dicts of tensors with the reference's tree structure (layers stacked on
+axis 0), so a converted JAX pytree and a tree from :func:`init_tree` are
+interchangeable.  Every :class:`ParamSpec` names its dimensions'
+*logical* axes, as the reference's does, and :class:`ShardRules` maps them
+onto a data group's one axis: ``fsdp`` is ``"data"`` unless the rules are
+faithful (the paper's replicated program).
+
+Sharding lives on the per-parameter train program only (``train/step.py``):
+each rank holds 1/N of every leaf with an FSDP dimension, and while that
+program runs (:class:`fsdp_program`) the models read such a leaf through
+:func:`use_layer` / :func:`use`, which cast the shard to the compute dtype
+and all-gather it (:class:`Gather`, the counterpart of the reference's
+``wuse``; its backward reduce-scatters the fp32 cotangent as a mean).  With
+no program active both return what they were given, cast as before, so
+serving and the flat programs read the same tensors as ever.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
 import math
+from typing import Any
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.tree import map_tree, tree_leaves  # noqa: F401  (the port's one tree walker)
 
@@ -31,14 +44,91 @@ def dtype_of(name) -> torch.dtype:
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# Sharding rules
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardRules:
+    """Logical-axis -> group-axis mapping, the reference's fields:
+
+      ``dp``    batch (data parallel; the paper's scatter axis)
+      ``tp``    tensor parallel (heads / ffn hidden / vocab / experts)
+      ``fsdp``  parameter and optimizer-state sharding (``None`` in the
+                paper-faithful replicated mode)
+      ``sp``    sequence-parallel residual stream between blocks
+
+    The reference's also carries its mesh; a data group is one axis of
+    ranks, so these carry none."""
+
+    dp: tuple[str, ...] = ("pod", "data")
+    tp: str | None = "model"
+    fsdp: str | None = "data"
+    sp: bool = True
+
+    def axis(self, logical: str | None):
+        if logical is None:
+            return None
+        if logical == "dp":
+            return self.dp
+        if logical == "tp":
+            return self.tp
+        if logical == "fsdp":
+            return self.fsdp
+        if logical == "sp":
+            return self.tp if self.sp else None
+        raise ValueError(f"unknown logical axis {logical!r}")
+
+    @classmethod
+    def faithful(cls, dp=("pod", "data"), tp="model") -> "ShardRules":
+        return cls(dp=dp, tp=tp, fsdp=None, sp=False)
+
+    @classmethod
+    def for_group(cls, group, *, faithful: bool = False) -> "ShardRules":
+        """The counterpart of the reference's ``for_mesh``: a
+        :class:`~repro_torch.launch.mesh.DataGroup` has one data axis and no
+        model axis, so ``tp`` is None and ``sp`` False; ``fsdp`` is
+        ``"data"`` unless ``faithful``."""
+        del group
+        if faithful:
+            return cls.faithful(dp=("data",), tp=None)
+        return cls(dp=("data",), tp=None, fsdp="data", sp=False)
+
+
+# ---------------------------------------------------------------------------
+# Parameter declaration: shapes and logical axes declared together
+# ---------------------------------------------------------------------------
+
+
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
     shape: tuple[int, ...]
+    logical: tuple[str | None, ...]
     dtype: torch.dtype = torch.float32
     init_scale: float | None = None   # None -> fan-in scaled normal
 
+    def __post_init__(self):
+        if len(self.logical) != len(self.shape):
+            raise ValueError(f"logical axes {self.logical} do not match shape {self.shape}")
 
-INIT_CHUNK = 1 << 28           # fp32 normal draws at a time
+    def shard_dim(self, rules: ShardRules) -> int | None:
+        """The dimension ``rules`` shard over the data axis (where the
+        reference's ``pspec`` names ``rules.fsdp``), or None."""
+        if rules.fsdp is None:
+            return None
+        dims = [i for i, l in enumerate(self.logical) if rules.axis(l) == rules.fsdp]
+        if len(dims) > 1:
+            raise ValueError(f"{self.logical}: more than one dimension on {rules.fsdp!r}")
+        return dims[0] if dims else None
+
+
+# fp32 normal draws at a time (268 MB): every leaf is drawn in chunks of
+# this many values, so neither init nor the sharded init
+# (``optim.fsdp.init_shards``, which draws the same chunks) holds more of a
+# leaf at full size than one chunk; a layer slice of qwen3-moe-30b-a3b's
+# expert leaves is 201 x 10^6 values
+INIT_CHUNK = 1 << 26
 
 
 def init_param(gen: torch.Generator, spec: ParamSpec, device) -> torch.Tensor:
@@ -46,14 +136,11 @@ def init_param(gen: torch.Generator, spec: ParamSpec, device) -> torch.Tensor:
     set; else a fan-in normal (``1/sqrt(shape[-2])``), as the reference.
     The normal is drawn in fp32, ``INIT_CHUNK`` values at a time, into a leaf
     of the stored dtype, so a full-width model (gemma2-27b: 54 GB in bf16)
-    never holds a whole fp32 copy of its largest leaf beside it."""
+    never holds a whole fp32 copy of its largest leaf beside it.  The
+    sharded init (``optim.fsdp.init_shards``) draws the same chunks."""
     if spec.init_scale == 0.0:
         return torch.zeros(spec.shape, dtype=spec.dtype, device=device)
-    if spec.init_scale is not None:
-        scale = spec.init_scale
-    else:
-        fan_in = spec.shape[-2] if len(spec.shape) >= 2 else max(spec.shape[-1], 1)
-        scale = 1.0 / math.sqrt(fan_in)
+    scale = init_scale(spec)
     out = torch.empty(spec.shape, dtype=spec.dtype, device=device)
     flat = out.view(-1)
     for i in range(0, flat.numel(), INIT_CHUNK):
@@ -61,6 +148,15 @@ def init_param(gen: torch.Generator, spec: ParamSpec, device) -> torch.Tensor:
         flat[i:i + n] = torch.randn(n, generator=gen, device=device,
                                     dtype=torch.float32) * scale
     return out
+
+
+def init_scale(spec: ParamSpec) -> float:
+    """The normal's scale: ``init_scale`` where set, else ``1/sqrt(fan_in)``
+    with ``fan_in = shape[-2]``, as the reference."""
+    if spec.init_scale is not None:
+        return spec.init_scale
+    fan_in = spec.shape[-2] if len(spec.shape) >= 2 else max(spec.shape[-1], 1)
+    return 1.0 / math.sqrt(fan_in)
 
 
 def tree_from_leaves(paths, leaves) -> dict:
@@ -99,6 +195,159 @@ def init_tree(seed: int, tree, device) -> dict:
     pairs = list(tree_leaves(tree))
     return tree_from_leaves([p for p, _ in pairs],
                             [init_param(gen, spec, device) for _, spec in pairs])
+
+
+# ---------------------------------------------------------------------------
+# FSDP: the weight gather
+# ---------------------------------------------------------------------------
+
+# the running FSDP program, if any: (its DataGroup, {leaf path: the FSDP
+# dimension of the stored leaf}) for the leaves it shards
+_FSDP: tuple[Any, dict] | None = None
+
+
+class fsdp_program:
+    """While active, :func:`use_layer` and :func:`use` gather the leaves
+    ``dims`` names (``{path: FSDP dimension of the stored leaf}``) over
+    ``group``.  The per-parameter train program holds it around its loss
+    and its backward, inside which remat's recompute gathers again.  The
+    counterpart of the reference's ``manual_mode`` switch, the other way
+    round: the models gather only while it is on.  It also holds the
+    saved-tensor hooks (:func:`_pack`) that keep a gathered weight saved
+    outside a rematted body as its shard, gathered again in the backward."""
+
+    def __init__(self, group, dims: dict):
+        self._state = (group, dims)
+        self._hooks = torch.autograd.graph.saved_tensors_hooks(_pack, _unpack)
+
+    def __enter__(self):
+        global _FSDP
+        self._prev, _FSDP = _FSDP, self._state
+        self._hooks.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        global _FSDP
+        self._hooks.__exit__(*exc)
+        _FSDP = self._prev
+        return False
+
+
+# collectives called by the FSDP program, by kind, each counted where it is
+# called, as the kernel wrappers count their launches (reset by assignment)
+COUNTS = {"all_gather": 0, "reduce_scatter": 0}
+
+
+def all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The ranks' ``x`` concatenated along ``dim`` (rank order), as a
+    tensor of its own (never a view of another)."""
+    COUNTS["all_gather"] += 1
+    n, shape = group.world, tuple(x.shape)
+    out = torch.empty((n * shape[0],) + shape[1:], dtype=x.dtype, device=x.device)
+    dist.all_gather_into_tensor(out, x.contiguous(), group=group.pg)
+    if dim == 0 or n == 1:
+        return out
+    full = torch.empty(shape[:dim] + (n * shape[dim],) + shape[dim + 1:],
+                       dtype=x.dtype, device=x.device)
+    full.view(shape[:dim] + (n, shape[dim]) + shape[dim + 1:]).copy_(
+        out.view((n,) + shape).movedim(0, dim))
+    return full
+
+
+def reduce_scatter_mean(g: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's slice along ``dim`` of the mean of the ranks' ``g``:
+    summed by the collective, then divided by the world."""
+    COUNTS["reduce_scatter"] += 1
+    n = group.world
+    parts = g.unflatten(dim, (n, g.shape[dim] // n)).movedim(dim, 0).contiguous()
+    out = torch.empty(parts.shape[1:], dtype=g.dtype, device=g.device)
+    dist.reduce_scatter_tensor(out, parts.view((-1,) + tuple(parts.shape[2:])),
+                               op=dist.ReduceOp.SUM, group=group.pg)
+    return out.div_(n)
+
+
+class Gather(torch.autograd.Function):
+    """The full tensor of one shard: cast to ``dtype`` first, then
+    all-gathered along ``dim`` over the group, so the collective moves
+    compute-dtype bytes, as the reference's ``wuse`` asks.  Backward: the
+    cotangent taken to fp32 and reduce-scattered as the mean over the
+    group, in the shard's dtype."""
+
+    @staticmethod
+    def forward(ctx, shard, dim: int, dtype, group):
+        ctx.dim, ctx.group, ctx.shard_dtype = dim, group, shard.dtype
+        return all_gather(shard.to(dtype), dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        out = reduce_scatter_mean(g.float(), ctx.dim, ctx.group)
+        return out.to(ctx.shard_dtype), None, None, None
+
+
+def wuse(w, dim: int, dtype, group):
+    """Shard ``w`` in ``dtype``, gathered along ``dim`` (:class:`Gather`);
+    without a process group (one worker) the shard is the whole leaf and
+    this is the plain cast.  The full tensor remembers its shard, so that
+    the autograd graph keeps the shard in its place (:func:`_pack`)."""
+    if group.pg is None:
+        return w.to(dtype)
+    full = Gather.apply(w, dim, dtype, group)
+    full._fsdp_source = (w.detach(), dim, dtype, group)
+    return full
+
+
+def _pack(t: torch.Tensor):
+    """Saved-tensor hook of an FSDP program: a gathered weight (or a view
+    of one) that an operation saves for its backward is kept as its shard
+    and its view's geometry, so no full copy outlives the forward that
+    used it; anything else is kept as it is.  Inside a rematted body
+    checkpoint's own hooks take precedence, and its recompute gathers."""
+    base = t if t._base is None else t._base
+    src = getattr(base, "_fsdp_source", None)
+    if src is None:
+        return t
+    return src, tuple(t.shape), t.stride(), t.storage_offset()
+
+
+def _unpack(packed):
+    """The backward's side of :func:`_pack`: gather the shard again (an
+    all-gather of the same bytes, so the same full tensor) and take the
+    saved view of it."""
+    if isinstance(packed, torch.Tensor):
+        return packed
+    (shard, dim, dtype, group), shape, stride, offset = packed
+    return all_gather(shard.to(dtype), dim, group).as_strided(shape, stride, offset)
+
+
+def use_layer(cfg, bp: dict, prefix: tuple, lead: int = 1) -> dict:
+    """A block's weights as its body reads them.  ``bp`` holds one layer's
+    slices of the stacked leaves under ``prefix`` (``lead`` layer axes
+    indexed away); under an FSDP program each sharded one is gathered in
+    the compute dtype, the others come back as given.  Called inside a
+    rematted body, so that the recompute gathers again and no full copy
+    outlives its layer."""
+    if _FSDP is None:
+        return bp
+    group, dims = _FSDP
+    cdt = dtype_of(cfg.compute_dtype)
+    out = {}
+    for name, w in bp.items():
+        d = dims.get(prefix + (name,))
+        out[name] = w if d is None else wuse(w, d - lead, cdt, group)
+    return out
+
+
+def use(cfg, params: dict, name: str):
+    """Top-level leaf ``name`` (an embedding or a projection) in the
+    compute dtype: gathered under an FSDP program where it is sharded,
+    else cast."""
+    cdt = dtype_of(cfg.compute_dtype)
+    if _FSDP is not None:
+        group, dims = _FSDP
+        d = dims.get((name,))
+        if d is not None:
+            return wuse(params[name], d, cdt, group)
+    return params[name].to(cdt)
 
 
 # ---------------------------------------------------------------------------

@@ -23,7 +23,13 @@ copies once (norm scales stay fp32, as the reference reads them), and
 every use below is then a no-op ``.to`` — the same numbers.  Training
 (:func:`loss_fn`) reads the fp32 master parameters through the same
 per-use cast ``_w``, so the cast is part of the graph and gradients land
-in fp32.
+in fp32.  Under FSDP (the per-parameter train program) a block's sharded
+weights are gathered in the compute dtype at the start of the rematted
+block body (``common.use_layer``), so remat's recompute gathers them
+again, and ``embed``/``unembed``/``img_proj`` at each use
+(``common.use``), where a product that saves the gathered weight keeps
+its shard instead and the backward gathers it again; outside that program
+both return what they are given.
 
 Caches are updated IN PLACE: each layer attends through a view of its
 slice of the stacked cache ``(lead..., ...)``, where the reference
@@ -84,6 +90,8 @@ from .common import (
     norm_add,
     remat_wrap,
     softcap,
+    use,
+    use_layer,
 )
 from .moe import moe_ffn
 
@@ -138,32 +146,33 @@ def _window(cfg: ArchConfig, i: int) -> int:
 
 def block_specs(cfg: ArchConfig) -> dict:
     L = _leading(cfg)
+    ll = (None,) * len(L)
     D, dh, H, Hk, F_ = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv, cfg.d_ff
     dt = dtype_of(cfg.param_dtype)
     s = {
-        "ln1": ParamSpec(L + (D,), dt, init_scale=0.0),
-        "ln2": ParamSpec(L + (D,), dt, init_scale=0.0),
-        "wq": ParamSpec(L + (D, H * dh), dt),
-        "wk": ParamSpec(L + (D, Hk * dh), dt),
-        "wv": ParamSpec(L + (D, Hk * dh), dt),
-        "wo": ParamSpec(L + (H * dh, D), dt),
+        "ln1": ParamSpec(L + (D,), ll + (None,), dt, init_scale=0.0),
+        "ln2": ParamSpec(L + (D,), ll + (None,), dt, init_scale=0.0),
+        "wq": ParamSpec(L + (D, H * dh), ll + ("fsdp", "tp"), dt),
+        "wk": ParamSpec(L + (D, Hk * dh), ll + ("fsdp", "tp"), dt),
+        "wv": ParamSpec(L + (D, Hk * dh), ll + ("fsdp", "tp"), dt),
+        "wo": ParamSpec(L + (H * dh, D), ll + ("tp", "fsdp"), dt),
     }
     if cfg.moe.num_experts:
         E, Fe = cfg.moe.num_experts, cfg.moe.d_expert
-        s["router"] = ParamSpec(L + (D, E), dt)
-        s["wg_e"] = ParamSpec(L + (E, D, Fe), dt)
-        s["wu_e"] = ParamSpec(L + (E, D, Fe), dt)
-        s["wd_e"] = ParamSpec(L + (E, Fe, D), dt)
+        s["router"] = ParamSpec(L + (D, E), ll + (None, None), dt)
+        s["wg_e"] = ParamSpec(L + (E, D, Fe), ll + ("tp", "fsdp", None), dt)
+        s["wu_e"] = ParamSpec(L + (E, D, Fe), ll + ("tp", "fsdp", None), dt)
+        s["wd_e"] = ParamSpec(L + (E, Fe, D), ll + ("tp", None, "fsdp"), dt)
     else:
-        s["wg"] = ParamSpec(L + (D, F_), dt)
-        s["wu"] = ParamSpec(L + (D, F_), dt)
-        s["wd"] = ParamSpec(L + (F_, D), dt)
+        s["wg"] = ParamSpec(L + (D, F_), ll + ("fsdp", "tp"), dt)
+        s["wu"] = ParamSpec(L + (D, F_), ll + ("fsdp", "tp"), dt)
+        s["wd"] = ParamSpec(L + (F_, D), ll + ("tp", "fsdp"), dt)
     if cfg.qk_norm:
-        s["qnorm"] = ParamSpec(L + (dh,), dt, init_scale=0.0)
-        s["knorm"] = ParamSpec(L + (dh,), dt, init_scale=0.0)
+        s["qnorm"] = ParamSpec(L + (dh,), ll + (None,), dt, init_scale=0.0)
+        s["knorm"] = ParamSpec(L + (dh,), ll + (None,), dt, init_scale=0.0)
     if cfg.alt_local_global:                 # gemma2 post-norms
-        s["ln1b"] = ParamSpec(L + (D,), dt, init_scale=0.0)
-        s["ln2b"] = ParamSpec(L + (D,), dt, init_scale=0.0)
+        s["ln1b"] = ParamSpec(L + (D,), ll + (None,), dt, init_scale=0.0)
+        s["ln2b"] = ParamSpec(L + (D,), ll + (None,), dt, init_scale=0.0)
     return s
 
 
@@ -172,14 +181,14 @@ def param_specs(cfg: ArchConfig) -> dict:
     dt = dtype_of(cfg.param_dtype)
     D = cfg.d_model
     s = {
-        "embed": ParamSpec((cfg.vocab, D), dt),
-        "ln_f": ParamSpec((D,), dt, init_scale=0.0),
+        "embed": ParamSpec((cfg.vocab, D), ("tp", "fsdp"), dt),
+        "ln_f": ParamSpec((D,), (None,), dt, init_scale=0.0),
         "blocks": block_specs(cfg),
     }
     if not cfg.tie_embeddings:
-        s["unembed"] = ParamSpec((D, cfg.vocab), dt)
+        s["unembed"] = ParamSpec((D, cfg.vocab), ("fsdp", "tp"), dt)
     if cfg.family == "vlm":
-        s["img_proj"] = ParamSpec((cfg.frontend_dim, D), dt)
+        s["img_proj"] = ParamSpec((cfg.frontend_dim, D), (None, "fsdp"), dt)
     return s
 
 
@@ -346,7 +355,7 @@ def _flat_layers(cfg, t):
 
 def embed_tokens(cfg, params, tokens):
     cdt = dtype_of(cfg.compute_dtype)
-    x = F.embedding(tokens.long(), params["embed"].to(cdt))
+    x = F.embedding(tokens.long(), use(cfg, params, "embed"))
     if cfg.alt_local_global:
         # gemma scales embeddings, the scale rounded to cdt first (a Python
         # float: no host-to-device copy, so a decode graph can capture it;
@@ -356,11 +365,7 @@ def embed_tokens(cfg, params, tokens):
 
 
 def unembed(cfg, params, x):
-    cdt = dtype_of(cfg.compute_dtype)
-    if cfg.tie_embeddings:
-        w = params["embed"].to(cdt).t()
-    else:
-        w = params["unembed"].to(cdt)
+    w = use(cfg, params, "embed").t() if cfg.tie_embeddings else use(cfg, params, "unembed")
     logits = x @ w
     if cfg.logit_softcap:
         logits = softcap(logits.float(), cfg.logit_softcap)
@@ -383,13 +388,15 @@ def forward(cfg: ArchConfig, params, tokens, img_embeds=None, *, remat=True,
     x = embed_tokens(cfg, params, tokens)
     if cfg.family == "vlm":
         cdt = dtype_of(cfg.compute_dtype)
-        img = img_embeds.to(cdt) @ params["img_proj"].to(cdt)
+        img = img_embeds.to(cdt) @ use(cfg, params, "img_proj")
         x = torch.cat([img, x], dim=1)
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
     rope_cs = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
 
     def body(x, bp, window):
+        # inside the remat: the recompute gathers the layer's shards again
+        bp = use_layer(cfg, bp, ("blocks",), len(_leading(cfg)))
         return _block_fwd(cfg, x, bp, rope_cs, window=window, aux_sink=sink)
 
     body = remat_wrap(body, remat)

@@ -3,7 +3,8 @@
 The port of the reference's ``models/registry.py``: every family of the
 reference maps to its module (dense, moe and vlm to ``lm``, hybrid to
 ``zamba``, ssm to ``xlstm_lm``, audio to ``whisper``), and the serving
-questions get the reference's answers.
+questions get the reference's answers.  :func:`param_shard_dims` is the
+counterpart of the reference's ``param_pspecs`` on a data group.
 """
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from . import lm, whisper, xlstm_lm, zamba
-from .common import map_tree
+from .common import ParamSpec, ShardRules, map_tree, tree_leaves
 
 _FAMILIES = {"dense": lm, "moe": lm, "vlm": lm, "hybrid": zamba, "ssm": xlstm_lm,
              "audio": whisper}
@@ -26,6 +27,16 @@ def abstract_params(cfg: ArchConfig) -> dict:
     what ``optim.flat.make_layout`` needs."""
     return map_tree(lambda s: torch.empty(s.shape, dtype=s.dtype, device="meta"),
                     get_module(cfg).param_specs(cfg))
+
+
+def param_shard_dims(cfg: ArchConfig, rules: ShardRules) -> dict:
+    """``{leaf path: the dimension rules shard over the data axis, or
+    None}``: where the reference's ``param_pspecs(cfg, rules)`` names
+    ``rules.fsdp``.  Every FSDP dimension is a weight's own (the stacked
+    layer axes' logical axes are None), never a layer axis."""
+    return {path: spec.shard_dim(rules)
+            for path, spec in tree_leaves(get_module(cfg).param_specs(cfg))
+            if isinstance(spec, ParamSpec)}
 
 
 def supports_slot_serving(cfg: ArchConfig) -> bool:

@@ -159,19 +159,19 @@ def mamba_block_specs(cfg: ArchConfig, n_layers: int) -> dict:
     D = cfg.d_model
     s = cfg.ssm
     d_inner, H, conv_ch = mamba_dims(cfg)
-    L = (n_layers,)
+    L, ll = (n_layers,), (None,)
     dt = dtype_of(cfg.param_dtype)
     d_proj = 2 * d_inner + 2 * s.n_groups * s.state + H
     return {
-        "ln": ParamSpec(L + (D,), dt, init_scale=0.0),
-        "in_proj": ParamSpec(L + (D, d_proj), dt),
-        "conv_w": ParamSpec(L + (s.conv_kernel, conv_ch), dt),
-        "conv_b": ParamSpec(L + (conv_ch,), dt, init_scale=0.0),
-        "dt_bias": ParamSpec(L + (H,), dt, init_scale=0.0),
-        "A_log": ParamSpec(L + (H,), dt, init_scale=0.0),
-        "D_skip": ParamSpec(L + (H,), dt, init_scale=0.0),
-        "out_ln": ParamSpec(L + (d_inner,), dt, init_scale=0.0),
-        "out_proj": ParamSpec(L + (d_inner, D), dt),
+        "ln": ParamSpec(L + (D,), ll + (None,), dt, init_scale=0.0),
+        "in_proj": ParamSpec(L + (D, d_proj), ll + ("fsdp", "tp"), dt),
+        "conv_w": ParamSpec(L + (s.conv_kernel, conv_ch), ll + (None, "tp"), dt),
+        "conv_b": ParamSpec(L + (conv_ch,), ll + ("tp",), dt, init_scale=0.0),
+        "dt_bias": ParamSpec(L + (H,), ll + (None,), dt, init_scale=0.0),
+        "A_log": ParamSpec(L + (H,), ll + (None,), dt, init_scale=0.0),
+        "D_skip": ParamSpec(L + (H,), ll + (None,), dt, init_scale=0.0),
+        "out_ln": ParamSpec(L + (d_inner,), ll + (None,), dt, init_scale=0.0),
+        "out_proj": ParamSpec(L + (d_inner, D), ll + ("tp", "fsdp"), dt),
     }
 
 

@@ -40,6 +40,8 @@ from .common import (
     norm,
     norm_add,
     remat_wrap,
+    use,
+    use_layer,
 )
 from .lm import ATTN_IMPLS
 
@@ -54,19 +56,19 @@ def check_supported(cfg: ArchConfig) -> None:
         raise ValueError(f"attn_impl {cfg.attn_impl!r} not in {ATTN_IMPLS}")
 
 
-def _attn_specs(cfg, L, dt, prefix=""):
+def _attn_specs(cfg, L, ll, dt, prefix=""):
     D, dh, H, Hk = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv
     return {
-        prefix + "wq": ParamSpec(L + (D, H * dh), dt),
-        prefix + "wk": ParamSpec(L + (D, Hk * dh), dt),
-        prefix + "wv": ParamSpec(L + (D, Hk * dh), dt),
-        prefix + "wo": ParamSpec(L + (H * dh, D), dt),
+        prefix + "wq": ParamSpec(L + (D, H * dh), ll + ("fsdp", "tp"), dt),
+        prefix + "wk": ParamSpec(L + (D, Hk * dh), ll + ("fsdp", "tp"), dt),
+        prefix + "wv": ParamSpec(L + (D, Hk * dh), ll + ("fsdp", "tp"), dt),
+        prefix + "wo": ParamSpec(L + (H * dh, D), ll + ("tp", "fsdp"), dt),
     }
 
 
-def _mlp_specs(cfg, L, dt):
-    return {"w1": ParamSpec(L + (cfg.d_model, cfg.d_ff), dt),
-            "w2": ParamSpec(L + (cfg.d_ff, cfg.d_model), dt)}
+def _mlp_specs(cfg, L, ll, dt):
+    return {"w1": ParamSpec(L + (cfg.d_model, cfg.d_ff), ll + ("fsdp", "tp"), dt),
+            "w2": ParamSpec(L + (cfg.d_ff, cfg.d_model), ll + ("tp", "fsdp"), dt)}
 
 
 def padded_vocab(cfg: ArchConfig) -> int:
@@ -81,26 +83,27 @@ def param_specs(cfg: ArchConfig) -> dict:
     dt = dtype_of(cfg.param_dtype)
     D = cfg.d_model
     Le, Ld = (cfg.enc_layers,), (cfg.n_layers,)
+    ll = (None,)
     enc = {
-        "ln1": ParamSpec(Le + (D,), dt, init_scale=0.0),
-        "ln2": ParamSpec(Le + (D,), dt, init_scale=0.0),
-        **_attn_specs(cfg, Le, dt),
-        **_mlp_specs(cfg, Le, dt),
+        "ln1": ParamSpec(Le + (D,), ll + (None,), dt, init_scale=0.0),
+        "ln2": ParamSpec(Le + (D,), ll + (None,), dt, init_scale=0.0),
+        **_attn_specs(cfg, Le, ll, dt),
+        **_mlp_specs(cfg, Le, ll, dt),
     }
     dec = {
-        "ln1": ParamSpec(Ld + (D,), dt, init_scale=0.0),
-        "lnx": ParamSpec(Ld + (D,), dt, init_scale=0.0),
-        "ln2": ParamSpec(Ld + (D,), dt, init_scale=0.0),
-        **_attn_specs(cfg, Ld, dt),
-        **_attn_specs(cfg, Ld, dt, prefix="x_"),
-        **_mlp_specs(cfg, Ld, dt),
+        "ln1": ParamSpec(Ld + (D,), ll + (None,), dt, init_scale=0.0),
+        "lnx": ParamSpec(Ld + (D,), ll + (None,), dt, init_scale=0.0),
+        "ln2": ParamSpec(Ld + (D,), ll + (None,), dt, init_scale=0.0),
+        **_attn_specs(cfg, Ld, ll, dt),
+        **_attn_specs(cfg, Ld, ll, dt, prefix="x_"),
+        **_mlp_specs(cfg, Ld, ll, dt),
     }
     return {
-        "embed": ParamSpec((padded_vocab(cfg), D), dt),
+        "embed": ParamSpec((padded_vocab(cfg), D), ("tp", "fsdp"), dt),
         "enc": enc,
         "dec": dec,
-        "enc_ln_f": ParamSpec((D,), dt, init_scale=0.0),
-        "ln_f": ParamSpec((D,), dt, init_scale=0.0),
+        "enc_ln_f": ParamSpec((D,), (None,), dt, init_scale=0.0),
+        "ln_f": ParamSpec((D,), (None,), dt, init_scale=0.0),
     }
 
 
@@ -173,7 +176,7 @@ def encode(cfg: ArchConfig, params, frames):
     cdt = dtype_of(cfg.compute_dtype)
     x = frames.to(cdt) + _sinusoid(frames.shape[1], cfg.d_model, cdt, frames.device)[None]
     for i in range(cfg.enc_layers):
-        bp = _layer(params["enc"], i)
+        bp = use_layer(cfg, _layer(params["enc"], i), ("enc",))
         h = norm(cfg, x, bp["ln1"])
         o, _ = _mha(cfg, bp, "", h, h, causal=False)
         h, x = norm_add(cfg, x, o, bp["ln2"])
@@ -182,7 +185,7 @@ def encode(cfg: ArchConfig, params, frames):
 
 
 def _embed(cfg, params, tokens):
-    return F.embedding(tokens.long(), _w(params, "embed", cfg))
+    return F.embedding(tokens.long(), use(cfg, params, "embed"))
 
 
 def decode_train(cfg: ArchConfig, params, tokens, enc_out, *, remat=False,
@@ -196,6 +199,7 @@ def decode_train(cfg: ArchConfig, params, tokens, enc_out, *, remat=False,
     rope_cs = rope_tables(pos, cfg.head_dim, cfg.rope_theta)
 
     def body(x, bp):
+        bp = use_layer(cfg, bp, ("dec",))        # inside the remat, as in lm.py
         h = norm(cfg, x, bp["ln1"])
         o, kv = _mha(cfg, bp, "", h, h, causal=True, rope_cs=rope_cs)
         h, x = norm_add(cfg, x, o, bp["lnx"])
@@ -218,7 +222,7 @@ def decode_train(cfg: ArchConfig, params, tokens, enc_out, *, remat=False,
 
 def _logits(cfg, params, x):
     """Tied head over the padded vocab."""
-    return x @ _w(params, "embed", cfg).t()
+    return x @ use(cfg, params, "embed").t()
 
 
 def loss_fn(cfg: ArchConfig, params, batch, *, remat=True):

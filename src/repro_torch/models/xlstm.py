@@ -236,20 +236,20 @@ def mlstm_block_specs(cfg: ArchConfig, n: int) -> dict:
     D = cfg.d_model
     d_inner, _, _ = xlstm_dims(cfg)
     H = cfg.n_heads
-    L = (n,)
+    L, ll = (n,), (None,)
     dt = dtype_of(cfg.param_dtype)
     return {
-        "ln": ParamSpec(L + (D,), dt, init_scale=0.0),
-        "w_up": ParamSpec(L + (D, 2 * d_inner), dt),
-        "conv_w": ParamSpec(L + (4, d_inner), dt),
-        "conv_b": ParamSpec(L + (d_inner,), dt, init_scale=0.0),
-        "wq": ParamSpec(L + (d_inner, d_inner), dt),
-        "wk": ParamSpec(L + (d_inner, d_inner), dt),
-        "wv": ParamSpec(L + (d_inner, d_inner), dt),
-        "w_gates": ParamSpec(L + (d_inner, 2 * H), dt),
-        "b_gates": ParamSpec(L + (2 * H,), dt, init_scale=0.0),
-        "out_ln": ParamSpec(L + (d_inner,), dt, init_scale=0.0),
-        "w_down": ParamSpec(L + (d_inner, D), dt),
+        "ln": ParamSpec(L + (D,), ll + (None,), dt, init_scale=0.0),
+        "w_up": ParamSpec(L + (D, 2 * d_inner), ll + ("fsdp", "tp"), dt),
+        "conv_w": ParamSpec(L + (4, d_inner), ll + (None, "tp"), dt),
+        "conv_b": ParamSpec(L + (d_inner,), ll + ("tp",), dt, init_scale=0.0),
+        "wq": ParamSpec(L + (d_inner, d_inner), ll + ("fsdp", "tp"), dt),
+        "wk": ParamSpec(L + (d_inner, d_inner), ll + ("fsdp", "tp"), dt),
+        "wv": ParamSpec(L + (d_inner, d_inner), ll + ("fsdp", "tp"), dt),
+        "w_gates": ParamSpec(L + (d_inner, 2 * H), ll + ("fsdp", None), dt),
+        "b_gates": ParamSpec(L + (2 * H,), ll + (None,), dt, init_scale=0.0),
+        "out_ln": ParamSpec(L + (d_inner,), ll + (None,), dt, init_scale=0.0),
+        "w_down": ParamSpec(L + (d_inner, D), ll + ("tp", "fsdp"), dt),
     }
 
 
@@ -258,22 +258,22 @@ def slstm_block_specs(cfg: ArchConfig, n: int) -> dict:
     H = cfg.n_heads
     dh = D // H
     f = slstm_ffn_width(cfg)
-    L = (n,)
+    L, ll = (n,), (None,)
     dt = dtype_of(cfg.param_dtype)
     return {
-        "ln": ParamSpec(L + (D,), dt, init_scale=0.0),
-        "conv_w": ParamSpec(L + (4, D), dt),
-        "conv_b": ParamSpec(L + (D,), dt, init_scale=0.0),
-        "w_in": ParamSpec(L + (D, 4 * D), dt),
-        "b_in": ParamSpec(L + (4 * D,), dt, init_scale=0.0),
-        "r_z": ParamSpec(L + (H, dh, dh), dt),
-        "r_i": ParamSpec(L + (H, dh, dh), dt),
-        "r_f": ParamSpec(L + (H, dh, dh), dt),
-        "r_o": ParamSpec(L + (H, dh, dh), dt),
-        "out_ln": ParamSpec(L + (D,), dt, init_scale=0.0),
-        "w_up1": ParamSpec(L + (D, f), dt),
-        "w_up2": ParamSpec(L + (D, f), dt),
-        "w_down": ParamSpec(L + (f, D), dt),
+        "ln": ParamSpec(L + (D,), ll + (None,), dt, init_scale=0.0),
+        "conv_w": ParamSpec(L + (4, D), ll + (None, None), dt),
+        "conv_b": ParamSpec(L + (D,), ll + (None,), dt, init_scale=0.0),
+        "w_in": ParamSpec(L + (D, 4 * D), ll + ("fsdp", "tp"), dt),
+        "b_in": ParamSpec(L + (4 * D,), ll + (None,), dt, init_scale=0.0),
+        "r_z": ParamSpec(L + (H, dh, dh), ll + (None, None, None), dt),
+        "r_i": ParamSpec(L + (H, dh, dh), ll + (None, None, None), dt),
+        "r_f": ParamSpec(L + (H, dh, dh), ll + (None, None, None), dt),
+        "r_o": ParamSpec(L + (H, dh, dh), ll + (None, None, None), dt),
+        "out_ln": ParamSpec(L + (D,), ll + (None,), dt, init_scale=0.0),
+        "w_up1": ParamSpec(L + (D, f), ll + ("fsdp", "tp"), dt),
+        "w_up2": ParamSpec(L + (D, f), ll + ("fsdp", "tp"), dt),
+        "w_down": ParamSpec(L + (f, D), ll + ("tp", "fsdp"), dt),
     }
 
 

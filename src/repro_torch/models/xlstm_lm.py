@@ -29,6 +29,8 @@ from .common import (
     init_tree,
     norm,
     remat_wrap,
+    use,
+    use_layer,
 )
 from .lm import ATTN_IMPLS
 from .xlstm import (
@@ -71,9 +73,9 @@ def param_specs(cfg: ArchConfig) -> dict:
     D = cfg.d_model
     dt = dtype_of(cfg.param_dtype)
     return {
-        "embed": ParamSpec((cfg.vocab, D), dt),
-        "ln_f": ParamSpec((D,), dt, init_scale=0.0),
-        "unembed": ParamSpec((D, cfg.vocab), dt),
+        "embed": ParamSpec((cfg.vocab, D), ("tp", "fsdp"), dt),
+        "ln_f": ParamSpec((D,), (None,), dt, init_scale=0.0),
+        "unembed": ParamSpec((D, cfg.vocab), ("fsdp", "tp"), dt),
         "mlstm": mlstm_block_specs(cfg, segs * per),
         "slstm": slstm_block_specs(cfg, n_s),
     }
@@ -94,11 +96,11 @@ def cast_for_compute(cfg: ArchConfig, params: dict, device=None) -> dict:
 
 
 def _embed(cfg, params, tokens):
-    return F.embedding(tokens.long(), params["embed"].to(dtype_of(cfg.compute_dtype)))
+    return F.embedding(tokens.long(), use(cfg, params, "embed"))
 
 
 def _unembed(cfg, params, x):
-    return x @ params["unembed"].to(dtype_of(cfg.compute_dtype))
+    return x @ use(cfg, params, "unembed")
 
 
 def _blocks(cfg):
@@ -137,6 +139,8 @@ def forward(cfg: ArchConfig, params, tokens, *, remat=False, collect: bool = Fal
         x = torch.where(valid[..., None], x, 0.0)          # pad activations stay finite
 
     def mbody(x, bp):
+        # inside the remat: the recompute gathers the layer's shards again
+        bp = use_layer(cfg, bp, ("mlstm",))
         return mlstm_block_fwd(cfg, x, bp, valid=valid, state_len=plen)
 
     mbody = remat_wrap(mbody, remat)
@@ -145,8 +149,9 @@ def forward(cfg: ArchConfig, params, tokens, *, remat=False, collect: bool = Fal
         if kind == "m":
             x, st = mbody(x, _layer(params["mlstm"], i))
         else:
-            x, st = slstm_block_fwd(cfg, x, _layer(params["slstm"], i), valid=valid,
-                                    state_len=plen)
+            x, st = slstm_block_fwd(cfg, x, use_layer(cfg, _layer(params["slstm"], i),
+                                                      ("slstm",)),
+                                    valid=valid, state_len=plen)
         if collect:
             states[kind].append(st)
     x = norm(cfg, x, params["ln_f"])

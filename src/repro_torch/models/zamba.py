@@ -39,6 +39,8 @@ from .common import (
     norm,
     norm_add,
     remat_wrap,
+    use,
+    use_layer,
 )
 from .lm import ATTN_IMPLS
 from .ssm import (
@@ -84,21 +86,21 @@ def param_specs(cfg: ArchConfig) -> dict:
     D, dh, H, Hk = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv
     dt = dtype_of(cfg.param_dtype)
     shared = {
-        "proj_in": ParamSpec((2 * D, D), dt),
-        "ln1": ParamSpec((D,), dt, init_scale=0.0),
-        "wq": ParamSpec((D, H * dh), dt),
-        "wk": ParamSpec((D, Hk * dh), dt),
-        "wv": ParamSpec((D, Hk * dh), dt),
-        "wo": ParamSpec((H * dh, D), dt),
-        "ln2": ParamSpec((D,), dt, init_scale=0.0),
-        "wg": ParamSpec((D, cfg.d_ff), dt),
-        "wu": ParamSpec((D, cfg.d_ff), dt),
-        "wd": ParamSpec((cfg.d_ff, D), dt),
+        "proj_in": ParamSpec((2 * D, D), ("fsdp", None), dt),
+        "ln1": ParamSpec((D,), (None,), dt, init_scale=0.0),
+        "wq": ParamSpec((D, H * dh), ("fsdp", "tp"), dt),
+        "wk": ParamSpec((D, Hk * dh), ("fsdp", "tp"), dt),
+        "wv": ParamSpec((D, Hk * dh), ("fsdp", "tp"), dt),
+        "wo": ParamSpec((H * dh, D), ("tp", "fsdp"), dt),
+        "ln2": ParamSpec((D,), (None,), dt, init_scale=0.0),
+        "wg": ParamSpec((D, cfg.d_ff), ("fsdp", "tp"), dt),
+        "wu": ParamSpec((D, cfg.d_ff), ("fsdp", "tp"), dt),
+        "wd": ParamSpec((cfg.d_ff, D), ("tp", "fsdp"), dt),
     }
     return {
-        "embed": ParamSpec((cfg.vocab, D), dt),
-        "ln_f": ParamSpec((D,), dt, init_scale=0.0),
-        "unembed": ParamSpec((D, cfg.vocab), dt),
+        "embed": ParamSpec((cfg.vocab, D), ("tp", "fsdp"), dt),
+        "ln_f": ParamSpec((D,), (None,), dt, init_scale=0.0),
+        "unembed": ParamSpec((D, cfg.vocab), ("fsdp", "tp"), dt),
         "mamba": mamba_block_specs(cfg, cfg.n_layers),
         "shared": shared,
     }
@@ -143,6 +145,9 @@ def _shared_fwd(cfg, x, x0, sp, rope_cs=None):
     (made here when left None)."""
     B, S, _ = x.shape
     dh, H, Hk = cfg.head_dim, cfg.n_heads, cfg.n_kv
+    # each invocation gathers; not rematted, so its products keep the
+    # shards for the backward, which gathers again (common._pack)
+    sp = use_layer(cfg, sp, ("shared",), lead=0)
     u = torch.cat([norm(cfg, x, sp["ln1"]), x0], dim=-1) @ _w(sp, "proj_in", cfg)
     if rope_cs is None:
         rope_cs = _prefill_rope(cfg, B, S, x.device)
@@ -189,11 +194,11 @@ def _shared_decode(cfg, x, x0, sp, kc, vc, cur_index, rope_cs=None):
 
 
 def _embed(cfg, params, tokens):
-    return F.embedding(tokens.long(), _w(params, "embed", cfg))
+    return F.embedding(tokens.long(), use(cfg, params, "embed"))
 
 
 def _unembed(cfg, params, x):
-    return x @ _w(params, "unembed", cfg)
+    return x @ use(cfg, params, "unembed")
 
 
 def _layer(params, i):
@@ -225,7 +230,10 @@ def forward(cfg, params, tokens, *, remat=True, collect: bool = False,
         x = torch.where(valid[..., None], x, 0.0)     # pad activations stay finite
     x0 = x
     rope_cs = _prefill_rope(cfg, *tokens.shape, x.device)
-    block = None if collect else remat_wrap(lambda x, bp: mamba_block_fwd(cfg, x, bp), remat)
+    # the layer's shards are gathered inside the remat, so the recompute
+    # gathers them again
+    block = None if collect else remat_wrap(
+        lambda x, bp: mamba_block_fwd(cfg, x, use_layer(cfg, bp, ("mamba",))), remat)
     kvs, ssm, conv = [], [], []
     off = 0
     for n in _segments(cfg):

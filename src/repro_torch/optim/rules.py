@@ -3,8 +3,11 @@ SGD, Nesterov momentum, RMSProp, Adam) as pure transforms of parameter
 trees (nested dicts of tensors).
 
 States are fp32 regardless of parameter dtype (mixed-precision training).
-The reference's ``state_pspecs`` has no counterpart: the port has no
-partition specs (the per-parameter path replicates its state).
+Under FSDP (``optim/fsdp.py``) the rules run on each rank's shards: the
+state inherits the parameters' shards (``init_state`` of a tree of shards,
+the reference's ``state_pspecs``), the update is elementwise, and the
+global norm sums the squares of the shards over the group, a replicated
+leaf once.
 """
 from __future__ import annotations
 
@@ -12,6 +15,7 @@ import dataclasses
 from typing import Any
 
 import torch
+import torch.distributed as dist
 
 from .flat import tree_from_leaves, tree_leaves
 
@@ -59,6 +63,7 @@ def map_leaves(fn, *trees) -> dict:
 
 
 def init_state(cfg: OptConfig, params) -> dict:
+    """Zeros of each leaf's shape (a shard's under FSDP), fp32."""
     def zeros():
         return map_leaves(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                                 device=p.device), params)
@@ -75,22 +80,38 @@ def init_state(cfg: OptConfig, params) -> dict:
     return st
 
 
-def global_norm(tree) -> torch.Tensor:
-    sq = [x.float().square().sum() for _, x in tree_leaves(tree)]
-    return torch.sqrt(torch.stack(sq).sum())
+def global_norm(tree, group=None, sharded: torch.Tensor | None = None) -> torch.Tensor:
+    """The norm of every leaf together.  ``sharded`` (a bool tensor on the
+    leaves' device, one entry a leaf in sorted-key order) marks this
+    rank's shards: their sums of squares are all-reduced over ``group``; a
+    replicated leaf counts once.  Each leaf's sum keeps its place in the
+    final sum, so with nothing sharded (or one rank) this is the
+    replicated norm bit for bit.  No host-to-device copy: the step stays
+    free of host syncs."""
+    sq = torch.stack([x.float().square().sum() for _, x in tree_leaves(tree)])
+    if sharded is not None and group is not None and group.pg is not None:
+        part = torch.where(sharded, sq, 0.0)
+        dist.all_reduce(part, op=dist.ReduceOp.SUM, group=group.pg)
+        sq = torch.where(sharded, part, sq)
+    return torch.sqrt(sq.sum())
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    norm = global_norm(grads)
+def clip_by_global_norm(grads, max_norm: float, group=None,
+                        sharded: torch.Tensor | None = None):
+    norm = global_norm(grads, group, sharded)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
     return map_leaves(lambda g: g * scale.to(g.dtype), grads), norm
 
 
-def apply_update(cfg: OptConfig, params, grads, state) -> tuple[Any, dict, dict]:
-    """Returns (new_params, new_state, metrics)."""
+def apply_update(cfg: OptConfig, params, grads, state, *, group=None,
+                 sharded: torch.Tensor | None = None) -> tuple[Any, dict, dict]:
+    """Returns (new_params, new_state, metrics).  ``group`` and ``sharded``
+    (the mask of the leaves held as shards, see :func:`global_norm`) feed
+    the global norm of the clip; the update itself is elementwise, shard
+    or not."""
     metrics = {}
     if cfg.grad_clip:
-        grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+        grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, group, sharded)
         metrics["grad_norm"] = gnorm
     step = state["step"] + 1
     lr = cfg.lr

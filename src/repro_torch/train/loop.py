@@ -1,5 +1,5 @@
 """Training loop with fault tolerance: checkpoint/restart, deterministic
-data replay, and the elastic ZeRO reshard across data-parallel sizes.
+data replay, and the elastic reshard across data-parallel sizes.
 
 Every worker of the :class:`~repro_torch.launch.mesh.DataGroup` runs this
 loop on its ``global_batch / world`` rows of each deterministic batch.
@@ -7,7 +7,11 @@ Batches are staged through pinned memory and copied asynchronously, the
 step program makes no host sync, and checkpoint writes run on a
 background thread, so the host waits for the card only where it reads a
 logged loss.  Rank 0 writes the checkpoints; ZeRO's scattered ``m``/``v``
-are gathered into the reference's global scattered layout first.
+are gathered into the reference's global scattered layout first, and the
+per-parameter path's FSDP shards into full leaves, one leaf at a time on
+the host (the reference stores full host arrays).  A restore re-shards
+for the group it runs on, so a checkpoint of any data-parallel size and
+either rules (FSDP or replicated) restores on any other.
 """
 from __future__ import annotations
 
@@ -25,9 +29,11 @@ from repro_torch.data import make_batch_fn
 from repro_torch.models import registry
 from repro_torch.models.common import map_tree
 from repro_torch.obs import Observer
+from repro_torch.models.common import ShardRules
 from repro_torch.optim import OptConfig, init_state
 from repro_torch.optim.buckets import make_buckets, reshard_scattered
 from repro_torch.optim.flat import flatten, tree_leaves, unflatten
+from repro_torch.optim.fsdp import full_tree, init_shards, shard_tree
 from repro_torch.train.step import (
     TrainSettings,
     to_device,
@@ -35,6 +41,7 @@ from repro_torch.train.step import (
     flat_engine_mode,
     flat_layout_for,
     opt_state_template,
+    shard_layout_for,
 )
 
 
@@ -51,8 +58,8 @@ class LoopConfig:
 def init_replicated(cfg: ArchConfig, group, opt: OptConfig, seed: int,
                     settings: TrainSettings = TrainSettings()):
     """Parameters from the family's ``init`` on the group's device,
-    broadcast from rank 0, and the optimizer state for ``settings``' program
-    (the counterpart of the reference's ``init_sharded``)."""
+    broadcast from rank 0, and the optimizer state for ``settings``' flat
+    program (:func:`init_sharded` takes the per-parameter path)."""
     params = registry.get_module(cfg).init(cfg, seed=seed, device=group.device)
     if group.pg is not None:
         for _, leaf in tree_leaves(params):
@@ -63,6 +70,36 @@ def init_replicated(cfg: ArchConfig, group, opt: OptConfig, seed: int,
         layout = flat_layout_for(cfg)
         params = unflatten(layout, flatten(layout, params))
     return params, opt_state_template(cfg, group, opt, settings)(params)
+
+
+def init_sharded(cfg: ArchConfig, group, opt: OptConfig, seed: int,
+                 settings: TrainSettings = TrainSettings(),
+                 rules: ShardRules | None = None):
+    """Parameters and optimizer state for the program ``settings`` and
+    ``rules`` select (the counterpart of the reference's ``init_sharded``).
+    The flat programs replicate (:func:`init_replicated`).  The
+    per-parameter path holds this rank's shards of the leaves ``rules``
+    shard (``optim.fsdp.init_shards``: the values of the unsharded ``init``
+    for ``seed``, whatever the world, with no sharded leaf ever whole on a
+    rank) and the rest whole, broadcast from rank 0; the state is zeros of
+    the same shards."""
+    if flat_engine_mode(cfg, group, opt, settings) is not None:
+        return init_replicated(cfg, group, opt, seed, settings)
+    shards = shard_layout_for(cfg, group, settings, rules)
+    params = init_shards(cfg, shards, seed, group.device)
+    if group.pg is not None:
+        for path, leaf in tree_leaves(params):
+            if path not in shards.sharded:
+                dist.broadcast(leaf, src=0, group=group.pg)
+    return params, opt_state_template(cfg, group, opt, settings, rules)(params)
+
+
+def _full_state(shards, params, opt_state, group):
+    """Full leaves of the per-parameter path's params and optimizer state
+    on the host, gathered one leaf at a time (every rank takes part)."""
+    opt_host = {k: full_tree(shards, v, group) if isinstance(v, dict) else v
+                for k, v in opt_state.items()}
+    return full_tree(shards, params, group), opt_host
 
 
 def _opt_template(cfg, opt, mode, scattered_total):
@@ -97,8 +134,13 @@ def train(
     resume: bool = True,
     on_step: Callable[[int, dict], None] | None = None,
     obs: Observer | None = None,
+    rules: ShardRules | None = None,
 ) -> dict:
     """Runs the loop on this worker; returns the final metrics summary.
+    ``rules`` select the per-parameter path's sharding (default
+    ``ShardRules.for_group(group, faithful=settings.faithful)``: FSDP unless
+    faithful); the returned ``params`` and ``opt_state`` are this rank's
+    (shards where the rules shard).
 
     With an :class:`~repro_torch.obs.Observer` every step records a
     ``step_ms`` histogram, and the summary embeds the metrics snapshot
@@ -107,8 +149,9 @@ def train(
     ``ckpt_save``).  ``device_wait`` synchronizes the device: traced, the
     loop adds that one host sync a step (it separates host staging and
     dispatch from device compute); untraced, it makes none."""
-    step_fn = build_train_step(cfg, group, opt, settings)
+    step_fn = build_train_step(cfg, group, opt, settings, rules)
     mode = step_fn._flat_engine
+    shards = step_fn._shard_layout if mode is None else None
     batch_fn = make_batch_fn(cfg, shape, loop.seed)
     B = shape.global_batch
     if B % group.world:
@@ -130,15 +173,17 @@ def train(
         if group.rank == 0:
             print(f"[train] resumed from step {start}")
     else:
-        params, opt_state = init_replicated(cfg, group, opt, loop.seed, settings)
+        params, opt_state = init_sharded(cfg, group, opt, loop.seed, settings, rules)
 
     def save(step: int, blocking: bool):
-        opt_host = opt_state
+        params_host, opt_host = params, opt_state
         if mode == "zero":
             opt_host = {**opt_state, "m": _gather_scattered(opt_state["m"], group),
                         "v": _gather_scattered(opt_state["v"], group)}
+        elif shards is not None:
+            params_host, opt_host = _full_state(shards, params, opt_state, group)
         if group.rank == 0:
-            mgr.save(step, {"params": params, "opt": opt_host}, blocking=blocking,
+            mgr.save(step, {"params": params_host, "opt": opt_host}, blocking=blocking,
                      extra_meta=ckpt_meta)
 
     losses, t0 = [], time.perf_counter()
@@ -203,8 +248,21 @@ def train(
 def _restore(cfg, group, opt, mgr, step_fn):
     """(step, params, opt_state) from the newest checkpoint, placed on the
     group's device; a ZeRO checkpoint from another dp size or bucket size
-    is resharded on the host first (elastic restore)."""
+    is resharded on the host first (elastic restore), and the per-parameter
+    path takes this rank's shards of the full leaves (``restore``'s
+    ``shard_fn``)."""
     mode = step_fn._flat_engine
+    to_dev = lambda a: torch.as_tensor(np.asarray(a), device=group.device)
+    if mode is None:
+        shards = step_fn._shard_layout
+        _, state = mgr.restore({"params": registry.abstract_params(cfg)},
+                               shard_fn=lambda tree: shard_tree(shards, tree))
+        params = map_tree(to_dev, state["params"])
+        start, state = mgr.restore(
+            {"opt": _opt_template(cfg, opt, None, 0)},
+            shard_fn=lambda st: {k: shard_tree(shards, v) if isinstance(v, dict) else v
+                                 for k, v in st.items()})
+        return start, params, map_tree(to_dev, state["opt"])
     _, meta = mgr.load_meta()
     new_b = step_fn._flat_buckets
     old_b = None
@@ -219,7 +277,6 @@ def _restore(cfg, group, opt, mgr, step_fn):
     template = {"params": registry.abstract_params(cfg),
                 "opt": _opt_template(cfg, opt, mode, scattered)}
     start, state = mgr.restore(template)
-    to_dev = lambda a: torch.as_tensor(np.asarray(a), device=group.device)
     params = map_tree(to_dev, state["params"])
     opt_state = map_tree(to_dev, state["opt"])
     if mode == "zero":
@@ -229,12 +286,11 @@ def _restore(cfg, group, opt, mgr, step_fn):
                 buf = reshard_scattered(buf, old_b, new_b)
             n = new_b.local_total
             opt_state[k] = to_dev(buf[group.rank * n: (group.rank + 1) * n])
-    if mode is not None:
-        # the flat programs keep p (and faithful's m/v) as views of one
-        # flat buffer each, so their per-step flatten is free
-        layout = step_fn._flat_layout
-        params = unflatten(layout, flatten(layout, params))
-        if mode == "faithful":
-            for k in ("m", "v"):
-                opt_state[k] = unflatten(layout, flatten(layout, opt_state[k]))
+    # the flat programs keep p (and faithful's m/v) as views of one flat
+    # buffer each, so their per-step flatten is free
+    layout = step_fn._flat_layout
+    params = unflatten(layout, flatten(layout, params))
+    if mode == "faithful":
+        for k in ("m", "v"):
+            opt_state[k] = unflatten(layout, flatten(layout, opt_state[k]))
     return start, params, opt_state

@@ -16,10 +16,19 @@ its block.  Three programs:
   flat-Adam kernel on the owned 1/N shard (ZeRO optimizer-state sharding:
   ``m``/``v`` are flat scattered buffers), per-bucket all-gather of the
   updated parameters.
-* **per-parameter** (``flat_engine="off"``, a non-adam rule, or the
-  ``moe`` family) — one ``all_reduce`` of the mean per parameter, then
-  ``optim.apply_update``.  The reference shards parameters FSDP-style on
-  this path; the port replicates them until the FSDP slice.
+* **per-parameter** (``flat_engine="off"``, a non-adam rule, the ``moe``
+  family, or the default non-faithful settings) — ``optim.apply_update``
+  on each leaf, under :class:`~repro_torch.models.common.ShardRules`
+  (``ShardRules.for_group(group, faithful=settings.faithful)`` unless
+  given), as the reference's.  FSDP rules (the default): every leaf with
+  an FSDP dimension is held as this rank's 1/N shard (``optim/fsdp.py``),
+  and so are its Adam moments; the models gather a layer's shards in the
+  compute dtype while the layer runs (``common.fsdp_program``), again in
+  remat's recompute or, outside a rematted block, in the backward (no
+  full copy outlives its use), and the gather's backward hands each
+  shard its gradient already reduce-scattered, the mean in fp32.  The replicated
+  leaves (norms, the MoE router) and, under faithful rules, every leaf
+  take one ``all_reduce`` of the mean each.
 
 Every family of the reference trains here through its module's
 ``loss_fn``: dense, gemma2's pairs, vlm (``patch_embeds`` in the batch),
@@ -37,6 +46,7 @@ stay device tensors: a step makes no host sync.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable
 
@@ -45,7 +55,9 @@ import torch.distributed as dist
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import registry
+from repro_torch.models.common import ShardRules, fsdp_program
 from repro_torch.optim import OptConfig, apply_update, init_state
+from repro_torch.optim.fsdp import ShardLayout, check_shards, make_shard_layout
 from repro_torch.optim.buckets import (
     BucketLayout,
     bucketed_all_gather,
@@ -144,20 +156,25 @@ def _split_batch(batch: dict, k: int) -> list[dict]:
     return [{n: v[i] for n, v in split.items()} for i in range(k)]
 
 
-def _make_compute_grads(cfg: ArchConfig, settings: TrainSettings):
+def _make_compute_grads(cfg: ArchConfig, settings: TrainSettings, group=None,
+                        shards: ShardLayout | None = None):
     """``compute_grads(params, batch, layout=None) -> (loss, metrics,
     grads)``.  With ``k = num_slices > 1`` the batch is split into ``k``
     slices and ``grad / k`` accumulated in ``accum_dtype`` in slice order;
     loss and metrics are averaged the same way.  With a ``layout`` the
-    accumulator is one flat buffer and ``grads`` its views."""
+    accumulator is one flat buffer and ``grads`` its views.  With
+    ``shards`` (FSDP) the loss and its backward run inside the FSDP
+    program over ``group``, so the sharded leaves' gradients come back as
+    this rank's shards of the mean."""
     mod = registry.get_module(cfg)
 
     def grad_fn(params, mb):
         pairs = list(tree_leaves(params))
         xs = [l.detach().requires_grad_() for _, l in pairs]
-        loss, metrics = mod.loss_fn(cfg, tree_from_leaves([p for p, _ in pairs], xs),
-                                    mb, remat=settings.remat)
-        grads = torch.autograd.grad(loss, xs)
+        with fsdp_program(group, shards.gather_dims) if shards else contextlib.nullcontext():
+            loss, metrics = mod.loss_fn(cfg, tree_from_leaves([p for p, _ in pairs], xs),
+                                        mb, remat=settings.remat)
+            grads = torch.autograd.grad(loss, xs)
         return loss.detach(), {n: m.detach() for n, m in metrics.items()}, grads
 
     def compute_grads(params, batch, layout: FlatLayout | None = None):
@@ -220,31 +237,55 @@ def _pmean_metrics(loss, metrics: dict, group):
 # ---------------------------------------------------------------------------
 
 
+def shard_layout_for(cfg: ArchConfig, group, settings: TrainSettings,
+                     rules: ShardRules | None = None) -> ShardLayout:
+    """The per-parameter path's shard layout on this rank: ``rules``, or
+    the launcher's default ``ShardRules.for_group(group,
+    faithful=settings.faithful)`` (FSDP unless faithful)."""
+    rules = rules or ShardRules.for_group(group, faithful=settings.faithful)
+    return make_shard_layout(cfg, rules, group.world, group.rank)
+
+
 def build_train_step(cfg: ArchConfig, group, opt: OptConfig,
-                     settings: TrainSettings = TrainSettings()) -> Callable:
+                     settings: TrainSettings = TrainSettings(),
+                     rules: ShardRules | None = None) -> Callable:
     """Returns ``train_step(params, opt_state, batch) -> (params,
     opt_state, metrics)`` for this worker's rows of the batch.
 
     The returned callable carries ``_flat_engine`` (None | "faithful" |
-    "zero") and, when flat, ``_flat_layout`` / ``_flat_buckets``.
+    "zero") and, when flat, ``_flat_layout`` / ``_flat_buckets``; on the
+    per-parameter path ``_shard_layout`` (what this rank's ``params`` and
+    ``opt_state`` leaves are: shards of the leaves it lists as sharded).
+    ``rules`` matter on the per-parameter path only.
     """
     mode = flat_engine_mode(cfg, group, opt, settings)
     if mode is not None:
         return _build_flat_train_step(cfg, group, opt, settings, mode)
 
-    compute_grads = _make_compute_grads(cfg, settings)
+    shards = shard_layout_for(cfg, group, settings, rules)
+    sharded = shards.sharded
+    compute_grads = _make_compute_grads(cfg, settings, group, shards if sharded else None)
+    # the global norm's mask of sharded leaves, made once: a step copies
+    # nothing from the host
+    mask = (torch.tensor([p in sharded for p in shards.paths], device=group.device)
+            if sharded else None)
 
     def train_step(params, opt_state, batch):
         loss, metrics, grads = compute_grads(params, to_device(batch, group.device))
         loss, metrics = _pmean_metrics(loss, metrics, group)
         if group.pg is not None:
-            for _, g in tree_leaves(grads):
-                dist.all_reduce(g, op=dist.ReduceOp.SUM, group=group.pg)
-                g.div_(group.world)
-        params, opt_state, opt_metrics = apply_update(opt, params, grads, opt_state)
+            # a sharded leaf's gradient arrives reduce-scattered (the
+            # gather's backward); a replicated one takes the mean here
+            for path, g in tree_leaves(grads):
+                if path not in sharded:
+                    dist.all_reduce(g, op=dist.ReduceOp.SUM, group=group.pg)
+                    g.div_(group.world)
+        params, opt_state, opt_metrics = apply_update(opt, params, grads, opt_state,
+                                                      group=group, sharded=mask)
         return params, opt_state, {"loss": loss, **metrics, **opt_metrics}
 
     train_step._flat_engine = None
+    train_step._shard_layout = shards
     return train_step
 
 
@@ -352,11 +393,14 @@ def _build_flat_train_step(cfg, group, opt, settings, mode: str):
 
 
 def opt_state_template(cfg: ArchConfig, group, opt: OptConfig,
-                       settings: TrainSettings = TrainSettings()):
+                       settings: TrainSettings = TrainSettings(),
+                       rules: ShardRules | None = None):
     """Returns ``init_fn(params) -> opt_state`` consistent with what
     :func:`build_train_step` expects: ZeRO's ``m``/``v`` are this worker's
     flat scattered shards (``local_total`` long), faithful's are trees of
-    views of one flat buffer each, the per-parameter path's trees."""
+    views of one flat buffer each, the per-parameter path's trees of the
+    parameters' shapes (under FSDP this rank's shards, which ``params``
+    must already be)."""
     mode = flat_engine_mode(cfg, group, opt, settings)
 
     def step0():
@@ -381,4 +425,10 @@ def opt_state_template(cfg: ArchConfig, group, opt: OptConfig,
             return {"step": step0(), "m": z(), "v": z()}
 
         return init_fn
-    return lambda params: init_state(opt, params)
+    shards = shard_layout_for(cfg, group, settings, rules)
+
+    def init_fn(params):
+        check_shards(shards, params)
+        return init_state(opt, params)
+
+    return init_fn
