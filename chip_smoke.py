@@ -401,7 +401,20 @@ Phases (any failure raises and the script exits non-zero):
    ``lb_loss`` finite and ``drop_frac`` in [0, 1] each step (printed), step
    1 against the plain path in fp32 (loss 1e-4, gradient norm 1e-3
    relative).  Prints phase 13's figures and ``bytes_per_rank`` of the
-   48-layer model at 1, 4 and 8 ranks.
+   48-layer model at 1, 4 and 8 ranks.  Then a third run, the trainer's
+   model axis: the same init under ``ShardRules.for_mesh`` of a ``(data 1,
+   model 1)`` mesh over 1-rank NCCL subgroups, phase 14's 3 steps (the
+   tensor-, sequence- and expert-parallel program: local heads, the
+   sequence-sharded residual stream, the rank's experts, the
+   vocab-parallel loss), freed before 14b.  Gates: step 1's loss, gradient
+   norm and parameter digests bitwise the FSDP rules'; finite losses,
+   batch 0's loss falling; flash, ``rmsnorm`` and ``rmsnorm_add`` by phase
+   14's formulas and no flat_adam; the FSDP gathers and the model-axis
+   collectives by formula (``mesh_collectives``).  Prints its host median
+   and a profiled step's device ms and idle share beside phase 14's, and
+   ``bytes_per_rank`` of the 48-layer model at ``(8, 1)``, ``(4, 2)`` and
+   ``(2, 4)`` and of ``qwen3-moe-235b-a22b`` on the production ``(16,
+   16)`` mesh (meta tensors).
 14b. ``zamba2-1.2b`` at full width, its first segment (6 layers, one
    shared-block invocation), 2 steps of the default settings (the
    per-parameter path under FSDP, 1-rank NCCL group), phase 13's shape:
@@ -5202,6 +5215,8 @@ TRAIN_FP32_TOL = {"float32": dict(loss=1e-4, grad_norm=1e-3)}
 # phase 14: qwen3-moe-30b-a3b at full width and 2 of its 48 layers, the
 # per-parameter path under FSDP, seq 512, global batch 4 in 2 slices, 3 steps
 MT_LAYERS, MT_SEQ, MT_BATCH, MT_SLICES, MT_STEPS = 2, 512, 4, 2, 3
+# phase 14's bytes_per_rank meshes of the 48-layer model, (data, model)
+MESH_SHAPES = ((8, 1), (4, 2), (2, 4))
 # phase 14b: zamba2-1.2b's first segment under FSDP, phase 13's shape, 2 steps
 ZF_STEPS = 2
 # phase 15: whisper-tiny uncut and xlstm-1.3b at 8 of 48 layers (7 mLSTM,
@@ -5383,7 +5398,37 @@ def fsdp_collectives(cfg, per: int) -> dict:
         remat = cfg.n_layers * count("mamba")
         plain += zamba.n_shared_invocations(cfg) * count("shared")
     return dict(all_gather=(2 * plain - 1 + 2 * remat) * per,
-                reduce_scatter=(plain + remat) * per)
+                reduce_scatter=(plain + remat) * per, copy_to_model=0,
+                reduce_from_model=0, model_all_gather=0, model_reduce_scatter=0, vocab_ce=0)
+
+
+def mesh_collectives(cfg, per: int) -> dict:
+    """Every collective of ``per`` slices on a ``(1, 1)`` mesh
+    (``models.common.COUNTS``): the FSDP gathers and reduce-scatters as
+    :func:`fsdp_collectives`, and the model axis' (each Function's forward
+    and backward collective under its name).  A slice: the embedding's
+    reduce-scatter onto the sequence shard, the loss's gather of the
+    sequence and its two all-reduces; each rematted layer's gathers of the
+    normed stream before attention and before the FFN and the
+    reduce-scatters of their outputs, in the forward, the recompute and
+    the backward (the dense FFN's last reduce-scatter is not recomputed:
+    nothing after it in the block saves a tensor).  The heads divide at
+    model size 1: no head gathers."""
+    L = cfg.n_layers
+    rs = 6 * L + 2 if (cfg.moe.num_experts or cfg.alt_local_global) else 5 * L + 2
+    return dict(fsdp_collectives(cfg, per), copy_to_model=0, reduce_from_model=0,
+                model_all_gather=(6 * L + 2) * per, model_reduce_scatter=rs * per,
+                vocab_ce=2 * per)
+
+
+def reset_counts(torch) -> None:
+    """Every launch count of the train kernels and every collective count
+    to 0."""
+    from repro_torch.models import common
+
+    for k in train_kernels():
+        k.launches = 0
+    common.COUNTS.update(dict.fromkeys(common.COUNTS, 0))
 
 
 def tree_digest(torch, tree) -> list:
@@ -5398,13 +5443,15 @@ def tree_digest(torch, tree) -> list:
     return out
 
 
-def rules_step1(torch, cfg, group, opt, shape, settings, label: str) -> dict:
+def rules_step1(torch, cfg, group, opt, shape, settings, label: str, mesh_want=None) -> dict:
     """Step 1 from the seed-0 init on batch 0 under the replicated rules,
     then under FSDP (the gathers and reduce-scatters over ``group``), each
     run freed before the next.  Gates loss, gradient norm and the updated
     parameters (their digests) bitwise equal: at one rank a shard is its
     whole leaf, the gather and the reduce-scatter move bytes without
-    arithmetic, and every sum keeps its order."""
+    arithmetic, and every sum keeps its order.  With ``mesh_want`` (the
+    launches by formula), a third run on a ``(1, 1)`` mesh over ``group``
+    (:func:`mesh_run`), its step 1 held bitwise to FSDP's."""
     from repro_torch.data import make_batch_fn
     from repro_torch.models import common
     from repro_torch.models.common import ShardRules
@@ -5416,28 +5463,103 @@ def rules_step1(torch, cfg, group, opt, shape, settings, label: str) -> dict:
         rules = ShardRules.for_group(group, faithful=faithful)
         params, state = init_sharded(cfg, group, opt, 0, settings, rules)
         step_fn = build_train_step(cfg, group, opt, settings, rules)
-        common.COUNTS.update(all_gather=0, reduce_scatter=0)
+        common.COUNTS.update(dict.fromkeys(common.COUNTS, 0))
         torch.cuda.synchronize()
         t = time.perf_counter()
-        p, _, m = step_fn(params, state, batch)
+        p, o, m = step_fn(params, state, batch)
         torch.cuda.synchronize()
         out[name] = dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
                          step_ms=(time.perf_counter() - t) * 1e3,
                          collectives=dict(common.COUNTS), sharded=len(step_fn._shard_layout.sharded),
                          digest=tree_digest(torch, p))
-        del params, state, p, m, step_fn
+        # the new Adam state too: nothing of a run outlives it
+        del params, state, p, o, m, step_fn
         free(torch)
     rep, fs = out["replicated"], out["fsdp"]
     out["bitwise"] = {k: rep[k] == fs[k] for k in ("loss", "grad_norm")}
     out["params_digest_equal"] = rep["digest"] == fs["digest"]
     out["max_abs_diff"] = {k: abs(rep[k] - fs[k]) for k in ("loss", "grad_norm")}
+    if mesh_want is not None:
+        out["mesh"] = mesh_run(torch, cfg, group, opt, shape, settings, mesh_want, fs)
     for r in (rep, fs):
         r["digest"] = sum(r["digest"])
     log(f"step 1 {label}, replicated rules against FSDP: {json.dumps(out)}")
-    assert rep["collectives"] == dict(all_gather=0, reduce_scatter=0) and fs["sharded"], out
+    assert rep["collectives"] == dict.fromkeys(common.COUNTS, 0) and fs["sharded"], out
     assert all(out["bitwise"].values()), out
     assert out["params_digest_equal"], out
     return out
+
+
+def mesh_run(torch, cfg, group, opt, shape, settings, want: dict, fsdp: dict) -> dict:
+    """Phase 14's third run: ``ShardRules.for_mesh`` of a ``(1, 1)`` mesh
+    laid over ``group`` (1-rank NCCL subgroups for ``data`` and ``model``),
+    the seed-0 init, ``MT_STEPS`` steps on batches 0, 1, ... of the stream.
+    Gates: step 1's loss, gradient norm and parameter digests bitwise
+    ``fsdp``'s (phase 14's FSDP step 1: at one rank every model-axis
+    collective moves bytes without arithmetic and the vocab-parallel loss
+    is ``logsumexp``'s arithmetic); finite losses and batch 0's loss below
+    step 1's after the steps; the launches ``want`` and the collectives
+    by formula.  Then a profiled step (``profile_train_step``) on the
+    mesh.  Everything is freed before it returns."""
+    from repro_torch.data import make_batch_fn
+    from repro_torch.launch.mesh import mesh_from_group
+    from repro_torch.models import common
+    from repro_torch.models.common import ShardRules
+    from repro_torch.train import build_train_step, init_sharded
+
+    mesh = mesh_from_group(group, (1, 1))
+    rules = ShardRules.for_mesh(mesh)
+    assert rules == ShardRules(dp=("data",), tp="model", fsdp="data", sp=True), rules
+    batch_fn = make_batch_fn(cfg, shape, 0)
+    params, state = init_sharded(cfg, mesh, opt, 0, settings)
+    step_fn = build_train_step(cfg, mesh, opt, settings)
+    reset_counts(torch)
+    torch.cuda.reset_peak_memory_stats()
+    times, history, digest = [], [], None
+    for i in range(MT_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, state, m = step_fn(params, state, batch_fn(i))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        history.append({k: float(v) for k, v in m.items()})
+        if i == 0:
+            digest = tree_digest(torch, params)
+    kernels = train_kernels()
+    launches = {k.__name__: k.launches for k in kernels}
+    collectives = dict(common.COUNTS)
+    warm = times[1:]
+    row = dict(mesh=list(mesh.shape), rules=dataclasses.asdict(rules),
+               split_over_model=len(step_fn._shard_layout.model_sharded),
+               sharded=len(step_fn._shard_layout.sharded),
+               model_partial=len(step_fn._model_partial), steps=MT_STEPS,
+               losses=[h["loss"] for h in history], metrics=history, step_ms=times,
+               step_ms_median=float(np.median(warm)),
+               max_memory_allocated=torch.cuda.max_memory_allocated(), launches=launches,
+               launches_expected=want, collectives=collectives,
+               collectives_expected=mesh_collectives(cfg, settings.num_slices * MT_STEPS))
+    row["step1_bitwise"] = {k: history[0][k] == fsdp[k] for k in ("loss", "grad_norm")}
+    row["step1_max_abs_diff"] = {k: abs(history[0][k] - fsdp[k]) for k in ("loss", "grad_norm")}
+    row["params_digest_equal"] = digest == fsdp["digest"]
+    row["batch0_loss_after"] = eval_loss(torch, cfg, params, shape, group, settings.num_slices)
+    log(f"train qwen3-moe mesh (1, 1): {json.dumps(row)}")
+    log(f"train qwen3-moe mesh (1, 1): host median {row['step_ms_median']:.1f} ms; batch 0 "
+        f"loss {row['losses'][0]:.4f} at step 1, {row['batch0_loss_after']:.4f} after "
+        f"{MT_STEPS} steps")
+    assert all(np.isfinite(row["losses"])), row
+    assert row["batch0_loss_after"] < row["losses"][0], row
+    assert all(row["step1_bitwise"].values()) and row["params_digest_equal"], row
+    assert all(launches[k] == n for k, n in want.items()), row
+    assert collectives == row["collectives_expected"], row
+    assert row["split_over_model"] and row["model_partial"], row
+    # the profile takes the state over: no third copy of it is held
+    run = {"params": params, "opt_state": state}
+    del params, state, step_fn
+    row["profile"] = profile_train_step(torch, cfg, mesh, opt, settings, run,
+                                        batch_fn(MT_STEPS))
+    del run
+    free(torch)
+    return row
 
 
 def moe_train_path(torch, dev, results):
@@ -5470,11 +5592,18 @@ def moe_train_path(torch, dev, results):
     per_rank = {w: fsdp.bytes_per_rank(full, opt, w) for w in (1, 4, 8)}
     log(f"qwen3-moe-30b-a3b, {full.n_layers} layers, bytes a rank on the per-parameter "
         f"path under FSDP (params, grads, Adam m and v): {json.dumps(per_rank)}")
+    per_mesh = {f"{d}x{m}": fsdp.bytes_per_rank(full, opt, d, m) for d, m in MESH_SHAPES}
+    big = get_config("qwen3-moe-235b-a22b")
+    per_mesh["qwen3-moe-235b-a22b 16x16"] = fsdp.bytes_per_rank(big, opt, 16, 16)
+    log(f"bytes a rank on a (data, model) mesh, qwen3-moe-30b-a3b at {full.n_layers} "
+        f"layers and qwen3-moe-235b-a22b at {big.n_layers} on the production mesh (params, "
+        f"grads, Adam m and v): {json.dumps(per_mesh)}")
     group = init_group("nccl", 0, 1, f"tcp://127.0.0.1:{free_port()}", device=dev)
     try:
         assert flat_engine_mode(base, group, opt, settings) is None
-        step1_rules = rules_step1(torch, base, group, opt, shape, settings, "qwen3-moe")
-        common.COUNTS.update(all_gather=0, reduce_scatter=0)
+        step1_rules = rules_step1(torch, base, group, opt, shape, settings, "qwen3-moe",
+                                  mesh_want=want)
+        common.COUNTS.update(dict.fromkeys(common.COUNTS, 0))
         row, res = family_train(torch, group, base, shape, opt, settings, MT_STEPS, want,
                                 "qwen3-moe-30b-a3b")
         row["collectives"] = dict(common.COUNTS)
@@ -5483,6 +5612,7 @@ def moe_train_path(torch, dev, results):
         assert row["collectives"] == row["collectives_expected"], row["collectives"]
         row["step1_rules"] = step1_rules
         row["bytes_per_rank_48_layers"] = per_rank
+        row["bytes_per_rank_mesh"] = per_mesh
         row["params"] = n_params(res["params"])
         for i, m in enumerate(row["metrics"]):
             log(f"train qwen3-moe step {i + 1}: loss {m['loss']:.4f} ce {m['ce_loss']:.4f} "
@@ -5537,7 +5667,7 @@ def zamba_fsdp_path(torch, dev, results):
     try:
         assert flat_engine_mode(base, group, opt, settings) is None
         step1_rules = rules_step1(torch, base, group, opt, shape, settings, "zamba2 segment")
-        common.COUNTS.update(all_gather=0, reduce_scatter=0)
+        common.COUNTS.update(dict.fromkeys(common.COUNTS, 0))
         row, res = family_train(torch, group, base, shape, opt, settings, ZF_STEPS, want,
                                 "zamba2-1.2b first segment, FSDP")
         row["collectives"] = dict(common.COUNTS)
@@ -5705,11 +5835,13 @@ def main() -> int:
     s8 = {name: stablelm_counts.get(name, 0) for name in names}
     m9 = {name: moe_counts.get(name, 0) for name in names}
     # phases 10-12: each kernel row's launches on the three frontier paths
+    moe_mesh_counts = results["moe_train"]["step1_rules"]["mesh"]["launches"]
     later = {name: dict(xlstm_launches=xlstm_counts.get(name, 0),
                         whisper_launches=whisper_counts.get(name, 0),
                         vlm_launches=vlm_counts.get(name, 0),
                         zamba_train_launches=zamba_train_counts.get(name, 0),
                         moe_train_launches=moe_train_counts.get(name, 0),
+                        moe_mesh_train_launches=moe_mesh_counts.get(name, 0),
                         zamba_fsdp_train_launches=zamba_fsdp_counts.get(name, 0),
                         whisper_train_launches=frontier_train_counts["whisper-tiny"].get(name, 0),
                         xlstm_train_launches=frontier_train_counts["xlstm-1.3b"].get(name, 0))
@@ -5923,7 +6055,13 @@ def main() -> int:
                    for name, prof in (("dense train step (4)", results["train_profile"]),
                                       ("zamba train step (13)", zt["profile"]),
                                       ("qwen3-moe train step (14, FSDP)",
-                                       results["moe_train"]["profile"]))}
+                                       results["moe_train"]["profile"]),
+                                      ("qwen3-moe train step (14, mesh (1, 1))",
+                                       results["moe_train"]["step1_rules"]["mesh"]["profile"]))}
+    for name, ms in (("qwen3-moe train step (14, FSDP)", results["moe_train"]["step_ms_median"]),
+                     ("qwen3-moe train step (14, mesh (1, 1))",
+                      results["moe_train"]["step1_rules"]["mesh"]["step_ms_median"])):
+        train_steps[name] = {"host_ms_median": ms, **(train_steps[name] or {})}
     log(f"profiled train steps: {json.dumps(train_steps)}")
     results["kernels"] = kernels
     OUT_DIR.mkdir(parents=True, exist_ok=True)

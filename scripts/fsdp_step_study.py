@@ -12,7 +12,8 @@ functions with their gates.  Per run the script prints the card's name and
 power limit and one JSON line: the step's host times (median, p90),
 tokens/s, the profiled step's device-busy ms and idle share, kernel
 launches, the collectives counted, peak memory and, under FSDP, step 1's
-agreement with the replicated rules.  The runs' logs and the summary go to
+agreement with the replicated rules; where the tree's phase 14 has it, the
+same figures of its third run on a ``(1, 1)`` mesh.  The runs' logs and the summary go to
 ``chiprun_out/fsdp_step_study/``.  Needs one card.
 """
 from __future__ import annotations
@@ -65,6 +66,15 @@ def one(tree: pathlib.Path) -> dict:
             kernel_launches=prof.get("kernel_launches"),
             step1_rules={k: s1.get(k) for k in ("bitwise", "params_digest_equal",
                                                  "max_abs_diff")} if s1 else None)
+        mesh = s1.get("mesh")
+        if mesh:
+            mp = mesh.get("profile") or {}
+            out[phase]["mesh"] = dict(
+                step_ms=mesh["step_ms"], step_ms_median=mesh["step_ms_median"],
+                collectives=mesh["collectives"], step1_bitwise=mesh["step1_bitwise"],
+                params_digest_equal=mesh["params_digest_equal"],
+                **{k: mp.get(k) for k in ("step_ms_unprofiled", "device_busy_ms",
+                                          "device_idle_share", "kernel_launches")})
     return out
 
 

@@ -8,9 +8,9 @@ JAX mesh whose data axes are the workers, ``fork`` here joins (or makes) a
 group whose ranks are the workers:
 
 * ``n_data`` — the world size (the paper's data-parallel workers);
-* ``n_model`` — 1: tensor/expert/sequence-parallel axes arrive with the
-  tensor-parallel slice of the port, and a mesh shape with a model axis
-  raises, as ``launch/mesh.py`` does for the ``production`` mesh.
+* ``n_model`` — 1: the function API's model axes are not ported (the
+  trainer's are: ``train/step.py`` on a ``launch.mesh.MeshGroup``), and a
+  mesh shape with a live model axis raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -80,8 +80,8 @@ def _check_axes(shape: Sequence[int], axes: Sequence[str], data_axes) -> int:
     model = [a for a, n in zip(axes, shape) if a not in data_axes and n > 1]
     if model:
         raise NotImplementedError(
-            f"mesh axes {model} are model axes; tensor/expert/sequence parallelism "
-            "arrives with the tensor-parallel slice of the port")
+            f"mesh axes {model} are model axes; the function API has no tensor-parallel "
+            "program (the trainer's model axis is train.step's mesh program)")
     return math.prod(n for a, n in zip(axes, shape) if a in data_axes)
 
 

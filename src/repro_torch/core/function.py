@@ -45,8 +45,8 @@ routed between workers with a masked all-reduce(sum) gather (correct for
 any permutation, at the cost of one collective over the indexed batch).
 
 The reference's second backend, ``gspmd`` (XLA's automatic partitioning
-of a global program), has no eager counterpart: it raises until the
-tensor-parallel slice of the port.
+of a global program), has no eager counterpart and raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -104,9 +104,9 @@ class SynkFunction:
         self.out_specs = canonicalize_out_tree(out_specs)
         if backend == "gspmd":
             raise NotImplementedError(
-                "backend='gspmd' is XLA's automatic partitioning of a global program, "
-                "which eager PyTorch has no counterpart of; it arrives with the "
-                "tensor-parallel slice of the port")
+                "backend='gspmd' is XLA's automatic partitioning of a global program "
+                "(its tensor-parallel placements included), which eager PyTorch has no "
+                "counterpart of; it is not ported")
         if backend != "shard_map":
             raise ValueError(backend)
         self.ctx = ctx or ctx_mod.current()

@@ -1,5 +1,5 @@
-"""Training launcher: the paper's data-parallel trainer, on the card unless
-``--device cpu``:
+"""Training launcher: the paper's data-parallel trainer and the
+reference's data x model mesh, on the card unless ``--device cpu``:
 
     python -m repro_torch.launch.train --arch smollm-360m --faithful \\
         --seq-len 1024 --global-batch 8 --steps 6
@@ -13,29 +13,33 @@
         --arch qwen3-moe-30b-a3b --smoke --device cpu --steps 3
 
 Every id of ``ARCH_IDS`` trains, each family through its module's
-``loss_fn``.  The rules come from ``--faithful``, as the reference's
-launcher builds them: the train step derives
-``ShardRules.for_group(group, faithful=--faithful)``, whose ``sp`` is
-always False on a data group (the reference turns it off for hybrid and
-ssm; here there is no sequence-parallel axis to turn off).  Without
-``--faithful`` the default
-program is the per-parameter path under FSDP (each rank holds 1/N of
-every weight and of its Adam moments, and gathers a layer's weights while
-it runs); ``--faithful`` selects the paper's flat program, and
-``--flat-engine zero`` the ZeRO flat program.  The ``moe`` family always
-takes the per-parameter path (as the reference's), under FSDP or, with
-``--faithful``, replicated, and adds its load-balance term to the loss.
-The launcher prints which program runs.  The audio and vlm families'
-batches carry their frontend stubs (``frames``, ``patch_embeds``), split
-with the tokens.
+``loss_fn``.  ``--mesh`` is the reference's: ``local`` lays ``(world,
+1)`` (data, model) over the ranks ``torchrun`` describes (NCCL on cuda,
+gloo on cpu; one worker without it), ``single`` is one worker,
+``production`` and ``multipod`` the reference's ``(16, 16)`` and ``(2,
+16, 16)`` pods at a world of 256 or 512 (any other world raises).  The
+rules come from ``--faithful``, as the reference's launcher builds them:
+the train step derives ``ShardRules.for_mesh(mesh, faithful=--faithful)``
+(``tp="model"``, ``sp`` on unless faithful).  Without ``--faithful`` the
+default program is the per-parameter path under FSDP (each rank holds 1/N
+of every weight and of its Adam moments, and gathers a layer's weights
+while it runs) with the ``lm`` family's tensor, sequence and expert
+parallelism over ``model`` (at a model size of 1 on ``local``: collectives
+over one-rank groups); ``--faithful`` selects the paper's flat program
+and ``--flat-engine zero`` the ZeRO flat program, both refused where the
+model axis is live.  The ``moe`` family always takes the per-parameter
+path (as the reference's), under FSDP or, with ``--faithful``,
+replicated, and adds its load-balance term to the loss.  The other
+families run at a model size of 1 only.  The launcher prints the mesh and
+which program runs.  The audio and vlm families' batches carry their
+frontend stubs (``frames``, ``patch_embeds``), split with the tokens.
 
-``--mesh local`` joins the group ``torchrun`` describes (NCCL on cuda,
-gloo on cpu) and is one worker without it; ``--mesh single`` is always one
-worker.  ``--shape`` takes the reference's shape names, and ``--seq-len`` /
+``--shape`` takes the reference's shape names, and ``--seq-len`` /
 ``--global-batch`` override them for a reduced shape.  Restart the same
 command after a failure: the loop resumes from the newest checkpoint in
-``--ckpt-dir`` and replays the deterministic data stream.  The weights are
-random, from ``--seed``.
+``--ckpt-dir`` and replays the deterministic data stream (onto any mesh:
+the checkpoint holds full leaves).  The weights are random, from
+``--seed``.
 """
 from __future__ import annotations
 
@@ -45,10 +49,10 @@ import time
 
 from repro_torch.configs import ARCH_IDS, SHAPES, get_config, get_smoke_config
 from repro_torch.configs.base import ShapeConfig
-from repro_torch.launch.mesh import local_group, make_production_mesh, single_device_group
+from repro_torch.launch.mesh import local_mesh, make_production_mesh, single_mesh
 from repro_torch.optim import OptConfig
 from repro_torch.train import LoopConfig, TrainSettings, train
-from repro_torch.train.step import flat_engine_mode, shard_layout_for
+from repro_torch.train.step import flat_engine_mode, resolve_program, shard_layout_for
 
 
 def program_name(cfg, group, opt, settings) -> str:
@@ -60,9 +64,16 @@ def program_name(cfg, group, opt, settings) -> str:
         return "the ZeRO flat program (scattered optimizer state)"
     shards = shard_layout_for(cfg, group, settings)
     if shards.sharded:
-        return (f"the per-parameter path under FSDP ({len(shards.sharded)} of "
-                f"{len(shards.paths)} leaves sharded over {group.world} rank(s))")
-    return "the per-parameter path, replicated"
+        text = (f"the per-parameter path under FSDP ({len(shards.sharded)} of "
+                f"{len(shards.paths)} leaves sharded over {shards.world} rank(s))")
+    else:
+        text = "the per-parameter path, replicated"
+    _, rules = resolve_program(cfg, group, settings)
+    if rules.tp is not None and shards.model > 1:
+        kinds = "tensor, sequence and expert" if rules.sp else "tensor and expert"
+        text += (f", {kinds} parallel over {shards.model} model rank(s) "
+                 f"({len(shards.model_sharded)} leaves split)")
+    return text
 
 
 def main(argv=None):
@@ -92,8 +103,6 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
-    if args.mesh in ("production", "multipod"):
-        make_production_mesh(multi_pod=args.mesh == "multipod")   # raises
     if args.smoke:
         cfg = get_smoke_config(args.arch)
         shape = ShapeConfig("smoke", "train", 64, 8)
@@ -105,14 +114,20 @@ def main(argv=None):
                                     seq_len=args.seq_len or shape.seq_len,
                                     global_batch=args.global_batch or shape.global_batch)
     cfg = dataclasses.replace(cfg, attn_impl=args.attn_impl)
-    group = (single_device_group(args.device) if args.mesh == "single"
-             else local_group(args.device))
+    if args.mesh in ("production", "multipod"):
+        group = make_production_mesh(multi_pod=args.mesh == "multipod", device=args.device)
+    elif args.mesh == "single":
+        group = single_mesh(args.device)
+    else:
+        group = local_mesh(device=args.device)
     opt = OptConfig(kind=args.optimizer, lr=args.lr)
     settings = TrainSettings(num_slices=args.slices, faithful=args.faithful,
                              flat_engine=args.flat_engine)
     try:
         program = program_name(cfg, group, opt, settings)
         if group.rank == 0:
+            print(f"[train] mesh {group.describe()} of {group.world} rank(s) on "
+                  f"{group.device.type}", flush=True)
             print(f"[train] {cfg.name}: {program}", flush=True)
         t0 = time.perf_counter()
         res = train(
@@ -126,8 +141,10 @@ def main(argv=None):
     if group.rank == 0:
         print(f"final loss: {res['final_loss']:.4f}  skipped steps: "
               f"{res['skipped_steps']}  ({args.steps} steps of {shape.global_batch} x "
-              f"{shape.seq_len} on {group.world} x {group.device.type}, {wall:.1f} s)")
+              f"{shape.seq_len} on the mesh {group.describe()} of {group.device.type}, "
+              f"{wall:.1f} s)")
     res["program"] = program
+    res["mesh"] = group.shape
     return res
 
 

@@ -7,16 +7,24 @@ dicts of tensors with the reference's tree structure (layers stacked on
 axis 0), so a converted JAX pytree and a tree from :func:`init_tree` are
 interchangeable.  Every :class:`ParamSpec` names its dimensions'
 *logical* axes, as the reference's does, and :class:`ShardRules` maps them
-onto a data group's one axis: ``fsdp`` is ``"data"`` unless the rules are
-faithful (the paper's replicated program).
+onto a data group's one axis (``for_group``: ``fsdp`` is ``"data"`` unless
+the rules are faithful, the paper's replicated program) or onto a mesh's
+``data`` and ``model`` axes (``for_mesh``, the reference's: ``tp`` is
+``"model"`` and ``sp`` on wherever the mesh has a model axis).
 
 Sharding lives on the per-parameter train program only (``train/step.py``):
-each rank holds 1/N of every leaf with an FSDP dimension, and while that
+each rank holds its model slice of every leaf with a ``"tp"`` dimension
+and 1/N_data of that slice along its FSDP dimension, and while that
 program runs (:class:`fsdp_program`) the models read such a leaf through
 :func:`use_layer` / :func:`use`, which cast the shard to the compute dtype
-and all-gather it (:class:`Gather`, the counterpart of the reference's
-``wuse``; its backward reduce-scatters the fp32 cotangent as a mean).  With
-no program active both return what they were given, cast as before, so
+and all-gather it over ``data`` only (:class:`Gather`, the counterpart of
+the reference's ``wuse``; its backward reduce-scatters the fp32 cotangent
+as a mean), giving the model slice.  Under a mesh program the models also
+read the model axis (:func:`model_axis`) and move activations over it with
+the tensor-parallel Functions below (copy-to-model, reduce-from-model, and
+the all-gather / reduce-scatter pair of the sequence-sharded residual
+stream), and the loss is :func:`vocab_parallel_cross_entropy`.  With no
+program active everything returns what it was given, cast as before, so
 serving and the flat programs read the same tensors as ever.
 """
 from __future__ import annotations
@@ -86,14 +94,29 @@ class ShardRules:
 
     @classmethod
     def for_group(cls, group, *, faithful: bool = False) -> "ShardRules":
-        """The counterpart of the reference's ``for_mesh``: a
-        :class:`~repro_torch.launch.mesh.DataGroup` has one data axis and no
-        model axis, so ``tp`` is None and ``sp`` False; ``fsdp`` is
-        ``"data"`` unless ``faithful``."""
+        """The rules of a :class:`~repro_torch.launch.mesh.DataGroup`: one
+        data axis and no model axis, so ``tp`` is None and ``sp`` False;
+        ``fsdp`` is ``"data"`` unless ``faithful``.  A mesh takes
+        :meth:`for_mesh`."""
         del group
         if faithful:
             return cls.faithful(dp=("data",), tp=None)
         return cls(dp=("data",), tp=None, fsdp="data", sp=False)
+
+    @classmethod
+    def for_mesh(cls, mesh, *, faithful: bool = False) -> "ShardRules":
+        """The reference's ``for_mesh`` on a
+        :class:`~repro_torch.launch.mesh.MeshGroup`: ``dp`` its data axes,
+        ``tp`` ``"model"`` wherever it has that axis (of any size) with
+        ``sp`` on, ``fsdp`` ``"data"`` unless ``faithful`` (which keeps
+        ``tp`` and turns ``sp`` off)."""
+        names = mesh.axes
+        dp = tuple(a for a in ("pod", "data") if a in names)
+        tp = "model" if "model" in names else None
+        if faithful:
+            return cls.faithful(dp=dp, tp=tp)
+        return cls(dp=dp, tp=tp, fsdp="data" if "data" in names else None,
+                   sp=tp is not None)
 
 
 # ---------------------------------------------------------------------------
@@ -115,11 +138,19 @@ class ParamSpec:
     def shard_dim(self, rules: ShardRules) -> int | None:
         """The dimension ``rules`` shard over the data axis (where the
         reference's ``pspec`` names ``rules.fsdp``), or None."""
-        if rules.fsdp is None:
+        return self._dim(rules, rules.fsdp)
+
+    def tp_dim(self, rules: ShardRules) -> int | None:
+        """The dimension ``rules`` split over the model axis (where the
+        reference's ``pspec`` names ``rules.tp``), or None."""
+        return self._dim(rules, rules.tp)
+
+    def _dim(self, rules: ShardRules, axis) -> int | None:
+        if axis is None:
             return None
-        dims = [i for i, l in enumerate(self.logical) if rules.axis(l) == rules.fsdp]
+        dims = [i for i, l in enumerate(self.logical) if rules.axis(l) == axis]
         if len(dims) > 1:
-            raise ValueError(f"{self.logical}: more than one dimension on {rules.fsdp!r}")
+            raise ValueError(f"{self.logical}: more than one dimension on {axis!r}")
         return dims[0] if dims else None
 
 
@@ -198,26 +229,47 @@ def init_tree(seed: int, tree, device) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# FSDP: the weight gather
+# FSDP and the model axis: the program state and the collectives
 # ---------------------------------------------------------------------------
 
-# the running FSDP program, if any: (its DataGroup, {leaf path: the FSDP
-# dimension of the stored leaf}) for the leaves it shards
-_FSDP: tuple[Any, dict] | None = None
+
+@dataclasses.dataclass(frozen=True)
+class ModelAxis:
+    """The model axis of a running mesh program: the group the
+    tensor-parallel collectives run over (a ``DataGroup`` view: ``pg``,
+    ``rank``, ``world``) and whether the residual stream between blocks is
+    sequence-sharded over it (``ShardRules.sp``)."""
+    group: Any
+    sp: bool
+
+    @property
+    def rank(self) -> int:
+        return self.group.rank
+
+    @property
+    def world(self) -> int:
+        return self.group.world
+
+
+# the running program, if any: (the FSDP axis' group, {leaf path: the FSDP
+# dimension of the stored leaf}, the model axis or None)
+_FSDP: tuple[Any, dict, ModelAxis | None] | None = None
 
 
 class fsdp_program:
     """While active, :func:`use_layer` and :func:`use` gather the leaves
     ``dims`` names (``{path: FSDP dimension of the stored leaf}``) over
-    ``group``.  The per-parameter train program holds it around its loss
-    and its backward, inside which remat's recompute gathers again.  The
-    counterpart of the reference's ``manual_mode`` switch, the other way
-    round: the models gather only while it is on.  It also holds the
-    saved-tensor hooks (:func:`_pack`) that keep a gathered weight saved
-    outside a rematted body as its shard, gathered again in the backward."""
+    ``group``, and, with ``model`` given, the models run tensor, sequence
+    and expert parallelism over it (:func:`model_axis`).  The per-parameter
+    train program holds it around its loss and its backward, inside which
+    remat's recompute gathers again.  The counterpart of the reference's
+    ``manual_mode`` switch, the other way round: the models shard only while
+    it is on.  It also holds the saved-tensor hooks (:func:`_pack`) that
+    keep a gathered weight saved outside a rematted body as its shard,
+    gathered again in the backward."""
 
-    def __init__(self, group, dims: dict):
-        self._state = (group, dims)
+    def __init__(self, group, dims: dict, model: ModelAxis | None = None):
+        self._state = (group, dims, model)
         self._hooks = torch.autograd.graph.saved_tensors_hooks(_pack, _unpack)
 
     def __enter__(self):
@@ -233,16 +285,24 @@ class fsdp_program:
         return False
 
 
-# collectives called by the FSDP program, by kind, each counted where it is
-# called, as the kernel wrappers count their launches (reset by assignment)
-COUNTS = {"all_gather": 0, "reduce_scatter": 0}
+def model_axis() -> ModelAxis | None:
+    """The running program's model axis (None outside a mesh program: the
+    models then run as they always have)."""
+    return None if _FSDP is None else _FSDP[2]
 
 
-def all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
-    """The ranks' ``x`` concatenated along ``dim`` (rank order), as a
-    tensor of its own (never a view of another)."""
-    COUNTS["all_gather"] += 1
+# collectives called by the running program, by kind, each counted where it
+# is called, as the kernel wrappers count their launches (reset by
+# assignment): the FSDP gather and its reduce-scatter; and each
+# tensor-parallel Function's collectives, forward and backward, under its
+# own name; ``vocab_ce`` the loss's all-reduces
+COUNTS = {"all_gather": 0, "reduce_scatter": 0, "copy_to_model": 0, "reduce_from_model": 0,
+          "model_all_gather": 0, "model_reduce_scatter": 0, "vocab_ce": 0}
+
+
+def _gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     n, shape = group.world, tuple(x.shape)
+    dim = dim % x.dim()
     out = torch.empty((n * shape[0],) + shape[1:], dtype=x.dtype, device=x.device)
     dist.all_gather_into_tensor(out, x.contiguous(), group=group.pg)
     if dim == 0 or n == 1:
@@ -254,16 +314,34 @@ def all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     return full
 
 
-def reduce_scatter_mean(g: torch.Tensor, dim: int, group) -> torch.Tensor:
-    """This rank's slice along ``dim`` of the mean of the ranks' ``g``:
-    summed by the collective, then divided by the world."""
-    COUNTS["reduce_scatter"] += 1
+def _scatter_sum(g: torch.Tensor, dim: int, group) -> torch.Tensor:
     n = group.world
+    dim = dim % g.dim()
     parts = g.unflatten(dim, (n, g.shape[dim] // n)).movedim(dim, 0).contiguous()
     out = torch.empty(parts.shape[1:], dtype=g.dtype, device=g.device)
     dist.reduce_scatter_tensor(out, parts.view((-1,) + tuple(parts.shape[2:])),
                                op=dist.ReduceOp.SUM, group=group.pg)
-    return out.div_(n)
+    return out
+
+
+def _all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    out = x.contiguous().clone()
+    dist.all_reduce(out, op=op, group=group.pg)
+    return out
+
+
+def all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The ranks' ``x`` concatenated along ``dim`` (rank order), as a
+    tensor of its own (never a view of another)."""
+    COUNTS["all_gather"] += 1
+    return _gather(x, dim, group)
+
+
+def reduce_scatter_mean(g: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's slice along ``dim`` of the mean of the ranks' ``g``:
+    summed by the collective, then divided by the world."""
+    COUNTS["reduce_scatter"] += 1
+    return _scatter_sum(g, dim, group).div_(group.world)
 
 
 class Gather(torch.autograd.Function):
@@ -282,6 +360,192 @@ class Gather(torch.autograd.Function):
     def backward(ctx, g):
         out = reduce_scatter_mean(g.float(), ctx.dim, ctx.group)
         return out.to(ctx.shard_dtype), None, None, None
+
+
+# ---------------------------------------------------------------------------
+# The model axis: tensor-parallel Functions and the vocab-parallel loss
+# ---------------------------------------------------------------------------
+#
+# The convention (Megatron's): a tensor replicated over the model axis
+# holds its whole gradient on every rank, a partial sum holds its own part.
+# Column-parallel products read a replicated input and give local columns;
+# row-parallel products give partial sums.  Each Function's forward and
+# backward are the two sides of one collective pair, SUM throughout.
+
+
+class CopyToModel(torch.autograd.Function):
+    """Identity forward; backward all-reduces (SUM) the partial gradients
+    the ranks' column-parallel products give the replicated input."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        COUNTS["copy_to_model"] += 1
+        return _all_reduce(g, ctx.group), None
+
+
+class ReduceFromModel(torch.autograd.Function):
+    """All-reduce (SUM) of the ranks' partial sums; identity backward (the
+    replicated sum's gradient is every part's)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        COUNTS["reduce_from_model"] += 1
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class ModelAllGather(torch.autograd.Function):
+    """The ranks' slices concatenated along ``dim``; backward
+    reduce-scatters (SUM) the ranks' partial gradients of the whole."""
+
+    @staticmethod
+    def forward(ctx, x, dim: int, group):
+        COUNTS["model_all_gather"] += 1
+        ctx.dim, ctx.group = dim, group
+        return _gather(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        COUNTS["model_all_gather"] += 1
+        return _scatter_sum(g, ctx.dim, ctx.group), None, None
+
+
+class ModelReduceScatter(torch.autograd.Function):
+    """This rank's slice along ``dim`` of the ranks' partial sums (SUM);
+    backward all-gathers the slices' gradients."""
+
+    @staticmethod
+    def forward(ctx, x, dim: int, group):
+        COUNTS["model_reduce_scatter"] += 1
+        ctx.dim, ctx.group = dim, group
+        return _scatter_sum(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        COUNTS["model_reduce_scatter"] += 1
+        return _gather(g, ctx.dim, ctx.group), None, None
+
+
+def copy_to_model(x, group):
+    return x if group.pg is None else CopyToModel.apply(x, group)
+
+
+def reduce_from_model(x, group):
+    return x if group.pg is None else ReduceFromModel.apply(x, group)
+
+
+def model_all_gather(x, dim: int, group):
+    return x if group.pg is None else ModelAllGather.apply(x, dim, group)
+
+
+def model_reduce_scatter(x, dim: int, group):
+    if x.shape[dim] % group.world:
+        raise ValueError(f"dimension {dim} of {tuple(x.shape)} (the sequence, where the "
+                         f"residual stream is sharded) does not divide over {group.world} "
+                         "model ranks")
+    return x if group.pg is None else ModelReduceScatter.apply(x, dim, group)
+
+
+def tp_enter(x, dim: int = 1):
+    """The residual stream (or anything in its layout) as a column-parallel
+    product reads it: under a mesh program the whole sequence, gathered
+    along ``dim`` where the stream is sequence-sharded, else through
+    copy-to-model; unchanged outside one."""
+    tp = model_axis()
+    if tp is None:
+        return x
+    if tp.sp:
+        return model_all_gather(x, dim, tp.group)
+    return copy_to_model(x, tp.group)
+
+
+def tp_exit(y, dim: int = 1):
+    """A row-parallel product's partial sums back in the residual layout:
+    reduce-scattered along ``dim`` onto this rank's sequence shard, or
+    all-reduced where the stream is not sequence-sharded; unchanged outside
+    a mesh program."""
+    tp = model_axis()
+    if tp is None:
+        return y
+    if tp.sp:
+        return model_reduce_scatter(y, dim, tp.group)
+    return reduce_from_model(y, tp.group)
+
+
+class GradScale(torch.autograd.Function):
+    """Identity forward; the gradient times ``scale``."""
+
+    @staticmethod
+    def forward(ctx, x, scale: float):
+        ctx.scale = scale
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.scale, None
+
+
+class VocabParallelCE(torch.autograd.Function):
+    """Per-token negative log-likelihood of logits split over the model
+    axis by vocabulary: this rank holds columns ``[offset, offset + V_loc)``.
+    The row maximum is all-reduced (MAX), then the sum of exponentials and
+    the gold logit (each rank's where the label is its own, else 0) in one
+    all-reduce (SUM); the full logits are never gathered.  The arithmetic
+    is ``torch.logsumexp``'s (``log(sum(exp(x - m))) + m``) and the
+    backward its backward plus the gold term's scatter, so over one rank
+    both sides are the plain loss's bit for bit."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, group):
+        x = logits.float()
+        v_loc = x.shape[-1]
+        off = group.rank * v_loc
+        m = x.amax(dim=-1, keepdim=True)
+        if group.pg is not None:
+            COUNTS["vocab_ce"] += 1
+            m = _all_reduce(m, group, dist.ReduceOp.MAX)
+        m.masked_fill_(m.abs() == math.inf, 0)
+        s = (x - m).exp_().sum(dim=-1)
+        idx = labels.long() - off
+        inside = (idx >= 0) & (idx < v_loc)
+        idx = idx.clamp(0, v_loc - 1)[..., None]
+        gold = torch.where(inside, torch.gather(x, -1, idx)[..., 0], 0.0)
+        if group.pg is not None:
+            COUNTS["vocab_ce"] += 1
+            both = _all_reduce(torch.stack([s, gold]), group)
+            s, gold = both[0], both[1]
+        logz = s.log_().add_(m[..., 0])
+        ctx.save_for_backward(logits, logz, idx, inside)
+        return logz - gold
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, logz, idx, inside = ctx.saved_tensors
+        grad = g[..., None] * (logits.float() - logz[..., None]).exp()
+        grad.scatter_add_(-1, idx, torch.where(inside, -g, 0.0)[..., None])
+        return grad.to(logits.dtype), None, None
+
+
+def vocab_parallel_cross_entropy(logits, labels, group):
+    """Mean token-level cross entropy of vocabulary-split logits
+    (:class:`VocabParallelCE`); over one rank without a process group the
+    plain :func:`cross_entropy_loss`."""
+    if group.pg is None and group.world == 1:
+        return cross_entropy_loss(logits, labels)
+    return VocabParallelCE.apply(logits, labels, group).mean()
+
+
+# ---------------------------------------------------------------------------
+# Reading the weights
+# ---------------------------------------------------------------------------
 
 
 def wuse(w, dim: int, dtype, group):
@@ -323,12 +587,13 @@ def use_layer(cfg, bp: dict, prefix: tuple, lead: int = 1) -> dict:
     """A block's weights as its body reads them.  ``bp`` holds one layer's
     slices of the stacked leaves under ``prefix`` (``lead`` layer axes
     indexed away); under an FSDP program each sharded one is gathered in
-    the compute dtype, the others come back as given.  Called inside a
-    rematted body, so that the recompute gathers again and no full copy
-    outlives its layer."""
+    the compute dtype over the FSDP axis alone (under a mesh program a
+    leaf held on both axes becomes its model slice), the others come back
+    as given.  Called inside a rematted body, so that the recompute
+    gathers again and no full copy outlives its layer."""
     if _FSDP is None:
         return bp
-    group, dims = _FSDP
+    group, dims, _ = _FSDP
     cdt = dtype_of(cfg.compute_dtype)
     out = {}
     for name, w in bp.items():
@@ -339,11 +604,11 @@ def use_layer(cfg, bp: dict, prefix: tuple, lead: int = 1) -> dict:
 
 def use(cfg, params: dict, name: str):
     """Top-level leaf ``name`` (an embedding or a projection) in the
-    compute dtype: gathered under an FSDP program where it is sharded,
-    else cast."""
+    compute dtype: gathered over the FSDP axis under an FSDP program where
+    it is sharded (its model slice under a mesh program), else cast."""
     cdt = dtype_of(cfg.compute_dtype)
     if _FSDP is not None:
-        group, dims = _FSDP
+        group, dims, _ = _FSDP
         d = dims.get((name,))
         if d is not None:
             return wuse(params[name], d, cdt, group)

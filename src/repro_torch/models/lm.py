@@ -86,12 +86,17 @@ from .common import (
     decode_positions,
     dtype_of,
     init_tree,
+    model_all_gather,
+    model_axis,
     norm,
     norm_add,
     remat_wrap,
     softcap,
+    tp_enter,
+    tp_exit,
     use,
     use_layer,
+    vocab_parallel_cross_entropy,
 )
 from .moe import moe_ffn
 
@@ -101,6 +106,14 @@ NORM_PARAMS = frozenset({"ln1", "ln2", "ln1b", "ln2b", "ln_f", "qnorm", "knorm"}
 # leaves the serving path reads in their stored dtype: the norm scales and
 # the MoE router (the reference computes router logits in fp32)
 STORED_DTYPE = NORM_PARAMS | {"router"}
+# the families that run tensor, sequence and expert parallelism under a
+# mesh program
+TP_FAMILIES = ("dense", "moe")
+# leaves replicated over the model axis but read inside the
+# tensor-parallel region (the q/k norms on local or gathered heads, the
+# router on the rank's experts): each model rank holds a partial sum of
+# their gradient whatever the residual stream's layout
+TP_REGION_LEAVES = frozenset({"qnorm", "knorm", "router"})
 
 
 def check_supported(cfg: ArchConfig) -> None:
@@ -226,14 +239,47 @@ def _w(bp, name, cfg):
     return bp[name].to(dtype_of(cfg.compute_dtype))
 
 
+def _heads(cfg, y, heads: int):
+    """A column-parallel projection's output (B, S, columns) as heads
+    (B, S, h, dh): outside a mesh program every head; under one this
+    rank's ``heads / N`` where ``heads`` divides over the model axis, else
+    every head, the columns all-gathered over it first (the reference
+    replicates such heads: ``lm.py`` pins them by heads only where they
+    divide)."""
+    tp = model_axis()
+    if tp is not None and heads % tp.world:
+        y = model_all_gather(y, -1, tp.group)
+    return y.reshape(y.shape[0], y.shape[1], -1, cfg.head_dim)
+
+
+def _local_kv(cfg, k, v):
+    """Under a mesh program where the q heads divide over the model axis
+    and the kv heads do not (gathered whole by :func:`_heads`): the kv
+    heads this rank's q heads read (q head ``h`` reads kv head ``h //
+    rep``), as a contiguous run where each is read by the same number of
+    local q heads (that number is the kernel's ``rep``), else one per local
+    q head (``rep`` 1).  Never every kv head, which would change ``rep``."""
+    tp = model_axis()
+    H, Hk = cfg.n_heads, cfg.n_kv
+    if tp is None or H % tp.world or not Hk % tp.world:
+        return k, v
+    rep, hl = H // Hk, H // tp.world
+    ids = [h // rep for h in range(tp.rank * hl, (tp.rank + 1) * hl)]
+    lo, hi = ids[0], ids[-1] + 1
+    if all(ids.count(u) == hl // (hi - lo) for u in range(lo, hi)):
+        return k[:, :, lo:hi].contiguous(), v[:, :, lo:hi].contiguous()
+    idx = torch.tensor(ids, device=k.device)
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
 def _attn_proj(cfg, h, bp, rope_cs):
     """q, k, v of one layer; ``rope_cs`` = ``rope_tables`` of the
-    positions, computed once per forward."""
-    B, S, _ = h.shape
-    dh, H, Hk = cfg.head_dim, cfg.n_heads, cfg.n_kv
-    q = (h @ _w(bp, "wq", cfg)).reshape(B, S, H, dh)
-    k = (h @ _w(bp, "wk", cfg)).reshape(B, S, Hk, dh)
-    v = (h @ _w(bp, "wv", cfg)).reshape(B, S, Hk, dh)
+    positions, computed once per forward.  Under a mesh program ``h`` is
+    the whole sequence and q, k, v this rank's heads (:func:`_heads`,
+    :func:`_local_kv`)."""
+    q = _heads(cfg, h @ _w(bp, "wq", cfg), cfg.n_heads)
+    k = _heads(cfg, h @ _w(bp, "wk", cfg), cfg.n_kv)
+    v = _heads(cfg, h @ _w(bp, "wv", cfg), cfg.n_kv)
     if cfg.qk_norm:
         q = norm(cfg, q, bp["qnorm"])
         k = norm(cfg, k, bp["knorm"])
@@ -241,29 +287,50 @@ def _attn_proj(cfg, h, bp, rope_cs):
     if _q_scale(cfg) != 1.0:
         q = q * _q_scale(cfg)
     k = apply_rope(k, *rope_cs)
+    k, v = _local_kv(cfg, k, v)
     return q, k, v
+
+
+def _attn_o(cfg, attn, bp):
+    """The attention output projection of (B, S, h, dh): under a mesh
+    program a row-parallel product of this rank's heads (of its rows of
+    every head's output where the heads do not divide), reduced back into
+    the residual layout (``common.tp_exit``)."""
+    B, S = attn.shape[:2]
+    o = attn.reshape(B, S, -1)
+    tp = model_axis()
+    if tp is not None and cfg.n_heads % tp.world:
+        c = o.shape[-1] // tp.world
+        o = o[..., tp.rank * c:(tp.rank + 1) * c]
+    return tp_exit(o @ _w(bp, "wo", cfg))
 
 
 def _ffn(cfg, x, bp, aux_sink=None):
     """The block's FFN: SwiGLU/GeGLU, or under MoE ``moe_ffn`` over every
     row of ``x``; its aux dict is appended to ``aux_sink`` where one is
-    given."""
+    given.  Under a mesh program the dense FFN is column-parallel into this
+    rank's hidden columns and row-parallel out (``x`` in the residual
+    layout, the whole sequence gathered first), and ``moe_ffn`` runs the
+    rank's experts."""
     if cfg.moe.num_experts:
         out, aux = moe_ffn(x, bp["router"], bp["wg_e"], bp["wu_e"], bp["wd_e"], cfg=cfg)
         if aux_sink is not None:
             aux_sink.append(aux)
         return out
+    x = tp_enter(x)
     g = x @ _w(bp, "wg", cfg)
     u = x @ _w(bp, "wu", cfg)
-    return (_gate(cfg, g) * u) @ _w(bp, "wd", cfg)
+    return tp_exit((_gate(cfg, g) * u) @ _w(bp, "wd", cfg))
 
 
 def _block_fwd(cfg, x, bp, rope_cs, *, window: int, attn_fn=None, aux_sink=None):
     """One transformer block, prefill path.  Returns (x, (k, v)).
     ``attn_fn(q, k, v, window)`` replaces the attention (a chunked-prefill
     continuation's, :func:`_block_chunk`); everything around it is
-    shared."""
-    h = norm(cfg, x, bp["ln1"])
+    shared.  Under a mesh program ``x`` is this rank's sequence shard (the
+    norms run on it) and the attention this rank's heads over the whole
+    sequence."""
+    h = tp_enter(norm(cfg, x, bp["ln1"]))
     q, k, v = _attn_proj(cfg, h, bp, rope_cs)
     if attn_fn is not None:
         attn = attn_fn(q, k, v, window)
@@ -275,8 +342,7 @@ def _block_fwd(cfg, x, bp, rope_cs, *, window: int, attn_fn=None, aux_sink=None)
         attn = chunked_attention(
             q, k, v, causal=True, window=window, softcap=cfg.attn_softcap,
             q_chunk=min(256, q.shape[1]), kv_chunk=min(256, k.shape[1]))
-    B, S = x.shape[:2]
-    h, x = _attn_out(cfg, x, attn.reshape(B, S, -1) @ _w(bp, "wo", cfg), bp)
+    h, x = _attn_out(cfg, x, _attn_o(cfg, attn, bp), bp)
     return _ffn_out(cfg, x, _ffn(cfg, h, bp, aux_sink), bp), (k, v)
 
 
@@ -354,17 +420,30 @@ def _flat_layers(cfg, t):
 
 
 def embed_tokens(cfg, params, tokens):
+    """The tokens' embeddings.  Under a mesh program the table is this
+    rank's vocabulary rows: ids outside them give zero rows, and the
+    ranks' partial rows are reduced onto the rank's sequence shard
+    (``common.tp_exit``)."""
     cdt = dtype_of(cfg.compute_dtype)
-    x = F.embedding(tokens.long(), use(cfg, params, "embed"))
+    w = use(cfg, params, "embed")
+    tp = model_axis()
+    if tp is None:
+        x = F.embedding(tokens.long(), w)
+    else:
+        ids = tokens.long() - tp.rank * w.shape[0]
+        inside = (ids >= 0) & (ids < w.shape[0])
+        x = torch.where(inside[..., None], F.embedding(ids.clamp(0, w.shape[0] - 1), w), 0.0)
     if cfg.alt_local_global:
         # gemma scales embeddings, the scale rounded to cdt first (a Python
         # float: no host-to-device copy, so a decode graph can capture it;
         # the product is taken in fp32 and rounded, as a cdt x cdt one is)
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cdt).item()
-    return x
+    return tp_exit(x)
 
 
 def unembed(cfg, params, x):
+    """Logits of hidden states ``x``: under a mesh program this rank's
+    vocabulary columns of them (``x`` the whole sequence)."""
     w = use(cfg, params, "embed").t() if cfg.tie_embeddings else use(cfg, params, "unembed")
     logits = x @ w
     if cfg.logit_softcap:
@@ -382,15 +461,20 @@ def forward(cfg: ArchConfig, params, tokens, img_embeds=None, *, remat=True,
     ``aux``, where given, receives the reference forward's aux: the MoE
     layers' ``lb_loss`` summed and ``drop_frac`` maxed over layers (0 for
     dense models), and each MoE layer's ``drop_frac`` in order
-    (``drop_frac_layers``, (L,) or empty)."""
+    (``drop_frac_layers``, (L,) or empty).  Under a mesh program (the
+    families of ``TP_FAMILIES``) the hidden states are this rank's
+    sequence shard where the rules shard the sequence."""
     check_supported(cfg)
+    if model_axis() is not None and cfg.family not in TP_FAMILIES:
+        raise NotImplementedError(f"{cfg.name}: the model axis is not ported for the "
+                                  f"{cfg.family!r} family")
     sink = [] if aux is not None else None
     x = embed_tokens(cfg, params, tokens)
     if cfg.family == "vlm":
         cdt = dtype_of(cfg.compute_dtype)
         img = img_embeds.to(cdt) @ use(cfg, params, "img_proj")
         x = torch.cat([img, x], dim=1)
-    B, S, _ = x.shape
+    B, S = x.shape[0], tokens.shape[1] + (img.shape[1] if cfg.family == "vlm" else 0)
     positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
     rope_cs = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
 
@@ -423,7 +507,9 @@ def loss_fn(cfg: ArchConfig, params, batch, *, remat=True):
     ``(total, {"ce_loss", "lb_loss", "drop_frac"})``, the reference's:
     ``total = ce_loss + 1e-2 * lb_loss / n_layers`` with the MoE layers'
     ``lb_loss`` summed and ``drop_frac`` their maximum (both 0 for the
-    other families, so total == ce_loss)."""
+    other families, so total == ce_loss).  Under a mesh program the loss
+    is the vocab-parallel cross entropy of this rank's logit columns over
+    the whole sequence (``common.vocab_parallel_cross_entropy``)."""
     tokens = batch["tokens"]
     inp, labels = tokens[:, :-1], tokens[:, 1:]
     aux: dict = {}
@@ -431,7 +517,12 @@ def loss_fn(cfg: ArchConfig, params, batch, *, remat=True):
     if cfg.family == "vlm":
         n = cfg.frontend_tokens
         hidden = hidden[:, n - 1: n - 1 + labels.shape[1]]
-    loss = cross_entropy_loss(unembed(cfg, params, hidden), labels)
+    tp = model_axis()
+    if tp is None:
+        loss = cross_entropy_loss(unembed(cfg, params, hidden), labels)
+    else:
+        logits = unembed(cfg, params, tp_enter(hidden))
+        loss = vocab_parallel_cross_entropy(logits, labels, tp.group)
     total = loss + 1e-2 * aux["lb_loss"] / max(cfg.n_layers, 1)
     return total, {"ce_loss": loss, "lb_loss": aux["lb_loss"], "drop_frac": aux["drop_frac"]}
 

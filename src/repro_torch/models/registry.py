@@ -4,7 +4,7 @@ The port of the reference's ``models/registry.py``: every family of the
 reference maps to its module (dense, moe and vlm to ``lm``, hybrid to
 ``zamba``, ssm to ``xlstm_lm``, audio to ``whisper``), and the serving
 questions get the reference's answers.  :func:`param_shard_dims` is the
-counterpart of the reference's ``param_pspecs`` on a data group.
+counterpart of the reference's ``param_pspecs``.
 """
 from __future__ import annotations
 
@@ -12,7 +12,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from . import lm, whisper, xlstm_lm, zamba
-from .common import ParamSpec, ShardRules, map_tree, tree_leaves
+from .common import ShardRules, map_tree, tree_leaves
 
 _FAMILIES = {"dense": lm, "moe": lm, "vlm": lm, "hybrid": zamba, "ssm": xlstm_lm,
              "audio": whisper}
@@ -29,14 +29,29 @@ def abstract_params(cfg: ArchConfig) -> dict:
                     get_module(cfg).param_specs(cfg))
 
 
-def param_shard_dims(cfg: ArchConfig, rules: ShardRules) -> dict:
-    """``{leaf path: the dimension rules shard over the data axis, or
-    None}``: where the reference's ``param_pspecs(cfg, rules)`` names
-    ``rules.fsdp``.  Every FSDP dimension is a weight's own (the stacked
-    layer axes' logical axes are None), never a layer axis."""
-    return {path: spec.shard_dim(rules)
-            for path, spec in tree_leaves(get_module(cfg).param_specs(cfg))
-            if isinstance(spec, ParamSpec)}
+def param_shard_dims(cfg: ArchConfig, rules: ShardRules, data: int = 1,
+                     model: int = 1) -> dict:
+    """``{leaf path: (the dimension rules split over the model axis, the
+    dimension they shard over the data axis)}``, each None where there is
+    none: where the reference's ``param_pspecs(cfg, rules)`` names
+    ``rules.tp`` and ``rules.fsdp``.  Every such dimension is a weight's own
+    (the stacked layer axes' logical axes are None), never a layer axis.
+    A dimension that ``model`` (the tensor-parallel one) or ``data`` ranks
+    (the FSDP one, of the model slice) do not divide raises
+    ``ValueError``, as the reference's ``jax.device_put`` of such a
+    sharding does."""
+    out = {}
+    for path, spec in tree_leaves(get_module(cfg).param_specs(cfg)):
+        tp, fs = spec.tp_dim(rules), spec.shard_dim(rules)
+        for d, n, what in ((tp, model, "tensor-parallel"), (fs, data, "FSDP")):
+            if d is not None and spec.shape[d] % n:
+                raise ValueError(
+                    f"{'/'.join(path)}: its {what} dimension {d} ({spec.shape[d]} of shape "
+                    f"{spec.shape}) does not divide over {n} ranks")
+        if tp is not None and fs is not None and tp == fs:
+            raise ValueError(f"{'/'.join(path)}: one dimension on both axes")
+        out[path] = (tp, fs)
+    return out
 
 
 def supports_slot_serving(cfg: ArchConfig) -> bool:

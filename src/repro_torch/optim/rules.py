@@ -3,11 +3,11 @@ SGD, Nesterov momentum, RMSProp, Adam) as pure transforms of parameter
 trees (nested dicts of tensors).
 
 States are fp32 regardless of parameter dtype (mixed-precision training).
-Under FSDP (``optim/fsdp.py``) the rules run on each rank's shards: the
-state inherits the parameters' shards (``init_state`` of a tree of shards,
-the reference's ``state_pspecs``), the update is elementwise, and the
-global norm sums the squares of the shards over the group, a replicated
-leaf once.
+Under FSDP and the model axis (``optim/fsdp.py``) the rules run on each
+rank's shards: the state inherits the parameters' shards (``init_state``
+of a tree of shards, the reference's ``state_pspecs``), the update is
+elementwise, and the global norm sums each leaf's squares over every axis
+it is split on, a replicated leaf once.
 """
 from __future__ import annotations
 
@@ -80,38 +80,42 @@ def init_state(cfg: OptConfig, params) -> dict:
     return st
 
 
-def global_norm(tree, group=None, sharded: torch.Tensor | None = None) -> torch.Tensor:
-    """The norm of every leaf together.  ``sharded`` (a bool tensor on the
-    leaves' device, one entry a leaf in sorted-key order) marks this
-    rank's shards: their sums of squares are all-reduced over ``group``; a
-    replicated leaf counts once.  Each leaf's sum keeps its place in the
-    final sum, so with nothing sharded (or one rank) this is the
-    replicated norm bit for bit.  No host-to-device copy: the step stays
-    free of host syncs."""
+def global_norm(tree, sharded=()) -> torch.Tensor:
+    """The norm of every leaf together.  ``sharded`` lists ``(group,
+    mask)`` pairs, one for each axis leaves are split on: ``mask`` a bool
+    tensor on the leaves' device, one entry a leaf in sorted-key order,
+    marking the leaves split over ``group``.  A marked leaf's sum of
+    squares is all-reduced over that group, so a leaf split on two axes is
+    summed over both and a replicated one counts once.  Each leaf's sum
+    keeps its place in the final sum, so with nothing split (or groups of
+    one rank) this is the replicated norm bit for bit.  The masks are made
+    once by the caller: the step makes no host-to-device copy and no host
+    sync."""
     sq = torch.stack([x.float().square().sum() for _, x in tree_leaves(tree)])
-    if sharded is not None and group is not None and group.pg is not None:
-        part = torch.where(sharded, sq, 0.0)
+    for group, mask in sharded:
+        if group is None or group.pg is None:
+            continue
+        part = torch.where(mask, sq, 0.0)
         dist.all_reduce(part, op=dist.ReduceOp.SUM, group=group.pg)
-        sq = torch.where(sharded, part, sq)
+        sq = torch.where(mask, part, sq)
     return torch.sqrt(sq.sum())
 
 
-def clip_by_global_norm(grads, max_norm: float, group=None,
-                        sharded: torch.Tensor | None = None):
-    norm = global_norm(grads, group, sharded)
+def clip_by_global_norm(grads, max_norm: float, sharded=()):
+    norm = global_norm(grads, sharded)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
     return map_leaves(lambda g: g * scale.to(g.dtype), grads), norm
 
 
-def apply_update(cfg: OptConfig, params, grads, state, *, group=None,
-                 sharded: torch.Tensor | None = None) -> tuple[Any, dict, dict]:
-    """Returns (new_params, new_state, metrics).  ``group`` and ``sharded``
-    (the mask of the leaves held as shards, see :func:`global_norm`) feed
-    the global norm of the clip; the update itself is elementwise, shard
-    or not."""
+def apply_update(cfg: OptConfig, params, grads, state, *,
+                 sharded=()) -> tuple[Any, dict, dict]:
+    """Returns (new_params, new_state, metrics).  ``sharded`` (the ``(group,
+    mask)`` pairs of the axes leaves are split on, see :func:`global_norm`)
+    feeds the global norm of the clip; the update itself is elementwise,
+    shard or not."""
     metrics = {}
     if cfg.grad_clip:
-        grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, group, sharded)
+        grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, sharded)
         metrics["grad_norm"] = gnorm
     step = state["step"] + 1
     lr = cfg.lr

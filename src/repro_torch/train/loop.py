@@ -1,17 +1,21 @@
 """Training loop with fault tolerance: checkpoint/restart, deterministic
 data replay, and the elastic reshard across data-parallel sizes.
 
-Every worker of the :class:`~repro_torch.launch.mesh.DataGroup` runs this
-loop on its ``global_batch / world`` rows of each deterministic batch.
+Every worker of the :class:`~repro_torch.launch.mesh.DataGroup` (or of a
+:class:`~repro_torch.launch.mesh.MeshGroup`'s data axes: the ranks of one
+data column take the same rows) runs this loop on its ``global_batch /
+N_data`` rows of each deterministic batch.
 Batches are staged through pinned memory and copied asynchronously, the
 step program makes no host sync, and checkpoint writes run on a
 background thread, so the host waits for the card only where it reads a
 logged loss.  Rank 0 writes the checkpoints; ZeRO's scattered ``m``/``v``
 are gathered into the reference's global scattered layout first, and the
-per-parameter path's FSDP shards into full leaves, one leaf at a time on
-the host (the reference stores full host arrays).  A restore re-shards
-for the group it runs on, so a checkpoint of any data-parallel size and
-either rules (FSDP or replicated) restores on any other.
+per-parameter path's shards (FSDP, and the model axis' slices on a mesh)
+into full leaves, one leaf at a time on the host (the reference stores
+full host arrays).  A restore re-shards for the group or mesh it runs on,
+so a checkpoint of any data-parallel size, mesh and rules (FSDP or
+replicated) restores on any other: a ``(2, 1)`` checkpoint continues on
+``(1, 2)``, the reference's ``check_elastic``.
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ import torch.distributed as dist
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.data import make_batch_fn
+from repro_torch.launch.mesh import MeshGroup
 from repro_torch.models import registry
 from repro_torch.models.common import map_tree
 from repro_torch.obs import Observer
@@ -84,22 +89,25 @@ def init_sharded(cfg: ArchConfig, group, opt: OptConfig, seed: int,
     rank) and the rest whole, broadcast from rank 0; the state is zeros of
     the same shards."""
     if flat_engine_mode(cfg, group, opt, settings) is not None:
-        return init_replicated(cfg, group, opt, seed, settings)
+        data = group.data if isinstance(group, MeshGroup) else group
+        return init_replicated(cfg, data, opt, seed, settings)
     shards = shard_layout_for(cfg, group, settings, rules)
     params = init_shards(cfg, shards, seed, group.device)
     if group.pg is not None:
+        split = shards.sharded | shards.model_sharded
         for path, leaf in tree_leaves(params):
-            if path not in shards.sharded:
+            if path not in split:
                 dist.broadcast(leaf, src=0, group=group.pg)
     return params, opt_state_template(cfg, group, opt, settings, rules)(params)
 
 
-def _full_state(shards, params, opt_state, group):
+def _full_state(shards, params, opt_state, groups):
     """Full leaves of the per-parameter path's params and optimizer state
-    on the host, gathered one leaf at a time (every rank takes part)."""
-    opt_host = {k: full_tree(shards, v, group) if isinstance(v, dict) else v
+    on the host, gathered one leaf at a time over ``groups`` (the FSDP
+    axis' and the model axis', every rank taking part)."""
+    opt_host = {k: full_tree(shards, v, *groups) if isinstance(v, dict) else v
                 for k, v in opt_state.items()}
-    return full_tree(shards, params, group), opt_host
+    return full_tree(shards, params, *groups), opt_host
 
 
 def _opt_template(cfg, opt, mode, scattered_total):
@@ -154,9 +162,10 @@ def train(
     shards = step_fn._shard_layout if mode is None else None
     batch_fn = make_batch_fn(cfg, shape, loop.seed)
     B = shape.global_batch
-    if B % group.world:
-        raise ValueError(f"global batch {B} does not split over {group.world} workers")
-    lo, hi = group.rank * B // group.world, (group.rank + 1) * B // group.world
+    data = group.data if isinstance(group, MeshGroup) else group
+    if B % data.world:
+        raise ValueError(f"global batch {B} does not split over {data.world} workers")
+    lo, hi = data.rank * B // data.world, (data.rank + 1) * B // data.world
 
     mgr = CheckpointManager(loop.ckpt_dir, loop.keep_k, obs=obs) if loop.ckpt_dir else None
     # flat-engine provenance rides the checkpoint meta: a ZeRO
@@ -169,7 +178,7 @@ def train(
 
     start = 0
     if mgr and resume and mgr.latest_step() is not None:
-        start, params, opt_state = _restore(cfg, group, opt, mgr, step_fn)
+        start, params, opt_state = _restore(cfg, data, opt, mgr, step_fn)
         if group.rank == 0:
             print(f"[train] resumed from step {start}")
     else:
@@ -178,10 +187,11 @@ def train(
     def save(step: int, blocking: bool):
         params_host, opt_host = params, opt_state
         if mode == "zero":
-            opt_host = {**opt_state, "m": _gather_scattered(opt_state["m"], group),
-                        "v": _gather_scattered(opt_state["v"], group)}
+            opt_host = {**opt_state, "m": _gather_scattered(opt_state["m"], data),
+                        "v": _gather_scattered(opt_state["v"], data)}
         elif shards is not None:
-            params_host, opt_host = _full_state(shards, params, opt_state, group)
+            params_host, opt_host = _full_state(shards, params, opt_state,
+                                                step_fn._gather_groups)
         if group.rank == 0:
             mgr.save(step, {"params": params_host, "opt": opt_host}, blocking=blocking,
                      extra_meta=ckpt_meta)

@@ -1,11 +1,13 @@
 """Train-step builder: loss -> grads -> update, with the paper's §5.1 input
 slicing (gradient accumulation), remat, and the flat bucketed gradient
-engine over a :class:`~repro_torch.launch.mesh.DataGroup`.
+engine, over a :class:`~repro_torch.launch.mesh.DataGroup` or a
+:class:`~repro_torch.launch.mesh.MeshGroup`.
 
 Each worker runs the returned ``train_step(params, opt_state, batch)`` on
-ITS rows of the global batch (the loop hands rank ``r`` rows
-``[r B/N, (r+1) B/N)``), as the reference's ``shard_map`` hands each worker
-its block.  Three programs:
+ITS rows of the global batch (the loop hands data rank ``r`` rows
+``[r B/N, (r+1) B/N)``; the ranks of one data column, along the model
+axis, get the same rows), as the reference's ``shard_map`` hands each
+worker its block.  Three programs:
 
 * **faithful** (``faithful=True``) — the paper's Appendix-A program:
   gradients flattened into ONE fp32 buffer (§3.3), one
@@ -29,6 +31,24 @@ its block.  Three programs:
   shard its gradient already reduce-scattered, the mean in fp32.  The replicated
   leaves (norms, the MoE router) and, under faithful rules, every leaf
   take one ``all_reduce`` of the mean each.
+
+  On a :class:`~repro_torch.launch.mesh.MeshGroup` the rules default to
+  ``ShardRules.for_mesh`` (the reference's: ``tp="model"``, ``sp`` on,
+  ``fsdp="data"`` unless faithful) and the ``lm`` family (dense, gemma2,
+  moe: ``lm.TP_FAMILIES``) runs the mesh program: each rank holds its
+  model slice of every ``"tp"`` leaf and 1/N_data of that slice, the
+  blocks are column-parallel into local heads, FFN columns or experts and
+  row-parallel out, the residual stream between them is sequence-sharded
+  over ``model`` (``models/lm.py``, ``models/moe.py``), and the loss is
+  vocab-parallel.  Gradients: a leaf split over ``model`` takes no model
+  reduction; a leaf replicated over it that computes on per-rank work (all
+  of them under ``sp``; the q/k norms and the router without it:
+  :func:`model_partial_paths`) holds a partial sum on each model rank and
+  takes an ``all_reduce`` SUM over ``model``; every leaf is then averaged
+  over the data axes (FSDP leaves by the gather's backward over ``data``
+  and an ``all_reduce`` over any other data axis).  The other families
+  run at a model axis of size 1 as on the mesh's data group and raise at
+  a live one; the flat programs refuse a live one, as the reference's.
 
 Every family of the reference trains here through its module's
 ``loss_fn``: dense, gemma2's pairs, vlm (``patch_embeds`` in the batch),
@@ -54,8 +74,9 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import registry
-from repro_torch.models.common import ShardRules, fsdp_program
+from repro_torch.launch.mesh import MeshGroup
+from repro_torch.models import lm, registry
+from repro_torch.models.common import ModelAxis, ShardRules, fsdp_program
 from repro_torch.optim import OptConfig, apply_update, init_state
 from repro_torch.optim.fsdp import ShardLayout, check_shards, make_shard_layout
 from repro_torch.optim.buckets import (
@@ -110,11 +131,11 @@ def flat_engine_mode(cfg: ArchConfig, group, opt: OptConfig,
     ``"faithful"`` | ``"zero"`` | ``None`` (per-parameter path).
 
     ``flat_engine="auto"`` degrades silently, but an EXPLICIT
-    ``flat_engine="zero"`` request raises when it cannot engage.  (The
-    reference's "mesh has a live model axis" and "more than one data axis"
-    cannot arise: a DataGroup is pure data parallelism over one axis.)
+    ``flat_engine="zero"`` request raises when it cannot engage.  A mesh
+    with a live model axis refuses both, and ZeRO a mesh with more than
+    one data axis, as the reference's; a flat program on a mesh runs over
+    its data group.
     """
-    del group
     if settings.flat_engine not in ("auto", "zero", "off"):
         raise ValueError(f"flat_engine {settings.flat_engine!r}")
     if settings.flat_engine == "off":
@@ -128,6 +149,14 @@ def flat_engine_mode(cfg: ArchConfig, group, opt: OptConfig,
 
     if opt.kind not in ("adam", "adamw"):
         return unavailable(f"requires adam/adamw, got {opt.kind!r}")
+    mesh = isinstance(group, MeshGroup)
+    if mesh and not group.data_axes:
+        return unavailable("mesh has no data-parallel axes")
+    # pure data-parallel only: with a live model axis the per-parameter
+    # shardings carry tensor-parallel structure a flat buffer would destroy
+    if mesh and any(n > 1 for a, n in zip(group.axes, group.shape)
+                    if a not in group.data_axes):
+        return unavailable("mesh has a live model axis")
     if cfg.family == "moe":
         return unavailable("the moe family trains on the per-parameter path")
     if settings.faithful:
@@ -137,6 +166,8 @@ def flat_engine_mode(cfg: ArchConfig, group, opt: OptConfig,
                 "(faithful replicates optimizer state by definition)"
             )
         return "faithful"
+    if want_zero and mesh and len(group.data_axes) != 1:
+        return unavailable(f"needs exactly one data axis, mesh has {group.data_axes}")
     return "zero" if want_zero else None
 
 
@@ -157,21 +188,23 @@ def _split_batch(batch: dict, k: int) -> list[dict]:
 
 
 def _make_compute_grads(cfg: ArchConfig, settings: TrainSettings, group=None,
-                        shards: ShardLayout | None = None):
+                        shards: ShardLayout | None = None, model: ModelAxis | None = None):
     """``compute_grads(params, batch, layout=None) -> (loss, metrics,
     grads)``.  With ``k = num_slices > 1`` the batch is split into ``k``
     slices and ``grad / k`` accumulated in ``accum_dtype`` in slice order;
     loss and metrics are averaged the same way.  With a ``layout`` the
     accumulator is one flat buffer and ``grads`` its views.  With
-    ``shards`` (FSDP) the loss and its backward run inside the FSDP
-    program over ``group``, so the sharded leaves' gradients come back as
-    this rank's shards of the mean."""
+    ``shards`` (FSDP) or ``model`` (a mesh program's model axis) the loss
+    and its backward run inside the program, so the sharded leaves'
+    gradients come back as this rank's shards of the mean over ``group``
+    (the FSDP axis) and the models shard over ``model``."""
     mod = registry.get_module(cfg)
 
     def grad_fn(params, mb):
         pairs = list(tree_leaves(params))
         xs = [l.detach().requires_grad_() for _, l in pairs]
-        with fsdp_program(group, shards.gather_dims) if shards else contextlib.nullcontext():
+        with fsdp_program(group, shards.gather_dims, model) if shards else \
+                contextlib.nullcontext():
             loss, metrics = mod.loss_fn(cfg, tree_from_leaves([p for p, _ in pairs], xs),
                                         mb, remat=settings.remat)
             grads = torch.autograd.grad(loss, xs)
@@ -237,13 +270,52 @@ def _pmean_metrics(loss, metrics: dict, group):
 # ---------------------------------------------------------------------------
 
 
+def resolve_program(cfg: ArchConfig, group, settings: TrainSettings,
+                    rules: ShardRules | None = None):
+    """``(group, rules)`` of the per-parameter path: a ``DataGroup`` with
+    ``rules`` or ``ShardRules.for_group(group, faithful=settings.faithful)``
+    (FSDP unless faithful); a ``MeshGroup`` with ``rules`` or
+    ``ShardRules.for_mesh`` for the ``lm`` family (the mesh program),
+    while the other families run on the mesh's data group without a model
+    axis, which they raise for where it is live."""
+    if not isinstance(group, MeshGroup):
+        return group, rules or ShardRules.for_group(group, faithful=settings.faithful)
+    rules = rules or ShardRules.for_mesh(group, faithful=settings.faithful)
+    if rules.tp is not None and registry.get_module(cfg) is lm \
+            and cfg.family in lm.TP_FAMILIES:
+        return group, rules
+    if rules.tp is not None and group.size(rules.tp) > 1:
+        raise NotImplementedError(
+            f"{cfg.name}: the model axis is ported for the lm family (dense, gemma2, "
+            f"moe), not the {cfg.family!r} family; the mesh {group.describe()} has a "
+            f"live model axis")
+    return group.data, ShardRules.for_group(group.data, faithful=settings.faithful)
+
+
 def shard_layout_for(cfg: ArchConfig, group, settings: TrainSettings,
                      rules: ShardRules | None = None) -> ShardLayout:
-    """The per-parameter path's shard layout on this rank: ``rules``, or
-    the launcher's default ``ShardRules.for_group(group,
-    faithful=settings.faithful)`` (FSDP unless faithful)."""
-    rules = rules or ShardRules.for_group(group, faithful=settings.faithful)
+    """The per-parameter path's shard layout on this rank, under the rules
+    :func:`resolve_program` picks (``rules`` where given)."""
+    group, rules = resolve_program(cfg, group, settings, rules)
+    if isinstance(group, MeshGroup):
+        return make_shard_layout(cfg, rules, group.size("data"), group.coord("data"),
+                                 model=group.size("model"), model_rank=group.coord("model"))
     return make_shard_layout(cfg, rules, group.world, group.rank)
+
+
+def model_partial_paths(shards: ShardLayout, rules: ShardRules) -> frozenset:
+    """The leaves replicated over the model axis whose gradient each model
+    rank holds a partial sum of (they take an ``all_reduce`` SUM over
+    ``model``): under ``sp`` every one (the norms act on sequence shards,
+    the rest on per-rank work); without it the leaves read inside the
+    tensor-parallel region (``lm.TP_REGION_LEAVES``: the q/k norms, on
+    local or every head, and the router, whose gradient flows through the
+    rank's experts), the residual stream's norms then holding the whole
+    gradient on every rank.  A leaf split over ``model`` takes none."""
+    if rules.tp is None:
+        return frozenset()
+    return frozenset(p for p in shards.paths if p not in shards.model_sharded
+                     and (rules.sp or p[-1] in lm.TP_REGION_LEAVES))
 
 
 def build_train_step(cfg: ArchConfig, group, opt: OptConfig,
@@ -260,32 +332,88 @@ def build_train_step(cfg: ArchConfig, group, opt: OptConfig,
     """
     mode = flat_engine_mode(cfg, group, opt, settings)
     if mode is not None:
-        return _build_flat_train_step(cfg, group, opt, settings, mode)
+        return _build_flat_train_step(cfg, _data_group(group), opt, settings, mode)
+    group, rules = resolve_program(cfg, group, settings, rules)
+    if isinstance(group, MeshGroup):
+        return _build_mesh_train_step(cfg, group, opt, settings, rules)
 
     shards = shard_layout_for(cfg, group, settings, rules)
     sharded = shards.sharded
     compute_grads = _make_compute_grads(cfg, settings, group, shards if sharded else None)
-    # the global norm's mask of sharded leaves, made once: a step copies
-    # nothing from the host
-    mask = (torch.tensor([p in sharded for p in shards.paths], device=group.device)
-            if sharded else None)
+    masks = _norm_masks(shards, group.device, [(group, sharded)])
 
     def train_step(params, opt_state, batch):
         loss, metrics, grads = compute_grads(params, to_device(batch, group.device))
         loss, metrics = _pmean_metrics(loss, metrics, group)
-        if group.pg is not None:
-            # a sharded leaf's gradient arrives reduce-scattered (the
-            # gather's backward); a replicated one takes the mean here
-            for path, g in tree_leaves(grads):
-                if path not in sharded:
-                    dist.all_reduce(g, op=dist.ReduceOp.SUM, group=group.pg)
-                    g.div_(group.world)
+        _reduce_grads(grads, sharded, group)
         params, opt_state, opt_metrics = apply_update(opt, params, grads, opt_state,
-                                                      group=group, sharded=mask)
+                                                      sharded=masks)
         return params, opt_state, {"loss": loss, **metrics, **opt_metrics}
 
     train_step._flat_engine = None
     train_step._shard_layout = shards
+    train_step._gather_groups = (group, None)
+    return train_step
+
+
+def _norm_masks(shards: ShardLayout, device, axes) -> list:
+    """The global norm's ``(group, mask)`` pairs for ``axes``, ``(group,
+    paths split over it)`` (an axis that splits nothing is left out), made
+    once: a step copies nothing from the host."""
+    return [(g, torch.tensor([p in split for p in shards.paths], device=device))
+            for g, split in axes if split]
+
+
+def _reduce_grads(grads, sharded, data, others=(), partial=frozenset(), model=None):
+    """The gradient rule, a leaf at a time.  A leaf each model rank holds a
+    partial sum of (``partial``, :func:`model_partial_paths`) is summed over
+    ``model``.  A leaf split over the FSDP axis (``sharded``) arrives
+    averaged over it (the gather's backward reduce-scatters it) and takes
+    the mean over ``others``, the remaining data axes; every other leaf
+    takes the mean over ``data``."""
+    for path, g in tree_leaves(grads):
+        if path in partial and model.pg is not None:
+            dist.all_reduce(g, op=dist.ReduceOp.SUM, group=model.pg)
+        for group in (others if path in sharded else (data,)):
+            if group.pg is not None:
+                dist.all_reduce(g, op=dist.ReduceOp.SUM, group=group.pg)
+                g.div_(group.world)
+
+
+def _data_group(group):
+    """The group the batch splits over: a mesh's data axes, or the group."""
+    return group.data if isinstance(group, MeshGroup) else group
+
+
+def _build_mesh_train_step(cfg, mesh: MeshGroup, opt, settings, rules: ShardRules):
+    """The per-parameter path on a mesh (the module docstring): FSDP over
+    ``rules.fsdp``, tensor, sequence and expert parallelism over
+    ``model``."""
+    shards = shard_layout_for(cfg, mesh, settings, rules)
+    fsdp_g = mesh.axis(rules.fsdp) if rules.fsdp else None
+    data, model_g = mesh.data, mesh.model
+    # FSDP leaves arrive averaged over the FSDP axis: the other data axes
+    # (a multipod's pod) still take a mean
+    others = [mesh.axis(a) for a in rules.dp if a != rules.fsdp]
+    sharded, partial = shards.sharded, model_partial_paths(shards, rules)
+    compute_grads = _make_compute_grads(cfg, settings, fsdp_g, shards,
+                                        ModelAxis(model_g, rules.sp))
+    dev = mesh.device
+    masks = _norm_masks(shards, dev, [(fsdp_g, sharded), (model_g, shards.model_sharded)])
+
+    def train_step(params, opt_state, batch):
+        loss, metrics, grads = compute_grads(params, to_device(batch, dev))
+        loss, metrics = _pmean_metrics(loss, metrics, data)
+        _reduce_grads(grads, sharded, data, others, partial, model_g)
+        params, opt_state, opt_metrics = apply_update(opt, params, grads, opt_state,
+                                                      sharded=masks)
+        return params, opt_state, {"loss": loss, **metrics, **opt_metrics}
+
+    train_step._flat_engine = None
+    train_step._shard_layout = shards
+    train_step._gather_groups = (fsdp_g, model_g)
+    train_step._model_partial = partial
+    train_step._rules = rules
     return train_step
 
 
@@ -402,6 +530,8 @@ def opt_state_template(cfg: ArchConfig, group, opt: OptConfig,
     parameters' shapes (under FSDP this rank's shards, which ``params``
     must already be)."""
     mode = flat_engine_mode(cfg, group, opt, settings)
+    if mode is not None:
+        group = _data_group(group)
 
     def step0():
         return torch.zeros((), dtype=torch.int32, device=group.device)

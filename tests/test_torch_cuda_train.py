@@ -2,9 +2,11 @@
 version, the flash gradient against autograd through ``attention_ref``,
 the SSD scan's gradient against autograd through ``ssd_chunked_ref``, and
 one faithful train step through both kernels against the same step's
-plain versions on the CPU, and the FSDP step over a one-rank NCCL group
+plain versions on the CPU, the FSDP step over a one-rank NCCL group
 (every weight gathered, every gradient reduce-scattered) against the
-replicated rules' step, bitwise.
+replicated rules' step, bitwise, and the ``(1, 1)`` mesh's step (every
+model-axis collective over one-rank NCCL subgroups) against the FSDP
+step, bitwise.
 
 Every case is ``cuda``-marked and skips without a card.  The module
 imports nothing of JAX, so on the card it runs as
@@ -238,17 +240,74 @@ def test_fsdp_world1_nccl_equals_replicated(cuda, arch):
             rules = ShardRules.for_group(group, faithful=faithful)
             params, state = init_sharded(cfg, group, opt, 0, tset, rules)
             step = build_train_step(cfg, group, opt, tset, rules)
-            common.COUNTS.update(all_gather=0, reduce_scatter=0)
+            common.COUNTS.update(dict.fromkeys(common.COUNTS, 0))
             metrics = []
             for i in range(2):
                 params, state, m = step(params, state, make_batch_fn(cfg, shape, 0)(i))
                 metrics.append({k: float(v) for k, v in m.items()})
             out[name] = (metrics, params, state, dict(common.COUNTS))
-        assert out["replicated"][3] == {"all_gather": 0, "reduce_scatter": 0}
+        assert out["replicated"][3] == dict.fromkeys(common.COUNTS, 0)
         assert out["fsdp"][3]["all_gather"] > out["fsdp"][3]["reduce_scatter"] > 0
         assert out["fsdp"][0] == out["replicated"][0]
         for i in (1, 2):
             trees = (out["fsdp"][i], out["replicated"][i])
+            if i == 2:
+                trees = ({k: trees[0][k] for k in ("m", "v")}, {k: trees[1][k] for k in ("m", "v")})
+            for (path, a), (_, b) in zip(tree_leaves(trees[0]), tree_leaves(trees[1])):
+                assert torch.equal(a, b), path
+    finally:
+        group.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["smollm-360m", "gemma2-27b", "qwen3-moe-30b-a3b"])
+def test_mesh_one_by_one_nccl_equals_fsdp(cuda, arch):
+    """Two steps in 2 slices on a ``(data 1, model 1)`` mesh over one-rank
+    NCCL subgroups (``ShardRules.for_mesh``: every tensor-, sequence- and
+    expert-parallel collective runs, the loss is vocab-parallel) and under
+    the FSDP rules on the same card, from the same init: the same losses,
+    gradient norms, parameters and Adam moments bit for bit, in bf16
+    compute through the flash and norm kernels; the model-axis
+    collectives counted."""
+    import socket
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import make_batch_fn
+    from repro_torch.launch.mesh import init_group, mesh_from_group
+    from repro_torch.models import common
+    from repro_torch.models.common import ShardRules
+    from repro_torch.optim.flat import tree_leaves
+    from repro_torch.train import init_sharded
+
+    heads, kv = (3, 1) if arch == "smollm-360m" else (4, 2)
+    cfg = dataclasses.replace(get_smoke_config(arch), attn_impl="kernel", d_model=64 * heads,
+                              n_heads=heads, n_kv=kv, d_head=0)
+    assert cfg.head_dim == 64                  # a head dim the flash kernel compiles
+    shape = ShapeConfig("t", "train", 64, 4)
+    opt = OptConfig(kind="adam", lr=1e-3)
+    tset = TrainSettings(num_slices=2)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    group = init_group("nccl", 0, 1, f"tcp://127.0.0.1:{port}", device=cuda)
+    try:
+        mesh = mesh_from_group(group, (1, 1))
+        out = {}
+        for name, grp, rules in (("fsdp", group, ShardRules.for_group(group)),
+                                 ("mesh", mesh, None)):
+            params, state = init_sharded(cfg, grp, opt, 0, tset, rules)
+            step = build_train_step(cfg, grp, opt, tset, rules)
+            common.COUNTS.update(dict.fromkeys(common.COUNTS, 0))
+            metrics = []
+            for i in range(2):
+                params, state, m = step(params, state, make_batch_fn(cfg, shape, 0)(i))
+                metrics.append({k: float(v) for k, v in m.items()})
+            out[name] = (metrics, params, state, dict(common.COUNTS))
+        assert out["fsdp"][3]["model_all_gather"] == 0
+        assert out["mesh"][3]["model_all_gather"] > 0 and out["mesh"][3]["vocab_ce"] == 2 * 2 * 2
+        assert out["mesh"][0] == out["fsdp"][0]
+        for i in (1, 2):
+            trees = (out["mesh"][i], out["fsdp"][i])
             if i == 2:
                 trees = ({k: trees[0][k] for k in ("m", "v")}, {k: trees[1][k] for k in ("m", "v")})
             for (path, a), (_, b) in zip(tree_leaves(trees[0]), tree_leaves(trees[1])):

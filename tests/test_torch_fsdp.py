@@ -104,7 +104,8 @@ def test_param_shard_dims_match_reference_pspecs(arch):
                                                  None)
                 for path, spec in flat}
         got = registry.param_shard_dims(tcfg, ShardRules.for_group(CPU, faithful=faithful))
-        assert got == want
+        assert {p: fs for p, (_, fs) in got.items()} == want
+        assert all(tp is None for tp, _ in got.values())
 
 
 def test_rules_for_group():
@@ -210,7 +211,7 @@ def _steps(cfg, group, rules, steps=2, k=2):
                                  TrainSettings(num_slices=k), rules)
     step = build_train_step(cfg, group, OptConfig(kind="adam", lr=1e-3),
                             TrainSettings(num_slices=k), rules)
-    common.COUNTS.update(all_gather=0, reduce_scatter=0)
+    common.COUNTS.update(dict.fromkeys(common.COUNTS, 0))
     metrics = []
     for i in range(steps):
         params, state, m = step(params, state, make_batch_fn(cfg, SHAPE, 0)(i))
@@ -222,14 +223,15 @@ def _steps(cfg, group, rules, steps=2, k=2):
 def test_world1_fsdp_equals_replicated_bitwise(gloo1, arch):
     cfg = _cfg(arch)
     rm, rp, rs, rc = _steps(cfg, gloo1, ShardRules.for_group(gloo1, faithful=True))
-    assert rc == {"all_gather": 0, "reduce_scatter": 0}
+    assert rc == dict.fromkeys(common.COUNTS, 0)
     fm, fp, fs, fc = _steps(cfg, gloo1, None)
     assert fm == rm
     for a, b in ((fp, rp), (fs["m"], rs["m"]), (fs["v"], rs["v"])):
         for (path, x), (_, y) in zip(tree_leaves(a), tree_leaves(b)):
             assert torch.equal(x, y), path
     ag, rsc = _sharded_per_slice(cfg)
-    assert fc == {"all_gather": 2 * 2 * ag, "reduce_scatter": 2 * 2 * rsc}
+    assert fc == {**dict.fromkeys(common.COUNTS, 0), "all_gather": 2 * 2 * ag,
+                  "reduce_scatter": 2 * 2 * rsc}
 
 
 @pytest.mark.parametrize("dim", [0, 1])
@@ -245,18 +247,19 @@ def test_saved_gathered_weight_is_its_shard_until_the_backward(gloo1, dim, monke
     shard = torch.randn(6, 4, generator=gen).requires_grad_()
     x = torch.randn(3, 4, generator=gen).requires_grad_()
     f = lambda x, w: ((x @ w.t()) if dim == 1 else (x @ w.t()).tanh()).square().sum()
-    common.COUNTS.update(all_gather=0, reduce_scatter=0)
+    common.COUNTS.update(dict.fromkeys(common.COUNTS, 0))
+    none = dict.fromkeys(common.COUNTS, 0)
     with common.fsdp_program(gloo1, {}):
         w = common.wuse(shard, dim, torch.float32, gloo1)
         full = w.untyped_storage().data_ptr()
         y = f(x, w)
         del w
-        assert common.COUNTS == {"all_gather": 1, "reduce_scatter": 0}
+        assert common.COUNTS == {**none, "all_gather": 1, "reduce_scatter": 0}
         assert not [k for k in kept if isinstance(k, torch.Tensor)
                     and k.untyped_storage().data_ptr() == full]
         assert sum(1 for k in kept if not isinstance(k, torch.Tensor)) == 1
         gs, gx = torch.autograd.grad(y, (shard, x))
-    assert common.COUNTS == {"all_gather": 2, "reduce_scatter": 1}
+    assert common.COUNTS == {**none, "all_gather": 2, "reduce_scatter": 1}
     ws, xs = shard.detach().requires_grad_(), x.detach().requires_grad_()
     ref = f(xs, ws)
     assert torch.equal(y, ref)

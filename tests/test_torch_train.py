@@ -207,10 +207,14 @@ def test_launcher_smoke_cpu_exits_zero():
     assert "final loss" in out.stdout and "skipped steps: 0" in out.stdout
 
 
-def test_production_meshes_raise():
+def test_production_meshes_raise(monkeypatch):
+    """The production meshes are built at a world of 256 or 512 ranks
+    (``tests/test_torch_tp.py``); at any other world they raise a
+    ``ValueError`` naming it, before a group is made."""
     from repro_torch.launch.mesh import make_production_mesh
-    for multi in (False, True):
-        with pytest.raises(NotImplementedError, match="tensor-parallel"):
+    monkeypatch.delenv("RANK", raising=False)
+    for multi, n in ((False, 256), (True, 512)):
+        with pytest.raises(ValueError, match=f"needs {n} ranks; the world is 1"):
             make_production_mesh(multi_pod=multi)
 
 
