@@ -483,6 +483,10 @@ GRAD_TOL = {"bfloat16": dict(scale=2e-2, rtol=1e-2), "float32": dict(atol=1e-5, 
 STEP_TOL = {"float32": dict(loss=1e-5, grad_norm=1e-3),
             "bfloat16": dict(loss=1e-2, grad_norm=5e-2)}
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_SLICES = 1024, 8, 2
+# phase 4 trains smollm-360m at full width and half its depth (16 of 32
+# layers): its step is some 14 full steps of host dispatch, the script's
+# longest phase, cut to pay for phase 3o
+TRAIN_LAYERS = 16
 # flash timing shapes (name, B, S, H, Hk, D, window), bf16, causal: a
 # smollm-360m prefill at bucket 512, the training step's (batch 4 a slice,
 # seq 1024), a zamba2-1.2b shared-block prefill at bucket 512 (rep 1), a
@@ -927,6 +931,27 @@ def check_paged(torch, dev, results):
                     rows.append(row)
                     log(f"paged {json.dumps(row)}")
                     del q, kp, vp, out, want
+    # a head run of a wider pool (``paged_heads``): a rank of a model axis
+    # whose q heads read one run of a replicated pool's kv heads, as
+    # qwen3-moe-30b-a3b's 2 local q heads read 1 of its 4 at a model axis
+    # of 16; the pool's views, rows 4 heads apart
+    phase3 = [int(p.size) + 10 for p, _ in requests(SMOLLM_VOCAB)[:MAX_SLOTS]]
+    for h in (0, 3):
+        for kw in (dict(), dict(window=100, softcap=30.0)):
+            for dt in ("bfloat16", "float32"):
+                q, kp, vp, lengths, tables = paged_inputs(
+                    torch, dev, dt, Hk=4, rep=2, D=128, nb=MAX_LEN // PAGE, lengths=phase3)
+                q, kr, vr = q[:, h:h + 1].contiguous(), kp[0].narrow(2, h, 1), vp[0].narrow(2, h, 1)
+                out = paged_attention(q, kr, vr, lengths, tables, **kw)
+                torch.cuda.synchronize()
+                want = paged_attention_ref(q, kr.contiguous(), vr.contiguous(), lengths, tables,
+                                           **kw)
+                row = dict(dtype=dt, D=128, Hk=1, pool_heads=4, head=h, rep=2,
+                           lengths=lengths.tolist(), **kw,
+                           max_abs_err=max_err(torch, out, want, dt))
+                rows.append(row)
+                log(f"paged head run {json.dumps(row)}")
+                del q, kp, vp, kr, vr, out, want
     results["paged_cases"] = rows
     # timing at the decode step's shape: 8 lanes, 5 KV heads x 3 queries,
     # bs 16, bf16; 8 layers of pools (84 MB, over the 50 MB L2) walked in
@@ -957,9 +982,13 @@ def check_paged(torch, dev, results):
             ("phase 8", phase7, (), wide["rep 4 D 160"], {}),
             ("phase 9", phase3, (), dict(Hk=4, rep=8, D=128, nb=MAX_LEN // PAGE), {}),
             ("rep 16 D 128", phase3, (), wide["rep 16 D 128"], {}),
-            ("rep 16 D 160", phase3, (), wide["rep 16 D 160"], {})):
+            ("rep 16 D 160", phase3, (), wide["rep 16 D 160"], {}),
+            ("head run", phase3, (), dict(Hk=4, rep=2, D=128, nb=MAX_LEN // PAGE), {})):
         q, kp, vp, lengths, tables = paged_inputs(torch, dev, dt, layers=L, lengths=lens,
                                                   nulled=nulled, **shape)
+        if name == "head run":
+            # head 1 of 4: the kernel reads one kv head's rows of each block
+            q, kp, vp = q[:, 1:2].contiguous(), kp.narrow(3, 1, 1), vp.narrow(3, 1, 1)
         B, Hk, rep, D = q.shape
         window = kw.get("window", 0)
         n = attended(lengths.cpu().numpy(), window)   # positions attended per lane
@@ -1481,7 +1510,8 @@ class StepClock:
 
 def serve(torch, cfg, params, reqs, engine_cfg, dev, *, check: bool = False,
           prebuild: bool = False, faults=None, deadlines: dict | None = None,
-          host_tier=None, after_step=None, draft_params=None, engine_cls=None, obs=None):
+          host_tier=None, after_step=None, draft_params=None, engine_cls=None, obs=None,
+          mesh=None):
     """Submit every request at once and drain; returns (engine, rids,
     per-step host times in ms, whether each step ran a prefill chunk, wall
     seconds): one synchronized span over the whole drain loop. ``check``
@@ -1492,13 +1522,16 @@ def serve(torch, cfg, params, reqs, engine_cfg, dev, *, check: bool = False,
     request's index to its ``deadline_s``, on a ``StepClock``;
     ``host_tier`` is the engine's ``HostTier`` instance; ``draft_params``
     the spec engine's draft weights; ``engine_cls`` a ``ServeEngine``
-    subclass to build; ``obs`` its ``Observer``."""
+    subclass to build; ``obs`` its ``Observer``; ``mesh`` its mesh."""
     from repro_torch.serve import ServeEngine
 
     clock = StepClock()
+    extra = dict(clock=clock) if deadlines else {}
+    if mesh is not None:
+        extra["mesh"] = mesh
     eng = (engine_cls or ServeEngine)(cfg, params, engine_cfg, device=dev, faults=faults,
                                       host_tier=host_tier, draft_params=draft_params,
-                                      obs=obs, **(dict(clock=clock) if deadlines else {}))
+                                      obs=obs, **extra)
     if prebuild:
         eng.prebuild()
         built = eng.stats["builds"]
@@ -1572,7 +1605,7 @@ SAMPLED = dict(temperature=0.8, top_k=40, top_p=0.95)
 
 
 def graph_check(torch, cfg, params, reqs, ec, dev, steps: int = 8,
-                sampling: dict | None = None) -> dict:
+                sampling: dict | None = None, mesh=None) -> dict:
     """The captured decode graph against the eager program it captured: an
     engine admits the first ``MAX_SLOTS`` requests (greedy, or with
     ``sampling``'s temperature, top-k and top-p) and takes its first
@@ -1582,14 +1615,15 @@ def graph_check(torch, cfg, params, reqs, ec, dev, steps: int = 8,
     sampling generator's state copied) and replays the graph on the state
     itself.  The sampled tokens must be equal and every state leaf bitwise
     equal: the two launch the same kernels in the same order on the same
-    inputs, and draw the same uniforms from the same generator state."""
+    inputs, and draw the same uniforms from the same generator state.  On a
+    ``mesh`` the eager program issues the collectives the graph captured."""
     from repro_torch.core.aot import CudaGraphProgram
     from repro_torch.serve import ServeEngine
 
     sampling = sampling or {}
     flags = dict(stochastic=sampling.get("temperature", 0) > 0,
                  masked=bool(sampling.get("top_k")) or 0 < sampling.get("top_p", 1) < 1)
-    eng = ServeEngine(cfg, params, ec, device=dev)
+    eng = ServeEngine(cfg, params, ec, device=dev, mesh=mesh)
     for p, b in reqs[:MAX_SLOTS]:
         eng.submit(p, max_new_tokens=b, **sampling)
     while eng.counters["decode_steps"] < 1:
@@ -1699,6 +1733,8 @@ def main_path(torch, dev, results):
                prefills=st["prefills"], decode_steps=st["decode_steps"],
                prompt_tokens=st["prefill_tokens"],
                decode_step_ms_median=float(np.median(decode_only)),
+               prefill_step_ms_median=float(np.median([t for t, p in zip(steps, prefilled)
+                                                       if p])),
                decode_step_ms_p90=float(np.percentile(decode_only, 90)),
                decode_only_steps=len(decode_only), step_ms_mean=wall * 1e3 / len(steps),
                kv_reserved_bytes=st["kv_reserved_bytes"],
@@ -1841,7 +1877,7 @@ LEAD_IN_CYCLES = 2_000_000    # the first spin's length, ~1 ms
 
 
 def profile_decode(torch, cfg, params, reqs, ec, dev, steps: int = 5, obs=None,
-                   windows: int = 1):
+                   windows: int = 1, mesh=None):
     """Device time of a few decode steps with all 8 lanes busy, by kernel,
     from ``torch.profiler``; the idle share is taken against the step
     time of the same steps run again unprofiled.  The steps are the
@@ -1859,11 +1895,11 @@ def profile_decode(torch, cfg, params, reqs, ec, dev, steps: int = 5, obs=None,
     figures, and ``windows`` windows of ``steps`` steps are
     recorded: the device time comes from the most complete (the most
     records), the port's launches from each wrapper's largest count
-    (``replay_launches``)."""
+    (``replay_launches``).  ``mesh``: the engine's."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serve import ServeEngine
 
-    eng = ServeEngine(cfg, params, ec, device=dev, obs=obs)
+    eng = ServeEngine(cfg, params, ec, device=dev, obs=obs, mesh=mesh)
     for p, b in reqs[:MAX_SLOTS]:
         eng.submit(p, max_new_tokens=b)
     for _ in range(3):                                # admissions, then warm decode
@@ -3544,6 +3580,187 @@ def traced_path(torch, dev, results):
 
 
 # ---------------------------------------------------------------------------
+# Phase 3o: serving on a (data, model) mesh of one-rank NCCL groups
+# ---------------------------------------------------------------------------
+
+
+def serve_collectives(L: int, slotted: bool, *, prefill: bool) -> dict:
+    """The collectives of one decode step or one prefill of a dense (or
+    MoE) model of ``L`` layers on a ``(1, 1)`` mesh of one-rank groups,
+    by kind (``models.common.COUNTS``): each layer's seven sharded weights
+    and the embedding read twice, gathered over ``data``; the embedding's
+    and each layer's two row-parallel sums over ``model``; the logits'
+    gather; the slotted layout's every-head q, k, v gathers and LSE
+    combine a decode layer, or its two every-head k, v gathers a prefill."""
+    out = {"all_gather": 7 * L + 2, "reduce_from_model": 2 * L + 1}
+    if prefill:
+        out["model_all_gather"] = 1 + (2 if slotted else 0)
+    else:
+        out["model_all_gather"] = 1 + (3 * L if slotted else 0)
+        out["decode_combine"] = 2 * L if slotted else 0
+    return out
+
+
+def mesh_serve_path(torch, dev, results):
+    """Phase 3o: phase 3's model (full-width smollm-360m, bf16, seed 0) and
+    16 requests through ``ServeEngine(mesh=)`` on a ``(1, 1)`` mesh of
+    one-rank NCCL groups, on both KV layouts: every program inside the
+    serving mesh program, every collective issued (each one a copy), the
+    decode step a graph replay holding them.  At one model rank the LSE
+    combine and every collective are identities, so the streams are
+    bitwise the mesh-less engine's (phase 3's, paged; a mesh-less run's,
+    slotted), the kernels launch by phase 3's formulas, the collectives by
+    ``serve_collectives``, and the KV bytes a rank are phase 3's.  Then the
+    launcher's ``--mesh single`` on the card.  Returns the paged run's
+    launch counts."""
+    import contextlib
+    import io
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.aot import CudaGraphProgram
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_add
+    from repro_torch.launch import serve as launcher
+    from repro_torch.launch.mesh import init_group, mesh_from_group
+    from repro_torch.models import common, lm
+    from repro_torch.serve import EngineConfig
+    from repro_torch.serve.engine import MeshClock
+
+    cfg = dataclasses.replace(get_config("smollm-360m"), attn_impl="kernel")
+    params = lm.init(cfg, seed=0, device=dev)
+    reqs = requests(cfg.vocab)
+    paged = EngineConfig(max_slots=MAX_SLOTS, max_len=MAX_LEN, kv_layout="paged",
+                         page_size=PAGE, paged_attn="kernel")
+    slotted = dataclasses.replace(paged, kv_layout="slotted")
+    kernels = (flash_attention, paged_attention, rmsnorm, rmsnorm_add)
+    L = cfg.n_layers
+    group = init_group("nccl", 0, 1, f"tcp://127.0.0.1:{free_port()}", device=dev)
+    out = {}
+    try:
+        mesh = mesh_from_group(group, (1, 1))
+        out["graph_check"] = graph_check(torch, cfg, params, reqs, paged, dev, mesh=mesh)
+        want_slotted = None
+        for name, ec in (("paged", paged), ("slotted", slotted)):
+            if name == "slotted":
+                ref, ref_rids, ref_steps, ref_pre, ref_wall = serve(torch, cfg, params, reqs,
+                                                                    ec, dev)
+                want_slotted = [list(ref.completions[r].tokens) for r in ref_rids]
+                want_bytes, ref_tps = ref.kv_reserved_bytes, \
+                    sum(len(s) for s in want_slotted) / ref_wall
+                ref_median = float(np.median([t for t, p in zip(ref_steps, ref_pre) if not p]))
+                ref_pre_median = float(np.median([t for t, p in zip(ref_steps, ref_pre) if p]))
+                del ref
+            for k in kernels:
+                k.launches = 0
+            common.COUNTS.update(dict.fromkeys(common.COUNTS, 0))
+            eng, rids, steps, prefilled, wall = serve(torch, cfg, params, reqs, ec, dev,
+                                                      mesh=mesh)
+            counts = dict(common.COUNTS)
+            launches = {k.__name__: k.launches for k in kernels}
+            st = eng.stats
+            eng.check_invariants()
+            streams = [list(eng.completions[r].tokens) for r in rids]
+            want = results["phase3_streams"] if name == "paged" else want_slotted
+            pre, dec = st["prefills"], st["decode_steps"]
+            # one eager decode step on a deep clone of the state: its
+            # collectives alone
+            common.COUNTS.update(dict.fromkeys(common.COUNTS, 0))
+            for p, b in reqs[:MAX_SLOTS]:
+                eng.submit(p, max_new_tokens=b)
+            while eng.counters["decode_steps"] == dec:
+                eng.step()
+            common.COUNTS.update(dict.fromkeys(common.COUNTS, 0))
+            eng.decode_program(stochastic=False, masked=False)(eng.params,
+                                                               clone_state(torch, eng.state))
+            step_counts = dict(common.COUNTS)
+            eng.drain()
+            graph = eng._decode_entry(stochastic=False, masked=False)
+            tokens = sum(len(s) for s in streams)
+            decode_only = [t for t, p in zip(steps, prefilled) if not p]
+            one_dec = serve_collectives(L, name == "slotted", prefill=False)
+            one_pre = serve_collectives(L, name == "slotted", prefill=True)
+            # the run's collectives: every prefill (eager) and the decode
+            # program's two Python runs (its warm step and its capture);
+            # the graph's replays issue theirs on the card without Python
+            run_want = {k: pre * one_pre.get(k, 0) + 2 * one_dec.get(k, 0) for k in counts}
+            row = dict(layout=name, mesh=st["mesh"], tokens=tokens, wall_s=wall,
+                       tokens_per_s=tokens / wall,
+                       decode_step_ms_median=float(np.median(decode_only)),
+                       prefill_step_ms_median=float(np.median([t for t, p in zip(steps, prefilled)
+                                                               if p])),
+                       prefills=pre, decode_steps=dec, launches=launches,
+                       collectives_run=counts, collectives_run_formula=run_want,
+                       collectives_decode_step=step_counts,
+                       collectives_decode_step_formula=one_dec,
+                       collectives_prefill_formula=one_pre,
+                       kv_reserved_bytes=st["kv_reserved_bytes"],
+                       identical=sum(x == y for x, y in zip(streams, want)),
+                       graph_replays=graph.replays, graphs=st["graphs"])
+            if name == "paged":
+                base = results["main_path"]
+                row.update(tokens_per_s_phase3=base["tokens_per_s"],
+                           decode_step_ms_median_phase3=base["decode_step_ms_median"],
+                           prefill_step_ms_median_phase3=base["prefill_step_ms_median"],
+                           kv_reserved_bytes_phase3=base["kv_reserved_bytes"])
+                want_bytes = base["kv_reserved_bytes"]
+                want_launches = dict(flash_attention=L * pre, paged_attention=L * dec,
+                                     **dense_norms(pre, dec))
+            else:
+                row.update(tokens_per_s_mesh_none=ref_tps, kv_reserved_bytes_mesh_none=want_bytes,
+                           decode_step_ms_median_mesh_none=ref_median,
+                           prefill_step_ms_median_mesh_none=ref_pre_median)
+                want_launches = dict(flash_attention=L * pre, paged_attention=0,
+                                     **dense_norms(pre, dec))
+            log(f"3o mesh (1, 1) {name}: {json.dumps(row)}")
+            assert row["identical"] == len(reqs) and all(
+                c.status == "ok" for c in eng.completions.values()), row
+            assert launches == want_launches, (launches, want_launches)
+            assert step_counts == {**dict.fromkeys(common.COUNTS, 0), **one_dec}, row
+            assert counts == {**dict.fromkeys(common.COUNTS, 0), **run_want}, row
+            assert row["kv_reserved_bytes"] == want_bytes, row
+            assert isinstance(graph, CudaGraphProgram) and graph.replays > 0 \
+                and st["graphs"] == 1, row
+            out[name] = row
+            del eng
+            free(torch)
+        # one reading of the mesh's clock (rank 0's, broadcast): host us
+        clock = MeshClock(time.perf_counter, mesh)
+        clock()
+        t = time.perf_counter()
+        for _ in range(200):
+            clock()
+        out["clock_reading_us"] = (time.perf_counter() - t) / 200 * 1e6
+        # the paged decode step's device time, beside phase 3's
+        prof = profile_decode(torch, cfg, params, reqs, paged, dev, mesh=mesh)
+        keys = ("device_ms_per_step", "device_idle_share", "kernel_launches_per_step",
+                "step_ms_unprofiled", "replay_host_ms_median")
+        base = results.get("profile")
+        out["profile"] = prof and {**{k: prof[k] for k in keys},
+                                   **{f"{k}_phase3": base and base[k] for k in keys},
+                                   "top": prof["top"][:6]}
+        log(f"3o mesh (1, 1) paged decode step profile: {json.dumps(out['profile'])}; "
+            f"one clock reading {out['clock_reading_us']:.1f} us of host")
+        # the launcher on the card, the one-device engine
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            router = launcher.main(["--arch", "smollm-360m", "--device", str(dev),
+                                    "--mesh", "single", "--kv-layout", "paged",
+                                    "--requests", "4", "--rate", "1000"])
+        printed = buf.getvalue()
+        out["launcher"] = dict(status_ok=router.stats["status_ok"],
+                               tokens=sum(len(c.tokens) for c in router.completions.values()),
+                               summary=[ln for ln in printed.splitlines() if ln.startswith("--")])
+        log(f"3o launcher --mesh single: {json.dumps(out['launcher'])}")
+        assert router.stats["status_ok"] == 4 and "status: ok 4" in printed, printed[-2000:]
+        del router
+    finally:
+        group.close()
+    results["mesh_serve"] = out
+    return out["paged"]["launches"]
+
+
+# ---------------------------------------------------------------------------
 # Phase 5: Zamba2 hybrid serving at full width
 # ---------------------------------------------------------------------------
 
@@ -4139,8 +4356,9 @@ def profile_train_step(torch, cfg, group, opt, settings, run: dict, batch):
 
 
 def train_path(torch, dev, results):
-    """Phase 4: the faithful and ZeRO programs at full width over a 1-rank
-    NCCL group.  Returns the launch counts of the faithful run."""
+    """Phase 4: the faithful and ZeRO programs at full width and
+    ``TRAIN_LAYERS`` layers over a 1-rank NCCL group.  Returns the launch
+    counts of the faithful run."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data import make_batch_fn
@@ -4151,8 +4369,9 @@ def train_path(torch, dev, results):
     from repro_torch.optim import OptConfig
     from repro_torch.train import TrainSettings
 
-    base = dataclasses.replace(get_config("smollm-360m"), attn_impl="kernel")
-    assert base.n_layers == N_LAYERS and base.compute_dtype == "bfloat16"
+    full = get_config("smollm-360m")
+    assert full.n_layers == N_LAYERS and full.compute_dtype == "bfloat16"
+    base = dataclasses.replace(full, attn_impl="kernel", n_layers=TRAIN_LAYERS)
     shape = ShapeConfig("chip-smoke", "train", TRAIN_SEQ, TRAIN_BATCH)
     opt = OptConfig(kind="adam")
     group = init_group("nccl", 0, 1, f"tcp://127.0.0.1:{free_port()}", device=dev)
@@ -4179,11 +4398,13 @@ def train_path(torch, dev, results):
             log(f"train {name}: {json.dumps(row)}")
             assert all(np.isfinite(losses)) and res["skipped_steps"] == 0, row
             assert launches[name]["flat_adam"] == steps, row
-            assert launches[name]["flash_attention"] == 2 * N_LAYERS * TRAIN_SLICES * steps, row
+            assert launches[name]["flash_attention"] == \
+                2 * TRAIN_LAYERS * TRAIN_SLICES * steps, row
             # per slice: ln1 and ln2 (with its add) in each layer, forward
             # and remat's recompute, and ln_f once
-            assert launches[name]["rmsnorm"] == (2 * N_LAYERS + 1) * TRAIN_SLICES * steps, row
-            assert launches[name]["rmsnorm_add"] == 2 * N_LAYERS * TRAIN_SLICES * steps, row
+            assert launches[name]["rmsnorm"] == (2 * TRAIN_LAYERS + 1) * TRAIN_SLICES * steps, \
+                row
+            assert launches[name]["rmsnorm_add"] == 2 * TRAIN_LAYERS * TRAIN_SLICES * steps, row
             if name == "faithful":
                 # each step's batch is new, and the stream's map has to be
                 # learned token by token, so the per-step loss stays near
@@ -5399,7 +5620,8 @@ def fsdp_collectives(cfg, per: int) -> dict:
         plain += zamba.n_shared_invocations(cfg) * count("shared")
     return dict(all_gather=(2 * plain - 1 + 2 * remat) * per,
                 reduce_scatter=(plain + remat) * per, copy_to_model=0,
-                reduce_from_model=0, model_all_gather=0, model_reduce_scatter=0, vocab_ce=0)
+                reduce_from_model=0, model_all_gather=0, model_reduce_scatter=0, vocab_ce=0,
+                decode_combine=0)
 
 
 def mesh_collectives(cfg, per: int) -> dict:
@@ -5790,6 +6012,7 @@ def main() -> int:
     spec_launch = phase("3j-3l speculative decoding", spec_path)
     router_launches = phase("3m router", router_path)
     traced_launches = phase("3n traced", traced_path)
+    mesh_launches = phase("3o mesh serve", mesh_serve_path)
     train_launches = phase("4 train", train_path)
     zamba_launches = phase("5 zamba serve", zamba_path)
     phase("6 function API", function_path)
@@ -5879,6 +6102,7 @@ def main() -> int:
              spec_launches=spec_rows("flash_attention"),
              router_launches=router_launches["flash_attention"],
              traced_launches=traced_launches["flash_attention"],
+             mesh_launches=mesh_launches["flash_attention"],
              gemma2_launches=g7["flash_attention"],
              stablelm_launches=s8["flash_attention"], moe_launches=m9["flash_attention"],
              max_abs_err=max(r["max_abs_err"] for r in results["flash_cases"]
@@ -5928,6 +6152,7 @@ def main() -> int:
              spec_launches=spec_rows("paged_attention"),
              router_launches=router_launches["paged_attention"],
              traced_launches=traced_launches["paged_attention"],
+             mesh_launches=mesh_launches["paged_attention"],
              gemma2_launches=g7["paged_attention"],
              stablelm_launches=s8["paged_attention"], moe_launches=m9["paged_attention"],
              max_abs_err=max(r["max_abs_err"] for r in results["paged_cases"]
@@ -5947,6 +6172,11 @@ def main() -> int:
                                for dt in ("bfloat16", "float32")},
              wide={n: {k: pg[n][k] for k in wide_keys}
                    for n in ("phase 8", "phase 9", "rep 16 D 128", "rep 16 D 160")},
+             head_run={**{k: pg["head run"][k] for k in wide_keys},
+                       "pool_heads": 4, "max_abs_err": {
+                           dt: max(r["max_abs_err"] for r in results["paged_cases"]
+                                   if r.get("pool_heads") and r["dtype"] == dt)
+                           for dt in ("bfloat16", "float32")}},
              wide_max_abs_err={f"rep {rep} D {D}": {
                  dt: max(r["max_abs_err"] for r in results["paged_cases"]
                          if (r.get("rep"), r.get("D"), r["dtype"]) == (rep, D, dt))
@@ -6010,6 +6240,7 @@ def main() -> int:
         per_path = dict(zamba_preempt_launches=zp[name]) if name == "rmsnorm_gated" else dict(
             features_launches=features_launches[name],
             router_launches=router_launches[name], traced_launches=traced_launches[name],
+            mesh_launches=mesh_launches[name],
             train_launches=train_launches[name], train_shape="(4096, 960)",
             zamba_launches=zamba_launches[name], zamba_preempt_launches=zp[name],
             zamba_shapes="(8, 2048), (512, 2048)")

@@ -139,17 +139,21 @@ def stamp_summary(clk, gtime, ctas: int, sm_hz: float) -> dict:
     return out
 
 
-def paged_entry(lib, with_scratch: bool):
+def paged_entry(lib, with_scratch: bool, pool_heads: bool = True):
+    """A paged entry's ctypes function, with the arguments its source
+    takes: ``with_scratch`` (the splits' scratch buffer) and
+    ``pool_heads`` (the pools' heads per row)."""
     fn = lib.paged_attention_fwd
     if with_scratch:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_float] * 2 + [ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * (11 if pool_heads else 10)
+                       + [ctypes.c_float] * 2 + [ctypes.c_void_p])
     else:
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_float] * 2 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def paged_caller(torch, fn, with_scratch: bool):
+def paged_caller(torch, fn, with_scratch: bool, pool_heads: bool = True):
     from repro_torch.kernels.paged_attention.ops import scratch_shapes, split_plan
 
     def call(q, kp, vp, lengths, tables):
@@ -163,8 +167,9 @@ def paged_caller(torch, fn, with_scratch: bool):
             bps, n_split = split_plan(nb, bs)
             n = sum(math.prod(s) for s in scratch_shapes(B, Hk, rep, D, n_split).values())
             scratch = torch.empty(n, device=q.device)
-            rc = fn(*ptrs, scratch.data_ptr(), 1, B, Hk, rep, D, bs, nb, bps, n_split, 0, 0.0,
-                    D ** -0.5, stream)
+            heads = (Hk,) if pool_heads else ()
+            rc = fn(*ptrs, scratch.data_ptr(), 1, B, Hk, *heads, rep, D, bs, nb, bps, n_split,
+                    0, 0.0, D ** -0.5, stream)
         else:
             rc = fn(*ptrs, 1, B, Hk, rep, D, bs, nb, 0, 0.0, D ** -0.5, stream)
         if rc:
@@ -200,6 +205,7 @@ def main() -> int:
         sources["parent_flash"] = pk / "flash_attention/csrc/flash_attention.cu"
         sources["parent_paged"] = pk / "paged_attention/csrc/paged_attention.cu"
         parent_paged_scratch = "float* scratch" in sources["parent_paged"].read_text()
+        parent_paged_heads = "pool_heads" in sources["parent_paged"].read_text()
     libs = build(sources)
 
     def turns(fns: dict, order, iters: int) -> dict:
@@ -253,9 +259,9 @@ def main() -> int:
         fns = {"change": rotate(paged_attention), "stamped": rotate(stamped)}
         order = ["change", "stamped"]
         if args.parent:
-            fns["parent"] = rotate(paged_caller(torch, paged_entry(libs["parent_paged"],
-                                                                   parent_paged_scratch),
-                                                parent_paged_scratch))
+            fns["parent"] = rotate(paged_caller(
+                torch, paged_entry(libs["parent_paged"], parent_paged_scratch, parent_paged_heads),
+                parent_paged_scratch, parent_paged_heads))
             order = ["parent"] + order
         row = turns(fns, order + order[::-1], 200)
         # one stamped call on a pool the last seven calls did not touch

@@ -7,8 +7,11 @@
 // its min(length // bs + 1, nb) table-mapped blocks, with the softcap and
 // an fp32 softmax.
 //
-// Layout: q and o are (B, Hk, rep, D); the pools (NB, bs, Hk, D); lengths
-// (B,) and tables (B, nb) int32.  Inputs are bf16 or fp32; accumulation is
+// Layout: q and o are (B, Hk, rep, D); the pools (NB, bs, Hk, D), or heads
+// [h0, h0 + Hk) of pools (NB, bs, Hp, D) (the pool pointers at head h0, rows
+// pool_heads = Hp heads apart: a rank of a model axis whose q heads read a
+// run of a replicated pool's kv heads); lengths (B,) and tables (B, nb)
+// int32.  Inputs are bf16 or fp32; accumulation is
 // fp32.  Head dims 64, 128 and 160 (one template instantiation each), rep
 // up to 16 (gemma2-27b's decode has rep 2 at D 128, deepseek-67b's and
 // qwen3-moe-30b's rep 8, qwen3-moe-235b's rep 16; stablelm-12b's rep 4 at
@@ -140,8 +143,8 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
                    const T* __restrict__ vpool, const int* __restrict__ lengths,
                    const int* __restrict__ tables, float* __restrict__ part_m,
                    float* __restrict__ part_l, float* __restrict__ part_acc, int Hk,
-                   int rep, int bs, int nb, int bps, int n_split, int window,
-                   float softcap, float scale) {
+                   int pool_heads, int rep, int bs, int nb, int bps, int n_split,
+                   int window, float softcap, float scale) {
   constexpr int E = 16 / sizeof(T);    // elements per 16-byte chunk
   constexpr int CPR = D / E;           // chunks per row (8-20 bf16, 16-40 fp32)
   constexpr int DP = D / 2;            // dim pairs: P.V work items per rep
@@ -164,7 +167,8 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
   // every K and V chunk of the split in flight at once
   for (int e = tid; e < (p1 - p0) * CPR; e += NTHREADS) {
     const int p = p0 + e / CPR, c = e % CPR;
-    const long src = (((long)row[s * bps + p / bs] * bs + p % bs) * Hk + h) * D + c * E;
+    const long src =
+        (((long)row[s * bps + p / bs] * bs + p % bs) * pool_heads + h) * D + c * E;
     const int dst = p * D + swizzle<CPR>(c, p) * E;
     cp_async16(&ks[dst], kpool + src);
     cp_async16(&vs[dst], vpool + src);
@@ -303,9 +307,9 @@ paged_combine_kernel(const int* __restrict__ lengths, const float* __restrict__ 
 
 template <typename T, int D>
 int launch(const void* q, const void* kp, const void* vp, const int* lengths,
-           const int* tables, void* o, float* scratch, int B, int Hk, int rep, int bs,
-           int nb, int bps, int n_split, int window, float softcap, float scale,
-           cudaStream_t stream) {
+           const int* tables, void* o, float* scratch, int B, int Hk, int pool_heads,
+           int rep, int bs, int nb, int bps, int n_split, int window, float softcap,
+           float scale, cudaStream_t stream) {
   if (Hk > 65535 || n_split > 65535) return (int)cudaErrorInvalidValue;
   static bool smem_set[64] = {};       // once per process, device and instantiation
   int dev = 0;
@@ -326,8 +330,8 @@ int launch(const void* q, const void* kp, const void* vp, const int* lengths,
   const int smem = split_smem<T, D>(rep);
   paged_split_kernel<T, D><<<dim3(B, Hk, n_split), NTHREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kp), static_cast<const T*>(vp),
-      lengths, tables, part_m, part_l, part_acc, Hk, rep, bs, nb, bps, n_split, window,
-      softcap, scale);
+      lengths, tables, part_m, part_l, part_acc, Hk, pool_heads, rep, bs, nb, bps, n_split,
+      window, softcap, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int elems = rep * D;
@@ -348,23 +352,25 @@ int launch(const void* q, const void* kp, const void* vp, const int* lengths,
 }  // namespace
 
 // C entry point.  dtype: 0 = float32, 1 = bfloat16; head dim 64, 128 or 160,
-// the ones the ported configs use, and rep up to 16.  `scratch` holds B * Hk
+// the ones the ported configs use, and rep up to 16; pool_heads >= Hk (the
+// pools' heads per row; the pointers at the first head read).  `scratch` holds B * Hk
 // * n_split * rep * (D + 2) floats: the splits' m, then l, then acc.  Two device kernels per call
 // (split, combine).  Returns the launches' cudaGetLastError() (0 =
 // launched).
 extern "C" int paged_attention_fwd(const void* q, const void* k_pool,
                                    const void* v_pool, const int* lengths,
                                    const int* tables, void* o, float* scratch,
-                                   int dtype, int B, int Hk, int rep, int D, int bs,
-                                   int nb, int bps, int n_split, int window,
-                                   float softcap, float scale, void* stream) {
+                                   int dtype, int B, int Hk, int pool_heads, int rep,
+                                   int D, int bs, int nb, int bps, int n_split,
+                                   int window, float softcap, float scale, void* stream) {
   if ((D != 64 && D != 128 && D != 160) || rep < 1 || rep > MAX_REP || bs < 1 || bs > MAX_BS
-      || nb < 1 || bps < 1 || bps * bs > SPLIT_POS || n_split != (nb + bps - 1) / bps)
+      || nb < 1 || bps < 1 || bps * bs > SPLIT_POS || n_split != (nb + bps - 1) / bps
+      || pool_heads < Hk)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define PAGED_LAUNCH(T, DD)                                                                  \
-  launch<T, DD>(q, k_pool, v_pool, lengths, tables, o, scratch, B, Hk, rep, bs, nb, bps,     \
-                n_split, window, softcap, scale, st)
+  launch<T, DD>(q, k_pool, v_pool, lengths, tables, o, scratch, B, Hk, pool_heads, rep, bs, \
+                nb, bps, n_split, window, softcap, scale, st)
   if (dtype == 0)
     return D == 64    ? PAGED_LAUNCH(float, 64)
            : D == 128 ? PAGED_LAUNCH(float, 128)

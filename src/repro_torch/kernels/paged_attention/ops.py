@@ -30,7 +30,7 @@ MAX_REP = 16                    # query heads per KV head the kernel holds
 MAX_BLOCK_SIZE = 32             # positions per table block the kernel takes
 SPLIT_POSITIONS = 64            # positions one split holds at most (csrc)
 DEVICE_KERNELS = 2              # per call: the splits, then their combine
-_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
+_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 11
              + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
 
 
@@ -82,8 +82,11 @@ def _check_kernel(q, k_pool, v_pool, lengths, tables):
         raise ValueError(f"unsupported shape: D={D} (of {_HEAD_DIMS}), rep="
                          f"{rep} (<= {MAX_REP}), bs={bs} (<= "
                          f"{MAX_BLOCK_SIZE}), nb={nb}")
-    if not all(t.is_contiguous() for t in (q, k_pool, v_pool, lengths, tables)):
-        raise ValueError("paged_attention kernel needs contiguous inputs")
+    if not all(t.is_contiguous() for t in (q, lengths, tables)) \
+            or pool_heads(k_pool) is None or pool_heads(v_pool) != pool_heads(k_pool):
+        raise ValueError("paged_attention kernel needs contiguous q, lengths and tables "
+                         "and pools that are contiguous or one head run of contiguous "
+                         "pools of one shape")
     if any(t.data_ptr() % 16 for t in (q, k_pool, v_pool)):
         raise ValueError("paged_attention kernel needs 16-byte aligned q and pools")
     if Hk > 65535 or split_plan(nb, bs)[1] > 65535:
@@ -91,13 +94,27 @@ def _check_kernel(q, k_pool, v_pool, lengths, tables):
                          "kernel's grid")
 
 
+def pool_heads(pool) -> int | None:
+    """The heads per row of the contiguous pool that ``pool`` (NB, bs, Hk,
+    D) is, or is a run of heads of (``pool[:, :, lo:hi]``): its row stride
+    over ``D``; None for any other layout."""
+    NB, bs, Hk, D = pool.shape
+    st = pool.stride()
+    if st[3] != 1 or st[2] != D or st[1] % D or st[1] < Hk * D or st[0] != bs * st[1]:
+        return None
+    return st[1] // D
+
+
 def paged_attention(q, k_pool, v_pool, lengths, tables, *, window: int = 0,
                     softcap: float = 0.0):
     """One decode step against the block-table KV cache.
 
-    q: (B, Hk, rep, D); pools: (NB, bs, Hk, D); lengths: (B,) int32 —
-    lane ``b`` attends positions ``[0, lengths[b]]``; tables: (B, nb)
-    int32 block-table rows.  Returns (B, Hk, rep, D) in q.dtype.
+    q: (B, Hk, rep, D); pools: (NB, bs, Hk, D), contiguous or a run of
+    heads of a wider contiguous pool (``pool.narrow(2, lo, Hk)``: the
+    kernel reads rows ``pool_heads`` heads apart from the view's first
+    head); lengths: (B,) int32 — lane ``b`` attends positions ``[0,
+    lengths[b]]``; tables: (B, nb) int32 block-table rows.  Returns (B,
+    Hk, rep, D) in q.dtype.
     """
     _check(q, k_pool, v_pool, lengths, tables)
     if q.device.type == "cpu":
@@ -118,7 +135,8 @@ def paged_attention(q, k_pool, v_pool, lengths, tables, *, window: int = 0,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             lengths.data_ptr(), tables.data_ptr(), out.data_ptr(),
-            scratch.data_ptr(), _DTYPES[q.dtype], B, Hk, rep, D, bs, nb, bps,
+            scratch.data_ptr(), _DTYPES[q.dtype], B, Hk, pool_heads(k_pool), rep, D, bs,
+            nb, bps,
             n_split, int(window), float(softcap), float(D ** -0.5), stream)
     _build.check(rc, "paged_attention")
     paged_attention.launches += 1

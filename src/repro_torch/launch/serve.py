@@ -61,11 +61,27 @@ The static batch loop (one fixed batch to the full budget):
 
     python -m repro_torch.launch.serve --arch smollm-360m --smoke \
         --device cpu --engine static --batch 4
+
+``--mesh`` takes the reference's choices: ``single`` (the default; one
+worker, no process group: the one-device engine), ``local`` (the ranks
+``torchrun`` describes as ``(world, 1)``, a data axis only; NCCL on the
+card, gloo with ``--device cpu``) and ``production`` (``(16, 16)`` over
+256 ranks).  Every rank runs the same schedule on rank 0's clock and
+rank 0 prints; the weights are each rank's shards, drawn directly
+(``optim.fsdp.init_shards``), and the summary names the mesh and the KV
+bytes a rank holds.  On a mesh the slotted layout's ``max_len`` is
+rounded up to a multiple of the model size (its lanes split by
+position):
+
+    torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
+        --arch gemma2-27b --smoke --device cpu --mesh local
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import io
 import time
 
 import numpy as np
@@ -73,6 +89,7 @@ import numpy as np
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.core.tree import map_tree
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import local_mesh, make_production_mesh, single_mesh
 from repro_torch.models import registry
 from repro_torch.obs import Observer, merged_histogram, to_chrome_trace, validate
 from repro_torch.serve import (
@@ -86,6 +103,9 @@ from repro_torch.serve import (
     ServeConfig,
     generate_static,
 )
+from repro_torch.serve.engine import serve_shard_layout
+
+MESHES = ("single", "local", "production")
 
 
 def draft_mix(cfg, params, alpha: float, seed: int, device):
@@ -96,7 +116,7 @@ def draft_mix(cfg, params, alpha: float, seed: int, device):
     return map_tree(lambda p, n: (1 - alpha) * p + alpha * n, params, noise)
 
 
-def run_static(cfg, params, args, rng, device) -> np.ndarray:
+def run_static(cfg, params, args, rng, device, mesh=None) -> np.ndarray:
     """One fixed batch of random prompts to the full budget through
     ``generate_static``, with the family's frontend input drawn from
     ``rng`` after the prompts (vlm patch embeddings, audio frames) as the
@@ -111,7 +131,7 @@ def run_static(cfg, params, args, rng, device) -> np.ndarray:
     out = generate_static(cfg, params, prompts,
                           ServeConfig(max_new_tokens=args.new_tokens,
                                       temperature=args.temperature, seed=args.seed),
-                          extra=extra, device=device)
+                          extra=extra, device=device, mesh=mesh)
     for i, row in enumerate(out):
         print(f"seq{i}: {row.tolist()}")
     return out
@@ -136,16 +156,20 @@ def print_latency_summary(router) -> None:
         print(f"   {status:9s} n={n:4d}  ttft {fmt(ttft)}  per-token {fmt(tpot)}")
 
 
-def run_stream(cfg, params, args, rng, device) -> Router:
+def run_stream(cfg, params, args, rng, device, mesh=None) -> Router:
     """Drive ``--replicas`` engines behind the router with a Poisson
     arrival trace; print each request and a summary.  Returns the drained
-    router."""
+    router.  On a ``mesh`` the arrivals read the router's clock (rank 0's
+    on every rank)."""
     if args.drain_at is not None and args.replicas < 2:
         raise SystemExit("--drain-at needs --replicas >= 2 (draining the only "
                          "replica leaves nothing to migrate onto)")
     max_len = args.prompt_len + args.new_tokens + 8
     if args.kv_layout == "paged":
         max_len = -(-max_len // args.page_size) * args.page_size
+    elif mesh is not None:
+        m = mesh.size("model")
+        max_len = -(-max_len // m) * m
     faults = None
     if args.replica_chaos_rate > 0:
         faults = FaultPlan(args.chaos_seed,
@@ -172,17 +196,18 @@ def run_stream(cfg, params, args, rng, device) -> Router:
         spec_draft=cfg if spec else None, spec_k=args.spec_k),
         RouterConfig(replicas=args.replicas, shed_queue_depth=args.shed_queue_depth),
         device=device, faults=faults, engine_faults=engine_faults, obs=obs,
-        draft_params=draft_params)
+        draft_params=draft_params, mesh=mesh)
     arrivals = np.cumsum(rng.exponential(1.0 / args.rate, args.requests))
     prompts = [rng.integers(0, cfg.vocab, rng.integers(2, args.prompt_len + 1))
                .astype(np.int32) for _ in range(args.requests)]
     budgets = rng.integers(1, args.new_tokens + 1, args.requests)
 
-    t0 = time.perf_counter()
+    clock = router.clock
+    t0 = clock()
     i = 0
     drained = False
     while i < len(prompts) or router.has_work():
-        now = time.perf_counter() - t0
+        now = clock() - t0
         while i < len(prompts) and arrivals[i] <= now:
             router.submit(prompts[i], max_new_tokens=int(budgets[i]),
                           temperature=args.temperature, rid=i,
@@ -196,8 +221,8 @@ def run_stream(cfg, params, args, rng, device) -> Router:
                   "to survivors")
             drained = True
         if not router.step() and i < len(prompts):
-            time.sleep(max(0.0, t0 + arrivals[i] - time.perf_counter()))
-    wall = time.perf_counter() - t0
+            time.sleep(max(0.0, t0 + arrivals[i] - clock()))
+    wall = clock() - t0
 
     tokens = 0
     for rid in range(len(prompts)):
@@ -210,14 +235,16 @@ def run_stream(cfg, params, args, rng, device) -> Router:
         place = f"r{where}" if where is not None else "--"
         print(f"req{rid}: {c.status:9s} {place} plen={c.prompt_len} "
               f"new={len(c.tokens)} {lat}  {c.tokens}{note}")
+    where = "" if mesh is None else f" of mesh {mesh.describe()}"
     print(f"-- {tokens} tokens in {wall:.2f}s = {tokens / wall:.1f} tok/s across "
-          f"{args.replicas} replica(s) on {device} ({args.kv_layout}, attn "
+          f"{args.replicas} replica(s) on {device}{where} ({args.kv_layout}, attn "
           f"{cfg.attn_impl}, paged_attn {args.paged_attn})")
     for h in router.replicas:
         s = h.engine.stats
         line = (f"-- replica {h.idx} [{h.state}] state[{s['state_kind']}/{args.kv_layout}]: "
                 f"{s['kv_peak_used_bytes'] / 2**20:.2f} MiB peak used / "
-                f"{h.engine.kv_reserved_bytes / 2**20:.2f} MiB reserved  "
+                f"{h.engine.kv_reserved_bytes / 2**20:.2f} MiB reserved"
+                f"{'' if mesh is None else ' a rank'}  "
                 f"prefills {s['prefills']} decode_steps {s['decode_steps']}")
         if args.kv_layout == "paged":
             line += (f"  chunks {s['prefill_chunks']} prefix hit_rate "
@@ -321,6 +348,9 @@ def main(argv=None):
                          "the last events as flightrec_*.json here")
     ap.add_argument("--device", default=None,
                     help="torch device; default the card (raises without one)")
+    ap.add_argument("--mesh", choices=MESHES, default="single",
+                    help="single: one worker; local: the torchrun ranks as (world, 1); "
+                         "production: (16, 16) over 256 ranks")
     ap.add_argument("--attn-impl", choices=("chunked", "kernel"),
                     default="kernel", help="prefill attention and the norms "
                     "(and zamba2's SSD scan)")
@@ -331,14 +361,38 @@ def main(argv=None):
     device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     cfg = dataclasses.replace(cfg, attn_impl=args.attn_impl)
-    params = registry.get_module(cfg).init(cfg, seed=0, device=device)
+    mesh = {"single": single_mesh, "local": local_mesh,
+            "production": make_production_mesh}[args.mesh](device=device)
+    try:
+        if mesh.pg is None:
+            mesh = None                     # one worker: the one-device engine
+        else:
+            device = mesh.device
+        with contextlib.redirect_stdout(io.StringIO()) if mesh is not None and mesh.rank \
+                else contextlib.nullcontext():
+            return _serve(cfg, args, device, mesh)
+    finally:
+        if mesh is not None:
+            mesh.close()
+
+
+def _serve(cfg, args, device, mesh):
+    """Draw the weights (this rank's shards on a mesh) and run the stream
+    or the static loop."""
+    from repro_torch.optim.fsdp import init_shards
+
+    lay = serve_shard_layout(cfg, mesh)
+    if lay is not None:
+        params = init_shards(cfg, lay, 0, device)
+    else:
+        params = registry.get_module(cfg).init(cfg, seed=0, device=device)
     rng = np.random.default_rng(args.seed)
     if args.engine == "continuous" and registry.supports_slot_serving(cfg):
-        return run_stream(cfg, params, args, rng, device)
+        return run_stream(cfg, params, args, rng, device, mesh)
     if args.engine == "continuous":
         print(f"# family {cfg.family!r} has no slot-serving support; falling back to "
               "the static loop")
-    return run_static(cfg, params, args, rng, device)
+    return run_static(cfg, params, args, rng, device, mesh)
 
 
 if __name__ == "__main__":

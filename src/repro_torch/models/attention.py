@@ -1,11 +1,13 @@
 """Attention: RoPE, chunked (flash-style) attention, slotted and paged decode.
 
-The port of the reference's ``models/attention.py`` for one device.
+The port of the reference's ``models/attention.py``.
 ``chunked_attention`` is the plain prefill path: an online-softmax loop
 over query/key chunks so the (S x S) score matrix is never materialised —
 the same blocking the CUDA kernel (kernels/flash_attention) uses, and its
-yardstick.  ``decode_attention`` is the slotted decode step without the
-reference's sequence sharding (one device holds every lane).
+yardstick.  ``decode_attention`` is the slotted decode step, on one
+device or with each lane's positions split over a mesh's model axis and
+the ranks' softmax partials combined by log-sum-exp (``DecodeSharding``,
+the reference's sequence-sharded ``shard_fn``).
 
 Cache writes are in place: JAX returns updated caches, the port updates
 the caller's cache tensors (a layer's slice of the stacked cache is a
@@ -13,9 +15,12 @@ view) and returns only the attention output.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
+from typing import Any
 
 import torch
+import torch.distributed as dist
 
 NEG_INF = -2.0e38
 
@@ -170,8 +175,44 @@ def _masked_decode_softmax(q, k, v, valid, softcap: float):
     return (o / torch.clamp_min(l, 1e-30)[..., None]).to(q.dtype)
 
 
+@dataclasses.dataclass(frozen=True)
+class DecodeSharding:
+    """How the slotted KV cache lies on a mesh for decoding: the
+    reference's ``DecodeSharding``, the axes that split the lanes and the
+    axes that split each lane's positions.  :meth:`choose` makes the
+    reference's choice; the port realises its model-axis half, the
+    positions over ``model`` (:meth:`local_len`), and keeps the lanes
+    whole on every data rank (the replicated-lanes deviation)."""
+
+    mesh: Any
+    batch_axes: tuple[str, ...]
+    seq_axes: tuple[str, ...]
+
+    @classmethod
+    def choose(cls, mesh, batch: int) -> "DecodeSharding":
+        """Lanes over the data axes where ``batch`` divides over them,
+        else (a batch too small: long context, batch 1) the positions
+        over every axis; the positions over ``model`` either way."""
+        dp = tuple(a for a in ("pod", "data") if a in mesh.axes)
+        tp = ("model",) if "model" in mesh.axes else ()
+        ndp = math.prod(mesh.size(a) for a in dp)
+        if batch % ndp == 0 and batch >= ndp:
+            return cls(mesh, dp, tp)
+        return cls(mesh, (), dp + tp)
+
+    def local_len(self, max_len: int) -> int:
+        """Positions of a lane this rank holds: ``max_len`` over the model
+        axis (it must divide)."""
+        n = self.mesh.size("model")
+        if max_len % n:
+            raise ValueError(f"max_len {max_len} does not divide over {n} model ranks "
+                             "(the slotted cache splits each lane's positions over "
+                             f"the model axis; round it up to a multiple of {n})")
+        return max_len // n
+
+
 def decode_attention(q, k_cache, v_cache, k_new, v_new, cur_index, *,
-                     window: int = 0, softcap: float = 0.0):
+                     window: int = 0, softcap: float = 0.0, seq_group=None):
     """One decoding step against a slotted KV cache.
 
     q:               (B, Hk, rep, D) — current-token queries (RoPE applied)
@@ -180,23 +221,72 @@ def decode_attention(q, k_cache, v_cache, k_new, v_new, cur_index, *,
     cur_index:       tokens already in the cache: a scalar (every row at
                      the same position) or a ``(B,)`` vector (each lane at
                      its own position); writes and masks are per row
+    seq_group:       the group (``DataGroup`` view) the positions split
+                     over, or None.  With one, the cache holds this rank's
+                     ``S`` positions from ``rank S`` on, as the reference's
+                     ``shard_fn``: the write lands where the position is
+                     this rank's (``rel``, ``in_range``), the softmax runs
+                     over the local positions, and the ranks' partials
+                     combine by log-sum-exp: MAX of the local maxima (floored
+                     at -1e30), then one SUM of ``l * corr`` and ``o * corr``.
+                     Over one rank that is this function without one,
+                     bitwise, wherever a position is valid.
 
     Returns out (B, Hk, rep, D).
     """
+    if seq_group is not None and seq_group.pg is not None:
+        return _decode_attention_seq(q, k_cache, v_cache, k_new, v_new, cur_index,
+                                     window=window, softcap=softcap, group=seq_group)
+    valid = _write_slots(k_cache, v_cache, k_new, v_new, cur_index, 0, window)
+    return _masked_decode_softmax(q, k_cache, v_cache, valid, softcap)
+
+
+def _write_slots(k_cache, v_cache, k_new, v_new, cur_index, start: int, window: int):
+    """Write each row's new k/v at position ``cur_index`` where it lies in
+    the cache's positions ``[start, start + S)`` (the rest keep theirs:
+    the reference's ``rel`` / ``in_range`` / clipped write), in place;
+    returns the (B, S) mask of the positions each row attends."""
     B, S = k_cache.shape[:2]
-    dev = q.device
+    dev = k_cache.device
     idx = torch.broadcast_to(
         torch.as_tensor(cur_index, dtype=torch.int64, device=dev), (B,))
+    rel = idx - start
     rows = torch.arange(B, device=dev)
-    safe = idx.clamp(0, S - 1)
-    in_range = ((idx >= 0) & (idx < S))[:, None, None]
+    safe = rel.clamp(0, S - 1)
+    in_range = ((rel >= 0) & (rel < S))[:, None, None]
     for c, new in ((k_cache, k_new), (v_cache, v_new)):
         c[rows, safe] = torch.where(in_range, new.to(c.dtype), c[rows, safe])
-    pos = torch.arange(S, device=dev)
+    pos = start + torch.arange(S, device=dev)
     valid = pos[None, :] <= idx[:, None]
     if window:
         valid &= pos[None, :] > idx[:, None] - window
-    return _masked_decode_softmax(q, k_cache, v_cache, valid, softcap)
+    return valid
+
+
+def _decode_attention_seq(q, k_cache, v_cache, k_new, v_new, cur_index, *,
+                          window: int, softcap: float, group):
+    """:func:`decode_attention` on this rank's positions of each lane,
+    combined over ``group`` (two ``all_reduce`` calls, counted in
+    ``common.COUNTS["decode_combine"]``)."""
+    from .common import COUNTS
+
+    valid = _write_slots(k_cache, v_cache, k_new, v_new, cur_index,
+                         group.rank * k_cache.shape[1], window)
+    s = torch.einsum("bhrd,bshd->bhrs", q.float(), k_cache.float()) * (q.shape[-1] ** -0.5)
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    m_loc = s.amax(dim=-1)
+    p = torch.exp(s - m_loc[..., None])
+    l_loc = p.sum(dim=-1)
+    o_loc = torch.einsum("bhrs,bshd->bhrd", p, v_cache.float())
+    m_g = m_loc.clone()
+    dist.all_reduce(m_g, op=dist.ReduceOp.MAX, group=group.pg)
+    corr = torch.exp(m_loc - torch.clamp_min(m_g, -1e30))
+    both = torch.cat([(l_loc * corr)[..., None], o_loc * corr[..., None]], dim=-1)
+    dist.all_reduce(both, op=dist.ReduceOp.SUM, group=group.pg)
+    COUNTS["decode_combine"] += 2
+    return (both[..., 1:] / torch.clamp_min(both[..., 0], 1e-30)[..., None]).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -268,12 +358,13 @@ def paged_decode_attention(
     window: int = 0,
     softcap: float = 0.0,
     impl: str = "ref",
+    kv_heads: tuple[int, int] | None = None,
 ):
     """One decoding step against the paged (block-table) KV cache.
 
     q:             (B, Hk, rep, D) — current-token queries (RoPE applied)
-    k_pool/v_pool: (NB, bs, Hk, D) — the shared block pool, written in place
-    k_new/v_new:   (B, Hk, D) — written at logical position ``lengths[b]``
+    k_pool/v_pool: (NB, bs, Hp, D) — the shared block pool, written in place
+    k_new/v_new:   (B, Hp, D) — written at logical position ``lengths[b]``
                    before attention, so the attention reads it
     lengths:       (B,) int32 — tokens already in each lane
     tables:        (B, nb) int32 — the lanes' block-table rows
@@ -281,6 +372,9 @@ def paged_decode_attention(
                    equal to the slotted ``decode_attention`` on equal
                    inputs); "kernel" launches the block-walking CUDA kernel
                    (kernels/paged_attention), which never gathers.
+    kv_heads:      ``(lo, hi)``: q attends the pool's heads ``[lo, hi)``
+                   (``Hk = hi - lo``; a view of the pool, no copy), else
+                   every one (``Hk = Hp``)
 
     Returns out (B, Hk, rep, D).
     """
@@ -288,6 +382,9 @@ def paged_decode_attention(
         raise ValueError(f"unknown paged attention impl {impl!r}")
     paged_write_token(k_pool, tables, lengths, k_new)
     paged_write_token(v_pool, tables, lengths, v_new)
+    if kv_heads is not None:
+        lo, hi = kv_heads
+        k_pool, v_pool = k_pool.narrow(2, lo, hi - lo), v_pool.narrow(2, lo, hi - lo)
     if impl == "kernel":
         from repro_torch.kernels.paged_attention.ops import paged_attention
         return paged_attention(q, k_pool, v_pool, lengths, tables,

@@ -12,11 +12,13 @@ the rules are faithful, the paper's replicated program) or onto a mesh's
 ``data`` and ``model`` axes (``for_mesh``, the reference's: ``tp`` is
 ``"model"`` and ``sp`` on wherever the mesh has a model axis).
 
-Sharding lives on the per-parameter train program only (``train/step.py``):
-each rank holds its model slice of every leaf with a ``"tp"`` dimension
-and 1/N_data of that slice along its FSDP dimension, and while that
-program runs (:class:`fsdp_program`) the models read such a leaf through
-:func:`use_layer` / :func:`use`, which cast the shard to the compute dtype
+Sharding lives on the per-parameter train program (``train/step.py``)
+and the serving mesh program (:func:`serve_program`, the serve engine's
+on a mesh): each rank holds its model slice of every leaf with a
+``"tp"`` dimension and 1/N_data of that slice along its FSDP dimension,
+and while such a program runs (:class:`fsdp_program`) the models read
+such a leaf through :func:`use_layer` / :func:`use`, which cast the
+shard to the compute dtype
 and all-gather it over ``data`` only (:class:`Gather`, the counterpart of
 the reference's ``wuse``; its backward reduce-scatters the fp32 cotangent
 as a mean), giving the model slice.  Under a mesh program the models also
@@ -25,7 +27,7 @@ the tensor-parallel Functions below (copy-to-model, reduce-from-model, and
 the all-gather / reduce-scatter pair of the sequence-sharded residual
 stream), and the loss is :func:`vocab_parallel_cross_entropy`.  With no
 program active everything returns what it was given, cast as before, so
-serving and the flat programs read the same tensors as ever.
+one-device serving and the flat programs read the same tensors as ever.
 """
 from __future__ import annotations
 
@@ -285,6 +287,15 @@ class fsdp_program:
         return False
 
 
+def serve_program(data, dims: dict, model) -> fsdp_program:
+    """The serving mesh program: the weights ``dims`` names gathered over
+    ``data`` a layer at a time, tensor and expert parallelism over
+    ``model`` with the residual stream whole on every model rank (no
+    ``sp``: a decode step has one position, and a prefill's stream stays
+    whole too, so every serving function runs on the same layout)."""
+    return fsdp_program(data, dims, ModelAxis(model, sp=False))
+
+
 def model_axis() -> ModelAxis | None:
     """The running program's model axis (None outside a mesh program: the
     models then run as they always have)."""
@@ -295,9 +306,11 @@ def model_axis() -> ModelAxis | None:
 # is called, as the kernel wrappers count their launches (reset by
 # assignment): the FSDP gather and its reduce-scatter; and each
 # tensor-parallel Function's collectives, forward and backward, under its
-# own name; ``vocab_ce`` the loss's all-reduces
+# own name; ``vocab_ce`` the loss's all-reduces; ``decode_combine`` the
+# sequence-sharded decode attention's (``attention.decode_attention``)
 COUNTS = {"all_gather": 0, "reduce_scatter": 0, "copy_to_model": 0, "reduce_from_model": 0,
-          "model_all_gather": 0, "model_reduce_scatter": 0, "vocab_ce": 0}
+          "model_all_gather": 0, "model_reduce_scatter": 0, "vocab_ce": 0,
+          "decode_combine": 0}
 
 
 def _gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:

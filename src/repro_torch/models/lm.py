@@ -71,6 +71,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from .attention import (
+    DecodeSharding,
     chunked_attention,
     decode_attention,
     paged_decode_attention,
@@ -107,8 +108,10 @@ NORM_PARAMS = frozenset({"ln1", "ln2", "ln1b", "ln2b", "ln_f", "qnorm", "knorm"}
 # the MoE router (the reference computes router logits in fp32)
 STORED_DTYPE = NORM_PARAMS | {"router"}
 # the families that run tensor, sequence and expert parallelism under a
-# mesh program
+# mesh program; serving (no sequence-sharded residual stream) also runs
+# the vlm family's backbone, the patches prepended as text is
 TP_FAMILIES = ("dense", "moe")
+SERVE_TP_FAMILIES = TP_FAMILIES + ("vlm",)
 # leaves replicated over the model axis but read inside the
 # tensor-parallel region (the q/k norms on local or gathered heads, the
 # router on the rank's experts): each model rank holds a partial sum of
@@ -239,47 +242,65 @@ def _w(bp, name, cfg):
     return bp[name].to(dtype_of(cfg.compute_dtype))
 
 
-def _heads(cfg, y, heads: int):
+def _heads(cfg, y, heads: int, *, every: bool = False):
     """A column-parallel projection's output (B, S, columns) as heads
     (B, S, h, dh): outside a mesh program every head; under one this
     rank's ``heads / N`` where ``heads`` divides over the model axis, else
     every head, the columns all-gathered over it first (the reference
     replicates such heads: ``lm.py`` pins them by heads only where they
-    divide)."""
+    divide).  ``every``: every head under a mesh program too (the slotted
+    decode, whose lanes split by position, attends every head on every
+    rank)."""
     tp = model_axis()
-    if tp is not None and heads % tp.world:
+    if tp is not None and (every or heads % tp.world):
         y = model_all_gather(y, -1, tp.group)
     return y.reshape(y.shape[0], y.shape[1], -1, cfg.head_dim)
 
 
-def _local_kv(cfg, k, v):
+def _kv_reads(cfg):
     """Under a mesh program where the q heads divide over the model axis
-    and the kv heads do not (gathered whole by :func:`_heads`): the kv
-    heads this rank's q heads read (q head ``h`` reads kv head ``h //
-    rep``), as a contiguous run where each is read by the same number of
-    local q heads (that number is the kernel's ``rep``), else one per local
-    q head (``rep`` 1).  Never every kv head, which would change ``rep``."""
+    and the kv heads do not (so k and v hold every kv head): the kv heads
+    this rank's q heads read (q head ``h`` reads kv head ``h // rep``), as
+    ``(lo, hi)`` where they are a contiguous run each read by the same
+    number of local q heads (that number is the kernel's ``rep``), else
+    the list of one kv head per local q head (``rep`` 1).  None wherever
+    k and v already hold what the local q heads read."""
     tp = model_axis()
     H, Hk = cfg.n_heads, cfg.n_kv
     if tp is None or H % tp.world or not Hk % tp.world:
-        return k, v
+        return None
     rep, hl = H // Hk, H // tp.world
     ids = [h // rep for h in range(tp.rank * hl, (tp.rank + 1) * hl)]
     lo, hi = ids[0], ids[-1] + 1
     if all(ids.count(u) == hl // (hi - lo) for u in range(lo, hi)):
+        return lo, hi
+    return ids
+
+
+def _local_kv(cfg, k, v):
+    """k and v (B, S, heads, dh) narrowed to the kv heads this rank's q
+    heads read (:func:`_kv_reads`): a contiguous run, or one per local q
+    head (``rep`` 1).  Never every kv head, which would change ``rep``."""
+    reads = _kv_reads(cfg)
+    if reads is None:
+        return k, v
+    if isinstance(reads, tuple):
+        lo, hi = reads
         return k[:, :, lo:hi].contiguous(), v[:, :, lo:hi].contiguous()
-    idx = torch.tensor(ids, device=k.device)
+    idx = torch.tensor(reads, device=k.device)
     return k.index_select(2, idx), v.index_select(2, idx)
 
 
-def _attn_proj(cfg, h, bp, rope_cs):
+def _attn_proj(cfg, h, bp, rope_cs, *, every: bool = False):
     """q, k, v of one layer; ``rope_cs`` = ``rope_tables`` of the
     positions, computed once per forward.  Under a mesh program ``h`` is
-    the whole sequence and q, k, v this rank's heads (:func:`_heads`,
-    :func:`_local_kv`)."""
-    q = _heads(cfg, h @ _w(bp, "wq", cfg), cfg.n_heads)
-    k = _heads(cfg, h @ _w(bp, "wk", cfg), cfg.n_kv)
-    v = _heads(cfg, h @ _w(bp, "wv", cfg), cfg.n_kv)
+    the whole sequence, q this rank's heads and k, v the kv heads as the
+    paged pool holds them: this rank's where they divide over the model
+    axis, else every one (:func:`_heads`; :func:`_local_kv` then narrows
+    them to what the local q heads read).  ``every``: every head of each."""
+    q = _heads(cfg, h @ _w(bp, "wq", cfg), cfg.n_heads, every=every)
+    k = _heads(cfg, h @ _w(bp, "wk", cfg), cfg.n_kv, every=every)
+    v = _heads(cfg, h @ _w(bp, "wv", cfg), cfg.n_kv, every=every)
     if cfg.qk_norm:
         q = norm(cfg, q, bp["qnorm"])
         k = norm(cfg, k, bp["knorm"])
@@ -287,19 +308,17 @@ def _attn_proj(cfg, h, bp, rope_cs):
     if _q_scale(cfg) != 1.0:
         q = q * _q_scale(cfg)
     k = apply_rope(k, *rope_cs)
-    k, v = _local_kv(cfg, k, v)
     return q, k, v
 
 
-def _attn_o(cfg, attn, bp):
-    """The attention output projection of (B, S, h, dh): under a mesh
+def _attn_o(cfg, o, bp, *, every: bool = False):
+    """The attention output projection of (..., heads x dh): under a mesh
     program a row-parallel product of this rank's heads (of its rows of
-    every head's output where the heads do not divide), reduced back into
-    the residual layout (``common.tp_exit``)."""
-    B, S = attn.shape[:2]
-    o = attn.reshape(B, S, -1)
+    every head's output where the heads do not divide, or with
+    ``every``), reduced back into the residual layout
+    (``common.tp_exit``)."""
     tp = model_axis()
-    if tp is not None and cfg.n_heads % tp.world:
+    if tp is not None and (every or cfg.n_heads % tp.world):
         c = o.shape[-1] // tp.world
         o = o[..., tp.rank * c:(tp.rank + 1) * c]
     return tp_exit(o @ _w(bp, "wo", cfg))
@@ -324,55 +343,66 @@ def _ffn(cfg, x, bp, aux_sink=None):
 
 
 def _block_fwd(cfg, x, bp, rope_cs, *, window: int, attn_fn=None, aux_sink=None):
-    """One transformer block, prefill path.  Returns (x, (k, v)).
-    ``attn_fn(q, k, v, window)`` replaces the attention (a chunked-prefill
-    continuation's, :func:`_block_chunk`); everything around it is
-    shared.  Under a mesh program ``x`` is this rank's sequence shard (the
-    norms run on it) and the attention this rank's heads over the whole
+    """One transformer block, prefill path.  Returns (x, (k, v)), k and v
+    as :func:`_attn_proj` gives them (under a mesh program the paged
+    pool's layout).  ``attn_fn(q, k, v, window)`` replaces the attention (a
+    chunked-prefill continuation's, :func:`_block_chunk`); everything
+    around it is shared.  Under a mesh program ``x`` is in the residual
+    layout (this rank's sequence shard where the rules shard it; the norms
+    run on it) and the attention this rank's heads over the whole
     sequence."""
     h = tp_enter(norm(cfg, x, bp["ln1"]))
     q, k, v = _attn_proj(cfg, h, bp, rope_cs)
     if attn_fn is not None:
         attn = attn_fn(q, k, v, window)
-    elif cfg.attn_impl == "kernel":
-        from repro_torch.kernels.flash_attention.ops import flash_attention
-        attn = flash_attention(q, k, v, causal=True, window=window,
-                               softcap=cfg.attn_softcap)
     else:
-        attn = chunked_attention(
-            q, k, v, causal=True, window=window, softcap=cfg.attn_softcap,
-            q_chunk=min(256, q.shape[1]), kv_chunk=min(256, k.shape[1]))
-    h, x = _attn_out(cfg, x, _attn_o(cfg, attn, bp), bp)
+        kl, vl = _local_kv(cfg, k, v)
+        if cfg.attn_impl == "kernel":
+            from repro_torch.kernels.flash_attention.ops import flash_attention
+            attn = flash_attention(q, kl, vl, causal=True, window=window,
+                                   softcap=cfg.attn_softcap)
+        else:
+            attn = chunked_attention(
+                q, kl, vl, causal=True, window=window, softcap=cfg.attn_softcap,
+                q_chunk=min(256, q.shape[1]), kv_chunk=min(256, kl.shape[1]))
+    B, S = attn.shape[:2]
+    h, x = _attn_out(cfg, x, _attn_o(cfg, attn.reshape(B, S, -1), bp), bp)
     return _ffn_out(cfg, x, _ffn(cfg, h, bp, aux_sink), bp), (k, v)
 
 
 def _block_decode(cfg, x, bp, kc, vc, cur_index, rope_cs, *, window: int, attn_fn=None):
     """One block, single-token decode.  x: (B, D).  ``attn_fn(q, kc, vc,
-    k_new, v_new, window)`` replaces the slotted cache write + attention
-    (the paged path); everything around it is shared, so the layouts stay
-    numerically identical.  ``rope_cs``: ``rope_tables`` of the lanes'
-    positions (B, 1), computed once per step.  Returns x; kc/vc are
-    written in place."""
-    dh, H, Hk = cfg.head_dim, cfg.n_heads, cfg.n_kv
+    k_new, v_new, window, reads)`` replaces the slotted cache write +
+    attention (the paged path; ``reads`` is :func:`_kv_reads`); everything
+    around it is shared, so the layouts stay numerically identical.
+    ``rope_cs``: ``rope_tables`` of the lanes' positions (B, 1), computed
+    once per step.  Returns x; kc/vc are written in place.
+
+    Under a mesh program the residual stream is whole on every rank.  The
+    slotted cache holds this rank's positions of every lane and every kv
+    head, so q, k and v are gathered to every head and the attention
+    combines the ranks' partials (``decode_attention(seq_group=)``); the
+    paged pool holds this rank's kv heads where they divide, so the
+    attention runs on the local heads (:func:`_heads`), as the prefill's
+    does.  Both end in the row-parallel output projection."""
+    dh = cfg.head_dim
     B = x.shape[0]
-    h = norm(cfg, x, bp["ln1"])
-    q = (h @ _w(bp, "wq", cfg)).reshape(B, H, dh)
-    k = (h @ _w(bp, "wk", cfg)).reshape(B, Hk, dh)
-    v = (h @ _w(bp, "wv", cfg)).reshape(B, Hk, dh)
-    if cfg.qk_norm:
-        q = norm(cfg, q, bp["qnorm"])
-        k = norm(cfg, k, bp["knorm"])
-    q = apply_rope(q[:, None], *rope_cs)[:, 0]
-    if _q_scale(cfg) != 1.0:
-        q = q * _q_scale(cfg)
-    k = apply_rope(k[:, None], *rope_cs)[:, 0]
-    q = q.reshape(B, Hk, H // Hk, dh)
+    tp = model_axis()
+    every = tp is not None and attn_fn is None
+    h = tp_enter(norm(cfg, x, bp["ln1"]))[:, None]
+    q, k, v = _attn_proj(cfg, h, bp, rope_cs, every=every)
+    q, k, v = q[:, 0], k[:, 0], v[:, 0]
+    reads = None if every else _kv_reads(cfg)
+    n_kv = k.shape[1] if reads is None else (
+        reads[1] - reads[0] if isinstance(reads, tuple) else len(reads))
+    q = q.reshape(B, n_kv, q.shape[1] // n_kv, dh)
     if attn_fn is None:
         attn = decode_attention(q, kc, vc, k, v, cur_index, window=window,
-                                softcap=cfg.attn_softcap)
+                                softcap=cfg.attn_softcap,
+                                seq_group=None if tp is None else tp.group)
     else:
-        attn = attn_fn(q, kc, vc, k, v, window)
-    h, x = _attn_out(cfg, x, attn.reshape(B, H * dh) @ _w(bp, "wo", cfg), bp)
+        attn = attn_fn(q, kc, vc, k, v, window, reads)
+    h, x = _attn_out(cfg, x, _attn_o(cfg, attn.reshape(B, -1), bp, every=every), bp)
     return _ffn_out(cfg, x, _ffn(cfg, h, bp), bp)
 
 
@@ -465,7 +495,8 @@ def forward(cfg: ArchConfig, params, tokens, img_embeds=None, *, remat=True,
     families of ``TP_FAMILIES``) the hidden states are this rank's
     sequence shard where the rules shard the sequence."""
     check_supported(cfg)
-    if model_axis() is not None and cfg.family not in TP_FAMILIES:
+    tp = model_axis()
+    if tp is not None and cfg.family not in (TP_FAMILIES if tp.sp else SERVE_TP_FAMILIES):
         raise NotImplementedError(f"{cfg.name}: the model axis is not ported for the "
                                   f"{cfg.family!r} family")
     sink = [] if aux is not None else None
@@ -530,14 +561,71 @@ def loss_fn(cfg: ArchConfig, params, batch, *, remat=True):
 # ---------------------------------------------------------------------------
 # Serving
 # ---------------------------------------------------------------------------
+#
+# Under a serving mesh program (``common.fsdp_program`` with a model axis
+# whose residual stream is not sequence-sharded) every rank holds the
+# whole residual stream and runs every lane; the weights are this rank's
+# model slices, gathered over ``data`` a layer at a time.  The caches hold
+# this rank's part, as the reference lays them out (``cache_pspec``,
+# ``paged_cache_pspec``): the slotted cache each lane's positions
+# ``[rank S/M, (rank + 1) S/M)`` of every kv head, the paged pool this
+# rank's kv heads where they divide over the model axis (else every one).
+# The lanes and the pool's blocks are whole on every data rank (the
+# reference splits them over the data axes).  Logits leave every serving
+# function gathered over the model axis (``V / M`` columns a rank), so
+# every rank samples from the same ``(B, V)``.
 
 
-def make_cache_specs(cfg: ArchConfig, batch: int, max_len: int) -> dict:
+def cache_pspec(cfg: ArchConfig, mesh=None) -> dict:
+    """The slotted cache's layout on ``mesh`` as this port realises the
+    reference's ``cache_pspec(cfg, DecodeSharding.choose(mesh, batch))``:
+    one axis name (or None) per dimension of (lead..., B, S, Hk, dh), the
+    positions over ``model``, the lanes whole (the reference also splits
+    them over the data axes, or puts the positions over every axis)."""
+    lead = (None,) * len(_leading(cfg))
+    seq = "model" if mesh is not None and "model" in mesh.axes else None
+    spec = lead + (None, seq, None, None)
+    return {"k": spec, "v": spec}
+
+
+def paged_cache_pspec(cfg: ArchConfig, mesh=None) -> dict:
+    """The paged pool's layout on ``mesh``, the reference's
+    ``paged_cache_pspec`` as realised here: kv heads over ``model`` where
+    they divide, else whole; the blocks whole (the reference splits them
+    over the data axes where they divide)."""
+    lead = (None,) * len(_leading(cfg))
+    tp = "model" if (mesh is not None and "model" in mesh.axes
+                     and cfg.n_kv % mesh.size("model") == 0) else None
+    spec = lead + (None, None, tp, None)
+    return {"k": spec, "v": spec}
+
+
+def _local_specs(cfg, shape, specs, mesh) -> dict:
+    """Meta tensors of this rank's part of leaves of ``shape`` laid out by
+    ``specs`` on ``mesh``."""
+    out = {}
+    for name, spec in specs.items():
+        local = []
+        for n, axis in zip(shape, spec):
+            if axis is not None:
+                m = mesh.size(axis)
+                if n % m:
+                    raise ValueError(f"{cfg.name}: {n} does not divide over {m} ranks of "
+                                     f"{axis!r} (cache leaf {name} {tuple(shape)})")
+                n //= m
+            local.append(n)
+        out[name] = torch.empty(local, dtype=dtype_of(cfg.compute_dtype), device="meta")
+    return out
+
+
+def make_cache_specs(cfg: ArchConfig, batch: int, max_len: int, mesh=None) -> dict:
     """Slotted KV cache (lead..., B, S, Hk, dh) as meta tensors (shape +
-    dtype)."""
+    dtype): on ``mesh`` this rank's part (:func:`cache_pspec`), ``max_len /
+    M`` positions of each lane (``max_len`` must divide)."""
+    if mesh is not None:
+        DecodeSharding.choose(mesh, batch).local_len(max_len)
     shape = _leading(cfg) + (batch, max_len, cfg.n_kv, cfg.head_dim)
-    c = torch.empty(shape, dtype=dtype_of(cfg.compute_dtype), device="meta")
-    return {"k": c, "v": c}
+    return _local_specs(cfg, shape, cache_pspec(cfg, mesh), mesh)
 
 
 def lane_leaf_axes(cfg: ArchConfig) -> dict:
@@ -548,11 +636,12 @@ def lane_leaf_axes(cfg: ArchConfig) -> dict:
     return {"k": lead, "v": lead}
 
 
-def make_paged_cache_specs(cfg: ArchConfig, num_blocks: int, block_size: int) -> dict:
-    """Paged KV pool (lead..., NB, bs, Hk, dh) as meta tensors."""
+def make_paged_cache_specs(cfg: ArchConfig, num_blocks: int, block_size: int,
+                           mesh=None) -> dict:
+    """Paged KV pool (lead..., NB, bs, Hk, dh) as meta tensors: on ``mesh``
+    this rank's part (:func:`paged_cache_pspec`)."""
     shape = _leading(cfg) + (num_blocks, block_size, cfg.n_kv, cfg.head_dim)
-    c = torch.empty(shape, dtype=dtype_of(cfg.compute_dtype), device="meta")
-    return {"k": c, "v": c}
+    return _local_specs(cfg, shape, paged_cache_pspec(cfg, mesh), mesh)
 
 
 def copy_paged_block(cfg: ArchConfig, cache, src: int, dst: int):
@@ -570,17 +659,54 @@ def copy_paged_block(cfg: ArchConfig, cache, src: int, dst: int):
     return cache
 
 
+def serve_logits(cfg: ArchConfig, params, x):
+    """Logits of hidden states ``x`` for sampling: under a mesh program the
+    ranks' vocabulary columns gathered over the model axis, so every rank
+    holds the whole ``(..., V)``."""
+    logits = unembed(cfg, params, x)
+    tp = model_axis()
+    return logits if tp is None else model_all_gather(logits, -1, tp.group)
+
+
+def _slotted_kv(cfg, t):
+    """Collected k or v (..., S, heads, dh) as the slotted cache stores
+    them: every kv head (gathered over the model axis where it splits
+    them)."""
+    tp = model_axis()
+    if tp is not None and not cfg.n_kv % tp.world:
+        return model_all_gather(t, -2, tp.group)
+    return t
+
+
+def _seq_part(s_loc: int, S: int) -> tuple[int, int]:
+    """``(start, n)``: this rank's positions ``[start, start + n)`` of
+    positions ``[0, S)``, its cache holding ``s_loc`` of each lane from
+    ``rank s_loc`` on (all of them outside a mesh program)."""
+    tp = model_axis()
+    start = 0 if tp is None else tp.rank * s_loc
+    return start, max(0, min(S - start, s_loc))
+
+
 def prefill(cfg: ArchConfig, params, tokens, img_embeds=None, *,
             max_len: int | None = None):
     """Whole-batch prefill: tokens (B, S) -> (slotted cache {k, v} of
     (lead..., B, max_len, Hk, dh), the KV of positions [0, S) and zeros past it;
     logits (B, V) at the last position).  vlm: ``img_embeds`` lead the
-    sequence, so the KV covers N + S positions."""
+    sequence, so the KV covers N + S positions.  Under a mesh program the
+    cache is this rank's ``max_len / M`` positions of each lane."""
     hidden, (k, v) = forward(cfg, params, tokens, img_embeds, remat=False, collect_kv=True)
     S = k.shape[-3]
-    pad = [0, 0, 0, 0, 0, max(0, (max_len or S) - S)]
-    cache = {"k": F.pad(k, pad), "v": F.pad(v, pad)}
-    return cache, unembed(cfg, params, hidden[:, -1])
+    L = max(max_len or S, S)
+    tp = model_axis()
+    s_loc = L if tp is None else L // tp.world
+    if s_loc * (1 if tp is None else tp.world) != L:
+        raise ValueError(f"max_len {L} does not divide over {tp.world} model ranks")
+    start, n = _seq_part(s_loc, S)
+    cache = {}
+    for name, t in (("k", k), ("v", v)):
+        t = _slotted_kv(cfg, t).narrow(-3, start, n)
+        cache[name] = F.pad(t, [0, 0, 0, 0, 0, s_loc - n])
+    return cache, serve_logits(cfg, params, hidden[:, -1])
 
 
 def prefill_slot(cfg: ArchConfig, params, cache, tokens, slot: int, plen: int):
@@ -588,15 +714,18 @@ def prefill_slot(cfg: ArchConfig, params, cache, tokens, slot: int, plen: int):
 
     tokens: (1, S_bucket) — the prompt right-padded to its bucket; the
     whole padded bucket is written into the lane (causality makes the
-    padding inert, and decode overwrites the tail before reading it).
+    padding inert, and decode overwrites the tail before reading it;
+    under a mesh program this rank's positions of it).
     Returns (cache, logits (1, V) at position plen-1); cache in place.
     """
     hidden, (k, v) = forward(cfg, params, tokens, remat=False, collect_kv=True)
     S = tokens.shape[1]
     for name, new in (("k", k), ("v", v)):
-        cache[name][..., slot, :S, :, :] = new.select(-4, 0).to(cache[name].dtype)
+        start, n = _seq_part(cache[name].shape[-3], S)
+        new = _slotted_kv(cfg, new).select(-4, 0).narrow(-3, start, n)
+        cache[name][..., slot, :n, :, :] = new.to(cache[name].dtype)
     last = min(max(plen - 1, 0), S - 1)
-    return cache, unembed(cfg, params, hidden[:, last])
+    return cache, serve_logits(cfg, params, hidden[:, last])
 
 
 def prefill_slot_paged(cfg: ArchConfig, params, cache, tokens, table_row, plen: int):
@@ -612,7 +741,7 @@ def prefill_slot_paged(cfg: ArchConfig, params, cache, tokens, table_row, plen: 
         paged_write_positions(_flat_layers(cfg, cache[name]), table_row, pos,
                               _flat_layers(cfg, new).select(1, 0), valid)
     last = min(max(plen - 1, 0), C - 1)
-    return cache, unembed(cfg, params, hidden[:, last])
+    return cache, serve_logits(cfg, params, hidden[:, last])
 
 
 def _block_chunk(cfg, x, bp, kp, vp, table_row, start: int, plen: int, rope_cs, *,
@@ -626,6 +755,8 @@ def _block_chunk(cfg, x, bp, kp, vp, table_row, start: int, plen: int, rope_cs, 
     lane, and attend the chunk's queries against it with
     ``chunked_attention(q_offset=start)`` (the lane's stale tail past
     ``start+C`` is causally masked; pad rows never feed valid rows).
+    Under a mesh program the pools hold this rank's kv heads (or every
+    one), and the lane's are narrowed to what the local q heads read.
     Returns x."""
     C = x.shape[1]
     pos = start + torch.arange(C, device=x.device)
@@ -634,8 +765,8 @@ def _block_chunk(cfg, x, bp, kp, vp, table_row, start: int, plen: int, rope_cs, 
     def attn_fn(q, k, v, w):
         paged_write_positions(kp, table_row, pos, k[0], valid)
         paged_write_positions(vp, table_row, pos, v[0], valid)
-        kl = paged_gather(kp, table_row[None])         # (1, nb*bs, Hk, dh)
-        vl = paged_gather(vp, table_row[None])
+        kl, vl = _local_kv(cfg, paged_gather(kp, table_row[None]),   # (1, nb*bs, Hk, dh)
+                           paged_gather(vp, table_row[None]))
         return chunked_attention(q, kl, vl, causal=True, window=w,
                                  softcap=cfg.attn_softcap, q_chunk=min(256, C),
                                  kv_chunk=min(256, kl.shape[1]), q_offset=start)
@@ -660,11 +791,17 @@ def prefill_chunk_paged(cfg: ArchConfig, params, cache, tokens, table_row,
     pos = start + torch.arange(C, dtype=torch.int32, device=x.device)
     rope_cs = rope_tables(pos[None], cfg.head_dim, cfg.rope_theta)
     for i in range(cfg.n_layers):
-        x = _block_chunk(cfg, x, _layer(cfg, params, i), *_cache_layer(cfg, cache, i),
+        x = _block_chunk(cfg, x, _use_layer(cfg, params, i), *_cache_layer(cfg, cache, i),
                          table_row, start, plen, rope_cs, window=_window(cfg, i))
     x = norm(cfg, x, params["ln_f"])
     last = min(max(plen - 1 - start, 0), C - 1)
-    return cache, unembed(cfg, params, x[:, last])
+    return cache, serve_logits(cfg, params, x[:, last])
+
+
+def _use_layer(cfg, params, i):
+    """Layer ``i``'s weights as a serving walk reads them (gathered over
+    ``data`` under a mesh program, ``common.use_layer``)."""
+    return use_layer(cfg, _layer(cfg, params, i), ("blocks",), len(_leading(cfg)))
 
 
 def _decode_walk(cfg, params, cache, x, cur_index, attn_fn):
@@ -674,10 +811,10 @@ def _decode_walk(cfg, params, cache, x, cur_index, attn_fn):
     pos = decode_positions(cur_index, x.shape[0], x.device)
     rope_cs = rope_tables(pos, cfg.head_dim, cfg.rope_theta)
     for i in range(cfg.n_layers):
-        x = _block_decode(cfg, x, _layer(cfg, params, i), *_cache_layer(cfg, cache, i),
+        x = _block_decode(cfg, x, _use_layer(cfg, params, i), *_cache_layer(cfg, cache, i),
                           cur_index, rope_cs, window=_window(cfg, i), attn_fn=attn_fn)
     x = norm(cfg, x, params["ln_f"])
-    return unembed(cfg, params, x), cache
+    return serve_logits(cfg, params, x), cache
 
 
 def decode_step(cfg: ArchConfig, params, cache, tokens, cur_index):
@@ -693,12 +830,19 @@ def decode_step_paged(cfg: ArchConfig, params, cache, tokens, lengths, tables,
     (B, nb) maps lanes' logical blocks to pool blocks and ``lengths`` (B,)
     is both the RoPE position and the write position of the new token.
     ``impl``: "ref" (gather + masked softmax) or "kernel" (the
-    block-walking CUDA kernel).  Returns (logits (B, V), cache)."""
+    block-walking CUDA kernel).  Under a mesh program the pool's kv heads
+    are this rank's (or every one, of which the attention reads the run
+    the local q heads read: a head slice of the pool).  Returns (logits
+    (B, V), cache)."""
     x = embed_tokens(cfg, params, tokens)
 
-    def attn_fn(q, kc, vc, k_new, v_new, window):
+    def attn_fn(q, kc, vc, k_new, v_new, window, reads):
+        if isinstance(reads, list):
+            raise NotImplementedError(
+                f"{cfg.name}: the kv heads a rank's q heads read are not one even run "
+                "at this model axis; the paged decode takes a run of the pool's heads")
         return paged_decode_attention(
             q, kc, vc, k_new, v_new, lengths, tables,
-            window=window, softcap=cfg.attn_softcap, impl=impl)
+            window=window, softcap=cfg.attn_softcap, impl=impl, kv_heads=reads)
 
     return _decode_walk(cfg, params, cache, x, lengths, attn_fn)

@@ -18,7 +18,8 @@ raises ``ValueError``; ``registry.param_shard_dims``).
   tensor-parallel and FSDP dimensions, its full and local shapes and this
   rank's coordinates;
 * :func:`shard_tree` / :func:`full_tree`: full leaves to this rank's
-  shards and back (the gather one leaf at a time, in slices of at most
+  shards and back (:func:`local_shards`: shards as they are, else
+  ``shard_tree``) (the gather one leaf at a time, in slices of at most
   ``GATHER_CHUNK`` bytes, for checkpoints);
 * :func:`init_shards`: exactly the values ``init`` draws for a seed, with
   only this rank's box of each leaf kept;
@@ -138,6 +139,18 @@ def shard_tree(layout: ShardLayout, tree) -> dict:
             x = part.clone() if isinstance(part, torch.Tensor) else np.array(part)
         out.append(x)
     return tree_from_leaves(layout.paths, out)
+
+
+def local_shards(layout: ShardLayout, tree) -> dict:
+    """This rank's shards of ``tree``: the tree itself where its leaves
+    already have the shards' shapes (:func:`init_shards`'s, or a serving
+    replica's weights handed to the next), else :func:`shard_tree` of its
+    whole leaves."""
+    shapes = [tuple(x.shape) for _, x in tree_leaves(tree)]
+    if shapes == [layout.local_shape(i) for i in range(len(layout.paths))]:
+        check_shards(layout, tree)
+        return tree
+    return shard_tree(layout, tree)
 
 
 def full_tree(layout: ShardLayout, tree, group, model=None) -> dict:

@@ -88,10 +88,23 @@ def sched_state(max_slots: int, device, seed: int = 0) -> dict:
     }
 
 
+def slot_state_specs(cfg: ArchConfig, max_slots: int, max_len: int, mesh=None) -> dict:
+    """The slotted cache's leaves as meta tensors: on a ``mesh`` (a
+    ``launch.mesh.MeshGroup``) this rank's part, as the reference's
+    ``slot_state_specs`` places them (``lm.cache_pspec``: each lane's
+    positions over ``model``; the lanes whole on every data rank).  The
+    scheduling vectors are replicated (:func:`sched_state`)."""
+    mod = registry.get_module(cfg)
+    if mesh is None:
+        return mod.make_cache_specs(cfg, max_slots, max_len)
+    return mod.make_cache_specs(cfg, max_slots, max_len, mesh=mesh)
+
+
 def make_slot_state(cfg: ArchConfig, max_slots: int, max_len: int, device,
-                    seed: int = 0) -> dict:
-    """Allocate the device-resident slot state (all lanes free)."""
-    specs = registry.get_module(cfg).make_cache_specs(cfg, max_slots, max_len)
+                    seed: int = 0, mesh=None) -> dict:
+    """Allocate the device-resident slot state (all lanes free); on a
+    ``mesh``, this rank's part of the cache (:func:`slot_state_specs`)."""
+    specs = slot_state_specs(cfg, max_slots, max_len, mesh)
     cache = {k: torch.zeros_like(s, device=device) for k, s in specs.items()}
     return {"cache": cache, **sched_state(max_slots, device, seed)}
 

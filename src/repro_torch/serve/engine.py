@@ -99,6 +99,28 @@ site of the reference emits its mark, instant or span (``decode``,
 the flight recorder.  No emit synchronizes the device or changes a
 program key.
 
+On a mesh (``mesh=``, a :class:`~repro_torch.launch.mesh.MeshGroup` over
+a process group) every rank runs this engine, the same schedule on the
+same inputs, and the ``lm`` family (dense, gemma2, MoE) serves under the
+reference's layout: the weights this rank's shards under
+``ShardRules.for_mesh`` (:func:`serve_shard_layout`; the model slices
+of heads, FFN, experts and vocabulary, gathered over ``data`` a layer at
+a time), the KV cache this rank's part (``lm.cache_pspec``: each lane's
+positions over ``model``; ``lm.paged_cache_pspec``: kv heads over
+``model`` where they divide, the pool rounded up to the data size as the
+reference's), every program inside the serving mesh program
+(``common.serve_program``), and the logits gathered so every rank
+samples the same tokens.  The lanes and blocks stay whole on every data
+rank (the reference splits them over the data axes): every data rank
+computes every lane.  One schedule needs one clock: the engine reads
+:class:`MeshClock`, rank 0's clock broadcast at each reading, so
+deadlines and every decision that reads the time agree on every rank.
+``kv_reserved_bytes`` is what a rank holds.  Speculative decoding, the
+host tier, hold/park, snapshots and exporting a request (a migration)
+raise on a mesh, and the other slot-served families at a live model axis
+(importing one is how the router places every request); ``mesh=None`` (or a
+one-worker mesh without a process group) is the one-device engine.
+
 Programs come from an :class:`~repro_torch.core.aot.AotCache` (the
 reference's ``aot=``, shareable between engines), whose ``builds``,
 ``cache_hits`` and entry count (``executables``) feed :attr:`stats`:
@@ -140,11 +162,13 @@ from typing import Any, Callable, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.aot import AotCache, device_program
 from repro_torch.device import resolve_device
-from repro_torch.models import registry
+from repro_torch.models import lm, registry
+from repro_torch.models.common import ShardRules, serve_program
 from repro_torch.obs import MetricMap, Observer
 from .cache import RecurrentCache, bucket_for, make_slot_state, prompt_buckets
 from .faults import NONFINITE_TOKEN, UNCOMMITTED, FaultPlan
@@ -176,6 +200,63 @@ from .step import (
 )
 
 PAGED_ATTN_IMPLS = ("ref", "kernel")
+# what a mesh refuses, and the ROADMAP.md items that carry it
+MESH_FAMILY_ITEM = "the model axis for the other families"
+MESH_FEATURE_ITEM = "the engine's features on a mesh"
+
+
+class MeshClock:
+    """One clock for every rank of a mesh: each reading is rank 0's
+    ``clock()``, broadcast over the mesh's world group, so every rank
+    takes the same decisions from it (deadlines, park thresholds, the
+    router's shed estimate, a launcher's arrivals).  A reading is a
+    collective: every rank reads at the same points of the same schedule
+    (each does, since every decision it feeds agrees)."""
+
+    def __init__(self, clock: Callable[[], float], mesh):
+        self.base, self.mesh = clock, mesh
+        self._buf = torch.zeros(1, dtype=torch.float64, device=mesh.device)
+
+    def __call__(self) -> float:
+        self._buf.fill_(self.base() if self.mesh.rank == 0 else 0.0)
+        dist.broadcast(self._buf, src=0, group=self.mesh.pg)
+        return float(self._buf.item())
+
+
+def serve_shard_layout(cfg: ArchConfig, mesh):
+    """The shard layout of the weights a rank of ``mesh`` serves
+    (``ShardRules.for_mesh``: model slices over ``model``, FSDP shards over
+    ``data``), or None where no mesh program runs: no mesh or one without
+    a process group, or a family outside ``lm.SERVE_TP_FAMILIES`` (the
+    others run at a model axis of 1 with the whole model on every rank)."""
+    from repro_torch.optim.fsdp import make_shard_layout
+
+    if mesh is None or mesh.pg is None or cfg.family not in lm.SERVE_TP_FAMILIES:
+        return None
+    return make_shard_layout(cfg, ShardRules.for_mesh(mesh), mesh.size("data"),
+                             mesh.coord("data"), model=mesh.size("model"),
+                             model_rank=mesh.coord("model"))
+
+
+def check_mesh(cfg: ArchConfig, mesh, engine: "EngineConfig") -> None:
+    """Raise for what a mesh does not serve: the slot-served families
+    other than the ``lm`` family's at a live model axis, and, on any mesh
+    over a process group, speculative decoding and the host tier."""
+    if mesh is None:
+        return
+    live = mesh.size("model") > 1
+    if live and cfg.family not in lm.TP_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name}: serving on a live model axis is ported for the lm family "
+            f"(dense, gemma2, moe), not the {cfg.family!r} family; the mesh "
+            f"{mesh.describe()} has one (ROADMAP.md queue 1: {MESH_FAMILY_ITEM})")
+    if mesh.pg is None and mesh.world > 1:
+        raise ValueError(f"a mesh of {mesh.world} ranks needs a process group")
+    if (live or mesh.pg is not None) and (engine.spec_draft is not None or engine.host_tier):
+        what = "speculative decoding" if engine.spec_draft is not None else "the host tier"
+        raise NotImplementedError(
+            f"{what} is not carried onto a mesh ({mesh.describe()}) yet "
+            f"(ROADMAP.md queue 1: {MESH_FEATURE_ITEM})")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -317,7 +398,7 @@ class ServeEngine:
                  *, device=None, clock: Callable[[], float] = time.perf_counter,
                  faults: FaultPlan | None = None, aot: AotCache | None = None,
                  obs: Observer | None = None, host_tier: HostTier | None = None,
-                 draft_params=None):
+                 draft_params=None, mesh=None):
         if not registry.supports_slot_serving(cfg):
             raise ValueError(f"family {cfg.family!r} does not support slot serving")
         if engine.kv_layout not in ("slotted", "paged"):
@@ -359,15 +440,29 @@ class ServeEngine:
                                  f"{cfg.vocab}: verify compares token ids")
         elif draft_params is not None:
             raise ValueError("draft_params passed but EngineConfig.spec_draft is None")
+        check_mesh(cfg, mesh, engine)
+        if mesh is not None and mesh.pg is None:
+            mesh = None                 # one worker without a group: no mesh
+        self.mesh = mesh
+        if mesh is not None and not isinstance(clock, MeshClock):
+            clock = MeshClock(clock, mesh)
         self.cfg, self.econ, self.clock = cfg, engine, clock
         # deterministic fault injection (serve/faults.py); None = off
         self.faults = faults
-        self.device = resolve_device(device)
+        self.device = resolve_device(device if mesh is None else mesh.device)
+        # the weights' layout and the serving mesh program (None: one device)
+        self.shards = serve_shard_layout(cfg, mesh)
+        self._mesh_program = None
+        if self.shards is not None:
+            data, dims, model = mesh.axis("data"), self.shards.gather_dims, mesh.model
+            self._mesh_program = lambda: serve_program(data, dims, model)
         self.buckets = tuple(engine.prefill_buckets or prompt_buckets(engine.max_len))
         if max(self.buckets) > engine.max_len:
             raise ValueError("prefill bucket exceeds max_len")
         mod = registry.get_module(cfg)
-        self.params = mod.cast_for_compute(cfg, params, self.device)
+        self.params = mod.cast_for_compute(cfg, self._local_params(params), self.device)
+        prog = self._mesh_program
+        cache_mesh = mesh if self.shards is not None else None     # None: whole here
         if self.paged:
             bs = engine.page_size
             if engine.max_len % bs:
@@ -375,6 +470,11 @@ class ServeEngine:
                                  f"multiple of page_size ({bs})")
             blocks_per_slot = engine.max_len // bs
             self._num_blocks = engine.num_blocks or engine.max_slots * blocks_per_slot + 1
+            if mesh is not None:
+                # the reference's engine rounds the pool up to the data
+                # size (its blocks split over the data axes)
+                ndp = mesh.data.world
+                self._num_blocks = -(-self._num_blocks // ndp) * ndp
             self.alloc = BlockAllocator(self._num_blocks, bs)
             self.tables = SlotTables(engine.max_slots, blocks_per_slot)
             self._deficit = 0           # committed-but-unallocated blocks
@@ -382,16 +482,18 @@ class ServeEngine:
             self._tables_dirty = False
             self.state = make_paged_state(cfg, engine.max_slots, engine.max_len,
                                           self._num_blocks, bs, self.device,
-                                          engine.seed)
+                                          engine.seed, mesh=cache_mesh)
             self._decode_fn = paged_decode_program(cfg, eos_id=engine.eos_id,
                                                    impl=engine.paged_attn,
-                                                   fused=engine.fused_sampling)
+                                                   fused=engine.fused_sampling,
+                                                   mesh_program=prog)
         else:
             self._num_blocks = 0
             self.state = make_slot_state(cfg, engine.max_slots, engine.max_len,
-                                         self.device, engine.seed)
+                                         self.device, engine.seed, mesh=cache_mesh)
             self._decode_fn = slot_decode_program(cfg, eos_id=engine.eos_id,
-                                                  fused=engine.fused_sampling)
+                                                  fused=engine.fused_sampling,
+                                                  mesh_program=prog)
         self.kv_reserved_bytes = cache_nbytes(self.state["cache"])
 
         # --- speculative decoding: the draft's lanes and the round's buffers
@@ -466,6 +568,8 @@ class ServeEngine:
         self._program_key = (cfg, e.max_slots, e.max_len, e.eos_id, e.fused_sampling,
                              e.kv_layout, e.page_size, self._num_blocks, e.paged_attn,
                              e.spec_draft, e.spec_k)
+        if mesh is not None:
+            self._program_key += (mesh.describe(), mesh.coords, id(mesh.pg))
 
         self.queue: deque[_Pending] = deque()
         self.slots: list[_Slot | None] = [None] * engine.max_slots
@@ -516,6 +620,21 @@ class ServeEngine:
         # last engine operation ("prefill" | "decode" | "preempt"): the
         # recurrent zeroing invariant is checkable right after a decode
         self._last_op: str | None = None
+
+    def _local_params(self, params):
+        """This rank's shards of ``params`` under a mesh program
+        (``optim.fsdp.local_shards``), else ``params``."""
+        if self.shards is None:
+            return params
+        from repro_torch.optim.fsdp import local_shards
+
+        return local_shards(self.shards, params)
+
+    def _refuse_on_mesh(self, what: str) -> None:
+        if self.mesh is not None:
+            raise NotImplementedError(
+                f"{what} is not carried onto a mesh ({self.mesh.describe()}) yet "
+                f"(ROADMAP.md queue 1: {MESH_FEATURE_ITEM})")
 
     # ------------------------------------------------------------------
     # Programs (through the shared AotCache)
@@ -602,16 +721,18 @@ class ServeEngine:
         """The prefill program of a bucket or chunk size (eager; counted):
         the first chunk, or (paged) a continuation from ``start > 0``."""
         def build():
-            eos, fused = self.econ.eos_id, self.econ.fused_sampling
+            eos, fused, prog = self.econ.eos_id, self.econ.fused_sampling, self._mesh_program
             if self.paged:
-                return paged_prefill_program(self.cfg, eos_id=eos, first=first, fused=fused)
-            return slot_prefill_program(self.cfg, eos_id=eos, fused=fused)
+                return paged_prefill_program(self.cfg, eos_id=eos, first=first, fused=fused,
+                                             mesh_program=prog)
+            return slot_prefill_program(self.cfg, eos_id=eos, fused=fused, mesh_program=prog)
         return self.aot.get(("slot_prefill", chunk, first) + self._program_key, build)
 
     def _copy_entry(self) -> Callable:
         """The block copy of the prefix cache's copy-on-write tail."""
         return self.aot.get(("paged_copy",) + self._program_key,
-                            lambda: paged_copy_program(self.cfg))
+                            lambda: paged_copy_program(self.cfg,
+                                                       mesh_program=self._mesh_program))
 
     # -- host-tier transport (built once each, like every program) ------
     def _block_read_entry(self) -> Callable:
@@ -765,6 +886,7 @@ class ServeEngine:
         leaves: holding one needs a host tier.  Returns False if the tier
         refuses the spill (the lane keeps decoding); True for a lane
         already held.  ``KeyError`` for a rid not on a lane."""
+        self._refuse_on_mesh("hold/park")
         slot = self._find_lane(rid)
         if slot is None:
             raise KeyError(f"rid {rid} is not on a lane")
@@ -1924,6 +2046,7 @@ class ServeEngine:
         requeue them), then the queue, then the parked requests (a hold is
         scheduling state: they resume decoding after a restart).  Device
         caches are dropped.  Consistent at any step boundary."""
+        self._refuse_on_mesh("engine snapshots")
         on_lane = sorted((i for i, s in enumerate(self.slots) if s is not None),
                          key=lambda i: self.slots[i].rid)
         pend = []
@@ -1956,6 +2079,7 @@ class ServeEngine:
         which must be fresh (the same arch and ``EngineConfig``, no request
         served).  The device caches are rebuilt by re-prefilling prompts
         and replaying recorded tokens; drive with :meth:`step` as usual."""
+        self._refuse_on_mesh("engine snapshots")
         if int(snap.get("format", -1)) != self._SNAP_FORMAT:
             raise ValueError(f"unsupported snapshot format {snap.get('format')!r}")
         if snap["arch"] != self.cfg.name:
@@ -1986,6 +2110,7 @@ class ServeEngine:
         Returns ``{"pending": ..., "completion": ... | None}``, JSON-able,
         shaped like one entry of :meth:`snapshot`.  ``KeyError`` for an
         unknown rid, ``ValueError`` for a terminal one."""
+        self._refuse_on_mesh("request migration")
         if rid in self.completions:
             raise ValueError(f"rid {rid} is already terminal")
         slot = self._find_lane(rid)
@@ -2158,6 +2283,8 @@ class ServeEngine:
             "state_kind": self.kind,
             "kv_reserved_bytes": self.kv_reserved_bytes,
         }
+        if self.mesh is not None:
+            out["mesh"] = self.mesh.describe()
         if self.spec:
             drafted = self.counters["spec_drafted"]
             out["spec_acceptance_rate"] = (

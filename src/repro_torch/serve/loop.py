@@ -12,9 +12,18 @@ then every sequence decodes to the full token budget, sampling on the
 logits each step.  It serves the families the engine does not (the
 modality frontends: vlm patch embeddings, audio frames, passed as
 ``extra``) and is the baseline the engine is held against.
+
+Both take a ``mesh`` (``launch.mesh.MeshGroup``): the engine's, or for the
+static loop the serving mesh program around its prefill and decode, the
+weights this rank's shards (``engine.serve_shard_layout``) and the cache
+each lane's ``max_len / M`` positions, ``max_len`` rounded up to a
+multiple of the model size (the rounded positions are never attended).
+The ``lm`` family's dense, MoE and vlm configs serve on a live model axis
+there; the others raise.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -34,29 +43,31 @@ class ServeConfig:
 
 
 def generate(cfg: ArchConfig, params, prompts, serve: ServeConfig | None = None, *,
-             extra=None, device=None) -> np.ndarray:
+             extra=None, device=None, mesh=None) -> np.ndarray:
     """prompts (B, S) int32 -> (B, max_new_tokens) int32 generated tokens,
     through the engine (on the card unless ``device="cpu"``), or through
     :func:`generate_static` when ``extra`` (the frontend input) is given or
     the family is not slot-served."""
     serve = serve or ServeConfig()
     if extra is not None or not registry.supports_slot_serving(cfg):
-        return generate_static(cfg, params, prompts, serve, extra=extra, device=device)
+        return generate_static(cfg, params, prompts, serve, extra=extra, device=device,
+                               mesh=mesh)
     from .engine import EngineConfig, ServeEngine
 
     prompts = np.asarray(prompts, np.int32)
     B, S = prompts.shape
+    m = 1 if mesh is None else mesh.size("model")       # lanes split by position
     engine = ServeEngine(cfg, params, EngineConfig(
-        max_slots=B, max_len=S + serve.max_new_tokens, seed=serve.seed,
+        max_slots=B, max_len=-(-(S + serve.max_new_tokens) // m) * m, seed=serve.seed,
         # equal-length prompts: one exact bucket
-        prefill_buckets=(S,)), device=device)
+        prefill_buckets=(S,)), device=device, mesh=mesh)
     out = engine.run(list(prompts), max_new_tokens=serve.max_new_tokens,
                      temperature=serve.temperature)
     return np.stack(out, axis=0)
 
 
 def generate_static(cfg: ArchConfig, params, prompts, serve: ServeConfig | None = None,
-                    *, extra=None, device=None) -> np.ndarray:
+                    *, extra=None, device=None, mesh=None) -> np.ndarray:
     """The static-batch loop: prefill once (``mod.prefill``, given
     ``extra`` where there is one: vlm patch embeddings (B,
     frontend_tokens, frontend_dim), audio frames (B, enc_seq, d_model)),
@@ -65,20 +76,42 @@ def generate_static(cfg: ArchConfig, params, prompts, serve: ServeConfig | None 
     each step from a ``torch.Generator`` seeded with ``serve.seed`` (greedy
     at temperature 0).  Returns (B, max_new_tokens) int32."""
     serve = serve or ServeConfig()
-    device = resolve_device(device)
     mod = registry.get_module(cfg)
+    program, round_to = contextlib.nullcontext, 1
+    if mesh is not None:
+        from repro_torch.models import lm
+        from repro_torch.models.common import serve_program
+        from repro_torch.optim.fsdp import local_shards
+        from .engine import MESH_FAMILY_ITEM, serve_shard_layout
+
+        if cfg.family not in lm.SERVE_TP_FAMILIES and mesh.size("model") > 1:
+            raise NotImplementedError(
+                f"{cfg.name}: serving on a live model axis is ported for the lm family "
+                f"(dense, gemma2, moe, vlm), not the {cfg.family!r} family (ROADMAP.md "
+                f"queue 1: {MESH_FAMILY_ITEM})")
+        if mesh.pg is not None:
+            device = mesh.device
+        lay = serve_shard_layout(cfg, mesh)
+        if lay is not None:
+            params = local_shards(lay, params)
+            data, dims, model = mesh.axis("data"), lay.gather_dims, mesh.model
+            program = lambda: serve_program(data, dims, model)   # noqa: E731
+            round_to = mesh.size("model")
+    device = resolve_device(device)
     params = mod.cast_for_compute(cfg, params, device)
     tokens = torch.as_tensor(np.asarray(prompts, np.int32), device=device)
     B, S = tokens.shape
     n_ctx = S + (cfg.frontend_tokens if cfg.family == "vlm" else 0)
     front = () if extra is None else (torch.as_tensor(extra, device=device),)
-    cache, logits = mod.prefill(cfg, params, tokens, *front,
-                                max_len=n_ctx + serve.max_new_tokens)
+    L = -(-(n_ctx + serve.max_new_tokens) // round_to) * round_to
+    with program():
+        cache, logits = mod.prefill(cfg, params, tokens, *front, max_len=L)
     gen = torch.Generator(device=device).manual_seed(serve.seed)
     temps = torch.full((B,), float(serve.temperature), device=device)
     out = []
     for cur in range(n_ctx, n_ctx + serve.max_new_tokens):
         tok = sample_tokens(logits, gen, temps)
         out.append(tok)
-        logits, cache = mod.decode_step(cfg, params, cache, tok, cur)
+        with program():
+            logits, cache = mod.decode_step(cfg, params, cache, tok, cur)
     return torch.stack(out, dim=1).cpu().numpy()

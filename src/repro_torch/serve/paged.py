@@ -562,19 +562,32 @@ def check_tiered(alloc: BlockAllocator, tier: HostTier | None) -> None:
 # ---------------------------------------------------------------------------
 
 
-def make_paged_state(cfg: ArchConfig, max_slots: int, max_len: int,
-                     num_blocks: int, block_size: int, device,
-                     seed: int = 0) -> dict:
-    """Allocate the device-resident paged state (all tables null)."""
-    from .cache import sched_state
-
+def paged_state_specs(cfg: ArchConfig, max_len: int, num_blocks: int, block_size: int,
+                      mesh=None) -> dict:
+    """The paged pool's leaves as meta tensors: on a ``mesh`` this rank's
+    part, as the reference's ``paged_state_specs`` places them
+    (``lm.paged_cache_pspec``: kv heads over ``model`` where they divide;
+    the blocks whole on every data rank).  The tables and scheduling
+    vectors are replicated."""
     if max_len % block_size:
         raise ValueError(
             f"max_len ({max_len}) must be a multiple of block_size "
             f"({block_size})"
         )
-    specs = registry.get_module(cfg).make_paged_cache_specs(
-        cfg, num_blocks, block_size)
+    mod = registry.get_module(cfg)
+    if mesh is None:
+        return mod.make_paged_cache_specs(cfg, num_blocks, block_size)
+    return mod.make_paged_cache_specs(cfg, num_blocks, block_size, mesh=mesh)
+
+
+def make_paged_state(cfg: ArchConfig, max_slots: int, max_len: int,
+                     num_blocks: int, block_size: int, device,
+                     seed: int = 0, mesh=None) -> dict:
+    """Allocate the device-resident paged state (all tables null); on a
+    ``mesh``, this rank's part of the pool (:func:`paged_state_specs`)."""
+    from .cache import sched_state
+
+    specs = paged_state_specs(cfg, max_len, num_blocks, block_size, mesh)
     cache = {k: torch.zeros_like(s, device=device) for k, s in specs.items()}
     tables = torch.zeros((max_slots, max_len // block_size), dtype=torch.int32,
                          device=device)
@@ -583,5 +596,6 @@ def make_paged_state(cfg: ArchConfig, max_slots: int, max_len: int,
 
 
 def cache_nbytes(cache_tree: dict) -> int:
-    """Total bytes of the KV cache leaves (tensors or meta tensors)."""
+    """Total bytes of the KV cache leaves (tensors or meta tensors): on a
+    mesh, the bytes this rank holds."""
     return sum(leaf.numel() * leaf.element_size() for leaf in cache_tree.values())

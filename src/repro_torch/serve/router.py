@@ -73,7 +73,7 @@ import numpy as np
 from repro_torch.core.aot import AotCache
 from repro_torch.device import resolve_device
 from repro_torch.obs import MetricMap, Observer
-from .engine import STATUSES, Completion, EngineConfig, ServeEngine
+from .engine import STATUSES, Completion, EngineConfig, MeshClock, ServeEngine
 from .faults import FaultPlan
 from .paged import HostTier, prefix_keys
 
@@ -171,6 +171,13 @@ class Router:
     ``faults`` is consulted at the two ``replica_*`` sites once per
     :meth:`step`; engine-level fault plans (the four per-engine sites)
     can be attached per replica via ``engine_faults``.
+
+    ``mesh`` (a :class:`~repro_torch.launch.mesh.MeshGroup` over a process
+    group): every replica is an engine on it (``ServeEngine(mesh=)``: one
+    shard of the weights a rank, shared by the replicas), every rank runs
+    the router, and the router and its replicas read one
+    :class:`~repro_torch.serve.engine.MeshClock`, so every rank takes the
+    same decisions.  A drain migrates requests, which a mesh refuses.
     """
 
     def __init__(
@@ -187,7 +194,11 @@ class Router:
         engine_faults: list[FaultPlan | None] | None = None,
         obs: Observer | None = None,
         draft_params=None,
+        mesh=None,
     ):
+        if mesh is not None and mesh.pg is not None:
+            device = mesh.device
+            clock = MeshClock(clock, mesh)
         device = resolve_device(device)
         if engine_faults is not None and len(engine_faults) != router.replicas:
             raise ValueError("engine_faults must have one entry per replica")
@@ -220,7 +231,7 @@ class Router:
                 faults=engine_faults[i] if engine_faults else None,
                 obs=self.obs.child(f"replica{i}"),
                 host_tier=self.tier,
-                draft_params=dev_draft)
+                draft_params=dev_draft, mesh=mesh)
             dev_params = eng.params     # share the cast copy fleet-wide
             dev_draft = eng.draft_params    # ditto for the draft weights
             self.replicas.append(ReplicaHandle(i, eng))

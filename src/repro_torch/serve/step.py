@@ -14,6 +14,11 @@ reference's host-sampling baseline) the prefill and decode programs
 return the fp32 logits instead, and the host samples them and writes
 ``tokens``/``active`` back.
 
+Under a mesh (``ServeEngine(mesh=)``) every program runs inside the
+serving mesh program (``mesh_program``, a zero-argument callable that
+makes the context: ``common.serve_program``), entered at each call, so a
+captured decode graph holds the collectives it issues.
+
 Where the reference branches on device values inside the program
 (``lax.cond`` on "any lane samples" / "any lane masks"), an eager branch
 would cost a host sync; the engine passes those two facts from its host
@@ -99,7 +104,20 @@ def sample_tokens(logits, generator, temps, top_k: int = 0, top_ks=None,
 # ---------------------------------------------------------------------------
 
 
-def _decode_program(decode_fn, *, eos_id: int | None, freeze=None, fused: bool = True):
+def _in_program(fn, mesh_program):
+    """``fn`` run inside ``mesh_program()`` at every call (``fn`` itself
+    without one)."""
+    if mesh_program is None:
+        return fn
+
+    def run(*args, **kwargs):
+        with mesh_program():
+            return fn(*args, **kwargs)
+    return run
+
+
+def _decode_program(decode_fn, *, eos_id: int | None, freeze=None, fused: bool = True,
+                    mesh_program=None):
     """Wrap a layout-specific ``decode_fn(params, state) -> (logits,
     cache)`` with the shared bookkeeping: fused sampling, non-finite
     detection (the :data:`NONFINITE_TOKEN` sentinel rides the token
@@ -145,11 +163,11 @@ def _decode_program(decode_fn, *, eos_id: int | None, freeze=None, fused: bool =
         state["active"].copy_(act_new)
         return state, tok
 
-    return fn
+    return _in_program(fn, mesh_program)
 
 
 def slot_decode_program(cfg: ArchConfig, *, eos_id: int | None = None,
-                        fused: bool = True):
+                        fused: bool = True, mesh_program=None):
     """One decode step over every lane of the slotted cache.
 
     Family-generic: ``mod.decode_step`` advances a KV cache (lm) or
@@ -163,11 +181,12 @@ def slot_decode_program(cfg: ArchConfig, *, eos_id: int | None = None,
                                state["lengths"])
 
     return _decode_program(decode_fn, eos_id=eos_id,
-                           freeze=rec.freeze if rec else None, fused=fused)
+                           freeze=rec.freeze if rec else None, fused=fused,
+                           mesh_program=mesh_program)
 
 
 def paged_decode_program(cfg: ArchConfig, *, eos_id: int | None = None,
-                         impl: str = "ref", fused: bool = True):
+                         impl: str = "ref", fused: bool = True, mesh_program=None):
     """One decode step over every lane of the paged cache: the same
     bookkeeping as :func:`slot_decode_program`, the cache walk through
     ``state["tables"]`` (``impl`` "ref" or "kernel")."""
@@ -178,7 +197,7 @@ def paged_decode_program(cfg: ArchConfig, *, eos_id: int | None = None,
             cfg, params, state["cache"], state["tokens"], state["lengths"],
             state["tables"], impl=impl)
 
-    return _decode_program(decode_fn, eos_id=eos_id, fused=fused)
+    return _decode_program(decode_fn, eos_id=eos_id, fused=fused, mesh_program=mesh_program)
 
 
 def _seed_slot(state, slot, logits, *, length, limit, temp, top_k, top_p,
@@ -216,7 +235,7 @@ def _seed_slot(state, slot, logits, *, length, limit, temp, top_k, top_p,
 
 
 def slot_prefill_program(cfg: ArchConfig, *, eos_id: int | None = None,
-                         fused: bool = True):
+                         fused: bool = True, mesh_program=None):
     """Admit one prompt into lane ``slot``: prefill its KV into the lane
     (prompt padded to a length bucket), sample the first token, and seed
     the slot's scheduling state.
@@ -249,11 +268,11 @@ def slot_prefill_program(cfg: ArchConfig, *, eos_id: int | None = None,
             rec.freeze(state["cache"], state["active"] | state["replay"] | keep_self)
         return state, tok
 
-    return fn
+    return _in_program(fn, mesh_program)
 
 
 def paged_prefill_program(cfg: ArchConfig, *, eos_id: int | None = None,
-                          first: bool = True, fused: bool = True):
+                          first: bool = True, fused: bool = True, mesh_program=None):
     """Prefill ONE chunk of a request in lane ``slot`` of the paged cache:
     chunked prefill's unit of work, and the whole-prompt admission when
     the chunk is the full bucket.
@@ -288,10 +307,10 @@ def paged_prefill_program(cfg: ArchConfig, *, eos_id: int | None = None,
                          is_last=end >= plen, eos_id=eos_id, fused=fused)
         return state, tok
 
-    return fn
+    return _in_program(fn, mesh_program)
 
 
-def paged_copy_program(cfg: ArchConfig):
+def paged_copy_program(cfg: ArchConfig, *, mesh_program=None):
     """Copy one physical KV block of the paged pool, in place: the prefix
     cache's copy-on-write (:func:`repro_torch.models.lm.copy_paged_block`).
     ``fn(state, src, dst) -> state``; one program serves every copy."""
@@ -301,7 +320,7 @@ def paged_copy_program(cfg: ArchConfig):
         mod.copy_paged_block(cfg, state["cache"], src, dst)
         return state
 
-    return fn
+    return _in_program(fn, mesh_program)
 
 
 # ---------------------------------------------------------------------------

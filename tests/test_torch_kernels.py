@@ -202,6 +202,33 @@ def test_paged_plain_matches_paged_ref(jref, dt, kwargs):
 
 
 @pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("lo,hi", [(1, 2), (2, 4), (0, 3)])
+def test_paged_plain_on_a_head_run_of_a_wider_pool(jref, dt, lo, hi):
+    """The paged decode on kv heads ``[lo, hi)`` of a pool of 4 (a model
+    rank whose q heads read a run of a replicated pool's heads): the
+    wrapper (its plain version here) on the pool's head view, no copy,
+    equals the reference's ``paged_attention_ref`` on that run of heads
+    alone; the kernel's checks take the view, its rows 4 heads apart."""
+    q_all, kp, vp, lengths, tables = _paged_inputs(Hk=4, rep=2, D=64)
+    q = q_all[:, lo:hi]
+    tk, tv = _t(kp, dt), _t(vp, dt)
+    kv = tk.narrow(2, lo, hi - lo), tv.narrow(2, lo, hi - lo)
+    assert paged_ops.pool_heads(kv[0]) == 4 and paged_ops.pool_heads(tk) == 4
+    lt, tt = torch.tensor(lengths), torch.tensor(tables)
+    out = paged_attention(_t(q, dt), *kv, lt, tt, softcap=30.0)
+    want_t = paged_attention_ref(_t(q, dt), *(x.contiguous() for x in kv), lt, tt, softcap=30.0)
+    assert torch.equal(out, want_t)
+    j = lambda x: jref.jnp.asarray(x, dt)
+    want = jref.paged_ref(j(q), j(kp[:, :, lo:hi]), j(vp[:, :, lo:hi]),
+                          jref.jnp.asarray(lengths), jref.jnp.asarray(tables), softcap=30.0)
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(want, np.float32), **_tol(dt))
+    paged_ops._check_kernel(_t(q, dt), *kv, lt, tt)
+    strided = tk[:, :, ::2]                         # heads 0 and 2: not one run
+    with pytest.raises(ValueError, match="contiguous"):
+        paged_ops._check_kernel(_t(q_all[:, :2], dt), strided, strided, lt, tt)
+
+
+@pytest.mark.parametrize("dt", DTYPES)
 @pytest.mark.parametrize("rows,D", RMSNORM_SHAPES)
 def test_rmsnorm_plain_matches_reference(jref, dt, rows, D):
     """``rmsnorm`` and ``rmsnorm_add`` (plain on CPU) against the
@@ -361,6 +388,22 @@ def test_paged_kernel_matches_plain_on_card(cuda, dt, kwargs):
     torch.cuda.synchronize()
     assert paged_attention.launches == before + 1
     want = paged_attention_ref(*args, lt, tt, **kwargs)
+    torch.testing.assert_close(out.float(), want.float(), **_card_tol(dt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("lo,hi", [(1, 2), (0, 2), (3, 5)])
+def test_paged_kernel_on_a_head_run_on_card(cuda, dt, lo, hi):
+    """The kernel on kv heads ``[lo, hi)`` of a pool of 5 (rows 5 heads
+    apart, the view's pointer at head ``lo``) against its plain version."""
+    q, kp, vp, lengths, tables = _paged_inputs(Hk=5, rep=2, D=64, bs=16, nb=16)
+    q = _t(q[:, lo:hi], dt, cuda)
+    kv = [_t(x, dt, cuda).narrow(2, lo, hi - lo) for x in (kp, vp)]
+    lt, tt = torch.tensor(lengths, device=cuda), torch.tensor(tables, device=cuda)
+    out = paged_attention(q, *kv, lt, tt, window=40)
+    torch.cuda.synchronize()
+    want = paged_attention_ref(q, *kv, lt, tt, window=40)
     torch.testing.assert_close(out.float(), want.float(), **_card_tol(dt))
 
 
@@ -1338,14 +1381,24 @@ def parent_libs():
         subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)],
                        check=True, capture_output=True)
         libs[name] = ctypes.CDLL(str(lib))
+        if name == "paged_attention":
+            libs["paged_heads"] = "pool_heads" in src.read_text()
     return libs
 
 
 def _with_parent(monkeypatch, libs, fn):
-    """``fn()`` with the wrappers' C entries taken from ``libs``."""
+    """``fn()`` with the wrappers' C entries taken from ``libs``.  A paged
+    entry from before the pools' ``pool_heads`` argument (the 11th) is
+    called without it (the wrappers pass contiguous pools here, where it
+    equals ``Hk``)."""
     def entry(name, symbol, argtypes):
         f = getattr(libs[name], symbol)
-        f.argtypes, f.restype = list(argtypes), ctypes.c_int
+        argtypes = list(argtypes)
+        if name == "paged_attention" and not libs["paged_heads"]:
+            del argtypes[10]
+            f.argtypes, f.restype = argtypes, ctypes.c_int
+            return lambda *a: f(*a[:10], *a[11:])
+        f.argtypes, f.restype = argtypes, ctypes.c_int
         return f
 
     with monkeypatch.context() as m:
