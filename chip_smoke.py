@@ -41,7 +41,15 @@ Phases (any failure raises and the script exits non-zero):
    lengths and at phase 8's, plain, softcap 50 and window 4096 with
    softcap 50, bf16 and fp32; timed at phase 8's call (D 160 rep 4),
    phase 9's (D 128 rep 8) and the two rep-16 shapes, with bound, split
-   count and device kernels per call.
+   count and device kernels per call.  The paged kernel's block-range
+   entry (``paged_attention_range``, a data rank's share of the pool's
+   blocks): at phase 3's D-64 shape and qwen3-moe-30b-a3b's D 128 rep 8,
+   phase 3's lengths, plain and window 100 with softcap 30, bf16 and
+   fp32, the pool's two halves (views) launched with their ``block_lo``
+   and merged by the port's LSE combine, held against the whole pool's
+   launch and ``ref.py`` (``TOL``), and the entry over the full range
+   bitwise ``paged_attention``; each half timed, its bound the bytes it
+   reads.
 2b. Hold the ``flat_adam`` kernel against its plain version (fp32, atol
    and rtol 1e-6: the same fp32 formula, differing only in ``powf``,
    ``sqrtf``, division and FMA contraction by an ulp or two) for n in
@@ -225,6 +233,13 @@ Phases (any failure raises and the script exits non-zero):
    process (``--replicas 2 --drain-at 4 --requests 8 --trace-out``):
    every request ``ok``, a valid trace.  Prints the traced and untraced
    decode-step host medians (not gated).
+3o. Phase 3's model and requests through ``ServeEngine(mesh=)`` on a
+   ``(1, 1)`` mesh of one-rank NCCL groups, both layouts: streams bitwise
+   the mesh-less engine's, launches by phase 3's formulas (the paged
+   decode's through the block-range entry), the collectives of a decode
+   step, a prefill and the run by ``serve_collectives`` (the data axis's
+   logit gather and partial merge included), KV bytes a rank; the paged
+   decode step profiled; the launcher's ``--mesh single``.
 4. Train full-width ``smollm-360m`` (seed 0, bf16 compute, both kernels)
    over a 1-rank NCCL group at seq 1024, global batch 8, 2 slices, remat:
    the faithful program for 3 steps and ZeRO for 2 (6 and 3 until phases
@@ -1029,6 +1044,115 @@ def check_paged(torch, dev, results):
         log(f"paged timing {json.dumps(row)}")
         del q, kp, vp, out
     results["paged_timing"] = timings
+    check_paged_block_range(torch, dev, results)
+
+
+# the block-range gate's shapes: phase 3's decode (D 64, 5 kv heads x 3) and
+# qwen3-moe-30b-a3b's (D 128, 4 x 8), at phase 3's lengths, tables of 64
+BLOCK_RANGE_SHAPES = (("D 64", dict(Hk=5, rep=3, D=64)), ("D 128 rep 8", dict(Hk=4, rep=8, D=128)))
+
+
+def halves(NB: int) -> tuple[tuple[int, int], tuple[int, int]]:
+    """Two data ranks' shares ``(lo, n)`` of a pool of ``NB`` blocks."""
+    return (0, NB // 2), (NB // 2, NB - NB // 2)
+
+
+def positions_in(lengths, tables, bs: int, lo: int, n: int) -> tuple[int, int]:
+    """``(distinct pool positions read, positions attended)`` of a decode
+    step whose lanes attend only the entries of blocks ``[lo, lo + n)``."""
+    need = np.zeros((int(tables.max()) + 1, bs), bool)
+    attended = 0
+    for length, row in zip(lengths, tables):
+        for p in range(min(int(length) + 1, row.size * bs)):
+            blk = row[p // bs]
+            if lo <= blk < lo + n:
+                need[blk, p % bs] = True
+                attended += 1
+    return int(need.sum()), attended
+
+
+def check_paged_block_range(torch, dev, results):
+    """Phase 2's gate of the paged kernel's block-range entry (a data rank's
+    share of the pool): the pool's blocks split into two halves
+    (``pool.narrow(0, lo, n)``, views), the kernel launched on each with
+    its ``block_lo`` and the ``(m, l)`` output, the halves merged by the
+    port's LSE combine (``attention.combine_partials``, fp32 partials
+    rounded once), held against the whole pool's launch and against
+    ``ref.py`` within ``TOL``; the entry over the full range, rounded to
+    q's dtype, bitwise the plain entry.  Then each half's call
+    timed (profiler and events, 8 layers of pools walked in turn), its
+    bound the bytes the half reads."""
+    from repro_torch.kernels.paged_attention.ops import (DEVICE_KERNELS, paged_attention,
+                                                         paged_attention_range)
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    from repro_torch.models.attention import combine_partials
+
+    phase3 = [int(p.size) + 10 for p, _ in requests(SMOLLM_VOCAB)[:MAX_SLOTS]]
+    rows, timings = [], []
+    for name, shape in BLOCK_RANGE_SHAPES:
+        for kw in (dict(), dict(window=100, softcap=30.0)):
+            for dt in ("bfloat16", "float32"):
+                q, kp, vp, lengths, tables = paged_inputs(torch, dev, dt, lengths=phase3,
+                                                          nulled=(), **shape)
+                k0, v0 = kp[0], vp[0]
+                whole = paged_attention(q, k0, v0, lengths, tables, **kw)
+                full = paged_attention_range(q, k0, v0, lengths, tables, block_lo=0, **kw)
+                parts = [paged_attention_range(q, k0.narrow(0, lo, n), v0.narrow(0, lo, n),
+                                               lengths, tables, block_lo=lo, **kw)
+                         for lo, n in halves(k0.shape[0])]
+                merged = combine_partials(*(list(x) for x in zip(*parts)), q.dtype)
+                torch.cuda.synchronize()
+                row = dict(shape=name, dtype=dt, q=list(q.shape), **kw,
+                           halves=[list(h) for h in halves(k0.shape[0])],
+                           full_range_bitwise=bool(torch.equal(full[0].to(q.dtype), whole)),
+                           max_abs_err_vs_whole=max_err(torch, merged, whole, dt),
+                           max_abs_err=max_err(torch, merged, paged_attention_ref(
+                               q, k0, v0, lengths, tables, **kw), dt))
+                rows.append(row)
+                log(f"paged block range {json.dumps(row)}")
+                assert row["full_range_bitwise"], row
+                del q, kp, vp, whole, full, parts, merged
+    results["paged_block_range_cases"] = rows
+    dt, L = "bfloat16", 8
+    for name, shape in BLOCK_RANGE_SHAPES:
+        q, kp, vp, lengths, tables = paged_inputs(torch, dev, dt, layers=L, lengths=phase3,
+                                                  nulled=(), **shape)
+        B, Hk, rep, D = q.shape
+        NB = kp.shape[1]
+        esize = q.element_size()
+        for half, (lo, n) in enumerate(halves(NB)):
+            read, attended = positions_in(lengths.cpu().numpy(), tables.cpu().numpy(), PAGE,
+                                          lo, n)
+            # the half's K and V rows and q read, the fp32 partial and its
+            # (m, l) written, the lengths and tables read
+            nbytes = (read * Hk * D * 2 + q.numel()) * esize + 4 * (
+                q.numel() + lengths.numel() + tables.numel() + 2 * B * Hk * rep)
+            row = dict(shape=name, dtype=dt, q=list(q.shape), half=half, blocks=[lo, n],
+                       lengths=lengths.tolist(), pool_positions_read=read,
+                       positions_attended=attended)
+            row["bound_ms"], row["bound_by"] = bound(4 * D * rep * Hk * attended, nbytes, dt)
+            i = [0]
+
+            def step(fn, lo=lo, n=n, **extra):
+                def go():
+                    layer = i[0] % L
+                    i[0] += 1
+                    return fn(q, kp[layer].narrow(0, lo, n), vp[layer].narrow(0, lo, n),
+                              lengths, tables, block_lo=lo, **extra)
+                return go
+
+            row["ms"], kernels = device_profile(torch, step(paged_attention_range), 200)
+            row["device_kernels_per_call"] = kernels_per_call(kernels)
+            assert row["device_kernels_per_call"] == DEVICE_KERNELS, kernels
+            plain = step(paged_attention_ref, with_lse=True)
+            row["plain_ms"] = device_ms(torch, plain, 20)
+            row["ms_events"] = time_ms(torch, step(paged_attention_range), 400)
+            row["plain_ms_events"] = time_ms(torch, plain, 100)
+            row["library_ms"] = None
+            timings.append(row)
+            log(f"paged block range timing {json.dumps(row)}")
+        del q, kp, vp
+    results["paged_block_range_timing"] = timings
 
 
 ADAM_HYPER = dict(lr=1e-3, beta1=0.9, beta2=0.95, eps=1e-8)
@@ -1834,14 +1958,16 @@ DECODE_WRAPPER = ((re.compile(r"::rmsnorm_kernel<[^,]+, 0,"), "rmsnorm"),
                   (re.compile(r"::paged_split_kernel<"), "paged_attention"))
 
 
-def replay_launches(windows, steps: int) -> dict:
+def replay_launches(windows, steps: int, paged: str = "paged_attention") -> dict:
     """{wrapper name: launches per step} of the port's kernels in profile
     windows of ``steps`` graph replays each: what the replays really
     launched, to hold against the counts the graph adds to the wrappers'
     counters.  Each kernel's calls per step are rounded to a whole launch,
     and each wrapper's count is its largest over the windows: the card's
     profiler loses records (the first of a window, and now and then some
-    inside a large one), never adds any."""
+    inside a large one), never adds any.  ``paged``: the paged kernels'
+    wrapper (``paged_attention_range`` where the pool's blocks split over a
+    mesh's data axes)."""
     best = {}
     for kernels in windows:
         per = {}
@@ -1853,11 +1979,12 @@ def replay_launches(windows, steps: int) -> dict:
             else:
                 name = next((w for rx, w in DECODE_WRAPPER if rx.search(e.key)), None)
                 assert name is not None, f"a decode replay launched {e.key[:100]}"
+                name = paged if name == "paged_attention" else name
             per[name] = per.get(name, 0) + round(e.count / steps)
         for name, n in per.items():
             best[name] = max(best.get(name, 0), n)
     combine = best.pop("paged_combine_kernel", 0)
-    assert combine == best.get("paged_attention", 0), (combine, best)
+    assert combine == best.get(paged, 0), (combine, best)
     return best
 
 
@@ -1953,7 +2080,9 @@ def profile_decode(torch, cfg, params, reqs, ec, dev, steps: int = 5, obs=None,
         return None
     # the launch counts the graph adds on every replay, held against what
     # the profiled replays launched
-    measured = replay_launches(recorded, steps)
+    measured = replay_launches(recorded, steps, paged=next(
+        (n for n in ("paged_attention_range", "paged_attention") if n in counted),
+        "paged_attention"))
     assert measured == counted, (measured, counted, [
         (sum(e.count for e in w), {e.key[:60]: e.count for e in w if PORT_KERNEL.match(e.key)})
         for w in recorded])
@@ -3590,14 +3719,19 @@ def serve_collectives(L: int, slotted: bool, *, prefill: bool) -> dict:
     by kind (``models.common.COUNTS``): each layer's seven sharded weights
     and the embedding read twice, gathered over ``data``; the embedding's
     and each layer's two row-parallel sums over ``model``; the logits'
-    gather; the slotted layout's every-head q, k, v gathers and LSE
-    combine a decode layer, or its two every-head k, v gathers a prefill."""
+    gather over ``model``; the slotted layout's every-head q, k, v gathers
+    and LSE combine over ``model`` a decode layer and its lanes' logits
+    gathered over the data axis a step, or its two every-head k, v gathers
+    a prefill; the paged layout's merge of the data ranks' partials (an
+    all-gather of ``(m, l)`` and a sum) a decode layer."""
     out = {"all_gather": 7 * L + 2, "reduce_from_model": 2 * L + 1}
     if prefill:
         out["model_all_gather"] = 1 + (2 if slotted else 0)
     else:
         out["model_all_gather"] = 1 + (3 * L if slotted else 0)
         out["decode_combine"] = 2 * L if slotted else 0
+        out["data_all_gather"] = 1 if slotted else 0
+        out["data_combine"] = 0 if slotted else 2 * L
     return out
 
 
@@ -3606,20 +3740,22 @@ def mesh_serve_path(torch, dev, results):
     16 requests through ``ServeEngine(mesh=)`` on a ``(1, 1)`` mesh of
     one-rank NCCL groups, on both KV layouts: every program inside the
     serving mesh program, every collective issued (each one a copy), the
-    decode step a graph replay holding them.  At one model rank the LSE
-    combine and every collective are identities, so the streams are
-    bitwise the mesh-less engine's (phase 3's, paged; a mesh-less run's,
-    slotted), the kernels launch by phase 3's formulas, the collectives by
-    ``serve_collectives``, and the KV bytes a rank are phase 3's.  Then the
-    launcher's ``--mesh single`` on the card.  Returns the paged run's
-    launch counts."""
+    decode step a graph replay holding them.  At one rank the LSE combines
+    (the model axis's and the data axis's) and every collective are
+    identities, so the streams are bitwise the mesh-less engine's (phase
+    3's, paged; a mesh-less run's, slotted), the kernels launch by phase
+    3's formulas (the paged decode through the block-range entry
+    ``paged_attention_range``: the pool's blocks split over the data
+    axis), the collectives by ``serve_collectives``, and the KV bytes a
+    rank are phase 3's.  Then the launcher's ``--mesh single`` on the card.
+    Returns the paged run's launch counts."""
     import contextlib
     import io
 
     from repro_torch.configs import get_config
     from repro_torch.core.aot import CudaGraphProgram
     from repro_torch.kernels.flash_attention.ops import flash_attention
-    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.kernels.paged_attention.ops import paged_attention, paged_attention_range
     from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_add
     from repro_torch.launch import serve as launcher
     from repro_torch.launch.mesh import init_group, mesh_from_group
@@ -3633,7 +3769,7 @@ def mesh_serve_path(torch, dev, results):
     paged = EngineConfig(max_slots=MAX_SLOTS, max_len=MAX_LEN, kv_layout="paged",
                          page_size=PAGE, paged_attn="kernel")
     slotted = dataclasses.replace(paged, kv_layout="slotted")
-    kernels = (flash_attention, paged_attention, rmsnorm, rmsnorm_add)
+    kernels = (flash_attention, paged_attention, paged_attention_range, rmsnorm, rmsnorm_add)
     L = cfg.n_layers
     group = init_group("nccl", 0, 1, f"tcp://127.0.0.1:{free_port()}", device=dev)
     out = {}
@@ -3704,14 +3840,16 @@ def mesh_serve_path(torch, dev, results):
                            prefill_step_ms_median_phase3=base["prefill_step_ms_median"],
                            kv_reserved_bytes_phase3=base["kv_reserved_bytes"])
                 want_bytes = base["kv_reserved_bytes"]
-                want_launches = dict(flash_attention=L * pre, paged_attention=L * dec,
-                                     **dense_norms(pre, dec))
+                # every paged decode launch is the block-range entry (the
+                # pool's blocks split over the data axis, here one rank)
+                want_launches = dict(flash_attention=L * pre, paged_attention=0,
+                                     paged_attention_range=L * dec, **dense_norms(pre, dec))
             else:
                 row.update(tokens_per_s_mesh_none=ref_tps, kv_reserved_bytes_mesh_none=want_bytes,
                            decode_step_ms_median_mesh_none=ref_median,
                            prefill_step_ms_median_mesh_none=ref_pre_median)
                 want_launches = dict(flash_attention=L * pre, paged_attention=0,
-                                     **dense_norms(pre, dec))
+                                     paged_attention_range=0, **dense_norms(pre, dec))
             log(f"3o mesh (1, 1) {name}: {json.dumps(row)}")
             assert row["identical"] == len(reqs) and all(
                 c.status == "ok" for c in eng.completions.values()), row
@@ -5609,7 +5747,7 @@ def fsdp_collectives(cfg, per: int) -> dict:
     no full copy outlives the forward).  Each gather of the forward has
     one reduce-scatter; the recompute's and the backward's have none."""
     from repro_torch.models import zamba
-    from repro_torch.models.common import ShardRules
+    from repro_torch.models.common import COUNTS, ShardRules
     from repro_torch.optim.fsdp import make_shard_layout
 
     shards = make_shard_layout(cfg, ShardRules.for_group(None), 1)
@@ -5618,10 +5756,8 @@ def fsdp_collectives(cfg, per: int) -> dict:
     if cfg.family == "hybrid":
         remat = cfg.n_layers * count("mamba")
         plain += zamba.n_shared_invocations(cfg) * count("shared")
-    return dict(all_gather=(2 * plain - 1 + 2 * remat) * per,
-                reduce_scatter=(plain + remat) * per, copy_to_model=0,
-                reduce_from_model=0, model_all_gather=0, model_reduce_scatter=0, vocab_ce=0,
-                decode_combine=0)
+    return {**dict.fromkeys(COUNTS, 0), "all_gather": (2 * plain - 1 + 2 * remat) * per,
+            "reduce_scatter": (plain + remat) * per}
 
 
 def mesh_collectives(cfg, per: int) -> dict:
@@ -6087,6 +6223,7 @@ def main() -> int:
                                if "flat_adam_kernel" in k["name"]) or None
     # each row carries its time as kernel_ms and, for the chip check's
     # reader, as ms (the same number)
+    br = {(r["shape"], r["half"]): r for r in results["paged_block_range_timing"]}
     kernels = [
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
@@ -6182,6 +6319,28 @@ def main() -> int:
                          if (r.get("rep"), r.get("D"), r["dtype"]) == (rep, D, dt))
                  for dt in ("bfloat16", "float32")} for rep, D, _ in PAGED_WIDE},
              **later["paged_attention"]),
+        dict(name="paged_attention_range", route="cuda",
+             source="src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
+             replaces="src/repro/kernels/paged_attention/kernel.py:30",
+             jax_function=("repro.kernels.paged_attention.kernel.paged_attention_fwd on a data "
+                           "rank's blocks (repro.models.lm.paged_cache_pspec)"),
+             shape=("q (8, 5, 3, 64) bf16, blocks [0, 256) of a pool of 513 x 16 x 5 x 64, "
+                    "phase 3's lengths, (m, l) out"),
+             launches=mesh_launches["paged_attention_range"],
+             max_abs_err=max(r["max_abs_err"] for r in results["paged_block_range_cases"]
+                             if r["dtype"] == "bfloat16"),
+             max_abs_err_vs_whole=max(r["max_abs_err_vs_whole"]
+                                      for r in results["paged_block_range_cases"]
+                                      if r["dtype"] == "bfloat16"),
+             full_range_bitwise=all(r["full_range_bitwise"]
+                                    for r in results["paged_block_range_cases"]),
+             kernel_ms=br[("D 64", 0)]["ms"], ms=br[("D 64", 0)]["ms"],
+             ms_events=br[("D 64", 0)]["ms_events"], plain_ms=br[("D 64", 0)]["plain_ms"],
+             bound_ms=br[("D 64", 0)]["bound_ms"], bound_by=br[("D 64", 0)]["bound_by"],
+             library_ms=None, device_kernels_per_call=br[("D 64", 0)]["device_kernels_per_call"],
+             halves={f"{name} half {h}": {k: r[k] for k in (
+                 "blocks", "pool_positions_read", "ms", "ms_events", "plain_ms", "bound_ms",
+                 "bound_by")} for (name, h), r in br.items()}),
         dict(name="flat_adam", route="cuda",
              source="src/repro_torch/kernels/flat_adam/csrc/flat_adam.cu",
              replaces="src/repro/kernels/flat_adam/kernel.py:18",

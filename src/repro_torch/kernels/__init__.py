@@ -12,9 +12,9 @@ def launch_counters() -> tuple:
     """Every kernel wrapper of the package; each holds its ``.launches``."""
     from .flash_attention.ops import flash_attention
     from .flat_adam.ops import flat_adam
-    from .paged_attention.ops import paged_attention
+    from .paged_attention.ops import paged_attention, paged_attention_range
     from .rmsnorm.ops import rmsnorm, rmsnorm_add, rmsnorm_gated
     from .ssd.ops import ssd
 
-    return (flash_attention, paged_attention, rmsnorm, rmsnorm_add, rmsnorm_gated, ssd,
-            flat_adam)
+    return (flash_attention, paged_attention, paged_attention_range, rmsnorm, rmsnorm_add,
+            rmsnorm_gated, ssd, flat_adam)

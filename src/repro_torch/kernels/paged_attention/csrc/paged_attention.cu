@@ -50,7 +50,22 @@
 //     itself (splits no CTA wrote are never read), merges them by
 //     log-sum-exp with weight 0 for l = 0, and writes o in q's dtype.
 // Stale lanes (table rows nulled to the sink block 0) read block 0; the
-// engine discards their output.  At the serving shape (nb 64 of 16
+// engine discards their output.
+//
+// A local block range (a data rank's share of a pool whose blocks split
+// over the data axes).  The pools are the rank's blocks [block_lo,
+// block_lo + n_local) of the global pool; table entries stay global ids.
+// An entry outside the range is neither loaded nor scored (its rows are
+// zeros in shared memory and its positions masked), a split with no
+// local entry writes the empty partial (m = NEG_INF, l = 0, acc = 0)
+// without touching the pools, and a local entry e reads the rank's block
+// e - block_lo.  Optionally the combine also writes the merged fp32 (m, l)
+// of each (lane, head, rep), and then o in fp32 too (a partial, rounded
+// once after the merge across ranks, not before), for a log-sum-exp merge
+// across ranks; a lane with nothing local gives m = NEG_INF, l = 0 and
+// o = 0.
+// With block_lo = 0 and n_local covering every entry, the loads, the
+// scores and the merge are the full pool's, operation for operation.  At the serving shape (nb 64 of 16
 // positions, bps 4) that is 640 split CTAs, where the first kernel had 40.
 
 #include <cuda_bf16.h>
@@ -144,7 +159,7 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
                    const int* __restrict__ tables, float* __restrict__ part_m,
                    float* __restrict__ part_l, float* __restrict__ part_acc, int Hk,
                    int pool_heads, int rep, int bs, int nb, int bps, int n_split,
-                   int window, float softcap, float scale) {
+                   int window, int block_lo, int n_local, float softcap, float scale) {
   constexpr int E = 16 / sizeof(T);    // elements per 16-byte chunk
   constexpr int CPR = D / E;           // chunks per row (8-20 bf16, 16-40 fp32)
   constexpr int DP = D / 2;            // dim pairs: P.V work items per rep
@@ -163,15 +178,35 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
   const int tid = threadIdx.x;
   const int p0 = (j0 - s * bps) * bs, p1 = (j1 - s * bps) * bs;   // positions held
   const int* row = tables + (long)b * nb;
+  const long part = ((long)(b * Hk + h) * n_split + s) * rep;
 
-  // every K and V chunk of the split in flight at once
+  // a split with no block of the local range: the empty partial
+  bool any_local = false;
+  for (int j = j0; j < j1; ++j)
+    any_local |= (unsigned)(row[j] - block_lo) < (unsigned)n_local;
+  if (!any_local) {
+    for (int e = tid; e < rep * D; e += NTHREADS) part_acc[part * D + e] = 0.f;
+    for (int r = tid; r < rep; r += NTHREADS) {
+      part_m[part + r] = NEG_INF;
+      part_l[part + r] = 0.f;
+    }
+    return;
+  }
+
+  // every local K and V chunk of the split in flight at once; another
+  // rank's blocks are zeros
   for (int e = tid; e < (p1 - p0) * CPR; e += NTHREADS) {
     const int p = p0 + e / CPR, c = e % CPR;
-    const long src =
-        (((long)row[s * bps + p / bs] * bs + p % bs) * pool_heads + h) * D + c * E;
+    const int blk = row[s * bps + p / bs] - block_lo;
     const int dst = p * D + swizzle<CPR>(c, p) * E;
-    cp_async16(&ks[dst], kpool + src);
-    cp_async16(&vs[dst], vpool + src);
+    if ((unsigned)blk < (unsigned)n_local) {
+      const long src = (((long)blk * bs + p % bs) * pool_heads + h) * D + c * E;
+      cp_async16(&ks[dst], kpool + src);
+      cp_async16(&vs[dst], vpool + src);
+    } else {
+      *reinterpret_cast<uint4*>(&ks[dst]) = make_uint4(0u, 0u, 0u, 0u);
+      *reinterpret_cast<uint4*>(&vs[dst]) = make_uint4(0u, 0u, 0u, 0u);
+    }
   }
   asm volatile("cp.async.commit_group;\n" ::: "memory");
   const long q_base = ((long)b * Hk + h) * rep * D;
@@ -185,7 +220,8 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
     const int p = tid % SPLIT_POS, g = tid / SPLIT_POS;
     const bool held = p >= p0 && p < p1;
     const int pos = s * bps * bs + p;
-    bool ok = held && pos <= length;
+    bool ok = held && pos <= length
+              && (unsigned)(row[s * bps + p / bs] - block_lo) < (unsigned)n_local;
     if (window > 0) ok = ok && pos > length - window;
     const T* krow = &ks[p * D];
     for (int r = g; r < rep; r += 2) {
@@ -208,7 +244,6 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
 
   // softmax partial per rep: warp w takes reps w, w + 4
   const int warp = tid / 32, lane = tid % 32;
-  const long part = ((long)(b * Hk + h) * n_split + s) * rep;
   for (int r = warp; r < rep; r += NTHREADS / 32) {
     float* pr = ps + r * SPLIT_POS;
     const float a = pr[lane], c = pr[lane + 32];
@@ -249,13 +284,15 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
 // = 1024, two or four past it.  The live splits' m and l are staged in
 // shared memory SB splits at a time (all the loads in flight together) and
 // merged online across batches; each element's merge is the same sequence
-// of operations whatever EPT is.
-template <typename T, int D, int EPT>
+// of operations whatever EPT is.  o is in OT: q's dtype, or fp32 where
+// ``out_m`` (and ``out_l``) are given, and the thread of dim 0 of each rep
+// also writes the merged m and l.
+template <typename T, int D, int EPT, typename OT>
 __global__ void __launch_bounds__(1024)
 paged_combine_kernel(const int* __restrict__ lengths, const float* __restrict__ part_m,
                      const float* __restrict__ part_l, const float* __restrict__ part_acc,
-                     T* __restrict__ o, int Hk, int rep, int bs, int nb, int bps,
-                     int n_split, int window) {
+                     OT* __restrict__ o, float* __restrict__ out_m, float* __restrict__ out_l,
+                     int Hk, int rep, int bs, int nb, int bps, int n_split, int window) {
   constexpr int SB = D;                // splits staged at once
   __shared__ float sm[SB * MAX_REP], sl[SB * MAX_REP];
   const int b = blockIdx.x, h = blockIdx.y, tid = threadIdx.x, nt = blockDim.x;
@@ -301,15 +338,21 @@ paged_combine_kernel(const int* __restrict__ lengths, const float* __restrict__ 
     }
   }
 #pragma unroll
-  for (int u = 0; u < EPT; ++u)
-    o[((long)b * Hk + h) * rep * D + tid + u * nt] = from_f<T>(og[u] / fmaxf(lg[u], 1e-30f));
+  for (int u = 0; u < EPT; ++u) {
+    o[((long)b * Hk + h) * rep * D + tid + u * nt] = from_f<OT>(og[u] / fmaxf(lg[u], 1e-30f));
+    if (out_m != nullptr && (tid + u * nt) % D == 0) {
+      const long r = ((long)b * Hk + h) * rep + (tid + u * nt) / D;
+      out_m[r] = mg[u];
+      out_l[r] = lg[u];
+    }
+  }
 }
 
 template <typename T, int D>
 int launch(const void* q, const void* kp, const void* vp, const int* lengths,
-           const int* tables, void* o, float* scratch, int B, int Hk, int pool_heads,
-           int rep, int bs, int nb, int bps, int n_split, int window, float softcap,
-           float scale, cudaStream_t stream) {
+           const int* tables, void* o, float* scratch, float* ml, int B, int Hk,
+           int pool_heads, int rep, int bs, int nb, int bps, int n_split, int window,
+           int block_lo, int n_local, float softcap, float scale, cudaStream_t stream) {
   if (Hk > 65535 || n_split > 65535) return (int)cudaErrorInvalidValue;
   static bool smem_set[64] = {};       // once per process, device and instantiation
   int dev = 0;
@@ -331,20 +374,31 @@ int launch(const void* q, const void* kp, const void* vp, const int* lengths,
   paged_split_kernel<T, D><<<dim3(B, Hk, n_split), NTHREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kp), static_cast<const T*>(vp),
       lengths, tables, part_m, part_l, part_acc, Hk, pool_heads, rep, bs, nb, bps, n_split,
-      window, softcap, scale);
+      window, block_lo, n_local, softcap, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int elems = rep * D;
-#define COMBINE(EPT)                                                                         \
-  paged_combine_kernel<T, D, EPT><<<dim3(B, Hk), elems / EPT, 0, stream>>>(                  \
-      lengths, part_m, part_l, part_acc, static_cast<T*>(o), Hk, rep, bs, nb, bps, n_split,  \
-      window)
-  if (elems <= 1024)
-    COMBINE(1);
-  else if (elems <= 2048)
-    COMBINE(2);
-  else
-    COMBINE(4);
+  float* out_m = ml;
+  float* out_l = ml == nullptr ? nullptr : ml + (long)B * Hk * rep;
+#define COMBINE(EPT, OT)                                                                     \
+  paged_combine_kernel<T, D, EPT, OT><<<dim3(B, Hk), elems / EPT, 0, stream>>>(              \
+      lengths, part_m, part_l, part_acc, static_cast<OT*>(o), out_m, out_l, Hk, rep, bs, nb, \
+      bps, n_split, window)
+  if (ml == nullptr) {
+    if (elems <= 1024)
+      COMBINE(1, T);
+    else if (elems <= 2048)
+      COMBINE(2, T);
+    else
+      COMBINE(4, T);
+  } else {
+    if (elems <= 1024)
+      COMBINE(1, float);
+    else if (elems <= 2048)
+      COMBINE(2, float);
+    else
+      COMBINE(4, float);
+  }
 #undef COMBINE
   return (int)cudaGetLastError();
 }
@@ -354,23 +408,27 @@ int launch(const void* q, const void* kp, const void* vp, const int* lengths,
 // C entry point.  dtype: 0 = float32, 1 = bfloat16; head dim 64, 128 or 160,
 // the ones the ported configs use, and rep up to 16; pool_heads >= Hk (the
 // pools' heads per row; the pointers at the first head read).  `scratch` holds B * Hk
-// * n_split * rep * (D + 2) floats: the splits' m, then l, then acc.  Two device kernels per call
-// (split, combine).  Returns the launches' cudaGetLastError() (0 =
-// launched).
+// * n_split * rep * (D + 2) floats: the splits' m, then l, then acc.  The
+// pools hold the blocks [block_lo, block_lo + n_local) of the tables' ids;
+// `ml` is null or 2 * B * Hk * rep floats, the merged m then l, and then o
+// is fp32 (B * Hk * rep * D floats) whatever the dtype of q.  Two device
+// kernels per call (split, combine).  Returns the launches'
+// cudaGetLastError() (0 = launched).
 extern "C" int paged_attention_fwd(const void* q, const void* k_pool,
                                    const void* v_pool, const int* lengths,
-                                   const int* tables, void* o, float* scratch,
+                                   const int* tables, void* o, float* scratch, float* ml,
                                    int dtype, int B, int Hk, int pool_heads, int rep,
                                    int D, int bs, int nb, int bps, int n_split,
-                                   int window, float softcap, float scale, void* stream) {
+                                   int window, int block_lo, int n_local, float softcap,
+                                   float scale, void* stream) {
   if ((D != 64 && D != 128 && D != 160) || rep < 1 || rep > MAX_REP || bs < 1 || bs > MAX_BS
       || nb < 1 || bps < 1 || bps * bs > SPLIT_POS || n_split != (nb + bps - 1) / bps
-      || pool_heads < Hk)
+      || pool_heads < Hk || block_lo < 0 || n_local < 1)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define PAGED_LAUNCH(T, DD)                                                                  \
-  launch<T, DD>(q, k_pool, v_pool, lengths, tables, o, scratch, B, Hk, pool_heads, rep, bs, \
-                nb, bps, n_split, window, softcap, scale, st)
+  launch<T, DD>(q, k_pool, v_pool, lengths, tables, o, scratch, ml, B, Hk, pool_heads, rep,  \
+                bs, nb, bps, n_split, window, block_lo, n_local, softcap, scale, st)
   if (dtype == 0)
     return D == 64    ? PAGED_LAUNCH(float, 64)
            : D == 128 ? PAGED_LAUNCH(float, 128)

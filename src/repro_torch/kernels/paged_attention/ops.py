@@ -13,6 +13,19 @@ call makes no host sync), writes each live split's softmax partial to
 fp32 scratch (:func:`scratch_shapes`, allocated here with
 ``torch.empty``) and merges a lane's splits in a second device kernel:
 one call, one count in ``launches``, ``DEVICE_KERNELS`` device kernels.
+
+A data rank of a serving mesh holds a share of the pool's blocks: the
+block-range entry ``paged_attention_range`` (its own ``launches``) takes
+the pools as the global blocks ``[block_lo, block_lo + NB_local)``
+(``pool.narrow(0, lo, n)`` or the rank's own tensor), the tables keep
+global ids, and an entry outside the range is neither loaded nor scored.
+It also returns the merged fp32 ``(m, l)`` of each ``(lane, head, rep)``
+(the combine kernel writes them beside ``out``; no further launch), the
+partial a log-sum-exp merge across ranks needs
+(``models.attention.combine_partials``), and ``out`` in fp32; a lane with
+no local block gives ``m = NEG_INF``, ``l = 0`` and a zero output.  With
+``block_lo = 0`` and the whole pool its output rounded to q's dtype is
+:func:`paged_attention`'s bitwise.
 """
 from __future__ import annotations
 
@@ -30,7 +43,7 @@ MAX_REP = 16                    # query heads per KV head the kernel holds
 MAX_BLOCK_SIZE = 32             # positions per table block the kernel takes
 SPLIT_POSITIONS = 64            # positions one split holds at most (csrc)
 DEVICE_KERNELS = 2              # per call: the splits, then their combine
-_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 11
+_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 13
              + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
 
 
@@ -116,10 +129,41 @@ def paged_attention(q, k_pool, v_pool, lengths, tables, *, window: int = 0,
     lengths[b]]``; tables: (B, nb) int32 block-table rows.  Returns (B,
     Hk, rep, D) in q.dtype.
     """
+    out = _paged(q, k_pool, v_pool, lengths, tables, window, softcap, 0, False)
+    if q.device.type == "cuda":
+        paged_attention.launches += 1
+    return out
+
+
+def paged_attention_range(q, k_pool, v_pool, lengths, tables, *, block_lo: int,
+                          window: int = 0, softcap: float = 0.0):
+    """The block-range entry: :func:`paged_attention` on a data rank's share
+    of the pool.  The pools (a contiguous pool, a run of its heads, or
+    blocks of one: ``pool.narrow(0, lo, n)``) hold the global blocks
+    ``[block_lo, block_lo + NB)``; the tables keep global ids and a lane
+    attends only its entries in that range.  Returns ``(out, m, l)``: out
+    (B, Hk, rep, D) fp32 (a partial: rounding it to q's dtype before the
+    merge across ranks would round twice), the softmax's merged max and
+    sum (B, Hk, rep) fp32, a lane with no local block ``m = NEG_INF``, ``l
+    = 0`` and a zero output (``models.attention.combine_partials`` merges
+    ranks).  Over the whole pool ``out.to(q.dtype)`` is
+    :func:`paged_attention`'s output bitwise.  Counted in its own
+    ``launches``."""
+    out = _paged(q, k_pool, v_pool, lengths, tables, window, softcap, block_lo, True)
+    if q.device.type == "cuda":
+        paged_attention_range.launches += 1
+    return out
+
+
+def _paged(q, k_pool, v_pool, lengths, tables, window, softcap, block_lo, with_lse):
+    """Both entries: the plain version on CPU tensors, else one launch of
+    the kernel (``ml`` null without ``with_lse``)."""
     _check(q, k_pool, v_pool, lengths, tables)
+    if block_lo < 0:
+        raise ValueError(f"block_lo {block_lo} < 0")
     if q.device.type == "cpu":
-        return paged_attention_ref(q, k_pool, v_pool, lengths, tables,
-                                   window=window, softcap=softcap)
+        return paged_attention_ref(q, k_pool, v_pool, lengths, tables, window=window,
+                                   softcap=softcap, block_lo=block_lo, with_lse=with_lse)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention runs on cuda or cpu, not {q.device}")
     _check_kernel(q, k_pool, v_pool, lengths, tables)
@@ -131,16 +175,18 @@ def paged_attention(q, k_pool, v_pool, lengths, tables, *, window: int = 0,
     scratch = torch.empty(sum(math.prod(s) for s in shapes.values()),
                           dtype=torch.float32, device=q.device)
     fn = _build.entry("paged_attention", "paged_attention_fwd", _ARGTYPES)
-    out = torch.empty_like(q)
+    out = torch.empty(q.shape, dtype=torch.float32 if with_lse else q.dtype, device=q.device)
+    ml = torch.empty((2, B, Hk, rep), dtype=torch.float32, device=q.device) \
+        if with_lse else None
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             lengths.data_ptr(), tables.data_ptr(), out.data_ptr(),
-            scratch.data_ptr(), _DTYPES[q.dtype], B, Hk, pool_heads(k_pool), rep, D, bs,
-            nb, bps,
-            n_split, int(window), float(softcap), float(D ** -0.5), stream)
+            scratch.data_ptr(), None if ml is None else ml.data_ptr(), _DTYPES[q.dtype],
+            B, Hk, pool_heads(k_pool), rep, D, bs, nb, bps, n_split, int(window),
+            int(block_lo), k_pool.shape[0], float(softcap), float(D ** -0.5), stream)
     _build.check(rc, "paged_attention")
-    paged_attention.launches += 1
-    return out
+    return (out, ml[0], ml[1]) if with_lse else out
 
 
 paged_attention.launches = 0
+paged_attention_range.launches = 0

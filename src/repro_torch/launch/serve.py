@@ -69,9 +69,11 @@ card, gloo with ``--device cpu``) and ``production`` (``(16, 16)`` over
 256 ranks).  Every rank runs the same schedule on rank 0's clock and
 rank 0 prints; the weights are each rank's shards, drawn directly
 (``optim.fsdp.init_shards``), and the summary names the mesh and the KV
-bytes a rank holds.  On a mesh the slotted layout's ``max_len`` is
-rounded up to a multiple of the model size (its lanes split by
-position):
+bytes a rank holds: its share of the lanes (slotted, ``--max-slots`` over
+the data axes where it divides) or of the pool's blocks (paged, over the
+data axes).  On a mesh the slotted layout's ``max_len`` is rounded up to
+a multiple of the ranks each lane's positions split over (the model
+size, or every rank where the lanes do not divide):
 
     torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
         --arch gemma2-27b --smoke --device cpu --mesh local
@@ -156,6 +158,21 @@ def print_latency_summary(router) -> None:
         print(f"   {status:9s} n={n:4d}  ttft {fmt(ttft)}  per-token {fmt(tpot)}")
 
 
+def kv_share(engine) -> str:
+    """On a mesh, the rank's part of the KV cache: its bytes and its lanes
+    (slotted) or blocks (paged) beside the whole."""
+    if engine.mesh is None:
+        return ""
+    if engine.shards is None:               # a family served whole on every rank
+        return f" ({engine.kv_reserved_bytes} bytes: the whole cache)"
+    k = engine.state["cache"]["k"]
+    if engine.paged:
+        part = f"{k.shape[-4]} of {engine._num_blocks} blocks"
+    else:
+        part = f"{k.shape[-4]} of {engine.econ.max_slots} lanes x {k.shape[-3]} positions"
+    return f" ({engine.kv_reserved_bytes} bytes: {part})"
+
+
 def run_stream(cfg, params, args, rng, device, mesh=None) -> Router:
     """Drive ``--replicas`` engines behind the router with a Poisson
     arrival trace; print each request and a summary.  Returns the drained
@@ -168,7 +185,9 @@ def run_stream(cfg, params, args, rng, device, mesh=None) -> Router:
     if args.kv_layout == "paged":
         max_len = -(-max_len // args.page_size) * args.page_size
     elif mesh is not None:
-        m = mesh.size("model")
+        from repro_torch.models.attention import DecodeSharding
+
+        m = DecodeSharding.choose(mesh, args.max_slots).seq_ranks
         max_len = -(-max_len // m) * m
     faults = None
     if args.replica_chaos_rate > 0:
@@ -244,7 +263,7 @@ def run_stream(cfg, params, args, rng, device, mesh=None) -> Router:
         line = (f"-- replica {h.idx} [{h.state}] state[{s['state_kind']}/{args.kv_layout}]: "
                 f"{s['kv_peak_used_bytes'] / 2**20:.2f} MiB peak used / "
                 f"{h.engine.kv_reserved_bytes / 2**20:.2f} MiB reserved"
-                f"{'' if mesh is None else ' a rank'}  "
+                f"{'' if mesh is None else ' a rank'}{kv_share(h.engine)}  "
                 f"prefills {s['prefills']} decode_steps {s['decode_steps']}")
         if args.kv_layout == "paged":
             line += (f"  chunks {s['prefill_chunks']} prefix hit_rate "

@@ -5,9 +5,13 @@ The port of the reference's ``models/attention.py``.
 over query/key chunks so the (S x S) score matrix is never materialised —
 the same blocking the CUDA kernel (kernels/flash_attention) uses, and its
 yardstick.  ``decode_attention`` is the slotted decode step, on one
-device or with each lane's positions split over a mesh's model axis and
-the ranks' softmax partials combined by log-sum-exp (``DecodeSharding``,
-the reference's sequence-sharded ``shard_fn``).
+device or with each lane's positions split over a mesh's model axis (or,
+under the batch fallback, over every rank) and the ranks' softmax
+partials combined by log-sum-exp (``DecodeSharding``, the reference's
+sequence-sharded ``shard_fn``).  The paged decode runs on a data rank's
+share of the pool's blocks the same way: every lane attends the rank's
+blocks and the ranks' normalised partials merge by log-sum-exp
+(:func:`data_combine`).
 
 Cache writes are in place: JAX returns updated caches, the port updates
 the caller's cache tensors (a layer's slice of the stacked cache is a
@@ -160,19 +164,74 @@ def chunked_attention(
 # ---------------------------------------------------------------------------
 
 
-def _masked_decode_softmax(q, k, v, valid, softcap: float):
+def _masked_decode_lse(q, k, v, valid, softcap: float):
     """q (B, Hk, rep, D); k/v (B, S, Hk, D); valid (B, S).  One masked
     fp32 softmax — shared by the slotted path and the paged plain version,
-    so the two layouts are bitwise equal on equal logical inputs."""
+    so the two layouts are bitwise equal on equal logical inputs.  Returns
+    ``(out, m, l)`` in fp32: the output before its rounding to q's dtype,
+    the row maxima and sums of the softmax ((B, Hk, rep)); a row with no
+    valid position gives ``m = NEG_INF``, ``l = 0`` and a zero output."""
     s = torch.einsum("bhrd,bshd->bhrs", q.float(), k.float()) * (q.shape[-1] ** -0.5)
     if softcap:
         s = softcap * torch.tanh(s / softcap)
-    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    vmask = valid[:, None, None, :]
+    s = torch.where(vmask, s, NEG_INF)
     m = s.amax(dim=-1)
-    p = torch.exp(s - m[..., None])
+    # a masked position's exp(NEG_INF - m) is 0 wherever one is valid
+    p = torch.where(vmask, torch.exp(s - m[..., None]), 0.0)
     l = p.sum(dim=-1)
     o = torch.einsum("bhrs,bshd->bhrd", p, v.float())
-    return (o / torch.clamp_min(l, 1e-30)[..., None]).to(q.dtype)
+    return o / torch.clamp_min(l, 1e-30)[..., None], m, l
+
+
+def _masked_decode_softmax(q, k, v, valid, softcap: float):
+    """:func:`_masked_decode_lse`'s output alone, in q's dtype."""
+    return _masked_decode_lse(q, k, v, valid, softcap)[0].to(q.dtype)
+
+
+def lse_weights(m, l):
+    """Each rank's weight in a log-sum-exp merge of normalised partial
+    outputs.  m, l: (R, ...) the ranks' softmax maxima and sums, in rank
+    order.  ``a_r = l_r exp(m_r - M)``, ``M`` the largest ``m`` floored at
+    -1e30 (a rank with nothing to attend has ``m = NEG_INF``, ``l = 0``
+    and weight 0), and the weight ``a_r / sum(a)``: at one rank ``l / l``,
+    exactly 1, so the merged output is the rank's own bitwise."""
+    m_g = torch.clamp_min(m.amax(dim=0), -1e30)
+    a = l * torch.exp(m - m_g)
+    return a / torch.clamp_min(a.sum(dim=0), 1e-30)
+
+
+def combine_partials(outs, ms, ls, dtype=None):
+    """The ranks' normalised partials ``(o_r, m_r, l_r)`` (lists in rank
+    order; o (B, Hk, rep, D), m and l (B, Hk, rep), all fp32) merged in
+    one process: ``sum_r o_r w_r`` (:func:`lse_weights`) in fp32, summed
+    in rank order, then rounded once to ``dtype`` (default o's).
+    :func:`data_combine` is the same merge over a process group."""
+    w = lse_weights(torch.stack(ms), torch.stack(ls))
+    acc = outs[0].float() * w[0][..., None]
+    for o, wr in zip(outs[1:], w[1:]):
+        acc = acc + o.float() * wr[..., None]
+    return acc.to(dtype or outs[0].dtype)
+
+
+def data_combine(o, m, l, group, dtype=None):
+    """:func:`combine_partials` over ``group`` (a ``DataGroup`` view: the
+    data ranks, each holding a share of the pool's blocks): the ranks'
+    ``(m, l)`` all-gathered, each rank's weight computed from them, then
+    one ``all_reduce`` (SUM) of ``o w``.  Two collectives, counted in
+    ``common.COUNTS["data_combine"]``; every rank ends with the same
+    output, rounded once to ``dtype`` (default o's)."""
+    from .common import COUNTS
+
+    ml = torch.stack([m, l])
+    every = torch.empty((group.world * 2,) + tuple(m.shape), dtype=ml.dtype, device=ml.device)
+    dist.all_gather_into_tensor(every, ml, group=group.pg)
+    every = every.view((group.world, 2) + tuple(m.shape))
+    w = lse_weights(every[:, 0], every[:, 1])[group.rank]
+    out = o.float() * w[..., None]
+    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group.pg)
+    COUNTS["data_combine"] += 2
+    return out.to(dtype or o.dtype)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -180,9 +239,11 @@ class DecodeSharding:
     """How the slotted KV cache lies on a mesh for decoding: the
     reference's ``DecodeSharding``, the axes that split the lanes and the
     axes that split each lane's positions.  :meth:`choose` makes the
-    reference's choice; the port realises its model-axis half, the
-    positions over ``model`` (:meth:`local_len`), and keeps the lanes
-    whole on every data rank (the replicated-lanes deviation)."""
+    reference's choice and the port realises both halves: a rank holds
+    the lanes :meth:`local_lanes` gives (contiguous, in the row-major order
+    of ``("pod", "data")``, as ``P(("pod", "data"))`` lays them out), each
+    with :meth:`local_len` of its positions, those of its rank in
+    :attr:`seq_group`."""
 
     mesh: Any
     batch_axes: tuple[str, ...]
@@ -200,15 +261,50 @@ class DecodeSharding:
             return cls(mesh, dp, tp)
         return cls(mesh, (), dp + tp)
 
+    @property
+    def lane_ranks(self) -> int:
+        """Ranks the lanes split over (1: every rank holds every lane)."""
+        return math.prod(self.mesh.size(a) for a in self.batch_axes)
+
+    @property
+    def seq_ranks(self) -> int:
+        """Ranks each lane's positions split over."""
+        return math.prod(self.mesh.size(a) for a in self.seq_axes)
+
     def local_len(self, max_len: int) -> int:
-        """Positions of a lane this rank holds: ``max_len`` over the model
-        axis (it must divide)."""
-        n = self.mesh.size("model")
+        """Positions of a lane this rank holds: ``max_len`` over the
+        product of the sequence axes (it must divide)."""
+        n = self.seq_ranks
         if max_len % n:
-            raise ValueError(f"max_len {max_len} does not divide over {n} model ranks "
-                             "(the slotted cache splits each lane's positions over "
-                             f"the model axis; round it up to a multiple of {n})")
+            raise ValueError(f"max_len {max_len} does not divide over {n} ranks of "
+                             f"{self.seq_axes} (the slotted cache splits each lane's "
+                             f"positions over them; round it up to a multiple of {n})")
         return max_len // n
+
+    def local_lanes(self, max_slots: int) -> tuple[int, int]:
+        """``[lo, hi)``: the lanes of ``max_slots`` this rank holds, its
+        rank over the data axes times ``max_slots / ndp`` on (every lane
+        where the lanes do not split)."""
+        n = self.lane_ranks
+        if n == 1:
+            return 0, max_slots
+        per = max_slots // n
+        r = self.mesh.data.rank
+        return r * per, (r + 1) * per
+
+    @property
+    def seq_group(self):
+        """The group (a ``DataGroup`` view) each lane's positions split
+        over, a rank's index in it its share: the model axis, or under the
+        batch fallback every rank in the order of the reference's
+        ``axis_index(("pod", "data", "model"))``, row-major, which is the
+        world's rank order (``launch.mesh.mesh_coords``)."""
+        if self.seq_axes == ("model",):
+            return self.mesh.model
+        from repro_torch.launch.mesh import DataGroup
+
+        m = self.mesh
+        return DataGroup(m.pg, m.rank, m.world, m.device)
 
 
 def decode_attention(q, k_cache, v_cache, k_new, v_new, cur_index, *,
@@ -318,11 +414,40 @@ def _physical_rows(table, positions, bs: int, nb: int):
     return blk * bs + off
 
 
-def paged_write_token(pool, tables, lengths, new):
+def _write_rows(flat, rows, new, blocks, bs: int):
+    """``flat[..., rows, :, :] = new`` along the row axis (``flat.dim() -
+    3``), in place, where ``rows`` are flat rows of the global pool.  With
+    ``blocks = (lo, n)`` ``flat`` holds the global blocks ``[lo, lo + n)``:
+    only the entries in them are written (at their local rows), and no
+    host sync decides which: an entry of another rank's block rewrites the
+    local row of this call's first local entry with that entry's value,
+    or, when no entry is local, local row 0 with what it holds, so that
+    rows written twice always receive one value."""
+    ax = flat.dim() - 3
+    lead = (slice(None),) * ax
+    if blocks is None:
+        flat[lead + (rows,)] = new.to(flat.dtype)
+        return
+    lo, n = blocks
+    blk = rows // bs
+    local = (blk >= lo) & (blk < lo + n)
+    lrows = rows - lo * bs
+    first = torch.argmax(local.to(torch.int32)).reshape(1)   # the first local entry, or 0
+    any_local = local.any()
+    target = torch.where(any_local, lrows.index_select(0, first), 0)
+    fill = torch.where(any_local, new.index_select(ax, first).to(flat.dtype),
+                       flat.index_select(ax, target))
+    shape = (-1,) + (1,) * (new.dim() - ax - 1)
+    vals = torch.where(local.view(shape), new.to(flat.dtype), fill)
+    flat[lead + (torch.where(local, lrows, target),)] = vals
+
+
+def paged_write_token(pool, tables, lengths, new, blocks=None):
     """Write one new token's K or V per lane at logical ``lengths[b]``,
     in place.  pool: (NB, bs, Hk, D); tables: (B, nb); new: (B, Hk, D).
     Lanes whose block for that position is unmapped write into the sink.
-    """
+    ``blocks``: ``(lo, NB)``, the global blocks the pool holds (a data
+    rank's share): only the lanes whose block is one of them write."""
     NB, bs = pool.shape[:2]
     nb = tables.shape[1]
     lengths = lengths.long()
@@ -330,15 +455,16 @@ def paged_write_token(pool, tables, lengths, new):
     blk = torch.gather(tables.long(), 1, li[:, None])[:, 0]
     off = torch.clamp(lengths - li * bs, 0, bs - 1)
     flat = pool.view(NB * bs, *pool.shape[2:])
-    flat[blk * bs + off] = new.to(pool.dtype)
+    _write_rows(flat, blk * bs + off, new, blocks, bs)
 
 
-def paged_write_positions(pool, table, positions, new, valid=None):
+def paged_write_positions(pool, table, positions, new, valid=None, blocks=None):
     """Scatter a chunk of positions of ONE lane into the pool, in place.
 
     pool: (NB, bs, Hk, D) or layer-stacked (L, NB, bs, Hk, D);
     table: (nb,) int32; positions: (P,); new matches pool's lead plus
     (P, Hk, D).  ``valid=False`` positions (prompt padding) go to the sink.
+    ``blocks``: as :func:`paged_write_token`'s.
     """
     stacked = pool.dim() == 5
     NB, bs = (pool.shape[1], pool.shape[2]) if stacked else pool.shape[:2]
@@ -347,10 +473,32 @@ def paged_write_positions(pool, table, positions, new, valid=None):
         rows = torch.where(valid, rows, torch.zeros_like(rows))
     if stacked:
         flat = pool.view(pool.shape[0], NB * bs, *pool.shape[3:])
-        flat[:, rows] = new.to(pool.dtype)
     else:
         flat = pool.view(NB * bs, *pool.shape[2:])
-        flat[rows] = new.to(pool.dtype)
+    _write_rows(flat, rows, new, blocks, bs)
+
+
+def gather_lane(pool, table_row, group=None):
+    """One lane's positions from the pool in logical order, ``(1, nb * bs,
+    ...)`` (:func:`paged_gather` of one table row).  With ``group`` the
+    pool is this rank's share of a pool whose blocks split over the
+    group's ranks (the global blocks ``[rank NB, (rank + 1) NB)``): each
+    rank gathers its blocks of the lane, zeros for the others', and one
+    ``all_reduce`` (SUM) over ``group`` assembles the lane exactly (every
+    position comes from one rank, the others add zeros), counted in
+    ``common.COUNTS["block_gather"]``."""
+    if group is None:
+        return paged_gather(pool, table_row[None])
+    from .common import COUNTS
+
+    n = pool.shape[0]
+    t = table_row.long() - group.rank * n
+    local = (t >= 0) & (t < n)
+    g = pool[torch.where(local, t, 0)]                       # (nb, bs, ...)
+    g = torch.where(local.view((-1,) + (1,) * (g.dim() - 1)), g, 0.0)
+    dist.all_reduce(g, op=dist.ReduceOp.SUM, group=group.pg)
+    COUNTS["block_gather"] += 1
+    return g.reshape(1, -1, *pool.shape[2:])
 
 
 def paged_decode_attention(
@@ -359,6 +507,7 @@ def paged_decode_attention(
     softcap: float = 0.0,
     impl: str = "ref",
     kv_heads: tuple[int, int] | None = None,
+    data_group=None,
 ):
     """One decoding step against the paged (block-table) KV cache.
 
@@ -375,20 +524,40 @@ def paged_decode_attention(
     kv_heads:      ``(lo, hi)``: q attends the pool's heads ``[lo, hi)``
                    (``Hk = hi - lo``; a view of the pool, no copy), else
                    every one (``Hk = Hp``)
+    data_group:    with one, the pools are this rank's share of a pool
+                   whose blocks split over the group (the global blocks
+                   ``[rank NB, (rank + 1) NB)``): the new token is written
+                   where its block is this rank's, every lane attends the
+                   rank's blocks (the kernel's block-range entry
+                   ``paged_attention_range`` or the plain version's, with
+                   the softmax's ``(m, l)``), and the ranks' partials
+                   merge by log-sum-exp (:func:`data_combine`).
 
     Returns out (B, Hk, rep, D).
     """
     if impl not in ("ref", "kernel"):
         raise ValueError(f"unknown paged attention impl {impl!r}")
-    paged_write_token(k_pool, tables, lengths, k_new)
-    paged_write_token(v_pool, tables, lengths, v_new)
+    NB = k_pool.shape[0]
+    blocks = None if data_group is None or data_group.world == 1 \
+        else (data_group.rank * NB, NB)
+    paged_write_token(k_pool, tables, lengths, k_new, blocks)
+    paged_write_token(v_pool, tables, lengths, v_new, blocks)
     if kv_heads is not None:
         lo, hi = kv_heads
         k_pool, v_pool = k_pool.narrow(2, lo, hi - lo), v_pool.narrow(2, lo, hi - lo)
+    from repro_torch.kernels.paged_attention import ops, ref
+
+    lo = None if data_group is None else data_group.rank * NB
     if impl == "kernel":
-        from repro_torch.kernels.paged_attention.ops import paged_attention
-        return paged_attention(q, k_pool, v_pool, lengths, tables,
-                               window=window, softcap=softcap)
-    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
-    return paged_attention_ref(q, k_pool, v_pool, lengths, tables,
-                               window=window, softcap=softcap)
+        if lo is None:
+            return ops.paged_attention(q, k_pool, v_pool, lengths, tables, window=window,
+                                       softcap=softcap)
+        o, m, l = ops.paged_attention_range(q, k_pool, v_pool, lengths, tables, block_lo=lo,
+                                            window=window, softcap=softcap)
+    else:
+        if lo is None:
+            return ref.paged_attention_ref(q, k_pool, v_pool, lengths, tables, window=window,
+                                           softcap=softcap)
+        o, m, l = ref.paged_attention_ref(q, k_pool, v_pool, lengths, tables, window=window,
+                                          softcap=softcap, block_lo=lo, with_lse=True)
+    return data_combine(o, m, l, data_group, q.dtype)

@@ -253,9 +253,21 @@ class ModelAxis:
         return self.group.world
 
 
+@dataclasses.dataclass(frozen=True)
+class ServeSplit:
+    """Serving's data-axis share under a serving mesh program: the mesh
+    (``launch.mesh.MeshGroup``; its ``data`` group the ranks that split
+    the lanes or the pool's blocks) and the slotted cache's
+    ``attention.DecodeSharding`` (None for a paged engine, whose pool's
+    blocks split over ``mesh.data``)."""
+    mesh: Any
+    decode: Any = None
+
+
 # the running program, if any: (the FSDP axis' group, {leaf path: the FSDP
-# dimension of the stored leaf}, the model axis or None)
-_FSDP: tuple[Any, dict, ModelAxis | None] | None = None
+# dimension of the stored leaf}, the model axis or None, the serving split
+# or None)
+_FSDP: tuple[Any, dict, ModelAxis | None, ServeSplit | None] | None = None
 
 
 class fsdp_program:
@@ -270,8 +282,9 @@ class fsdp_program:
     keep a gathered weight saved outside a rematted body as its shard,
     gathered again in the backward."""
 
-    def __init__(self, group, dims: dict, model: ModelAxis | None = None):
-        self._state = (group, dims, model)
+    def __init__(self, group, dims: dict, model: ModelAxis | None = None,
+                 serve: ServeSplit | None = None):
+        self._state = (group, dims, model, serve)
         self._hooks = torch.autograd.graph.saved_tensors_hooks(_pack, _unpack)
 
     def __enter__(self):
@@ -287,13 +300,17 @@ class fsdp_program:
         return False
 
 
-def serve_program(data, dims: dict, model) -> fsdp_program:
-    """The serving mesh program: the weights ``dims`` names gathered over
-    ``data`` a layer at a time, tensor and expert parallelism over
-    ``model`` with the residual stream whole on every model rank (no
-    ``sp``: a decode step has one position, and a prefill's stream stays
-    whole too, so every serving function runs on the same layout)."""
-    return fsdp_program(data, dims, ModelAxis(model, sp=False))
+def serve_program(mesh, dims: dict, decode=None) -> fsdp_program:
+    """The serving mesh program on ``mesh``: the weights ``dims`` names
+    gathered over ``data`` a layer at a time, tensor and expert
+    parallelism over ``model`` with the residual stream whole on every
+    model rank (no ``sp``: a decode step has one position, and a prefill's
+    stream stays whole too, so every serving function runs on the same
+    layout), and the caches split over the data axes (:func:`serve_split`:
+    the slotted cache's lanes as ``decode``, an ``attention.DecodeSharding``,
+    lays them out; the paged pool's blocks)."""
+    return fsdp_program(mesh.axis("data"), dims, ModelAxis(mesh.model, sp=False),
+                        ServeSplit(mesh, decode))
 
 
 def model_axis() -> ModelAxis | None:
@@ -302,15 +319,27 @@ def model_axis() -> ModelAxis | None:
     return None if _FSDP is None else _FSDP[2]
 
 
+def serve_split() -> ServeSplit | None:
+    """The running serving mesh program's data-axis split (None outside
+    one)."""
+    return None if _FSDP is None else _FSDP[3]
+
+
 # collectives called by the running program, by kind, each counted where it
 # is called, as the kernel wrappers count their launches (reset by
 # assignment): the FSDP gather and its reduce-scatter; and each
 # tensor-parallel Function's collectives, forward and backward, under its
 # own name; ``vocab_ce`` the loss's all-reduces; ``decode_combine`` the
-# sequence-sharded decode attention's (``attention.decode_attention``)
+# sequence-sharded decode attention's (``attention.decode_attention``);
+# serving's data axes: ``data_all_gather`` the logits of the rank's lanes
+# gathered over them, ``data_combine`` the paged decode's merge of the
+# ranks' partials (``attention.data_combine``), ``block_gather`` a
+# continuation chunk's gather of its lane (``attention.gather_lane``),
+# ``block_copy`` a copy-on-write block sent between two ranks
 COUNTS = {"all_gather": 0, "reduce_scatter": 0, "copy_to_model": 0, "reduce_from_model": 0,
           "model_all_gather": 0, "model_reduce_scatter": 0, "vocab_ce": 0,
-          "decode_combine": 0}
+          "decode_combine": 0, "data_all_gather": 0, "data_combine": 0, "block_gather": 0,
+          "block_copy": 0}
 
 
 def _gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
@@ -347,6 +376,17 @@ def all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     """The ranks' ``x`` concatenated along ``dim`` (rank order), as a
     tensor of its own (never a view of another)."""
     COUNTS["all_gather"] += 1
+    return _gather(x, dim, group)
+
+
+def data_all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Serving's gather over the data axes (the logits of each rank's
+    lanes): the ranks' ``x`` concatenated along ``dim``, counted in
+    ``COUNTS["data_all_gather"]``; the identity without a process
+    group."""
+    if group.pg is None:
+        return x
+    COUNTS["data_all_gather"] += 1
     return _gather(x, dim, group)
 
 
@@ -606,7 +646,7 @@ def use_layer(cfg, bp: dict, prefix: tuple, lead: int = 1) -> dict:
     gathers again and no full copy outlives its layer."""
     if _FSDP is None:
         return bp
-    group, dims, _ = _FSDP
+    group, dims = _FSDP[:2]
     cdt = dtype_of(cfg.compute_dtype)
     out = {}
     for name, w in bp.items():
@@ -621,7 +661,7 @@ def use(cfg, params: dict, name: str):
     it is sharded (its model slice under a mesh program), else cast."""
     cdt = dtype_of(cfg.compute_dtype)
     if _FSDP is not None:
-        group, dims, _ = _FSDP
+        group, dims = _FSDP[:2]
         d = dims.get((name,))
         if d is not None:
             return wuse(params[name], d, cdt, group)

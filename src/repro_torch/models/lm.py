@@ -67,6 +67,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
@@ -74,16 +75,18 @@ from .attention import (
     DecodeSharding,
     chunked_attention,
     decode_attention,
+    gather_lane,
     paged_decode_attention,
     apply_rope,
-    paged_gather,
     paged_write_positions,
     rope_tables,
 )
 from .common import (
+    COUNTS,
     ParamSpec,
     cast_tree,
     cross_entropy_loss,
+    data_all_gather,
     decode_positions,
     dtype_of,
     init_tree,
@@ -92,6 +95,7 @@ from .common import (
     norm,
     norm_add,
     remat_wrap,
+    serve_split,
     softcap,
     tp_enter,
     tp_exit,
@@ -370,7 +374,8 @@ def _block_fwd(cfg, x, bp, rope_cs, *, window: int, attn_fn=None, aux_sink=None)
     return _ffn_out(cfg, x, _ffn(cfg, h, bp, aux_sink), bp), (k, v)
 
 
-def _block_decode(cfg, x, bp, kc, vc, cur_index, rope_cs, *, window: int, attn_fn=None):
+def _block_decode(cfg, x, bp, kc, vc, cur_index, rope_cs, *, window: int, attn_fn=None,
+                  seq_group=None):
     """One block, single-token decode.  x: (B, D).  ``attn_fn(q, kc, vc,
     k_new, v_new, window, reads)`` replaces the slotted cache write +
     attention (the paged path; ``reads`` is :func:`_kv_reads`); everything
@@ -379,9 +384,10 @@ def _block_decode(cfg, x, bp, kc, vc, cur_index, rope_cs, *, window: int, attn_f
     once per step.  Returns x; kc/vc are written in place.
 
     Under a mesh program the residual stream is whole on every rank.  The
-    slotted cache holds this rank's positions of every lane and every kv
+    slotted cache holds this rank's positions of its lanes and every kv
     head, so q, k and v are gathered to every head and the attention
-    combines the ranks' partials (``decode_attention(seq_group=)``); the
+    combines the partials of ``seq_group``'s ranks
+    (``decode_attention(seq_group=)``); the
     paged pool holds this rank's kv heads where they divide, so the
     attention runs on the local heads (:func:`_heads`), as the prefill's
     does.  Both end in the row-parallel output projection."""
@@ -398,8 +404,7 @@ def _block_decode(cfg, x, bp, kc, vc, cur_index, rope_cs, *, window: int, attn_f
     q = q.reshape(B, n_kv, q.shape[1] // n_kv, dh)
     if attn_fn is None:
         attn = decode_attention(q, kc, vc, k, v, cur_index, window=window,
-                                softcap=cfg.attn_softcap,
-                                seq_group=None if tp is None else tp.group)
+                                softcap=cfg.attn_softcap, seq_group=seq_group)
     else:
         attn = attn_fn(q, kc, vc, k, v, window, reads)
     h, x = _attn_out(cfg, x, _attn_o(cfg, attn.reshape(B, -1), bp, every=every), bp)
@@ -562,56 +567,118 @@ def loss_fn(cfg: ArchConfig, params, batch, *, remat=True):
 # Serving
 # ---------------------------------------------------------------------------
 #
-# Under a serving mesh program (``common.fsdp_program`` with a model axis
-# whose residual stream is not sequence-sharded) every rank holds the
-# whole residual stream and runs every lane; the weights are this rank's
-# model slices, gathered over ``data`` a layer at a time.  The caches hold
-# this rank's part, as the reference lays them out (``cache_pspec``,
-# ``paged_cache_pspec``): the slotted cache each lane's positions
-# ``[rank S/M, (rank + 1) S/M)`` of every kv head, the paged pool this
-# rank's kv heads where they divide over the model axis (else every one).
-# The lanes and the pool's blocks are whole on every data rank (the
-# reference splits them over the data axes).  Logits leave every serving
-# function gathered over the model axis (``V / M`` columns a rank), so
-# every rank samples from the same ``(B, V)``.
+# Under a serving mesh program (``common.serve_program``) every rank holds
+# the whole residual stream; the weights are this rank's model slices,
+# gathered over ``data`` a layer at a time.  The caches hold this rank's
+# part, as the reference lays them out (``cache_pspec``,
+# ``paged_cache_pspec``):
+#
+# * slotted (``attention.DecodeSharding``): the lanes over the data axes
+#   where ``max_slots`` divides over them, each lane's positions over
+#   ``model``; else (the batch fallback) every lane on every rank, its
+#   positions over every rank.  A decode step embeds and walks this rank's
+#   lanes and gathers their logits over the data axes; a prefill of one
+#   lane runs its forward on every data rank (the weights' gathers over
+#   ``data`` are collectives every rank joins) and the lane's owner writes.
+# * paged: the pool's kv heads over ``model`` where they divide, its blocks
+#   over the data axes (the engine rounds the pool up to the data size).
+#   The block table stays global and replicated: a write lands on the rank
+#   that holds its block, every rank attends every lane over the blocks it
+#   holds and the ranks' partials merge by log-sum-exp
+#   (``attention.data_combine``), a continuation chunk gathers its lane
+#   over ``data`` (``attention.gather_lane``), and a copy-on-write moves a
+#   block between the ranks that hold ``src`` and ``dst``.
+#
+# Logits leave every serving function whole on every rank (gathered over
+# ``model``, and over the data axes where the lanes split), so every rank
+# samples the same ``(B, V)``.
 
 
-def cache_pspec(cfg: ArchConfig, mesh=None) -> dict:
-    """The slotted cache's layout on ``mesh`` as this port realises the
-    reference's ``cache_pspec(cfg, DecodeSharding.choose(mesh, batch))``:
-    one axis name (or None) per dimension of (lead..., B, S, Hk, dh), the
-    positions over ``model``, the lanes whole (the reference also splits
-    them over the data axes, or puts the positions over every axis)."""
+def _decode_sharding():
+    """The slotted cache's ``DecodeSharding`` under a serving mesh program
+    (None outside one, or for a paged engine's)."""
+    split = serve_split()
+    return None if split is None else split.decode
+
+
+def _seq_group():
+    """The group a slotted lane's positions split over (None: whole)."""
+    dec = _decode_sharding()
+    return None if dec is None else dec.seq_group
+
+
+def _local_lanes(batch: int) -> tuple[int, int]:
+    """``[lo, hi)``: the lanes of ``batch`` this rank holds."""
+    dec = _decode_sharding()
+    return (0, batch) if dec is None else dec.local_lanes(batch)
+
+
+def _gather_lanes(logits):
+    """Logits of this rank's lanes as every lane's: gathered over the data
+    axes where the lanes split over them."""
+    dec = _decode_sharding()
+    if dec is None or not dec.batch_axes:
+        return logits
+    return data_all_gather(logits, 0, dec.mesh.data)
+
+
+def _data_group():
+    """The data group a paged pool's blocks split over under a serving mesh
+    program (None outside one)."""
+    split = serve_split()
+    return None if split is None else split.mesh.data
+
+
+def _write_blocks(pool):
+    """The global blocks ``(lo, n)`` of a paged pool (or a layer's view of
+    one, blocks on axis ``dim - 4``) that a write into it honours: the
+    rank's share, or None wherever the rank holds every block."""
+    g = _data_group()
+    if g is None or g.world == 1:
+        return None
+    n = pool.shape[-4]
+    return g.rank * n, n
+
+
+def cache_pspec(cfg: ArchConfig, dec: DecodeSharding | None = None) -> dict:
+    """The slotted cache's layout under ``dec`` (``DecodeSharding.choose(mesh,
+    max_slots)``), the reference's ``cache_pspec``: one entry (None or a
+    tuple of axis names) per dimension of (lead..., B, S, Hk, dh), the
+    lanes over ``dec.batch_axes``, the positions over ``dec.seq_axes``."""
     lead = (None,) * len(_leading(cfg))
-    seq = "model" if mesh is not None and "model" in mesh.axes else None
-    spec = lead + (None, seq, None, None)
+    if dec is None:
+        spec = lead + (None,) * 4
+    else:
+        spec = lead + (dec.batch_axes or None, dec.seq_axes or None, None, None)
     return {"k": spec, "v": spec}
 
 
 def paged_cache_pspec(cfg: ArchConfig, mesh=None) -> dict:
     """The paged pool's layout on ``mesh``, the reference's
-    ``paged_cache_pspec`` as realised here: kv heads over ``model`` where
-    they divide, else whole; the blocks whole (the reference splits them
-    over the data axes where they divide)."""
+    ``paged_cache_pspec``: the blocks over the data axes (the pool must
+    divide over them: the engine rounds it up, as the reference's), kv
+    heads over ``model`` where they divide, else whole."""
     lead = (None,) * len(_leading(cfg))
-    tp = "model" if (mesh is not None and "model" in mesh.axes
-                     and cfg.n_kv % mesh.size("model") == 0) else None
-    spec = lead + (None, None, tp, None)
+    if mesh is None:
+        return {"k": lead + (None,) * 4, "v": lead + (None,) * 4}
+    dp = tuple(a for a in ("pod", "data") if a in mesh.axes) or None
+    tp = ("model",) if ("model" in mesh.axes and cfg.n_kv % mesh.size("model") == 0) else None
+    spec = lead + (dp, None, tp, None)
     return {"k": spec, "v": spec}
 
 
 def _local_specs(cfg, shape, specs, mesh) -> dict:
     """Meta tensors of this rank's part of leaves of ``shape`` laid out by
-    ``specs`` on ``mesh``."""
+    ``specs`` (per dimension None or a tuple of axis names) on ``mesh``."""
     out = {}
     for name, spec in specs.items():
         local = []
-        for n, axis in zip(shape, spec):
-            if axis is not None:
-                m = mesh.size(axis)
+        for n, axes in zip(shape, spec):
+            if axes is not None:
+                m = math.prod(mesh.size(a) for a in axes)
                 if n % m:
                     raise ValueError(f"{cfg.name}: {n} does not divide over {m} ranks of "
-                                     f"{axis!r} (cache leaf {name} {tuple(shape)})")
+                                     f"{axes} (cache leaf {name} {tuple(shape)})")
                 n //= m
             local.append(n)
         out[name] = torch.empty(local, dtype=dtype_of(cfg.compute_dtype), device="meta")
@@ -620,12 +687,17 @@ def _local_specs(cfg, shape, specs, mesh) -> dict:
 
 def make_cache_specs(cfg: ArchConfig, batch: int, max_len: int, mesh=None) -> dict:
     """Slotted KV cache (lead..., B, S, Hk, dh) as meta tensors (shape +
-    dtype): on ``mesh`` this rank's part (:func:`cache_pspec`), ``max_len /
-    M`` positions of each lane (``max_len`` must divide)."""
+    dtype): on ``mesh`` this rank's part (:func:`cache_pspec` of
+    ``DecodeSharding.choose(mesh, batch)``): ``batch / ndp`` lanes of
+    ``max_len / M`` positions each, or, where ``batch`` does not divide
+    over the data axes, every lane with ``max_len / world`` positions
+    (``max_len`` must divide)."""
+    dec = None
     if mesh is not None:
-        DecodeSharding.choose(mesh, batch).local_len(max_len)
+        dec = DecodeSharding.choose(mesh, batch)
+        dec.local_len(max_len)
     shape = _leading(cfg) + (batch, max_len, cfg.n_kv, cfg.head_dim)
-    return _local_specs(cfg, shape, cache_pspec(cfg, mesh), mesh)
+    return _local_specs(cfg, shape, cache_pspec(cfg, dec), mesh)
 
 
 def lane_leaf_axes(cfg: ArchConfig) -> dict:
@@ -639,7 +711,7 @@ def lane_leaf_axes(cfg: ArchConfig) -> dict:
 def make_paged_cache_specs(cfg: ArchConfig, num_blocks: int, block_size: int,
                            mesh=None) -> dict:
     """Paged KV pool (lead..., NB, bs, Hk, dh) as meta tensors: on ``mesh``
-    this rank's part (:func:`paged_cache_pspec`)."""
+    this rank's part (:func:`paged_cache_pspec`), ``NB / ndp`` blocks."""
     shape = _leading(cfg) + (num_blocks, block_size, cfg.n_kv, cfg.head_dim)
     return _local_specs(cfg, shape, paged_cache_pspec(cfg, mesh), mesh)
 
@@ -650,12 +722,39 @@ def copy_paged_block(cfg: ArchConfig, cache, src: int, dst: int):
     covers a shared block whole but must rewrite its tail position, since
     the sampling position is always recomputed; the lane gets the private
     copy).  Leaves are (lead..., NB, bs, Hk, dh); the block axis is
-    ``ndim - 4``.
-    One indexed copy per leaf, on the current stream, so it is ordered
-    before the continuation chunk that overwrites the copy's tail."""
-    for c in cache.values():
-        axis = c.dim() - 4
-        c.select(axis, dst).copy_(c.select(axis, src))
+    ``ndim - 4``.  One indexed copy per leaf, on the current stream, so it
+    is ordered before the continuation chunk that overwrites the copy's
+    tail.  Under a serving mesh program whose data axes split the blocks
+    the copy runs on the rank that holds both, or ``src``'s holder
+    broadcasts the block (every leaf in one tensor, counted in
+    ``common.COUNTS["block_copy"]``) over the data group and ``dst``'s
+    holder writes it: every rank calls this, as every rank runs the
+    schedule."""
+    leaves = list(cache.values())
+    axis = leaves[0].dim() - 4
+    blocks = _write_blocks(leaves[0])
+    if blocks is None:
+        for c in leaves:
+            c.select(axis, dst).copy_(c.select(axis, src))
+        return cache
+    g = _data_group()
+    n = blocks[1]
+    (so, sl), (do, dl) = divmod(src, n), divmod(dst, n)
+    if so == do:
+        if g.rank == so:
+            for c in leaves:
+                c.select(axis, dl).copy_(c.select(axis, sl))
+        return cache
+    if g.rank == so:
+        buf = torch.stack([c.select(axis, sl) for c in leaves])
+    else:
+        buf = torch.empty((len(leaves),) + tuple(leaves[0].select(axis, 0).shape),
+                          dtype=leaves[0].dtype, device=leaves[0].device)
+    dist.broadcast(buf, src=dist.get_global_rank(g.pg, so), group=g.pg)
+    COUNTS["block_copy"] += 1
+    if g.rank == do:
+        for c, b in zip(leaves, buf):
+            c.select(axis, dl).copy_(b)
     return cache
 
 
@@ -681,9 +780,11 @@ def _slotted_kv(cfg, t):
 def _seq_part(s_loc: int, S: int) -> tuple[int, int]:
     """``(start, n)``: this rank's positions ``[start, start + n)`` of
     positions ``[0, S)``, its cache holding ``s_loc`` of each lane from
-    ``rank s_loc`` on (all of them outside a mesh program)."""
-    tp = model_axis()
-    start = 0 if tp is None else tp.rank * s_loc
+    ``rank s_loc`` on, its rank the one in the lanes' sequence group (all
+    of them outside a mesh program; none, from ``S`` on, where the rank's
+    positions all lie past ``S``)."""
+    g = _seq_group()
+    start = 0 if g is None else min(g.rank * s_loc, S)
     return start, max(0, min(S - start, s_loc))
 
 
@@ -692,21 +793,26 @@ def prefill(cfg: ArchConfig, params, tokens, img_embeds=None, *,
     """Whole-batch prefill: tokens (B, S) -> (slotted cache {k, v} of
     (lead..., B, max_len, Hk, dh), the KV of positions [0, S) and zeros past it;
     logits (B, V) at the last position).  vlm: ``img_embeds`` lead the
-    sequence, so the KV covers N + S positions.  Under a mesh program the
-    cache is this rank's ``max_len / M`` positions of each lane."""
+    sequence, so the KV covers N + S positions.  Under a serving mesh
+    program the cache is this rank's part (:func:`make_cache_specs`): the
+    forward runs on the rank's lanes and their logits are gathered over
+    the data axes."""
+    B = tokens.shape[0]
+    lo, hi = _local_lanes(B)
+    if (lo, hi) != (0, B):
+        tokens = tokens[lo:hi]
+        img_embeds = None if img_embeds is None else img_embeds[lo:hi]
     hidden, (k, v) = forward(cfg, params, tokens, img_embeds, remat=False, collect_kv=True)
     S = k.shape[-3]
     L = max(max_len or S, S)
-    tp = model_axis()
-    s_loc = L if tp is None else L // tp.world
-    if s_loc * (1 if tp is None else tp.world) != L:
-        raise ValueError(f"max_len {L} does not divide over {tp.world} model ranks")
+    dec = _decode_sharding()
+    s_loc = L if dec is None else dec.local_len(L)
     start, n = _seq_part(s_loc, S)
     cache = {}
     for name, t in (("k", k), ("v", v)):
         t = _slotted_kv(cfg, t).narrow(-3, start, n)
         cache[name] = F.pad(t, [0, 0, 0, 0, 0, s_loc - n])
-    return cache, serve_logits(cfg, params, hidden[:, -1])
+    return cache, _gather_lanes(serve_logits(cfg, params, hidden[:, -1]))
 
 
 def prefill_slot(cfg: ArchConfig, params, cache, tokens, slot: int, plen: int):
@@ -715,15 +821,22 @@ def prefill_slot(cfg: ArchConfig, params, cache, tokens, slot: int, plen: int):
     tokens: (1, S_bucket) — the prompt right-padded to its bucket; the
     whole padded bucket is written into the lane (causality makes the
     padding inert, and decode overwrites the tail before reading it;
-    under a mesh program this rank's positions of it).
+    under a mesh program this rank's positions of it).  Under a serving
+    mesh program whose data axes split the lanes, every rank runs the
+    forward and the k, v gathers, and only the rank holding ``slot``
+    writes it, at its index among the rank's lanes.
     Returns (cache, logits (1, V) at position plen-1); cache in place.
     """
     hidden, (k, v) = forward(cfg, params, tokens, remat=False, collect_kv=True)
     S = tokens.shape[1]
+    n_lanes = cache["k"].shape[-4]
+    dec = _decode_sharding()
+    lo = 0 if dec is None else dec.local_lanes(n_lanes * dec.lane_ranks)[0]
     for name, new in (("k", k), ("v", v)):
         start, n = _seq_part(cache[name].shape[-3], S)
         new = _slotted_kv(cfg, new).select(-4, 0).narrow(-3, start, n)
-        cache[name][..., slot, :n, :, :] = new.to(cache[name].dtype)
+        if lo <= slot < lo + n_lanes:
+            cache[name][..., slot - lo, :n, :, :] = new.to(cache[name].dtype)
     last = min(max(plen - 1, 0), S - 1)
     return cache, serve_logits(cfg, params, hidden[:, last])
 
@@ -732,14 +845,17 @@ def prefill_slot_paged(cfg: ArchConfig, params, cache, tokens, table_row, plen: 
     """Prefill positions [0, C) of one lane into the paged pool through its
     block table.  Same ``forward`` as :func:`prefill_slot` (so slotted and
     paged prefills are bitwise equal); positions ``>= plen`` go to the
-    sink block 0.  Returns (cache, logits (1, V) at ``min(plen, C) - 1``)."""
+    sink block 0.  Under a serving mesh program every rank runs the
+    forward and writes the positions whose blocks it holds.  Returns
+    (cache, logits (1, V) at ``min(plen, C) - 1``)."""
     hidden, (k, v) = forward(cfg, params, tokens, remat=False, collect_kv=True)
     C = tokens.shape[1]
     pos = torch.arange(C, device=tokens.device)
     valid = pos < plen
     for name, new in (("k", k), ("v", v)):
         paged_write_positions(_flat_layers(cfg, cache[name]), table_row, pos,
-                              _flat_layers(cfg, new).select(1, 0), valid)
+                              _flat_layers(cfg, new).select(1, 0), valid,
+                              blocks=_write_blocks(cache[name]))
     last = min(max(plen - 1, 0), C - 1)
     return cache, serve_logits(cfg, params, hidden[:, last])
 
@@ -756,17 +872,21 @@ def _block_chunk(cfg, x, bp, kp, vp, table_row, start: int, plen: int, rope_cs, 
     ``chunked_attention(q_offset=start)`` (the lane's stale tail past
     ``start+C`` is causally masked; pad rows never feed valid rows).
     Under a mesh program the pools hold this rank's kv heads (or every
-    one), and the lane's are narrowed to what the local q heads read.
-    Returns x."""
+    one), and the lane's are narrowed to what the local q heads read; the
+    pools' blocks are this rank's share, each write lands on the rank
+    holding its block and the lane is gathered over the data axes
+    (``attention.gather_lane``).  Returns x."""
     C = x.shape[1]
     pos = start + torch.arange(C, device=x.device)
     valid = pos < plen
+    group = _data_group()
+    owned = _write_blocks(kp)
 
     def attn_fn(q, k, v, w):
-        paged_write_positions(kp, table_row, pos, k[0], valid)
-        paged_write_positions(vp, table_row, pos, v[0], valid)
-        kl, vl = _local_kv(cfg, paged_gather(kp, table_row[None]),   # (1, nb*bs, Hk, dh)
-                           paged_gather(vp, table_row[None]))
+        paged_write_positions(kp, table_row, pos, k[0], valid, blocks=owned)
+        paged_write_positions(vp, table_row, pos, v[0], valid, blocks=owned)
+        kl, vl = _local_kv(cfg, gather_lane(kp, table_row, group),  # (1, nb*bs, Hk, dh)
+                           gather_lane(vp, table_row, group))
         return chunked_attention(q, kl, vl, causal=True, window=w,
                                  softcap=cfg.attn_softcap, q_chunk=min(256, C),
                                  kv_chunk=min(256, kl.shape[1]), q_offset=start)
@@ -804,7 +924,7 @@ def _use_layer(cfg, params, i):
     return use_layer(cfg, _layer(cfg, params, i), ("blocks",), len(_leading(cfg)))
 
 
-def _decode_walk(cfg, params, cache, x, cur_index, attn_fn):
+def _decode_walk(cfg, params, cache, x, cur_index, attn_fn, seq_group=None):
     """Per-layer decode walk shared by the slotted and paged layouts; each
     layer reads and writes its slice ``cache[..][i]`` (a view) in place."""
     check_supported(cfg)
@@ -812,16 +932,29 @@ def _decode_walk(cfg, params, cache, x, cur_index, attn_fn):
     rope_cs = rope_tables(pos, cfg.head_dim, cfg.rope_theta)
     for i in range(cfg.n_layers):
         x = _block_decode(cfg, x, _use_layer(cfg, params, i), *_cache_layer(cfg, cache, i),
-                          cur_index, rope_cs, window=_window(cfg, i), attn_fn=attn_fn)
+                          cur_index, rope_cs, window=_window(cfg, i), attn_fn=attn_fn,
+                          seq_group=seq_group)
     x = norm(cfg, x, params["ln_f"])
     return serve_logits(cfg, params, x), cache
 
 
 def decode_step(cfg: ArchConfig, params, cache, tokens, cur_index):
     """tokens: (B,) int32; cur_index: tokens already in the cache, a
-    scalar or a (B,) vector.  Returns (logits (B, V), cache)."""
+    scalar or a (B,) vector.  Returns (logits (B, V), cache).  Under a
+    serving mesh program the step embeds and walks this rank's lanes (its
+    rows of ``tokens`` and ``cur_index``), each layer's attention
+    combining the ranks of the lanes' sequence group, and the logits are
+    every lane's (gathered over the data axes where the lanes split)."""
+    B = tokens.shape[0]
+    lo, hi = _local_lanes(B)
+    if (lo, hi) != (0, B):
+        tokens = tokens[lo:hi]
+        if torch.is_tensor(cur_index) and cur_index.dim() == 1:
+            cur_index = cur_index[lo:hi]
     x = embed_tokens(cfg, params, tokens)
-    return _decode_walk(cfg, params, cache, x, cur_index, None)
+    logits, cache = _decode_walk(cfg, params, cache, x, cur_index, None,
+                                 seq_group=_seq_group())
+    return _gather_lanes(logits), cache
 
 
 def decode_step_paged(cfg: ArchConfig, params, cache, tokens, lengths, tables,
@@ -832,8 +965,10 @@ def decode_step_paged(cfg: ArchConfig, params, cache, tokens, lengths, tables,
     ``impl``: "ref" (gather + masked softmax) or "kernel" (the
     block-walking CUDA kernel).  Under a mesh program the pool's kv heads
     are this rank's (or every one, of which the attention reads the run
-    the local q heads read: a head slice of the pool).  Returns (logits
-    (B, V), cache)."""
+    the local q heads read: a head slice of the pool) and its blocks the
+    rank's share: every rank attends every lane over its blocks and the
+    data ranks' partials merge (``attention.paged_decode_attention``'s
+    ``data_group``).  Returns (logits (B, V), cache)."""
     x = embed_tokens(cfg, params, tokens)
 
     def attn_fn(q, kc, vc, k_new, v_new, window, reads):
@@ -843,6 +978,7 @@ def decode_step_paged(cfg: ArchConfig, params, cache, tokens, lengths, tables,
                 "at this model axis; the paged decode takes a run of the pool's heads")
         return paged_decode_attention(
             q, kc, vc, k_new, v_new, lengths, tables,
-            window=window, softcap=cfg.attn_softcap, impl=impl, kv_heads=reads)
+            window=window, softcap=cfg.attn_softcap, impl=impl, kv_heads=reads,
+            data_group=_data_group())
 
     return _decode_walk(cfg, params, cache, x, lengths, attn_fn)

@@ -91,9 +91,11 @@ def sched_state(max_slots: int, device, seed: int = 0) -> dict:
 def slot_state_specs(cfg: ArchConfig, max_slots: int, max_len: int, mesh=None) -> dict:
     """The slotted cache's leaves as meta tensors: on a ``mesh`` (a
     ``launch.mesh.MeshGroup``) this rank's part, as the reference's
-    ``slot_state_specs`` places them (``lm.cache_pspec``: each lane's
-    positions over ``model``; the lanes whole on every data rank).  The
-    scheduling vectors are replicated (:func:`sched_state`)."""
+    ``slot_state_specs`` places them (``lm.cache_pspec`` of
+    ``DecodeSharding.choose(mesh, max_slots)``: the lanes over the data
+    axes, each lane's positions over ``model``, or every lane with its
+    positions over every rank).  The scheduling vectors are replicated
+    (:func:`sched_state`)."""
     mod = registry.get_module(cfg)
     if mesh is None:
         return mod.make_cache_specs(cfg, max_slots, max_len)

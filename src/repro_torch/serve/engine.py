@@ -105,17 +105,25 @@ same inputs, and the ``lm`` family (dense, gemma2, MoE) serves under the
 reference's layout: the weights this rank's shards under
 ``ShardRules.for_mesh`` (:func:`serve_shard_layout`; the model slices
 of heads, FFN, experts and vocabulary, gathered over ``data`` a layer at
-a time), the KV cache this rank's part (``lm.cache_pspec``: each lane's
-positions over ``model``; ``lm.paged_cache_pspec``: kv heads over
-``model`` where they divide, the pool rounded up to the data size as the
-reference's), every program inside the serving mesh program
-(``common.serve_program``), and the logits gathered so every rank
-samples the same tokens.  The lanes and blocks stay whole on every data
-rank (the reference splits them over the data axes): every data rank
-computes every lane.  One schedule needs one clock: the engine reads
+a time), the KV cache this rank's part (``lm.cache_pspec`` of
+``DecodeSharding.choose(mesh, max_slots)``: ``max_slots / ndp`` lanes
+over the data axes, each lane's positions over ``model``, or where
+``max_slots`` does not divide every lane with its positions over every
+rank; ``lm.paged_cache_pspec``: the pool's blocks over the data axes, the
+pool rounded up to the data size as the reference's, kv heads over
+``model`` where they divide), every program inside the serving mesh
+program (``common.serve_program``), and the logits gathered so every
+rank samples the same tokens.  The block table, the allocator and the
+schedule vectors stay global and replicated, so block ids, prefix hits
+and copies are the reference's.  A slotted decode walks the rank's lanes;
+a prefill runs its forward on every data rank (the weights' gathers are
+collectives) and the lane's owner writes it; a paged decode attends every
+lane over the rank's blocks and merges the data ranks' partials.  One
+schedule needs one clock: the engine reads
 :class:`MeshClock`, rank 0's clock broadcast at each reading, so
 deadlines and every decision that reads the time agree on every rank.
-``kv_reserved_bytes`` is what a rank holds.  Speculative decoding, the
+``kv_reserved_bytes`` is what a rank holds, the reference's bytes a
+device.  Speculative decoding, the
 host tier, hold/park, snapshots and exporting a request (a migration)
 raise on a mesh, and the other slot-served families at a live model axis
 (importing one is how the router places every request); ``mesh=None`` (or a
@@ -168,6 +176,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.aot import AotCache, device_program
 from repro_torch.device import resolve_device
 from repro_torch.models import lm, registry
+from repro_torch.models.attention import DecodeSharding
 from repro_torch.models.common import ShardRules, serve_program
 from repro_torch.obs import MetricMap, Observer
 from .cache import RecurrentCache, bucket_for, make_slot_state, prompt_buckets
@@ -240,11 +249,16 @@ def serve_shard_layout(cfg: ArchConfig, mesh):
 
 def check_mesh(cfg: ArchConfig, mesh, engine: "EngineConfig") -> None:
     """Raise for what a mesh does not serve: the slot-served families
-    other than the ``lm`` family's at a live model axis, and, on any mesh
-    over a process group, speculative decoding and the host tier."""
+    other than the ``lm`` family's at a live model axis; on any mesh over
+    a process group speculative decoding and the host tier; and a slotted
+    ``max_len`` that does not divide over the ranks each lane's positions
+    split over (``DecodeSharding.local_len``)."""
     if mesh is None:
         return
     live = mesh.size("model") > 1
+    if mesh.pg is not None and cfg.family in lm.SERVE_TP_FAMILIES \
+            and engine.kv_layout == "slotted":
+        DecodeSharding.choose(mesh, engine.max_slots).local_len(engine.max_len)
     if live and cfg.family not in lm.TP_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: serving on a live model axis is ported for the lm family "
@@ -454,8 +468,11 @@ class ServeEngine:
         self.shards = serve_shard_layout(cfg, mesh)
         self._mesh_program = None
         if self.shards is not None:
-            data, dims, model = mesh.axis("data"), self.shards.gather_dims, mesh.model
-            self._mesh_program = lambda: serve_program(data, dims, model)
+            dims = self.shards.gather_dims
+            # the slotted cache's lanes (or positions) on the mesh; a paged
+            # pool's blocks split over the data axes
+            dec = None if self.paged else DecodeSharding.choose(mesh, engine.max_slots)
+            self._mesh_program = lambda: serve_program(mesh, dims, dec)
         self.buckets = tuple(engine.prefill_buckets or prompt_buckets(engine.max_len))
         if max(self.buckets) > engine.max_len:
             raise ValueError("prefill bucket exceeds max_len")

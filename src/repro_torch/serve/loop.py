@@ -16,10 +16,13 @@ modality frontends: vlm patch embeddings, audio frames, passed as
 Both take a ``mesh`` (``launch.mesh.MeshGroup``): the engine's, or for the
 static loop the serving mesh program around its prefill and decode, the
 weights this rank's shards (``engine.serve_shard_layout``) and the cache
-each lane's ``max_len / M`` positions, ``max_len`` rounded up to a
-multiple of the model size (the rounded positions are never attended).
-The ``lm`` family's dense, MoE and vlm configs serve on a live model axis
-there; the others raise.
+laid out by ``DecodeSharding.choose(mesh, B)``: the batch split over the
+data axes where it divides (each rank prefills and decodes its rows, the
+logits gathered), each lane's positions over ``model``, or the whole
+batch on every rank with its positions over every rank; ``max_len``
+rounded up to a multiple of the ranks the positions split over (the
+rounded positions are never attended).  The ``lm`` family's dense, MoE
+and vlm configs serve on a live model axis there; the others raise.
 """
 from __future__ import annotations
 
@@ -56,7 +59,11 @@ def generate(cfg: ArchConfig, params, prompts, serve: ServeConfig | None = None,
 
     prompts = np.asarray(prompts, np.int32)
     B, S = prompts.shape
-    m = 1 if mesh is None else mesh.size("model")       # lanes split by position
+    m = 1                                                # ranks a lane's positions split over
+    if mesh is not None and mesh.pg is not None:
+        from repro_torch.models.attention import DecodeSharding
+
+        m = DecodeSharding.choose(mesh, B).seq_ranks
     engine = ServeEngine(cfg, params, EngineConfig(
         max_slots=B, max_len=-(-(S + serve.max_new_tokens) // m) * m, seed=serve.seed,
         # equal-length prompts: one exact bucket
@@ -93,10 +100,12 @@ def generate_static(cfg: ArchConfig, params, prompts, serve: ServeConfig | None 
             device = mesh.device
         lay = serve_shard_layout(cfg, mesh)
         if lay is not None:
+            from repro_torch.models.attention import DecodeSharding
+
             params = local_shards(lay, params)
-            data, dims, model = mesh.axis("data"), lay.gather_dims, mesh.model
-            program = lambda: serve_program(data, dims, model)   # noqa: E731
-            round_to = mesh.size("model")
+            dec = DecodeSharding.choose(mesh, len(prompts))
+            program = lambda: serve_program(mesh, lay.gather_dims, dec)   # noqa: E731
+            round_to = dec.seq_ranks
     device = resolve_device(device)
     params = mod.cast_for_compute(cfg, params, device)
     tokens = torch.as_tensor(np.asarray(prompts, np.int32), device=device)

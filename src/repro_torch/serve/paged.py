@@ -566,9 +566,9 @@ def paged_state_specs(cfg: ArchConfig, max_len: int, num_blocks: int, block_size
                       mesh=None) -> dict:
     """The paged pool's leaves as meta tensors: on a ``mesh`` this rank's
     part, as the reference's ``paged_state_specs`` places them
-    (``lm.paged_cache_pspec``: kv heads over ``model`` where they divide;
-    the blocks whole on every data rank).  The tables and scheduling
-    vectors are replicated."""
+    (``lm.paged_cache_pspec``: the blocks over the data axes, kv heads over
+    ``model`` where they divide).  The tables and scheduling vectors are
+    replicated."""
     if max_len % block_size:
         raise ValueError(
             f"max_len ({max_len}) must be a multiple of block_size "

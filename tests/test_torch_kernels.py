@@ -40,8 +40,8 @@ from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import NEG_INF, attention_ref
 from repro_torch.kernels.paged_attention import ops as paged_ops
-from repro_torch.kernels.paged_attention.ops import (paged_attention, scratch_shapes,
-                                                     split_plan)
+from repro_torch.kernels.paged_attention.ops import (paged_attention, paged_attention_range,
+                                                     scratch_shapes, split_plan)
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_add
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_add_ref, rmsnorm_ref
@@ -228,6 +228,104 @@ def test_paged_plain_on_a_head_run_of_a_wider_pool(jref, dt, lo, hi):
         paged_ops._check_kernel(_t(q_all[:, :2], dt), strided, strided, lt, tt)
 
 
+def _halves(NB):
+    """Two data ranks' shares of a pool of ``NB`` blocks: ``(lo, n)``."""
+    return (0, NB // 2), (NB // 2, NB - NB // 2)
+
+
+def _block_range_case(q, kp, vp, lt, tt, kw):
+    """The paged decode on each half of the pool (its ``block_lo`` and
+    ``(m, l)``), the halves merged by the port's LSE combine; the whole
+    pool's call; the full range with ``(m, l)``."""
+    parts = [paged_attention_range(q, kp.narrow(0, lo, n), vp.narrow(0, lo, n), lt, tt,
+                                   block_lo=lo, **kw) for lo, n in _halves(kp.shape[0])]
+    merged = tattn.combine_partials(*(list(x) for x in zip(*parts)), q.dtype)
+    whole = paged_attention(q, kp, vp, lt, tt, **kw)
+    full = paged_attention_range(q, kp, vp, lt, tt, block_lo=0, **kw)
+    return parts, merged, whole, full
+
+
+def _empty_lanes(tables, lengths, lo, n, bs):
+    """Lanes with no block of ``[lo, lo + n)`` among those they attend."""
+    out = []
+    for b, (row, length) in enumerate(zip(tables, lengths)):
+        used = row[:min(int(length) // bs + 1, row.size)]
+        if not ((used >= lo) & (used < lo + n)).any():
+            out.append(b)
+    return out
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("rep", [1, 8])
+@pytest.mark.parametrize("kwargs", PAGED_KWARGS)
+def test_paged_plain_block_range_halves_combine(jref, dt, rep, kwargs):
+    """A pool split into two data ranks' halves: the block-range entry's
+    plain version on each half merged by ``combine_partials`` equals
+    the whole pool's call and the reference's jnp oracle; a lane with no
+    block in a half (the length-0 lane's one block, the stale lane's sink)
+    gives that half ``m = NEG_INF``, ``l = 0`` and zeros; the entry over
+    the full range is the plain call bitwise."""
+    q, kp, vp, lengths, tables = _paged_inputs(Hk=2, rep=rep, D=16, bs=4, nb=8)
+    args = [_t(x, dt) for x in (q, kp, vp)]
+    lt, tt = torch.tensor(lengths), torch.tensor(tables)
+    parts, merged, whole, full = _block_range_case(*args, lt, tt, kwargs)
+    assert full[0].dtype == torch.float32 and torch.equal(full[0].to(whole.dtype), whole)
+    for (lo, n), (o, m, l) in zip(_halves(kp.shape[0]), parts):
+        empty = _empty_lanes(tables, lengths, lo, n, 4)
+        assert empty
+        assert (m[empty] == NEG_INF).all() and (l[empty] == 0).all()
+        assert (o[empty] == 0).all()
+    torch.testing.assert_close(merged.float(), whole.float(), **_tol(dt))
+    j = lambda x: jref.jnp.asarray(_t(x, dt).float().numpy()).astype(dt)
+    want = jref.paged_ref(j(q), j(kp), j(vp), jref.jnp.asarray(lengths),
+                          jref.jnp.asarray(tables), **kwargs)
+    np.testing.assert_allclose(merged.float().numpy(), np.asarray(want, np.float32),
+                               **_tol(dt))
+
+
+def test_lse_combine_of_one_rank_is_the_rank_bitwise():
+    """At one rank the merge weighs the output by ``l / l``, exactly 1: the
+    combine returns the rank's fp32 partial rounded once, bitwise, also for
+    a lane with nothing to attend (``l = 0``)."""
+    q, kp, vp, lengths, tables = _paged_inputs(Hk=2, rep=3, D=16, bs=4, nb=8)
+    for dt in DTYPES:
+        o, m, l = paged_attention_range(_t(q, dt), _t(kp, dt), _t(vp, dt),
+                                        torch.tensor(lengths), torch.tensor(tables), block_lo=30)
+        assert (l == 0).any()
+        dtype = getattr(torch, dt)
+        assert torch.equal(tattn.combine_partials([o], [m], [l], dtype), o.to(dtype))
+
+
+def test_paged_writes_on_a_block_range():
+    """Writes through a data rank's share of the pool (``blocks=(lo, n)``)
+    land where the whole pool's do, restricted to the share; entries of
+    the other share change nothing of it."""
+    rng = np.random.default_rng(3)
+    NB, bs, Hk, D = 12, 4, 2, 8
+    pool = torch.tensor(rng.normal(size=(NB, bs, Hk, D)).astype(np.float32))
+    tables = torch.tensor([[1, 7, 2], [8, 9, 10], [3, 4, 11], [6, 0, 5]], dtype=torch.int32)
+    lengths = torch.tensor([5, 10, 0, 3], dtype=torch.int32)
+    new = torch.tensor(rng.normal(size=(4, Hk, D)).astype(np.float32))
+    chunk = torch.tensor(rng.normal(size=(2, 9, Hk, D)).astype(np.float32))
+    valid = torch.arange(9) < 7
+    whole = pool.clone()
+    tattn.paged_write_token(whole, tables, lengths, new)
+    stacked = torch.stack([pool, pool]).clone()
+    tattn.paged_write_positions(stacked, tables[2], torch.arange(9), chunk, valid)
+    for lo, n in _halves(NB):
+        part = pool[lo:lo + n].clone()
+        tattn.paged_write_token(part, tables, lengths, new, blocks=(lo, n))
+        assert torch.equal(part, whole[lo:lo + n])
+        sp = torch.stack([pool, pool])[:, lo:lo + n].clone()
+        tattn.paged_write_positions(sp, tables[2], torch.arange(9), chunk, valid,
+                                    blocks=(lo, n))
+        assert torch.equal(sp, stacked[:, lo:lo + n])
+    # no entry of the share at all: nothing of it changes
+    part = pool[:6].clone()
+    tattn.paged_write_token(part, tables[1:2], lengths[1:2], new[1:2], blocks=(0, 6))
+    assert torch.equal(part, pool[:6])
+
+
 @pytest.mark.parametrize("dt", DTYPES)
 @pytest.mark.parametrize("rows,D", RMSNORM_SHAPES)
 def test_rmsnorm_plain_matches_reference(jref, dt, rows, D):
@@ -389,6 +487,40 @@ def test_paged_kernel_matches_plain_on_card(cuda, dt, kwargs):
     assert paged_attention.launches == before + 1
     want = paged_attention_ref(*args, lt, tt, **kwargs)
     torch.testing.assert_close(out.float(), want.float(), **_card_tol(dt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("rep", [1, 8])
+@pytest.mark.parametrize("kwargs", PAGED_KWARGS)
+def test_paged_kernel_block_range_halves_on_card(cuda, dt, rep, kwargs):
+    """The kernel's block-range entry on two halves of the pool (views,
+    ``pool.narrow(0, lo, n)``), merged by the LSE combine, against the
+    whole pool's launch and the plain version; each half's ``(m, l)``
+    against the plain version's; the entry over the full range bitwise
+    the plain entry; one count a call in the entry's own ``launches``."""
+    q, kp, vp, lengths, tables = _paged_inputs(Hk=5, rep=rep, D=64, bs=16, nb=16)
+    args = [_t(x, dt, cuda) for x in (q, kp, vp)]
+    lt, tt = torch.tensor(lengths, device=cuda), torch.tensor(tables, device=cuda)
+    before = (paged_attention.launches, paged_attention_range.launches)
+    parts, merged, whole, full = _block_range_case(*args, lt, tt, kwargs)
+    torch.cuda.synchronize()
+    assert (paged_attention.launches, paged_attention_range.launches) == (before[0] + 1,
+                                                                          before[1] + 3)
+    assert torch.equal(full[0].to(whole.dtype), whole)
+    torch.testing.assert_close(merged.float(), whole.float(), **_card_tol(dt))
+    torch.testing.assert_close(merged.float(), paged_attention_ref(*args, lt, tt, **kwargs).float(),
+                               **_card_tol(dt))
+    for (lo, n), (o, m, l) in zip(_halves(kp.shape[0]), parts):
+        po, pm, pl = paged_attention_ref(args[0], args[1].narrow(0, lo, n),
+                                         args[2].narrow(0, lo, n), lt, tt, block_lo=lo,
+                                         with_lse=True, **kwargs)
+        torch.testing.assert_close(o.float(), po.float(), **_card_tol(dt))
+        live = pl > 0
+        assert torch.equal(l > 0, live)
+        torch.testing.assert_close(m[live], pm[live], atol=3e-5, rtol=3e-5)
+        torch.testing.assert_close(l[live], pl[live], atol=1e-4, rtol=1e-4)
+        assert (m[~live] == NEG_INF).all()
 
 
 @pytest.mark.cuda

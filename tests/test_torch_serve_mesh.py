@@ -2,33 +2,41 @@
 mesh=)``), against the reference's engine on ``local_mesh`` of the same
 shape.
 
-One spawn of 2 gloo ranks (``(1, 2)``), one of 4 (``(2, 2)``) and four
-processes of the reference over 4 forced JAX host devices each (the
-reference's engine runs split over them: each compiles its programs in
-some 4 s) start together (one torch thread a rank; only the
-reference's processes import JAX; the ranks wait for the inits the first
-writes).  Each rank serves six staggered
-prompts of the fp32 smoke configs of ``smollm-360m`` (3/1 heads: they do
-not divide over 2, so every rank attends every head), ``gemma2-27b`` and
-``qwen3-moe-30b-a3b`` (4/2 heads: local heads, local experts) on both KV
-layouts, fused sampling for the streams and host sampling for the decode
-logits, and holds:
+One spawn of 2 gloo ranks (``(1, 2)`` and ``(2, 1)``, two meshes over the
+same processes), one of 4 (``(2, 2)``) and four processes of the
+reference over 4 forced JAX host devices each (the reference's engine
+runs split over them: each compiles its programs in some 4 s) start
+together (one torch thread a rank; only the reference's processes import
+JAX; the ranks wait for the inits the first writes).  Each rank serves six
+staggered prompts of the fp32 smoke configs of ``smollm-360m`` (3/1
+heads: they do not divide over 2, so every rank attends every head),
+``gemma2-27b`` and ``qwen3-moe-30b-a3b`` (4/2 heads: local heads, local
+experts) on both KV layouts, fused sampling for the streams and host
+sampling for the decode logits, and holds:
 
 * the greedy streams equal to the reference engine's at the same mesh
-  (MoE at ``(2, 2)`` against the reference's ``(1, 2)``: the reference's
-  MoE raises at a data axis above 1, a batch-1 prefill not dividing over
-  it), and the logits of every occupied lane within 1e-4;
+  (MoE at a data axis of 2 against the reference's ``(1, 2)``: the
+  reference's MoE raises at a data axis above 1, a batch-1 prefill not
+  dividing over it), and the logits of every occupied lane within 1e-4;
 * every rank's streams and ``stats`` equal;
-* ``kv_reserved_bytes`` a rank: the reference's bytes a device times its
-  data size, the lanes (slotted) or the pool's blocks (paged) the
-  reference splits over the data axes and the port keeps whole on every
-  data rank;
-* a chunked prefill with the prefix cache (gemma2, paged, ``(1, 2)``) and
-  qwen3-moe with one kv head (its q heads divide over 2, its kv heads do
-  not: the paged decode attends a head run of the replicated pool);
+* ``kv_reserved_bytes`` a rank equal to the reference's bytes a device
+  at the same mesh (its state specs' shard shapes; for MoE at a data axis
+  of 2 the specs alone): a data rank holds its share of the lanes
+  (slotted) or of the pool's blocks (paged);
+* the batch fallback (``smollm-360m/slots3``: 3 lanes do not divide over
+  a data axis of 2, so every rank holds every lane and its positions
+  split over all 4 ranks) at ``(2, 2)``;
+* a chunked prefill with the prefix cache (gemma2, paged) at ``(1, 2)``,
+  and at ``(2, 2)`` over a pool of 12 blocks, 6 a data rank, where the
+  copy-on-write moves a block from one data rank to the other and each
+  continuation chunk gathers its lane over the data axis; qwen3-moe with
+  one kv head (its q heads divide over 2, its kv heads do not: the paged
+  decode attends a head run of the replicated pool);
 * the sequence-sharded ``decode_attention`` at 2 ranks against the
   reference's under ``DecodeSharding`` on 2 devices: scalar and vector
-  positions, a window, a softcap, writes on either rank's shard.
+  positions, a window, a softcap, writes on either rank's shard;
+* the static loop at ``(1, 2)`` and ``(2, 1)`` (its batch split over the
+  data axis).
 
 In this process: ``(1, 1)`` over a one-rank gloo group bitwise equal to
 ``mesh=None`` (streams, logits, bytes, counters), the refusals, the cache
@@ -56,11 +64,16 @@ ARCHS = ("smollm-360m", "gemma2-27b", "qwen3-moe-30b-a3b")
 MOE = "qwen3-moe-30b-a3b"
 KV1 = "qwen3-moe-30b-a3b/kv1"          # one kv head: the q heads divide over 2, it does not
 LAYOUTS = ("slotted", "paged")
+SLOTS3 = "smollm-360m/slots3"           # 3 lanes: the batch fallback at a data axis of 2
+CHUNK12 = "gemma2-27b/chunk12"         # chunks and prefix cache over 12 blocks, 6 a data rank
 # (variant, layout, mesh shape) runs of the ranks; the reference's mesh is
-# the same but for MoE at (2, 2)
+# the same but for MoE at a data axis of 2
 RUNS = ([(a, lay, (1, 2)) for a in ARCHS for lay in LAYOUTS]
+        + [(a, lay, (2, 1)) for a in ARCHS for lay in LAYOUTS]
         + [(a, lay, (2, 2)) for a in ARCHS for lay in LAYOUTS]
-        + [(KV1, lay, (1, 2)) for lay in LAYOUTS] + [("gemma2-27b/chunk", "paged", (1, 2))])
+        + [(KV1, lay, (1, 2)) for lay in LAYOUTS] + [("gemma2-27b/chunk", "paged", (1, 2))]
+        + [(SLOTS3, "slotted", (2, 2)), (CHUNK12, "paged", (2, 2))])
+SHAPES = {2: ((1, 2), (2, 1)), 4: ((2, 2),)}     # the meshes of each spawn
 NEW = 8
 
 
@@ -87,15 +100,19 @@ def _jax_cfg(variant):
 
 def _econ(variant, layout, fused=True):
     kw = dict(max_slots=4, max_len=32, page_size=8, kv_layout=layout, fused_sampling=fused)
-    if variant.endswith("/chunk"):
+    if variant.endswith(("/chunk", "/chunk12")):
         kw.update(prefill_chunk=4, prefix_cache=True)
+    if variant == CHUNK12:
+        kw.update(num_blocks=12)
+    if variant == SLOTS3:
+        kw.update(max_slots=3)
     return kw
 
 
 def _prompts(variant, vocab):
     rng = np.random.default_rng(0)
     ps = [rng.integers(0, vocab, int(n)).astype(np.int32) for n in (5, 9, 3, 12, 7, 4)]
-    if variant.endswith("/chunk"):
+    if variant.endswith(("/chunk", "/chunk12")):
         # shared 8- and 12-token prefixes: whole-block prefix hits, a COW tail
         ps = [np.concatenate([ps[3][:8], p])[:12] for p in ps[:3]] + [ps[3], ps[3][:8]] + ps[4:5]
     return ps
@@ -167,14 +184,16 @@ def _port_run(mesh, variant, layout, init):
     cfg = _cfg(variant)
     eng = ServeEngine(cfg, init, EngineConfig(**_econ(variant, layout)), device="cpu",
                       mesh=mesh)
+    common.COUNTS.update(dict.fromkeys(common.COUNTS, 0))
     streams = _serve(variant, layout, eng)
+    counts = dict(common.COUNTS)
     stats = eng.stats
     host = ServeEngine(cfg, init, EngineConfig(**_econ(variant, layout, fused=False)),
                        device="cpu", mesh=mesh)
     seen = _recording(host)
     host_streams = _serve(variant, layout, host)
     return dict(streams=streams, stats=stats, host_streams=host_streams, logits=seen,
-                kv_bytes=eng.kv_reserved_bytes,
+                kv_bytes=eng.kv_reserved_bytes, counts=counts,
                 cache_shapes={n: tuple(c.shape) for n, c in eng.state["cache"].items()})
 
 
@@ -233,25 +252,26 @@ def _static_runs(mesh=None):
     return out
 
 
-def _worker(rank, world, shape, address, out_dir):
+def _worker(rank, world, address, out_dir):
     torch.set_num_threads(1)
     group = init_group("gloo", rank, world, address, device="cpu", timeout_s=240)
     res = {}
     try:
-        mesh = mesh_from_group(group, shape)
+        meshes = {shape: mesh_from_group(group, shape) for shape in SHAPES[world]}
         if world == 2:
-            res["decode_attention"] = _decode_attention_checks(mesh)
-            res["static"] = _static_runs(mesh)
+            res["decode_attention"] = _decode_attention_checks(meshes[(1, 2)])
+            res["static"] = {shape: _static_runs(m) for shape, m in meshes.items()}
         _wait_for(out_dir / "inits.done")
         for variant, layout, sh in RUNS:
-            if sh != shape:
+            if sh not in meshes:
                 continue
             init = torch.load(out_dir / f"{variant.replace('/', '_')}_init.pt",
                               weights_only=False)
-            res[(variant, layout)] = _port_run(mesh, variant, layout, init)
+            res[(variant, layout, sh)] = _port_run(meshes[sh], variant, layout, init)
         if world == 2:
-            res["router"] = _router_run(mesh, torch.load(out_dir / "gemma2-27b_init.pt",
-                                                         weights_only=False))
+            res["router"] = _router_run(meshes[(1, 2)],
+                                        torch.load(out_dir / "gemma2-27b_init.pt",
+                                                   weights_only=False))
         torch.save(res, out_dir / f"w{world}_rank{rank}.pt")
         dist.barrier()
     finally:
@@ -337,6 +357,9 @@ def _reference(out_dir, part):
                                  jnp.asarray(temps, jnp.float32), jnp.asarray(top_ks, jnp.int32),
                                  jnp.asarray(top_ps, jnp.float32)))
 
+    if part == 0:
+        out["kv_bytes_per_device"] = {(v, lay, sh): _ref_kv_bytes(v, lay, sh)
+                                      for v, lay, sh in RUNS}
     for variant, layout, rshape in runs:
         mesh = local_mesh(data=rshape[0], model=rshape[1])
         jcfg = _jax_cfg(variant)
@@ -356,6 +379,28 @@ def _reference(out_dir, part):
     torch.save(out, out_dir / f"reference{part}.pt")
 
 
+def _ref_kv_bytes(variant, layout, shape):
+    """The reference's KV bytes a device of ``variant``'s engine at
+    ``shape``: its state specs' shard shape on ``local_mesh`` of that
+    shape, the pool rounded up to the data size as its engine rounds it
+    (for MoE at a data axis of 2, where its engine does not run)."""
+    from repro.launch.mesh import local_mesh
+    from repro.serve.cache import slot_state_specs
+    from repro.serve.paged import paged_state_specs
+
+    mesh = local_mesh(data=shape[0], model=shape[1])
+    e = _econ(variant, layout)
+    if layout == "slotted":
+        sds, sh = slot_state_specs(_jax_cfg(variant), mesh, e["max_slots"], e["max_len"])
+    else:
+        want = e.get("num_blocks") or e["max_slots"] * (e["max_len"] // e["page_size"]) + 1
+        nb = -(-want // shape[0]) * shape[0]
+        sds, sh = paged_state_specs(_jax_cfg(variant), mesh, e["max_slots"], e["max_len"], nb,
+                                    e["page_size"])
+    return int(sum(np.prod(sh["cache"][k].shard_shape(x.shape)) * x.dtype.itemsize
+                   for k, x in sds["cache"].items()))
+
+
 def _free_port():
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -370,9 +415,9 @@ def spawned(tmp_path_factory):
     out_dir = tmp_path_factory.mktemp("serve_mesh")
     ctx = multiprocessing.get_context("spawn")
     procs = []
-    for world, shape in ((2, (1, 2)), (4, (2, 2))):
+    for world in SHAPES:
         address = f"tcp://127.0.0.1:{_free_port()}"
-        procs += [ctx.Process(target=_worker, args=(r, world, shape, address, out_dir))
+        procs += [ctx.Process(target=_worker, args=(r, world, address, out_dir))
                   for r in range(world)]
     old = os.environ.get("XLA_FLAGS")
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
@@ -414,7 +459,7 @@ def _ranks_of(ranks, shape):
 def test_mesh_engine_matches_reference(spawned, variant, layout, shape):
     ranks, ref, _ = spawned
     want = ref[(variant, layout, _ref_shape(variant, shape))]
-    runs = [r[(variant, layout)] for r in _ranks_of(ranks, shape)]
+    runs = [r[(variant, layout, shape)] for r in _ranks_of(ranks, shape)]
     got = runs[0]
     assert got["streams"] == want["streams"], (variant, layout, shape)
     assert got["host_streams"] == want["streams"]
@@ -432,19 +477,33 @@ def test_mesh_engine_matches_reference(spawned, variant, layout, shape):
         assert occ_a == occ_b and a.shape == b.shape
         rows = [i for i, o in enumerate(occ_a) if o]
         np.testing.assert_allclose(a[rows], b[rows], rtol=1e-4, atol=1e-4)
+    # the data axis's collectives, the same on every rank
+    counts = got["counts"]
+    assert all(r["counts"] == counts for r in runs)
+    slotted, lanes_split = layout == "slotted", variant != SLOTS3
+    assert (counts["data_all_gather"] > 0) == (slotted and lanes_split)
+    assert (counts["decode_combine"] > 0) == slotted
+    assert (counts["data_combine"] > 0) == (not slotted)
+    if variant == CHUNK12:
+        # the copy-on-write crosses the data ranks; the continuations gather
+        assert counts["block_copy"] == got["stats"]["cow_copies"] == 1
+        assert counts["block_gather"] > 0
 
 
-def test_static_loop_on_the_mesh(spawned):
-    """``generate_static`` at (1, 2), gemma2 and the VLM backbone (its patch
-    embeddings prepended, whole on every rank as the text is): the tokens
-    of the mesh-less loop (held against the reference by
+@pytest.mark.parametrize("shape", SHAPES[2], ids=["1x2", "2x1"])
+def test_static_loop_on_the_mesh(spawned, shape):
+    """``generate_static`` at (1, 2) and (2, 1) (the batch of 2 split over
+    the data axis: each rank prefills and decodes its row, the logits
+    gathered), gemma2 and the VLM backbone (its patch embeddings
+    prepended, whole on every rank as the text is): the tokens of the
+    mesh-less loop (held against the reference by
     ``test_torch_gemma2.py``, ``test_torch_vlm.py``) and each decode step's
     logits within 1e-4, on both ranks."""
     ranks, _, _ = spawned
     want = _static_runs()
     for r in ranks[2]:
         for arch in STATIC:
-            toks, seen = r["static"][arch]
+            toks, seen = r["static"][shape][arch]
             np.testing.assert_array_equal(toks, want[arch][0])
             assert len(seen) == len(want[arch][1]) == 6
             for a, b in zip(seen, want[arch][1]):
@@ -465,30 +524,36 @@ def test_router_on_the_mesh_matches_reference(spawned):
 @pytest.mark.parametrize("variant,layout,shape", RUNS,
                          ids=[f"{v}-{lay}-{s[0]}x{s[1]}" for v, lay, s in RUNS])
 def test_kv_bytes_a_rank_follow_reference_layout(spawned, variant, layout, shape):
-    """The bytes a rank hold what the reference's layout leaves on a
-    device, times the data size over which the reference also splits the
-    lanes or the pool's blocks (4 lanes and an even pool divide over 2)."""
+    """The bytes a rank holds equal the reference's bytes a device at the
+    same mesh: a data rank's share of the lanes (slotted: ``max_slots /
+    data`` lanes of ``max_len / model`` positions, or under the batch
+    fallback every lane with ``max_len / world`` positions) or of the
+    pool's blocks (paged: the pool rounded up to the data size, over it,
+    and the kv heads over ``model`` where they divide)."""
     ranks, ref, _ = spawned
     cfg = _cfg(variant)
-    rshape = _ref_shape(variant, shape)
-    want = ref[(variant, layout, rshape)]["kv_bytes_per_device"]
-    runs = [r[(variant, layout)] for r in _ranks_of(ranks, shape)]
+    runs = [r[(variant, layout, shape)] for r in _ranks_of(ranks, shape)]
     data, model = shape
+    e = _econ(variant, layout)
     itemsize, lead = 4, cfg.n_layers
     if layout == "slotted":
-        local = (4, 32 // model, cfg.n_kv, cfg.head_dim)
-        assert runs[0]["cache_shapes"]["k"][-4:] == local
-        factor = rshape[0]
+        slots = e["max_slots"]
+        if slots % data:
+            local = (slots, e["max_len"] // (data * model))
+        else:
+            local = (slots // data, e["max_len"] // model)
+        assert runs[0]["cache_shapes"]["k"][-4:] == local + (cfg.n_kv, cfg.head_dim)
     else:
         heads = cfg.n_kv // model if cfg.n_kv % model == 0 else cfg.n_kv
-        nb = -(-(4 * 4 + 1) // data) * data       # the pool rounded up to the data size
-        assert runs[0]["cache_shapes"]["k"][-4:] == (nb, 8, heads, cfg.head_dim)
-        factor = rshape[0]
-        if shape != rshape:                        # MoE (2, 2) against (1, 2)
-            factor = nb / (4 * 4 + 1)
+        want_nb = e.get("num_blocks") or 4 * 4 + 1
+        nb = -(-want_nb // data) * data           # the pool rounded up to the data size
+        assert runs[0]["cache_shapes"]["k"][-4:] == (nb // data, 8, heads, cfg.head_dim)
     for r in runs:
         assert r["kv_bytes"] == 2 * lead * np.prod(r["cache_shapes"]["k"][-4:]) * itemsize
-    assert runs[0]["kv_bytes"] == want * factor
+    want = ref["kv_bytes_per_device"][(variant, layout, shape)]
+    assert runs[0]["kv_bytes"] == want
+    if _ref_shape(variant, shape) == shape:     # the reference's engine itself
+        assert want == ref[(variant, layout, shape)]["kv_bytes_per_device"]
 
 
 def test_decode_attention_sequence_sharded_matches_reference(spawned):
@@ -558,14 +623,18 @@ def test_one_by_one_mesh_equals_no_mesh_bitwise(gloo1, arch, layout):
     # a layer's seven sharded weights and the embedding read twice (or
     # the embedding and the unembedding); the embedding's and every
     # layer's two row-parallel sums; the slotted layout's q, k, v gathers
-    # and LSE combine; the logits' gather
+    # and LSE combine over the model axis, and its lanes' logits gathered
+    # over the data axis; the paged layout's merge of the data ranks'
+    # partials a layer; the logits' gather over the model axis
     L = cfg.n_layers
     slotted = layout == "slotted"
     assert common.COUNTS == {**dict.fromkeys(common.COUNTS, 0),
                              "all_gather": 7 * L + 2,
                              "reduce_from_model": 2 * L + 1,
                              "model_all_gather": (3 * L if slotted else 0) + 1,
-                             "decode_combine": 2 * L if slotted else 0}
+                             "decode_combine": 2 * L if slotted else 0,
+                             "data_all_gather": 1 if slotted else 0,
+                             "data_combine": 0 if slotted else 2 * L}
 
 
 def _fake_mesh(shape):
@@ -577,21 +646,33 @@ def _fake_mesh(shape):
 
 
 def test_cache_layouts_local_shapes():
-    """This rank's cache leaves: each lane's ``max_len / M`` positions of
-    every kv head (slotted); the pool's kv heads over ``model`` where they
-    divide, else every one (paged); ``max_len`` that does not divide is
-    refused."""
+    """This rank's cache leaves: ``max_slots / data`` lanes of ``max_len /
+    M`` positions of every kv head (slotted), or under the batch fallback
+    every lane with ``max_len / world`` positions; the pool's blocks over
+    the data axis and its kv heads over ``model`` where they divide, else
+    every one (paged); what does not divide is refused."""
     live = _fake_mesh((2, 4))
     g = get_smoke_config("gemma2-27b")                  # 2 kv heads, 4 layers as (2, 2)
     k = lm.make_cache_specs(g, 4, 32, mesh=live)["k"]
-    assert tuple(k.shape) == (2, 2, 4, 8, 2, 16)
-    assert lm.cache_pspec(g, live)["k"] == (None, None, None, "model", None, None)
+    assert tuple(k.shape) == (2, 2, 2, 8, 2, 16)
+    dec = tattn.DecodeSharding.choose(live, 4)
+    assert lm.cache_pspec(g, dec)["k"] == (None, None, ("data",), ("model",), None, None)
+    assert dec.local_lanes(4) == (0, 2) and dec.local_len(32) == 8
+    # the batch fallback: 3 lanes do not divide over 2 data ranks
+    k3 = lm.make_cache_specs(g, 3, 32, mesh=live)["k"]
+    assert tuple(k3.shape) == (2, 2, 3, 4, 2, 16)
+    fb = tattn.DecodeSharding.choose(live, 3)
+    assert lm.cache_pspec(g, fb)["k"] == (None, None, None, ("data", "model"), None, None)
+    assert fb.local_lanes(3) == (0, 3) and fb.seq_ranks == 8
     two = _fake_mesh((1, 2))
     assert tuple(lm.make_paged_cache_specs(g, 9, 8, mesh=two)["k"].shape) == (2, 2, 9, 8, 1, 16)
-    assert tuple(lm.make_paged_cache_specs(g, 9, 8, mesh=live)["k"].shape) == (2, 2, 9, 8, 2, 16)
-    assert lm.paged_cache_pspec(g, live)["k"] == (None,) * 6
-    with pytest.raises(ValueError, match="max_len 30 does not divide over 4 model ranks"):
+    assert tuple(lm.make_paged_cache_specs(g, 10, 8, mesh=live)["k"].shape) == (2, 2, 5, 8, 2, 16)
+    assert lm.paged_cache_pspec(g, live)["k"] == (None, None, ("data",), None, None, None)
+    assert lm.paged_cache_pspec(g, two)["k"] == (None, None, ("data",), None, ("model",), None)
+    with pytest.raises(ValueError, match="max_len 30 does not divide over 4 ranks"):
         lm.make_cache_specs(g, 4, 30, mesh=live)
+    with pytest.raises(ValueError, match="9 does not divide over 2 ranks"):
+        lm.make_paged_cache_specs(g, 9, 8, mesh=live)
     # the reference's choice: lanes over data where they divide, else the
     # positions over every axis
     assert tattn.DecodeSharding.choose(live, 4).batch_axes == ("data",)
