@@ -240,6 +240,20 @@ Phases (any failure raises and the script exits non-zero):
    step, a prefill and the run by ``serve_collectives`` (the data axis's
    logit gather and partial merge included), KV bytes a rank; the paged
    decode step profiled; the launcher's ``--mesh single``.
+3p. The engine's features on 3o's ``(1, 1)`` mesh of one-rank NCCL groups
+   (``mesh_features_path``), phase 3's model and requests: 3f's tier
+   engine (``TIER_3F`` exactly), 3h's hold, park, ``save_snapshot``/
+   ``restore_snapshot`` (rank 0 writes, a barrier, every rank reads) and
+   two exports into a second mesh engine sharing the tier, 3j's spec
+   engine on both layouts (the first 8 requests; the round one graph
+   holding the draft's and
+   the target's mesh programs, 8 replays bitwise the eager round on a deep
+   clone, the round's collectives by ``spec_collectives``,
+   ``spec_identities``) and 3k's spec-plus-tier run; every stream bitwise
+   the mesh-less phase's (phase 3's; 3o's mesh-less slotted run's for the
+   slotted spec engine), launches by ``mesh_feature_launches`` (the paged
+   decode through ``paged_attention_range``).  Prints tokens/s beside 3f's
+   and 3j's and a profiled spec round beside 3j's.
 4. Train full-width ``smollm-360m`` (seed 0, bf16 compute, both kernels)
    over a 1-rank NCCL group at seq 1024, global batch 8, 2 slices, remat:
    the faithful program for 3 steps and ZeRO for 2 (6 and 3 until phases
@@ -349,19 +363,20 @@ Phases (any failure raises and the script exits non-zero):
    decode step; prints each prefill's ``drop_frac`` (the largest of its
    layers, recomputed at its bucket) and the decode step's bound, which
    reads every expert (the (E, C) layout computes all 128 experts' slots).
-10. Full-width ``xlstm-1.3b`` (48 layers, uncut: 42 mLSTM and 6 sLSTM
-   blocks, d_model 2,048, 4 heads; 7.21 GB of bf16 weights from seed 0
-   made in bf16) through the slotted engine (8 lanes, max_len 1,024; the
-   recurrent state 5.65 GB) on phase 3's traffic, every decode step a
+10. ``xlstm-1.3b`` at full width, 8 of its 48 layers (``XLSTM_LAYERS``:
+   its first segment, 7 mLSTM blocks and the sLSTM block, d_model 2,048, 4
+   heads; bf16 weights from seed 0 made in bf16; 48 layers until phase 3p
+   joined the script's time limit) through the slotted engine (8 lanes,
+   max_len 1,024) on phase 3's traffic, every decode step a
    graph replay: phase 7's gates (``serve_phase``: full budgets, 8 replays
    bitwise the eager program, builds flat after ``prebuild``,
    ``check_invariants`` with the recurrent-zero sweep after every step, a
-   second run's streams, the launches: ``rmsnorm`` 97 a prefill and a
-   decode step, each block's ``ln`` and ``out_ln`` and ``ln_f``, and no
-   other kernel); logits, kernel path against plain, on a prefill and 4
+   second run's streams, the launches: ``rmsnorm`` 2 x 8 + 1 a prefill
+   and a decode step, each block's ``ln`` and ``out_ln`` and ``ln_f``, and
+   no other kernel); logits, kernel path against plain, on a prefill and 4
    decode steps: fp32 (TF32 off) within ``LOGIT_TOL`` on the first segment
-   (``XLSTM_FP32_LAYERS``, 8), bf16 and fp32 at full depth printed and not
-   gated (``xlstm_logits``: random weights amplify the norms' last-bit
+   (``XLSTM_FP32_LAYERS``, 8), bf16 and fp32 at the phase's depth printed
+   and not gated (``xlstm_logits``: random weights amplify the norms' last-bit
    differences), and the first mLSTM and sLSTM blocks (prefill and 8
    decode lanes) within ``BLOCK_TOL`` in both dtypes.  Prints tokens/s, the
    profiled decode step's launches, device ms and idle share beside its
@@ -568,8 +583,9 @@ STABLELM_FP32_LAYERS = 4
 # traffic
 MOE_LAYERS = 48
 MOE_FP32_LAYERS = 4
-# phase 10: full-width xlstm-1.3b (48 layers, uncut) on the slotted engine
-XLSTM_LAYERS = 48
+# phase 10: xlstm-1.3b at full width and 8 of its 48 layers (its first
+# segment: 7 mLSTM, 1 sLSTM) on the slotted engine
+XLSTM_LAYERS = 8
 XLSTM_PREFILL = 512           # the profiled prefill's prompt (bucket 512)
 # the fp32 logit gate's depth: one segment of slstm_every = 8 (7 mLSTM
 # blocks, then the sLSTM block); at full depth random weights amplify fp32
@@ -2512,7 +2528,8 @@ COPY_ITERS = 5
 
 def block_bytes(cfg) -> int:
     """Bytes of one paged KV block: K and V of every layer."""
-    return 2 * cfg.n_layers * PAGE * cfg.n_kv * cfg.head_dim * 2
+    itemsize = {"bfloat16": 2, "float32": 4}[cfg.compute_dtype]
+    return 2 * cfg.n_layers * PAGE * cfg.n_kv * cfg.head_dim * itemsize
 
 
 def logging_tier(capacity: int | None = None):
@@ -2695,27 +2712,34 @@ def dense_launch_kernels():
     return (flash_attention, paged_attention, rmsnorm, rmsnorm_add)
 
 
-def hold_park_snapshot(torch, cfg, params, reqs, dev, want) -> dict:
+def hold_park_snapshot(torch, cfg, params, reqs, dev, want, mesh=None) -> dict:
     """Phase 3h on phase 3's engine with a tier and ``park_idle_s`` on a
     StepClock: a lane held and released in place (no restore), a lane held
     past the threshold (it parks, its lane refills, its release restores
     with no replay), ``save_snapshot`` mid-run and ``restore_snapshot`` into
     a fresh engine sharing the program cache (drained there), and two
     requests exported to a third engine sharing cache and tier (drained
-    there).  Every stream, wherever it finishes, is phase 3's bitwise."""
+    there).  Every stream, wherever it finishes, is phase 3's bitwise.  On
+    a ``mesh`` (phase 3p) every engine is a mesh engine, reading the
+    StepClock through its ``MeshClock``, and the paged decode launches the
+    block-range entry."""
     import tempfile
 
     from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.kernels.paged_attention.ops import paged_attention_range
     from repro_torch.serve import EngineConfig, HostTier, ServeEngine
 
-    kernels = dense_launch_kernels()
+    kernels = dense_launch_kernels() + ((paged_attention_range,) if mesh is not None else ())
     ec = EngineConfig(max_slots=MAX_SLOTS, max_len=MAX_LEN, kv_layout="paged", page_size=PAGE,
                       paged_attn="kernel", host_tier=True, park_idle_s=PARK_STEPS)
     tier = HostTier()
     work = ("prefill_chunks", "prefill_first_chunks", "decode_steps")
 
     def engine(**kw):
-        return ServeEngine(cfg, params, ec, device=dev, clock=StepClock(), **kw)
+        return ServeEngine(cfg, params, ec, device=dev, clock=StepClock(), mesh=mesh, **kw)
+
+    def tick(eng):
+        getattr(eng.clock, "base", eng.clock).t += 1.0     # a mesh engine's MeshClock
 
     def decoding(eng):
         return [s.rid for s in eng.slots if s is not None and s.generated >= 1 and not s.held]
@@ -2724,7 +2748,7 @@ def hold_park_snapshot(torch, cfg, params, reqs, dev, want) -> dict:
         while eng.has_work():
             eng.step()
             eng.check_invariants()
-            eng.clock.t += 1.0
+            tick(eng)
         return {r: list(c.tokens) for r, c in eng.completions.items() if c.status == "ok"}
 
     a = engine(host_tier=tier)
@@ -2789,7 +2813,7 @@ def hold_park_snapshot(torch, cfg, params, reqs, dev, want) -> dict:
             del c
         a.step()
         a.check_invariants()
-        a.clock.t += 1.0
+        tick(a)
         step += 1
         assert step < 2000
     torch.cuda.synchronize()
@@ -2800,6 +2824,9 @@ def hold_park_snapshot(torch, cfg, params, reqs, dev, want) -> dict:
     want_launches = {"flash_attention": N_LAYERS * total["prefill_first_chunks"],
                      "paged_attention": N_LAYERS * total["decode_steps"],
                      **dense_norms(total["prefill_chunks"], total["decode_steps"])}
+    if mesh is not None:
+        want_launches.update(paged_attention=0,
+                             paged_attention_range=N_LAYERS * total["decode_steps"])
     bad = [r for r in rids if done.get(r) != want[r]]
     out.update(launches=launches, work=total, builds=a.aot.stats["builds"], diverged=bad,
                park_release=park_release, counters={k: a.counters[k] for k in (
@@ -3043,18 +3070,20 @@ def round_summary(profile: dict) -> dict:
         k: b[k] for k in ("draft_ms", "verify_ms", "rollback_ms")}
 
 
-def spec_graph_check(torch, cfg, params, dparams, reqs, ec, dev, steps: int = 8):
+def spec_graph_check(torch, cfg, params, dparams, reqs, ec, dev, steps: int = 8, mesh=None):
     """The captured spec graph against the eager spec program, as
     ``graph_check`` holds the decode graph: 8 lanes admitted, the first
     round builds the graph, then ``steps`` rounds each run the eager
     program on a deep clone of the state and replay the graph on the state
     itself.  The rows and every leaf (the draft's cache, its snapshots and
-    ``keep`` included) must be bitwise equal.  Returns (figures, the
-    engine, its lanes still decoding, for ``profile_spec``)."""
+    ``keep`` included) must be bitwise equal.  On a ``mesh`` the graph
+    holds both mesh programs' collectives (the draft's and the target's).
+    Returns (figures, the engine, its lanes still decoding, for
+    ``profile_spec``)."""
     from repro_torch.core.aot import CudaGraphProgram
     from repro_torch.serve import ServeEngine
 
-    eng = ServeEngine(cfg, params, ec, device=dev, draft_params=dparams)
+    eng = ServeEngine(cfg, params, ec, device=dev, draft_params=dparams, mesh=mesh)
     for p, b in reqs[:MAX_SLOTS]:
         eng.submit(p, max_new_tokens=b)
     while eng.counters["decode_steps"] < 1:
@@ -3166,7 +3195,7 @@ def profiled(torch, run) -> list:
     return [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
 
 
-def profile_spec(torch, eng, steps: int = SPEC_PROFILE_ROUNDS):
+def profile_spec(torch, eng, steps: int = SPEC_PROFILE_ROUNDS, breakdown: bool = True):
     """Profiled spec rounds on ``eng`` (``spec_graph_check``'s engine, its
     lanes mid-decode), as ``profile_decode`` profiles a decode step: rounds
     timed unprofiled, then profiled (``torch.profiler``: launches, device
@@ -3178,7 +3207,8 @@ def profile_spec(torch, eng, steps: int = SPEC_PROFILE_ROUNDS):
     (``scripts/profiler_window_study.py``), so ``SPEC_PROFILE_WINDOWS``
     windows of ``steps`` rounds each are recorded; a replay launches the
     same kernels every round, so the launches and device time come from
-    the most complete window (the most records)."""
+    the most complete window (the most records).  ``breakdown=False``
+    leaves the breakdown out (None)."""
     lap = laps()
     lanes = sum(s is not None for s in eng.slots)
     rounds0 = eng.counters["decode_steps"]
@@ -3206,10 +3236,12 @@ def profile_spec(torch, eng, steps: int = SPEC_PROFILE_ROUNDS):
     out = dict(rounds=steps, lanes=lanes, round_ms_unprofiled=round_ms,
                replay_host_ms=replay_ms, replay_host_ms_median=float(np.median(replay_ms)),
                counted_launches_per_replay=counted,
-               breakdown=spec_breakdown(torch, eng))
+               breakdown=spec_breakdown(torch, eng) if breakdown else None)
     out["seconds"] = lap("breakdown")
     if kernels:
-        measured = replay_launches(windows, steps)
+        # on a mesh the paged verify steps launch the block-range entry
+        measured = replay_launches(windows, steps, paged=next(
+            (n for n in counted if n.startswith("paged_attention")), "paged_attention"))
         assert measured == counted, (measured, counted)
         total_us = sum(e.self_device_time_total for e in kernels)
         out.update(device_ms_per_round=total_us / 1e3 / steps,
@@ -3782,6 +3814,7 @@ def mesh_serve_path(torch, dev, results):
                 ref, ref_rids, ref_steps, ref_pre, ref_wall = serve(torch, cfg, params, reqs,
                                                                     ec, dev)
                 want_slotted = [list(ref.completions[r].tokens) for r in ref_rids]
+                results["phase3_slotted_streams"] = want_slotted
                 want_bytes, ref_tps = ref.kv_reserved_bytes, \
                     sum(len(s) for s in want_slotted) / ref_wall
                 ref_median = float(np.median([t for t, p in zip(ref_steps, ref_pre) if not p]))
@@ -3896,6 +3929,173 @@ def mesh_serve_path(torch, dev, results):
         group.close()
     results["mesh_serve"] = out
     return out["paged"]["launches"]
+
+
+# ---------------------------------------------------------------------------
+# Phase 3p: the engine's features on the (1, 1) mesh
+# ---------------------------------------------------------------------------
+
+
+def mesh_feature_launches(st, *, paged: bool, spec: bool) -> dict:
+    """What a mesh engine's counters predict of its launches: flash on each
+    chunk that starts at 0 and each draft prefill, the paged decode (each
+    of a round's ``SPEC_K + 1`` verify steps, speculating) through the
+    block-range entry, the norms on each chunk and draft prefill and each
+    decode step (a round's draft and verify steps, speculating)."""
+    steps = (SPEC_K + 1) * st["spec_steps"] if spec else st["decode_steps"]
+    return {"flash_attention": N_LAYERS * (st["prefill_first_chunks"]
+                                           + st["spec_draft_prefills"]),
+            "paged_attention": 0, "paged_attention_range": N_LAYERS * steps if paged else 0,
+            **dense_norms(st["prefill_chunks"] + st["spec_draft_prefills"],
+                          2 * steps if spec else steps)}
+
+
+def spec_collectives(L: int, slotted: bool) -> dict:
+    """The collectives of one spec round on a ``(1, 1)`` mesh of one-rank
+    groups (``serve_collectives``): ``SPEC_K + 1`` decode steps of the
+    draft, whose cache is always slotted, and ``SPEC_K + 1`` verify steps
+    of the target on its layout."""
+    draft = serve_collectives(L, True, prefill=False)
+    target = serve_collectives(L, slotted, prefill=False)
+    return {k: (SPEC_K + 1) * (draft.get(k, 0) + target.get(k, 0))
+            for k in sorted(set(draft) | set(target))}
+
+
+def mesh_features_path(torch, dev, results):
+    """Phase 3p: the engine's features on phase 3o's ``(1, 1)`` mesh of
+    one-rank NCCL groups, full-width smollm-360m (bf16, seed 0), every
+    collective issued: 3f's tier engine (streams phase 3's, ``TIER_3F``
+    exactly), 3h's hold, park, snapshot and migration (``save_snapshot``:
+    rank 0 writes, a barrier; the export into a second mesh engine sharing
+    the tier), 3j's spec engine on both layouts (its graph holding both
+    mesh programs, 8 replays bitwise the eager round on a deep clone; the
+    round's collectives by ``spec_collectives``; streams phase 3's paged,
+    phase 3o's mesh-less slotted run's slotted; ``spec_identities``) and
+    3k's spec-plus-tier run (preemptions restored by copy, no replay).
+    Launches by ``mesh_feature_launches``: the paged decode through the
+    block-range entry.  Prints tokens/s beside 3f's and 3j's and a
+    profiled spec round beside 3j's.  Returns the launch counts of each
+    run, by sub-phase."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.paged_attention.ops import paged_attention, paged_attention_range
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_add
+    from repro_torch.launch.mesh import init_group, mesh_from_group
+    from repro_torch.models import common, lm
+    from repro_torch.serve import EngineConfig
+
+    lap = laps()
+    cfg = dataclasses.replace(get_config("smollm-360m"), attn_impl="kernel")
+    params = lm.init(cfg, seed=0, device=dev)
+    dparams = draft_params_for(cfg, params, DRAFT_ALPHA, dev)
+    phase3, want3 = requests(cfg.vocab), results["phase3_streams"]
+    want_slotted = results["phase3_slotted_streams"]
+    bb = block_bytes(cfg)
+    kernels = (flash_attention, paged_attention, paged_attention_range, rmsnorm, rmsnorm_add)
+    spec = dict(spec_draft=cfg, spec_k=SPEC_K)
+    card = results["nvidia_smi"]
+    group = init_group("nccl", 0, 1, f"tcp://127.0.0.1:{free_port()}", device=dev)
+    out, launches = {}, {}
+    try:
+        mesh = mesh_from_group(group, (1, 1))
+
+        def run(name, ec, want, reqs=phase3, **kw):
+            for k in kernels:
+                k.launches = 0
+            eng, rids, steps, prefilled, wall = serve(torch, cfg, params, reqs, ec, dev,
+                                                      check=True, prebuild=True, mesh=mesh,
+                                                      **kw)
+            st = eng.stats
+            got = {k.__name__: k.launches for k in kernels}
+            want_l = mesh_feature_launches(st, paged=eng.paged, spec=eng.spec)
+            streams = [list(eng.completions[r].tokens) for r in rids]
+            tokens = sum(len(x) for x in streams)
+            row = dict(mesh=st["mesh"], tokens=tokens, wall_s=wall, tokens_per_s=tokens / wall,
+                       launches=got, graphs=st["graphs"],
+                       identical=sum(x == y for x, y in zip(streams, want)))
+            assert row["identical"] == len(reqs), (name, row)
+            assert got == want_l, (name, got, want_l)
+            assert st["graphs"] == 1, (name, st)
+            launches[name] = got
+            return eng, row
+
+        # 3f's tier engine
+        tier = logging_tier()
+        eng, f = run("3f", feature_engine(prefill_chunk=0, prefix_cache=False, host_tier=True),
+                     want3, host_tier=tier)
+        f["tier_counters"] = tc = tier_counters(eng, bb)
+        f["tokens_per_s_3f"] = results["tier"]["3f"]["tokens_per_s"]
+        del eng
+        log(f"3p tier on the mesh [{card}]: {f['tokens_per_s']:.1f} tok/s (3f "
+            f"{f['tokens_per_s_3f']:.1f}); {json.dumps(f)}")
+        assert tc == TIER_3F, (tc, TIER_3F)
+        out["3f"] = f
+        lap("3f")
+
+        # 3h's hold, park, snapshot and migration
+        out["3h"] = hold_park_snapshot(torch, cfg, params, phase3, dev, want3, mesh=mesh)
+        launches["3h"] = out["3h"]["launches"]
+        lap("3h")
+
+        # 3j's spec engine: the graph, a round's collectives, a profiled round
+        ec_j = EngineConfig(max_slots=MAX_SLOTS, max_len=MAX_LEN, kv_layout="paged",
+                            page_size=PAGE, paged_attn="kernel", **spec)
+        graph, checked = spec_graph_check(torch, cfg, params, dparams, phase3, ec_j, dev,
+                                          mesh=mesh)
+        common.COUNTS.update(dict.fromkeys(common.COUNTS, 0))
+        checked.spec_program(stochastic=False, masked=False)(
+            checked.params, checked.draft_params, clone_state(torch, checked.state))
+        round_counts = dict(common.COUNTS)
+        want_counts = {**dict.fromkeys(common.COUNTS, 0),
+                       **spec_collectives(N_LAYERS, slotted=False)}
+        profile = profile_spec(torch, checked, steps=2, breakdown=False)
+        del checked
+        assert round_counts == want_counts, (round_counts, want_counts)
+        lap("3j graph and profile")
+        keys = ("kernel_launches_per_round", "device_ms_per_round", "device_idle_share",
+                "round_ms_unprofiled", "replay_host_ms_median")
+        base = results["spec"]["3j"]["profile"]
+        out["3j"] = dict(graph_check=graph, collectives_round=round_counts,
+                         profile={**{k: profile.get(k) for k in keys},
+                                  **{f"{k}_3j": base.get(k) for k in keys},
+                                  "top": profile.get("top", [])[:6]})
+        # each layout on the first MAX_SLOTS requests (a lane's greedy
+        # stream does not depend on the others': every decode step runs
+        # every lane, every prefill one), their streams the mesh-less ones
+        for layout, want in (("paged", want3), ("slotted", want_slotted)):
+            eng, j = run(f"3j {layout}", dataclasses.replace(ec_j, kv_layout=layout), want,
+                         reqs=phase3[:MAX_SLOTS], draft_params=dparams)
+            j["identities"] = spec_identities(eng)
+            j.update(spec_figures(eng.stats))
+            del eng
+            out["3j"][layout] = j
+        out["3j"]["paged"]["tokens_per_s_3j"] = results["spec"]["3j"]["tokens_per_s"]
+        log(f"3p spec on the mesh [{card}]: paged {out['3j']['paged']['tokens_per_s']:.1f} "
+            f"tok/s (3j {out['3j']['paged']['tokens_per_s_3j']:.1f}), slotted "
+            f"{out['3j']['slotted']['tokens_per_s']:.1f}; a round on the mesh "
+            f"{json.dumps(out['3j']['profile'])}; {json.dumps(out['3j'])}")
+        lap("3j runs")
+
+        # 3k's spec-plus-tier run
+        eng, k = run("3k", feature_engine(prefill_chunk=0, prefix_cache=False,
+                                          host_tier=True, **spec), want3,
+                     draft_params=dparams)
+        k["identities"] = spec_identities(eng)
+        k.update(spec_figures(eng.stats), counters={c: eng.counters[c] for c in (
+            "preemptions", "resumed", "restores", "replayed_tokens", "prefills")})
+        del eng
+        log(f"3p spec and tier on the mesh [{card}]: {k['tokens_per_s']:.1f} tok/s (3k "
+            f"{results['spec']['3k']['tokens_per_s']:.1f}); {json.dumps(k)}")
+        c = k["counters"]
+        assert c["preemptions"] > 0 and c["replayed_tokens"] == 0, c
+        assert c["prefills"] == len(phase3) and c["resumed"] == c["restores"], c
+        out["3k"] = k
+        out["seconds"] = lap("3k")
+    finally:
+        group.close()
+    results["mesh_features"] = out
+    del params, dparams
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -5245,13 +5445,14 @@ def xlstm_block_agreement(torch, dev, cfg, params, prompt) -> dict:
 
 
 def xlstm_path(torch, dev, results):
-    """Full-width xlstm-1.3b (48 layers: 42 mLSTM, 6 sLSTM; bf16 weights
-    from seed 0 made in bf16) through the slotted engine (8 lanes) on the
+    """xlstm-1.3b at full width and ``XLSTM_LAYERS`` of its 48 layers (8:
+    7 mLSTM, 1 sLSTM; bf16 weights from seed 0 made in bf16) through the
+    slotted engine (8 lanes) on the
     kernel path, phase 3's traffic: ``serve_phase``'s gates; a profiled
     decode step beside its bytes bound (the weights, and every lane's
     recurrent state read and written); a bucket-512 prefill's host and
-    device ms; logits, kernel path against plain, at full depth in bf16
-    and fp32 (TF32 off; 14.4 GB, it fits), printed and not gated (see
+    device ms; logits, kernel path against plain, at the phase's depth in
+    bf16 and fp32 (TF32 off), printed and not gated (see
     :func:`xlstm_logits`), fp32 gated on the first segment, and the first
     mLSTM and sLSTM blocks alone, gated in both dtypes.  Returns the
     launch counts."""
@@ -5264,7 +5465,8 @@ def xlstm_path(torch, dev, results):
     at_entry = torch.cuda.memory_allocated()
     log(f"phase 10: {at_entry / 1e9:.3f} GB allocated at entry")
     base = get_config("xlstm-1.3b")
-    assert base.family == "ssm" and base.n_layers == XLSTM_LAYERS
+    assert base.family == "ssm" and base.n_layers % XLSTM_LAYERS == 0
+    base = dataclasses.replace(base, n_layers=XLSTM_LAYERS)
     cfg = dataclasses.replace(base, attn_impl="kernel", param_dtype="bfloat16")
     t = time.perf_counter()
     params = xlstm_lm.init(cfg, seed=0, device=dev)
@@ -6149,6 +6351,7 @@ def main() -> int:
     router_launches = phase("3m router", router_path)
     traced_launches = phase("3n traced", traced_path)
     mesh_launches = phase("3o mesh serve", mesh_serve_path)
+    mesh_feature_counts = phase("3p mesh features", mesh_features_path)
     train_launches = phase("4 train", train_path)
     zamba_launches = phase("5 zamba serve", zamba_path)
     phase("6 function API", function_path)
@@ -6178,6 +6381,10 @@ def main() -> int:
         if name in zt:
             out["5c"] = zt[name]
         return out
+
+    def mesh_feature_rows(name):
+        """A kernel's launches on phase 3p's runs."""
+        return {ph: n[name] for ph, n in mesh_feature_counts.items()}
 
     def spec_rows(name):
         """A kernel's launches on phases 3j-3l and 5d (where it runs)."""
@@ -6240,6 +6447,7 @@ def main() -> int:
              router_launches=router_launches["flash_attention"],
              traced_launches=traced_launches["flash_attention"],
              mesh_launches=mesh_launches["flash_attention"],
+             mesh_features_launches=mesh_feature_rows("flash_attention"),
              gemma2_launches=g7["flash_attention"],
              stablelm_launches=s8["flash_attention"], moe_launches=m9["flash_attention"],
              max_abs_err=max(r["max_abs_err"] for r in results["flash_cases"]
@@ -6327,6 +6535,7 @@ def main() -> int:
              shape=("q (8, 5, 3, 64) bf16, blocks [0, 256) of a pool of 513 x 16 x 5 x 64, "
                     "phase 3's lengths, (m, l) out"),
              launches=mesh_launches["paged_attention_range"],
+             mesh_features_launches=mesh_feature_rows("paged_attention_range"),
              max_abs_err=max(r["max_abs_err"] for r in results["paged_block_range_cases"]
                              if r["dtype"] == "bfloat16"),
              max_abs_err_vs_whole=max(r["max_abs_err_vs_whole"]
@@ -6399,7 +6608,7 @@ def main() -> int:
         per_path = dict(zamba_preempt_launches=zp[name]) if name == "rmsnorm_gated" else dict(
             features_launches=features_launches[name],
             router_launches=router_launches[name], traced_launches=traced_launches[name],
-            mesh_launches=mesh_launches[name],
+            mesh_launches=mesh_launches[name], mesh_features_launches=mesh_feature_rows(name),
             train_launches=train_launches[name], train_shape="(4096, 960)",
             zamba_launches=zamba_launches[name], zamba_preempt_launches=zp[name],
             zamba_shapes="(8, 2048), (512, 2048)")

@@ -73,10 +73,17 @@ bytes a rank holds: its share of the lanes (slotted, ``--max-slots`` over
 the data axes where it divides) or of the pool's blocks (paged, over the
 data axes).  On a mesh the slotted layout's ``max_len`` is rounded up to
 a multiple of the ranks each lane's positions split over (the model
-size, or every rank where the lanes do not divide):
+size, or every rank where the lanes do not divide).  ``--spec-k`` (the
+draft mixed from this rank's shards, the same weights as the one-device
+launcher's), ``--replicas`` and ``--drain-at`` (the drain migrates each
+request through the engines' export and import) run there too:
 
     torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
         --arch gemma2-27b --smoke --device cpu --mesh local
+
+    torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
+        --arch gemma2-27b --smoke --device cpu --mesh local --kv-layout paged \
+        --replicas 2 --drain-at 2 --spec-k 2
 """
 from __future__ import annotations
 
@@ -110,11 +117,20 @@ from repro_torch.serve.engine import serve_shard_layout
 MESHES = ("single", "local", "production")
 
 
-def draft_mix(cfg, params, alpha: float, seed: int, device):
+def draft_mix(cfg, params, alpha: float, seed: int, device, layout=None):
     """A same-architecture draft: ``(1 - alpha) * params + alpha *`` a fresh
     init from ``seed``.  Cheap to stand up, and it accepts often enough to
-    show multi-token rounds; smaller ``alpha``, higher acceptance."""
-    noise = registry.get_module(cfg).init(cfg, seed=seed, device=device)
+    show multi-token rounds; smaller ``alpha``, higher acceptance.  On a
+    mesh (``layout`` the weights' shard layout, ``params`` this rank's
+    shards) the init is this rank's shards of that same whole init
+    (``optim.fsdp.init_shards``), so the mix is this rank's shards of the
+    whole weights' mix, element for element."""
+    if layout is None:
+        noise = registry.get_module(cfg).init(cfg, seed=seed, device=device)
+    else:
+        from repro_torch.optim.fsdp import init_shards
+
+        noise = init_shards(cfg, layout, seed, device)
     return map_tree(lambda p, n: (1 - alpha) * p + alpha * n, params, noise)
 
 
@@ -199,8 +215,8 @@ def run_stream(cfg, params, args, rng, device, mesh=None) -> Router:
                                    {site: args.chaos_rate for site in ENGINE_FAULT_SITES})
                          for i in range(args.replicas)]
     spec = args.spec_k > 0
-    draft_params = draft_mix(cfg, params, args.spec_draft_alpha, args.seed + 1,
-                             device) if spec else None
+    draft_params = draft_mix(cfg, params, args.spec_draft_alpha, args.seed + 1, device,
+                             serve_shard_layout(cfg, mesh)) if spec else None
     obs = None
     if args.trace_out or args.flightrec_dir:
         # the tracer and the recorder's ring (a failed invariant sweep

@@ -123,10 +123,17 @@ schedule needs one clock: the engine reads
 :class:`MeshClock`, rank 0's clock broadcast at each reading, so
 deadlines and every decision that reads the time agree on every rank.
 ``kv_reserved_bytes`` is what a rank holds, the reference's bytes a
-device.  Speculative decoding, the
-host tier, hold/park, snapshots and exporting a request (a migration)
-raise on a mesh, and the other slot-served families at a live model axis
-(importing one is how the router places every request); ``mesh=None`` (or a
+device.  The features run on the mesh too, each rank holding and moving
+its share: speculation's draft is a second model under its own mesh
+program (its weights' shards, its slotted lanes over the data axes, even
+under a paged target) entered around its half of each round; the host
+tier's payloads are each rank's share of a block or lane
+(:class:`~repro_torch.serve.paged.Share`), counted as whole payloads so
+the ranks' tiers take the same decisions, and a restore into a block or
+lane of another data rank moves the payload from its holder; hold/park
+reads the mesh's clock; snapshots and migration carry host state, the
+same on every rank (rank 0 writes a saved snapshot).  The other
+slot-served families raise at a live model axis; ``mesh=None`` (or a
 one-worker mesh without a process group) is the one-device engine.
 
 Programs come from an :class:`~repro_torch.core.aot.AotCache` (the
@@ -179,7 +186,7 @@ from repro_torch.models import lm, registry
 from repro_torch.models.attention import DecodeSharding
 from repro_torch.models.common import ShardRules, serve_program
 from repro_torch.obs import MetricMap, Observer
-from .cache import RecurrentCache, bucket_for, make_slot_state, prompt_buckets
+from .cache import RecurrentCache, bucket_for, make_slot_state, prompt_buckets, slot_state_specs
 from .faults import NONFINITE_TOKEN, UNCOMMITTED, FaultPlan
 from .paged import (
     BlockAllocator,
@@ -190,6 +197,8 @@ from .paged import (
     cache_nbytes,
     check_tiered,
     make_paged_state,
+    paged_state_specs,
+    payload_nbytes,
     prefix_keys,
 )
 from .step import (
@@ -209,9 +218,8 @@ from .step import (
 )
 
 PAGED_ATTN_IMPLS = ("ref", "kernel")
-# what a mesh refuses, and the ROADMAP.md items that carry it
+# what a mesh refuses, and the ROADMAP.md item that carries it
 MESH_FAMILY_ITEM = "the model axis for the other families"
-MESH_FEATURE_ITEM = "the engine's features on a mesh"
 
 
 class MeshClock:
@@ -249,28 +257,27 @@ def serve_shard_layout(cfg: ArchConfig, mesh):
 
 def check_mesh(cfg: ArchConfig, mesh, engine: "EngineConfig") -> None:
     """Raise for what a mesh does not serve: the slot-served families
-    other than the ``lm`` family's at a live model axis; on any mesh over
-    a process group speculative decoding and the host tier; and a slotted
-    ``max_len`` that does not divide over the ranks each lane's positions
-    split over (``DecodeSharding.local_len``)."""
+    other than the ``lm`` family's at a live model axis (a speculation
+    draft's too); and a slotted ``max_len`` that does not divide over the
+    ranks each lane's positions split over (``DecodeSharding.local_len``:
+    the target's slotted cache, and a draft's, which is always slotted)."""
     if mesh is None:
         return
     live = mesh.size("model") > 1
-    if mesh.pg is not None and cfg.family in lm.SERVE_TP_FAMILIES \
-            and engine.kv_layout == "slotted":
-        DecodeSharding.choose(mesh, engine.max_slots).local_len(engine.max_len)
-    if live and cfg.family not in lm.TP_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: serving on a live model axis is ported for the lm family "
-            f"(dense, gemma2, moe), not the {cfg.family!r} family; the mesh "
-            f"{mesh.describe()} has one (ROADMAP.md queue 1: {MESH_FAMILY_ITEM})")
+    # (model, whether its cache is slotted)
+    models = [(cfg, engine.kv_layout == "slotted")]
+    if engine.spec_draft is not None:
+        models.append((engine.spec_draft, True))
+    for m, slotted in models:
+        if mesh.pg is not None and m.family in lm.SERVE_TP_FAMILIES and slotted:
+            DecodeSharding.choose(mesh, engine.max_slots).local_len(engine.max_len)
+        if live and m.family not in lm.TP_FAMILIES:
+            raise NotImplementedError(
+                f"{m.name}: serving on a live model axis is ported for the lm family "
+                f"(dense, gemma2, moe), not the {m.family!r} family; the mesh "
+                f"{mesh.describe()} has one (ROADMAP.md queue 1: {MESH_FAMILY_ITEM})")
     if mesh.pg is None and mesh.world > 1:
         raise ValueError(f"a mesh of {mesh.world} ranks needs a process group")
-    if (live or mesh.pg is not None) and (engine.spec_draft is not None or engine.host_tier):
-        what = "speculative decoding" if engine.spec_draft is not None else "the host tier"
-        raise NotImplementedError(
-            f"{what} is not carried onto a mesh ({mesh.describe()}) yet "
-            f"(ROADMAP.md queue 1: {MESH_FEATURE_ITEM})")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -520,16 +527,33 @@ class ServeEngine:
         # depend on the draft's values, only how many tokens a round commits)
         self.draft_params = None
         self._draft_rec = None
+        self._draft_program = None
         if self.spec:
             dcfg = engine.spec_draft
             dmod = registry.get_module(dcfg)
-            if draft_params is None:
-                # a deterministic draft from the engine seed (real
-                # deployments pass trained draft weights)
-                draft_params = dmod.init(dcfg, seed=engine.seed, device=self.device)
+            # on a mesh the draft is a second model with its own layout
+            # and mesh program: its weights' shards, its (always slotted)
+            # lanes over the data axes
+            dshards = serve_shard_layout(dcfg, mesh)
+            if dshards is not None:
+                ddims = dshards.gather_dims
+                ddec = DecodeSharding.choose(mesh, engine.max_slots)
+                self._draft_program = lambda: serve_program(mesh, ddims, ddec)
+            # without draft_params, a deterministic draft from the engine
+            # seed (real deployments pass trained draft weights); on a mesh
+            # this rank's shards of the draft, or of that same init
+            if dshards is None:
+                if draft_params is None:
+                    draft_params = dmod.init(dcfg, seed=engine.seed, device=self.device)
+            else:
+                from repro_torch.optim.fsdp import init_shards, local_shards
+
+                draft_params = init_shards(dcfg, dshards, engine.seed, self.device) \
+                    if draft_params is None else local_shards(dshards, draft_params)
             self.draft_params = dmod.cast_for_compute(dcfg, draft_params, self.device)
-            self.state["draft"] = make_slot_state(dcfg, engine.max_slots, engine.max_len,
-                                                  self.device)["cache"]
+            self.state["draft"] = make_slot_state(
+                dcfg, engine.max_slots, engine.max_len, self.device,
+                mesh=mesh if dshards is not None else None)["cache"]
             self.state["spec"] = spec_buffers(cfg, dcfg, self.state["cache"],
                                               self.state["draft"], k=engine.spec_k,
                                               max_slots=engine.max_slots)
@@ -543,6 +567,19 @@ class ServeEngine:
         # paged engines spill block by block; slotted engines spill the
         # whole-lane slice the family declares
         self._lane_axes = {} if self.paged else registry.lane_leaf_axes(cfg)
+        # on a mesh a payload is this rank's share; the tier counts the
+        # whole block's or lane's bytes, from the mesh-less shapes
+        self._unit_nbytes = 0
+        if self._mesh_program is not None and engine.host_tier:
+            if self.paged:
+                whole = paged_state_specs(cfg, engine.max_len, self._num_blocks,
+                                          engine.page_size)
+                self._unit_nbytes = cache_nbytes(whole) // self._num_blocks
+            else:
+                whole = slot_state_specs(cfg, engine.max_slots, engine.max_len)
+                self._unit_nbytes = sum(
+                    whole[n].numel() // whole[n].shape[a] * whole[n].element_size()
+                    for n, a in self._lane_axes.items())
         if engine.park_idle_s is not None and not engine.host_tier:
             raise ValueError("park_idle_s requires host_tier=True")
         if engine.host_tier_blocks is not None and not engine.host_tier:
@@ -647,12 +684,6 @@ class ServeEngine:
 
         return local_shards(self.shards, params)
 
-    def _refuse_on_mesh(self, what: str) -> None:
-        if self.mesh is not None:
-            raise NotImplementedError(
-                f"{what} is not carried onto a mesh ({self.mesh.describe()}) yet "
-                f"(ROADMAP.md queue 1: {MESH_FEATURE_ITEM})")
-
     # ------------------------------------------------------------------
     # Programs (through the shared AotCache)
     # ------------------------------------------------------------------
@@ -692,7 +723,9 @@ class ServeEngine:
         replays)."""
         e = self.econ
         spec_fn = spec_decode_program(self.cfg, e.spec_draft, k=e.spec_k, eos_id=e.eos_id,
-                                      paged=self.paged, impl=e.paged_attn)
+                                      paged=self.paged, impl=e.paged_attn,
+                                      mesh_program=self._mesh_program,
+                                      draft_program=self._draft_program)
 
         def fn(params, dparams, state):
             return spec_fn(params, dparams, state, stochastic=stochastic, masked=masked)[1]
@@ -718,7 +751,8 @@ class ServeEngine:
     def _spec_prefill_entry(self, bucket: int) -> Callable:
         """The draft's prefill of a history bucket (eager; counted)."""
         return self.aot.get(("spec_draft_prefill", bucket) + self._program_key,
-                            lambda: spec_draft_prefill_program(self.econ.spec_draft))
+                            lambda: spec_draft_prefill_program(
+                                self.econ.spec_draft, draft_program=self._draft_program))
 
     def _spec_draft_prefill(self, slot: int, hist: np.ndarray) -> None:
         """Seed lane ``slot``'s draft cache with the committed history
@@ -752,25 +786,32 @@ class ServeEngine:
                                                        mesh_program=self._mesh_program))
 
     # -- host-tier transport (built once each, like every program) ------
+    # on a mesh each reads and writes this rank's share (serve/step.py)
     def _block_read_entry(self) -> Callable:
         """Read blocks to host memory (a lane spill, a prefix spill)."""
         return self.aot.get(("tier_block_read",) + self._program_key,
-                            lambda: paged_block_read_program(self.cfg))
+                            lambda: paged_block_read_program(
+                                self.cfg, mesh_program=self._mesh_program,
+                                nbytes=self._unit_nbytes))
 
     def _block_write_entry(self) -> Callable:
         """Write blocks from host payloads (a restore, a promotion)."""
         return self.aot.get(("tier_block_write",) + self._program_key,
-                            lambda: paged_block_write_program(self.cfg))
+                            lambda: paged_block_write_program(
+                                self.cfg, mesh_program=self._mesh_program))
 
     def _lane_read_entry(self) -> Callable:
         """Read one lane's whole cache slice (a slotted spill)."""
         return self.aot.get(("tier_lane_read",) + self._program_key,
-                            lambda: lane_read_program(self.cfg, axes=self._lane_axes))
+                            lambda: lane_read_program(self.cfg, axes=self._lane_axes,
+                                                      mesh_program=self._mesh_program,
+                                                      nbytes=self._unit_nbytes))
 
     def _lane_write_entry(self) -> Callable:
         """Write one lane's whole cache slice (a slotted restore)."""
         return self.aot.get(("tier_lane_write",) + self._program_key,
-                            lambda: lane_write_program(self.cfg, axes=self._lane_axes))
+                            lambda: lane_write_program(self.cfg, axes=self._lane_axes,
+                                                       mesh_program=self._mesh_program))
 
     def prebuild(self) -> None:
         """Build every program this engine can dispatch: the decode
@@ -903,7 +944,6 @@ class ServeEngine:
         leaves: holding one needs a host tier.  Returns False if the tier
         refuses the spill (the lane keeps decoding); True for a lane
         already held.  ``KeyError`` for a rid not on a lane."""
-        self._refuse_on_mesh("hold/park")
         slot = self._find_lane(rid)
         if slot is None:
             raise KeyError(f"rid {rid} is not on a lane")
@@ -1111,7 +1151,7 @@ class ServeEngine:
         if key is None:
             return
         payload = self._block_read_entry()(self.state, [block])[0]
-        nb = sum(int(a.nbytes) for a in payload.values())
+        nb = payload_nbytes(payload)
         if self.tier.put_block(key, payload):
             self.counters["prefix_spills"] += 1
             self.counters["spilled_bytes"] += nb
@@ -1263,7 +1303,7 @@ class ServeEngine:
             payloads.append(payload)
             blocks.append(b)
             self.counters["host_prefix_hits"] += 1
-            self.counters["restored_bytes"] += sum(int(a.nbytes) for a in payload.values())
+            self.counters["restored_bytes"] += payload_nbytes(payload)
         if blocks:
             self._block_write_entry()(self.state, payloads, blocks)
             if self.obs.tracer is not None:
@@ -2063,7 +2103,6 @@ class ServeEngine:
         requeue them), then the queue, then the parked requests (a hold is
         scheduling state: they resume decoding after a restart).  Device
         caches are dropped.  Consistent at any step boundary."""
-        self._refuse_on_mesh("engine snapshots")
         on_lane = sorted((i for i, s in enumerate(self.slots) if s is not None),
                          key=lambda i: self.slots[i].rid)
         pend = []
@@ -2096,7 +2135,6 @@ class ServeEngine:
         which must be fresh (the same arch and ``EngineConfig``, no request
         served).  The device caches are rebuilt by re-prefilling prompts
         and replaying recorded tokens; drive with :meth:`step` as usual."""
-        self._refuse_on_mesh("engine snapshots")
         if int(snap.get("format", -1)) != self._SNAP_FORMAT:
             raise ValueError(f"unsupported snapshot format {snap.get('format')!r}")
         if snap["arch"] != self.cfg.name:
@@ -2127,7 +2165,6 @@ class ServeEngine:
         Returns ``{"pending": ..., "completion": ... | None}``, JSON-able,
         shaped like one entry of :meth:`snapshot`.  ``KeyError`` for an
         unknown rid, ``ValueError`` for a terminal one."""
-        self._refuse_on_mesh("request migration")
         if rid in self.completions:
             raise ValueError(f"rid {rid} is already terminal")
         slot = self._find_lane(rid)
@@ -2180,12 +2217,20 @@ class ServeEngine:
     def save_snapshot(self, mgr, step: int) -> None:
         """Persist :meth:`snapshot` through a
         :class:`~repro_torch.checkpoint.manager.CheckpointManager` (atomic:
-        a crash mid-save leaves the previous checkpoint restorable)."""
-        mgr.save(step, {}, extra_meta={"engine_snapshot": self.snapshot()})
+        a crash mid-save leaves the previous checkpoint restorable).  On a
+        mesh every rank builds the snapshot (the same host state), rank 0
+        writes it and every rank passes a barrier, so a restore that
+        follows reads the written checkpoint on every rank."""
+        snap = self.snapshot()
+        if self.mesh is None or self.mesh.rank == 0:
+            mgr.save(step, {}, extra_meta={"engine_snapshot": snap})
+        if self.mesh is not None:
+            dist.barrier(group=self.mesh.pg)
 
     def restore_snapshot(self, mgr, step: int | None = None) -> int:
         """Restore from the checkpoint :meth:`save_snapshot` wrote (the
-        latest when ``step`` is None).  Returns its step."""
+        latest when ``step`` is None); on a mesh every rank reads it.
+        Returns its step."""
         step, meta = mgr.load_meta(step)
         if "engine_snapshot" not in meta:
             raise KeyError(f"checkpoint step {step} has no engine snapshot")

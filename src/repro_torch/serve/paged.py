@@ -317,10 +317,32 @@ class SlotTables:
 # ---------------------------------------------------------------------------
 
 
-def _tree_nbytes(tree: dict) -> int:
-    """Bytes of a payload's leaves (host tensors or numpy arrays: both have
-    ``nbytes``, the view's own size for a view)."""
+class Share(dict):
+    """One rank's share of a tier payload on a serving mesh.
+
+    ``{leaf: host tensor}`` of the part of a block (paged) or a lane
+    (slotted) this rank holds, empty where another data rank holds it;
+    ``src`` the global block or lane it was read from, whose holder every
+    rank can name; ``nbytes`` the bytes of the whole block or lane, as one
+    device reading it whole would fetch them.  The tier counts ``nbytes``,
+    so every rank's tier takes the same admit, LRU and drop decisions and
+    reports the reference's bytes while it holds only its share."""
+
+    __slots__ = ("src", "nbytes")
+
+    def __init__(self, leaves: dict, src: int, nbytes: int):
+        super().__init__(leaves)
+        self.src, self.nbytes = int(src), int(nbytes)
+
+
+def payload_nbytes(tree: dict) -> int:
+    """Bytes of a payload: a :class:`Share`'s whole bytes, else the sum of
+    its leaves' (host tensors or numpy arrays: both have ``nbytes``, the
+    view's own size for a view)."""
+    if isinstance(tree, Share):
+        return tree.nbytes
     return sum(int(a.nbytes) for a in tree.values())
+
 
 
 class LaneSpill:
@@ -333,6 +355,9 @@ class LaneSpill:
     * ``"lane"``: ``leaves`` is one ``{leaf: tensor}`` lane slice (the
       slotted KV segment and/or recurrent leaves, per
       ``registry.lane_leaf_axes``).
+
+    On a serving mesh each payload is a :class:`Share`: this rank's part,
+    and the whole payload's bytes, which ``nbytes`` sums.
 
     ``prefilled``/``generated`` pin the schedule position the payload
     holds: a restore writes it back and resumes decode at
@@ -350,7 +375,8 @@ class LaneSpill:
         self.generated = generated
         self.blocks = blocks or []
         self.leaves = leaves
-        self.nbytes = sum(_tree_nbytes(t) for t in self.blocks + [self.leaves or {}])
+        self.nbytes = sum(payload_nbytes(t) for t in self.blocks
+                          + ([] if leaves is None else [leaves]))
 
 
 class HostTier:
@@ -374,7 +400,10 @@ class HostTier:
 
     One tier may be shared by several engines: request ids are unique
     across them and payloads are plain host tensors, so one engine's
-    spill restores on another.
+    spill restores on another.  On a serving mesh each rank keeps a tier
+    of its own, holding its :class:`Share` of every payload (an empty one
+    for what another data rank holds) and counting whole payloads, so the
+    ranks' tiers stay alike entry for entry.
 
     Conservation: attached to an allocator, the device's three block
     states gain a fourth, *spilled*; :func:`check_tiered` sweeps
@@ -425,7 +454,7 @@ class HostTier:
             return True
         while self.capacity_blocks - self.spilled_blocks < units and self._prefix:
             _, payload = self._prefix.popitem(last=False)
-            self._bytes -= _tree_nbytes(payload)
+            self._bytes -= payload_nbytes(payload)
             self.drops += 1
         return self.capacity_blocks - self.spilled_blocks >= units
 
@@ -476,7 +505,7 @@ class HostTier:
         if not self._make_room(1):
             self.drops += 1
             return False
-        nb = _tree_nbytes(payload)
+        nb = payload_nbytes(payload)
         self._prefix[key] = payload
         self._bytes += nb
         self.prefix_spills += 1
@@ -501,7 +530,7 @@ class HostTier:
         published there: move semantics keep one owner per chain key)."""
         payload = self._prefix.pop(key, None)
         if payload is not None:
-            nb = _tree_nbytes(payload)
+            nb = payload_nbytes(payload)
             self._bytes -= nb
             self.prefix_hits += 1
             self.restored_bytes += nb
@@ -512,13 +541,13 @@ class HostTier:
         published on the device again, and each key has one owner."""
         payload = self._prefix.pop(key, None)
         if payload is not None:
-            self._bytes -= _tree_nbytes(payload)
+            self._bytes -= payload_nbytes(payload)
 
     def check(self) -> None:
         """Invariant sweep: the byte tally matches the payloads, and a
         bounded tier stays inside its block budget."""
         nb = sum(sp.nbytes for sp in self._lanes.values()) + sum(
-            _tree_nbytes(p) for p in self._prefix.values())
+            payload_nbytes(p) for p in self._prefix.values())
         assert nb == self._bytes, f"tier byte tally {self._bytes} != {nb}"
         for rid, sp in self._lanes.items():
             assert sp.rid == rid and sp.kind in ("paged", "lane")

@@ -177,7 +177,9 @@ class Router:
     shard of the weights a rank, shared by the replicas), every rank runs
     the router, and the router and its replicas read one
     :class:`~repro_torch.serve.engine.MeshClock`, so every rank takes the
-    same decisions.  A drain migrates requests, which a mesh refuses.
+    same decisions.  A drain migrates requests through the engines' export
+    and import on every rank alike, and a fleet tier is each rank's own,
+    holding its share of every payload (``serve.paged.Share``).
     """
 
     def __init__(

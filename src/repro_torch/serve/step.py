@@ -28,13 +28,18 @@ its captured decode graphs on them: a graph holds no host sync.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import registry
 from repro_torch.models.attention import NEG_INF
+from repro_torch.models.common import COUNTS, serve_split
 from .cache import RecurrentCache
 from .faults import NONFINITE_TOKEN, UNCOMMITTED
+from .paged import Share
 
 
 # ---------------------------------------------------------------------------
@@ -354,9 +359,14 @@ def spec_buffers(cfg: ArchConfig, dcfg: ArchConfig, cache: dict, draft: dict, *,
     }
 
 
+def _entered(program):
+    """The context of a serving mesh program (nothing without one)."""
+    return contextlib.nullcontext() if program is None else program()
+
+
 def spec_decode_program(cfg: ArchConfig, dcfg: ArchConfig, *, k: int,
                         eos_id: int | None = None, paged: bool = False,
-                        impl: str = "ref"):
+                        impl: str = "ref", mesh_program=None, draft_program=None):
     """One speculative decode round over every lane: the draft model
     (``dcfg``, its cache ``state["draft"]``, always slotted) proposes
     ``k`` greedy tokens a lane, the target scores all ``k + 1`` positions,
@@ -395,6 +405,14 @@ def spec_decode_program(cfg: ArchConfig, dcfg: ArchConfig, *, k: int,
       ``c_len - 1`` (the committed tokens minus the new pending one).
     * both sides then freeze with ``act_new | replay``; ``lengths`` grows
       by the committed count, ``tokens`` takes each lane's last commit.
+
+    On a mesh the draft and the target are two models with two layouts:
+    the draft's steps run inside ``draft_program`` (its weights' gathers,
+    its slotted lanes over the data axes) and the verify ladder inside
+    ``mesh_program`` (the target's), each entered around its half of the
+    round, so a graph captured of the round holds both halves'
+    collectives.  Both return logits gathered over the data and model
+    axes, so every rank proposes, verifies and commits the same rows.
     """
     if k < 1:
         raise ValueError(f"spec_k must be >= 1, got {k}")
@@ -418,13 +436,14 @@ def spec_decode_program(cfg: ArchConfig, dcfg: ArchConfig, *, k: int,
         # its cache covers lengths .. lengths + k
         drafts = []
         z = state["tokens"]
-        for i in range(k + 1):
-            dlogits, _ = dmod.decode_step(dcfg, dparams, dcache, z, lengths + i)
-            if i < k:
-                if drec:
-                    drec.snapshot(dcache, {n: b[i] for n, b in bufs["dstates"].items()})
-                z = dlogits.float().argmax(dim=-1).to(torch.int32)
-                drafts.append(z)
+        with _entered(draft_program):
+            for i in range(k + 1):
+                dlogits, _ = dmod.decode_step(dcfg, dparams, dcache, z, lengths + i)
+                if i < k:
+                    if drec:
+                        drec.snapshot(dcache, {n: b[i] for n, b in bufs["dstates"].items()})
+                    z = dlogits.float().argmax(dim=-1).to(torch.int32)
+                    drafts.append(z)
 
         # the target's verify ladder
         cache = state["cache"]
@@ -438,7 +457,8 @@ def spec_decode_program(cfg: ArchConfig, dcfg: ArchConfig, *, k: int,
         any_done = torch.zeros_like(active)
         u = state["tokens"]
         for i in range(k + 1):
-            logits, _ = target_step(params, state, u, lengths + i)
+            with _entered(mesh_program):
+                logits, _ = target_step(params, state, u, lengths + i)
             tok = sample_tokens(logits, state["generator"], state["temps"],
                                 top_ks=state["top_ks"], top_ps=state["top_ps"],
                                 stochastic=stochastic, masked=masked)
@@ -479,7 +499,7 @@ def spec_decode_program(cfg: ArchConfig, dcfg: ArchConfig, *, k: int,
     return fn
 
 
-def spec_draft_prefill_program(dcfg: ArchConfig):
+def spec_draft_prefill_program(dcfg: ArchConfig, *, draft_program=None):
     """Seed the draft's lane from a token history: prefill ``hist`` (the
     prompt and every committed token but the pending one, padded to a
     bucket) into draft lane ``slot``, in place.
@@ -494,14 +514,18 @@ def spec_draft_prefill_program(dcfg: ArchConfig):
     No freeze: the device ``active`` vector can be stale mid-admission,
     so a freeze here could zero a lane another restore seeded earlier in
     the same engine step.  The spec decode program freezes the draft
-    every round, which is when the invariant sweep checks it."""
+    every round, which is when the invariant sweep checks it.
+
+    On a mesh it runs inside ``draft_program``: every data rank runs the
+    forward and the rank holding the lane writes it, as a slotted prefill
+    does."""
     dmod = registry.get_module(dcfg)
 
     def fn(dparams, state, hist, slot, plen):
         dmod.prefill_slot(dcfg, dparams, state["draft"], hist, slot, plen)
         return state
 
-    return fn
+    return _in_program(fn, draft_program)
 
 
 # ---------------------------------------------------------------------------
@@ -510,14 +534,17 @@ def spec_draft_prefill_program(dcfg: ArchConfig):
 #
 # Four programs move lane state between the device cache and the host tier
 # (serve/paged.py:HostTier), built once each through the engine's program
-# cache.  Reads land in host memory: pinned on a CUDA card, one
-# stream-ordered copy per leaf and one synchronize before the payload is
-# handed over, so the caller may reuse the source right after.  Writes copy
-# in place into the existing cache tensors (``index_copy_``): no leaf is
-# ever rebound, so the captured decode graph stays valid.  A non-blocking
-# copy from pinned memory keeps its source alive through PyTorch's pinned
-# allocator, which records the copy's stream before a freed block is
-# reused.  A failed pinned allocation or copy raises.
+# cache.  On a serving mesh each rank reads and writes only the blocks or
+# lanes it holds (a payload is its ``Share``), and a restore into a block
+# or lane of another data rank moves the payload there from its holder.
+# Reads land in host memory: pinned on a CUDA card, one stream-ordered copy
+# per leaf and one synchronize before the payload is handed over, so the
+# caller may reuse the source right after.  Writes copy in place into the
+# existing cache tensors (``index_copy_``): no leaf is ever rebound, so the
+# captured decode graph stays valid.  A non-blocking copy from pinned
+# memory keeps its source alive through PyTorch's pinned allocator, which
+# records the copy's stream before a freed block is reused.  A failed
+# pinned allocation or copy raises.
 
 
 def _fetch(tensors: dict) -> dict:
@@ -568,7 +595,22 @@ def _stage(ts: list, device, dtype):
     return stage
 
 
-def paged_block_read_program(cfg: ArchConfig):
+def _flat(leaves: list, device, dtype):
+    """The tensors ``leaves`` flattened into one device buffer (a move's
+    payload: every leaf of every block in one broadcast)."""
+    return torch.cat([torch.as_tensor(t).reshape(-1).to(device=device, dtype=dtype)
+                      for t in leaves])
+
+
+def _move(buf, holder: int, group) -> None:
+    """Broadcast ``buf`` from data rank ``holder`` over ``group``, in
+    place: a tier payload restored on another data rank than the one that
+    spilled it (counted in ``common.COUNTS["tier_move"]``)."""
+    dist.broadcast(buf, src=dist.get_global_rank(group.pg, holder), group=group.pg)
+    COUNTS["tier_move"] += 1
+
+
+def paged_block_read_program(cfg: ArchConfig, *, mesh_program=None, nbytes: int = 0):
     """Read physical blocks out of every paged-cache leaf into host memory.
 
     ``fn(state, blocks) -> [{leaf: (L, bs, Hk, dh)} per block]``: the
@@ -577,69 +619,183 @@ def paged_block_read_program(cfg: ArchConfig):
     (L, NB, bs, Hk, dh), the block axis ``ndim - 4``.  All the blocks are
     gathered by one indexed copy per leaf and fetched together (the
     reference fetches block by block); each payload is a row of the
-    fetched buffer, so a spill keeps one payload per block."""
+    fetched buffer, so a spill keeps one payload per block.
+
+    Under a serving mesh program (``mesh_program``) the pool holds this
+    data rank's share of the blocks (and its kv heads): each payload is a
+    :class:`~repro_torch.serve.paged.Share` of a block, this rank's part
+    where it holds the block and empty where another data rank does, its
+    ``nbytes`` the whole block's (``nbytes``).  Nothing crosses ranks."""
 
     def fn(state, blocks):
         cache = state["cache"]
-        dev = next(iter(cache.values())).device
-        idx = torch.tensor(list(blocks), dtype=torch.long, device=dev)
+        first = next(iter(cache.values()))
+        split = serve_split()
+        if split is None:
+            own, lo = list(range(len(blocks))), 0
+        else:
+            n = first.shape[first.dim() - 4]
+            lo = split.mesh.data.rank * n
+            own = [j for j, b in enumerate(blocks) if lo <= b < lo + n]
+        idx = torch.tensor([blocks[j] - lo for j in own], dtype=torch.long,
+                           device=first.device)
         host = _fetch({name: c.index_select(c.dim() - 4, idx).movedim(c.dim() - 4, 0)
-                       for name, c in cache.items()})
-        return [{name: h[j] for name, h in host.items()} for j in range(len(idx))]
+                       for name, c in cache.items()}) if own else {}
+        rows = {j: {name: h[i] for name, h in host.items()} for i, j in enumerate(own)}
+        if split is None:
+            return [rows[j] for j in range(len(blocks))]
+        return [Share(rows.get(j, {}), b, nbytes) for j, b in enumerate(blocks)]
 
-    return fn
+    return _in_program(fn, mesh_program)
 
 
-def paged_block_write_program(cfg: ArchConfig):
+def paged_block_write_program(cfg: ArchConfig, *, mesh_program=None):
     """Write physical blocks of every paged-cache leaf from host payloads:
     the restore half of :func:`paged_block_read_program`.
 
     ``fn(state, payloads, blocks) -> state``: ``payloads[j]`` (a
     ``{leaf: block}`` dict) goes to block ``blocks[j]``, by one indexed
-    copy per leaf into the existing pool."""
+    copy per leaf into the existing pool.
+
+    Under a serving mesh program each payload is a ``Share`` whose holder
+    is the data rank of its ``src`` block.  Where that rank holds the new
+    block too it writes its part in place; otherwise the holder broadcasts
+    the blocks it holds for other ranks (every leaf in one buffer, one
+    broadcast a holder, as ``lm.copy_paged_block`` moves a block) over the
+    data group and each new owner writes its own.  Every rank calls this
+    with the same blocks in the same order, as every rank runs the
+    schedule."""
+
+    def write(cache, rows: list, local: list):
+        if not rows:
+            return
+        idx = torch.tensor(local, dtype=torch.long, device=next(iter(cache.values())).device)
+        for name, c in cache.items():
+            axis = c.dim() - 4
+            src = _stage([r[name] for r in rows], c.device, c.dtype)
+            c.index_copy_(axis, idx, src.movedim(0, axis))
 
     def fn(state, payloads, blocks):
         cache = state["cache"]
-        dev = next(iter(cache.values())).device
-        idx = torch.tensor(list(blocks), dtype=torch.long, device=dev)
-        for name, c in cache.items():
-            axis = c.dim() - 4
-            src = _stage([p[name] for p in payloads], c.device, c.dtype)
-            c.index_copy_(axis, idx, src.movedim(0, axis))
+        split = serve_split()
+        if split is None:
+            write(cache, list(payloads), list(blocks))
+            return state
+        g = split.mesh.data
+        first = next(iter(cache.values()))
+        n = first.shape[first.dim() - 4]
+        holder = [p.src // n for p in payloads]
+        owner = [b // n for b in blocks]
+        stay = [j for j in range(len(blocks)) if holder[j] == owner[j] == g.rank]
+        write(cache, [payloads[j] for j in stay], [blocks[j] - g.rank * n for j in stay])
+        block_shape = first.select(first.dim() - 4, 0).shape
+        for h in sorted({holder[j] for j in range(len(blocks)) if holder[j] != owner[j]}):
+            moved = [j for j in range(len(blocks)) if holder[j] == h != owner[j]]
+            if g.rank == h:
+                buf = _flat([payloads[j][name] for name in cache for j in moved],
+                            first.device, first.dtype)
+            else:
+                buf = torch.empty(len(cache) * len(moved) * block_shape.numel(),
+                                  dtype=first.dtype, device=first.device)
+            _move(buf, h, g)
+            parts = buf.view(len(cache), len(moved), *block_shape)
+            mine = [i for i, j in enumerate(moved) if owner[j] == g.rank]
+            if mine:
+                idx = torch.tensor([blocks[moved[i]] - g.rank * n for i in mine],
+                                   dtype=torch.long, device=first.device)
+                sel = torch.tensor(mine, dtype=torch.long, device=first.device)
+                for part, c in zip(parts, cache.values()):
+                    axis = c.dim() - 4
+                    c.index_copy_(axis, idx, part.index_select(0, sel).movedim(0, axis))
         return state
 
-    return fn
+    return _in_program(fn, mesh_program)
 
 
-def lane_read_program(cfg: ArchConfig, *, axes: dict):
+def _lane_owner(cache: dict, axes: dict):
+    """``(lanes a rank holds, the data group)`` where the lanes split over
+    the data axes under the running serving mesh program, else None (every
+    lane here, or under the batch fallback every lane with this rank's
+    positions)."""
+    split = serve_split()
+    dec = None if split is None else split.decode
+    if dec is None or dec.lane_ranks == 1:
+        return None
+    name, axis = next(iter(axes.items()))
+    return cache[name].shape[axis], split.mesh.data
+
+
+def lane_read_program(cfg: ArchConfig, *, axes: dict, mesh_program=None, nbytes: int = 0):
     """Read one lane's slice of every slot-cache leaf in ``axes``
     (``registry.lane_leaf_axes``: KV segments and/or recurrent leaves)
     into host memory.  ``fn(state, slot) -> {leaf: lane slice}``, the
-    payload of a ``kind == "lane"`` spill."""
+    payload of a ``kind == "lane"`` spill.
+
+    Under a serving mesh program the payload is a
+    :class:`~repro_torch.serve.paged.Share` of the lane (``nbytes`` its
+    whole bytes): this rank's positions of it where this data rank holds
+    the lane (or, under the batch fallback, holds every lane), empty
+    where another does."""
 
     def fn(state, slot):
-        return _fetch({name: state["cache"][name].select(axis, slot)
-                       for name, axis in axes.items()})
+        cache = state["cache"]
+        split = serve_split()
+        owner = _lane_owner(cache, axes)
+        local = slot
+        if owner is not None:
+            per, g = owner
+            local = slot - g.rank * per if g.rank * per <= slot < (g.rank + 1) * per else None
+        leaves = {} if local is None else _fetch(
+            {name: cache[name].select(axis, local) for name, axis in axes.items()})
+        return leaves if split is None else Share(leaves, slot, nbytes)
 
-    return fn
+    return _in_program(fn, mesh_program)
 
 
-def lane_write_program(cfg: ArchConfig, *, axes: dict):
+def lane_write_program(cfg: ArchConfig, *, axes: dict, mesh_program=None):
     """Write one lane's slice of every slot-cache leaf in ``axes`` from a
     host payload: the restore half of :func:`lane_read_program`.
 
     ``fn(state, payload, slot) -> state``.  A recurrent lane must be
     active on the device before any later program runs: the prefill and
     decode programs' freeze zeroes inactive lanes, so the engine pushes
-    its scheduling mirror right after such a restore."""
+    its scheduling mirror right after such a restore.
 
-    def fn(state, payload, slot):
+    Under a serving mesh program whose data axes split the lanes, a lane
+    re-admitted into a slot of another data rank than the one that
+    spilled it moves: its holder (the data rank of the payload's ``src``
+    lane) broadcasts its part over the data group and the new owner writes
+    it."""
+
+    def put(cache, payload, local):
         for name, axis in axes.items():
-            c = state["cache"][name]
+            c = cache[name]
             src = torch.as_tensor(payload[name]).to(device=c.device, dtype=c.dtype,
                                                      non_blocking=True)
-            idx = torch.tensor([slot], dtype=torch.long, device=c.device)
+            idx = torch.tensor([local], dtype=torch.long, device=c.device)
             c.index_copy_(axis, idx, src.unsqueeze(axis))
+
+    def fn(state, payload, slot):
+        cache = state["cache"]
+        owner = _lane_owner(cache, axes)
+        if owner is None:
+            put(cache, payload, slot)
+            return state
+        per, g = owner
+        h, o = payload.src // per, slot // per
+        if h != o:
+            ref = cache[next(iter(axes))]
+            shapes = [cache[name].select(axis, 0).shape for name, axis in axes.items()]
+            if g.rank == h:
+                buf = _flat([payload[name] for name in axes], ref.device, ref.dtype)
+            else:
+                buf = torch.empty(sum(s.numel() for s in shapes), dtype=ref.dtype,
+                                  device=ref.device)
+            _move(buf, h, g)
+            payload = dict(zip(axes, (t.view(s) for t, s in zip(
+                buf.split([s.numel() for s in shapes]), shapes))))
+        if g.rank == o:
+            put(cache, payload, slot - g.rank * per)
         return state
 
-    return fn
+    return _in_program(fn, mesh_program)

@@ -31,7 +31,10 @@ smoke width with head dim 64 so the paged kernel takes it:
 * the kernel wrappers' launch counters advance on every replay;
 * tracing is invisible: a traced engine's replays launch what an
   untraced one's do, sample the same tokens and build nothing more;
-* a router counts each replica's graph capture as a fleet build.
+* a router counts each replica's graph capture as a fleet build;
+* a spec round on a ``(1, 1)`` mesh of one-rank NCCL groups: its graph
+  (both mesh programs, the draft's and the target's) replays the eager
+  round bitwise, and the ``data_ptr`` guard raises on a rebound leaf.
 """
 import dataclasses
 import math
@@ -411,3 +414,76 @@ def test_router_counts_graph_captures_as_builds(cuda):
     router.run()
     assert router.stats["graph_builds"] == 2 and router._ewma_service is not None
     assert all(c.status == "ok" for c in router.completions.values())
+
+
+@pytest.fixture
+def nccl1(cuda):
+    """A ``(1, 1)`` mesh of one-rank NCCL groups on the card."""
+    import socket
+
+    from repro_torch.launch.mesh import init_group, mesh_from_group
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    group = init_group("nccl", 0, 1, f"tcp://127.0.0.1:{port}", device=cuda)
+    yield mesh_from_group(group, (1, 1))
+    group.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["slotted", "paged"])
+def test_spec_graph_on_a_mesh_replays_eager_bitwise(nccl1, layout):
+    """A spec round on a ``(1, 1)`` mesh of one-rank NCCL groups: one graph
+    holds both mesh programs (the draft's steps, its lanes over the data
+    axis, and the target's verify steps) with their collectives; 8 rounds
+    each run the eager program on a deep clone and replay the graph on the
+    state, the rows and every leaf bitwise equal; then rebinding the
+    draft's cache makes the next replay raise (the ``data_ptr`` guard)."""
+    from repro_torch.launch.serve import draft_mix
+    from repro_torch.models import common
+
+    dev = nccl1.device
+    cfg = dataclasses.replace(get_smoke_config("smollm-360m"), d_head=64, attn_impl="kernel",
+                              compute_dtype="bfloat16")
+    params = lm.init(cfg, seed=0, device=dev)
+    ec = EngineConfig(max_slots=4, max_len=64, kv_layout=layout, spec_draft=cfg, spec_k=3,
+                      paged_attn="kernel" if layout == "paged" else "ref")
+    eng = ServeEngine(cfg, params, ec, device=dev, mesh=nccl1,
+                      draft_params=draft_mix(cfg, params, 0.15, 1, dev))
+    _busy(cfg, eng, budget=44)          # lanes still decoding after 9 rounds
+    flags = dict(stochastic=False, masked=False)
+    graph = eng._spec_entry(**flags)
+    assert isinstance(graph, CudaGraphProgram) and eng.stats["graphs"] == 1
+    eager = eng.spec_program(**flags)
+    checked = []
+
+    def leaves(tree, prefix=""):
+        for k in sorted(tree):
+            v = tree[k]
+            if isinstance(v, dict):
+                yield from leaves(v, f"{prefix}{k}/")
+            elif torch.is_tensor(v):
+                yield prefix + k, v
+
+    def check(params, dparams, state):
+        clone = _clone(state)
+        common.COUNTS.update(dict.fromkeys(common.COUNTS, 0))
+        want = eager(params, dparams, clone).clone()
+        assert common.COUNTS["all_gather"] > 0      # the eager round issues its collectives
+        got = graph(params, dparams, state)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        for (name, a), (_, b) in zip(leaves(state), leaves(clone)):
+            assert torch.equal(a, b), name
+        checked.append(1)
+        return got
+
+    eng._spec_entry = lambda **flags: check
+    for _ in range(8):
+        eng.step()
+    assert len(checked) == graph.replays == 8
+    del eng._spec_entry
+    eng.state["draft"]["k"] = eng.state["draft"]["k"].clone()
+    with pytest.raises(RuntimeError, match="moved since capture"):
+        eng.step()

@@ -39,8 +39,11 @@ sampling for the decode logits, and holds:
   data axis).
 
 In this process: ``(1, 1)`` over a one-rank gloo group bitwise equal to
-``mesh=None`` (streams, logits, bytes, counters), the refusals, the cache
-layouts' local shapes and the launcher's ``--mesh``.
+``mesh=None`` (streams, logits, bytes, counters), and so are the engine's
+features there (speculation, the host tier with hold and park, snapshots,
+migration; their multi-rank runs are ``test_torch_serve_mesh_features.py``'s),
+the refusals, the cache layouts' local shapes and the launcher's
+``--mesh``.
 """
 import dataclasses
 import gc
@@ -680,7 +683,9 @@ def test_cache_layouts_local_shapes():
 
 
 def test_mesh_refusals(gloo1):
-    """What a mesh does not serve raises, naming its ROADMAP item."""
+    """What a mesh does not serve raises, naming its ROADMAP item: the
+    slot-served families other than the ``lm`` family's at a live model
+    axis, as a target or as a speculation draft."""
     live = _fake_mesh((1, 2))
     ec = EngineConfig(max_slots=2, max_len=32)
     zamba = get_smoke_config("zamba2-1.2b")
@@ -692,28 +697,74 @@ def test_mesh_refusals(gloo1):
     with pytest.raises(NotImplementedError, match="the model axis for the other families"):
         generate_static(get_smoke_config("whisper-tiny"), None, np.zeros((1, 4), np.int32),
                         mesh=live)
-    one = mesh_from_group(gloo1, (1, 1))
     cfg = get_smoke_config("smollm-360m")
-    init = lm.init(cfg, seed=0, device="cpu")
-    for kw in (dict(spec_draft=cfg, spec_k=2), dict(host_tier=True)):
-        with pytest.raises(NotImplementedError, match="the engine's features on a mesh"):
-            ServeEngine(cfg, init, dataclasses.replace(ec, **kw), device="cpu", mesh=one)
-    eng = ServeEngine(cfg, init, ec, device="cpu", mesh=one)
-    rid = eng.submit(np.arange(4, dtype=np.int32), max_new_tokens=3)
-    eng.step()
-    for call in (lambda: eng.hold(rid), eng.snapshot, lambda: eng.restore({}),
-                 lambda: eng.export_request(rid)):
-        with pytest.raises(NotImplementedError, match="the engine's features on a mesh"):
-            call()
+    with pytest.raises(NotImplementedError, match="zamba2-1.2b-smoke: serving on a live model axis"):
+        ServeEngine(cfg, None, dataclasses.replace(ec, spec_draft=zamba, spec_k=2),
+                    device="cpu", mesh=live)
     # zamba at a model axis of 1 runs whole on every rank
+    one = mesh_from_group(gloo1, (1, 1))
     z = ServeEngine(zamba, registry_init(zamba), ec, device="cpu", mesh=one)
     assert z.shards is None and z.mesh is one
 
 
-def registry_init(cfg):
+# the engine's features on a (1, 1) mesh: (arch, scenario of
+# test_torch_serve_mesh_features.py, layout)
+FEATURES = [("smollm-360m", "spec", "slotted"), ("smollm-360m", "spec", "paged"),
+            ("smollm-360m", "tier", "slotted"), ("smollm-360m", "tier", "paged"),
+            ("zamba2-1.2b", "tier", "slotted"), ("smollm-360m", "spectier", "paged"),
+            ("smollm-360m", "snapshot", "slotted"), ("smollm-360m", "snapshot", "paged"),
+            ("smollm-360m", "migration", "paged")]
+
+
+@pytest.mark.parametrize("arch,name,layout", FEATURES,
+                         ids=[f"{a}-{n}-{lay}" for a, n, lay in FEATURES])
+def test_one_by_one_mesh_features_equal_no_mesh_bitwise(gloo1, tmp_path, arch, name, layout):
+    """Speculation, the host tier with hold, park and release, snapshots
+    (``snapshot``/``restore`` and ``save_snapshot``/``restore_snapshot``)
+    and migration on ``(1, 1)`` over a one-rank gloo group (every
+    collective runs) against ``mesh=None``, bf16 as served: streams,
+    counters and every engine's ``stats`` bitwise.  zamba's tier (a
+    recurrent lane spills whole and local: no mesh program at a model axis
+    of 1) too."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.serve import HostTier
+    from test_torch_serve_mesh_features import SPEC_LAYOUTS, FakeClock, _port_make, scenario
+
+    mesh = mesh_from_group(gloo1, (1, 1))
+    cfg = dataclasses.replace(get_smoke_config(arch), attn_impl="kernel")
+    init, draft = registry_init(cfg), registry_init(cfg, seed=1)
+    out = {}
+    for m in (None, mesh):
+        made = []
+        make = _port_make(cfg, init, draft, m)
+
+        def recording(clock, **kw):
+            made.append(make(clock, **kw))
+            return made[-1]
+
+        def save(eng, step):
+            mgr = CheckpointManager(str(tmp_path / f"snap_{m is None}"))
+            eng.save_snapshot(mgr, step)
+            fresh = recording(FakeClock(), **SPEC_LAYOUTS[layout])
+            assert fresh.restore_snapshot(mgr) == step
+            return fresh
+
+        res = scenario(name, layout, recording, cfg.vocab, save=save, tier=HostTier)
+        res.pop("shares", None)
+        out[m is None] = (res, [{k: v for k, v in e.stats.items() if k != "mesh"}
+                                for e in made])
+    assert out[True] == out[False]
+    # the feature ran: what it counts, on the first engine (or the restored one)
+    stats = out[False][1]
+    key = {"spec": "spec_steps", "tier": "restores", "spectier": "restores",
+           "snapshot": "snapshot_restores", "migration": "exported"}[name]
+    assert stats[name == "snapshot"][key] > 0, stats
+
+
+def registry_init(cfg, seed=0):
     from repro_torch.models import registry
 
-    return registry.get_module(cfg).init(cfg, seed=0, device="cpu")
+    return registry.get_module(cfg).init(cfg, seed=seed, device="cpu")
 
 
 def test_launcher_mesh_choices(capsys, monkeypatch):

@@ -1,6 +1,7 @@
 """``chip_smoke.py``'s dense speculative-decoding phases (3j, 3k, 3l)
 rehearsed at smoke width on the CPU, and the ``rehearsal`` fixture that
-``tests/test_torch_spec_decode.py``'s zamba phase (5d) shares.
+``tests/test_torch_spec_decode.py``'s zamba phase (5d) and
+``tests/test_torch_mesh_rehearsal.py``'s phase 3p share.
 
 A file of its own: the rehearsal is the longest test of the suite, and
 under ``--dist loadfile`` a file runs on one worker, so beside the rest of
@@ -67,7 +68,7 @@ def _counting(fn):
 @pytest.fixture
 def rehearsal(monkeypatch):
     """``chip_smoke`` at smoke width in fp32 on the CPU: ``get_config``
-    gives the smoke configs, the layer counts follow, the six kernel
+    gives the smoke configs, the layer counts follow, the seven kernel
     wrappers count every call (their plain versions run), the engines
     register their eager decode and spec programs as graphs
     (``_EagerGraph``), the card's synchronize and memory calls are no-ops,
@@ -85,7 +86,8 @@ def rehearsal(monkeypatch):
     monkeypatch.setattr(cs, "N_LAYERS", smoke("smollm-360m").n_layers)
     monkeypatch.setattr(cs, "ZAMBA_LAYERS", smoke("zamba2-1.2b").n_layers)
     monkeypatch.setattr(cs, "ZAMBA_SHARED", zamba.n_shared_invocations(smoke("zamba2-1.2b")))
-    for mod, name in ((fops, "flash_attention"), (pops, "paged_attention"), (rops, "rmsnorm"),
+    for mod, name in ((fops, "flash_attention"), (pops, "paged_attention"),
+                      (pops, "paged_attention_range"), (rops, "rmsnorm"),
                       (rops, "rmsnorm_add"), (rops, "rmsnorm_gated"), (sops, "ssd")):
         monkeypatch.setattr(mod, name, _counting(getattr(mod, name)))
     for name in ("synchronize", "reset_peak_memory_stats"):
@@ -149,3 +151,4 @@ def test_chip_smoke_spec_phases(rehearsal):
     assert sp["3l"]["counters"]["prefix_hit_tokens"] > 0
     for ph in ("3j", "3k", "3l"):
         assert sp[ph]["spec_accepted"] > 0 and sp[ph]["spec_rejected"] > 0, ph
+
