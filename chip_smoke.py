@@ -96,7 +96,14 @@ Phases (any failure raises and the script exits non-zero):
    host microseconds per call beside its plain chain's.  The times of 2d
    and 2e are device time per call from ``torch.profiler``
    (``device_ms``); 2d keeps back-to-back CUDA events, host-bound for
-   calls of a few microseconds, beside them as ``*_events``.
+   calls of a few microseconds, beside them as ``*_events``.  Then the
+   split entry (``rmsnorm_gated_split``: the gated form over a rank's
+   columns of a row split across model ranks) at (2048, 4096) and (8,
+   4096), bf16 and fp32: the row cut into 1, 2 and 4 column shards of
+   whole heads, the shards' sums of squares added on the card, each shard
+   normalised by the total, against its plain version (``TOL``) and the
+   whole-row gated kernel (one shard bitwise, more ``TOL``); timed at one
+   shard (two launches a call) beside its plain chain.
 2f. Flash at the frontend families' shapes (``FLASH_FRONTEND``):
    whisper-tiny's encoder self-attention (8, 1500, 6, 64) and its prefill
    cross-attention (32 queries over 1,500 keys), non-causal, the last key
@@ -313,6 +320,17 @@ Phases (any failure raises and the script exits non-zero):
    (their bytes printed); the spec graph check; streams phase 5's bitwise;
    the draft's dead recurrent lanes zero after every round; builds flat;
    launches as predicted; the profiled round and its breakdown.
+5m. Phase 5's model, requests and engine on a ``(1, 1)`` mesh of
+   one-rank NCCL groups (``ServeEngine(mesh=)``, ``zamba_mesh_serve``):
+   the weights' shards, the shared block's heads and the Mamba2
+   projections on the serving mesh program, every head of each Mamba2
+   block on the rank, the cache ``zamba.cache_pspec``'s.  Gates: streams
+   bitwise phase 5's, the invariants after every step, the launches
+   phase 5's formulas (no split entry: serving keeps the whole-row gated
+   norm), the collectives by ``zamba_serve_collectives``, the KV bytes
+   phase 5's, one decode graph.  Prints tokens/s, the decode step's host
+   median and a profiled decode step's device ms, idle share and
+   launches.
 6. The function API (``repro_torch.core``) on the card, one worker
    (``fork()``): (a) the paper's Appendix A program (``examples/
    synk_sgd.py`` in the port's API: a CNN trained by ``synk.function`` on
@@ -452,7 +470,15 @@ Phases (any failure raises and the script exits non-zero):
    Gates: step 1 of the replicated rules and of FSDP bitwise equal, as in
    phase 14; finite losses, batch 0's loss falling; the launches by phase
    13's formulas at 6 layers (``ssd`` ``2 x 6 x 2 x steps``) and no
-   flat_adam; the collectives by formula.
+   flat_adam; the collectives by formula.  Then (14m) the same init under
+   ``ShardRules.for_mesh`` of a ``(1, 1)`` mesh (``sp`` off, as the
+   reference's launcher sets it for the hybrid family: the Mamba2 heads
+   split over ``model``, the gated out-norm through the split entry and
+   its row sums all-reduced), phase 14b's 2 steps: step 1's loss,
+   gradient norm and parameter digests bitwise FSDP's; the launches
+   (``rmsnorm_gated_split`` 2 x 2 x 6 x 2 x steps, no ``rmsnorm_gated``)
+   and the collectives by formula (``mesh_collectives``); a profiled
+   step.
 15. Train ``whisper-tiny`` uncut (frames from ``SyntheticEmbeds``) and
    ``xlstm-1.3b`` at full width and 8 of 48 layers (7 mLSTM, 1 sLSTM)
    through the faithful program, seq 256, global batch 4 in 2 slices, 2
@@ -1541,6 +1567,107 @@ def check_rmsnorm(torch, dev, results):
                 log(f"rmsnorm timing {json.dumps(tm)}")
     results["rmsnorm_cases"] = rows
     results["rmsnorm_timing"] = timings
+    check_rmsnorm_split(torch, dev, results)
+
+
+# the split entry's shapes (rows, d_inner): a zamba2 train slice (2 x
+# 1,024 tokens) and a decode step of 8 lanes; its row split into these
+# many column shards of whole heads (1: the (1, 1) mesh's call)
+RMSNORM_SPLIT_SHAPES = ((2048, ZAMBA_D_INNER), (8, ZAMBA_D_INNER))
+RMSNORM_SPLIT_SHARDS = (1, 2, 4)
+
+
+def split_gated(torch, fn, ga: dict, shards: int):
+    """The gated norm of ``ga`` (:func:`gated_inputs`) over its row split
+    into ``shards`` column shards of whole heads: each shard's sum of
+    squares by ``fn`` (``rmsnorm_gated_split`` or its plain version), the
+    sums added on the device, each shard normalised by the total; returns
+    the shards' outputs side by side and the total."""
+    H, P = ga["d_skip"].shape[0], ga["head_dim"]
+    h = H // shards
+    c = h * P
+    parts = [dict(y=ga["y"][:, m * c:(m + 1) * c], z=ga["z"][:, m * c:(m + 1) * c],
+                  gamma=ga["gamma"][m * c:(m + 1) * c],
+                  x=ga["x"][:, m * c:(m + 1) * c], d_skip=ga["d_skip"][m * h:(m + 1) * h],
+                  head_dim=P) for m in range(shards)]
+    total = sum(fn(**q) for q in parts)
+    return torch.cat([fn(**q, row_sum=total, width=H * P) for q in parts], dim=-1), total
+
+
+def check_rmsnorm_split(torch, dev, results):
+    """Phase 2e's split entry (``rmsnorm_gated_split``: the gated out-norm
+    over a rank's columns of a row split across model ranks, its sum of
+    squares then its columns normalised by the whole row's sum) at
+    ``RMSNORM_SPLIT_SHAPES``, bf16 and fp32: the row split into 1, 2 and 4
+    column shards, the shards' sums added on the device, against its plain
+    version (``TOL``) and against the whole-row gated kernel (one shard:
+    bitwise, the same plan and reduction; more: ``TOL``).  Timed in bf16 at
+    one shard (the (1, 1) mesh's call: two launches), L2-cold as 2e's
+    gated row, beside the plain chain; bound: the bytes the function needs
+    (y, z and x read once, the sums written and read, the output
+    written), not the second launch's re-read of y, z and x."""
+    import itertools
+
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm_gated, rmsnorm_gated_split
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_gated_split_ref
+
+    def plain(y, z, gamma, x, d_skip, head_dim, row_sum=None, width=None):
+        return rmsnorm_gated_split_ref(y, z, gamma, x, d_skip, head_dim, 1e-6, row_sum, width)
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    cases, timings = [], []
+    for n, D in RMSNORM_SPLIT_SHAPES:
+        for dt in ("bfloat16", "float32"):
+            k = -(-COLD_BYTES // (n * D * 10)) if dt == "bfloat16" else 1
+            gas = [gated_inputs(torch, dev, n, dt, gen) for _ in range(k)]
+            whole = rmsnorm_gated(**gas[0])
+            for shards in RMSNORM_SPLIT_SHARDS:
+                got, total = split_gated(torch, rmsnorm_gated_split, gas[0], shards)
+                want, want_total = split_gated(torch, plain, gas[0], shards)
+                torch.cuda.synchronize()
+                row = dict(shape=[n, D], dtype=dt, shards=shards,
+                           max_abs_err=max_err(torch, got, want, dt),
+                           row_sum_max_rel_err=float(((total - want_total).abs()
+                                                      / want_total.abs()).max()),
+                           max_abs_err_vs_whole=max_err(torch, got, whole, dt),
+                           bitwise_whole=bool(torch.equal(got, whole)))
+                log(f"rmsnorm split {json.dumps(row)}")
+                assert shards > 1 or row["bitwise_whole"], row
+                assert row["row_sum_max_rel_err"] < 1e-5, row
+                cases.append(row)
+            if dt != "bfloat16":
+                continue
+
+            def call(ga):
+                s_ = rmsnorm_gated_split(**ga)
+                return rmsnorm_gated_split(**ga, row_sum=s_, width=D)
+
+            def plain_call(ga):
+                s_ = plain(**ga)
+                return plain(**ga, row_sum=s_, width=D)
+
+            cold = itertools.cycle(gas)
+            H = D // ZAMBA_HEAD_DIM
+            # what the function needs: y (fp32), z and x (bf16), D and gamma
+            # read once, the sums written and read, the output written (this
+            # design's second pass over y, z and x is not counted)
+            nbytes = n * D * 8 + 4 * H + 4 * D + 2 * 4 * n + 2 * n * D
+            tm = dict(kernel="rmsnorm_gated_split", shape=[n, D], dtype=dt, shards=1,
+                      path=("zamba train slice (mesh, split)" if n > 8
+                            else "zamba decode rows (split)"), input_copies=len(gas))
+            tm["bound_ms"], tm["bound_by"] = bound(10 * n * D, nbytes, "float32")
+            tm["ms"], kernels = device_profile(torch, lambda: call(next(cold)), 200)
+            tm["device_kernels_per_call"] = kernels_per_call(kernels)
+            assert tm["device_kernels_per_call"] == 2, kernels
+            tm["ms_warm"] = device_ms(torch, lambda: call(gas[0]), 200)
+            tm["ms_events"] = time_ms(torch, lambda: call(next(cold)), 200)
+            tm["plain_ms"] = device_ms(torch, lambda: plain_call(next(cold)))
+            tm["library_ms"] = None
+            tm["host_us"] = host_us(torch, lambda: call(gas[0]))
+            log(f"rmsnorm split timing {json.dumps(tm)}")
+            timings.append(tm)
+    results["rmsnorm_split_cases"] = cases
+    results["rmsnorm_split_timing"] = timings
 
 
 def gated_inputs(torch, dev, n, dt, gen) -> dict:
@@ -1966,11 +2093,13 @@ SSD_KERNEL = re.compile(r"^(void )?\(anonymous namespace\)::(tc::|simt::)?ssd_")
 
 # the wrapper that launches a port kernel of a decode step, by the kernel's
 # name in a profile: rmsnorm_kernel's second template argument is its mode
-# (plain, add, gated); paged_combine_kernel, the second kernel of a
-# paged_attention call, is counted with its split kernel
+# (plain, add, gated; the split entry's sumsq and scaled);
+# paged_combine_kernel, the second kernel of a paged_attention call, is
+# counted with its split kernel
 DECODE_WRAPPER = ((re.compile(r"::rmsnorm_kernel<[^,]+, 0,"), "rmsnorm"),
                   (re.compile(r"::rmsnorm_kernel<[^,]+, 1,"), "rmsnorm_add"),
                   (re.compile(r"::rmsnorm_kernel<[^,]+, 2,"), "rmsnorm_gated"),
+                  (re.compile(r"::rmsnorm_kernel<[^,]+, [34],"), "rmsnorm_gated_split"),
                   (re.compile(r"::paged_split_kernel<"), "paged_attention"))
 
 
@@ -4167,6 +4296,10 @@ def zamba_path(torch, dev, results):
                                        [list(c.tokens) for c in comps], e2e["tokens_per_s"],
                                        results["nvidia_smi"])
     results["zamba_spec"]["seconds"] = time.perf_counter() - t
+    t = time.perf_counter()
+    results["zamba_mesh"] = zamba_mesh_serve(torch, cfg, params, reqs, ec, dev,
+                                             [list(c.tokens) for c in comps], e2e)
+    results["zamba_mesh"]["seconds"] = time.perf_counter() - t
 
     ref_cfg = dataclasses.replace(base, attn_impl="chunked")
     ref_eng, ref_rids, _, _, ref_wall = serve(torch, ref_cfg, params, reqs, ec, dev)
@@ -4187,6 +4320,116 @@ def zamba_path(torch, dev, results):
 
 
 ZAMBA_PREEMPT_AFTER = 8       # decode steps before phase 5b preempts two lanes
+
+
+def zamba_serve_collectives(cfg, *, prefill: bool) -> dict:
+    """The collectives of one zamba2 decode step or prefill on a ``(1, 1)``
+    mesh of one-rank groups (``models.common.COUNTS``): each shared-block
+    invocation's eight sharded weights, each Mamba2 layer's ``in_proj`` and
+    ``out_proj``, the embedding and the unembedding gathered over ``data``;
+    the embedding's, each invocation's two and each Mamba2 layer's
+    row-parallel sums over ``model``; each Mamba2 layer's projection and
+    conv weight and bias gathered over ``model`` and the logits' gather; a
+    decode step's every-head q, k, v gathers and LSE combine an invocation
+    and its lanes' logits over ``data``, a prefill's k and v gathered to
+    every kv head for the slotted cache."""
+    from repro_torch.models import zamba
+
+    L, sh = cfg.n_layers, zamba.n_shared_invocations(cfg)
+    out = {"all_gather": 8 * sh + 2 * L + 2, "reduce_from_model": 2 * sh + L + 1}
+    if prefill:
+        out["model_all_gather"] = 3 * L + 1 + 2
+    else:
+        out.update(model_all_gather=3 * sh + 3 * L + 1, decode_combine=2 * sh,
+                   data_all_gather=1)
+    return out
+
+
+def zamba_mesh_serve(torch, cfg, params, reqs, ec, dev, want, base: dict) -> dict:
+    """Phase 5m: phase 5's model (full-width zamba2-1.2b, 38 layers),
+    requests and engine settings through ``ServeEngine(mesh=)`` on a ``(1,
+    1)`` mesh of one-rank NCCL groups: every program inside the serving
+    mesh program (the weights' shards gathered over ``data``, the shared
+    block's heads and the Mamba2 projections over ``model``, every head of
+    each Mamba2 block on the rank, the cache laid out by
+    ``zamba.cache_pspec``), every collective issued (each one a copy), the
+    decode step a graph replay holding them.  Gates: the streams bitwise
+    phase 5's (``want``), every request ``ok``, the invariants after every
+    step; the launches phase 5's formulas (the whole-row gated norm: no
+    split entry in serving); the collectives by
+    :func:`zamba_serve_collectives` (each prefill eager, the decode
+    program's two Python runs); the KV bytes phase 5's.  Prints tokens/s,
+    the decode step's median host ms and a profiled decode step's device
+    ms, idle share and launches, beside phase 5's (``base``)."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.rmsnorm.ops import (rmsnorm, rmsnorm_add, rmsnorm_gated,
+                                                 rmsnorm_gated_split)
+    from repro_torch.kernels.ssd.ops import ssd
+    from repro_torch.launch.mesh import init_group, mesh_from_group
+    from repro_torch.models import common
+
+    kernels = (flash_attention, ssd, rmsnorm, rmsnorm_add, rmsnorm_gated, rmsnorm_gated_split)
+    group = init_group("nccl", 0, 1, f"tcp://127.0.0.1:{free_port()}", device=dev)
+    try:
+        mesh = mesh_from_group(group, (1, 1))
+        for k in kernels:
+            k.launches = 0
+        common.COUNTS.update(dict.fromkeys(common.COUNTS, 0))
+        eng, rids, steps, prefilled, wall = serve(torch, cfg, params, reqs, ec, dev,
+                                                  check=True, mesh=mesh)
+        counts = dict(common.COUNTS)
+        launches = {k.__name__: k.launches for k in kernels}
+        st = eng.stats
+        comps = [eng.completions[r] for r in rids]
+        streams = [list(c.tokens) for c in comps]
+        pre, dec = st["prefills"], st["decode_steps"]
+        # one eager decode step on a deep clone of the state: its
+        # collectives alone
+        for p, b in reqs[:MAX_SLOTS]:
+            eng.submit(p, max_new_tokens=b)
+        while eng.counters["decode_steps"] == dec:
+            eng.step()
+        common.COUNTS.update(dict.fromkeys(common.COUNTS, 0))
+        eng.decode_program(stochastic=False, masked=False)(eng.params,
+                                                           clone_state(torch, eng.state))
+        step_counts = dict(common.COUNTS)
+        eng.drain()
+        one_dec = zamba_serve_collectives(cfg, prefill=False)
+        one_pre = zamba_serve_collectives(cfg, prefill=True)
+        run_want = {k: pre * one_pre.get(k, 0) + 2 * one_dec.get(k, 0) for k in counts}
+        tokens = sum(len(x) for x in streams)
+        decode_only = [t for t, p in zip(steps, prefilled) if not p]
+        want_launches = dict(zamba_launches(pre, dec), rmsnorm_gated_split=0)
+        row = dict(mesh=st["mesh"], tokens=tokens, wall_s=wall, tokens_per_s=tokens / wall,
+                   tokens_per_s_phase5=base["tokens_per_s"],
+                   decode_step_ms_median=float(np.median(decode_only)),
+                   decode_step_ms_median_phase5=base["decode_step_ms_median"],
+                   prefills=pre, decode_steps=dec, launches=launches,
+                   launches_expected=want_launches, collectives_run=counts,
+                   collectives_run_formula=run_want, collectives_decode_step=step_counts,
+                   collectives_decode_step_formula=one_dec,
+                   collectives_prefill_formula=one_pre,
+                   kv_reserved_bytes=st["kv_reserved_bytes"],
+                   kv_reserved_bytes_phase5=base["kv_reserved_bytes"],
+                   identical=sum(x == y for x, y in zip(streams, want)), graphs=st["graphs"])
+        log(f"5m zamba2 mesh (1, 1): {json.dumps(row)}")
+        assert row["identical"] == len(reqs) and all(c.status == "ok" for c in comps), row
+        assert launches == want_launches, (launches, want_launches)
+        assert step_counts == {**dict.fromkeys(common.COUNTS, 0), **one_dec}, row
+        assert counts == {**dict.fromkeys(common.COUNTS, 0), **run_want}, row
+        assert row["kv_reserved_bytes"] == base["kv_reserved_bytes"], row
+        assert st["graphs"] == 1, row
+        del eng
+        prof = profile_decode(torch, cfg, params, reqs, ec, dev, mesh=mesh)
+        keys = ("device_ms_per_step", "device_idle_share", "kernel_launches_per_step",
+                "step_ms_unprofiled", "replay_host_ms_median")
+        row["profile"] = prof and {**{k: prof[k] for k in keys}, "top": prof["top"][:6]}
+        log(f"5m zamba2 mesh (1, 1): {tokens} tokens in {wall:.3f} s = {tokens / wall:.1f} "
+            f"tok/s (phase 5 {base['tokens_per_s']:.1f}); decode step median "
+            f"{row['decode_step_ms_median']:.2f} ms host; profile {json.dumps(row['profile'])}")
+    finally:
+        group.close()
+    return row
 
 
 def zamba_launches(pre: int, dec: int) -> dict:
@@ -5791,10 +6034,12 @@ def train_kernels():
     """Every kernel wrapper a train step can launch."""
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flat_adam.ops import flat_adam
-    from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_add, rmsnorm_gated
+    from repro_torch.kernels.rmsnorm.ops import (rmsnorm, rmsnorm_add, rmsnorm_gated,
+                                                 rmsnorm_gated_split)
     from repro_torch.kernels.ssd.ops import ssd
 
-    return (flat_adam, flash_attention, ssd, rmsnorm, rmsnorm_add, rmsnorm_gated)
+    return (flat_adam, flash_attention, ssd, rmsnorm, rmsnorm_add, rmsnorm_gated,
+            rmsnorm_gated_split)
 
 
 def causal_pairs(S: int) -> int:
@@ -5973,8 +6218,21 @@ def mesh_collectives(cfg, per: int) -> dict:
     reduce-scatters of their outputs, in the forward, the recompute and
     the backward (the dense FFN's last reduce-scatter is not recomputed:
     nothing after it in the block saves a tensor).  The heads divide at
-    model size 1: no head gathers."""
+    model size 1: no head gathers.  zamba2 (the hybrid family, no ``sp``):
+    copy-to-model into, and reduce-from-model out of, each shared block's
+    attention and MLP, each Mamba2 block and the embedding (the loss's
+    copy too); each Mamba2 block's projection and conv weights gathered
+    over ``model`` in the forward, remat's recompute and the backward, and
+    its out-norm's row sums (the same three, and the backward's recomputed
+    sum)."""
     L = cfg.n_layers
+    if cfg.family == "hybrid":
+        from repro_torch.models import zamba
+
+        tp = (2 * zamba.n_shared_invocations(cfg) + L + 1) * per
+        return dict(fsdp_collectives(cfg, per), copy_to_model=tp, reduce_from_model=tp,
+                    model_all_gather=9 * L * per, model_reduce_scatter=0, vocab_ce=2 * per,
+                    norm_sum=4 * L * per)
     rs = 6 * L + 2 if (cfg.moe.num_experts or cfg.alt_local_global) else 5 * L + 2
     return dict(fsdp_collectives(cfg, per), copy_to_model=0, reduce_from_model=0,
                 model_all_gather=(6 * L + 2) * per, model_reduce_scatter=rs * per,
@@ -6003,7 +6261,8 @@ def tree_digest(torch, tree) -> list:
     return out
 
 
-def rules_step1(torch, cfg, group, opt, shape, settings, label: str, mesh_want=None) -> dict:
+def rules_step1(torch, cfg, group, opt, shape, settings, label: str, mesh_want=None,
+                mesh_steps: int = MT_STEPS) -> dict:
     """Step 1 from the seed-0 init on batch 0 under the replicated rules,
     then under FSDP (the gathers and reduce-scatters over ``group``), each
     run freed before the next.  Gates loss, gradient norm and the updated
@@ -6011,7 +6270,8 @@ def rules_step1(torch, cfg, group, opt, shape, settings, label: str, mesh_want=N
     whole leaf, the gather and the reduce-scatter move bytes without
     arithmetic, and every sum keeps its order.  With ``mesh_want`` (the
     launches by formula), a third run on a ``(1, 1)`` mesh over ``group``
-    (:func:`mesh_run`), its step 1 held bitwise to FSDP's."""
+    (:func:`mesh_run`, ``mesh_steps`` steps), its step 1 held bitwise to
+    FSDP's."""
     from repro_torch.data import make_batch_fn
     from repro_torch.models import common
     from repro_torch.models.common import ShardRules
@@ -6040,7 +6300,8 @@ def rules_step1(torch, cfg, group, opt, shape, settings, label: str, mesh_want=N
     out["params_digest_equal"] = rep["digest"] == fs["digest"]
     out["max_abs_diff"] = {k: abs(rep[k] - fs[k]) for k in ("loss", "grad_norm")}
     if mesh_want is not None:
-        out["mesh"] = mesh_run(torch, cfg, group, opt, shape, settings, mesh_want, fs)
+        out["mesh"] = mesh_run(torch, cfg, group, opt, shape, settings, mesh_want, fs,
+                               steps=mesh_steps, label=label)
     for r in (rep, fs):
         r["digest"] = sum(r["digest"])
     log(f"step 1 {label}, replicated rules against FSDP: {json.dumps(out)}")
@@ -6050,10 +6311,15 @@ def rules_step1(torch, cfg, group, opt, shape, settings, label: str, mesh_want=N
     return out
 
 
-def mesh_run(torch, cfg, group, opt, shape, settings, want: dict, fsdp: dict) -> dict:
-    """Phase 14's third run: ``ShardRules.for_mesh`` of a ``(1, 1)`` mesh
-    laid over ``group`` (1-rank NCCL subgroups for ``data`` and ``model``),
-    the seed-0 init, ``MT_STEPS`` steps on batches 0, 1, ... of the stream.
+def mesh_run(torch, cfg, group, opt, shape, settings, want: dict, fsdp: dict, *,
+             steps: int = MT_STEPS, label: str = "qwen3-moe") -> dict:
+    """Phase 14's third run and phase 14b's (zamba2's, ``sp`` off as the
+    reference's launcher sets it for the hybrid family: the Mamba2 heads
+    split over ``model`` and the gated out-norm through the split entry
+    and its all-reduced row sum): ``ShardRules.for_mesh`` of a ``(1, 1)``
+    mesh laid over ``group`` (1-rank NCCL subgroups for ``data`` and
+    ``model``), the seed-0 init, ``steps`` steps on batches 0, 1, ... of
+    the stream.
     Gates: step 1's loss, gradient norm and parameter digests bitwise
     ``fsdp``'s (phase 14's FSDP step 1: at one rank every model-axis
     collective moves bytes without arithmetic and the vocab-parallel loss
@@ -6068,15 +6334,16 @@ def mesh_run(torch, cfg, group, opt, shape, settings, want: dict, fsdp: dict) ->
     from repro_torch.train import build_train_step, init_sharded
 
     mesh = mesh_from_group(group, (1, 1))
-    rules = ShardRules.for_mesh(mesh)
-    assert rules == ShardRules(dp=("data",), tp="model", fsdp="data", sp=True), rules
     batch_fn = make_batch_fn(cfg, shape, 0)
     params, state = init_sharded(cfg, mesh, opt, 0, settings)
     step_fn = build_train_step(cfg, mesh, opt, settings)
+    rules = step_fn._rules
+    assert rules == ShardRules(dp=("data",), tp="model", fsdp="data",
+                               sp=cfg.family != "hybrid"), rules
     reset_counts(torch)
     torch.cuda.reset_peak_memory_stats()
     times, history, digest = [], [], None
-    for i in range(MT_STEPS):
+    for i in range(steps):
         torch.cuda.synchronize()
         t = time.perf_counter()
         params, state, m = step_fn(params, state, batch_fn(i))
@@ -6092,20 +6359,20 @@ def mesh_run(torch, cfg, group, opt, shape, settings, want: dict, fsdp: dict) ->
     row = dict(mesh=list(mesh.shape), rules=dataclasses.asdict(rules),
                split_over_model=len(step_fn._shard_layout.model_sharded),
                sharded=len(step_fn._shard_layout.sharded),
-               model_partial=len(step_fn._model_partial), steps=MT_STEPS,
+               model_partial=len(step_fn._model_partial), steps=steps,
                losses=[h["loss"] for h in history], metrics=history, step_ms=times,
                step_ms_median=float(np.median(warm)),
                max_memory_allocated=torch.cuda.max_memory_allocated(), launches=launches,
                launches_expected=want, collectives=collectives,
-               collectives_expected=mesh_collectives(cfg, settings.num_slices * MT_STEPS))
+               collectives_expected=mesh_collectives(cfg, settings.num_slices * steps))
     row["step1_bitwise"] = {k: history[0][k] == fsdp[k] for k in ("loss", "grad_norm")}
     row["step1_max_abs_diff"] = {k: abs(history[0][k] - fsdp[k]) for k in ("loss", "grad_norm")}
     row["params_digest_equal"] = digest == fsdp["digest"]
     row["batch0_loss_after"] = eval_loss(torch, cfg, params, shape, group, settings.num_slices)
-    log(f"train qwen3-moe mesh (1, 1): {json.dumps(row)}")
-    log(f"train qwen3-moe mesh (1, 1): host median {row['step_ms_median']:.1f} ms; batch 0 "
+    log(f"train {label} mesh (1, 1): {json.dumps(row)}")
+    log(f"train {label} mesh (1, 1): host median {row['step_ms_median']:.1f} ms; batch 0 "
         f"loss {row['losses'][0]:.4f} at step 1, {row['batch0_loss_after']:.4f} after "
-        f"{MT_STEPS} steps")
+        f"{steps} steps")
     assert all(np.isfinite(row["losses"])), row
     assert row["batch0_loss_after"] < row["losses"][0], row
     assert all(row["step1_bitwise"].values()) and row["params_digest_equal"], row
@@ -6116,7 +6383,7 @@ def mesh_run(torch, cfg, group, opt, shape, settings, want: dict, fsdp: dict) ->
     run = {"params": params, "opt_state": state}
     del params, state, step_fn
     row["profile"] = profile_train_step(torch, cfg, mesh, opt, settings, run,
-                                        batch_fn(MT_STEPS))
+                                        batch_fn(steps))
     del run
     free(torch)
     return row
@@ -6222,11 +6489,15 @@ def zamba_fsdp_path(torch, dev, results):
     per = ZT_SLICES * ZF_STEPS
     want = dict(flat_adam=0, ssd=2 * L * per, flash_attention=Sh * per,
                 rmsnorm=(2 * L + Sh + 1) * per, rmsnorm_add=Sh * per,
-                rmsnorm_gated=2 * L * per)
+                rmsnorm_gated=2 * L * per, rmsnorm_gated_split=0)
+    # the mesh run (14m): the gated out-norm through the split entry, two
+    # launches a call, in the forward and remat's recompute
+    mesh_want = dict(want, rmsnorm_gated=0, rmsnorm_gated_split=2 * 2 * L * per)
     group = init_group("nccl", 0, 1, f"tcp://127.0.0.1:{free_port()}", device=dev)
     try:
         assert flat_engine_mode(base, group, opt, settings) is None
-        step1_rules = rules_step1(torch, base, group, opt, shape, settings, "zamba2 segment")
+        step1_rules = rules_step1(torch, base, group, opt, shape, settings, "zamba2 segment",
+                                  mesh_want=mesh_want, mesh_steps=ZF_STEPS)
         common.COUNTS.update(dict.fromkeys(common.COUNTS, 0))
         row, res = family_train(torch, group, base, shape, opt, settings, ZF_STEPS, want,
                                 "zamba2-1.2b first segment, FSDP")
@@ -6373,6 +6644,7 @@ def main() -> int:
     phase_s["5b zamba preempt (inside 5)"] = results["zamba_preempt"]["seconds"]
     phase_s["5c zamba host tier (inside 5)"] = results["zamba_tier"]["seconds"]
     phase_s["5d zamba speculative decoding (inside 5)"] = results["zamba_spec"]["seconds"]
+    phase_s["5m zamba mesh serve (inside 5)"] = results["zamba_mesh"]["seconds"]
     zs = results["zamba_spec"]["launches"]
 
     def tier_rows(name):
@@ -6396,7 +6668,7 @@ def main() -> int:
     fl = {t["shape"]: t for t in results["flash_timing"]}
     pg = {t["lengths_from"]: t for t in results["paged_timing"]}
     names = ("flash_attention", "paged_attention", "flat_adam", "ssd", "rmsnorm", "rmsnorm_add",
-             "rmsnorm_gated")
+             "rmsnorm_gated", "rmsnorm_gated_split")
     g7 = {name: gemma2_counts.get(name, 0) for name in names}
     s8 = {name: stablelm_counts.get(name, 0) for name in names}
     m9 = {name: moe_counts.get(name, 0) for name in names}
@@ -6630,6 +6902,34 @@ def main() -> int:
             other_shapes={f"{n}x{d}": {k: u[k] for k in ("path", "ms", "ms_warm", "bound_ms",
                                                           "library_ms", "host_us")}
                           for (k_, n, d), u in rn.items() if k_ == name and (n, d) != shape}))
+    # the split entry: its time at a zamba2 train slice (one shard: the
+    # (1, 1) mesh's call, two launches), its launches on phase 14b's mesh
+    # run (14m) and on phase 5m (none: serving runs every head and the
+    # whole-row gated norm)
+    sp = {t["shape"][0]: t for t in results["rmsnorm_split_timing"]}
+    zm = results["zamba_fsdp_train"]["step1_rules"]["mesh"]
+    split_cases = results["rmsnorm_split_cases"]
+    kernels.append(dict(
+        name="rmsnorm_gated_split", route="cuda",
+        source="src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
+        replaces="src/repro/kernels/rmsnorm/kernel.py:18",
+        jax_function=("repro.models.ssm.mamba_block_fwd (skip, gate, rms_norm over the "
+                      "whole d_inner row) under the model axis"),
+        shape=("y (2048, 4096) fp32, z, x (2048, 4096) bf16 views, gamma (4096,), D (64,) "
+               "fp32; a call = the sum-of-squares launch and the scaled launch"),
+        path=sp[2048]["path"], launches=zm["launches"]["rmsnorm_gated_split"],
+        zamba_mesh_serve_launches=results["zamba_mesh"]["launches"]["rmsnorm_gated_split"],
+        max_abs_err=max(r["max_abs_err"] for r in split_cases if r["dtype"] == "bfloat16"),
+        max_abs_err_vs_whole={f"{r['dtype']} {r['shards']} shards {r['shape'][0]} rows":
+                              r["max_abs_err_vs_whole"] for r in split_cases},
+        one_shard_bitwise_whole=all(r["bitwise_whole"] for r in split_cases if r["shards"] == 1),
+        kernel_ms=sp[2048]["ms"], ms=sp[2048]["ms"], ms_events=sp[2048]["ms_events"],
+        ms_warm=sp[2048]["ms_warm"], plain_ms=sp[2048]["plain_ms"],
+        bound_ms=sp[2048]["bound_ms"], bound_by=sp[2048]["bound_by"], library_ms=None,
+        device_kernels_per_call=sp[2048]["device_kernels_per_call"],
+        host_us_per_call=sp[2048]["host_us"],
+        other_shapes={"8x4096": {k: sp[8][k] for k in ("path", "ms", "ms_events", "ms_warm",
+                                                       "plain_ms", "bound_ms", "host_us")}}))
     decode_keys = ("kernel_launches_per_step", "device_ms_per_step", "device_idle_share",
                    "step_ms_unprofiled", "replay_host_ms_median",
                    "eager_kernel_launches_per_step", "eager_device_ms_per_step", "eager_step_ms")
@@ -6656,10 +6956,13 @@ def main() -> int:
                                       ("qwen3-moe train step (14, FSDP)",
                                        results["moe_train"]["profile"]),
                                       ("qwen3-moe train step (14, mesh (1, 1))",
-                                       results["moe_train"]["step1_rules"]["mesh"]["profile"]))}
+                                       results["moe_train"]["step1_rules"]["mesh"]["profile"]),
+                                      ("zamba2 segment train step (14m, mesh (1, 1))",
+                                       zm["profile"]))}
     for name, ms in (("qwen3-moe train step (14, FSDP)", results["moe_train"]["step_ms_median"]),
                      ("qwen3-moe train step (14, mesh (1, 1))",
-                      results["moe_train"]["step1_rules"]["mesh"]["step_ms_median"])):
+                      results["moe_train"]["step1_rules"]["mesh"]["step_ms_median"]),
+                     ("zamba2 segment train step (14m, mesh (1, 1))", zm["step_ms_median"])):
         train_steps[name] = {"host_ms_median": ms, **(train_steps[name] or {})}
     log(f"profiled train steps: {json.dumps(train_steps)}")
     results["kernels"] = kernels

@@ -12,6 +12,19 @@
 //   rmsnorm_gated:  v = c(c(y + D[col / head_dim] x) * c(silu(z)))
 //   then            out = v * rsqrt(mean(v^2) + eps) * (1 + gamma)
 //
+// The gated form over a row split across model ranks (each rank holds a
+// run of the row's columns, the Mamba2 block's heads under a model axis)
+// is two more modes of the same template, one entry:
+//
+//   sumsq:   ssq[row] = sum(v^2) over this rank's columns (fp32)
+//   scaled:  out = v * rsqrt(S[row] / width + eps) * (1 + gamma)
+//
+// where S is the whole row's sum (the ranks' ssq all-reduced between the
+// two launches) and width the whole row's.  Each launch recomputes the
+// prologue from its inputs.  Over one rank (the whole row) sumsq's sum is
+// the gated mode's (the same plan, the same reduction) and scaled's
+// output the gated mode's, bit for bit.
+//
 // over the rows of a (rows, D) input: mean-square and scaling in fp32, out
 // (and sum) rounded once to the compute type T.  c() rounds to T: the gated
 // prologue reproduces the three eager ops of the plain path (the fp32 skip
@@ -57,7 +70,7 @@ namespace {
 constexpr int NTHREADS = 256;                  // a block (ops.THREADS)
 constexpr int NWARPS = NTHREADS / 32;
 constexpr int MAX_VALUES = 32;                 // fp32 values a thread holds
-enum Mode { PLAIN = 0, ADD = 1, GATED = 2 };
+enum Mode { PLAIN = 0, ADD = 1, GATED = 2, SUMSQ = 3, SCALED = 4 };
 
 struct Params {
   const void* a;        // x (plain, add) or y (gated)
@@ -68,8 +81,10 @@ struct Params {
   const void* dskip;    // (D / head_dim,), with c
   void* out;            // (rows, D) contiguous, T
   void* sum;            // (rows, D) contiguous, T (add)
+  float* ssq;           // (rows,) fp32: written (sumsq) or read (scaled)
   long long rows;
   int D, head_dim, tpr; // tpr: threads per row, a power of two <= NTHREADS
+  int width;            // the whole row's width (scaled), else D
   int a_bf16, g_bf16, d_bf16;
   float eps;
 };
@@ -143,6 +158,8 @@ template <typename T, int MODE, int NV>
 __global__ void __launch_bounds__(NTHREADS) rmsnorm_kernel(const Params p) {
   constexpr int VEC = 16 / sizeof(T);          // elements of T in 16 bytes
   constexpr int TS = sizeof(T);
+  constexpr bool GATE = MODE == GATED || MODE == SUMSQ || MODE == SCALED;
+  constexpr bool GAMMA = MODE != SUMSQ;
   static_assert(NV * VEC <= MAX_VALUES, "a thread holds at most MAX_VALUES values");
   __shared__ float partial[NWARPS];
 
@@ -152,18 +169,19 @@ __global__ void __launch_bounds__(NTHREADS) rmsnorm_kernel(const Params p) {
   const bool live = row < p.rows;
   const long long r = live ? row : 0;
 
-  const bool abf = MODE == GATED ? p.a_bf16 : TS == 2;
+  const bool abf = GATE ? p.a_bf16 : TS == 2;
   const int as = abf ? 2 : 4, gs = p.g_bf16 ? 2 : 4;
   const char* arow = static_cast<const char*>(p.a) + r * p.sa * as;
   const char* brow = MODE != PLAIN ? static_cast<const char*>(p.b) + r * p.sb * TS : nullptr;
-  const bool skip = MODE == GATED && p.c != nullptr;
+  const bool skip = GATE && p.c != nullptr;
   const char* crow = skip ? static_cast<const char*>(p.c) + r * p.sc * TS : nullptr;
-  T* orow = static_cast<T*>(p.out) + r * D;
+  T* orow = MODE == SUMSQ ? nullptr : static_cast<T*>(p.out) + r * D;
   T* srow = MODE == ADD ? static_cast<T*>(p.sum) + r * D : nullptr;
   // a vector of fp32 y or gamma beside bf16 rows is two 16-byte loads, one
   // of bf16 gamma beside fp32 rows is 8 bytes
-  const bool vec = aligned(arow, 16) && aligned(p.gamma, VEC * gs < 16 ? VEC * gs : 16) &&
-                   aligned(orow, 16) && (MODE == PLAIN || aligned(brow, 16)) &&
+  const bool vec = aligned(arow, 16) &&
+                   (!GAMMA || aligned(p.gamma, VEC * gs < 16 ? VEC * gs : 16)) &&
+                   (MODE == SUMSQ || aligned(orow, 16)) && (MODE == PLAIN || aligned(brow, 16)) &&
                    (!skip || aligned(crow, 16)) && (MODE != ADD || aligned(srow, 16));
 
   // one pass over the row: the prologue's value and gamma for each slot
@@ -176,7 +194,7 @@ __global__ void __launch_bounds__(NTHREADS) rmsnorm_kernel(const Params p) {
     const bool full = live && vec && e0 + VEC <= D;
     if (full) {
       ldv<VEC>(arow, abf, e0, a);
-      ldv<VEC>(p.gamma, p.g_bf16, e0, g[k]);
+      if (GAMMA) ldv<VEC>(p.gamma, p.g_bf16, e0, g[k]);
       if (MODE != PLAIN) ldv<VEC>(brow, TS == 2, e0, b);
       if (skip) ldv<VEC>(crow, TS == 2, e0, c);
     } else {
@@ -184,7 +202,7 @@ __global__ void __launch_bounds__(NTHREADS) rmsnorm_kernel(const Params p) {
       for (int e = 0; e < VEC; ++e) {
         const bool in = live && e0 + e < D;
         a[e] = in ? ld1(arow, abf, e0 + e) : 0.f;
-        g[k][e] = in ? ld1(p.gamma, p.g_bf16, e0 + e) : 0.f;
+        g[k][e] = in && GAMMA ? ld1(p.gamma, p.g_bf16, e0 + e) : 0.f;
         b[e] = in && MODE != PLAIN ? ld1(brow, TS == 2, e0 + e) : 0.f;
         c[e] = in && skip ? ld1(crow, TS == 2, e0 + e) : 0.f;
       }
@@ -204,7 +222,7 @@ __global__ void __launch_bounds__(NTHREADS) rmsnorm_kernel(const Params p) {
     for (int e = 0; e < VEC; ++e) {
       float x = a[e];
       if constexpr (MODE == ADD) x = __fadd_rn(a[e], b[e]);
-      if constexpr (MODE == GATED) {
+      if constexpr (GATE) {
         const float s = skip ? __fadd_rn(a[e], __fmul_rn(d[e], c[e])) : a[e];
         x = round_to<T>(__fmul_rn(round_to<T>(s), round_to<T>(silu(b[e]))));
       }
@@ -222,8 +240,11 @@ __global__ void __launch_bounds__(NTHREADS) rmsnorm_kernel(const Params p) {
     }
   }
 
-  // the row's sum of squares over its tpr threads
-  if (tpr <= 32) {
+  // the row's sum of squares over its tpr threads (scaled: the given
+  // whole row's)
+  if constexpr (MODE == SCALED) {
+    ss = live ? p.ssq[r] : 0.f;
+  } else if (tpr <= 32) {
     for (int off = tpr / 2; off > 0; off >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, off);
   } else {
 #pragma unroll
@@ -235,7 +256,11 @@ __global__ void __launch_bounds__(NTHREADS) rmsnorm_kernel(const Params p) {
     for (int w = 0; w < tpr / 32; ++w) ss += partial[w0 + w];
   }
   if (!live) return;
-  const float inv = rsqrtf(ss / (float)D + p.eps);
+  if constexpr (MODE == SUMSQ) {
+    if (t == 0) p.ssq[r] = ss;
+    return;
+  }
+  const float inv = rsqrtf(ss / (float)p.width + p.eps);
 
 #pragma unroll
   for (int k = 0; k < NV; ++k) {
@@ -301,8 +326,8 @@ int dispatch(Params p, int t_dtype, int nv, void* stream) {
 extern "C" int rmsnorm_fwd(const void* x, long long sx, const void* gamma, void* out,
                            int x_dtype, int g_dtype, long long rows, int D, float eps,
                            int tpr, int nv, void* stream) {
-  Params p{x, nullptr, nullptr, sx, 0, 0, gamma, nullptr, out, nullptr, rows, D, 1, tpr,
-           x_dtype, g_dtype, 0, eps};
+  Params p{x, nullptr, nullptr, sx, 0, 0, gamma, nullptr, out, nullptr, nullptr, rows, D, 1,
+           tpr, D, x_dtype, g_dtype, 0, eps};
   return dispatch<PLAIN>(p, x_dtype, nv, stream);
 }
 
@@ -311,7 +336,7 @@ extern "C" int rmsnorm_add_fwd(const void* x, long long sx, const void* r, long 
                                const void* gamma, void* out, void* sum, int x_dtype,
                                int g_dtype, long long rows, int D, float eps, int tpr, int nv,
                                void* stream) {
-  Params p{x, r, nullptr, sx, sr, 0, gamma, nullptr, out, sum, rows, D, 1, tpr,
+  Params p{x, r, nullptr, sx, sr, 0, gamma, nullptr, out, sum, nullptr, rows, D, 1, tpr, D,
            x_dtype, g_dtype, 0, eps};
   return dispatch<ADD>(p, x_dtype, nv, stream);
 }
@@ -325,7 +350,26 @@ extern "C" int rmsnorm_gated_fwd(const void* y, long long sy, const void* z, lon
                                  int g_dtype, int d_dtype, long long rows, int D,
                                  int head_dim, float eps, int tpr, int nv, void* stream) {
   if (x != nullptr && head_dim <= 0) return (int)cudaErrorInvalidValue;
-  Params p{y, z, x, sy, sz, sx, gamma, dskip, out, nullptr, rows, D, head_dim > 0 ? head_dim : 1,
-           tpr, y_dtype, g_dtype, d_dtype, eps};
+  Params p{y, z, x, sy, sz, sx, gamma, dskip, out, nullptr, nullptr, rows, D,
+           head_dim > 0 ? head_dim : 1, tpr, D, y_dtype, g_dtype, d_dtype, eps};
   return dispatch<GATED>(p, z_dtype, nv, stream);
+}
+
+// The gated form over this rank's columns of a row split across ranks, the
+// arguments of rmsnorm_gated_fwd plus ssq ((rows,) fp32, contiguous) and
+// width (the whole row's).  out null: write each row's sum of squares of
+// the prologue over these D columns into ssq (gamma unread); else read
+// the whole row's sum from ssq and write the D columns normalised by it.
+extern "C" int rmsnorm_gated_split_fwd(const void* y, long long sy, const void* z, long long sz,
+                                       const void* x, long long sx, const void* gamma,
+                                       const void* dskip, void* out, float* ssq, int y_dtype,
+                                       int z_dtype, int g_dtype, int d_dtype, long long rows,
+                                       int D, int head_dim, int width, float eps, int tpr,
+                                       int nv, void* stream) {
+  if ((x != nullptr && head_dim <= 0) || ssq == nullptr || width < D)
+    return (int)cudaErrorInvalidValue;
+  Params p{y, z, x, sy, sz, sx, gamma, dskip, out, nullptr, ssq, rows, D,
+           head_dim > 0 ? head_dim : 1, tpr, width, y_dtype, g_dtype, d_dtype, eps};
+  if (out == nullptr) return dispatch<SUMSQ>(p, z_dtype, nv, stream);
+  return dispatch<SCALED>(p, z_dtype, nv, stream);
 }

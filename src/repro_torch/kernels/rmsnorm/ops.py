@@ -2,9 +2,12 @@
 
 ``rmsnorm(x, gamma)``, ``rmsnorm_add(x, residual, gamma)`` and
 ``rmsnorm_gated(y, z, gamma, x=, d_skip=, head_dim=)`` take inputs of
-shape ``(..., D)`` and ``gamma`` of shape ``(D,)``.  On a CUDA tensor each
-launches the hand-written sm_90a kernel (``csrc/rmsnorm.cu``, one template
-for the three) on PyTorch's current stream and adds one to its own
+shape ``(..., D)`` and ``gamma`` of shape ``(D,)``;
+``rmsnorm_gated_split`` is the gated form over a rank's columns of a row
+split across model ranks (its sum of squares, then its columns normalised
+by the whole row's sum).  On a CUDA tensor each launches the
+hand-written sm_90a kernel (``csrc/rmsnorm.cu``, one template for the
+four) on PyTorch's current stream and adds one to its own
 ``.launches``; on a CPU tensor it runs the plain version (``ref.py``).
 There is no fallback: a CUDA tensor the kernel does not take raises.  The
 kernel reads each input through its row stride (inner stride 1), so a
@@ -15,10 +18,13 @@ goes through ``_Norm``, whose forward is the same call (the kernel, or
 the plain version on a CPU tensor) and whose backward recomputes through
 the plain version, as the flash wrapper does: gradients for every input,
 gamma included (the norm scales are trained).  Otherwise the wrapper calls
-the kernel directly, so serving pays no autograd cost.
+the kernel directly, so serving pays no autograd cost.  The split entry
+is called inside ``models.ssm.SplitGatedNorm``, whose backward (through
+the plain version, all-reducing across the model ranks) is its gradient.
 
 Bound: bytes.  ``rmsnorm`` moves ``2 * rows * D`` elements plus gamma;
-``rmsnorm_add`` ``4 * rows * D``; ``rmsnorm_gated`` y, z, x and the output.
+``rmsnorm_add`` ``4 * rows * D``; ``rmsnorm_gated`` y, z, x and the output;
+``rmsnorm_gated_split`` y, z and x twice (once a launch) and its output.
 """
 from __future__ import annotations
 
@@ -28,7 +34,7 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from .ref import rmsnorm_add_ref, rmsnorm_gated_ref, rmsnorm_ref
+from .ref import rmsnorm_add_ref, rmsnorm_gated_ref, rmsnorm_gated_split_ref, rmsnorm_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 THREADS = 256                      # a block (csrc NTHREADS)
@@ -41,6 +47,8 @@ _ARGTYPES = {
     "rmsnorm_add_fwd": [_P, _L, _P, _L, _P, _P, _P, _I, _I, _L, _I, _F, _I, _I, _P],
     "rmsnorm_gated_fwd": [_P, _L, _P, _L, _P, _L, _P, _P, _P, _I, _I, _I, _I, _L, _I, _I,
                           _F, _I, _I, _P],
+    "rmsnorm_gated_split_fwd": [_P, _L, _P, _L, _P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _L,
+                                _I, _I, _I, _F, _I, _I, _P],
 }
 
 
@@ -262,6 +270,62 @@ def _rmsnorm_gated(y, z, gamma, x, d_skip, *, head_dim, eps):
     return out
 
 
+def rmsnorm_gated_split(y, z, gamma, *, x=None, d_skip=None, head_dim=None, row_sum=None,
+                        width=None, eps: float = 1e-6):
+    """:func:`rmsnorm_gated` over this rank's columns of rows split across
+    ranks, in two calls.  Without ``row_sum``: each row's fp32 sum of
+    squares of ``c(c(y + D x) * c(silu(z)))`` over these columns, shape
+    ``z.shape[:-1]``.  With ``row_sum`` (that shape, fp32: the ranks' sums
+    added, the whole row's) and ``width`` (the whole row's columns): these
+    columns normalised by it, ``v * rsqrt(row_sum / width + eps) * (1 +
+    gamma)`` in ``z.dtype``.  ``d_skip`` holds these columns' heads.  Over
+    one rank (``width`` the columns, ``row_sum`` the first call's) the
+    output is :func:`rmsnorm_gated`'s, bit for bit.  Outside autograd:
+    the model's ``ssm.SplitGatedNorm`` owns the gradient (its backward
+    all-reduces across the ranks)."""
+    _check_gated(y, z, gamma, x, d_skip, head_dim)
+    if row_sum is not None:
+        if (row_sum.shape != z.shape[:-1] or row_sum.dtype != torch.float32
+                or row_sum.device != z.device):
+            raise ValueError(f"rmsnorm_gated_split: row_sum {tuple(row_sum.shape)} "
+                             f"{row_sum.dtype} must be float32 of shape {tuple(z.shape[:-1])} "
+                             "on z's device")
+        if width is None or width < z.shape[-1]:
+            raise ValueError(f"rmsnorm_gated_split: width {width} must be the whole row's, "
+                             f"at least {z.shape[-1]}")
+    elif width is not None:
+        raise ValueError("rmsnorm_gated_split: width without row_sum")
+    return _rmsnorm_gated_split(y, z, gamma, x, d_skip, row_sum, head_dim=head_dim, eps=eps,
+                                width=width)
+
+
+def _rmsnorm_gated_split(y, z, gamma, x, d_skip, row_sum, *, head_dim, eps, width):
+    if not z.is_cuda:
+        return rmsnorm_gated_split_ref(y, z, gamma, x, d_skip, head_dim, eps, row_sum, width)
+    if x is None:
+        (sy, sz), sx = _check_kernel("rmsnorm_gated_split", gamma, y, z), 0
+    else:
+        sy, sz, sx = _check_kernel("rmsnorm_gated_split", gamma, y, z, x, d_skip=d_skip)
+    D = z.shape[-1]
+    if row_sum is None:
+        out, ssq = None, torch.empty(z.shape[:-1], dtype=torch.float32, device=z.device)
+    else:
+        out, ssq = torch.empty(z.shape, dtype=z.dtype, device=z.device), row_sum.contiguous()
+    rows = z.numel() // D
+    if rows:
+        rc = _entry("rmsnorm_gated_split_fwd")(
+            y.data_ptr(), sy, z.data_ptr(), sz, None if x is None else x.data_ptr(), sx,
+            gamma.data_ptr(), None if d_skip is None else d_skip.data_ptr(),
+            None if out is None else out.data_ptr(), ssq.data_ptr(),
+            _DTYPES[y.dtype], _DTYPES[z.dtype], _DTYPES[gamma.dtype],
+            _DTYPES[d_skip.dtype] if d_skip is not None else 0, rows, D, head_dim or 0,
+            width or D, eps, *plan(rows, D, z.dtype), _stream(z))
+        _build.check(rc, "rmsnorm_gated_split")
+        rmsnorm_gated_split.launches += 1
+    return ssq if out is None else out
+
+
 rmsnorm.launches = 0
 rmsnorm_add.launches = 0
 rmsnorm_gated.launches = 0
+rmsnorm_gated_split.launches = 0

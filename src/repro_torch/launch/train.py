@@ -24,13 +24,15 @@ the train step derives ``ShardRules.for_mesh(mesh, faithful=--faithful)``
 default program is the per-parameter path under FSDP (each rank holds 1/N
 of every weight and of its Adam moments, and gathers a layer's weights
 while it runs) with the ``lm`` family's tensor, sequence and expert
-parallelism over ``model`` (at a model size of 1 on ``local``: collectives
-over one-rank groups); ``--faithful`` selects the paper's flat program
+parallelism over ``model``, or zamba2's tensor parallelism (the residual
+stream whole over ``model``, as the reference's launcher turns ``sp`` off
+for the hybrid family), at a model size of 1 on ``local``: collectives
+over one-rank groups; ``--faithful`` selects the paper's flat program
 and ``--flat-engine zero`` the ZeRO flat program, both refused where the
 model axis is live.  The ``moe`` family always takes the per-parameter
 path (as the reference's), under FSDP or, with ``--faithful``,
-replicated, and adds its load-balance term to the loss.  The other
-families run at a model size of 1 only.  The launcher prints the mesh and
+replicated, and adds its load-balance term to the loss.  The ssm, audio
+and vlm families run at a model size of 1 only.  The launcher prints the mesh and
 which program runs.  The audio and vlm families' batches carry their
 frontend stubs (``frames``, ``patch_embeds``), split with the tokens.
 
@@ -70,7 +72,8 @@ def program_name(cfg, group, opt, settings) -> str:
         text = "the per-parameter path, replicated"
     _, rules = resolve_program(cfg, group, settings)
     if rules.tp is not None and shards.model > 1:
-        kinds = "tensor, sequence and expert" if rules.sp else "tensor and expert"
+        kinds = ["tensor"] + ["sequence"] * rules.sp + ["expert"] * bool(cfg.moe.num_experts)
+        kinds = ", ".join(kinds[:-1]) + " and " + kinds[-1] if len(kinds) > 1 else kinds[0]
         text += (f", {kinds} parallel over {shards.model} model rank(s) "
                  f"({len(shards.model_sharded)} leaves split)")
     return text

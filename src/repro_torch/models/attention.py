@@ -292,6 +292,19 @@ class DecodeSharding:
         r = self.mesh.data.rank
         return r * per, (r + 1) * per
 
+    def local_slot(self, slot: int, held: int) -> int | None:
+        """Global lane ``slot``'s index among the ``held`` lanes a cache
+        leaf holds on this rank (:meth:`local_lanes` of ``held`` times
+        :attr:`lane_ranks`), None where another data rank holds it."""
+        lo = self.local_lanes(held * self.lane_ranks)[0]
+        return slot - lo if lo <= slot < lo + held else None
+
+    def holder(self, slot: int, held: int) -> int:
+        """The data rank whose cache holds global lane ``slot``, each data
+        rank holding ``held`` lanes (where the lanes split over the data
+        axes)."""
+        return slot // held
+
     @property
     def seq_group(self):
         """The group (a ``DataGroup`` view) each lane's positions split

@@ -337,11 +337,12 @@ def serve_split() -> ServeSplit | None:
 # continuation chunk's gather of its lane (``attention.gather_lane``),
 # ``block_copy`` a copy-on-write block sent between two ranks, ``tier_move``
 # a host-tier payload restored on another data rank than its holder's
-# (``serve.step``'s transport)
+# (``serve.step``'s transport); ``norm_sum`` the Mamba2 out-norm's row sums
+# over the model axis (``ssm.SplitGatedNorm``, forward and backward)
 COUNTS = {"all_gather": 0, "reduce_scatter": 0, "copy_to_model": 0, "reduce_from_model": 0,
           "model_all_gather": 0, "model_reduce_scatter": 0, "vocab_ce": 0,
           "decode_combine": 0, "data_all_gather": 0, "data_combine": 0, "block_gather": 0,
-          "block_copy": 0, "tier_move": 0}
+          "block_copy": 0, "tier_move": 0, "norm_sum": 0}
 
 
 def _gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:

@@ -17,6 +17,28 @@ from .common import ShardRules, map_tree, tree_leaves
 _FAMILIES = {"dense": lm, "moe": lm, "vlm": lm, "hybrid": zamba, "ssm": xlstm_lm,
              "audio": whisper}
 
+# the families whose train step runs the mesh program on a live model axis
+# (tensor parallelism; sequence and expert parallelism where the family
+# has them) and those that serve on one; the others run at a model axis of
+# 1 and raise at a live one (ROADMAP.md queue 1, item 1)
+MESH_TRAIN_FAMILIES = lm.TP_FAMILIES + ("hybrid",)
+MESH_SERVE_FAMILIES = lm.SERVE_TP_FAMILIES + ("hybrid",)
+# what a live model axis refuses names this item
+MESH_FAMILY_ITEM = "queue 1, item 1: the model axis for the other families"
+
+
+def sequence_parallel(cfg: ArchConfig) -> bool:
+    """Whether the family's residual stream is sequence-sharded over the
+    model axis under the reference's rules (the reference's launcher turns
+    ``sp`` off for the hybrid and ssm families)."""
+    return getattr(get_module(cfg), "SEQUENCE_PARALLEL", True)
+
+
+def tp_region_leaves(cfg: ArchConfig) -> frozenset:
+    """The leaf names replicated over the model axis but read inside the
+    tensor-parallel region (each model rank holds a partial gradient)."""
+    return getattr(get_module(cfg), "TP_REGION_LEAVES", frozenset())
+
 
 def get_module(cfg: ArchConfig):
     return _FAMILIES[cfg.family]

@@ -13,6 +13,24 @@ B/C (B,T,G,N) with H % G == 0.
 Every norm of the block goes through :func:`~repro_torch.models.common.norm`
 or, for the out-norm with its skip and gate, :func:`norm_gated`: each picks
 its RMSNorm kernel or the plain ``rms_norm`` by ``cfg.attn_impl``.
+
+Under a mesh program (``common.model_axis``) ``in_proj``, ``conv_w`` and
+``conv_b`` are this rank's contiguous column slices, as the reference
+splits them over ``model``, and ``out_proj`` its rows.  The column slices
+of ``in_proj`` (which packs ``[z, x, B, C, dt]``) are not a set of heads,
+so the block all-gathers the projection over the model axis and the
+small conv weights with it, then:
+
+* training (the train mesh program): each model rank runs its own heads,
+  ``[m H/M, (m + 1) H/M)``: their ``z``, ``x`` and ``dt`` with ``B`` and
+  ``C`` whole (one group), the SSD scan on them, the gated out-norm over
+  its columns of the ``d_inner`` row with the row's sum of squares
+  all-reduced over ``model`` (:class:`SplitGatedNorm`), and ``out_proj``
+  row-parallel on the same heads;
+* serving (a serving mesh program): every model rank runs every head, so
+  the recurrent state (``ssm``, ``conv``) stays whole on every model rank
+  as the reference's cache lays it out; each multiplies its rows of
+  ``out_proj`` and the partial sums are all-reduced.
 """
 from __future__ import annotations
 
@@ -20,7 +38,20 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from .common import ParamSpec, dtype_of, norm, rms_norm
+from repro_torch.kernels.rmsnorm.ref import gated_prologue, rmsnorm_gated_split_ref
+from .common import (
+    COUNTS,
+    ParamSpec,
+    _all_reduce,
+    dtype_of,
+    model_all_gather,
+    model_axis,
+    norm,
+    rms_norm,
+    serve_split,
+    tp_enter,
+    tp_exit,
+)
 
 
 def norm_gated(cfg: ArchConfig, y, x, z, d_skip, gamma):
@@ -37,6 +68,77 @@ def norm_gated(cfg: ArchConfig, y, x, z, d_skip, gamma):
     y = y + d_skip.float()[:, None] * x.float()
     y = y.flatten(-2).to(dtype_of(cfg.compute_dtype))
     return rms_norm(y * F.silu(z), gamma, cfg.norm_eps)
+
+
+class SplitGatedNorm(torch.autograd.Function):
+    """The gated out-norm over this model rank's heads of a ``d_inner`` row
+    split across the model axis (``group``): the split entry's sum of
+    squares over the rank's columns, one fp32 all-reduce of the ``(rows,)``
+    sums over ``group`` (``COUNTS["norm_sum"]``), the split entry
+    normalising the columns by the whole row's sum.  ``fwd`` is the split
+    entry's wrapper (``kernels.rmsnorm.ops.rmsnorm_gated_split``) or its
+    plain version.  Backward through the plain version, as the whole-row
+    norm's (``ops._Norm``): the row's sum recomputed from the rank's columns
+    and all-reduced again, then, since each rank's output reads the whole
+    row's sum through its own columns, the sum's gradient all-reduced too
+    before it reaches the squares.  The gradient of the normalised value
+    and of the squares are added in fp32 before the prologue's backward,
+    as autograd through ``rms_norm`` adds them, so over one rank this is
+    the whole-row norm's gradient bit for bit (``mean`` is the sum over
+    the width)."""
+
+    @staticmethod
+    def forward(ctx, fwd, group, width, head_dim, eps, y, z, gamma, x, d_skip):
+        kw = dict(x=x, d_skip=d_skip, head_dim=head_dim, eps=eps)
+        total = _row_sum(fwd(y, z, gamma, **kw), group)
+        ctx.group, ctx.width, ctx.head_dim, ctx.eps = group, width, head_dim, eps
+        ctx.save_for_backward(y, z, gamma, x, d_skip)
+        return fwd(y, z, gamma, row_sum=total, width=width, **kw)
+
+    @staticmethod
+    def backward(ctx, dout):
+        y, z, gamma, x, d_skip = ctx.saved_tensors
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_() for t in (y, z, gamma, x, d_skip)]
+            yy, zz, gg, xx, dd = ins
+            vf = gated_prologue(yy, zz, xx, dd, ctx.head_dim).float()
+            v = vf.detach().requires_grad_()
+            total = _row_sum(v.detach().square().sum(dim=-1), ctx.group)
+            s = total.requires_grad_()
+            # rmsnorm_gated_split_ref after its prologue (rms_norm's ops)
+            var = s[..., None] / ctx.width
+            out = (v * torch.rsqrt(var + ctx.eps) * (1.0 + gg.float())).to(z.dtype)
+        d_direct, d_sum, d_gamma = torch.autograd.grad(out, [v, s, gg], dout)
+        d_sum = _row_sum(d_sum, ctx.group)
+        with torch.enable_grad():
+            sq = v.square().sum(dim=-1)
+        (d_sq,) = torch.autograd.grad(sq, [v], d_sum)
+        dy, dz, dx, dd = torch.autograd.grad(vf, [yy, zz, xx, dd], d_direct + d_sq)
+        return None, None, None, None, None, dy, dz, d_gamma, dx, dd
+
+
+def _row_sum(ssq, group):
+    """The ranks' ``(rows,)`` fp32 sums added over the model axis."""
+    if group.pg is None:
+        return ssq
+    COUNTS["norm_sum"] += 1
+    return _all_reduce(ssq, group)
+
+
+def split_norm_gated(cfg: ArchConfig, y, x, z, d_skip, gamma, *, width: int, group):
+    """:func:`norm_gated` over this rank's heads of rows ``width`` wide
+    split across the model axis ``group``: y (fp32) and x ``(..., h, P)``
+    and z ``(..., h * P)`` the rank's heads, ``d_skip`` and ``gamma`` their
+    entries.  Under ``attn_impl="kernel"`` the RMSNorm kernels' split entry
+    (two launches), else its plain version."""
+    if cfg.attn_impl == "kernel":
+        from repro_torch.kernels.rmsnorm.ops import rmsnorm_gated_split as fwd
+    else:
+        def fwd(y, z, gamma, *, row_sum=None, width=None, **kw):
+            return rmsnorm_gated_split_ref(y, z, gamma, kw["x"], kw["d_skip"], kw["head_dim"],
+                                           kw["eps"], row_sum, width)
+    return SplitGatedNorm.apply(fwd, group, width, y.shape[-1], cfg.norm_eps, y.flatten(-2),
+                                z, gamma, x.flatten(-2), d_skip)
 
 
 # ---------------------------------------------------------------------------
@@ -229,6 +331,67 @@ def _ssd(cfg: ArchConfig, xh, dtv, A, bm, cm):
     return ssd_chunked(xh, dtv, A, bm, cm, chunk=cfg.ssm.chunk, return_state=True)
 
 
+def _head_split(cfg: ArchConfig):
+    """``(first head, heads)`` this model rank runs under the train mesh
+    program where it splits the heads (a model axis of more than one rank
+    or not: over one rank every head, through the split norm), else None
+    (no mesh program, or a serving one: every head on every rank)."""
+    tp = model_axis()
+    if tp is None or serve_split() is not None:
+        return None
+    _, H, _ = mamba_dims(cfg)
+    if H % tp.world or cfg.ssm.n_groups != 1:
+        raise NotImplementedError(
+            f"{cfg.name}: the Mamba2 heads split over the model axis with one group and "
+            f"heads that divide; {H} heads, {cfg.ssm.n_groups} groups over {tp.world} ranks")
+    return tp.rank * (H // tp.world), H // tp.world
+
+
+def _in_proj(cfg: ArchConfig, h, bp):
+    """The block's projection ``h @ in_proj`` (every column): under a mesh
+    program the rank's column slice all-gathered over the model axis, ``h``
+    entering the tensor-parallel region first."""
+    tp = model_axis()
+    if tp is None:
+        return h @ _w(bp, "in_proj", cfg)
+    return model_all_gather(tp_enter(h) @ _w(bp, "in_proj", cfg), -1, tp.group)
+
+
+def _conv_params(cfg: ArchConfig, bp, heads=None):
+    """The conv's weight and bias over the conv channels ``[x, B, C]`` the
+    block convolves: every channel (under a mesh program gathered over the
+    model axis), or with ``heads`` those heads' x channels and B, C."""
+    w, b = _w(bp, "conv_w", cfg), _w(bp, "conv_b", cfg)
+    tp = model_axis()
+    if tp is not None:
+        w, b = model_all_gather(w, -1, tp.group), model_all_gather(b, -1, tp.group)
+    if heads is None:
+        return w, b
+    d_inner, H, _ = mamba_dims(cfg)
+    c = _cols(cfg, heads)
+    return (torch.cat([w[:, c], w[:, d_inner:]], dim=-1),
+            torch.cat([b[c], b[d_inner:]], dim=-1))
+
+
+def _cols(cfg: ArchConfig, heads) -> slice:
+    h0, hl = heads
+    return slice(h0 * cfg.ssm.head_dim, (h0 + hl) * cfg.ssm.head_dim)
+
+
+def _out_proj(cfg: ArchConfig, y, bp, heads=None):
+    """``y @ out_proj``: under a mesh program the rank's rows (the heads it
+    ran, or its run of every head's ``y``) and the partial sums all-reduced
+    over the model axis."""
+    tp = model_axis()
+    w = _w(bp, "out_proj", cfg)
+    if tp is None:
+        return y @ w
+    if heads is None:
+        r = w.shape[0]
+        y = y[..., tp.rank * r:(tp.rank + 1) * r]
+    return tp_exit(y @ w)
+
+
 def mamba_block_fwd(cfg: ArchConfig, x, bp, *, return_state: bool = False,
                     valid=None, state_len=None):
     """x: (B,T,D).  Returns x + mamba(x) (and (ssm, conv) final states).
@@ -238,30 +401,45 @@ def mamba_block_fwd(cfg: ArchConfig, x, bp, *, return_state: bool = False,
     an exact identity on the SSD recurrence (decay ``exp(0) = 1``, input
     weight 0), so the carried state is the state at the end of the real
     prompt.  ``state_len`` snapshots the conv state there too.
+
+    Under the train mesh program the rank runs its heads (the module
+    docstring; the states, which no training reads, are its heads' too);
+    under a serving one every head.
     """
     s = cfg.ssm
     d_inner, H, _ = mamba_dims(cfg)
+    heads = _head_split(cfg)
     h = norm(cfg, x, bp["ln"])
-    proj = h @ _w(bp, "in_proj", cfg)
-    z, xs, bmat, cmat, dt = _split_proj(cfg, proj)
+    z, xs, bmat, cmat, dt = _split_proj(cfg, _in_proj(cfg, h, bp))
+    # the rank's heads of every column where the model axis splits them
+    split = heads is not None and heads[1] < H
+    hs = slice(heads[0], heads[0] + heads[1]) if split else slice(None)
+    if split:
+        c = _cols(cfg, heads)
+        z, xs, dt = z[..., c], xs[..., c], dt[..., hs]
+    w, b = _conv_params(cfg, bp, heads if split else None)
     conv_in = torch.cat([xs, bmat, cmat], dim=-1)
-    conv_out, conv_state = _causal_conv(
-        conv_in, _w(bp, "conv_w", cfg), _w(bp, "conv_b", cfg), state_len=state_len)
+    conv_out, conv_state = _causal_conv(conv_in, w, b, state_len=state_len)
     conv_out = F.silu(conv_out)
     gn = s.n_groups * s.state
-    xs, bmat, cmat = torch.split(conv_out, [d_inner, gn, gn], dim=-1)
+    xs, bmat, cmat = torch.split(conv_out, [xs.shape[-1], gn, gn], dim=-1)
 
     B_, T = x.shape[:2]
-    xh = xs.reshape(B_, T, H, s.head_dim)
+    xh = xs.reshape(B_, T, -1, s.head_dim)
     bm = bmat.reshape(B_, T, s.n_groups, s.state)
     cm = cmat.reshape(B_, T, s.n_groups, s.state)
-    dtv = F.softplus(dt.float() + bp["dt_bias"].float())
+    dtv = F.softplus(dt.float() + bp["dt_bias"][hs].float())
     if valid is not None:
         dtv = torch.where(valid[..., None], dtv, 0.0)
-    A = -torch.exp(bp["A_log"].float())
+    A = -torch.exp(bp["A_log"][hs].float())
     y, ssm_state = _ssd(cfg, xh, dtv, A, bm, cm)
-    y = norm_gated(cfg, y, xh, z, bp["D_skip"], bp["out_ln"])
-    out = x + y @ _w(bp, "out_proj", cfg)
+    if heads is None:
+        y = norm_gated(cfg, y, xh, z, bp["D_skip"], bp["out_ln"])
+    else:
+        y = split_norm_gated(cfg, y, xh, z, bp["D_skip"][hs],
+                             bp["out_ln"][_cols(cfg, heads)], width=d_inner,
+                             group=model_axis().group)
+    out = x + _out_proj(cfg, y, bp, heads)
     if return_state:
         return out, (ssm_state, conv_state)
     return out
@@ -280,15 +458,15 @@ def mamba_state_specs(cfg: ArchConfig, n_layers: int, batch: int) -> dict:
 
 
 def mamba_block_decode(cfg: ArchConfig, x, bp, ssm_state, conv_state):
-    """x: (B,D) one token.  Returns (x', ssm_state', conv_state')."""
+    """x: (B,D) one token.  Returns (x', ssm_state', conv_state').  Under a
+    serving mesh program every head on every model rank, the states whole
+    (the module docstring)."""
     s = cfg.ssm
     d_inner, H, _ = mamba_dims(cfg)
     h = norm(cfg, x, bp["ln"])
-    proj = h @ _w(bp, "in_proj", cfg)
-    z, xs, bmat, cmat, dt = _split_proj(cfg, proj)
+    z, xs, bmat, cmat, dt = _split_proj(cfg, _in_proj(cfg, h, bp))
     conv_in = torch.cat([xs, bmat, cmat], dim=-1)[:, None]
-    conv_out, conv_state = _causal_conv(
-        conv_in, _w(bp, "conv_w", cfg), _w(bp, "conv_b", cfg), conv_state)
+    conv_out, conv_state = _causal_conv(conv_in, *_conv_params(cfg, bp), conv_state)
     conv_out = F.silu(conv_out[:, 0])
     gn = s.n_groups * s.state
     xs, bmat, cmat = torch.split(conv_out, [d_inner, gn, gn], dim=-1)
@@ -300,4 +478,4 @@ def mamba_block_decode(cfg: ArchConfig, x, bp, ssm_state, conv_state):
     A = -torch.exp(bp["A_log"].float())
     ssm_state, y = ssd_decode_step(ssm_state, xh, dtv, A, bm, cm)
     y = norm_gated(cfg, y, xh, z, bp["D_skip"], bp["out_ln"])
-    return x + y @ _w(bp, "out_proj", cfg), ssm_state, conv_state
+    return x + _out_proj(cfg, y, bp), ssm_state, conv_state

@@ -38,6 +38,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import registry
+from repro_torch.models.common import serve_split
 
 DEFAULT_MIN_BUCKET = 16
 
@@ -134,6 +135,10 @@ class RecurrentCache:
       exactly zero: no stale recurrence advances, and no inf/NaN can
       accumulate in dead lanes.
 
+    Under a serving mesh program whose data axes split the lanes the leaves
+    hold this rank's lanes: a per-lane vector (``(max_slots,)``) is
+    narrowed to them (:func:`_local`).
+
     Speculative decoding rolls lanes back with :meth:`snapshot` and
     :meth:`rollback`.  The decode step writes the recurrent leaves in
     place, so a snapshot is a copy, never an alias of the live tensors:
@@ -155,9 +160,10 @@ class RecurrentCache:
         zeroed too (a fill, not a multiply)."""
         for name, axis in self.leaf_axes.items():
             leaf = cache[name]
+            lanes = _local(active, leaf.shape[axis])
             shape = [1] * leaf.ndim
-            shape[axis] = active.shape[0]
-            leaf.masked_fill_(~active.reshape(shape), 0)
+            shape[axis] = lanes.shape[0]
+            leaf.masked_fill_(~lanes.reshape(shape), 0)
         return cache
 
     def snapshot(self, cache: dict, out: dict | None = None) -> dict:
@@ -180,9 +186,10 @@ class RecurrentCache:
         snapshot."""
         for name, axis in self.leaf_axes.items():
             leaf = cache[name]
+            lanes = _local(keep, leaf.shape[axis])
             shape = [1] * leaf.ndim
-            shape[axis] = keep.shape[0]
-            torch.where(keep.reshape(shape), leaf, snap[name], out=leaf)
+            shape[axis] = lanes.shape[0]
+            torch.where(lanes.reshape(shape), leaf, snap[name], out=leaf)
         return cache
 
     def lane_is_zero(self, cache: dict, slot: int) -> bool:
@@ -202,3 +209,13 @@ class RecurrentCache:
             if bool((leaf.index_select(axis, idx) != 0).any()):
                 return False
         return True
+
+
+def _local(vec, lanes: int):
+    """A per-lane vector ``(max_slots,)`` narrowed to the ``lanes`` lanes a
+    cache leaf holds: itself where it holds every lane, else (a serving
+    mesh program whose data axes split the lanes) this rank's run."""
+    if vec.shape[0] == lanes:
+        return vec
+    lo, hi = serve_split().decode.local_lanes(vec.shape[0])
+    return vec[lo:hi]

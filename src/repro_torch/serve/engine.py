@@ -101,17 +101,19 @@ program key.
 
 On a mesh (``mesh=``, a :class:`~repro_torch.launch.mesh.MeshGroup` over
 a process group) every rank runs this engine, the same schedule on the
-same inputs, and the ``lm`` family (dense, gemma2, MoE) serves under the
-reference's layout: the weights this rank's shards under
-``ShardRules.for_mesh`` (:func:`serve_shard_layout`; the model slices
-of heads, FFN, experts and vocabulary, gathered over ``data`` a layer at
-a time), the KV cache this rank's part (``lm.cache_pspec`` of
-``DecodeSharding.choose(mesh, max_slots)``: ``max_slots / ndp`` lanes
-over the data axes, each lane's positions over ``model``, or where
-``max_slots`` does not divide every lane with its positions over every
-rank; ``lm.paged_cache_pspec``: the pool's blocks over the data axes, the
-pool rounded up to the data size as the reference's, kv heads over
-``model`` where they divide), every program inside the serving mesh
+same inputs, and the ``lm`` family (dense, gemma2, MoE) and the hybrid
+family (zamba2) serve under the reference's layout: the weights this
+rank's shards under ``ShardRules.for_mesh`` (:func:`serve_shard_layout`;
+the model slices of heads, FFN, experts, vocabulary and zamba2's Mamba2
+projections, gathered over ``data`` a layer at a time), the KV cache
+this rank's part (``lm.cache_pspec`` of ``DecodeSharding.choose(mesh,
+max_slots)``: ``max_slots / ndp`` lanes over the data axes, each lane's
+positions over ``model``, or where ``max_slots`` does not divide every
+lane with its positions over every rank; ``lm.paged_cache_pspec``: the
+pool's blocks over the data axes, the pool rounded up to the data size
+as the reference's, kv heads over ``model`` where they divide;
+``zamba.cache_pspec``: k and v as ``lm.cache_pspec``, the recurrent
+leaves the rank's lanes and whole over ``model``), every program inside the serving mesh
 program (``common.serve_program``), and the logits gathered so every
 rank samples the same tokens.  The block table, the allocator and the
 schedule vectors stay global and replicated, so block ids, prefix hits
@@ -182,7 +184,7 @@ import torch.distributed as dist
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.aot import AotCache, device_program
 from repro_torch.device import resolve_device
-from repro_torch.models import lm, registry
+from repro_torch.models import registry
 from repro_torch.models.attention import DecodeSharding
 from repro_torch.models.common import ShardRules, serve_program
 from repro_torch.obs import MetricMap, Observer
@@ -218,8 +220,6 @@ from .step import (
 )
 
 PAGED_ATTN_IMPLS = ("ref", "kernel")
-# what a mesh refuses, and the ROADMAP.md item that carries it
-MESH_FAMILY_ITEM = "the model axis for the other families"
 
 
 class MeshClock:
@@ -244,11 +244,12 @@ def serve_shard_layout(cfg: ArchConfig, mesh):
     """The shard layout of the weights a rank of ``mesh`` serves
     (``ShardRules.for_mesh``: model slices over ``model``, FSDP shards over
     ``data``), or None where no mesh program runs: no mesh or one without
-    a process group, or a family outside ``lm.SERVE_TP_FAMILIES`` (the
-    others run at a model axis of 1 with the whole model on every rank)."""
+    a process group, or a family outside ``registry.MESH_SERVE_FAMILIES``
+    (the others run at a model axis of 1 with the whole model on every
+    rank)."""
     from repro_torch.optim.fsdp import make_shard_layout
 
-    if mesh is None or mesh.pg is None or cfg.family not in lm.SERVE_TP_FAMILIES:
+    if mesh is None or mesh.pg is None or cfg.family not in registry.MESH_SERVE_FAMILIES:
         return None
     return make_shard_layout(cfg, ShardRules.for_mesh(mesh), mesh.size("data"),
                              mesh.coord("data"), model=mesh.size("model"),
@@ -257,10 +258,11 @@ def serve_shard_layout(cfg: ArchConfig, mesh):
 
 def check_mesh(cfg: ArchConfig, mesh, engine: "EngineConfig") -> None:
     """Raise for what a mesh does not serve: the slot-served families
-    other than the ``lm`` family's at a live model axis (a speculation
-    draft's too); and a slotted ``max_len`` that does not divide over the
-    ranks each lane's positions split over (``DecodeSharding.local_len``:
-    the target's slotted cache, and a draft's, which is always slotted)."""
+    other than the ``lm`` and hybrid families at a live model axis (a
+    speculation draft's too); and a slotted ``max_len`` that does not
+    divide over the ranks each lane's positions split over
+    (``DecodeSharding.local_len``: the target's slotted cache, and a
+    draft's, which is always slotted)."""
     if mesh is None:
         return
     live = mesh.size("model") > 1
@@ -269,13 +271,14 @@ def check_mesh(cfg: ArchConfig, mesh, engine: "EngineConfig") -> None:
     if engine.spec_draft is not None:
         models.append((engine.spec_draft, True))
     for m, slotted in models:
-        if mesh.pg is not None and m.family in lm.SERVE_TP_FAMILIES and slotted:
+        if mesh.pg is not None and m.family in registry.MESH_SERVE_FAMILIES and slotted:
             DecodeSharding.choose(mesh, engine.max_slots).local_len(engine.max_len)
-        if live and m.family not in lm.TP_FAMILIES:
+        if live and m.family not in registry.MESH_SERVE_FAMILIES:
             raise NotImplementedError(
                 f"{m.name}: serving on a live model axis is ported for the lm family "
-                f"(dense, gemma2, moe), not the {m.family!r} family; the mesh "
-                f"{mesh.describe()} has one (ROADMAP.md queue 1: {MESH_FAMILY_ITEM})")
+                f"(dense, gemma2, moe) and the hybrid family (zamba2), not the "
+                f"{m.family!r} family; the mesh {mesh.describe()} has one (ROADMAP.md "
+                f"{registry.MESH_FAMILY_ITEM})")
     if mesh.pg is None and mesh.world > 1:
         raise ValueError(f"a mesh of {mesh.world} ranks needs a process group")
 
@@ -674,6 +677,17 @@ class ServeEngine:
         # last engine operation ("prefill" | "decode" | "preempt"): the
         # recurrent zeroing invariant is checkable right after a decode
         self._last_op: str | None = None
+
+    def _held_here(self, slots, rec: RecurrentCache, cache: dict) -> list:
+        """The lanes of ``slots`` that ``cache`` holds on this rank, as
+        indices into its lanes: every one, or where a mesh splits the
+        lanes over the data axes this rank's run."""
+        name, axis = next(iter(rec.leaf_axes.items()))
+        n, N = cache[name].shape[axis], self.econ.max_slots
+        if n == N:
+            return list(slots)
+        dec = DecodeSharding.choose(self.mesh, N)
+        return [j for j in (dec.local_slot(i, n) for i in slots) if j is not None]
 
     def _local_params(self, params):
         """This rank's shards of ``params`` under a mesh program
@@ -2290,14 +2304,16 @@ class ServeEngine:
             # evict-time zeroing: after a decode step every free lane's
             # recurrent state is exactly zero (host-side evictions zero one
             # program later)
-            free = [i for i, s in enumerate(self.slots) if s is None]
+            free = self._held_here([i for i, s in enumerate(self.slots) if s is None],
+                                   self.rec, self.state["cache"])
             if not self.rec.lanes_are_zero(self.state["cache"], free):
                 raise AssertionError(
                     f"an evicted lane in {free} holds non-zero recurrent state")
         if self.spec and self._draft_rec and self._last_op == "decode":
             # the spec program's draft-side freeze is the only thing that
             # zeroes dead draft lanes: swept like the target's
-            free = [i for i, s in enumerate(self.slots) if s is None]
+            free = self._held_here([i for i, s in enumerate(self.slots) if s is None],
+                                   self._draft_rec, self.state["draft"])
             if not self._draft_rec.lanes_are_zero(self.state["draft"], free):
                 raise AssertionError(
                     f"an evicted lane in {free} holds non-zero draft recurrent state")

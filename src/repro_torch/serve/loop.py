@@ -86,16 +86,15 @@ def generate_static(cfg: ArchConfig, params, prompts, serve: ServeConfig | None 
     mod = registry.get_module(cfg)
     program, round_to = contextlib.nullcontext, 1
     if mesh is not None:
-        from repro_torch.models import lm
         from repro_torch.models.common import serve_program
         from repro_torch.optim.fsdp import local_shards
-        from .engine import MESH_FAMILY_ITEM, serve_shard_layout
+        from .engine import serve_shard_layout
 
-        if cfg.family not in lm.SERVE_TP_FAMILIES and mesh.size("model") > 1:
+        if cfg.family not in registry.MESH_SERVE_FAMILIES and mesh.size("model") > 1:
             raise NotImplementedError(
                 f"{cfg.name}: serving on a live model axis is ported for the lm family "
-                f"(dense, gemma2, moe, vlm), not the {cfg.family!r} family (ROADMAP.md "
-                f"queue 1: {MESH_FAMILY_ITEM})")
+                f"(dense, gemma2, moe, vlm) and the hybrid family (zamba2), not the "
+                f"{cfg.family!r} family (ROADMAP.md {registry.MESH_FAMILY_ITEM})")
         if mesh.pg is not None:
             device = mesh.device
         lay = serve_shard_layout(cfg, mesh)

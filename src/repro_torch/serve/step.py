@@ -473,24 +473,28 @@ def spec_decode_program(cfg: ArchConfig, dcfg: ArchConfig, *, k: int,
             c_len = c_len + committed.to(torch.int32)
             any_done |= committed & done
             if rec:
-                rec.rollback(keep, cache, ~committed)     # keep <- cache where committed
+                with _entered(mesh_program):              # the rank's lanes
+                    rec.rollback(keep, cache, ~committed)     # keep <- cache where committed
             if i < k:
                 valid = valid & finite & ~done & ~replay & (y == drafts[i])
                 u = drafts[i]
 
         act_new = active & ~any_done
         if rec:
-            rec.snapshot(keep, cache)                    # the live leaves <- keep
-            rec.freeze(cache, act_new | replay)
+            with _entered(mesh_program):
+                rec.snapshot(keep, cache)                    # the live leaves <- keep
+                rec.freeze(cache, act_new | replay)
         if drec:
             # the draft's state after step c_len - 1 (step 0 for a lane
             # that committed nothing): select into dstates[0], then into
             # the live leaves, which hold the state after step k
             sel = {n: b[0] for n, b in bufs["dstates"].items()}
-            for j in range(1, k):
-                drec.rollback(sel, {n: b[j] for n, b in bufs["dstates"].items()}, c_len <= j)
-            drec.rollback(dcache, sel, c_len > k)
-            drec.freeze(dcache, act_new | replay)
+            with _entered(draft_program):
+                for j in range(1, k):
+                    drec.rollback(sel, {n: b[j] for n, b in bufs["dstates"].items()},
+                                  c_len <= j)
+                drec.rollback(dcache, sel, c_len > k)
+                drec.freeze(dcache, act_new | replay)
         state["tokens"].copy_(torch.where(active, last_tok, 0))
         state["lengths"].add_(c_len)
         state["active"].copy_(act_new)
@@ -713,16 +717,16 @@ def paged_block_write_program(cfg: ArchConfig, *, mesh_program=None):
 
 
 def _lane_owner(cache: dict, axes: dict):
-    """``(lanes a rank holds, the data group)`` where the lanes split over
-    the data axes under the running serving mesh program, else None (every
-    lane here, or under the batch fallback every lane with this rank's
-    positions)."""
+    """``(the DecodeSharding, lanes a rank holds)`` where the lanes split
+    over the data axes under the running serving mesh program, else None
+    (every lane here, or under the batch fallback every lane with this
+    rank's positions)."""
     split = serve_split()
     dec = None if split is None else split.decode
     if dec is None or dec.lane_ranks == 1:
         return None
     name, axis = next(iter(axes.items()))
-    return cache[name].shape[axis], split.mesh.data
+    return dec, cache[name].shape[axis]
 
 
 def lane_read_program(cfg: ArchConfig, *, axes: dict, mesh_program=None, nbytes: int = 0):
@@ -743,8 +747,8 @@ def lane_read_program(cfg: ArchConfig, *, axes: dict, mesh_program=None, nbytes:
         owner = _lane_owner(cache, axes)
         local = slot
         if owner is not None:
-            per, g = owner
-            local = slot - g.rank * per if g.rank * per <= slot < (g.rank + 1) * per else None
+            dec, per = owner
+            local = dec.local_slot(slot, per)
         leaves = {} if local is None else _fetch(
             {name: cache[name].select(axis, local) for name, axis in axes.items()})
         return leaves if split is None else Share(leaves, slot, nbytes)
@@ -781,21 +785,25 @@ def lane_write_program(cfg: ArchConfig, *, axes: dict, mesh_program=None):
         if owner is None:
             put(cache, payload, slot)
             return state
-        per, g = owner
-        h, o = payload.src // per, slot // per
-        if h != o:
-            ref = cache[next(iter(axes))]
-            shapes = [cache[name].select(axis, 0).shape for name, axis in axes.items()]
+        dec, per = owner
+        g, local = dec.mesh.data, dec.local_slot(slot, per)
+        h = dec.holder(payload.src, per)
+        if h != dec.holder(slot, per):
+            # the leaves as bytes, one buffer: a hybrid lane's fp32 ssm
+            # travels beside its compute-dtype k, v and conv
+            like = [cache[name].select(axis, 0) for name, axis in axes.items()]
+            dev = like[0].device
+            sizes = [t.numel() * t.element_size() for t in like]
             if g.rank == h:
-                buf = _flat([payload[name] for name in axes], ref.device, ref.dtype)
+                buf = torch.cat([torch.as_tensor(payload[name]).contiguous().view(-1)
+                                 .view(torch.uint8) for name in axes]).to(dev)
             else:
-                buf = torch.empty(sum(s.numel() for s in shapes), dtype=ref.dtype,
-                                  device=ref.device)
+                buf = torch.empty(sum(sizes), dtype=torch.uint8, device=dev)
             _move(buf, h, g)
-            payload = dict(zip(axes, (t.view(s) for t, s in zip(
-                buf.split([s.numel() for s in shapes]), shapes))))
-        if g.rank == o:
-            put(cache, payload, slot - g.rank * per)
+            payload = dict(zip(axes, (b.view(t.dtype).view(t.shape) for b, t in zip(
+                buf.split(sizes), like))))
+        if local is not None:
+            put(cache, payload, local)
         return state
 
     return _in_program(fn, mesh_program)

@@ -34,21 +34,25 @@ worker its block.  Three programs:
 
   On a :class:`~repro_torch.launch.mesh.MeshGroup` the rules default to
   ``ShardRules.for_mesh`` (the reference's: ``tp="model"``, ``sp`` on,
-  ``fsdp="data"`` unless faithful) and the ``lm`` family (dense, gemma2,
-  moe: ``lm.TP_FAMILIES``) runs the mesh program: each rank holds its
-  model slice of every ``"tp"`` leaf and 1/N_data of that slice, the
-  blocks are column-parallel into local heads, FFN columns or experts and
-  row-parallel out, the residual stream between them is sequence-sharded
-  over ``model`` (``models/lm.py``, ``models/moe.py``), and the loss is
-  vocab-parallel.  Gradients: a leaf split over ``model`` takes no model
-  reduction; a leaf replicated over it that computes on per-rank work (all
-  of them under ``sp``; the q/k norms and the router without it:
-  :func:`model_partial_paths`) holds a partial sum on each model rank and
-  takes an ``all_reduce`` SUM over ``model``; every leaf is then averaged
-  over the data axes (FSDP leaves by the gather's backward over ``data``
-  and an ``all_reduce`` over any other data axis).  The other families
-  run at a model axis of size 1 as on the mesh's data group and raise at
-  a live one; the flat programs refuse a live one, as the reference's.
+  ``fsdp="data"`` unless faithful; ``sp`` off for the hybrid family, as
+  the reference's launcher sets it) and the families of
+  ``registry.MESH_TRAIN_FAMILIES`` (dense, gemma2, moe, hybrid) run the
+  mesh program: each rank holds its model slice of every ``"tp"`` leaf
+  and 1/N_data of that slice, the blocks are column-parallel into local
+  heads, FFN columns or experts and row-parallel out, the residual stream
+  between them is sequence-sharded over ``model`` where ``sp`` is on
+  (``models/lm.py``, ``models/moe.py``; zamba2's Mamba2 blocks split their
+  heads, ``models/ssm.py``), and the loss is vocab-parallel.  Gradients: a
+  leaf split over ``model`` takes no model reduction; a leaf replicated
+  over it that computes on per-rank work (all of them under ``sp``;
+  without it the leaves read inside the tensor-parallel region,
+  ``registry.tp_region_leaves``: :func:`model_partial_paths`) holds a
+  partial sum on each model rank and takes an ``all_reduce`` SUM over
+  ``model``; every leaf is then averaged over the data axes (FSDP leaves
+  by the gather's backward over ``data`` and an ``all_reduce`` over any
+  other data axis).  The other families run at a model axis of size 1 as
+  on the mesh's data group and raise at a live one; the flat programs
+  refuse a live one, as the reference's.
 
 Every family of the reference trains here through its module's
 ``loss_fn``: dense, gemma2's pairs, vlm (``patch_embeds`` in the batch),
@@ -75,7 +79,7 @@ import torch.distributed as dist
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.launch.mesh import MeshGroup
-from repro_torch.models import lm, registry
+from repro_torch.models import registry
 from repro_torch.models.common import ModelAxis, ShardRules, fsdp_program
 from repro_torch.optim import OptConfig, apply_update, init_state
 from repro_torch.optim.fsdp import ShardLayout, check_shards, make_shard_layout
@@ -275,20 +279,24 @@ def resolve_program(cfg: ArchConfig, group, settings: TrainSettings,
     """``(group, rules)`` of the per-parameter path: a ``DataGroup`` with
     ``rules`` or ``ShardRules.for_group(group, faithful=settings.faithful)``
     (FSDP unless faithful); a ``MeshGroup`` with ``rules`` or
-    ``ShardRules.for_mesh`` for the ``lm`` family (the mesh program),
-    while the other families run on the mesh's data group without a model
-    axis, which they raise for where it is live."""
+    ``ShardRules.for_mesh`` for the families of
+    ``registry.MESH_TRAIN_FAMILIES`` (the mesh program; ``sp`` off where
+    the family has none, as the reference's launcher turns it off for the
+    hybrid family), while the other families run on the mesh's data group
+    without a model axis, which they raise for where it is live."""
     if not isinstance(group, MeshGroup):
         return group, rules or ShardRules.for_group(group, faithful=settings.faithful)
     rules = rules or ShardRules.for_mesh(group, faithful=settings.faithful)
-    if rules.tp is not None and registry.get_module(cfg) is lm \
-            and cfg.family in lm.TP_FAMILIES:
+    if rules.tp is not None and cfg.family in registry.MESH_TRAIN_FAMILIES:
+        if not registry.sequence_parallel(cfg):
+            rules = dataclasses.replace(rules, sp=False)
         return group, rules
     if rules.tp is not None and group.size(rules.tp) > 1:
         raise NotImplementedError(
             f"{cfg.name}: the model axis is ported for the lm family (dense, gemma2, "
-            f"moe), not the {cfg.family!r} family; the mesh {group.describe()} has a "
-            f"live model axis")
+            f"moe) and the hybrid family (zamba2), not the {cfg.family!r} family; the mesh "
+            f"{group.describe()} has a live model axis (ROADMAP.md "
+            f"{registry.MESH_FAMILY_ITEM})")
     return group.data, ShardRules.for_group(group.data, faithful=settings.faithful)
 
 
@@ -303,19 +311,21 @@ def shard_layout_for(cfg: ArchConfig, group, settings: TrainSettings,
     return make_shard_layout(cfg, rules, group.world, group.rank)
 
 
-def model_partial_paths(shards: ShardLayout, rules: ShardRules) -> frozenset:
+def model_partial_paths(shards: ShardLayout, rules: ShardRules,
+                        region: frozenset) -> frozenset:
     """The leaves replicated over the model axis whose gradient each model
     rank holds a partial sum of (they take an ``all_reduce`` SUM over
     ``model``): under ``sp`` every one (the norms act on sequence shards,
     the rest on per-rank work); without it the leaves read inside the
-    tensor-parallel region (``lm.TP_REGION_LEAVES``: the q/k norms, on
-    local or every head, and the router, whose gradient flows through the
-    rank's experts), the residual stream's norms then holding the whole
-    gradient on every rank.  A leaf split over ``model`` takes none."""
+    tensor-parallel region (``region``, ``registry.tp_region_leaves``: the
+    lm family's q/k norms, on local or every head, and its router, whose
+    gradient flows through the rank's experts; zamba2's per-head Mamba2
+    leaves), the residual stream's norms then holding the whole gradient on
+    every rank.  A leaf split over ``model`` takes none."""
     if rules.tp is None:
         return frozenset()
     return frozenset(p for p in shards.paths if p not in shards.model_sharded
-                     and (rules.sp or p[-1] in lm.TP_REGION_LEAVES))
+                     and (rules.sp or p[-1] in region))
 
 
 def build_train_step(cfg: ArchConfig, group, opt: OptConfig,
@@ -395,7 +405,8 @@ def _build_mesh_train_step(cfg, mesh: MeshGroup, opt, settings, rules: ShardRule
     # FSDP leaves arrive averaged over the FSDP axis: the other data axes
     # (a multipod's pod) still take a mean
     others = [mesh.axis(a) for a in rules.dp if a != rules.fsdp]
-    sharded, partial = shards.sharded, model_partial_paths(shards, rules)
+    sharded = shards.sharded
+    partial = model_partial_paths(shards, rules, registry.tp_region_leaves(cfg))
     compute_grads = _make_compute_grads(cfg, settings, fsdp_g, shards,
                                         ModelAxis(model_g, rules.sp))
     dev = mesh.device

@@ -1150,6 +1150,171 @@ def test_rmsnorm_gated_rejects_bad_inputs():
         ops._check_kernel("k", torch.zeros(8193), torch.zeros(1, 8193))
 
 
+def _split_gated(t, P, M, fn):
+    """The gated norm of ``t``'s rows (``_gated_views``) split into ``M``
+    column shards of whole heads: each shard's sum of squares by ``fn``
+    (the split entry or its plain version), added, then each shard
+    normalised by the sum; the shards' outputs concatenated."""
+    H = t["d"].shape[0]
+    h, c = H // M, H // M * P
+    cut = lambda v, m: v[..., m * c:(m + 1) * c]
+    parts = [dict(y=cut(t["y"], m), z=cut(t["z"], m), x=cut(t["x"], m), g=t["g"][m * c:(m + 1) * c],
+                  d=t["d"][m * h:(m + 1) * h]) for m in range(M)]
+    kw = lambda q: dict(x=q["x"], d_skip=q["d"], head_dim=P)
+    total = sum(fn(q["y"], q["z"], q["g"], **kw(q)) for q in parts)
+    return torch.cat([fn(q["y"], q["z"], q["g"], row_sum=total, width=H * P, **kw(q))
+                      for q in parts], dim=-1), total
+
+
+def _split_plain(y, z, g, x=None, d_skip=None, head_dim=None, row_sum=None, width=None):
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_gated_split_ref
+
+    return rmsnorm_gated_split_ref(y, z, g, x, d_skip, head_dim, 1e-6, row_sum, width)
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("M", [1, 2, 4])
+def test_rmsnorm_gated_split_plain_matches_whole(dt, M):
+    """The gated out-norm over a row split into 2 and 4 column shards (the
+    Mamba2 block's heads over a model axis): the plain version and the
+    wrapper (plain on CPU) against the whole-row ``rmsnorm_gated_ref``,
+    fp32 1e-6, bf16 one rounding; over one shard bitwise."""
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm_gated_split
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_gated_ref
+
+    P = 8
+    _, t = _gated_views((3, 5), 8, P, dt, seed=7 + M)
+    want = rmsnorm_gated_ref(t["y"], t["z"], t["g"], t["x"], t["d"], P)
+    for fn in (_split_plain, rmsnorm_gated_split):
+        got, total = _split_gated(t, P, M, fn)
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert total.dtype == torch.float32 and total.shape == (3, 5)
+        if M == 1:
+            assert torch.equal(got, want)
+        else:
+            tol = dict(atol=1e-6, rtol=1e-6) if dt == "float32" else dict(atol=2e-2, rtol=1e-2)
+            torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.parametrize("M", [2, 4])
+def test_rmsnorm_gated_split_grad_matches_reference(M):
+    """The split plain version's gradient (the shards' sums added, so the
+    sum's gradient reaches every shard's squares) against ``jax.vjp`` of
+    the reference's out-norm (``models/ssm.py:244-246``: ``y + D x``,
+    ``rms_norm(y * silu(z))``), fp32, for y, z, x, gamma and D."""
+    pytest.importorskip("jax")
+    import jax
+    import jax.numpy as jnp
+    from repro.models.common import rms_norm as j_rms_norm
+
+    P, H, lead = 8, 8, (3, 5)
+    a, t = _gated_views(lead, H, P, "float32", seed=20 + M)
+    ins = {k: t[k].detach().clone().requires_grad_() for k in ("y", "z", "x", "g", "d")}
+    got, _ = _split_gated(ins, P, M, _split_plain)
+    dout = np.random.default_rng(M).normal(size=got.shape).astype(np.float32)
+    grads = torch.autograd.grad(got, [ins[k] for k in ("y", "z", "x", "g", "d")],
+                                torch.tensor(dout))
+
+    def ref(y, z, x, g, d):
+        v = (y.reshape(lead + (H, P)) + d[:, None] * x.reshape(lead + (H, P))).reshape(
+            lead + (H * P,))
+        return j_rms_norm(v * jax.nn.silu(z), g, 1e-6)
+
+    out, vjp = jax.vjp(ref, *(jnp.asarray(np.ascontiguousarray(a[k]))
+                              for k in ("y", "z", "x", "g", "d")))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(out), atol=1e-5, rtol=1e-5)
+    for name, g, w in zip("yzxgd", grads, vjp(jnp.asarray(dout))):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=2e-5, rtol=2e-5, err_msg=name)
+
+
+def test_split_gated_norm_over_one_rank_is_the_whole_rows_norm():
+    """``ssm.SplitGatedNorm`` over a model axis of one rank (no process
+    group: no all-reduce): its output and its gradients for every input
+    bitwise the whole-row norm's (``rmsnorm_gated`` under autograd), as the
+    mesh program at (1, 1) needs."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm_gated
+    from repro_torch.launch.mesh import DataGroup
+    from repro_torch.models import ssm
+
+    cfg = get_smoke_config("zamba2-1.2b")
+    P, H = 8, 4
+    _, t = _gated_views((2, 6), H, P, "float32", seed=3)
+    one = DataGroup(None, 0, 1, torch.device("cpu"))
+    dout = torch.tensor(np.random.default_rng(1).normal(size=(2, 6, H * P)).astype(np.float32))
+    res = []
+    for split in (True, False):
+        ins = [t[k].detach().clone().requires_grad_() for k in ("y", "z", "x", "d", "g")]
+        y, z, x, d, g = ins
+        if split:
+            out = ssm.split_norm_gated(cfg, y.unflatten(-1, (H, P)), x.unflatten(-1, (H, P)), z,
+                                       d, g, width=H * P, group=one)
+        else:
+            out = rmsnorm_gated(y, z, g, x=x, d_skip=d, head_dim=P, eps=cfg.norm_eps)
+        res.append((out, torch.autograd.grad(out, ins, dout)))
+    (a, ga), (b, gb) = res
+    assert torch.equal(a, b)
+    for u, v in zip(ga, gb):
+        assert torch.equal(u, v)
+
+
+def test_rmsnorm_gated_split_rejects_bad_inputs():
+    """The split entry's argument checks on either device: the gated form's
+    (shapes, dtypes, the skip's heads), a row sum of the rows' shape in
+    fp32 on z's device, a width of at least the columns, and no width
+    without a row sum (a missing global sum)."""
+    from repro_torch.kernels.rmsnorm import ops
+
+    y, z, x = torch.zeros(4, 12), torch.zeros(4, 12), torch.zeros(4, 12)
+    g, d, s = torch.zeros(12), torch.zeros(3), torch.ones(4)
+    kw = dict(x=x, d_skip=d, head_dim=4)
+    assert ops.rmsnorm_gated_split(y, z, g, **kw).shape == (4,)
+    assert ops.rmsnorm_gated_split(y, z, g, row_sum=s, width=24, **kw).shape == (4, 12)
+    with pytest.raises(ValueError, match="width without row_sum"):
+        ops.rmsnorm_gated_split(y, z, g, width=24, **kw)
+    with pytest.raises(ValueError, match="must be the whole row's"):
+        ops.rmsnorm_gated_split(y, z, g, row_sum=s, **kw)
+    with pytest.raises(ValueError, match="must be the whole row's"):
+        ops.rmsnorm_gated_split(y, z, g, row_sum=s, width=8, **kw)
+    with pytest.raises(ValueError, match="row_sum"):
+        ops.rmsnorm_gated_split(y, z, g, row_sum=torch.ones(4, 1), width=24, **kw)
+    with pytest.raises(ValueError, match="row_sum"):
+        ops.rmsnorm_gated_split(y, z, g, row_sum=s.double(), width=24, **kw)
+    with pytest.raises(ValueError, match="one value per head"):
+        ops.rmsnorm_gated_split(y, z, g, x=x, d_skip=torch.zeros(4), head_dim=4)
+    with pytest.raises(ValueError, match="x .* != z"):
+        ops.rmsnorm_gated_split(y, z, g, x=x.bfloat16(), d_skip=d, head_dim=4)
+    with pytest.raises(TypeError):
+        ops.rmsnorm_gated_split(y, z.double(), g)
+    with pytest.raises(ValueError, match="last dim"):
+        ops.rmsnorm_gated_split(y, z, torch.zeros(11))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("rows", [8, 2048])
+@pytest.mark.parametrize("M", [1, 2, 4])
+def test_rmsnorm_gated_split_on_card(cuda, dt, rows, M):
+    """The split entry on the card at zamba2's d_inner (64 heads of 64):
+    the shards' sums added on the device, each shard normalised, against
+    the whole-row gated kernel; over one shard bitwise (the same plan and
+    reduction), else within a bf16 rounding; a CUDA tensor it does not
+    take raises."""
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm_gated, rmsnorm_gated_split
+
+    P = 64
+    _, t = _gated_views((rows,), 64, P, dt, cuda, seed=rows + M)
+    whole = rmsnorm_gated(t["y"], t["z"], t["g"], x=t["x"], d_skip=t["d"], head_dim=P)
+    got, _ = _split_gated(t, P, M, rmsnorm_gated_split)
+    torch.cuda.synchronize()
+    if M == 1:
+        assert torch.equal(got, whole)
+    else:
+        torch.testing.assert_close(got.float(), whole.float(), **_card_tol(dt))
+    with pytest.raises(ValueError, match="inner stride 1"):
+        rmsnorm_gated_split(t["y"][..., ::2], t["z"][..., ::2], t["g"][::2].contiguous())
+
+
 @pytest.mark.parametrize("dt", DTYPES)
 @pytest.mark.parametrize("D", RMSNORM_CARD_D + [4608, 5, 8191])
 def test_rmsnorm_plan(dt, D):

@@ -36,7 +36,13 @@ sampling for the decode logits, and holds:
   reference's under ``DecodeSharding`` on 2 devices: scalar and vector
   positions, a window, a softcap, writes on either rank's shard;
 * the static loop at ``(1, 2)`` and ``(2, 1)`` (its batch split over the
-  data axis).
+  data axis);
+* ``zamba2-1.2b`` (the hybrid family) at ``(1, 2)``, ``(2, 1)`` and
+  ``(2, 2)``, its batch fallback (``zamba2-1.2b/slots3``) at ``(2, 2)``,
+  its static loop and its router at ``(1, 2)``: its cache the reference's
+  ``cache_pspec`` (``k``/``v`` lanes over the data axes and positions over
+  ``model``, ``ssm``/``conv`` lanes over the data axes and whole over
+  ``model``), each Mamba2 block every head on every model rank.
 
 In this process: ``(1, 1)`` over a one-rank gloo group bitwise equal to
 ``mesh=None`` (streams, logits, bytes, counters), and so are the engine's
@@ -66,8 +72,10 @@ from repro_torch.serve import EngineConfig, ServeEngine
 ARCHS = ("smollm-360m", "gemma2-27b", "qwen3-moe-30b-a3b")
 MOE = "qwen3-moe-30b-a3b"
 KV1 = "qwen3-moe-30b-a3b/kv1"          # one kv head: the q heads divide over 2, it does not
+ZAMBA = "zamba2-1.2b"                   # the hybrid family: slotted only
 LAYOUTS = ("slotted", "paged")
 SLOTS3 = "smollm-360m/slots3"           # 3 lanes: the batch fallback at a data axis of 2
+ZSLOTS3 = "zamba2-1.2b/slots3"
 CHUNK12 = "gemma2-27b/chunk12"         # chunks and prefix cache over 12 blocks, 6 a data rank
 # (variant, layout, mesh shape) runs of the ranks; the reference's mesh is
 # the same but for MoE at a data axis of 2
@@ -75,7 +83,9 @@ RUNS = ([(a, lay, (1, 2)) for a in ARCHS for lay in LAYOUTS]
         + [(a, lay, (2, 1)) for a in ARCHS for lay in LAYOUTS]
         + [(a, lay, (2, 2)) for a in ARCHS for lay in LAYOUTS]
         + [(KV1, lay, (1, 2)) for lay in LAYOUTS] + [("gemma2-27b/chunk", "paged", (1, 2))]
-        + [(SLOTS3, "slotted", (2, 2)), (CHUNK12, "paged", (2, 2))])
+        + [(SLOTS3, "slotted", (2, 2)), (CHUNK12, "paged", (2, 2))]
+        + [(ZAMBA, "slotted", sh) for sh in ((1, 2), (2, 1), (2, 2))]
+        + [(ZSLOTS3, "slotted", (2, 2))])
 SHAPES = {2: ((1, 2), (2, 1)), 4: ((2, 2),)}     # the meshes of each spawn
 NEW = 8
 
@@ -107,7 +117,7 @@ def _econ(variant, layout, fused=True):
         kw.update(prefill_chunk=4, prefix_cache=True)
     if variant == CHUNK12:
         kw.update(num_blocks=12)
-    if variant == SLOTS3:
+    if variant.endswith("/slots3"):
         kw.update(max_slots=3)
     return kw
 
@@ -200,13 +210,12 @@ def _port_run(mesh, variant, layout, init):
                 cache_shapes={n: tuple(c.shape) for n, c in eng.state["cache"].items()})
 
 
-def _router_run(mesh, init):
-    """gemma2's paged engine behind a 2-replica router on the mesh: the
+def _router_run(mesh, init, variant="gemma2-27b", layout="paged"):
+    """``variant``'s engine behind a 2-replica router on the mesh: the
     launcher's path (placement imports each request into a replica)."""
     from repro_torch.serve import Router, RouterConfig
 
-    variant = "gemma2-27b"
-    router = Router(_cfg(variant), init, EngineConfig(**_econ(variant, "paged")),
+    router = Router(_cfg(variant), init, EngineConfig(**_econ(variant, layout)),
                     RouterConfig(replicas=2), device="cpu", mesh=mesh)
     rids = [router.submit(p, max_new_tokens=NEW) for p in _prompts(variant, 256)]
     router.run()
@@ -215,7 +224,7 @@ def _router_run(mesh, init):
                 placements=dict(router.placements), tick=router.tick)
 
 
-STATIC = ("gemma2-27b", "internvl2-76b")
+STATIC = ("gemma2-27b", "internvl2-76b", ZAMBA)
 
 
 def _static_inputs(arch):
@@ -227,30 +236,33 @@ def _static_inputs(arch):
     extra = None
     if cfg.family == "vlm":
         extra = rng.normal(size=(2, cfg.frontend_tokens, cfg.frontend_dim)).astype(np.float32)
-    return cfg, lm.init(cfg, seed=0, device="cpu"), prompts, extra
+    return cfg, registry_init(cfg), prompts, extra
 
 
 def _static_runs(mesh=None):
     """``generate_static`` of each ``STATIC`` config, on ``mesh``; the
-    logits of each step kept (``lm.decode_step`` wrapped)."""
+    logits of each step kept (the family module's ``decode_step``
+    wrapped)."""
+    from repro_torch.models import registry
     from repro_torch.serve import ServeConfig, generate_static
 
     out = {}
     for arch in STATIC:
         cfg, init, prompts, extra = _static_inputs(arch)
+        mod = registry.get_module(cfg)
         seen = []
-        inner = lm.decode_step
+        inner = mod.decode_step
 
         def step(*a, **k):
             logits, cache = inner(*a, **k)
             seen.append(logits.detach().clone())
             return logits, cache
-        lm.decode_step = step
+        mod.decode_step = step
         try:
             toks = generate_static(cfg, init, prompts, ServeConfig(max_new_tokens=6),
                                    extra=extra, device="cpu", mesh=mesh)
         finally:
-            lm.decode_step = inner
+            mod.decode_step = inner
         out[arch] = (toks, seen)
     return out
 
@@ -275,6 +287,9 @@ def _worker(rank, world, address, out_dir):
             res["router"] = _router_run(meshes[(1, 2)],
                                         torch.load(out_dir / "gemma2-27b_init.pt",
                                                    weights_only=False))
+            res["zamba_router"] = _router_run(
+                meshes[(1, 2)], torch.load(out_dir / f"{ZAMBA}_init.pt", weights_only=False),
+                ZAMBA, "slotted")
         torch.save(res, out_dir / f"w{world}_rank{rank}.pt")
         dist.barrier()
     finally:
@@ -320,7 +335,7 @@ def _reference(out_dir, part):
 
     from repro.launch.mesh import local_mesh
     from repro.models import attention as jattn
-    from repro.models import lm as jlm
+    from repro.models import registry as jreg
     from repro.models.common import ShardRules as JRules
     from repro.serve import EngineConfig as JEngineConfig
     from repro.serve import ServeEngine as JServeEngine
@@ -330,7 +345,8 @@ def _reference(out_dir, part):
     assert jax.device_count() == 4
     runs = _ref_runs()[part::REF_PROCS]
     variants = sorted({v for v, _, _ in RUNS}) if part == 0 else sorted({v for v, _, _ in runs})
-    jparams = {v: jlm.init(_jax_cfg(v), jax.random.PRNGKey(0)) for v in variants}
+    jparams = {v: jreg.get_module(_jax_cfg(v)).init(_jax_cfg(v), jax.random.PRNGKey(0))
+               for v in variants}
     if part == 0:
         for v, jp in jparams.items():
             torch.save(params_from_numpy(_cfg(v), jax.tree.map(np.asarray, jp), device="cpu"),
@@ -483,7 +499,7 @@ def test_mesh_engine_matches_reference(spawned, variant, layout, shape):
     # the data axis's collectives, the same on every rank
     counts = got["counts"]
     assert all(r["counts"] == counts for r in runs)
-    slotted, lanes_split = layout == "slotted", variant != SLOTS3
+    slotted, lanes_split = layout == "slotted", not variant.endswith("/slots3")
     assert (counts["data_all_gather"] > 0) == (slotted and lanes_split)
     assert (counts["decode_combine"] > 0) == slotted
     assert (counts["data_combine"] > 0) == (not slotted)
@@ -513,13 +529,17 @@ def test_static_loop_on_the_mesh(spawned, shape):
                 np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4, atol=1e-4)
 
 
-def test_router_on_the_mesh_matches_reference(spawned):
-    """Two replicas behind the router at (1, 2), as the launcher runs them:
-    the streams the reference's engine gives, both ranks' placements,
-    ticks and stats equal (one clock, one schedule)."""
+@pytest.mark.parametrize("name,key", [("router", ("gemma2-27b", "paged", (1, 2))),
+                                      ("zamba_router", (ZAMBA, "slotted", (1, 2)))],
+                         ids=["gemma2-27b", ZAMBA])
+def test_router_on_the_mesh_matches_reference(spawned, name, key):
+    """Two replicas behind the router at (1, 2), as the launcher runs them
+    (gemma2 paged, zamba2 slotted): the streams the reference's engine
+    gives, both ranks' placements, ticks and stats equal (one clock, one
+    schedule)."""
     ranks, ref, _ = spawned
-    got = [r["router"] for r in ranks[2]]
-    assert got[0]["streams"] == ref[("gemma2-27b", "paged", (1, 2))]["streams"]
+    got = [r[name] for r in ranks[2]]
+    assert got[0]["streams"] == ref[key]["streams"]
     assert got[0]["stats"]["status_ok"] == 6 and len(set(got[0]["placements"].values())) == 2
     assert got[1] == got[0]
 
@@ -538,7 +558,20 @@ def test_kv_bytes_a_rank_follow_reference_layout(spawned, variant, layout, shape
     runs = [r[(variant, layout, shape)] for r in _ranks_of(ranks, shape)]
     data, model = shape
     e = _econ(variant, layout)
-    itemsize, lead = 4, cfg.n_layers
+    itemsize, lead, rec = 4, cfg.n_layers, 0
+    if cfg.family == "hybrid":
+        # k/v as the lm family's (a leading axis of shared-block
+        # invocations), ssm and conv the rank's lanes, whole over model
+        from repro_torch.models import ssm, zamba
+
+        lead = zamba.n_shared_invocations(cfg)
+        _, H, conv_ch = ssm.mamba_dims(cfg)
+        lanes = runs[0]["cache_shapes"]["k"][1]
+        assert runs[0]["cache_shapes"]["ssm"] == (cfg.n_layers, lanes, H, cfg.ssm.state,
+                                                  cfg.ssm.head_dim)
+        assert runs[0]["cache_shapes"]["conv"] == (cfg.n_layers, lanes,
+                                                   cfg.ssm.conv_kernel - 1, conv_ch)
+        rec = sum(np.prod(runs[0]["cache_shapes"][n]) for n in ("ssm", "conv")) * itemsize
     if layout == "slotted":
         slots = e["max_slots"]
         if slots % data:
@@ -552,7 +585,7 @@ def test_kv_bytes_a_rank_follow_reference_layout(spawned, variant, layout, shape
         nb = -(-want_nb // data) * data           # the pool rounded up to the data size
         assert runs[0]["cache_shapes"]["k"][-4:] == (nb // data, 8, heads, cfg.head_dim)
     for r in runs:
-        assert r["kv_bytes"] == 2 * lead * np.prod(r["cache_shapes"]["k"][-4:]) * itemsize
+        assert r["kv_bytes"] == 2 * lead * np.prod(r["cache_shapes"]["k"][-4:]) * itemsize + rec
     want = ref["kv_bytes_per_device"][(variant, layout, shape)]
     assert runs[0]["kv_bytes"] == want
     if _ref_shape(variant, shape) == shape:     # the reference's engine itself
@@ -591,8 +624,10 @@ def gloo1():
     torch.set_num_threads(torch_threads)
 
 
-@pytest.mark.parametrize("layout", LAYOUTS)
-@pytest.mark.parametrize("arch", ARCHS)
+ONE_BY_ONE = [(a, lay) for a in ARCHS for lay in LAYOUTS] + [(ZAMBA, "slotted")]
+
+
+@pytest.mark.parametrize("arch,layout", ONE_BY_ONE, ids=[f"{a}-{lay}" for a, lay in ONE_BY_ONE])
 def test_one_by_one_mesh_equals_no_mesh_bitwise(gloo1, arch, layout):
     """(1, 1) over a one-rank gloo group (every collective runs) against
     ``mesh=None``, bf16 as served: streams, the host-sampled logits of
@@ -600,7 +635,7 @@ def test_one_by_one_mesh_equals_no_mesh_bitwise(gloo1, arch, layout):
     collectives of a decode step by formula."""
     mesh = mesh_from_group(gloo1, (1, 1))
     cfg = dataclasses.replace(get_smoke_config(arch), attn_impl="kernel")
-    init = lm.init(cfg, seed=0, device="cpu")
+    init = registry_init(cfg)
     out = {}
     for name, m in (("plain", None), ("mesh", mesh)):
         row = {}
@@ -631,6 +666,23 @@ def test_one_by_one_mesh_equals_no_mesh_bitwise(gloo1, arch, layout):
     # partials a layer; the logits' gather over the model axis
     L = cfg.n_layers
     slotted = layout == "slotted"
+    if cfg.family == "hybrid":
+        # the shared block's eight sharded weights each invocation, each
+        # Mamba2 block's in_proj and out_proj, the embedding and the
+        # unembedding, gathered over data; the embedding's, the shared
+        # block's two and each Mamba2 block's row-parallel sums; the
+        # shared block's every-head q, k, v gathers and LSE combine, each
+        # Mamba2 block's projection and conv weights gathered over model;
+        # the logits over model and the lanes' over data
+        from repro_torch.models import zamba
+
+        sh = zamba.n_shared_invocations(cfg)
+        assert common.COUNTS == {**dict.fromkeys(common.COUNTS, 0),
+                                 "all_gather": 8 * sh + 2 * L + 2,
+                                 "reduce_from_model": 2 * sh + L + 1,
+                                 "model_all_gather": 3 * sh + 3 * L + 1,
+                                 "decode_combine": 2 * sh, "data_all_gather": 1}
+        return
     assert common.COUNTS == {**dict.fromkeys(common.COUNTS, 0),
                              "all_gather": 7 * L + 2,
                              "reduce_from_model": 2 * L + 1,
@@ -682,15 +734,49 @@ def test_cache_layouts_local_shapes():
     assert tattn.DecodeSharding.choose(live, 1).seq_axes == ("data", "model")
 
 
+def test_zamba_cache_layout_local_shapes():
+    """zamba2's leaves a rank holds, the reference's ``cache_pspec``: at
+    (2, 2) and 4 lanes of 32 positions, ``k``/``v`` 2 lanes of 16
+    positions, ``ssm`` and ``conv`` 2 lanes whole; under the batch
+    fallback (3 lanes) every lane, ``k``/``v`` 8 positions and the
+    recurrent leaves whole."""
+    from repro_torch.models import zamba
+
+    live = _fake_mesh((2, 2))
+    z = get_smoke_config(ZAMBA)
+    shapes = lambda b: {n: tuple(t.shape)
+                        for n, t in zamba.make_cache_specs(z, b, 32, mesh=live).items()}
+    assert shapes(4) == {"k": (3, 2, 16, 4, 16), "v": (3, 2, 16, 4, 16),
+                         "ssm": (5, 2, 8, 16, 16), "conv": (5, 2, 3, 160)}
+    assert shapes(3) == {"k": (3, 3, 8, 4, 16), "v": (3, 3, 8, 4, 16),
+                         "ssm": (5, 3, 8, 16, 16), "conv": (5, 3, 3, 160)}
+    dec = tattn.DecodeSharding.choose(live, 4)
+    assert zamba.cache_pspec(z, dec) == {
+        "k": (None, ("data",), ("model",), None, None), "v": (None, ("data",), ("model",),
+                                                              None, None),
+        "ssm": (None, ("data",), None, None, None), "conv": (None, ("data",), None, None)}
+    assert zamba.make_cache_specs(z, 4, 32)["ssm"].dtype == torch.float32
+    with pytest.raises(ValueError, match="max_len 31 does not divide over 2 ranks"):
+        zamba.make_cache_specs(z, 4, 31, mesh=live)
+
+
 def test_mesh_refusals(gloo1):
     """What a mesh does not serve raises, naming its ROADMAP item: the
-    slot-served families other than the ``lm`` family's at a live model
-    axis, as a target or as a speculation draft."""
+    slot-served families other than the ``lm`` and hybrid families at a
+    live model axis, as a target or as a speculation draft.  zamba2 runs
+    there, as a target and as a draft (its multi-rank runs are this
+    file's and ``test_torch_serve_mesh_features.py``'s spawns)."""
     live = _fake_mesh((1, 2))
     ec = EngineConfig(max_slots=2, max_len=32)
     zamba = get_smoke_config("zamba2-1.2b")
+    xlstm = get_smoke_config("xlstm-1.3b")
     for arch in ("zamba2-1.2b", "xlstm-1.3b"):
         cfg = get_smoke_config(arch)
+        if arch == "zamba2-1.2b":
+            # past the family's check: the fake mesh has no process group
+            with pytest.raises(ValueError, match="needs a process group"):
+                ServeEngine(cfg, None, ec, device="cpu", mesh=live)
+            continue
         with pytest.raises(NotImplementedError, match="the model axis for the other families"):
             ServeEngine(cfg, None, ec, device="cpu", mesh=live)
     from repro_torch.serve import generate_static
@@ -698,13 +784,17 @@ def test_mesh_refusals(gloo1):
         generate_static(get_smoke_config("whisper-tiny"), None, np.zeros((1, 4), np.int32),
                         mesh=live)
     cfg = get_smoke_config("smollm-360m")
-    with pytest.raises(NotImplementedError, match="zamba2-1.2b-smoke: serving on a live model axis"):
+    with pytest.raises(ValueError, match="needs a process group"):
         ServeEngine(cfg, None, dataclasses.replace(ec, spec_draft=zamba, spec_k=2),
                     device="cpu", mesh=live)
-    # zamba at a model axis of 1 runs whole on every rank
+    with pytest.raises(NotImplementedError, match="xlstm-1.3b-smoke: serving on a live model axis"):
+        ServeEngine(cfg, None, dataclasses.replace(ec, spec_draft=xlstm, spec_k=2),
+                    device="cpu", mesh=live)
+    # zamba at a model axis of 1 runs the serving mesh program (its
+    # weights' shards; collectives over one-rank groups)
     one = mesh_from_group(gloo1, (1, 1))
     z = ServeEngine(zamba, registry_init(zamba), ec, device="cpu", mesh=one)
-    assert z.shards is None and z.mesh is one
+    assert z.shards is not None and z.mesh is one
 
 
 # the engine's features on a (1, 1) mesh: (arch, scenario of
@@ -713,7 +803,8 @@ FEATURES = [("smollm-360m", "spec", "slotted"), ("smollm-360m", "spec", "paged")
             ("smollm-360m", "tier", "slotted"), ("smollm-360m", "tier", "paged"),
             ("zamba2-1.2b", "tier", "slotted"), ("smollm-360m", "spectier", "paged"),
             ("smollm-360m", "snapshot", "slotted"), ("smollm-360m", "snapshot", "paged"),
-            ("smollm-360m", "migration", "paged")]
+            ("smollm-360m", "migration", "paged"), ("zamba2-1.2b", "spec", "slotted"),
+            ("zamba2-1.2b", "snapshot", "slotted"), ("zamba2-1.2b", "migration", "slotted")]
 
 
 @pytest.mark.parametrize("arch,name,layout", FEATURES,
@@ -723,9 +814,9 @@ def test_one_by_one_mesh_features_equal_no_mesh_bitwise(gloo1, tmp_path, arch, n
     (``snapshot``/``restore`` and ``save_snapshot``/``restore_snapshot``)
     and migration on ``(1, 1)`` over a one-rank gloo group (every
     collective runs) against ``mesh=None``, bf16 as served: streams,
-    counters and every engine's ``stats`` bitwise.  zamba's tier (a
-    recurrent lane spills whole and local: no mesh program at a model axis
-    of 1) too."""
+    counters and every engine's ``stats`` bitwise.  zamba2's too (its
+    tier, speculation with zamba2 as target and draft, snapshots and
+    migration, slotted), under the serving mesh program."""
     from repro_torch.checkpoint.manager import CheckpointManager
     from repro_torch.serve import HostTier
     from test_torch_serve_mesh_features import SPEC_LAYOUTS, FakeClock, _port_make, scenario

@@ -24,7 +24,12 @@ both packages, on the fp32 smoke configs with the reference's weights:
 * **migration**: two requests exported from one mesh engine and imported
   into another that shares its tier;
 * **drain**: the router's ``drain`` at ``(1, 2)``, and the launcher's
-  ``--mesh local`` with ``--spec-k``, two replicas and ``--drain-at``.
+  ``--mesh local`` with ``--spec-k``, two replicas and ``--drain-at``;
+* ``zamba2-1.2b`` (the hybrid family, slotted): the tier schedule at
+  ``(1, 2)`` and ``(2, 2)`` (a lane's payload its ``k``/``v`` positions and
+  its whole recurrent leaves, moved as bytes where the swap crosses the
+  data ranks), speculation with zamba2 as target and draft, a snapshot
+  and a migration at ``(2, 2)``.
 
 Held: the greedy streams, the counters and the tier's and speculation's
 stats equal the reference engine's at the same mesh, on every rank, and
@@ -64,15 +69,19 @@ LAYOUTS = {
 SPEC_LAYOUTS = {"slotted": dict(), "paged": dict(kv_layout="paged", page_size=BS)}
 SPEC_TIER = dict(kv_layout="paged", page_size=BS, num_blocks=6, admission="preempt",
                  host_tier=True)
-MIGRATION = dict(kv_layout="paged", page_size=BS, host_tier=True)
-SPEC_ARCHS = ("smollm-360m", "gemma2-27b")
+MIGRATION = {"paged": dict(kv_layout="paged", page_size=BS, host_tier=True),
+             "slotted": dict(host_tier=True)}
+ZAMBA = "zamba2-1.2b"
+SPEC_ARCHS = ("smollm-360m", "gemma2-27b", ZAMBA)
 # (scenario, arch, layout, mesh shape)
 RUNS = ([("tier", "smollm-360m", lay, sh) for lay in LAYOUTS for sh in ALL]
         + [("spec", "smollm-360m", lay, sh) for lay in SPEC_LAYOUTS for sh in ALL]
         + [("spec", "gemma2-27b", lay, (2, 2)) for lay in SPEC_LAYOUTS]
         + [("spectier", "smollm-360m", "paged", sh) for sh in ((1, 2), (2, 2))]
         + [("snapshot", "smollm-360m", lay, (2, 2)) for lay in ("slotted", "paged")]
-        + [("migration", "smollm-360m", "paged", (2, 2)), ("drain", "gemma2-27b", "paged", (1, 2))])
+        + [("migration", "smollm-360m", "paged", (2, 2)), ("drain", "gemma2-27b", "paged", (1, 2))]
+        + [("tier", ZAMBA, "slotted", sh) for sh in ((1, 2), (2, 2))]
+        + [(name, ZAMBA, "slotted", (2, 2)) for name in ("spec", "snapshot", "migration")])
 # the counters both packages keep (the port adds ``prefill_first_chunks``
 # and ``spec_draft_prefills``); ``kv_peak_used_bytes`` is the reference's
 # global gauge and the port's a rank's
@@ -236,8 +245,8 @@ def scenario(name, layout, make, vocab, *, save=None, tier=None):
         return out
     if name == "migration":
         shared = tier()
-        a = make(clock, host_tier_obj=shared, **MIGRATION)
-        b = make(clock, host_tier_obj=shared, **MIGRATION)
+        a = make(clock, host_tier_obj=shared, **MIGRATION[layout])
+        b = make(clock, host_tier_obj=shared, **MIGRATION[layout])
         for i, (_, p, bud) in enumerate(stream):
             a.submit(p, max_new_tokens=bud + 4, rid=i)
         for _ in range(5):
@@ -442,7 +451,10 @@ def _reference(out_dir, part):
         mod = jreg.get_module(jcfg)
         jp = mod.init(jcfg, jax.random.PRNGKey(0))
         noise = mod.init(jcfg, jax.random.PRNGKey(1))
-        jd = jax.tree.map(lambda x, y: 0.85 * x + 0.15 * y, jp, noise)
+        # zamba2's draft closer to its target (as chip_smoke's 5d): at 0.15
+        # its smoke draft proposes nothing the target accepts
+        alpha = 0.02 if a == ZAMBA else 0.15
+        jd = jax.tree.map(lambda x, y: (1 - alpha) * x + alpha * y, jp, noise)
         weights[a] = (jp, jd)
         if part == 0:
             for name, t in (("init", jp), ("draft", jd)):
@@ -565,7 +577,17 @@ def test_tier_schedule_matches_reference(spawned, key):
     # each payload is held once over the ranks, by its data rank, split
     # over model where the layout splits it (a slotted lane's positions,
     # the pool's kv heads where they divide), else whole on each model rank
+    # (the pool's kv heads where they do not; a hybrid lane's recurrent
+    # leaves)
     copies = model if layout == "paged" and cfg.n_kv % model else 1
+    if cfg.family == "hybrid":
+        from repro_torch.models import ssm, zamba
+
+        kv = 2 * zamba.n_shared_invocations(cfg) * MAX_LEN * cfg.n_kv * cfg.head_dim
+        _, H, conv_ch = ssm.mamba_dims(cfg)
+        rec = cfg.n_layers * (H * cfg.ssm.state * cfg.ssm.head_dim
+                              + (cfg.ssm.conv_kernel - 1) * conv_ch)
+        copies = (kv + model * rec) / (kv + rec)
     for step, per_rank in enumerate(zip(*(r["shares"] for r in runs))):
         used = per_rank[0][1]
         assert all(u == used for _, u in per_rank), step
@@ -579,8 +601,9 @@ def test_a_restore_crosses_data_ranks(spawned):
     than the one that spilled them: its payload moves (the transport's
     broadcast), on both layouts' schedules."""
     ranks, _, _ = spawned
-    moves = {layout: _runs_of(ranks, ("tier", "smollm-360m", layout, (2, 2)))[0]["counts"]
-             ["tier_move"] for layout in LAYOUTS}
+    moves = {(arch, layout): _runs_of(ranks, ("tier", arch, layout, (2, 2)))[0]["counts"]
+             ["tier_move"] for arch, layout in [("smollm-360m", lay) for lay in LAYOUTS]
+             + [(ZAMBA, "slotted")]}
     assert all(n > 0 for n in moves.values()), moves
 
 
@@ -603,14 +626,16 @@ def test_spec_matches_reference(spawned, key):
         assert c["preemptions"] > 0 and c["restores"] > 0 and c["replayed_tokens"] == 0
 
 
-@pytest.mark.parametrize("layout", ["slotted", "paged"])
-def test_snapshot_restores_on_a_fresh_mesh_engine(spawned, layout):
+@pytest.mark.parametrize("arch,layout", [("smollm-360m", "slotted"), ("smollm-360m", "paged"),
+                                         (ZAMBA, "slotted")],
+                         ids=["slotted", "paged", f"{ZAMBA}-slotted"])
+def test_snapshot_restores_on_a_fresh_mesh_engine(spawned, arch, layout):
     """``snapshot`` after four steps, restored into a fresh (2, 2) engine
     and drained: the reference's streams and counters; the port's
     ``save_snapshot``/``restore_snapshot`` (rank 0 writes, a barrier,
     every rank reads) gives the same streams."""
     ranks, ref, _ = spawned
-    key = ("snapshot", "smollm-360m", layout, (2, 2))
+    key = ("snapshot", arch, layout, (2, 2))
     runs, want = _runs_of(ranks, key), ref[key]
     got = runs[0]
     assert got["streams"] == want["streams"] and got["counters"] == want["counters"]
@@ -619,13 +644,15 @@ def test_snapshot_restores_on_a_fresh_mesh_engine(spawned, layout):
     _same_on_every_rank(runs)
 
 
-def test_migration_between_mesh_engines_sharing_a_tier(spawned):
+@pytest.mark.parametrize("arch,layout", [("smollm-360m", "paged"), (ZAMBA, "slotted")],
+                         ids=["smollm-360m-paged", f"{ZAMBA}-slotted"])
+def test_migration_between_mesh_engines_sharing_a_tier(spawned, arch, layout):
     """Two requests exported from one (2, 2) engine (one on a lane, one
     queued) and imported into another sharing the tier: the moved lane
     restores by copy there; streams and both engines' counters the
     reference's."""
     ranks, ref, _ = spawned
-    key = ("migration", "smollm-360m", "paged", (2, 2))
+    key = ("migration", arch, layout, (2, 2))
     runs, want = _runs_of(ranks, key), ref[key]
     got = runs[0]
     assert got["streams"] == want["streams"] and got["moved"] == want["moved"]

@@ -26,10 +26,18 @@ ranks lay ``(1, 2)`` (and ``(2, 1)``) over themselves:
 * a ``(2, 1)`` checkpoint resumed on ``(1, 2)`` continues as the
   uninterrupted ``(2, 1)`` run;
 * MoE's ``lb_loss`` and ``drop_frac`` at model size 2 equal the
-  reference's on a 2-device mesh (``moe_ffn`` alone and the loss).
+  reference's on a 2-device mesh (``moe_ffn`` alone and the loss);
+* ``zamba2-1.2b`` (the hybrid family, ``sp`` off: the Mamba2 blocks split
+  their heads, the gated out-norm sums its row over ``model``) at ``(1,
+  2)`` with and without 2 slices, and at ``(2, 1)``, held as the others
+  (the mesh-less port's own gradient norm is 1.6e-5 from the reference's
+  on batch 0, relative, fp32 summation order over gradients of norm ~56,
+  so the norm keeps the 1e-4 of every family) and, beyond them, each
+  leaf's gradient through Adam's first moment.
 
 The 4 ranks lay ``(2, 2)``: two steps of the MoE smoke config against the
-reference's program in 2 slices (each data column routes its own rows).
+reference's program in 2 slices (each data column routes its own rows),
+and of zamba2's against its program on the whole batch.
 In this process: the rank-to-coordinate map, ``param_shard_dims`` against
 the reference's ``param_pspecs``, ``(1, 1)`` over a one-rank gloo group
 bitwise equal to the FSDP rules, and the families and programs that raise
@@ -54,7 +62,7 @@ from repro_torch.configs.base import ShapeConfig
 from repro_torch.data import make_batch_fn
 from repro_torch.launch import mesh as tmesh
 from repro_torch.launch.mesh import DataGroup, MeshGroup, init_group, mesh_from_group
-from repro_torch.models import common, lm, moe, registry
+from repro_torch.models import common, lm, moe, registry, zamba
 from repro_torch.models.common import ModelAxis, ShardRules
 from repro_torch.optim import OptConfig
 from repro_torch.optim.flat import tree_leaves
@@ -64,8 +72,9 @@ from repro_torch.train.step import flat_engine_mode, model_partial_paths, opt_st
 
 LR = 1e-3
 OPT = OptConfig(kind="adam", lr=LR)
-ARCHS = ("smollm-360m", "gemma2-27b", "qwen3-moe-30b-a3b")
+ARCHS = ("smollm-360m", "gemma2-27b", "qwen3-moe-30b-a3b", "zamba2-1.2b")
 MOE = "qwen3-moe-30b-a3b"
+ZAMBA = "zamba2-1.2b"
 B, S, STEPS = 4, 16, 3
 SHAPE = ShapeConfig("t", "train", S, B)
 LM_IDS = [a for a in ARCH_IDS if get_smoke_config(a).family in ("dense", "moe", "vlm")]
@@ -220,8 +229,11 @@ def _worker(rank, world, shape, address, out_dir):
                                    settings=TrainSettings(faithful=True, flat_engine="off"))
             res["moe_direct"] = _moe_direct(mesh)
             res["checkpoint"] = _checkpoint(group, out_dir)
+            res[(ZAMBA, 1, (2, 1))] = _run(mesh_from_group(group, (2, 1)), _cfg(ZAMBA),
+                                           inits[ZAMBA], 1)
         else:
             res[(MOE, 1)] = _run(mesh, _cfg(MOE), inits[MOE], 1, steps=2)
+            res[(ZAMBA, 1)] = _run(mesh, _cfg(ZAMBA), inits[ZAMBA], 1, steps=2)
         torch.save(res, out_dir / f"w{world}_rank{rank}.pt")
         dist.barrier()
     finally:
@@ -274,11 +286,12 @@ def _write_inits(out_dir):
     (``inits.done`` marks them all written)."""
     import jax
 
-    from repro.models import lm as jlm
+    from repro.models import registry as jreg
     from repro_torch.models.convert import params_from_numpy
 
     for arch in ARCHS:
-        jp = jlm.init(_jax_cfg(arch), jax.random.PRNGKey(0))
+        jcfg = _jax_cfg(arch)
+        jp = jreg.get_module(jcfg).init(jcfg, jax.random.PRNGKey(0))
         torch.save(params_from_numpy(_cfg(arch), jax.tree.map(np.asarray, jp), device="cpu"),
                    out_dir / f"{arch}_init.pt")
     (out_dir / "inits.done").touch()
@@ -389,6 +402,20 @@ def _hold_against_reference(arch, k_ref, run, init, where):
             np.testing.assert_allclose(tm["lb_loss"], float(jm["lb_loss"]), rtol=1e-5,
                                        err_msg=at)
         assert now["step"] == int(jo["step"]) == i + 1
+        if cfg.family == "hybrid":
+            # both sides' first moments come from the same m: they differ by
+            # (1 - beta1) times the clipped gradients' difference, so each
+            # leaf's gradient (in_proj's and conv's column slices, the
+            # per-head leaves summed over model) is held to 1e-3 of its
+            # largest entry: the mesh-less port's own gradients differ from
+            # the reference's by up to 8.5e-5 of it and these meshes' by up
+            # to 1.9e-4 (fp32 summation order over the depth), an unsummed
+            # partial or a rank's missing share of the norm's row sum by a
+            # factor
+            errs = {path: float(np.abs(b.numpy() - np.asarray(a)).max()
+                                / np.abs(np.asarray(a)).max())
+                    for a, (path, b) in zip(jax.tree.leaves(jo["m"]), tree_leaves(now["m"]))}
+            assert max(errs.values()) <= 1e-3, (at, errs)
         for a, (path, b) in zip(jax.tree.leaves(jp), tree_leaves(now["params"])):
             diff = np.abs(b.numpy() - np.asarray(a))
             assert diff.max() <= 3 * LR, (at, path, float(diff.max()))
@@ -408,6 +435,29 @@ def test_model_axis_of_two_matches_reference(spawned, arch, k):
                 assert torch.equal(x, y), (n, path)
     init = torch.load(out_dir / f"{arch}_init.pt", weights_only=False)
     _hold_against_reference(arch, k, runs[0], init, f"{arch} (1, 2) k={k}")
+
+
+@pytest.mark.parametrize("shape", [(2, 1), (2, 2)], ids=["2x1", "2x2"])
+def test_zamba_on_the_data_axis_matches_reference(spawned, shape):
+    """zamba2 at (2, 1) (3 steps) and (2, 2) (2 steps), each data rank its
+    half of the batch: the reference's step on the whole batch, the rules
+    the reference's launcher gives the hybrid family (``sp`` off), every
+    rank's parameters the same full tree."""
+    ranks, _, out_dir = spawned
+    world = shape[0] * shape[1]
+    key = (ZAMBA, 1, shape) if world == 2 else (ZAMBA, 1)
+    runs = [r[key] for r in ranks[world]]
+    assert runs[0]["rules"] == ShardRules(dp=("data",), tp="model", fsdp="data", sp=False)
+    assert runs[0]["partial"] == [("mamba", n) for n in ("A_log", "D_skip", "dt_bias",
+                                                         "out_ln")]
+    for run in runs[1:]:
+        for a, b in zip(runs[0]["states"], run["states"]):
+            for (path, x), (_, y) in zip(tree_leaves(a["params"]), tree_leaves(b["params"])):
+                assert torch.equal(x, y), path
+    counts = runs[0]["counts"]
+    assert counts["norm_sum"] > 0 and counts["model_reduce_scatter"] == 0
+    init = torch.load(out_dir / f"{ZAMBA}_init.pt", weights_only=False)
+    _hold_against_reference(ZAMBA, 1, runs[0], init, f"zamba2 {shape}")
 
 
 def test_faithful_rules_on_the_model_axis_match_reference(spawned):
@@ -448,7 +498,7 @@ def test_ranks_hold_their_model_slices_share(spawned, world):
     shard within it) of the full leaf, a (1/N_model) x (1/N_data) share of
     every leaf split on both axes."""
     ranks, _, _ = spawned
-    archs = ARCHS if world == 2 else (MOE,)
+    archs = ARCHS if world == 2 else (MOE, ZAMBA)
     shape = (1, 2) if world == 2 else (2, 2)
     for arch in archs:
         cfg = _cfg(arch)
@@ -476,7 +526,7 @@ def test_replicated_leaves_equal_across_model_ranks(spawned, world):
     leaf the model axis does not split is bitwise the same on the ranks of
     a data column (an unsummed partial gradient would differ)."""
     ranks, _, _ = spawned
-    keys = [(a, k) for a in ARCHS for k in (1, 2)] if world == 2 else [(MOE, 1)]
+    keys = [(a, k) for a in ARCHS for k in (1, 2)] if world == 2 else [(MOE, 1), (ZAMBA, 1)]
     for key in keys:
         runs = [r[key] for r in ranks[world]]
         pairs = [(0, 1)] if world == 2 else [(0, 1), (2, 3)]
@@ -490,20 +540,25 @@ def test_replicated_leaves_equal_across_model_ranks(spawned, world):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_gradient_reduction_rule(arch):
     """Under ``sp`` every leaf the model axis does not split is summed over
-    it; under the faithful rules only the q/k norms and the router; a leaf
-    it splits never."""
+    it; without it (the faithful rules; zamba2's, which have no ``sp``)
+    only the leaves read inside the tensor-parallel region: the q/k norms
+    and the router, zamba2's per-head Mamba2 leaves; a leaf it splits
+    never."""
     cfg = _cfg(arch)
+    region = registry.tp_region_leaves(cfg)
+    want = {MOE: {"qnorm", "knorm", "router"},
+            ZAMBA: {"dt_bias", "A_log", "D_skip", "out_ln"}}.get(arch, set())
     for rules in (ShardRules(dp=("data",), tp="model", fsdp="data", sp=True),
                   ShardRules.faithful(dp=("data",), tp="model")):
         lay = make_shard_layout(cfg, rules, 1, model=2)
-        got = model_partial_paths(lay, rules)
+        got = model_partial_paths(lay, rules, region)
         replicated = {p for p in lay.paths if p not in lay.model_sharded}
         assert not got & lay.model_sharded
         if rules.sp:
             assert got == replicated
         else:
-            assert got == {p for p in replicated if p[-1] in ("qnorm", "knorm", "router")}
-    assert {p[-1] for p in got} == ({"qnorm", "knorm", "router"} if arch == MOE else set())
+            assert got == {p for p in replicated if p[-1] in region}
+    assert {p[-1] for p in got} == want
 
 
 # ---------------------------------------------------------------------------
@@ -710,6 +765,19 @@ def test_one_by_one_mesh_equals_fsdp_bitwise(gloo1, arch):
         for (path, x), (_, y) in zip(tree_leaves(a), tree_leaves(b)):
             assert torch.equal(x, y), path
     L, per = cfg.n_layers, 2 * 2
+    if cfg.family == "hybrid":
+        # no sp: copy-to-model into and reduce-from-model out of each
+        # shared block's attention and MLP, each Mamba2 block and the
+        # embedding (the loss's copy too); each Mamba2 block's projection
+        # and conv weights gathered (forward, remat's recompute, backward)
+        # and its out-norm's row sums (the same three, and the backward's
+        # recomputed sum)
+        sh = zamba.n_shared_invocations(cfg)
+        assert mc == {**fc, "copy_to_model": (2 * sh + L + 1) * per,
+                      "reduce_from_model": (2 * sh + L + 1) * per,
+                      "model_all_gather": 9 * L * per, "norm_sum": 4 * L * per,
+                      "vocab_ce": 2 * per}
+        return
     rs = 6 * L + 2 if (cfg.moe.num_experts or cfg.alt_local_global) else 5 * L + 2
     assert mc == {**fc, "model_all_gather": (6 * L + 2) * per,
                   "model_reduce_scatter": rs * per, "vocab_ce": 2 * per}
@@ -727,11 +795,14 @@ def _fake_mesh(shape):
 def test_live_model_axis_refusals():
     live = _fake_mesh((1, 2))
     adam = OptConfig(kind="adam")
-    zamba = get_smoke_config("zamba2-1.2b")
-    with pytest.raises(NotImplementedError, match="'hybrid' family"):
-        build_train_step(zamba, live, adam)
+    zcfg = get_smoke_config("zamba2-1.2b")
+    # the hybrid family runs: its mesh program, sp off (the reference's
+    # launcher turns it off for the family), its Mamba2 leaves summed
+    step = build_train_step(zcfg, live, adam)
+    assert step._rules == ShardRules(dp=("data",), tp="model", fsdp="data", sp=False)
+    assert {p[-1] for p in step._model_partial} == {"dt_bias", "A_log", "D_skip", "out_ln"}
     for arch in ("xlstm-1.3b", "whisper-tiny", "internvl2-76b"):
-        with pytest.raises(NotImplementedError, match="not the"):
+        with pytest.raises(NotImplementedError, match="not the .*queue 1, item 1"):
             build_train_step(get_smoke_config(arch), live, adam)
     dense = _cfg("smollm-360m")
     with pytest.raises(ValueError, match="mesh has a live model axis"):
@@ -740,7 +811,8 @@ def test_live_model_axis_refusals():
     one = _fake_mesh((2, 1))
     assert flat_engine_mode(dense, one, adam, TrainSettings(faithful=True)) == "faithful"
     # at a model axis of 1 the other families run on the data group
-    assert build_train_step(zamba, _fake_mesh((1, 1)), adam)._shard_layout.sharded
+    xl = get_smoke_config("xlstm-1.3b")
+    assert build_train_step(xl, _fake_mesh((1, 1)), adam)._shard_layout.sharded
     from repro_torch.core import context
     with pytest.raises(NotImplementedError, match="model axes"):
         context._check_axes((1, 2), ("data", "model"), None)
@@ -795,3 +867,49 @@ def test_sharded_init_on_a_mesh_holds_init_values(monkeypatch, shape):
                 got[path][box] = local[path]
         for path in full:
             assert torch.equal(got[path], full[path]), (arch, shape, path)
+
+
+@pytest.mark.parametrize("model", [2, 4])
+@pytest.mark.parametrize("size", ["full", "smoke"])
+def test_zamba_shard_layout_at_model_sizes(size, model):
+    """zamba2's layout at a model axis of 2 and 4 against the reference's
+    ``param_pspecs`` (``sp`` off, as its launcher sets it): the dimensions
+    on ``model`` and ``data``, and each rank's local shape that slice of the
+    leaf (``in_proj`` 296 columns to 148 or 74 a rank at smoke width, 8,384
+    to 4,192 or 2,096 at full width; ``conv`` 160 to 80 or 40, 4,224 to
+    2,112 or 1,056; ``out_proj`` its ``d_inner`` rows)."""
+    import jax
+
+    from repro.configs import get_config as jax_config
+    from repro.configs import get_smoke_config as jax_smoke
+    from repro.launch.mesh import local_mesh as jax_local_mesh
+    from repro.models import registry as jreg
+    from repro.models.common import ShardRules as JShardRules
+
+    jcfg, tcfg = ((jax_config(ZAMBA), get_config(ZAMBA)) if size == "full"
+                  else (jax_smoke(ZAMBA), get_smoke_config(ZAMBA)))
+    jrules = dataclasses.replace(JShardRules.for_mesh(jax_local_mesh(data=1, model=1)),
+                                 sp=False)
+    pspecs = jreg.param_pspecs(jcfg, jrules)
+    flat = jax.tree_util.tree_flatten_with_path(pspecs, is_leaf=lambda x: isinstance(
+        x, jax.sharding.PartitionSpec))[0]
+    pick = lambda spec, axis: next((i for i, a in enumerate(spec) if a == axis), None)
+    want = {tuple(k.key for k in path): (pick(spec, "model"), pick(spec, "data"))
+            for path, spec in flat}
+    step = build_train_step(tcfg, _fake_mesh((1, model)), OptConfig(kind="adam"))
+    rules = step._rules
+    assert registry.param_shard_dims(tcfg, rules, data=1, model=model) == want
+    proj = (tcfg.ssm.expand * tcfg.d_model * 2 + 2 * tcfg.ssm.state
+            + tcfg.ssm.expand * tcfg.d_model // tcfg.ssm.head_dim)
+    assert proj == (296 if size == "smoke" else 8384)
+    for m in range(model):
+        lay = make_shard_layout(tcfg, rules, 1, model=model, model_rank=m)
+        local = {p: lay.local_shape(i) for i, p in enumerate(lay.paths)}
+        for i, path in enumerate(lay.paths):
+            shape = list(lay.shapes[i])
+            if want[path][0] is not None:
+                shape[want[path][0]] //= model
+            assert local[path] == tuple(shape), (path, m)
+        assert local[("mamba", "in_proj")][-1] == proj // model
+        conv = 160 if size == "smoke" else 4224
+        assert local[("mamba", "conv_w")][-1] == local[("mamba", "conv_b")][-1] == conv // model
